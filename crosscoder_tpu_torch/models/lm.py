@@ -1,0 +1,335 @@
+"""Gemma-2 capture runtime, ported from :mod:`crosscoder_tpu.models.lm`.
+
+As far as serving reads it: the architecture config, random init, the
+padded capture forward (:func:`run_with_cache_multi`, the test oracle) and
+the paged capture forward (:func:`paged_capture`, the serve prefill).
+Params are a plain dict with the JAX package's leaf names and layout:
+layer leaves stacked on a leading ``[n_layers]`` axis, matmul weights
+``[in, out]``, so :mod:`crosscoder_tpu_torch.convert` carries them across
+unchanged.
+
+Gemma-2 facts implemented: RMSNorm with (1+w) scale in fp32; embedding
+scaled by sqrt(d_model) in the model dtype; GeGLU MLP with tanh GELU; GQA;
+split-half RoPE; attention-logit softcap; alternating sliding-window
+(even layers) and global attention; query scale
+``query_pre_attn_scalar**-0.5``. Matmuls run in the model dtype with fp32
+accumulation (``torch.matmul``); in bf16 their outputs round to bf16
+before the GELU, where the JAX package keeps fp32, which is one bf16
+rounding apart.
+
+A capture forward runs only the blocks below the highest hooked layer:
+``blocks.14.hook_resid_pre`` runs 14 of Gemma-2-2B's 26 blocks.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from crosscoder_tpu_torch.config import parse_hook_point
+from crosscoder_tpu_torch.ops import paged_attention as pa
+from crosscoder_tpu_torch.utils.device import resolve_device
+from crosscoder_tpu_torch.utils.dtypes import dtype_of
+
+LMParams = dict[str, Any]
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """Gemma-2 family architecture config."""
+
+    vocab_size: int
+    d_model: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    rope_theta: float = 10_000.0
+    rms_eps: float = 1e-6
+    attn_softcap: float = 50.0
+    final_softcap: float = 30.0
+    sliding_window: int = 4096
+    query_pre_attn_scalar: float = 256.0
+    dtype: str = "bf16"
+
+    @classmethod
+    def gemma2_2b(cls) -> "LMConfig":
+        """Gemma-2-2B, the subject model pair (base vs IT)."""
+        return cls(
+            vocab_size=256_000, d_model=2304, n_layers=26, n_heads=8,
+            n_kv_heads=4, head_dim=256, d_ff=9216, query_pre_attn_scalar=256.0,
+        )
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 257, n_layers: int = 4) -> "LMConfig":
+        """Test-sized config with the real model's hook semantics."""
+        return cls(
+            vocab_size=vocab_size, d_model=32, n_layers=n_layers, n_heads=4,
+            n_kv_heads=2, head_dim=8, d_ff=64, sliding_window=8,
+            query_pre_attn_scalar=8.0, dtype="fp32",
+        )
+
+
+# ---------------------------------------------------------------------------
+# params
+
+
+def init_params(cfg: LMConfig, *, seed: int = 0, device=None) -> LMParams:
+    """Random-init params from ``seed`` (a ``torch.Generator`` on
+    ``device``); layer leaves stacked on a leading ``[n_layers]`` axis.
+    Runs on ``cuda`` unless ``device`` names another device."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = dtype_of(cfg.dtype)
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    qd, kd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+
+    def nrm(shape, scale):
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for i in range(shape[0]):      # one slice at a time: no fp32 copy of a stacked leaf
+            out[i] = (torch.randn(shape[1:], generator=gen, device=dev) * scale).to(dt)
+        return out
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return {
+        "embed": (torch.randn((cfg.vocab_size, D), generator=gen, device=dev)
+                  * D ** -0.5).to(dt),
+        "final_norm": zeros(D),
+        "layers": {
+            "attn_norm": zeros(L, D),
+            "post_attn_norm": zeros(L, D),
+            "pre_ffw_norm": zeros(L, D),
+            "post_ffw_norm": zeros(L, D),
+            "wq": nrm((L, D, qd), D ** -0.5),
+            "wk": nrm((L, D, kd), D ** -0.5),
+            "wv": nrm((L, D, kd), D ** -0.5),
+            "wo": nrm((L, qd, D), qd ** -0.5),
+            "w_gate": nrm((L, D, F), D ** -0.5),
+            "w_up": nrm((L, D, F), D ** -0.5),
+            "w_down": nrm((L, F, D), F ** -0.5),
+        },
+    }
+
+
+def _layer(params: LMParams, i: int) -> dict[str, torch.Tensor]:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# numerics
+
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Gemma RMSNorm: fp32 compute, (1 + w) scale."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * (1.0 + w.float())).to(x.dtype)
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Split-half RoPE on ``x [B, S, n, hd]``; ``positions`` is ``[S]``
+    (shared) or ``[B, S]`` (per token, the paged plane)."""
+    d = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, d // 2, dtype=torch.float32,
+                                          device=x.device) * 2.0 / d))
+    ang = positions.float()[..., None] * freqs                 # [(B,) S, d/2]
+    cos = torch.cos(ang).unsqueeze(-2)                         # [(B,) S, 1, d/2]
+    sin = torch.sin(ang).unsqueeze(-2)
+    xf1, xf2 = x[..., : d // 2].float(), x[..., d // 2:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def _qkv(x: torch.Tensor, lp, cfg: LMConfig, pos: torch.Tensor):
+    """Project + RoPE: q ``[B,S,H,hd]``, k/v ``[B,S,KV,hd]``."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _rope(torch.matmul(x, lp["wq"]).reshape(B, S, H, hd), pos, cfg.rope_theta)
+    k = _rope(torch.matmul(x, lp["wk"]).reshape(B, S, KV, hd), pos, cfg.rope_theta)
+    v = torch.matmul(x, lp["wv"]).reshape(B, S, KV, hd)
+    return q, k, v
+
+
+def _mlp(x: torch.Tensor, lp) -> torch.Tensor:
+    """GeGLU: gelu_tanh(x·W_gate) ⊙ (x·W_up) · W_down."""
+    gate = torch.matmul(x, lp["w_gate"]).float()
+    up = torch.matmul(x, lp["w_up"]).float()
+    h = (torch.nn.functional.gelu(gate, approximate="tanh") * up).to(x.dtype)
+    return torch.matmul(h, lp["w_down"])
+
+
+def _embed(params: LMParams, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    dt = dtype_of(cfg.dtype)
+    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=dt, device=tokens.device)
+    return params["embed"][tokens].to(dt) * scale
+
+
+# ---------------------------------------------------------------------------
+# hooks
+
+_SITE_RESID, _SITE_ATTN, _SITE_MLP = 0, 1, 2
+
+
+def _hook_layers(cfg: LMConfig, hook_points: Sequence[str]) -> tuple[tuple[int, int], ...]:
+    """Hook strings → capture ``(layer, site)`` pairs: ``resid_pre`` of L is
+    the stream entering block L, ``resid_post`` of L is ``resid_pre`` of
+    L+1, ``attn_out``/``mlp_out`` of L are block L's contributions as added
+    to the stream."""
+    pairs = []
+    for hp in hook_points:
+        layer, site = parse_hook_point(hp)
+        if site == "resid_pre":
+            code = _SITE_RESID
+        elif site == "resid_post":
+            layer, code = layer + 1, _SITE_RESID
+        elif site == "attn_out":
+            code = _SITE_ATTN
+        elif site == "mlp_out":
+            code = _SITE_MLP
+        else:
+            raise ValueError(
+                f"unsupported hook site {site!r} "
+                "(resid_pre/resid_post/attn_out/mlp_out)"
+            )
+        max_layer = cfg.n_layers if code == _SITE_RESID else cfg.n_layers - 1
+        if not 0 <= layer <= max_layer:
+            raise ValueError(f"hook layer {layer} out of range for {cfg.n_layers}-layer model")
+        pairs.append((layer, code))
+    return tuple(pairs)
+
+
+def _scan_stop(pairs: tuple[tuple[int, int], ...]) -> int:
+    """Blocks that must run for every capture to be observable: a resid
+    slot at L needs blocks [0, L); a sublayer slot at L needs block L."""
+    return max(
+        (layer + (1 if code != _SITE_RESID else 0) for layer, code in pairs),
+        default=0,
+    )
+
+
+def _capture(buf: torch.Tensor, x: torch.Tensor, i: int, pairs, site: int) -> None:
+    # the JAX package accumulates a one-hot FMA into every slot; writing
+    # the matching slot of the zero buffer directly gives the same values
+    for s, (layer, code) in enumerate(pairs):
+        if layer == i and code == site:
+            buf[s] = x
+
+
+# ---------------------------------------------------------------------------
+# capture forwards
+
+
+AttentionFn = Callable[..., torch.Tensor]
+
+
+def _capture_forward(params, resid, cfg: LMConfig, pairs, n_scan: int,
+                     attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
+                                      torch.Tensor],
+                     pos: torch.Tensor) -> torch.Tensor:
+    """Blocks ``[0, n_scan)`` on ``resid [R, S, D]``; ``attend(q, k, v,
+    window)`` maps projected heads to ``[R, S, H*hd]``. Returns the capture
+    buffer ``[n_cap, R, S, D]``."""
+    want_attn = any(c == _SITE_ATTN for _, c in pairs)
+    want_mlp = any(c == _SITE_MLP for _, c in pairs)
+    buf = torch.zeros((len(pairs),) + tuple(resid.shape), dtype=resid.dtype,
+                      device=resid.device)
+    for i in range(n_scan):
+        lp = _layer(params, i)
+        _capture(buf, resid, i, pairs, _SITE_RESID)
+        window = cfg.sliding_window if i % 2 == 0 else 0    # even layers: local
+        q, k, v = _qkv(_rms_norm(resid, lp["attn_norm"], cfg.rms_eps), lp, cfg, pos)
+        a = torch.matmul(attend(q, k, v, window), lp["wo"])
+        attn_out = _rms_norm(a, lp["post_attn_norm"], cfg.rms_eps)
+        if want_attn:
+            _capture(buf, attn_out, i, pairs, _SITE_ATTN)
+        resid = resid + attn_out
+        m = _mlp(_rms_norm(resid, lp["pre_ffw_norm"], cfg.rms_eps), lp)
+        mlp_out = _rms_norm(m, lp["post_ffw_norm"], cfg.rms_eps)
+        if want_mlp:
+            _capture(buf, mlp_out, i, pairs, _SITE_MLP)
+        resid = resid + mlp_out
+    _capture(buf, resid, n_scan, pairs, _SITE_RESID)
+    return buf
+
+
+@torch.no_grad()
+def run_with_cache_multi(params_seq: Sequence[LMParams], tokens: torch.Tensor,
+                         cfg: LMConfig, hook_points: Sequence[str]) -> torch.Tensor:
+    """All models' captures through the PADDED forward:
+    ``[B, S, n_models·n_hooks, d_model]``, source axis model-major. Attention
+    is the plain masked softmax over the whole padded row."""
+    pairs = _hook_layers(cfg, tuple(hook_points))
+    n_scan = min(cfg.n_layers, _scan_stop(pairs))
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=tokens.device)
+    scale = cfg.query_pre_attn_scalar ** -0.5
+
+    def attend(q, k, v, window):
+        return pa.ragged_attention_reference(
+            q, k, v, None, scale=scale, softcap=cfg.attn_softcap,
+            window=cfg.sliding_window, is_local=bool(window))
+
+    outs = []
+    for p in params_seq:
+        buf = _capture_forward(p, _embed(p, tokens, cfg), cfg, pairs, n_scan, attend, pos)
+        outs.extend(buf[i] for i in range(len(pairs)))
+    return torch.stack(outs, dim=2)
+
+
+@torch.no_grad()
+def paged_capture(params_seq: Sequence[LMParams], chunk, cfg: LMConfig,
+                  hook_points: Sequence[str], page_size: int, *,
+                  attention: AttentionFn = pa.paged_attention) -> torch.Tensor:
+    """All models' captures through the PAGED forward for a packed chunk
+    (:class:`crosscoder_tpu_torch.data.paging.PackedChunk`):
+    ``[D, seq_len, n_models·n_hooks, d_model]``, source axis model-major,
+    positions at ``t >= lengths[d]`` zeroed.
+
+    Every position-local op runs on the dense ``[R, S]`` token plane;
+    attention runs per document: heads are gathered through ``doc_idx``
+    into per-document buffers, attended by ``attention`` (the ragged paged
+    attention wrapper, whose page loop is bounded by ``ceil(len/page)``)
+    and scattered back through ``plane_idx``. ``attention`` takes
+    :func:`crosscoder_tpu_torch.ops.paged_attention.paged_attention`'s
+    signature; passing its plain version re-runs the path without the
+    kernel.
+    """
+    dev = params_seq[0]["embed"].device
+    pairs = _hook_layers(cfg, tuple(hook_points))
+    n_scan = min(cfg.n_layers, _scan_stop(pairs))
+    plane = torch.as_tensor(np.asarray(chunk.tokens, np.int64), device=dev)
+    pos2d = torch.as_tensor(chunk.pos, device=dev)
+    doc_idx = torch.as_tensor(np.asarray(chunk.doc_idx, np.int64), device=dev)
+    plane_idx = torch.as_tensor(np.asarray(chunk.plane_idx, np.int64), device=dev)
+    lengths = torch.as_tensor(np.asarray(chunk.lengths, np.int32), device=dev)
+    R, Sp = plane.shape
+    D, S = doc_idx.shape
+    scale = cfg.query_pre_attn_scalar ** -0.5
+
+    def attend(q, k, v, window):
+        def gather_docs(x):          # [R, Sp, ...] -> [D, S, ...]
+            return x.reshape((R * Sp,) + tuple(x.shape[2:]))[doc_idx]
+
+        a = attention(gather_docs(q), gather_docs(k), gather_docs(v), lengths,
+                      page_size=page_size, scale=scale, softcap=cfg.attn_softcap,
+                      window=window)
+        return a.reshape(D * S, -1)[plane_idx]               # -> [R, Sp, H*hd]
+
+    outs = []
+    for p in params_seq:
+        buf = _capture_forward(p, _embed(p, plane, cfg), cfg, pairs, n_scan, attend, pos2d)
+        flat = buf.reshape(len(pairs), R * Sp, cfg.d_model)
+        outs.extend(flat[i][doc_idx] for i in range(len(pairs)))   # [D, S, d]
+    out = torch.stack(outs, dim=2)                                 # [D, S, n_src, d]
+    valid = torch.arange(S, device=dev)[None] < lengths[:, None].long()
+    return torch.where(valid[:, :, None, None], out, torch.zeros((), dtype=out.dtype, device=dev))

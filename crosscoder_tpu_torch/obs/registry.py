@@ -1,0 +1,54 @@
+"""Metrics registry: counters and bounded histograms, ported from
+:mod:`crosscoder_tpu.obs.registry` as far as the serve engine uses it.
+
+Thread-safe from any thread; an untouched registry snapshots to ``{}``.
+Keys are full metric names (``serve/prefill_ms``, ...). Snapshot forms:
+
+- ``count(k)``: monotone counter → ``{k: int}`` (zero counts dropped);
+- ``observe(k, v)``: the last ``HIST_CAP`` observations →
+  ``{k_p50, k_p99, k_max, k_n}``.
+"""
+
+from __future__ import annotations
+
+import threading
+
+
+class MetricsRegistry:
+    HIST_CAP = 4096     # observations kept per histogram (ring buffer)
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counts: dict[str, int] = {}
+        self._hists: dict[str, list[float]] = {}
+        self._hist_pos: dict[str, int] = {}
+
+    def count(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[key] = self._counts.get(key, 0) + n
+
+    def observe(self, key: str, value: float) -> None:
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = []
+                self._hist_pos[key] = 0
+            if len(h) < self.HIST_CAP:
+                h.append(float(value))
+            else:                       # ring overwrite: keep the newest CAP
+                h[self._hist_pos[key]] = float(value)
+                self._hist_pos[key] = (self._hist_pos[key] + 1) % self.HIST_CAP
+            self._counts[f"{key}_n"] = self._counts.get(f"{key}_n", 0) + 1
+
+    def snapshot(self) -> dict[str, float]:
+        """Flat scalar view; ``{}`` when untouched."""
+        with self._lock:
+            out: dict[str, float] = {k: v for k, v in self._counts.items() if v}
+            for k, h in self._hists.items():
+                if not h:
+                    continue
+                s = sorted(h)
+                out[f"{k}_p50"] = s[len(s) // 2]
+                out[f"{k}_p99"] = s[min(len(s) - 1, (len(s) * 99) // 100)]
+                out[f"{k}_max"] = s[-1]
+            return out

@@ -1,0 +1,63 @@
+"""The port stands alone: no file of crosscoder_tpu_torch/ nor chip_smoke.py
+imports jax or the JAX package; entry points refuse to fall back to the CPU
+when no device is named and CUDA is absent; a CPU run launches no kernel."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from crosscoder_tpu_torch import convert
+from crosscoder_tpu_torch.config import CrossCoderConfig
+from crosscoder_tpu_torch.models import crosscoder, lm
+from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+from crosscoder_tpu_torch.ops import paged_attention as pa
+from crosscoder_tpu_torch.serve import InferenceEngine
+from crosscoder_tpu_torch.serve.smoke import build_engine, serve_batch
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "crosscoder_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "crosscoder_tpu")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = CrossCoderConfig(d_in=32, dict_size=64, serve="on", serve_max_batch=2)
+    for call in (lambda: lm.init_params(lm.LMConfig.tiny()),
+                 lambda: crosscoder.init_params(cfg),
+                 lambda: convert.lm_params_from_numpy({"embed": np.zeros((2, 2), np.float32)}),
+                 lambda: convert.crosscoder_params_from_numpy({"b_enc": np.zeros(2, np.float32)}),
+                 lambda: InferenceEngine(cfg, lm.LMConfig.tiny(), [], {"W_enc": torch.zeros(1)}),
+                 lambda: build_engine()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_cpu_run_launches_no_kernel():
+    pa.paged_attention.launches = 0
+    fek.fused_topk_encode.launches = 0
+    eng, _, lm_cfg, _, _ = build_engine(device="cpu")
+    rng = np.random.default_rng(0)
+    res = serve_batch(eng, [rng.integers(1, lm_cfg.vocab_size, size=n, dtype=np.int32)
+                            for n in (3, 16, 9)])
+    assert len(res) == 3
+    assert pa.paged_attention.launches == 0 and fek.fused_topk_encode.launches == 0
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        pa.paged_attention(*(torch.zeros(1, 4, 2, 8, device="meta") for _ in range(3)),
+                           torch.ones(1), page_size=4, scale=1.0)
