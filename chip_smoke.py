@@ -20,7 +20,23 @@ one NVIDIA Hopper card and the CUDA toolkit:
    lengths, a partial bucket and one extend, with both kernels' launch
    counters read around the traffic; one batch re-run with both plain
    versions, and one through the padded (page-free) forward;
-5. prints the kernel table as one JSON line, the card line, and
+5. training kernels vs their plain versions, bitwise, at the training
+   shapes: the TopK mask (K5) and the sparsify drain (K8) on bf16 rows
+   [4096, 32768] with planted ties, NaN of both signs, -0.0, rows with
+   fewer than k positives and (K8) a row past k, k in {1, 32, 128}; the
+   sorted-pair scatter (K10) with a latent hit by every row, dropped
+   indices -1 and n_out, f32 and bf16 rows; the fused encoder→TopK (K2) at
+   the training shape on exact inputs; each timed beside its plain
+   version, one library call and the bound;
+6. train: two Trainer legs at Gemma-2-2B width (d_in 2304, two models,
+   ``blocks.14.hook_resid_pre``), dict 2^15, TopK k=32, batch 4096, bf16
+   compute, f32 masters, sparse backward on, AuxK 64 every 2 steps: leg A
+   (dense encode, 12 steps) and leg B (fused encoder, 4 steps) over
+   synthetic batches made ahead onto the card, with every launch counter
+   read around the legs; then a bare and an aux step re-run from one state
+   with the plain versions (bitwise), the fused leg's first bare step
+   against leg A's, step times, a profiler split and peak memory;
+7. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -28,6 +44,7 @@ Any failed check exits nonzero before the last line is printed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -37,6 +54,11 @@ from pathlib import Path
 
 PEAK_BYTES_S = 3.35e12                       # H100 SXM HBM3
 PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 off the tensor cores
+TRAIN = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dict_size=2 ** 15,
+             topk_k=32, batch_size=4096, enc_dtype="bf16", master_dtype="fp32",
+             activation="topk", l1_coeff=0.0, sparse_bwd="on", aux_k=64, aux_every=2,
+             aux_dead_steps=4, aux_exact_rank=True, lr=1e-3, log_backend="null")
+LEG_A, LEG_B = 12, 4
 
 
 def log(msg: str) -> None:
@@ -371,6 +393,360 @@ def serve(torch, np, lengths_a):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training kernels vs plain
+
+
+def _row(name, source, replaces, err, ms, plain_ms, b, library_ms):
+    return {"name": name, "route": "cuda", "source": f"crosscoder_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+
+
+def _planted_rows(torch, gen, R, W):
+    """Integer-valued bf16 rows with exact ties, rows with fewer than k
+    positives, -0.0 and NaN of both signs."""
+    h = torch.randint(-6, 7, (R, W), generator=gen, device="cuda").float()
+    h[0, : W // 2] = 5.0
+    h[1] = -1.0
+    h[1, 3] = 2.0
+    h[2] = -0.0
+    h[3, 5] = float("nan")
+    h[5, 100:300] = 6.0
+    h = h.to(torch.bfloat16)
+    bits = h.view(torch.int16)
+    bits[4, 7], bits[4, 9], bits[4, 11] = -1, 0x7FFF, -64       # 0xFFFF, 0x7FFF, 0xFFC0
+    bits[6, :] = -64                                            # a row of negative NaNs
+    return h
+
+
+def check_topk_mask_and_sparsify(torch, tp):
+    """K5 and K8 bitwise against their plain versions at [4096, 32768] bf16;
+    returns their kernel-table rows."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    R, W = TRAIN["batch_size"], TRAIN["dict_size"]
+    h = _planted_rows(torch, gen, R, W)
+    for k in (1, 32, 128):
+        f = tp.topk(h, k)
+        same5 = torch.equal(_bits(f, torch), _bits(tp.topk_plain(h, k), torch))
+        fo = f.clone()
+        fo[0, ::3] = 1.0                                        # a row far past k
+        vk, ik = tp.sparsify(fo, k)
+        vp, ip = tp.sparsify_plain(fo, k)
+        same8 = torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)
+        v32, i32 = tp.sparsify(fo.float(), k)
+        w32, j32 = tp.sparsify_plain(fo.float(), k)
+        same8 = same8 and torch.equal(_bits(v32, torch), _bits(w32, torch)) and torch.equal(i32, j32)
+        torch.cuda.synchronize()
+        log(f"K5 topk_mask [{R},{W}] bf16 k={k}: bitwise {'equal' if same5 else 'DIFFERENT'}; "
+            f"K8 sparsify bf16+f32: bitwise {'equal' if same8 else 'DIFFERENT'}")
+        if not (same5 and same8):
+            fail(f"K5/K8 not bitwise equal to their plain versions at k={k}")
+    k = TRAIN["topk_k"]
+    h = torch.randn((R, W), generator=gen, device="cuda").to(torch.bfloat16)
+    f = tp.topk(h, k)
+    if not torch.equal(_bits(f, torch), _bits(tp.topk_plain(h, k), torch)):
+        fail("K5 not bitwise equal to its plain version on random bf16 rows")
+    n = R * W * 2
+
+    def topk_scatter():
+        v, i = torch.topk(h, k)
+        return torch.zeros_like(h).scatter_(1, i, torch.relu(v))
+
+    ms = time_ms(lambda: tp.topk(h, k), 20)
+    plain_ms = time_ms(lambda: tp.topk_plain(h, k), 3)
+    lib_ms = time_ms(topk_scatter, 20)
+    b = bound(2 * n, 0, "bf16")
+    log(f"K5 [{R},{W}] k={k}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
+        f"topk+scatter, bound {b[0]:.4f} ms by {b[1]}")
+    row5 = _row("topk_mask", "topk_mask.cu", "crosscoder_tpu/ops/topk_pallas.py:157", 0.0,
+                ms, plain_ms, b, lib_ms)
+    vals, idx = tp.sparsify(f, k)
+    vp, ip = tp.sparsify_plain(f, k)
+    if not (torch.equal(_bits(vals, torch), _bits(vp, torch)) and torch.equal(idx, ip)):
+        fail("K8 not bitwise equal to its plain version on the masked random rows")
+
+    def topk_sort():
+        v, i = torch.topk(f, k)
+        i, o = torch.sort(i, dim=1)
+        return torch.gather(v, 1, o), i
+
+    ms = time_ms(lambda: tp.sparsify(f, k), 20)
+    plain_ms = time_ms(lambda: tp.sparsify_plain(f, k), 3)
+    lib_ms = time_ms(topk_sort, 20)
+    b = bound(n + R * k * (2 + 4), 0, "bf16")
+    log(f"K8 [{R},{W}] k={k}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
+        f"topk+sort, bound {b[0]:.4f} ms by {b[1]}")
+    row8 = _row("sparsify", "sparsify.cu", "crosscoder_tpu/ops/topk_pallas.py:662", 0.0,
+                ms, plain_ms, b, lib_ms)
+    return row5, row8
+
+
+def check_scatter(torch, sg):
+    """K10 bitwise against its plain version at the sparse step's shapes;
+    returns its kernel-table row."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    B, k, H = TRAIN["batch_size"], TRAIN["topk_k"], TRAIN["dict_size"]
+    nd = TRAIN["n_models"] * TRAIN["d_in"]
+    for kk, m, dt in ((k, nd, torch.float32), (k, nd + 128, torch.float32),
+                      (TRAIN["aux_k"], nd, torch.float32), (k, nd, torch.bfloat16)):
+        cf = torch.randn((B, kk), generator=gen, device="cuda")
+        idx = torch.randint(0, H, (B, kk), generator=gen, device="cuda", dtype=torch.int32)
+        idx[:, 0] = 3                                   # a latent hit by every row
+        idx[0, 1], idx[1, 1] = -1, H                    # dropped
+        rows = torch.randn((B, m), generator=gen, device="cuda").to(dt)
+        got = sg.scatter_add_rows(cf, idx, rows, H)
+        want = sg.scatter_add_rows_plain(cf, idx, rows, H)
+        torch.cuda.synchronize()
+        same = torch.equal(_bits(got, torch), _bits(want, torch))
+        log(f"K10 scatter pairs {B}x{kk} rows [{B},{m}] {str(dt)[6:]}: bitwise "
+            f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail("K10 not bitwise equal to its plain version")
+    # timing on the dW_dec call's shape: random latents, no planted duplicates
+    cf = torch.randn((B, k), generator=gen, device="cuda")
+    idx = torch.randint(0, H, (B, k), generator=gen, device="cuda", dtype=torch.int32)
+    rows = torch.randn((B, nd), generator=gen, device="cuda")
+    if not torch.equal(_bits(sg.scatter_add_rows(cf, idx, rows, H), torch),
+                       _bits(sg.scatter_add_rows_plain(cf, idx, rows, H), torch)):
+        fail("K10 not bitwise equal to its plain version on random pairs")
+
+    def index_add():
+        upd = cf.reshape(-1, 1) * rows.repeat_interleave(k, dim=0)
+        return torch.zeros((H, nd), device="cuda").index_add_(0, idx.reshape(-1).long(), upd)
+
+    ms = time_ms(lambda: sg.scatter_add_rows(cf, idx, rows, H), 20)
+    plain_ms = time_ms(lambda: sg.scatter_add_rows_plain(cf, idx, rows, H), 3)
+    lib_ms = time_ms(index_add, 5)
+    b = bound(B * nd * 4 + B * k * 8 + H * nd * 4, 2 * B * k * nd, "fp32")
+    log(f"K10 pairs {B}x{k} rows [{B},{nd}] -> [{H},{nd}] f32: {ms:.4f} ms kernel, "
+        f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms index_add_, bound {b[0]:.4f} ms by {b[1]}")
+    return _row("scatter_add_rows", "scatter_rows.cu", "crosscoder_tpu/ops/sparse_grad.py:212",
+                0.0, ms, plain_ms, b, lib_ms)
+
+
+def check_fused_topk_train(torch, fek):
+    """K2 at the training shape: bitwise on exact inputs, then timed on
+    random bf16; returns its kernel-table row."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, H, k = TRAIN["batch_size"], TRAIN["dict_size"], TRAIN["topk_k"]
+    nd = TRAIN["n_models"] * TRAIN["d_in"]
+    x = torch.randint(-2, 3, (B, nd), generator=gen, device="cuda").to(torch.bfloat16)
+    W = torch.randint(-2, 3, (nd, H), generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randint(-8, 9, (H,), generator=gen, device="cuda").float()
+    vk, ik = fek.fused_topk_encode(x, W, b, k)
+    vp, ip = fek.fused_topk_encode_plain(x, W, b, k)
+    torch.cuda.synchronize()
+    same = torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)
+    log(f"K2 fused_topk training shape [{B},{nd}]x[{nd},{H}] k={k} exact: bitwise "
+        f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        fail("K2 not bitwise equal to its plain version at the training shape")
+    x = torch.randn((B, nd), generator=gen, device="cuda").to(torch.bfloat16)
+    W = (torch.randn((nd, H), generator=gen, device="cuda") * nd ** -0.5).to(torch.bfloat16)
+    b = torch.zeros(H, device="cuda")
+    ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k), 3)
+    plain_ms = time_ms(lambda: fek.fused_topk_encode_plain(x, W, b, k), 3)
+    lib_ms = time_ms(lambda: torch.topk(torch.matmul(x, W), k), 10)
+    bnd = bound(x.numel() * 2 + W.numel() * 2 + H * 4 + B * k * 6, 2 * B * nd * H, "bf16")
+    log(f"K2 training shape: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
+        f"matmul+topk, bound {bnd[0]:.4f} ms by {bnd[1]}")
+    return {**_row("fused_topk_encode", "fused_topk.cu",
+                   "crosscoder_tpu/ops/fused_encoder_topk.py:353", 0.0, ms, plain_ms, bnd,
+                   lib_ms), "name": "fused_topk_encode (train shape)"}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train
+
+
+class DeviceBatches:
+    """Synthetic batches made ahead onto the card, served in order."""
+
+    def __init__(self, torch, source, n):
+        self.batches = [torch.from_numpy(source.next()).cuda() for _ in range(n)]
+        self.i = 0
+
+    def next(self):
+        b = self.batches[self.i % len(self.batches)]
+        self.i += 1
+        return b
+
+
+@contextlib.contextmanager
+def plain_versions(tp, sg, fek):
+    """Route the model's kernel calls to their plain versions."""
+    saved = (tp.topk_forward, tp.sparsify, sg.scatter_add_rows, fek.fused_topk_encode)
+    tp.topk_forward, tp.sparsify = tp.topk_plain, tp.sparsify_plain
+    sg.scatter_add_rows, fek.fused_topk_encode = (sg.scatter_add_rows_plain,
+                                                  fek.fused_topk_encode_plain)
+    try:
+        yield
+    finally:
+        tp.topk_forward, tp.sparsify, sg.scatter_add_rows, fek.fused_topk_encode = saved
+
+
+def profile_step(torch, trainer, full_metrics, label):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer.step(full_metrics)["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        t = getattr(e, "self_device_time_total", None)
+        return t if t is not None else getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(dev_us(e) for e in kernels) / 1e3
+    if total <= 0:
+        log(f"profile {label}: the profiler recorded no device time (not measured)")
+        return
+    groups = {"K2 fused_topk": 0.0, "K5 topk_mask": 0.0, "K8 sparsify": 0.0,
+              "K10 scatter_rows": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in kernels:
+        n = e.key.lower()
+        g = ("K5 topk_mask" if "topk_mask" in n else
+             "K2 fused_topk" if "topk_tiles" in n or "topk_merge" in n else
+             "K8 sparsify" if "sparsify" in n else
+             "K10 scatter_rows" if "scatter_rows" in n else
+             "matmul" if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas"))
+             else "other")
+        groups[g] += dev_us(e) / 1e3
+    log(f"profile {label}: {wall:.3f} ms wall profiled, {total:.3f} ms device busy "
+        f"({100 * total / wall:.1f}%)")
+    for g, t in groups.items():
+        log(f"profile {label}:   {g}: {t:.3f} ms ({100 * t / total:.1f}%)")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+        log(f"profile {label}:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:80]}")
+
+
+def same_step(torch, a, b):
+    """Bitwise equality of two (loss, losses, grads, dead, aux) results."""
+    if not torch.equal(_bits(a[0], torch), _bits(b[0], torch)):
+        return False, "loss"
+    for k in a[2]:
+        if not torch.equal(_bits(a[2][k], torch), _bits(b[2][k], torch)):
+            return False, f"gradient of {k}"
+    return True, ""
+
+
+def train(torch, np):
+    """The train phase; returns the launch counts of its main path."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.ops import sparse_grad as sg
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+
+    cfg_a = CrossCoderConfig(**TRAIN, fused_encoder="off",
+                             num_tokens=TRAIN["batch_size"] * LEG_A)
+    cfg_b = cfg_a.replace(fused_encoder="on", num_tokens=TRAIN["batch_size"] * LEG_B)
+    t0 = time.perf_counter()
+    batches = DeviceBatches(torch, SyntheticActivationSource(cfg_a), LEG_A + 1)
+    state0 = init_train_state(cfg_a, Optimizer(cfg_a, lambda s: 0.0), device="cuda")
+    torch.cuda.synchronize()
+    log(f"train: {LEG_A + 1} synthetic batches [{cfg_a.batch_size}, {cfg_a.n_sources}, "
+        f"{cfg_a.d_in}] on the card and a {cfg_a.dict_size}-latent state in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    counters = {"fused_topk_encode": fek.fused_topk_encode, "topk_mask": tp.topk,
+                "sparsify": tp.sparsify, "scatter_add_rows": sg.scatter_add_rows}
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    # leg A: dense encode + K5 + K8, K10 backward
+    tr_a = trainer_mod.Trainer(cfg_a, batches, device="cuda", state=state0)
+    losses_a, l0s, bare_ms, aux_ms = [], [], [], []
+    for i in range(LEG_A):
+        variant = trainer_mod.variant_for_step(cfg_a, i)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m = tr_a.step(full_metrics=True)
+        e1.record()
+        torch.cuda.synchronize()
+        (aux_ms if variant[1] else bare_ms).append(e0.elapsed_time(e1))
+        losses_a.append(float(m["loss"]))
+        l0s.append(float(m["l0_loss"]))
+    after_a = {n: c.launches for n, c in counters.items()}
+    # leg B: the fused encoder on bare steps
+    batches.i = 0
+    tr_b = trainer_mod.Trainer(cfg_b, batches, device="cuda", state=state0)
+    losses_b, fused_ms = [], []
+    for i in range(LEG_B):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m = tr_b.step(full_metrics=True)
+        e1.record()
+        torch.cuda.synchronize()
+        if not trainer_mod.variant_for_step(cfg_b, i)[1]:
+            fused_ms.append(e0.elapsed_time(e1))
+        losses_b.append(float(m["loss"]))
+        l0s.append(float(m["l0_loss"]))
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    leg_b = {n: launches[n] - after_a[n] for n in launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train leg A (dense encode, {LEG_A} steps): losses {[round(v, 4) for v in losses_a]}")
+    log(f"train leg B (fused encoder, {LEG_B} steps): losses {[round(v, 4) for v in losses_b]}")
+    log(f"train: launches leg A {after_a}, leg B {leg_b}; l0 max {max(l0s):.2f} "
+        f"(k={cfg_a.topk_k}); peak memory {peak:.2f} GiB")
+    bare, aux = np.mean(bare_ms[1:]), np.mean(aux_ms[1:])
+    log(f"train: ms per step (CUDA events, first of each kind excluded): bare {bare:.3f} "
+        f"({len(bare_ms) - 1} steps), aux {aux:.3f} ({len(aux_ms) - 1} steps); "
+        f"{cfg_a.batch_size / bare * 1e3:.0f} rows/s on bare steps; leg B bare (fused "
+        f"encoder) steps {[round(t, 3) for t in fused_ms]} ms")
+    if not all(np.isfinite(losses_a + losses_b)):
+        fail("a train loss is not finite")
+    if max(l0s) > cfg_a.topk_k:
+        fail(f"l0 {max(l0s)} exceeds k={cfg_a.topk_k}")
+    if not all(after_a[n] > 0 for n in ("topk_mask", "sparsify", "scatter_add_rows")):
+        fail(f"a kernel of leg A never launched: {after_a}")
+    if not (leg_b["fused_topk_encode"] > 0 and leg_b["scatter_add_rows"] > 0):
+        fail(f"K2 or K10 never launched on leg B: {leg_b}")
+    first, last = np.mean(losses_a[:4]), np.mean(losses_a[-4:])
+    log(f"train: leg A mean loss of the first 4 steps {first:.5f}, of the last 4 {last:.5f}")
+    if not last < first:
+        fail("the loss did not fall over leg A")
+
+    # re-run one bare and one aux step from leg A's final state with the
+    # plain versions on the card: same bits
+    x = batches.next()
+    scale = torch.ones(cfg_a.n_sources, device="cuda")
+    opt = Optimizer(cfg_a, lambda s: 0.0)
+    for variant, label in (((True, False, True), "bare"), ((True, True, True), "aux")):
+        fn = trainer_mod.make_step_body(cfg_a, opt, *variant)
+        got = fn.loss_and_grads(tr_a.state, x, scale)
+        with plain_versions(tp, sg, fek):
+            want = fn.loss_and_grads(tr_a.state, x, scale)
+        ok, what = same_step(torch, got, want)
+        log(f"train: {label} step at step {tr_a.state.step} (aux {got[4]}) with kernels vs "
+            f"plain versions: loss {float(got[0]):.6f} vs {float(want[0]):.6f}, "
+            f"{'bitwise equal loss and gradients' if ok else 'DIFFERENT ' + what}")
+        if not ok:
+            fail(f"the {label} step with kernels differs from the plain versions in {what}")
+    # the fused leg's first bare step against leg A's, from the initial state
+    bare_a = trainer_mod.make_step_body(cfg_a, opt, True, False, True)
+    bare_b = trainer_mod.make_step_body(cfg_b, opt, True, False, True)
+    la = float(bare_a.loss_and_grads(state0, batches.batches[0], scale)[0])
+    lb = float(bare_b.loss_and_grads(state0, batches.batches[0], scale)[0])
+    rel = abs(la - lb) / abs(la)
+    log(f"train: first bare step from the initial state, fused {lb:.6f} vs dense encode "
+        f"{la:.6f}: relative difference {rel:.2e} (tol 1e-3: bf16 pre-activations summed in "
+        f"another order can flip near-tie selections)")
+    if not rel <= 1e-3:
+        fail("the fused leg's loss disagrees with leg A's beyond the bf16 tolerance")
+    profile_step(torch, tr_a, False, "bare step" if tr_a.state.step % 2 else "aux step")
+    profile_step(torch, tr_a, False, "bare step" if tr_a.state.step % 2 else "aux step")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -387,6 +763,8 @@ def main() -> int:
     from crosscoder_tpu_torch.ops import _build
     from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
     from crosscoder_tpu_torch.ops import paged_attention as pa
+    from crosscoder_tpu_torch.ops import sparse_grad as sg
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
 
     # parity is measured in full fp32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -411,9 +789,15 @@ def main() -> int:
     rng = np.random.default_rng(3)
     lengths_a = [1, 1024] + [int(n) for n in rng.integers(2, 1024, size=6)]
     rows = [check_paged_attention(torch, pa, lengths_a), check_fused_topk(torch, fek)]
+    train_rows = [*check_topk_mask_and_sparsify(torch, tp), check_scatter(torch, sg),
+                  check_fused_topk_train(torch, fek)]
     launches = serve(torch, np, lengths_a)
     for row in rows:
         row["launches"] = launches[row["name"]]
+    launches = train(torch, np)
+    for row in train_rows:
+        row["launches"] = launches[row["name"].split()[0]]
+    rows += train_rows
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

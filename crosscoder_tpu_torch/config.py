@@ -2,17 +2,25 @@
 
 :class:`CrossCoderConfig` keeps every field name and default of the JAX
 dataclass, so a cfg JSON written by either package loads in the other.
-Validation is ported for the fields the serving slice reads
-(``enc_dtype``, ``activation``, ``page_size``, ``seq_len`` and the
-``serve_*`` knobs); the training knobs are carried as plain values until
-the training slice ports the code that reads them. ``from_cli`` waits for
-that slice too.
+Validation is ported for the fields the port reads: the serving knobs
+(``enc_dtype``, ``activation``, ``page_size``, ``seq_len``, ``serve_*``)
+and the training knobs (``crosscoder_tpu/config.py`` ``__post_init__``:
+the TopK tier rules for ``sparse_decode``/``factored_decode``/
+``sparse_bwd``/``fused_encoder``/``quant_encoder``, the sparsity and AuxK
+knobs, the loop and guard knobs), with the JAX package's messages. Knobs
+of parts not ported yet (mesh, elastic, fleet, compile cache, tuner) are
+carried as plain values. :meth:`CrossCoderConfig.from_cli` reflects every
+field into a flag as the JAX package does; ``--tuned`` raises until the
+autotuner is ported.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any
 
 from crosscoder_tpu_torch.utils.dtypes import DTYPES
@@ -163,6 +171,10 @@ class CrossCoderConfig:
             self.hook_points = tuple(self.hook_points)
         if isinstance(self.model_names, list):
             self.model_names = tuple(self.model_names)
+        if self.data_source not in ("gemma", "synthetic"):
+            raise ValueError(f"data_source must be 'gemma' or 'synthetic', got {self.data_source!r}")
+        if self.master_dtype not in ("fp32", "bf16"):
+            raise ValueError(f"master_dtype must be fp32 or bf16, got {self.master_dtype!r}")
         if self.topk_k < 1:
             raise ValueError(f"topk_k must be >= 1, got {self.topk_k}")
         if self.seq_len < 1:
@@ -183,6 +195,7 @@ class CrossCoderConfig:
                 f"harvest_runtime='paged': page_size {self.page_size} must "
                 f"divide seq_len {self.seq_len}"
             )
+        self._check_training_fields()
         _check_choice("serve", self.serve, ("off", "on"))
         if self.serve == "on":
             b = self.serve_max_batch
@@ -206,7 +219,140 @@ class CrossCoderConfig:
                     f"eviction), got {self.serve_shed_ms}"
                 )
 
+    def _check_training_fields(self) -> None:
+        """The JAX package's training-field rules
+        (``crosscoder_tpu/config.py:669-776`` and the loop knobs after)."""
+        if self.sparse_decode and self.activation != "topk":
+            raise ValueError(
+                f"sparse_decode requires activation='topk', got {self.activation!r}")
+        _check_choice("factored_decode", self.factored_decode, ("auto", "on", "off"))
+        if self.factored_decode == "on" and self.activation != "topk":
+            raise ValueError(
+                f"factored_decode='on' requires activation='topk', got {self.activation!r}")
+        if self.factored_decode == "on" and self.l1_coeff != 0:
+            raise ValueError(
+                "factored_decode='on' requires l1_coeff=0: the factored forward's "
+                "custom backward carries no gradient path through (vals, idx), "
+                "which a nonzero weighted-L1 objective needs")
+        _check_choice("sparse_bwd", self.sparse_bwd, ("auto", "on", "off"))
+        if self.sparse_bwd == "on" and self.activation != "topk":
+            raise ValueError(
+                f"sparse_bwd='on' requires activation='topk' (the sparse backward "
+                f"consumes the factored (vals, idx) the TopK tier produces), got "
+                f"{self.activation!r}")
+        if self.sparse_bwd == "on" and self.l1_coeff != 0:
+            raise ValueError(
+                "sparse_bwd='on' requires l1_coeff=0: like the factored tier it "
+                "extends, its custom backward carries no gradient path through "
+                "(vals, idx)")
+        if self.sparse_bwd == "on" and self.sparse_decode:
+            raise ValueError(
+                "sparse_bwd='on' is incompatible with sparse_decode: the sparse "
+                "backward extends the factored tier, not the gather decode")
+        _check_choice("fused_encoder", self.fused_encoder, ("auto", "on", "off"))
+        if self.fused_encoder == "on":
+            if self.activation not in ("topk", "batchtopk"):
+                raise ValueError(
+                    f"fused_encoder='on' requires activation='topk' or 'batchtopk' "
+                    f"(the kernel is a fused TopK/BatchTopK selection), got "
+                    f"{self.activation!r}")
+            if self.activation == "topk":
+                if self.sparse_bwd == "off":
+                    raise ValueError(
+                        "fused_encoder='on' with activation='topk' requires "
+                        "sparse_bwd != 'off': the fused forward hands (vals, idx) "
+                        "to the sparse backward plane")
+                if self.l1_coeff != 0:
+                    raise ValueError(
+                        "fused_encoder='on' with activation='topk' requires "
+                        "l1_coeff=0 (the factored/sparse tier it rides carries no "
+                        "gradient path through (vals, idx))")
+                if self.sparse_decode:
+                    raise ValueError(
+                        "fused_encoder='on' is incompatible with sparse_decode: the "
+                        "fused tier extends the factored tier, not the gather decode")
+        if self.quant_encoder:
+            if self.fused_encoder == "off":
+                raise ValueError(
+                    "quant_encoder requires fused_encoder != 'off': the int8 "
+                    "block-scaled matmul lives inside the fused kernel")
+            if self.activation != "topk":
+                raise ValueError(
+                    f"quant_encoder requires activation='topk': the int8 path lives "
+                    f"in the fused TopK kernel only, got {self.activation!r}")
+            nd = self.n_sources * self.d_in
+            if self.quant_block % 128 or nd % self.quant_block:
+                raise ValueError(
+                    f"quant_encoder: quant_block {self.quant_block} must be a "
+                    f"multiple of 128 dividing n_sources*d_in = {nd}")
+        if self.l0_coeff > 0 and self.activation != "jumprelu":
+            raise ValueError(
+                f"l0_coeff requires activation='jumprelu' (the rectangle-kernel STE "
+                f"needs a threshold), got {self.activation!r}")
+        if self.batchtopk_threshold > 0 and self.activation != "batchtopk":
+            raise ValueError(
+                f"batchtopk_threshold requires activation='batchtopk', got "
+                f"{self.activation!r}")
+        if self.aux_k < 0:
+            raise ValueError(f"aux_k must be >= 0, got {self.aux_k}")
+        if self.aux_k > self.dict_size:
+            raise ValueError(f"aux_k {self.aux_k} cannot exceed dict_size {self.dict_size}")
+        if self.aux_k > 0 and self.aux_dead_steps < 1:
+            raise ValueError("aux_dead_steps must be >= 1 when aux_k > 0")
+        if self.aux_every < 1:
+            raise ValueError(f"aux_every must be >= 1, got {self.aux_every}")
+        if self.resample_every < 0 or self.resample_dead_steps < 0:
+            raise ValueError(
+                f"resample_every/resample_dead_steps must be >= 0, got "
+                f"{self.resample_every}/{self.resample_dead_steps}")
+        if self.resample_every > 0 and self.resample_threshold_steps < 1:
+            raise ValueError(
+                "resampling needs a deadness threshold: set resample_dead_steps "
+                "(or aux_dead_steps) >= 1")
+        if self.stop_poll_every < 1:
+            raise ValueError(f"stop_poll_every must be >= 1, got {self.stop_poll_every}")
+        if self.loss_spike_factor <= 1.0:
+            raise ValueError(
+                f"loss_spike_factor must be > 1 (it multiplies the last healthy "
+                f"loss), got {self.loss_spike_factor}")
+        if self.max_rollbacks < 0:
+            raise ValueError(f"max_rollbacks must be >= 0, got {self.max_rollbacks}")
+        if self.keep_saves < 0:
+            raise ValueError(f"keep_saves must be >= 0 (0 = unbounded), got {self.keep_saves}")
+        if self.guard_loss and self.keep_saves == 1:
+            raise ValueError(
+                "guard_loss with keep_saves=1 leaves rollback no fallback save "
+                "when the newest is corrupt/poisoned; use keep_saves=0 "
+                "(unbounded) or >= 2")
+        if self.quant_block < 1:
+            raise ValueError(f"quant_block must be >= 1, got {self.quant_block}")
+        if self.log_print_every < 0:
+            raise ValueError(
+                f"log_print_every must be >= 0 (0 = never echo), got "
+                f"{self.log_print_every}")
+        if self.aux_mask_every < 0:
+            raise ValueError(
+                f"aux_mask_every must be >= 0 (1 = per-step exact, N = refresh "
+                f"every N steps, 0 = follow log_every), got {self.aux_mask_every}")
+
     # --- derived quantities ---
+    @property
+    def total_steps(self) -> int:
+        """Optimizer steps for the token budget (reference trainer.py:14)."""
+        return self.num_tokens // self.batch_size
+
+    @property
+    def aux_mask_cadence(self) -> int:
+        """Resolved dead-mask refresh cadence (``aux_mask_every``; 0 means
+        the ``log_every`` interval)."""
+        return self.aux_mask_every if self.aux_mask_every >= 1 else self.log_every
+
+    @property
+    def resample_threshold_steps(self) -> int:
+        """Deadness threshold for resampling (``resample_dead_steps``,
+        falling back to ``aux_dead_steps``)."""
+        return self.resample_dead_steps or self.aux_dead_steps
+
     @property
     def n_layers_hooked(self) -> int:
         return max(1, len(self.hook_points))
@@ -235,6 +381,73 @@ class CrossCoderConfig:
         kwargs = {k: v for k, v in d.items() if k in known}
         extras = {k: v for k, v in d.items() if k not in known}
         return cls(**kwargs, extras=extras)
+
+    def to_json_str(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    def to_json(self, path: str | Path) -> None:
+        Path(path).write_text(self.to_json_str())
+
+    @classmethod
+    def from_json(cls, path: str | Path) -> "CrossCoderConfig":
+        return cls.from_dict(json.loads(Path(path).read_text()))
+
+    def replace(self, **kwargs: Any) -> "CrossCoderConfig":
+        return dataclasses.replace(self, **kwargs)
+
+    @classmethod
+    def from_cli(cls, argv: list[str] | None = None,
+                 base: "CrossCoderConfig | None" = None) -> "CrossCoderConfig":
+        """Every field as a ``--kebab-case`` flag over ``base`` (or the
+        defaults, or ``--config-json``), as the JAX package's ``from_cli``
+        does. Tuple fields take comma-separated lists, bools
+        1/0/true/false/yes/no/on/off."""
+        base = base or cls()
+        parser = argparse.ArgumentParser(description="crosscoder_tpu_torch training config")
+        parser.add_argument("--config-json", type=str, default=None,
+                            help="load a cfg JSON before applying flags")
+        for f in dataclasses.fields(cls):
+            if f.name == "extras":
+                continue
+            val = getattr(base, f.name)
+            flag = f"--{f.name.replace('_', '-')}"
+            if isinstance(val, bool):
+                parser.add_argument(flag, type=_parse_bool, default=None)
+            elif isinstance(val, tuple):
+                parser.add_argument(flag, type=str, default=None, help="comma-separated list")
+            elif isinstance(val, int):
+                parser.add_argument(flag, type=int, default=None)
+            elif isinstance(val, float):
+                parser.add_argument(flag, type=float, default=None)
+            else:
+                parser.add_argument(flag, type=str, default=None)
+        ns = parser.parse_args(argv)
+        if ns.config_json:
+            base = cls.from_json(ns.config_json)
+        if ns.tuned or (ns.tuned is None and base.tuned):
+            raise NotImplementedError(
+                "--tuned: TUNED.json artifacts come from the autotuner "
+                "(crosscoder_tpu/tune/), which the port does not have yet "
+                "(ROADMAP Queue A 14)")
+        overrides: dict[str, Any] = {}
+        for f in dataclasses.fields(cls):
+            if f.name == "extras":
+                continue
+            v = getattr(ns, f.name, None)
+            if v is not None:
+                if isinstance(getattr(base, f.name), tuple):
+                    v = tuple(x for x in v.split(",") if x)
+                overrides[f.name] = v
+        return base.replace(**overrides) if overrides else base
+
+
+def _parse_bool(s: str) -> bool:
+    low = s.lower()
+    if low in ("1", "true", "yes", "on"):
+        return True
+    if low in ("0", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected a boolean, got {s!r}")
 
 
 def parse_hook_point(hook_point: str) -> tuple[int, str]:

@@ -6,6 +6,9 @@ d_in, H]``, ``W_dec [H, n, d_in]``), so conversion is a leaf-by-leaf copy
 of host numpy arrays (``jax.device_get`` of a params pytree) into tensors
 on a device. bfloat16 numpy arrays (the ``ml_dtypes`` type) go through
 float32, which holds every bfloat16 value exactly.
+:func:`train_state_from_numpy` carries a whole JAX ``TrainState`` (params,
+Adam moments and count, step, AuxK state) over, so both trainers can start
+from the same point.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float16): torch.float16,
     np.dtype(np.float64): torch.float64,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.bool_): torch.bool,
 }
 
 
@@ -53,3 +58,23 @@ def crosscoder_params_from_numpy(params: Mapping[str, Any], device=None,
     """The port's crosscoder params from the JAX package's crosscoder
     params dict of numpy leaves."""
     return _tree(params, resolve_device(device), dtype)
+
+
+def train_state_from_numpy(state: Any, device=None):
+    """The port's :class:`~crosscoder_tpu_torch.train.state.TrainState` from
+    a JAX ``TrainState`` with numpy leaves (``jax.device_get(state)``):
+    params, the Adam moments ``mu``/``nu`` and their count (found in the
+    optax chain state), the step and ``aux`` (``steps_since_fired``,
+    ``dead_mask``). Leaves keep their dtypes."""
+    from crosscoder_tpu_torch.train.state import AdamState, TrainState
+
+    dev = resolve_device(device)
+    adam = next((s for s in state.opt_state if hasattr(s, "mu") and hasattr(s, "nu")), None)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu) in the JAX TrainState's opt_state")
+    params = _tree(state.params, dev, None)
+    aux = None if state.aux is None else _tree(state.aux, dev, None)
+    return TrainState(params=params,
+                      opt_state=AdamState(int(np.asarray(adam.count)), _tree(adam.mu, dev, None),
+                                          _tree(adam.nu, dev, None)),
+                      step=int(np.asarray(state.step)), aux=aux)

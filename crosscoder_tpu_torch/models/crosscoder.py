@@ -1,36 +1,81 @@
-"""The crosscoder, ported from :mod:`crosscoder_tpu.models.crosscoder` as
-far as serving reads it.
+"""The crosscoder, ported from :mod:`crosscoder_tpu.models.crosscoder`.
 
 Params keep the JAX package's leaf names and layout: ``W_enc [n, d_in,
 d_hidden]``, ``W_dec [d_hidden, n, d_in]``, ``b_enc [d_hidden]``, ``b_dec
 [n, d_in]``, where ``n`` is the source axis (models × hooked layers).
 :func:`init_params` returns them as a dict of tensors; :class:`CrossCoder`
-holds them as an ``nn.Module``.
+holds them as a trainable ``nn.Module``.
+
+The loss surface (:func:`get_losses`, :func:`training_loss`) follows the
+JAX package: summed-square-error L2 (mean over the batch), explained
+variance overall and per source, decoder-norm-weighted L1, L0, and the
+AuxK dead-latent loss. The TopK tiers resolve from ``cfg`` exactly as the
+JAX gates do, with "kernel live" read as always true:
+
+- factored (:class:`_FactoredTopK`): K5 mask → K8 drain → k-row decode,
+  backward through the dense matmuls;
+- sparse step (:class:`_SparseTopKStep`, bare steps of ``sparse_bwd``):
+  encode + K5 + K8 + decode in one autograd scope, backward through the
+  K10 scatter (dW_dec, then dW_enc with db_enc riding a ones column);
+- fused step (the same class with the ported K2 encoder→TopK forward);
+- sparse from h (:class:`_SparseTopKFromH`, AuxK steps: h stays a
+  differentiable residual for the aux ranking) and the aux product
+  (:class:`_SparseAuxProduct`, dense forward, K10 backward).
+
+On CPU tensors each kernel's plain version takes its place, as the JAX
+package's interpret mode does. AuxK ranks dead latents exactly with
+``torch.topk`` (JAX's ``aux_exact_rank=True``); the TPU path ranks them
+with ``approx_max_k``. Not ported here: ``sparse_decode`` (the gather
+decode), BatchTopK and JumpReLU (their kernels K9/K4 come later) and the
+int8 fused encoder (K3); each raises :class:`NotImplementedError`.
+
+Matmuls sum in f32: from bf16 operands on the card through
+``torch.mm(..., out_dtype=torch.float32)`` (tensor cores; the backward
+rounds the f32 cotangent to bf16 first, as the TPU's default precision
+does), elsewhere on f32 copies.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import sys
+from typing import Any, Mapping, NamedTuple
 
 import torch
 from torch import nn
 
 from crosscoder_tpu_torch.config import CrossCoderConfig
+from crosscoder_tpu_torch.ops import activations as act_ops
+from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+from crosscoder_tpu_torch.ops import sparse_grad, topk_pallas
 from crosscoder_tpu_torch.utils.device import resolve_device
 from crosscoder_tpu_torch.utils.dtypes import dtype_of
 
 Params = dict[str, torch.Tensor]
+_LOW = (torch.bfloat16, torch.float16)
 
 
-def init_params(cfg: CrossCoderConfig, *, seed: int = 0, device=None) -> Params:
+class LossOutput(NamedTuple):
+    """Loss surface of one batch; all f32."""
+
+    l2_loss: torch.Tensor
+    l1_loss: torch.Tensor
+    l0_loss: torch.Tensor
+    explained_variance: torch.Tensor                 # [batch]
+    explained_variance_per_source: torch.Tensor      # [n_sources, batch]
+    aux_loss: torch.Tensor | float = 0.0
+    fired: torch.Tensor | None = None
+
+
+def init_params(cfg: CrossCoderConfig, *, seed: int = 0, device=None,
+                dtype: torch.dtype | None = None) -> Params:
     """Decoder rows standard-normal, rescaled to norm ``dec_init_norm`` per
     (latent, source); the encoder is the decoder's transpose; biases 0.
-    Params are in ``cfg.enc_dtype``. Runs on ``cuda`` unless ``device``
-    names another device."""
+    Params are in ``dtype`` (default ``cfg.enc_dtype``). Runs on ``cuda``
+    unless ``device`` names another device."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n, d_in, d_hidden = cfg.n_sources, cfg.d_in, cfg.dict_size
-    dtype = dtype_of(cfg.enc_dtype)
+    dtype = dtype_of(cfg.enc_dtype) if dtype is None else dtype
     w = torch.randn((d_hidden, n, d_in), generator=gen, device=dev)
     w = w / torch.linalg.norm(w, dim=-1, keepdim=True) * cfg.dec_init_norm
     return {
@@ -41,25 +86,485 @@ def init_params(cfg: CrossCoderConfig, *, seed: int = 0, device=None) -> Params:
     }
 
 
+# ---------------------------------------------------------------------------
+# f32-accumulating matmul
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` summed in f32 and returned in f32."""
+    if a.is_cuda and a.dtype in _LOW and b.dtype == a.dtype:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _cot(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The f32 cotangent as a matmul operand beside ``like``: rounded to
+    its low-precision dtype on the card (tensor cores), kept f32 elsewhere."""
+    return g.to(like.dtype) if g.is_cuda and like.dtype in _LOW else g
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a [M, K] @ b [K, N]`` → f32, gradients in each operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _mm32(_cot(g, b), b.t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _mm32(a.t(), _cot(g, a)).to(b.dtype)
+        return ga, gb
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _MatmulF32.apply(a, b)
+
+
 def pre_acts(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """Encoder pre-activations ``x @ W_enc + b_enc`` summed over sources:
-    ``[..., n, d_in]`` → ``[..., d_hidden]``, fp32 accumulation, result in
+    ``[B, n, d_in]`` → ``[B, d_hidden]``, f32 accumulation, result in
     ``x``'s dtype."""
-    h = torch.einsum("...nd,ndh->...h", x.float(), params["W_enc"].float())
-    return (h + params["b_enc"].float()).to(x.dtype)
+    W = params["W_enc"]
+    lead = x.shape[:-2]
+    h = matmul_f32(x.reshape(-1, W.shape[0] * W.shape[1]), W.reshape(-1, W.shape[2]))
+    return (h + params["b_enc"].float()).to(x.dtype).reshape(*lead, W.shape[2])
+
+
+def encode(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCoderConfig, *,
+           apply_activation: bool = True) -> torch.Tensor:
+    """Latent activations ``[B, d_hidden]`` (raw pre-activations with
+    ``apply_activation=False``)."""
+    h = pre_acts(params, x)
+    return act_ops.apply(h, cfg, dict(params)) if apply_activation else h
+
+
+def decode(params: Mapping[str, torch.Tensor], f: torch.Tensor) -> torch.Tensor:
+    """Reconstruction ``[B, n, d_in]`` from latents ``[B, d_hidden]``."""
+    W = params["W_dec"]
+    H, n, d = W.shape
+    y = matmul_f32(f.reshape(-1, H), W.reshape(H, n * d))
+    return (y + params["b_dec"].float().reshape(1, n * d)).to(f.dtype).reshape(*f.shape[:-1], n, d)
+
+
+def forward(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCoderConfig
+            ) -> torch.Tensor:
+    return decode(params, encode(params, x, cfg))
+
+
+# ---------------------------------------------------------------------------
+# TopK tiers
+
+
+def _decode_rows(vals: torch.Tensor, idx: torch.Tensor, W_dec: torch.Tensor) -> torch.Tensor:
+    """``Σ_j vals[b, j] · W_dec[idx[b, j]]`` → ``[B, n, d]`` f32, through
+    the k active decoder rows only."""
+    H, n, d = W_dec.shape
+    w = W_dec.reshape(H, n * d)[idx.long()]                       # [B, k, n*d]
+    return torch.bmm(vals.float()[:, None, :], w.float())[:, 0].reshape(-1, n, d)
+
+
+def _d_vals(g_flat: torch.Tensor, idx: torch.Tensor, W_dec: torch.Tensor) -> torch.Tensor:
+    """``<g[b], W_dec[idx[b, j]]>`` → ``[B, k]`` f32."""
+    H, n, d = W_dec.shape
+    w = W_dec.reshape(H, n * d)[idx.long()].float()               # [B, k, n*d]
+    return torch.bmm(w, g_flat[:, :, None])[:, :, 0]
+
+
+class _FactoredTopK(torch.autograd.Function):
+    """``(recon [B,n,d] f32 (no b_dec), vals, idx)`` from pre-acts ``h``:
+    K5 mask → K8 drain → k-row decode; backward through the dense
+    matmuls, exactly as the dense TopK path. ``vals``/``idx`` carry no
+    gradient (sound only with l1_coeff == 0, which the gate ensures)."""
+
+    @staticmethod
+    def forward(ctx, h, W_dec, k):
+        f = topk_pallas.topk_forward(h, k)
+        vals, idx = topk_pallas.sparsify(f, k)
+        ctx.save_for_backward(f, W_dec)
+        ctx.mark_non_differentiable(vals, idx)
+        return _decode_rows(vals, idx, W_dec), vals, idx
+
+    @staticmethod
+    def backward(ctx, g, _gv, _gi):
+        f, W_dec = ctx.saved_tensors
+        H, n, d = W_dec.shape
+        g_flat = g.float().reshape(-1, n * d)
+        ff = f.float()
+        dW_dec = torch.mm(ff.t(), g_flat).reshape(H, n, d).to(W_dec.dtype)
+        df = torch.mm(g_flat, W_dec.reshape(H, n * d).float().t())
+        dh = torch.where(f > 0, df, torch.zeros((), device=df.device)).to(f.dtype)
+        return dh, dW_dec, None
+
+
+def _sparse_step_backward(ctx, g):
+    """The sparse plane's backward, shared by the sparse and fused steps:
+    d_vals through the k active decoder rows, straight-through on the
+    survivors; dW_dec and (dW_enc, db_enc) as K10 scatters."""
+    x, vals, idx, W_enc, W_dec = ctx.saved_tensors
+    B = vals.shape[0]
+    H, n, d = W_dec.shape
+    nd = n * d
+    g_flat = g.float().reshape(B, nd)
+    d_vals = _d_vals(g_flat, idx, W_dec)
+    d_vals = torch.where(vals > 0, d_vals, torch.zeros((), device=d_vals.device))
+    dW_dec = sparse_grad.scatter_add_rows(vals.float(), idx, g_flat, H)
+    dW_dec = dW_dec.reshape(H, n, d).to(W_dec.dtype)
+    # one scatter over the batch rows with a ones column (lane block of
+    # 128, as the JAX package pads it) so db_enc rides the same sums
+    ones = torch.zeros((B, 128), dtype=torch.float32, device=x.device)
+    ones[:, 0] = 1.0
+    x_aug = torch.cat([x.reshape(B, nd).float(), ones], dim=1)
+    enc = sparse_grad.scatter_add_rows(d_vals, idx, x_aug, H)
+    dW_enc = enc[:, :nd].reshape(H, n, d).permute(1, 2, 0).to(W_enc.dtype).contiguous()
+    db_enc = enc[:, nd].to(ctx.b_dtype)
+    dx = None
+    if ctx.needs_input_grad[0]:
+        we = W_enc.reshape(nd, H).t()[idx.long()].float()          # [B, k, nd]
+        dx = torch.bmm(d_vals[:, None, :], we)[:, 0].reshape(B, n, d).to(x.dtype)
+    return dx, dW_enc, db_enc, dW_dec
+
+
+class _SparseTopKStep(torch.autograd.Function):
+    """``(recon [B,n,d] f32 (no b_dec), vals, idx)`` from the batch: encode
+    + K5 + K8 + k-row decode in one scope (``fused``: the K2 encoder→TopK
+    kernel in place of encode + K5 + K8), so the backward never leaves
+    factored form. Soundness gate: l1_coeff == 0."""
+
+    @staticmethod
+    def forward(ctx, x, W_enc, b_enc, W_dec, k, fused):
+        B = x.shape[0]
+        n, d, H = W_enc.shape
+        x2 = x.reshape(B, n * d)
+        W2 = W_enc.reshape(n * d, H)
+        if fused:
+            vals, idx = fek.fused_topk_encode(x2, W2, b_enc, k)
+        else:
+            h = (_mm32(x2, W2) + b_enc.float()).to(x.dtype)
+            f = topk_pallas.topk_forward(h, k)
+            vals, idx = topk_pallas.sparsify(f, k)
+        ctx.save_for_backward(x, vals, idx, W_enc, W_dec)
+        ctx.b_dtype = b_enc.dtype
+        ctx.mark_non_differentiable(vals, idx)
+        return _decode_rows(vals, idx, W_dec), vals, idx
+
+    @staticmethod
+    def backward(ctx, g, _gv, _gi):
+        return (*_sparse_step_backward(ctx, g), None, None)
+
+
+class _SparseTopKFromH(torch.autograd.Function):
+    """The (h, W_dec)-scoped sparse variant for AuxK steps: the factored
+    forward, backward with dW_dec through K10 and ``dh`` scattered back
+    to ``[B, H]`` (h has other consumers: the aux ranking)."""
+
+    @staticmethod
+    def forward(ctx, h, W_dec, k):
+        f = topk_pallas.topk_forward(h, k)
+        vals, idx = topk_pallas.sparsify(f, k)
+        ctx.save_for_backward(vals, idx, W_dec)
+        ctx.h_dtype = h.dtype
+        ctx.mark_non_differentiable(vals, idx)
+        return _decode_rows(vals, idx, W_dec), vals, idx
+
+    @staticmethod
+    def backward(ctx, g, _gv, _gi):
+        vals, idx, W_dec = ctx.saved_tensors
+        B = vals.shape[0]
+        H, n, d = W_dec.shape
+        g_flat = g.float().reshape(B, n * d)
+        d_vals = _d_vals(g_flat, idx, W_dec)
+        d_vals = torch.where(vals > 0, d_vals, torch.zeros((), device=d_vals.device))
+        dW_dec = sparse_grad.scatter_add_rows(vals.float(), idx, g_flat, H)
+        rows = torch.arange(B, device=idx.device)[:, None].expand_as(idx)
+        dh = torch.zeros((B, H), dtype=ctx.h_dtype, device=idx.device)
+        dh.index_put_((rows, idx.long()), d_vals.to(ctx.h_dtype), accumulate=True)
+        return dh, dW_dec.reshape(H, n, d).to(W_dec.dtype), None
+
+
+class _SparseAuxProduct(torch.autograd.Function):
+    """AuxK decode ``e_hat [B,n,d] f32``: the dense forward (aux
+    activations scattered to ``[B, H]``, one matmul), the backward through
+    the aux_k gathered rows (d_avals) and K10 (dW_dec)."""
+
+    @staticmethod
+    def forward(ctx, avals, aidx, W_dec):
+        B = avals.shape[0]
+        H, n, d = W_dec.shape
+        rows = torch.arange(B, device=aidx.device)[:, None].expand_as(aidx)
+        f_aux = torch.zeros((B, H), dtype=avals.dtype, device=avals.device)
+        f_aux.index_put_((rows, aidx.long()), avals, accumulate=True)
+        ctx.save_for_backward(avals, aidx, W_dec)
+        return _mm32(f_aux, W_dec.reshape(H, n * d)).reshape(B, n, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        avals, aidx, W_dec = ctx.saved_tensors
+        B = avals.shape[0]
+        H, n, d = W_dec.shape
+        g_flat = g.float().reshape(B, n * d)
+        d_avals = _d_vals(g_flat, aidx, W_dec).to(avals.dtype)
+        dW_dec = sparse_grad.scatter_add_rows(avals.float(), aidx, g_flat, H)
+        return d_avals, None, dW_dec.reshape(H, n, d).to(W_dec.dtype)
+
+
+# ---------------------------------------------------------------------------
+# tier gates (the JAX package's, with "kernel live" read as true)
+
+_FUSED_DEMOTION_WARNED: set[str] = set()
+
+
+def use_factored_decode(cfg: CrossCoderConfig) -> bool:
+    """The factored TopK tier: "off" never; "on" whenever sound
+    (l1_coeff == 0) and the JAX package's TopK/sparsify gates take the
+    dictionary; "auto" also needs dict_size >= 2^17 or sparse_bwd "on"."""
+    if cfg.activation != "topk" or cfg.sparse_decode:
+        return False
+    if cfg.factored_decode == "off" or cfg.l1_coeff != 0:
+        return False
+    if not topk_pallas.supported(cfg.dict_size, cfg.topk_k, dtype_of(cfg.enc_dtype)):
+        return False
+    if not topk_pallas.sparsify_supported(cfg.dict_size, cfg.topk_k):
+        return False
+    return cfg.factored_decode == "on" or cfg.dict_size >= 131072 or cfg.sparse_bwd == "on"
+
+
+def use_sparse_bwd(cfg: CrossCoderConfig, batch: int | None = None) -> bool:
+    """The sparse backward plane (``cfg.sparse_bwd``), on top of the
+    factored tier: "on" whenever sound; "auto" also needs the JAX
+    package's scatter gate to take both scatter shapes of the step."""
+    if cfg.activation != "topk" or cfg.sparse_decode:
+        return False
+    if cfg.sparse_bwd == "off" or cfg.l1_coeff != 0:
+        return False
+    if cfg.sparse_bwd == "on":
+        return True
+    return batch is None or sparse_grad.decode_grad_supported(
+        cfg.dict_size, cfg.topk_k, cfg.n_sources, cfg.d_in, batch)
+
+
+def use_sparse_aux(cfg: CrossCoderConfig, batch: int) -> bool:
+    """The sparse backward for the AuxK term: the sparse plane active and
+    the JAX package's scatter gate taking ``batch · aux_k`` pairs ("auto"
+    also needs ``aux_k · 512 <= dict_size``)."""
+    if cfg.aux_k <= 0 or not use_sparse_bwd(cfg):
+        return False
+    k_aux = min(cfg.aux_k, cfg.dict_size)
+    aux_ok = sparse_grad.supported(cfg.dict_size, cfg.n_sources * cfg.d_in, batch,
+                                   batch * k_aux)
+    if cfg.sparse_bwd == "on":
+        return aux_ok
+    return aux_ok and cfg.aux_k * 512 <= cfg.dict_size
+
+
+def use_fused_encoder(cfg: CrossCoderConfig, batch: int | None = None) -> bool:
+    """The fused encoder→TopK tier (``cfg.fused_encoder``) for ``topk``:
+    needs the factored tier and the sparse plane; "auto" also needs the
+    JAX package's fused gate to take the shape. An "on" demoted by a
+    prerequisite warns once on stderr."""
+    if cfg.fused_encoder == "off" or cfg.activation != "topk":
+        return False
+    if not (use_factored_decode(cfg) and use_sparse_bwd(cfg, batch)):
+        if cfg.fused_encoder == "on":
+            reason = ("activation='topk' needs the factored tier and the sparse "
+                      "backward plane live (use_factored_decode/use_sparse_bwd "
+                      "resolved off)")
+            if reason not in _FUSED_DEMOTION_WARNED:
+                _FUSED_DEMOTION_WARNED.add(reason)
+                print(f"[crosscoder_tpu_torch] fused_encoder='on' demoted to the "
+                      f"dense encode: {reason}", file=sys.stderr, flush=True)
+        return False
+    if cfg.fused_encoder == "on":
+        return True
+    qb = cfg.quant_block if cfg.quant_encoder else 0
+    return batch is None or fek.supported(batch, cfg.n_sources * cfg.d_in, cfg.dict_size,
+                                          cfg.topk_k, dtype_of(cfg.enc_dtype), qb)
+
+
+# ---------------------------------------------------------------------------
+# losses
+
+
+def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCoderConfig,
+               with_metrics: bool = True, dead_mask: torch.Tensor | None = None,
+               track_fired: bool = False) -> LossOutput:
+    """The loss surface of a batch ``x [B, n_sources, d_in]`` (reference
+    ``crosscoder.py:96-130``, f32 reductions). ``with_metrics=False``
+    returns zeros for the metric-only terms (l0, explained variances, and
+    l1 when ``cfg.l1_coeff == 0``)."""
+    if cfg.sparse_decode:
+        raise NotImplementedError(
+            "sparse_decode (the gather decode) is not ported; the factored tier "
+            "(factored_decode/sparse_bwd) covers the TopK decode")
+    x = x.to(dtype_of(cfg.enc_dtype))
+    B = x.shape[0]
+    factored = use_factored_decode(cfg)
+    h = None
+    aux_active = dead_mask is not None and cfg.aux_k > 0
+    sparse_bwd = factored and use_sparse_bwd(cfg, B)
+    fused = use_fused_encoder(cfg, B)
+    b_dec = params["b_dec"].float()
+    if factored and sparse_bwd and not aux_active:
+        if fused and cfg.quant_encoder:
+            raise NotImplementedError(
+                "quant_encoder needs the int8 fused kernel (K3), not ported yet")
+        recon_f32, vals, idx = _SparseTopKStep.apply(
+            x, params["W_enc"], params["b_enc"], params["W_dec"], cfg.topk_k, fused)
+        recon = (recon_f32 + b_dec).to(x.dtype)
+        f = None
+    elif factored:
+        h = pre_acts(params, x)
+        tier = _SparseTopKFromH if sparse_bwd else _FactoredTopK
+        recon_f32, vals, idx = tier.apply(h, params["W_dec"], cfg.topk_k)
+        recon = (recon_f32 + b_dec).to(x.dtype)
+        f = None
+    else:
+        h = pre_acts(params, x)
+        f = act_ops.apply(h, cfg, dict(params))
+        recon = decode(params, f)
+    sparse = factored
+
+    xf = x.float()
+    rf = recon.float()
+    err2 = torch.square(rf - xf)
+    l2_per_row = err2.sum(dim=(-2, -1))
+    l2_loss = l2_per_row.mean()
+
+    need_l1 = with_metrics or cfg.l1_coeff != 0
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if not need_l1:
+        l1_loss = zero
+    else:
+        total_dec_norm = torch.linalg.norm(params["W_dec"].float(), dim=-1).sum(dim=-1)
+        if sparse:
+            w_active = total_dec_norm[idx.long()]
+            l1_loss = (vals.float() * w_active).sum(dim=-1).mean()
+        else:
+            l1_loss = (f.float() * total_dec_norm[None, :]).sum(dim=-1).mean()
+
+    aux_loss: torch.Tensor | float = 0.0
+    fired = None
+    d_hidden = params["W_dec"].shape[0]
+    if track_fired or aux_active:
+        if sparse:
+            hits = torch.zeros((d_hidden,), dtype=torch.int32, device=x.device)
+            hits.index_add_(0, idx.reshape(-1).long(), (vals.reshape(-1) > 0).to(torch.int32))
+            fired = hits > 0
+        else:
+            fired = (f > 0).any(dim=0)
+    if aux_active:
+        k_aux = min(cfg.aux_k, d_hidden)
+        h_all = h if h is not None else pre_acts(params, x)
+        neg = torch.finfo(h_all.dtype).min
+        ranked = torch.where(dead_mask[None, :], h_all.detach(),
+                             torch.full((), neg, dtype=h_all.dtype, device=x.device))
+        aidx = _exact_topk_indices(ranked, k_aux)
+        avals = torch.gather(h_all, 1, aidx)
+        avals = torch.where(dead_mask[aidx], avals, torch.zeros((), dtype=avals.dtype,
+                                                                device=x.device))
+        e = (xf - rf).detach()
+        if use_sparse_aux(cfg, B):
+            e_hat = _SparseAuxProduct.apply(avals.to(x.dtype), aidx, params["W_dec"])
+        else:
+            rows = torch.arange(B, device=x.device)[:, None].expand_as(aidx)
+            f_aux = torch.zeros((B, d_hidden), dtype=x.dtype, device=x.device)
+            f_aux = f_aux.index_put((rows, aidx), avals.to(x.dtype), accumulate=True)
+            W = params["W_dec"]
+            e_hat = matmul_f32(f_aux, W.reshape(d_hidden, -1)).reshape(B, *W.shape[1:])
+        num = torch.square(e_hat - e).sum(dim=(-2, -1)).mean()
+        den = torch.square(e).sum(dim=(-2, -1)).mean()
+        aux_loss = torch.where(dead_mask.any(), num / (den + 1e-8), zero)
+
+    if not with_metrics:
+        return LossOutput(l2_loss, l1_loss, zero, torch.zeros_like(l2_per_row),
+                          torch.zeros((x.shape[-2], B), dtype=torch.float32, device=x.device),
+                          aux_loss, fired)
+
+    eps = 1e-8
+    centered = xf - xf.mean(dim=0, keepdim=True)
+    tot_var = torch.square(centered).sum(dim=(-2, -1))
+    explained_variance = 1.0 - l2_per_row / (tot_var + eps)
+    l2_per_source = err2.sum(dim=-1)
+    var_per_source = torch.square(centered).sum(dim=-1)
+    ev_per_source = 1.0 - l2_per_source / (var_per_source + eps)
+    if sparse:
+        l0_loss = (vals > 0).float().sum(dim=-1).mean()
+    else:
+        l0_loss = (f > 0).float().sum(dim=-1).mean()
+    return LossOutput(l2_loss, l1_loss, l0_loss, explained_variance, ev_per_source.t(),
+                      aux_loss, fired)
+
+
+def _exact_topk_indices(ranked: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries per row, ties to the lowest index
+    (``lax.top_k``'s order), through one int64 key per entry: the f32
+    pattern mapped to a signed total order, then the inverted column, so
+    ``torch.topk``'s unspecified order among equal values never matters."""
+    bits = ranked.float().view(torch.int32).to(torch.int64)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    col = torch.arange(ranked.shape[-1], device=ranked.device)
+    return torch.topk((key << 32) | (0x7FFFFFFF - col), k, dim=-1).indices
+
+
+def cast_params(params: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Params:
+    """Weight leaves in the compute dtype (``log_theta`` stays f32)."""
+    return {k: (v if k == "log_theta" else v.to(dtype)) for k, v in params.items()}
+
+
+def training_loss(params: Mapping[str, torch.Tensor], x: torch.Tensor, l1_coeff,
+                  cfg: CrossCoderConfig, with_metrics: bool = True,
+                  dead_mask: torch.Tensor | None = None, aux_coeff=None,
+                  track_fired: bool = False) -> tuple[torch.Tensor, LossOutput]:
+    """Scalar objective ``l2 + l1_coeff · l1`` (+ ``aux_coeff · aux_loss``
+    on AuxK steps) and the loss surface. Params may be f32 masters; they
+    are cast to ``cfg.enc_dtype`` here (differentiably)."""
+    if not with_metrics and cfg.l1_coeff == 0 and float(l1_coeff) != 0.0:
+        raise ValueError(
+            f"training_loss got l1_coeff={float(l1_coeff)} but cfg.l1_coeff == 0 and "
+            f"with_metrics=False: the L1 term is skipped on this path, so the "
+            f"sparsity penalty would be silently dropped")
+    losses = get_losses(cast_params(params, dtype_of(cfg.enc_dtype)), x, cfg, with_metrics,
+                        dead_mask=dead_mask, track_fired=track_fired)
+    loss = losses.l2_loss + l1_coeff * losses.l1_loss
+    if cfg.aux_k > 0 and dead_mask is not None:
+        eff_aux = cfg.aux_k_coeff if aux_coeff is None else aux_coeff
+        loss = loss + eff_aux * losses.aux_loss
+    return loss, losses
+
+
+def fold_scaling_factors(params: Mapping[str, torch.Tensor], factors: Any) -> Params:
+    """Fold per-source activation-normalization factors ``s`` into the
+    weights (reference ``nb:cell 27``): ``W_enc[n] *= s[n]``,
+    ``W_dec[:, n] /= s[n]``, ``b_dec[n] /= s[n]``."""
+    s = torch.as_tensor(factors, dtype=torch.float32, device=params["W_enc"].device)
+    out = dict(params)
+    out["W_enc"] = (params["W_enc"].float() * s[:, None, None]).to(params["W_enc"].dtype)
+    out["W_dec"] = (params["W_dec"].float() / s[None, :, None]).to(params["W_dec"].dtype)
+    out["b_dec"] = (params["b_dec"].float() / s[:, None]).to(params["b_dec"].dtype)
+    return out
 
 
 class CrossCoder(nn.Module):
-    """The crosscoder's serving params as an ``nn.Module`` (no gradients:
-    training is not ported yet)."""
+    """The crosscoder's params as a trainable ``nn.Module``. ``forward``
+    encodes and decodes under ``cfg``, or gives the pre-activations when
+    no ``cfg`` is set."""
 
-    def __init__(self, params: Mapping[str, torch.Tensor]) -> None:
+    def __init__(self, params: Mapping[str, torch.Tensor], cfg: CrossCoderConfig | None = None
+                 ) -> None:
         super().__init__()
+        self.cfg = cfg
         for name in ("W_enc", "W_dec", "b_enc", "b_dec"):
-            self.register_parameter(name, nn.Parameter(params[name], requires_grad=False))
+            self.register_parameter(name, nn.Parameter(params[name]))
 
     def params(self) -> Params:
-        return {name: p.data for name, p in self.named_parameters()}
+        return {name: p for name, p in self.named_parameters()}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return pre_acts(self.params(), x)
+        if self.cfg is None:
+            return pre_acts(self.params(), x)
+        return forward(self.params(), x, self.cfg)

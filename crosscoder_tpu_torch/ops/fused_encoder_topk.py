@@ -143,3 +143,35 @@ def fused_topk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
 
 
 fused_topk_encode.launches = 0
+
+
+# --- the JAX package's dispatch gate (crosscoder_tpu/ops/fused_encoder_topk.py) ---
+_JAX_VMEM_BUDGET = 13 << 20
+
+
+def _jax_geometry(nd: int, itemsize: int, quant_block: int) -> bool:
+    for cw in (512, 256, 128):
+        for rows in (128, 96, 64, 32):
+            if quant_block:
+                nb = nd // quant_block
+                used = (2 * nd * cw + 2 * nb * cw * 4 + rows * nd + rows * nb * 4
+                        + rows * cw * 8 + cw * 8)
+            else:
+                used = 2 * nd * cw * itemsize + rows * nd * itemsize + rows * cw * 8 + cw * 8
+            if used <= _JAX_VMEM_BUDGET:
+                return True
+    return False
+
+
+def supported(n_rows: int, nd: int, width: int, k: int, dtype: torch.dtype,
+              quant_block: int = 0) -> bool:
+    """The JAX package's ``fused_encoder_topk.supported``, which decides the
+    fused tier (``models/crosscoder.use_fused_encoder``); not a limit of
+    the Hopper kernel (:func:`check_supported` is)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    if nd < 128 or nd % 128 or not (0 < k <= 128 and k <= width):
+        return False
+    if quant_block and (quant_block % 128 or nd % quant_block):
+        return False
+    return _jax_geometry(nd, 2 if dtype == torch.bfloat16 else 4, quant_block)

@@ -1,0 +1,220 @@
+"""Exact per-row TopK mask and the sparsify drain, ported from
+:mod:`crosscoder_tpu.ops.topk_pallas`.
+
+- :func:`topk` (``h [..., width]`` → the top-k of ``relu(h)`` per row,
+  zeros elsewhere; ties to the lowest index) is a
+  :class:`torch.autograd.Function` whose backward is the straight-through
+  mask ``where(out > 0, g, 0)``. On CUDA tensors it launches the K5 kernel
+  ``csrc/topk_mask.cu``, which takes bf16 rows up to 2^16 wide; f32 rows
+  (the TPU's K6 ``_topk_mask_kernel``) and wider rows (K7, the
+  width-chunked kernels) are not ported yet and raise :class:`ValueError`.
+- :func:`sparsify` (``f [..., width]`` with at most k positives a row →
+  ``(vals [..., k], idx [..., k] int32)``, ascending index,
+  ``(0, 0)``-padded; a row past k overwrites slot k-1) launches K8,
+  ``csrc/sparsify.cu``, on CUDA tensors, bf16 or f32.
+
+Each has a plain PyTorch version (:func:`topk_plain`,
+:func:`sparsify_plain`) with the same bits as the kernel; the wrappers use
+it for CPU tensors only. :func:`supported` and :func:`sparsify_supported`
+mirror the JAX package's dispatch gates of the same names, which decide
+the crosscoder's TopK tiers; they are not limits of the Hopper kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_MAX_WIDTH = 1 << 16          # K5: bf16 rows up to 2^16 wide (composite-key domain)
+
+# --- the JAX package's dispatch gates (crosscoder_tpu/ops/topk_pallas.py) ---
+_VMEM_BUDGET_BYTES = 13 << 20
+_MIN_ROWS = 32
+_CHUNK_WIDTH = 4096
+_SPARSIFY_CW = 2048
+
+
+def supported(width: int, k: int, dtype: torch.dtype) -> bool:
+    """The JAX package's ``topk_pallas.supported`` for rows of this width
+    and dtype: whether a TPU kernel takes them (else it runs the dense
+    path, which computes the same mask)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    composite = (dtype == torch.bfloat16 and width % 128 == 0
+                 and 256 <= width <= _MAX_WIDTH and 0 < k < width)
+    single = (width % 128 == 0 and width >= 256 and 0 < k < width
+              and _MIN_ROWS * width * (2 * itemsize + 8) <= _VMEM_BUDGET_BYTES)
+    chunked = width % _CHUNK_WIDTH == 0 and width // _CHUNK_WIDTH >= 2 and 0 < k < width
+    return composite or single or chunked
+
+
+def sparsify_supported(width: int, k: int) -> bool:
+    """The JAX package's ``topk_pallas.sparsify_supported``."""
+    return 0 < k <= 128 and (width % _SPARSIFY_CW == 0 or width <= 8192)
+
+
+# ---------------------------------------------------------------------------
+# K5: TopK mask
+
+
+def _keys(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(key, value)``: the int64 selection key of each entry (-1: never
+    kept) and the value written where it is kept. bf16 rows use the TPU
+    composite kernel's clamped 15-bit patterns (every NaN as 0x7FFE above
+    +inf, sign-set patterns as 0, the value rebuilt from the pattern); f32
+    rows the bit patterns of ``max(h, 0)`` with NaN kept (negative NaN and
+    -0.0 never kept)."""
+    if h.dtype == torch.bfloat16:
+        p = h.view(torch.int16).to(torch.int32) & 0xFFFF
+        neg = torch.where(p > 0xFF80, 0x7FFE, 0)
+        p = torch.where(p >= 0x8000, neg, torch.clamp(p, max=0x7FFE))
+        return p.to(torch.int64), p.to(torch.int16).view(torch.bfloat16)
+    hp = torch.where(torch.isnan(h) | (h > 0), h, torch.zeros((), dtype=h.dtype, device=h.device))
+    bits = hp.view(torch.int32).to(torch.int64)
+    return torch.where(bits < 0, -1, bits), hp
+
+
+def topk_plain(h: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain PyTorch version of the TopK mask: the exact top-k by
+    (key desc, column asc) through one int64 composite key, so
+    ``torch.topk``'s order among equal values never matters."""
+    width = h.shape[-1]
+    flat = h.reshape(-1, width)
+    key, value = _keys(flat)
+    col = torch.arange(width, device=h.device, dtype=torch.int64)
+    comp = torch.where(key >= 0, (key << 32) | (0x7FFFFFFF - col), -1)
+    top = torch.topk(comp, k, dim=-1).indices
+    keep = torch.zeros_like(comp, dtype=torch.bool).scatter_(1, top, True) & (key >= 0)
+    out = torch.where(keep, value, torch.zeros((), dtype=h.dtype, device=h.device))
+    return out.reshape(h.shape)
+
+
+def check_topk_supported(h: torch.Tensor, k: int) -> None:
+    """Raise :class:`ValueError` for rows the K5 kernel does not take."""
+    width = h.shape[-1]
+    if h.dtype == torch.float32:
+        raise ValueError(
+            "topk on f32 rows needs the f32 mask kernel (K6, "
+            "crosscoder_tpu/ops/topk_pallas.py _topk_mask_kernel), which is "
+            "not ported to CUDA yet; train with enc_dtype='bf16'")
+    if h.dtype != torch.bfloat16:
+        raise ValueError(f"topk kernel takes bf16 rows, got {h.dtype}")
+    if width > _MAX_WIDTH:
+        raise ValueError(
+            f"topk on rows {width} wide needs the width-chunked kernels (K7, "
+            f"crosscoder_tpu/ops/topk_pallas.py _bisect_kernel/_emit_kernel), "
+            f"which are not ported to CUDA yet; K5 takes rows up to {_MAX_WIDTH}")
+    if not 0 < k <= width:
+        raise ValueError(f"topk kernel takes 0 < k <= width={width}, got {k}")
+
+
+def topk_forward(h: torch.Tensor, k: int) -> torch.Tensor:
+    """The TopK mask without autograd: plain version on CPU tensors, the
+    K5 kernel on CUDA tensors (or :class:`ValueError`)."""
+    if h.device.type == "cpu":
+        return topk_plain(h, k)
+    if h.device.type != "cuda":
+        raise ValueError(f"topk runs on cpu or cuda, got {h.device}")
+    from crosscoder_tpu_torch.ops import _build
+
+    check_topk_supported(h, k)
+    width = h.shape[-1]
+    flat = h.reshape(-1, width).contiguous()
+    out = torch.empty_like(flat)
+    vec = int(width % 8 == 0 and flat.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    fn = _build.load("topk_mask").topk_mask_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    code = fn(flat.data_ptr(), out.data_ptr(), flat.shape[0], width, k, vec,
+              torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(code, "topk mask kernel")
+    topk.launches += 1
+    return out.reshape(h.shape)
+
+
+class _TopK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, k):
+        out = topk_forward(h, k)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # straight-through on the survivors: survivors that are exactly 0
+        # get no gradient, as under relu's subgradient at 0
+        (out,) = ctx.saved_tensors
+        return torch.where(out > 0, g, torch.zeros((), dtype=g.dtype, device=g.device)), None
+
+
+def topk(h: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact top-k of the ReLU'd entries of each row, zeros elsewhere,
+    ties to the lowest index; differentiable (straight-through). The plain
+    version on CPU tensors, K5 on CUDA tensors (or :class:`ValueError`)."""
+    return _TopK.apply(h, k)
+
+
+topk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: sparsify
+
+
+def sparsify_plain(f: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`sparsify`."""
+    width = f.shape[-1]
+    flat = f.reshape(-1, width)
+    R = flat.shape[0]
+    pos = flat.float() > 0
+    rank = torch.cumsum(pos.to(torch.int32), dim=1) - 1
+    vals = torch.zeros((R, k), dtype=f.dtype, device=f.device)
+    idx = torch.zeros((R, k), dtype=torch.int32, device=f.device)
+    r, c = torch.nonzero(pos & (rank < k - 1), as_tuple=True)
+    vals[r, rank[r, c].long()] = flat[r, c]
+    idx[r, rank[r, c].long()] = c.to(torch.int32)
+    # a row with k or more positives ends with its last one in slot k-1
+    total = pos.sum(dim=1)
+    col = torch.arange(width, device=f.device)
+    last = torch.where(pos, col, -1).amax(dim=1)
+    over = torch.nonzero(total >= k, as_tuple=True)[0]
+    vals[over, k - 1] = flat[over, last[over]]
+    idx[over, k - 1] = last[over].to(torch.int32)
+    return vals.reshape(*f.shape[:-1], k), idx.reshape(*f.shape[:-1], k)
+
+
+def sparsify(f: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(vals [..., k] in f.dtype, idx [..., k] int32)``: the entries > 0
+    of each row in ascending index order, ``(0, 0)``-padded; a row with
+    more than k of them keeps its last in slot k-1. Not differentiable.
+    The plain version on CPU tensors, K8 on CUDA tensors (or
+    :class:`ValueError`)."""
+    if f.device.type == "cpu":
+        return sparsify_plain(f, k)
+    if f.device.type != "cuda":
+        raise ValueError(f"sparsify runs on cpu or cuda, got {f.device}")
+    from crosscoder_tpu_torch.ops import _build
+
+    if f.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"sparsify kernel takes bf16 or f32 rows, got {f.dtype}")
+    if k < 1:
+        raise ValueError(f"sparsify kernel takes k >= 1, got {k}")
+    width = f.shape[-1]
+    flat = f.reshape(-1, width).contiguous()
+    R = flat.shape[0]
+    vals = torch.empty((R, k), dtype=f.dtype, device=f.device)
+    idx = torch.empty((R, k), dtype=torch.int32, device=f.device)
+    vec = int(width % 8 == 0 and flat.data_ptr() % 16 == 0)
+    fn = _build.load("sparsify").sparsify_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    code = fn(flat.data_ptr(), vals.data_ptr(), idx.data_ptr(), R, width, k,
+              int(f.dtype == torch.bfloat16), vec, torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(code, "sparsify kernel")
+    sparsify.launches += 1
+    return vals.reshape(*f.shape[:-1], k), idx.reshape(*f.shape[:-1], k)
+
+
+sparsify.launches = 0

@@ -1,0 +1,236 @@
+"""The single-device Trainer, ported from :mod:`crosscoder_tpu.train.trainer`.
+
+Step math as the JAX package's (reference ``trainer.py:7-82``):
+``loss = l2 + l1_coeff(step)·l1`` (+ the AuxK term on aux steps), global
+norm clip at ``cfg.grad_clip``, Adam(β1, β2, eps 1e-8), LR/L1 schedules at
+the pre-increment step, ``total_steps = num_tokens // batch_size``. Each
+step runs the variant ``(with_metrics, aux_on, mask_refresh)`` that
+:func:`variant_for_step` picks, updates the AuxK fired-tracking
+(``steps_since_fired``) and reports ``dead_frac``. Metrics stay on the
+device until a log step reads them.
+
+The data source is any object with ``next()`` returning a ``[batch,
+n_sources, d_in]`` numpy array or tensor (the synthetic source here).
+
+Not ported in this slice (ROADMAP Queue A): mesh and multi-host runs,
+``quant_grads``, chaos/watchdog/elastic, the observability plane, the
+compile cache, prefetch threads, the fleet, checkpoints (and with them
+``resume`` and the loss guard's rollback), dead-latent resampling.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from crosscoder_tpu_torch.config import CrossCoderConfig
+from crosscoder_tpu_torch.models import crosscoder as cc
+from crosscoder_tpu_torch.train import schedules
+from crosscoder_tpu_torch.train.state import Optimizer, TrainState, init_train_state
+from crosscoder_tpu_torch.utils.device import resolve_device
+from crosscoder_tpu_torch.utils.logging import MetricsLogger, source_tag
+
+
+def variant_for_step(cfg: CrossCoderConfig, host_step: int, full_metrics: bool = True
+                     ) -> tuple[bool, bool, bool]:
+    """The step variant ``(with_metrics, aux_on, mask_refresh)`` that step
+    ``host_step`` of a run under ``cfg`` executes (``aux_every``
+    amortization of the AuxK term, ``aux_mask_every`` dead-mask caching)."""
+    aux_on = cfg.aux_k == 0 or cfg.aux_every <= 1 or host_step % cfg.aux_every == 0
+    cached_mask = (cfg.aux_k > 0 or cfg.resample_every > 0) and cfg.aux_mask_every != 1
+    mask_refresh = not cached_mask or host_step % cfg.aux_mask_cadence == 0
+    return (full_metrics, aux_on, mask_refresh)
+
+
+def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = True,
+                   aux_on: bool = True, mask_refresh: bool = True
+                   ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
+                                 tuple[TrainState, dict[str, Any]]]:
+    """``step_fn(state, batch, scale) -> (new_state, metrics)`` for one
+    variant: ``x = batch · scale`` per source, value and gradients of
+    :func:`crosscoder.training_loss`, the optimizer update and the AuxK
+    bookkeeping. ``metrics`` hold device tensors (no sync).
+    ``step_fn.loss_and_grads(state, batch, scale)`` gives the step's loss,
+    loss surface and gradients without the update."""
+    if cfg.batchtopk_threshold > 0:
+        raise ValueError("cfg.batchtopk_threshold is an eval-mode setting; clear it "
+                         "(0.0) before building a train step")
+    lr_fn = schedules.lr_schedule(cfg)
+    l1_fn = schedules.l1_coeff_schedule(cfg)
+    warm_fn = schedules.sparsity_warmup_schedule(cfg)
+    track_fired = cfg.aux_k > 0 or cfg.resample_every > 0
+    cached_mask = track_fired and cfg.aux_mask_every != 1
+
+    def _dead_mask(state: TrainState):
+        if not track_fired:
+            return None
+        if cached_mask and not mask_refresh:
+            return state.aux["dead_mask"]
+        thresh = cfg.aux_dead_steps if cfg.aux_k > 0 else cfg.resample_threshold_steps
+        return state.aux["steps_since_fired"] >= thresh
+
+    def loss_and_grads(state: TrainState, batch: torch.Tensor, scale: torch.Tensor):
+        """``(loss, losses, grads, dead, aux)`` of this variant at ``state``
+        on ``batch``, with no update."""
+        x = batch.float() * scale[None, :, None]
+        names = sorted(state.params)
+        params = {k: state.params[k].detach().requires_grad_(True) for k in names}
+        kwargs: dict[str, Any] = {}
+        dead = _dead_mask(state)
+        aux = dead is not None and cfg.aux_k > 0 and aux_on
+        if aux:
+            kwargs["dead_mask"] = dead
+            kwargs["aux_coeff"] = float(np.float32(cfg.aux_k_coeff) * warm_fn(state.step))
+        loss, losses = cc.training_loss(params, x, float(l1_fn(state.step)), cfg, with_metrics,
+                                        track_fired=track_fired, **kwargs)
+        grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
+        grads = {k: torch.zeros_like(params[k]) if g is None else g
+                 for k, g in zip(names, grads)}
+        return loss.detach(), losses, grads, dead, aux
+
+    def step_fn(state: TrainState, batch: torch.Tensor, scale: torch.Tensor):
+        l1_coeff = l1_fn(state.step)
+        loss, losses, grads, dead, aux = loss_and_grads(state, batch, scale)
+        new_params, new_opt = opt.update(grads, state.opt_state, state.params)
+        metrics: dict[str, Any] = {
+            "loss": loss,
+            "l2_loss": losses.l2_loss.detach(),
+            "l1_loss": losses.l1_loss.detach(),
+            "l1_coeff": float(l1_coeff),
+            "lr": float(lr_fn(state.step)),
+        }
+        new_aux = state.aux
+        if track_fired:
+            new_aux = dict(state.aux)
+            new_aux["steps_since_fired"] = torch.where(
+                losses.fired, 0, state.aux["steps_since_fired"] + 1).to(torch.int32)
+            if cached_mask:
+                new_aux["dead_mask"] = dead
+            metrics["dead_frac"] = dead.float().mean()
+            if aux:
+                metrics["aux_loss"] = losses.aux_loss.detach()
+        if with_metrics:
+            metrics["l0_loss"] = losses.l0_loss.detach()
+            metrics["explained_variance"] = losses.explained_variance.detach().mean()
+            metrics["explained_variance_per_source"] = (
+                losses.explained_variance_per_source.detach().mean(dim=-1))
+        return TrainState(new_params, new_opt, state.step + 1, new_aux), metrics
+
+    step_fn.loss_and_grads = loss_and_grads
+    return step_fn
+
+
+def expand_metrics(metrics: dict[str, Any], n_sources: int) -> dict[str, float]:
+    """Host floats, with the per-source EV flattened into the reference's
+    scalar names (``explained_variance_A``/``_B`` for two sources)."""
+    out: dict[str, float] = {}
+    for k, v in metrics.items():
+        if k == "explained_variance_per_source":
+            arr = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+            for i in range(n_sources):
+                out[f"explained_variance_{source_tag(i)}"] = float(arr[i])
+        else:
+            out[k] = float(v)
+    return out
+
+
+class Trainer:
+    """Host loop around the step.
+
+    ``buffer``: activation source with ``next()`` (default: the synthetic
+    source). ``state``: a starting :class:`TrainState` (default: a fresh
+    one from ``cfg.seed``; :func:`crosscoder_tpu_torch.convert.train_state_from_numpy`
+    carries a JAX one over). Runs on ``cuda`` unless ``device`` names
+    another device.
+    """
+
+    def __init__(self, cfg: CrossCoderConfig, buffer: Any | None = None,
+                 logger: MetricsLogger | None = None, device=None,
+                 state: TrainState | None = None) -> None:
+        for knob, on in (("resume", cfg.resume), ("guard_loss", cfg.guard_loss),
+                         ("resample_every", cfg.resample_every > 0),
+                         ("quant_grads", cfg.quant_grads), ("fleet", cfg.fleet == "on"),
+                         ("elastic", cfg.elastic == "on"), ("obs", cfg.obs == "on"),
+                         ("chaos", bool(cfg.chaos))):
+            if on:
+                raise NotImplementedError(
+                    f"cfg.{knob} is not ported to the PyTorch trainer yet (ROADMAP Queue A)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if buffer is None:
+            from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+
+            buffer = SyntheticActivationSource(cfg)
+        self.buffer = buffer
+        self.logger = logger
+        self.total_steps = cfg.total_steps
+        self.opt = Optimizer(cfg, schedules.lr_schedule(cfg))
+        self.state = state if state is not None else init_train_state(
+            cfg, self.opt, device=self.device)
+        self._scale = torch.ones((cfg.n_sources,), dtype=torch.float32, device=self.device)
+        self._step_fns: dict[tuple[bool, bool, bool], Callable] = {}
+        self._host_step = self.state.step
+        if cc.use_sparse_bwd(cfg, cfg.batch_size):
+            print(f"[crosscoder_tpu_torch] sparse backward plane active "
+                  f"({'K10 scatter kernel' if self.device.type == 'cuda' else 'plain scatter'})",
+                  file=sys.stderr, flush=True)
+
+    @property
+    def step_counter(self) -> int:
+        return self.state.step
+
+    def _next_batch(self) -> torch.Tensor:
+        b = self.buffer.next()
+        if not torch.is_tensor(b):
+            b = torch.from_numpy(np.ascontiguousarray(b))
+        return b.to(self.device, non_blocking=True)
+
+    def step(self, full_metrics: bool = True) -> dict[str, Any]:
+        """One optimizer step; returns device-resident metrics (no sync).
+        ``full_metrics=False`` runs the bare variant (no l0/EV metrics)."""
+        key = variant_for_step(self.cfg, self._host_step, full_metrics)
+        fn = self._step_fns.get(key)
+        if fn is None:
+            fn = self._step_fns[key] = make_step_body(
+                self.cfg, self.opt, with_metrics=key[0], aux_on=key[1], mask_refresh=key[2])
+        self.state, metrics = fn(self.state, self._next_batch(), self._scale)
+        self._host_step += 1
+        return metrics
+
+    def log(self, metrics: dict[str, Any], step: int) -> None:
+        if self.logger is not None:
+            self.logger.log(expand_metrics(metrics, self.cfg.n_sources), step)
+
+    def train(self, num_steps: int | None = None) -> dict[str, float]:
+        """Run to ``num_steps`` (default ``total_steps``): log every
+        ``log_every`` steps with ``step_time_ms`` (mean since the last log,
+        synced at log points only), then close."""
+        num_steps = self.total_steps if num_steps is None else num_steps
+        metrics: dict[str, Any] = {}
+        try:
+            start = self.step_counter
+            last_t, last_i = time.perf_counter(), start
+            for i in range(start, num_steps):
+                metrics = self.step(full_metrics=(i % self.cfg.log_every == 0))
+                if i % self.cfg.log_every == 0:
+                    float(metrics["loss"])                      # device sync
+                    now = time.perf_counter()
+                    metrics = dict(metrics)
+                    metrics["step_time_ms"] = 1000 * (now - last_t) / max(i - last_i, 1)
+                    last_t, last_i = now, i
+                    self.log(metrics, step=i)
+        finally:
+            self.close()
+        return expand_metrics(metrics, self.cfg.n_sources) if metrics else {}
+
+    def close(self) -> None:
+        """Close the logger and the source. Idempotent."""
+        if self.logger is not None:
+            self.logger.close()
+            self.logger = None
+        if hasattr(self.buffer, "close"):
+            self.buffer.close()

@@ -14,8 +14,12 @@ from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.models import crosscoder, lm
 from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
 from crosscoder_tpu_torch.ops import paged_attention as pa
+from crosscoder_tpu_torch.ops import sparse_grad, topk_pallas
 from crosscoder_tpu_torch.serve import InferenceEngine
 from crosscoder_tpu_torch.serve.smoke import build_engine, serve_batch
+from crosscoder_tpu_torch.train import main as train_main
+from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+from crosscoder_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "crosscoder_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -44,20 +48,33 @@ def test_default_device_raises_without_cuda(monkeypatch):
                  lambda: convert.lm_params_from_numpy({"embed": np.zeros((2, 2), np.float32)}),
                  lambda: convert.crosscoder_params_from_numpy({"b_enc": np.zeros(2, np.float32)}),
                  lambda: InferenceEngine(cfg, lm.LMConfig.tiny(), [], {"W_enc": torch.zeros(1)}),
-                 lambda: build_engine()):
+                 lambda: build_engine(),
+                 lambda: Trainer(cfg),
+                 lambda: init_train_state(cfg, Optimizer(cfg, lambda s: 0.0)),
+                 lambda: convert.train_state_from_numpy(None),
+                 lambda: train_main.main(["--data-source", "synthetic", "--d-in", "32",
+                                          "--dict-size", "64", "--log-backend", "null"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
 
 def test_cpu_run_launches_no_kernel():
-    pa.paged_attention.launches = 0
-    fek.fused_topk_encode.launches = 0
+    counters = (pa.paged_attention, fek.fused_topk_encode, topk_pallas.topk,
+                topk_pallas.sparsify, sparse_grad.scatter_add_rows)
+    for c in counters:
+        c.launches = 0
     eng, _, lm_cfg, _, _ = build_engine(device="cpu")
     rng = np.random.default_rng(0)
     res = serve_batch(eng, [rng.integers(1, lm_cfg.vocab_size, size=n, dtype=np.int32)
                             for n in (3, 16, 9)])
     assert len(res) == 3
-    assert pa.paged_attention.launches == 0 and fek.fused_topk_encode.launches == 0
+    tcfg = CrossCoderConfig(d_in=32, dict_size=256, batch_size=16, activation="topk",
+                            topk_k=8, l1_coeff=0.0, sparse_bwd="on", aux_k=16,
+                            aux_dead_steps=1, log_backend="null")
+    tr = Trainer(tcfg, device="cpu")
+    for _ in range(3):
+        assert torch.isfinite(tr.step()["loss"])
+    assert all(c.launches == 0 for c in counters)
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         pa.paged_attention(*(torch.zeros(1, 4, 2, 8, device="meta") for _ in range(3)),
                            torch.ones(1), page_size=4, scale=1.0)

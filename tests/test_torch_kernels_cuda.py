@@ -8,15 +8,20 @@ runs it as is:
 Tolerances: paged attention 1e-5 in fp32 and 2e-2 in bf16 on valid rows
 (online softmax reassociates the sum; the plain version rounds the
 probabilities to bf16); the fused encoder→TopK bitwise on integer-valued
-operands, whose fp32 sums are exact in any order."""
+operands, whose fp32 sums are exact in any order; the TopK mask (K5), the
+sparsify drain (K8) and the sorted-pair scatter (K10) bitwise on any
+inputs, since each does the plain version's arithmetic in its order."""
 
 import numpy as np
 import pytest
 import torch
 
+from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.models import lm
 from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
 from crosscoder_tpu_torch.ops import paged_attention as pa
+from crosscoder_tpu_torch.ops import sparse_grad, topk_pallas
+from crosscoder_tpu_torch.train.trainer import Trainer
 from crosscoder_tpu_torch.serve.smoke import build_engine, oracle, serve_batch, serve_plain
 
 pytestmark = pytest.mark.cuda
@@ -119,3 +124,82 @@ def test_serve_path_on_the_card(cuda):
         np.testing.assert_allclose(r.vals, vals[i], rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(r.vals, ovals[i], rtol=1e-4, atol=1e-5)
         np.testing.assert_array_equal(r.diff, diff[i])
+
+
+def _planted_bf16(seed, R, W):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randint(-6, 7, (R, W), generator=gen, device="cuda").float()
+    h[0, : W // 2] = 5.0                  # ties far wider than k
+    h[1] = -1.0
+    h[1, 3] = 2.0                         # fewer than k positives
+    h[2] = -0.0
+    h[3, 5] = float("nan")
+    h = h.to(torch.bfloat16)
+    bits = h.view(torch.int16)
+    bits[4, 7], bits[4, 9], bits[4, 11] = -1, 0x7FFF, -64    # 0xFFFF, 0x7FFF, 0xFFC0
+    return h
+
+
+def _same_bits(a, b):
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("R,W", [(16, 512), (37, 1920), (5, 1000), (4096, 32768), (8, 65536)])
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_topk_mask_and_sparsify_kernels_bitwise_match_plain(cuda, R, W, k):
+    h = _planted_bf16(R + W + k, R, W)
+    before = (topk_pallas.topk.launches, topk_pallas.sparsify.launches)
+    f = topk_pallas.topk(h, k)
+    assert _same_bits(f, topk_pallas.topk_plain(h, k))
+    vals, idx = topk_pallas.sparsify(f, k)
+    pv, pi = topk_pallas.sparsify_plain(f, k)
+    assert _same_bits(vals, pv) and torch.equal(idx, pi)
+    f32 = f.float()
+    f32[0, ::3] = 1.0                     # a row far past k
+    vals, idx = topk_pallas.sparsify(f32, k)
+    pv, pi = topk_pallas.sparsify_plain(f32, k)
+    assert _same_bits(vals, pv) and torch.equal(idx, pi)
+    assert (topk_pallas.topk.launches, topk_pallas.sparsify.launches) == (before[0] + 1,
+                                                                          before[1] + 2)
+
+
+def test_topk_kernel_rejects_unported_shapes(cuda):
+    with pytest.raises(ValueError, match="K6"):
+        topk_pallas.topk(torch.zeros((2, 512), device="cuda"), 4)
+    with pytest.raises(ValueError, match="K7"):
+        topk_pallas.topk(torch.zeros((2, 2 ** 17), device="cuda", dtype=torch.bfloat16), 4)
+
+
+@pytest.mark.parametrize("B,k,n_out,m,dtype", [
+    (16, 4, 512, 128, torch.float32), (32, 8, 1920, 130, torch.bfloat16),
+    (4096, 32, 32768, 4608, torch.float32), (4096, 64, 32768, 4608, torch.float32),
+    (4096, 32, 32768, 4736, torch.bfloat16)])
+def test_scatter_kernel_bitwise_matches_plain(cuda, B, k, n_out, m, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(B + k + m)
+    cf = torch.randn((B, k), generator=gen, device="cuda")
+    idx = torch.randint(0, n_out, (B, k), generator=gen, device="cuda", dtype=torch.int32)
+    idx[:, 0] = 3                         # a latent hit by every row
+    idx[0, 1], idx[1, 1] = -1, n_out      # dropped
+    rows = torch.randn((B, m), generator=gen, device="cuda").to(dtype)
+    before = sparse_grad.scatter_add_rows.launches
+    got = sparse_grad.scatter_add_rows(cf, idx, rows, n_out)
+    want = sparse_grad.scatter_add_rows_plain(cf, idx, rows, n_out)
+    assert sparse_grad.scatter_add_rows.launches == before + 1
+    assert _same_bits(got, want)
+
+
+def test_sparse_train_step_on_the_card(cuda):
+    """Three AuxK-enabled sparse TopK steps (bare and aux variants) on the
+    card: finite losses, l0 <= k, and K5, K8 and K10 all launched."""
+    cfg = CrossCoderConfig(d_in=256, dict_size=4096, batch_size=256, activation="topk",
+                           topk_k=16, l1_coeff=0.0, sparse_bwd="on", aux_k=32,
+                           aux_every=2, aux_dead_steps=1, num_tokens=256 * 4,
+                           log_backend="null")
+    counters = (topk_pallas.topk, topk_pallas.sparsify, sparse_grad.scatter_add_rows)
+    before = [c.launches for c in counters]
+    tr = Trainer(cfg, device="cuda")
+    for _ in range(3):
+        m = tr.step()
+        assert torch.isfinite(m["loss"]) and float(m["l0_loss"]) <= cfg.topk_k
+    assert all(c.launches > b for c, b in zip(counters, before))
