@@ -36,7 +36,30 @@ one NVIDIA Hopper card and the CUDA toolkit:
    read around the legs; then a bare and an aux step re-run from one state
    with the plain versions (bitwise), the fused leg's first bare step
    against leg A's, step times, a profiler split and peak memory;
-7. prints the kernel table as one JSON line, the card line, and
+   before it, the harvest path's kernels vs their plain versions, bitwise:
+   the global-threshold BatchTopK select and emit (K9) and the emit alone
+   at a fixed threshold, bf16 and f32, [4096, 32768] and [4096, 2432],
+   with ties at the threshold, a budget above the count of positives,
+   all-negative rows, -0.0 and NaN; the block int8 quantize (K11) on a
+   Gemma-2-2B harvest chunk's rows [8184, 2304] with all-zero blocks and
+   half-way quotients; each timed beside its plain version, one library
+   call where there is one (the emit's, ``F.threshold``, checked bitwise
+   against it), and the bound, and K9/K11 also queued behind a device
+   sleep (device time without the host's launch rate);
+7. train on harvested activations: two random-init Gemma-2-2B models
+   (bf16, seeds 1 and 2) harvested at ``blocks.14.hook_resid_pre`` from
+   seeded token ids (seq_len 1024, some rows ending in PAD runs) into the
+   replay buffer (buffer_mult 8: 32 736 rows, a refill every 3 serves;
+   norm calibration over 8 chunks of 4), then a 2^15-latent crosscoder
+   trained 12 steps a leg at batch 4096: leg H, BatchTopK k=32 over the
+   bf16 card store (K9 every step, then the threshold calibrated on 2
+   served batches and one eval encode through the K9 emit alone), leg Q,
+   ReLU over the int8 card store (K11 on every chunk), with the launch
+   counters read around both legs; then each leg's first 6 served batches
+   against a host-store buffer built from the same params and tokens,
+   byte for byte, and a leg-H step re-run with the plain versions
+   (bitwise); fill, serve, refill and step times, peak memory;
+8. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -59,6 +82,17 @@ TRAIN = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dict_
              activation="topk", l1_coeff=0.0, sparse_bwd="on", aux_k=64, aux_every=2,
              aux_dead_steps=4, aux_exact_rank=True, lr=1e-3, log_backend="null")
 LEG_A, LEG_B = 12, 4
+# the harvest-train phase: Gemma-2-2B width, buffer_mult cut from 128 to 8
+# (32 seqs, 32 736 rows, a refill every 3 serves), norm calibration from
+# 100 to 8 chunks, 12 steps a leg
+HARVEST = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dict_size=2 ** 15,
+               topk_k=32, batch_size=4096, enc_dtype="bf16", master_dtype="fp32", l1_coeff=0.0,
+               lr=1e-3, log_backend="null", seq_len=1024, model_batch_size=4, buffer_mult=8,
+               norm_calib_batches=8)
+LEG_H, LEG_Q = 12, 12
+# the device sleep in front of a queued timing: about 25 ms at the H100's
+# clocks, longer than the host takes to issue 50 launches of a wrapper
+QUEUE_CYCLES = 50_000_000
 
 
 def log(msg: str) -> None:
@@ -70,8 +104,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+def time_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
+    launched back to back. ``queued``: a device sleep goes first, so the
+    host has issued every launch before the first one runs and the events
+    see the device's time alone, not the host's launch rate."""
     import torch
 
     for _ in range(2):
@@ -79,6 +116,8 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     e0.record()
     for _ in range(reps):
         fn()
@@ -556,6 +595,122 @@ def check_fused_topk_train(torch, fek):
                    lib_ms), "name": "fused_topk_encode (train shape)"}
 
 
+def _planted_bt(torch, gen, R, W, dtype):
+    """BatchTopK inputs: quarter-integer rows (exact ties at any threshold),
+    an all-negative row, -0.0, +inf, NaN of both signs."""
+    h = torch.randint(-40, 41, (R, W), generator=gen, device="cuda").float() / 4
+    h[1] = -1.0
+    h[2, : W // 3] = -0.0
+    h[3, 5] = float("inf")
+    h[4, 9] = float("nan")
+    h = h.to(dtype)
+    if dtype == torch.bfloat16:
+        h.view(torch.int16)[5, 11] = -64                     # 0xFFC0, a negative NaN
+    else:
+        h.view(torch.int32)[5, 11] = -4194304                # 0xFFC00000
+    return h
+
+
+def check_batchtopk(torch, tp):
+    """K9 select and emit, bitwise against their plain versions on planted
+    inputs (ties at the threshold, a budget above the count of positives,
+    all-negative rows, -0.0, NaN, bf16 and f32, [4096, 32768] and a width
+    that is not a multiple of 4096), then the emit alone through
+    ``batchtopk_fixed``; returns the select and emit rows."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    B, H, k = TRAIN["batch_size"], TRAIN["dict_size"], TRAIN["topk_k"]
+    cases = [(B, H, k), (B, 2304 + 128, k), (64, 2304 + 128, 2304 + 128)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for R, W, kk_k in cases:
+            h = _planted_bt(torch, gen, R, W, dtype)
+            if kk_k == W:
+                h = torch.where(h > 2, h, -h.abs() - 1)      # few positives: kk above them
+            kk = tp.batchtopk_budget(h, kk_k)
+            kth, want = tp.batchtopk_select(h, kk), tp.batchtopk_select_plain(h, kk)
+            out = tp.batchtopk(h, kk_k)
+            same = int(kth) == int(want) and torch.equal(
+                _bits(out, torch), _bits(tp.batchtopk_emit_plain(h, want), torch))
+            for thr in (0.5, 3.0, 0.0, -1.0):
+                pat = torch.tensor([tp.fixed_threshold_pattern(thr, dtype)], device="cuda")
+                same = same and torch.equal(_bits(tp.batchtopk_fixed(h, thr), torch),
+                                            _bits(tp.batchtopk_emit_plain(h, pat), torch))
+            torch.cuda.synchronize()
+            log(f"K9 batchtopk [{R},{W}] {str(dtype)[6:]} kk={kk} (positives "
+                f"{int((h > 0).sum())}): threshold pattern {int(kth)}; select, emit and "
+                f"fixed emit bitwise {'equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"K9 not bitwise equal to its plain version at [{R},{W}] {dtype}")
+    h = torch.randn((B, H), generator=gen, device="cuda").to(torch.bfloat16)
+    kk = tp.batchtopk_budget(h, k)
+    kth = tp.batchtopk_select(h, kk)
+    if int(kth) != int(tp.batchtopk_select_plain(h, kk)):
+        fail("K9 select disagrees with its plain version on random bf16 rows")
+    hp = torch.relu(h).reshape(-1)
+    ms = time_ms(lambda: tp.batchtopk_select(h, kk), 20)
+    q_ms = time_ms(lambda: tp.batchtopk_select(h, kk), 20, queued=True)
+    plain_ms = time_ms(lambda: tp.batchtopk_select_plain(h, kk), 2)
+    lib_ms = time_ms(lambda: torch.topk(hp, kk), 5)
+    n = B * H * 2
+    b = bound(n, 0, "bf16")
+    log(f"K9 select [{B},{H}] bf16 kk={kk}: {ms:.4f} ms kernel ({q_ms:.4f} ms queued), "
+        f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms topk of the flattened ReLU'd rows, bound "
+        f"{b[0]:.4f} ms by {b[1]}")
+    row_s = _row("batchtopk_select", "batchtopk.cu", "crosscoder_tpu/ops/topk_pallas.py:857",
+                 0.0, ms, plain_ms, b, lib_ms)
+    # the emit as one library call: F.threshold keeps x > t, so t is the
+    # bf16 just below the kth pattern's value (0: every positive is kept)
+    p = int(kth)
+    t = 0.0 if p == 0 else float(torch.tensor([p - 1], dtype=torch.int16).view(torch.bfloat16))
+    out = tp.batchtopk_emit(h, kth)
+    same = torch.equal(_bits(out, torch), _bits(torch.nn.functional.threshold(h, t, 0.0), torch))
+    log(f"K9 emit vs F.threshold(h, {t!r}, 0) (kth pattern {p}): bitwise "
+        f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        fail("F.threshold does not compute the K9 emit's function")
+    ms = time_ms(lambda: tp.batchtopk_emit(h, kth), 20)
+    q_ms = time_ms(lambda: tp.batchtopk_emit(h, kth), 20, queued=True)
+    plain_ms = time_ms(lambda: tp.batchtopk_emit_plain(h, kth), 3)
+    lib_ms = time_ms(lambda: torch.nn.functional.threshold(h, t, 0.0), 20)
+    b = bound(2 * n, 0, "bf16")
+    log(f"K9 emit [{B},{H}] bf16: {ms:.4f} ms kernel ({q_ms:.4f} ms queued), {plain_ms:.4f} ms "
+        f"plain, {lib_ms:.4f} ms F.threshold, bound {b[0]:.4f} ms by {b[1]}")
+    row_e = _row("batchtopk_emit", "batchtopk.cu", "crosscoder_tpu/ops/topk_pallas.py:910",
+                 0.0, ms, plain_ms, b, lib_ms)
+    return row_s, row_e
+
+
+def check_quantize(torch, quant):
+    """K11 bitwise (int8 and scales) against its plain version on a
+    Gemma-2-2B harvest chunk's rows with all-zero blocks and exact half-way
+    quotients; returns its row."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    R, d, block = 4 * 1023 * 2, 2304, 256
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((R, d), generator=gen, device="cuda") * 7
+        x[0, :block] = 0.0
+        x[5, 512:768] = 0.0
+        x[1, :block] = torch.arange(block, device="cuda") % 20 - 9.5
+        x[1, 0] = 127.0                                      # scale 1: half-way quotients
+        x = x.to(dtype)
+        q, s = quant.quantize_rows(x, block)
+        pq, ps = quant.quantize_blocks(x, block)
+        torch.cuda.synchronize()
+        same = torch.equal(q, pq) and torch.equal(s.view(torch.int32), ps.view(torch.int32))
+        log(f"K11 quantize_rows [{R},{d}] {str(dtype)[6:]} block {block}: int8 and scales "
+            f"bitwise {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"K11 not bitwise equal to its plain version ({dtype})")
+    x = (torch.randn((R, d), generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    ms = time_ms(lambda: quant.quantize_rows(x, block), 50)
+    q_ms = time_ms(lambda: quant.quantize_rows(x, block), 50, queued=True)
+    plain_ms = time_ms(lambda: quant.quantize_blocks(x, block), 10)
+    b = bound(R * d * 3 + R * (d // block) * 4, 0, "bf16")
+    log(f"K11 [{R},{d}] bf16: {ms:.4f} ms kernel ({q_ms:.4f} ms queued), {plain_ms:.4f} ms "
+        f"plain, no single library call, bound {b[0]:.4f} ms by {b[1]}")
+    return _row("quantize_rows", "quantize_rows.cu", "crosscoder_tpu/ops/quant.py:154", 0.0,
+                ms, plain_ms, b, None)
+
+
 # ---------------------------------------------------------------------------
 # phase 6: train
 
@@ -576,14 +731,17 @@ class DeviceBatches:
 @contextlib.contextmanager
 def plain_versions(tp, sg, fek):
     """Route the model's kernel calls to their plain versions."""
-    saved = (tp.topk_forward, tp.sparsify, sg.scatter_add_rows, fek.fused_topk_encode)
+    saved = (tp.topk_forward, tp.sparsify, sg.scatter_add_rows, fek.fused_topk_encode,
+             tp.batchtopk_select, tp.batchtopk_emit)
     tp.topk_forward, tp.sparsify = tp.topk_plain, tp.sparsify_plain
     sg.scatter_add_rows, fek.fused_topk_encode = (sg.scatter_add_rows_plain,
                                                   fek.fused_topk_encode_plain)
+    tp.batchtopk_select, tp.batchtopk_emit = tp.batchtopk_select_plain, tp.batchtopk_emit_plain
     try:
         yield
     finally:
-        tp.topk_forward, tp.sparsify, sg.scatter_add_rows, fek.fused_topk_encode = saved
+        (tp.topk_forward, tp.sparsify, sg.scatter_add_rows, fek.fused_topk_encode,
+         tp.batchtopk_select, tp.batchtopk_emit) = saved
 
 
 def profile_step(torch, trainer, full_metrics, label):
@@ -747,6 +905,222 @@ def train(torch, np):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: train on harvested activations
+
+
+class Recorder:
+    """Wraps a replay buffer for the Trainer: times every ``next_raw`` (the
+    card synced on both sides, so the serve's share of the incremental
+    refill is inside it) and keeps the first ``keep`` batches served."""
+
+    def __init__(self, torch, buffer, keep):
+        self.torch, self.buffer, self.keep = torch, buffer, keep
+        self.served, self.serve_ms = [], []
+
+    @property
+    def normalisation_factor(self):
+        return self.buffer.normalisation_factor
+
+    def next_raw(self):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.buffer.next_raw()
+        self.torch.cuda.synchronize()
+        self.serve_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(self.served) < self.keep:
+            self.served.append(out)
+        return out
+
+
+class SpanCounter:
+    """A tracer that counts the buffer's spans (``refill``: completed refill
+    cycles, the first fill included)."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def span(self, name, **args):
+        self.counts[name] = self.counts.get(name, 0) + 1
+        return contextlib.nullcontext()
+
+    def instant(self, name, **args):
+        return None
+
+
+def harvest_tokens(np, n_seqs, seq_len, vocab, seed):
+    """Seeded synthetic token ids: BOS first, some rows ending in PAD runs."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(3, vocab, size=(n_seqs, seq_len), dtype=np.int64)
+    t[:, 0] = 2
+    for i in range(3, n_seqs, 7):
+        t[i, int(rng.integers(seq_len // 4, seq_len)):] = 0
+    return t
+
+
+def harvest_train(torch, np):
+    """The harvest-train phase: two random-init Gemma-2-2B models harvested
+    into the replay buffer, a BatchTopK leg over the bf16 card store (K9 in
+    every step, the calibrated eval mode through the K9 emit) and a ReLU leg
+    over the int8 card store (K11 on every chunk); returns the launch
+    counts of that main path."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data import buffer as bufmod
+    from crosscoder_tpu_torch.models import crosscoder as cc
+    from crosscoder_tpu_torch.models import lm
+    from crosscoder_tpu_torch.obs import trace
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.ops import quant
+    from crosscoder_tpu_torch.ops import sparse_grad as sg
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer
+
+    lm_cfg = lm.LMConfig.gemma2_2b()
+    t0 = time.perf_counter()
+    params = [lm.init_params(lm_cfg, seed=s, device="cuda") for s in (1, 2)]
+    tokens = harvest_tokens(np, 256, HARVEST["seq_len"], lm_cfg.vocab_size, 6)
+    torch.cuda.synchronize()
+    log(f"harvest: two random-init Gemma-2-2B (bf16) built in {time.perf_counter() - t0:.1f} s; "
+        f"{len(tokens)} token rows of {HARVEST['seq_len']}, "
+        f"{int((tokens == 0).sum())} PAD ids in trailing runs")
+    cfg_h = CrossCoderConfig(**HARVEST, activation="batchtopk", buffer_device="hbm",
+                             num_tokens=HARVEST["batch_size"] * LEG_H)
+    cfg_q = CrossCoderConfig(**HARVEST, activation="relu", buffer_device="hbm",
+                             quant_buffer=True, num_tokens=HARVEST["batch_size"] * LEG_Q)
+
+    # one chunk's harvest and one serve gather, alone, for the breakdown
+    probe = bufmod.make_buffer(cfg_h, lm_cfg, params, tokens, lazy=True, device="cuda")
+    padded, _ = probe._pad_chunk(tokens[:HARVEST["model_batch_size"]])
+    chunk_ms = time_ms(lambda: probe._harvest_dev(padded), 3)
+    idx = np.arange(HARVEST["batch_size"])
+    gather_ms = time_ms(lambda: probe._read_rows(idx), 20)
+    del probe
+    log(f"harvest: one chunk of {HARVEST['model_batch_size']} x {HARVEST['seq_len']} tokens "
+        f"through both models' 14 blocks {chunk_ms:.3f} ms; one {HARVEST['batch_size']}-row "
+        f"serve gather {gather_ms:.3f} ms (CUDA events)")
+
+    counters = {"batchtopk_select": tp.batchtopk_select, "batchtopk_emit": tp.batchtopk_emit,
+                "quantize_rows": quant.quantize_rows, "topk_mask": tp.topk,
+                "sparsify": tp.sparsify, "scatter_add_rows": sg.scatter_add_rows,
+                "fused_topk_encode": fek.fused_topk_encode}
+    for c in counters.values():
+        c.launches = 0
+    legs = {}
+    for name, cfg, steps in (("H", cfg_h, LEG_H), ("Q", cfg_q, LEG_Q)):
+        spans = SpanCounter()
+        prev = trace.set_tracer(spans)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buffer = bufmod.make_buffer(cfg, lm_cfg, params, tokens, device="cuda")
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        fills = spans.counts.get("refill", 0)
+        rec = Recorder(torch, buffer, keep=6)
+        tr = trainer_mod.Trainer(cfg, rec, device="cuda")
+        losses, l0s, step_ms = [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.step(full_metrics=True)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            l0s.append(float(m["l0_loss"]))
+        trace.set_tracer(prev)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        cycles = spans.counts.get("refill", 0) - fills
+        serve = rec.serve_ms
+        log(f"harvest leg {name} ({type(buffer).__name__} on {buffer.store_device}, "
+            f"{cfg.activation}): fill (norm "
+            f"calibration of {cfg.norm_calib_batches * cfg.model_batch_size} seqs + "
+            f"{buffer.buffer_batches} seqs, {buffer.buffer_size} rows, store "
+            f"{buffer.store_nbytes() / 2 ** 20:.1f} MiB) {fill_s:.2f} s; {cycles} refill "
+            f"cycles in {steps} steps; losses {[round(v, 4) for v in losses]}")
+        log(f"harvest leg {name}: ms per step incl. serve (host clock, synced) "
+            f"{[round(v, 2) for v in step_ms]}; next_raw ms (synced, refill share inside) "
+            f"{[round(v, 2) for v in serve]}; mean l0 {np.mean(l0s):.2f}; peak memory "
+            f"{peak:.2f} GiB")
+        legs[name] = dict(buffer=buffer, trainer=tr, rec=rec, losses=losses, l0s=l0s,
+                          cycles=cycles, step_ms=step_ms, cfg=cfg)
+        if name == "H":
+            # eval mode: threshold calibrated on 2 served batches, one encode
+            # through the fixed threshold (the K9 emit alone)
+            scale = tr._device_scale()[None, :, None]
+            batches = [buffer.next_raw().float() * scale for _ in range(2)]
+            thr = cc.calibrate_batchtopk_threshold(tr.state.params, cfg, batches)
+            cp = cc.cast_params(tr.state.params, torch.bfloat16)
+            f = cc.encode(cp, batches[0].to(torch.bfloat16), cfg.replace(batchtopk_threshold=thr))
+            torch.cuda.synchronize()
+            eval_l0 = float((f > 0).float().sum(-1).mean())
+            log(f"harvest leg H eval: calibrated threshold {thr:.6f} over 2 served batches; "
+                f"fixed-threshold encode l0 {eval_l0:.2f} (k={cfg.topk_k})")
+            if not (thr > 0 and math.isfinite(eval_l0) and eval_l0 > 0):
+                fail("BatchTopK eval encode produced no activations")
+            legs[name].update(trainer=None, state=tr.state, scale=scale)
+            del tr, f, batches
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    log(f"harvest: main-path kernel launches {launches}")
+
+    for name, leg in legs.items():
+        if not all(math.isfinite(v) for v in leg["losses"]):
+            fail(f"harvest leg {name}: a loss is not finite")
+        if leg["cycles"] < 2:
+            fail(f"harvest leg {name}: {leg['cycles']} refill cycles, want >= 2")
+    if np.mean(legs["H"]["l0s"]) < cfg_h.topk_k:
+        fail(f"leg H mean l0 {np.mean(legs['H']['l0s'])} below k={cfg_h.topk_k}")
+    if not (launches["batchtopk_select"] >= LEG_H and launches["batchtopk_emit"] > LEG_H
+            and launches["quantize_rows"] > 0):
+        fail(f"K9 or K11 never launched on the harvest-train path: {launches}")
+
+    # the card stores' raw streams against host stores built from the same
+    # params and tokens: byte for byte across a refill
+    for name, host_cls in (("H", bufmod.PairedActivationBuffer),
+                           ("Q", bufmod.QuantPairedActivationBuffer)):
+        leg = legs[name]
+        host = bufmod.make_buffer(leg["cfg"].replace(buffer_device="host"), lm_cfg, params,
+                                  tokens, device="cuda")
+        if leg["buffer"].store_device.type != "cuda":
+            fail(f"harvest leg {name}: the store is on {leg['buffer'].store_device}, not the card")
+        if type(host) is not host_cls or host.store_device.type != "cpu":
+            fail(f"make_buffer gave {type(host).__name__} on {host.store_device} for the host "
+                 f"store of leg {name}")
+        same = all(torch.equal(a.view(torch.int16).cpu(), host.next_raw().view(torch.int16))
+                   for a in leg["rec"].served)
+        log(f"harvest leg {name}: {type(leg['buffer']).__name__} on the card vs in host RAM, "
+            f"{len(leg['rec'].served)} raw serves across a refill: byte-identical "
+            f"{'yes' if same else 'NO'}")
+        if not same:
+            fail(f"harvest leg {name}: the card store's stream differs from the host store's")
+        del host
+
+    # leg H's last state re-run with every plain version: same bits
+    leg = legs["H"]
+    fn = trainer_mod.make_step_body(cfg_h, Optimizer(cfg_h, lambda s: 0.0), True, True, True)
+    x = leg["rec"].served[0]
+    got = fn.loss_and_grads(leg["state"], x, leg["scale"][0, :, 0])
+    with plain_versions(tp, sg, fek):
+        want = fn.loss_and_grads(leg["state"], x, leg["scale"][0, :, 0])
+    ok, what = same_step(torch, got, want)
+    log(f"harvest leg H step at step {leg['state'].step} with kernels vs plain versions: loss "
+        f"{float(got[0]):.6f} vs {float(want[0]):.6f}, "
+        f"{'bitwise equal loss and gradients' if ok else 'DIFFERENT ' + what}")
+    if not ok:
+        fail(f"the harvested BatchTopK step with kernels differs from the plain versions in {what}")
+    for name, leg in legs.items():
+        b = leg["cfg"].batch_size
+        per = (leg["buffer"].buffer_size // 2 - b) // b + 1       # serves a refill cycle
+        sv = leg["rec"].serve_ms
+        cyc = [sum(sv[i:i + per]) for i in range(0, len(sv) - per + 1, per)]
+        steady = [a - b for a, b in zip(leg["step_ms"][1:], sv[1:])]
+        log(f"harvest leg {name} breakdown: serve+refill per {per}-serve cycle {[round(c, 2) for c in cyc]} "
+            f"ms; step without the serve (host clock) mean {np.mean(steady):.3f} ms over "
+            f"{len(steady)} steps; {b / np.mean(leg['step_ms'][1:]) * 1e3:.0f} "
+            f"rows/s end to end")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -763,6 +1137,7 @@ def main() -> int:
     from crosscoder_tpu_torch.ops import _build
     from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
     from crosscoder_tpu_torch.ops import paged_attention as pa
+    from crosscoder_tpu_torch.ops import quant
     from crosscoder_tpu_torch.ops import sparse_grad as sg
     from crosscoder_tpu_torch.ops import topk_pallas as tp
 
@@ -791,13 +1166,17 @@ def main() -> int:
     rows = [check_paged_attention(torch, pa, lengths_a), check_fused_topk(torch, fek)]
     train_rows = [*check_topk_mask_and_sparsify(torch, tp), check_scatter(torch, sg),
                   check_fused_topk_train(torch, fek)]
+    harvest_rows = [*check_batchtopk(torch, tp), check_quantize(torch, quant)]
     launches = serve(torch, np, lengths_a)
     for row in rows:
         row["launches"] = launches[row["name"]]
     launches = train(torch, np)
     for row in train_rows:
         row["launches"] = launches[row["name"].split()[0]]
-    rows += train_rows
+    launches = harvest_train(torch, np)
+    for row in harvest_rows:
+        row["launches"] = launches[row["name"]]
+    rows += train_rows + harvest_rows
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

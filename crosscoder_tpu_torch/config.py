@@ -7,9 +7,13 @@ Validation is ported for the fields the port reads: the serving knobs
 and the training knobs (``crosscoder_tpu/config.py`` ``__post_init__``:
 the TopK tier rules for ``sparse_decode``/``factored_decode``/
 ``sparse_bwd``/``fused_encoder``/``quant_encoder``, the sparsity and AuxK
-knobs, the loop and guard knobs), with the JAX package's messages. Knobs
-of parts not ported yet (mesh, elastic, fleet, compile cache, tuner) are
-carried as plain values. :meth:`CrossCoderConfig.from_cli` reflects every
+knobs, the loop and guard knobs) and the replay-buffer knobs
+(``refill_frac``, ``buffer_device``, ``seq_shards``, ``refill_overlap``,
+``quant_block`` under ``quant_buffer``), with the JAX package's messages.
+:meth:`CrossCoderConfig.check_buffer` refuses a buffer the port cannot
+build (too small, or a buffer knob not ported yet). Knobs of parts not
+ported yet (mesh, elastic, fleet, compile cache, tuner) are carried as
+plain values. :meth:`CrossCoderConfig.from_cli` reflects every
 field into a flag as the JAX package does; ``--tuned`` raises until the
 autotuner is ported.
 """
@@ -196,6 +200,7 @@ class CrossCoderConfig:
                 f"divide seq_len {self.seq_len}"
             )
         self._check_training_fields()
+        self._check_buffer_fields()
         _check_choice("serve", self.serve, ("off", "on"))
         if self.serve == "on":
             b = self.serve_max_batch
@@ -334,6 +339,57 @@ class CrossCoderConfig:
             raise ValueError(
                 f"aux_mask_every must be >= 0 (1 = per-step exact, N = refresh "
                 f"every N steps, 0 = follow log_every), got {self.aux_mask_every}")
+
+    def _check_buffer_fields(self) -> None:
+        """The JAX package's replay-buffer and harvest field rules."""
+        if not (0.0 < self.refill_frac <= 1.0):
+            raise ValueError(
+                f"refill_frac must be a buffer fraction in (0, 1], got "
+                f"{self.refill_frac}; 0.5 is reference parity (1:1 "
+                f"harvest:serve), smaller values re-serve survivors "
+                f"~0.5/refill_frac times")
+        if self.refill_frac > 0.5:
+            raise ValueError(
+                f"refill_frac must be <= 0.5 (the serve trigger fires at "
+                f"half-buffer, so a larger refill would overwrite unserved "
+                f"rows), got {self.refill_frac}; set 0.5 for reference parity")
+        _check_choice("buffer_device", self.buffer_device, ("host", "hbm"))
+        if self.seq_shards < 0:
+            raise ValueError("seq_shards must be >= 0")
+        if self.seq_shards > 1 and self.seq_len % self.seq_shards != 0:
+            raise ValueError(f"seq_shards {self.seq_shards} must divide seq_len {self.seq_len}")
+        _check_choice("refill_overlap", self.refill_overlap, ("off", "on"))
+        if self.refill_dispatch_batch < 1:
+            raise ValueError(
+                f"refill_dispatch_batch must be >= 1 (harvest quanta fused "
+                f"per dispatch), got {self.refill_dispatch_batch}")
+        if self.quant_buffer and self.d_in % self.quant_block != 0:
+            divisors = [b for b in (32, 64, 128, 256, 512) if self.d_in % b == 0]
+            raise ValueError(
+                f"quant_buffer: quant_block {self.quant_block} must divide "
+                f"d_in {self.d_in} (scales are per contiguous feature "
+                f"block); try one of {divisors or 'a divisor of d_in'}")
+
+    def check_buffer(self) -> None:
+        """Raise for a replay buffer this config cannot build in the port:
+        :class:`NotImplementedError` for the buffer knobs not ported yet,
+        :class:`ValueError` for a buffer smaller than two batches."""
+        for knob, on in (("refill_overlap='on'", self.refill_overlap == "on"),
+                         ("harvest_runtime='paged'", self.harvest_runtime == "paged"),
+                         ("seq_shards > 1", self.seq_shards > 1),
+                         ("shard_lm", self.shard_lm),
+                         ("fleet='on' (multi-consumer fan-out)", self.fleet == "on")):
+            if on:
+                raise NotImplementedError(
+                    f"{knob} is not ported to the PyTorch replay buffer yet "
+                    f"(ROADMAP Queue A 9-12)")
+        rows_per_seq = self.seq_len - 1
+        if rows_per_seq < 1:
+            raise ValueError(f"the replay buffer needs seq_len >= 2 (BOS is dropped), "
+                             f"got {self.seq_len}")
+        size = self.batch_size * self.buffer_mult // rows_per_seq * rows_per_seq
+        if size < 2 * self.batch_size:
+            raise ValueError(f"buffer_size {size} < 2×batch_size; raise buffer_mult")
 
     # --- derived quantities ---
     @property

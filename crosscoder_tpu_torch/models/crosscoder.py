@@ -25,9 +25,12 @@ JAX gates do, with "kernel live" read as always true:
 On CPU tensors each kernel's plain version takes its place, as the JAX
 package's interpret mode does. AuxK ranks dead latents exactly with
 ``torch.topk`` (JAX's ``aux_exact_rank=True``); the TPU path ranks them
-with ``approx_max_k``. Not ported here: ``sparse_decode`` (the gather
-decode), BatchTopK and JumpReLU (their kernels K9/K4 come later) and the
-int8 fused encoder (K3); each raises :class:`NotImplementedError`.
+with ``approx_max_k``. BatchTopK trains through the dense encode and the
+K9 kernels (:mod:`crosscoder_tpu_torch.ops.topk_pallas`);
+:func:`calibrate_batchtopk_threshold` gives its eval-mode threshold. Not
+ported here: ``sparse_decode`` (the gather decode), JumpReLU, the fused
+BatchTopK encoder (K4) and the int8 fused encoder (K3); each raises
+:class:`NotImplementedError`.
 
 Matmuls sum in f32: from bf16 operands on the card through
 ``torch.mm(..., out_dtype=torch.float32)`` (tensor cores; the backward
@@ -40,6 +43,7 @@ from __future__ import annotations
 import sys
 from typing import Any, Mapping, NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -142,6 +146,26 @@ def encode(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCoderC
     ``apply_activation=False``)."""
     h = pre_acts(params, x)
     return act_ops.apply(h, cfg, dict(params)) if apply_activation else h
+
+
+@torch.no_grad()
+def calibrate_batchtopk_threshold(params: Mapping[str, torch.Tensor], cfg: CrossCoderConfig,
+                                  batches) -> float:
+    """Mean per-batch BatchTopK threshold over representative batches: the
+    fixed global threshold for eval (set it as ``cfg.batchtopk_threshold``;
+    :func:`encode` then runs ``batchtopk_fixed``). ``batches``: iterable of
+    ``[B, n_sources, d_in]`` batches, normalized as training batches were.
+    Params and batches are cast to ``cfg.enc_dtype`` first, so the order
+    statistic comes from the pre-acts training saw."""
+    dt = dtype_of(cfg.enc_dtype)
+    cp = cast_params(params, dt)
+    dev = cp["W_enc"].device
+    vals = [float(act_ops.batchtopk_threshold_of(
+                torch.relu(pre_acts(cp, torch.as_tensor(b).to(dev).to(dt))), cfg.topk_k))
+            for b in batches]
+    if not vals:
+        raise ValueError("calibrate_batchtopk_threshold needs >= 1 batch")
+    return float(np.mean(vals))
 
 
 def decode(params: Mapping[str, torch.Tensor], f: torch.Tensor) -> torch.Tensor:
@@ -362,22 +386,43 @@ def use_sparse_aux(cfg: CrossCoderConfig, batch: int) -> bool:
     return aux_ok and cfg.aux_k * 512 <= cfg.dict_size
 
 
+def _warn_fused_demoted(reason: str) -> None:
+    if reason not in _FUSED_DEMOTION_WARNED:
+        _FUSED_DEMOTION_WARNED.add(reason)
+        print(f"[crosscoder_tpu_torch] fused_encoder='on' demoted to the "
+              f"dense encode: {reason}", file=sys.stderr, flush=True)
+
+
 def use_fused_encoder(cfg: CrossCoderConfig, batch: int | None = None) -> bool:
-    """The fused encoder→TopK tier (``cfg.fused_encoder``) for ``topk``:
+    """The fused encoder→TopK tier (``cfg.fused_encoder``). For ``topk`` it
     needs the factored tier and the sparse plane; "auto" also needs the
     JAX package's fused gate to take the shape. An "on" demoted by a
-    prerequisite warns once on stderr."""
-    if cfg.fused_encoder == "off" or cfg.activation != "topk":
+    prerequisite warns once on stderr. For ``batchtopk`` the fused kernel
+    (K4) is not ported: "auto" resolves to the dense encode, the JAX rule
+    when that kernel is not live, and "on" raises
+    :class:`NotImplementedError` in training mode (a calibrated threshold
+    is eval mode, with no bisection to fuse: dense, with a warning)."""
+    if cfg.fused_encoder == "off":
+        return False
+    if cfg.activation == "batchtopk":
+        if cfg.fused_encoder != "on":
+            return False
+        if cfg.batchtopk_threshold > 0:
+            _warn_fused_demoted("batchtopk_threshold > 0 is eval mode — a calibrated "
+                                "fixed threshold has no bisection to fuse")
+            return False
+        raise NotImplementedError(
+            "fused_encoder='on' with activation='batchtopk' needs the fused BatchTopK "
+            "kernel (K4, crosscoder_tpu/ops/fused_encoder_topk.py _fused_bt_bisect_kernel/"
+            "_fused_bt_emit_kernel), which is not ported yet (ROADMAP Queue B); use "
+            "fused_encoder='auto' or 'off' (the dense encode through K9)")
+    if cfg.activation != "topk":
         return False
     if not (use_factored_decode(cfg) and use_sparse_bwd(cfg, batch)):
         if cfg.fused_encoder == "on":
-            reason = ("activation='topk' needs the factored tier and the sparse "
-                      "backward plane live (use_factored_decode/use_sparse_bwd "
-                      "resolved off)")
-            if reason not in _FUSED_DEMOTION_WARNED:
-                _FUSED_DEMOTION_WARNED.add(reason)
-                print(f"[crosscoder_tpu_torch] fused_encoder='on' demoted to the "
-                      f"dense encode: {reason}", file=sys.stderr, flush=True)
+            _warn_fused_demoted("activation='topk' needs the factored tier and the sparse "
+                                "backward plane live (use_factored_decode/use_sparse_bwd "
+                                "resolved off)")
         return False
     if cfg.fused_encoder == "on":
         return True

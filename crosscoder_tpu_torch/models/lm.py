@@ -75,6 +75,17 @@ class LMConfig:
         )
 
 
+_NAMED_CONFIGS = {"gemma-2-2b": LMConfig.gemma2_2b, "gemma-2-2b-it": LMConfig.gemma2_2b}
+
+
+def config_for(model_name: str) -> LMConfig:
+    """Architecture config by HF-style model name."""
+    key = model_name.split("/")[-1].lower()
+    if key not in _NAMED_CONFIGS:
+        raise ValueError(f"unknown model {model_name!r}; known: {sorted(_NAMED_CONFIGS)}")
+    return _NAMED_CONFIGS[key]()
+
+
 # ---------------------------------------------------------------------------
 # params
 

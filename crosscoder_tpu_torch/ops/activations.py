@@ -1,5 +1,5 @@
 """Encoder nonlinearities, ported from :mod:`crosscoder_tpu.ops.activations`
-for ``relu`` and ``topk``.
+for ``relu``, ``topk`` and ``batchtopk``.
 
 - :func:`relu`: ``torch.relu`` (its subgradient at 0 is 0, as the JAX
   package's ``jax.nn.relu``).
@@ -10,10 +10,17 @@ for ``relu`` and ``topk``.
   :class:`ValueError`), the plain version on CPU tensors.
 - :func:`_topk_dense`: the dense reference (relu, exact top-k, scatter),
   differentiable through autograd; the mask it keeps is the kernel's.
+- :func:`batchtopk`: every ReLU'd entry at or above the ``k·batch``-th
+  largest of the whole batch (all ties kept); :func:`batchtopk_fixed`, its
+  eval mode, against a calibrated threshold. Both dispatch to the K9
+  kernels (``topk_pallas.batchtopk``/``batchtopk_fixed``) on CUDA tensors,
+  their plain versions on CPU tensors.
+- :func:`batchtopk_threshold_of`: the threshold's value, by the JAX
+  package's exact bit-pattern bisection (:func:`_kth_largest_nonneg`),
+  shared with eval calibration.
 
-``batchtopk`` and ``jumprelu`` need the BatchTopK kernels (K9, and K4 on
-the fused tier); :func:`apply` raises :class:`NotImplementedError` for
-them until the slice that ports those kernels.
+``jumprelu`` needs the JumpReLU slice; :func:`apply` raises
+:class:`NotImplementedError` for it.
 """
 
 from __future__ import annotations
@@ -46,15 +53,49 @@ def _topk_dense(h: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(keep, hp, torch.zeros((), dtype=hp.dtype, device=hp.device))
 
 
+def batchtopk(h: torch.Tensor, k: int) -> torch.Tensor:
+    """TopK over the flattened (batch × d_hidden) pre-acts: keep the
+    ``k · batch`` largest ReLU'd entries globally (ties at the threshold
+    all kept)."""
+    return topk_pallas.batchtopk(h, k)
+
+
+def batchtopk_fixed(h: torch.Tensor, threshold: float) -> torch.Tensor:
+    """BatchTopK eval mode: a fixed global threshold, so one example's
+    activations never depend on the rest of its batch."""
+    return topk_pallas.batchtopk_fixed(h, threshold)
+
+
+def batchtopk_threshold_of(hp: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``(k·batch)``-th largest of the ReLU'd pre-acts ``hp``, a 0-d
+    tensor in ``hp``'s dtype: the BatchTopK threshold, shared by training
+    and eval calibration."""
+    return _kth_largest_nonneg(hp, topk_pallas.batchtopk_budget(hp, k))
+
+
+def _kth_largest_nonneg(hp: torch.Tensor, kk: int) -> torch.Tensor:
+    """Exact ``kk``-th largest value of a non-negative tensor: integer
+    bisection on the f32 bit patterns (order-isomorphic for non-negative
+    floats), as the JAX package's, in ``hp``'s dtype."""
+    hpf = hp.detach().float()
+    bits = hpf.reshape(-1).view(torch.int32).to(torch.int64)
+    hi = max(int(hpf.max().reshape(1).view(torch.int32)), 0) + 1
+    lo = topk_pallas.kth_largest_pattern(bits, kk, hi)
+    return torch.tensor([lo], dtype=torch.int32).view(torch.float32).to(hp.dtype).reshape(())
+
+
 def apply(h: torch.Tensor, cfg: "CrossCoderConfig", params: dict | None = None) -> torch.Tensor:
     """Dispatch on ``cfg.activation``."""
     if cfg.activation == "relu":
         return relu(h)
     if cfg.activation == "topk":
         return topk(h, cfg.topk_k)
-    if cfg.activation in ("batchtopk", "jumprelu"):
+    if cfg.activation == "batchtopk":
+        if cfg.batchtopk_threshold > 0:
+            return batchtopk_fixed(h, cfg.batchtopk_threshold)
+        return batchtopk(h, cfg.topk_k)
+    if cfg.activation == "jumprelu":
         raise NotImplementedError(
-            f"activation={cfg.activation!r} is not ported yet: it comes with the "
-            f"BatchTopK/JumpReLU slice, which ports kernels K9 and K4 "
-            f"(ROADMAP Queue A 2, Queue B)")
+            "activation='jumprelu' is not ported yet: it comes with the JumpReLU "
+            "slice (ROADMAP Queue A 2)")
     raise ValueError(f"unknown activation {cfg.activation!r}")

@@ -1,0 +1,138 @@
+"""Block-scaled symmetric int8 quantization, ported from
+:mod:`crosscoder_tpu.ops.quant`.
+
+Values quantize per contiguous block of ``block`` elements along the last
+axis:
+
+    scale[..., b] = max(|x[..., b*B:(b+1)*B]|) * fl(1/127)
+    q[..., j]     = clip(round(x[..., j] / scale), -127, 127)  int8
+
+(round half to even; an all-zero block gets scale 0 and quantizes to
+zeros; a NaN quotient stores 0). The scale is the product with the f32
+reciprocal of 127, not a division by 127: that is what the JAX package
+computes wherever it runs compiled (XLA strength-reduces the division by
+the constant in the jitted ``quantize_blocks``, the buffer's quantize jits
+and the Pallas kernel), so the port's int8 stores hold the JAX buffer's
+bytes. The JAX package's eager ``quantize_blocks`` and numpy
+``quantize_np`` divide, and differ from it in the scale's last bit on a
+few percent of blocks (ROADMAP C3). A ``[..., d]`` tensor stores as int8
+``[..., d]`` plus f32 scales ``[..., d / B]``, ``(1 + 4/B)/2`` of its bf16
+bytes. The replay buffer's int8 stores (``cfg.quant_buffer``) keep rows
+this way.
+
+- :func:`quantize_blocks` / :func:`dequantize_blocks`: PyTorch, any device.
+  The element division takes a tensor divisor, never a Python scalar, so
+  no backend turns it into a reciprocal multiply.
+- :func:`quantize_np` / :func:`dequantize_np`: the JAX package's numpy
+  forms as it has them, for analysis and tests; the port's stores never
+  call them. ``quantize_np`` divides ``amax`` by 127 as the JAX one does,
+  so its scale may differ from :func:`quantize_blocks`' in the last bit.
+- :func:`quantize_rows`: on CUDA tensors the K11 kernel
+  ``csrc/quantize_rows.cu`` (one pass: block max, scale, round), bitwise
+  :func:`quantize_blocks`; on CPU tensors :func:`quantize_blocks` itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+QMAX = 127.0
+_INV_QMAX = float(np.float32(1.0) / np.float32(QMAX))     # fl(1/127), exact in f32
+
+
+def n_blocks(d: int, block: int) -> int:
+    if block <= 0 or d % block:
+        raise ValueError(
+            f"quant block {block} must be a positive divisor of the "
+            f"quantized axis length {d}"
+        )
+    return d // block
+
+
+def quantize_blocks(x: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x [..., d]`` (any float dtype) → ``(q int8 [..., d], scales f32
+    [..., d/block])``: the plain version of :func:`quantize_rows`."""
+    nb = n_blocks(x.shape[-1], block)
+    xb = x.float().reshape(*x.shape[:-1], nb, block)
+    amax = xb.abs().amax(dim=-1)                                # NaN propagates
+    scale = amax * torch.full_like(amax, _INV_QMAX)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(xb / safe[..., None]), -QMAX, QMAX)
+    q = torch.nan_to_num(q, nan=0.0)
+    return q.to(torch.int8).reshape(x.shape), scale
+
+
+def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor,
+                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_blocks`: ``q [..., d]`` int8 + scales
+    ``[..., d/block]`` → values ``[..., d]`` in ``dtype``."""
+    nb = scales.shape[-1]
+    block = q.shape[-1] // nb
+    qb = q.float().reshape(*q.shape[:-1], nb, block)
+    return (qb * scales.float()[..., None]).reshape(q.shape).to(dtype)
+
+
+def dequantize_np(q: np.ndarray, scales: np.ndarray, dtype) -> np.ndarray:
+    """NumPy :func:`dequantize_blocks` (bitwise the same)."""
+    nb = scales.shape[-1]
+    block = q.shape[-1] // nb
+    qb = q.astype(np.float32).reshape(*q.shape[:-1], nb, block)
+    out = qb * scales.astype(np.float32)[..., None]
+    return out.reshape(q.shape).astype(dtype)
+
+
+def quantize_np(x: np.ndarray, block: int) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX package's numpy ``quantize_np``: round half to even, and the
+    scale ``amax / 127`` by division, not the reciprocal product of
+    :func:`quantize_blocks` (ROADMAP C3)."""
+    nb = n_blocks(x.shape[-1], block)
+    xb = x.astype(np.float32).reshape(*x.shape[:-1], nb, block)
+    amax = np.max(np.abs(xb), axis=-1)
+    scale = (amax / QMAX).astype(np.float32)
+    safe = np.where(scale > 0, scale, 1.0).astype(np.float32)
+    q = np.clip(np.round(xb / safe[..., None]), -QMAX, QMAX)
+    return q.astype(np.int8).reshape(x.shape), scale
+
+
+def quantize_rows(x: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize ``[..., d]`` rows: :func:`quantize_blocks` on CPU tensors,
+    the K11 kernel on CUDA tensors (bf16 or f32, ``block`` a multiple of 8
+    dividing ``d``; else :class:`ValueError`). Bitwise equal either way."""
+    if x.device.type == "cpu":
+        return quantize_blocks(x, block)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_rows runs on cpu or cuda, got {x.device}")
+    from crosscoder_tpu_torch.ops import _build
+
+    d = x.shape[-1]
+    nb = n_blocks(d, block)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"quantize kernel takes bf16 or f32 rows, got {x.dtype}")
+    if block % 8:
+        raise ValueError(f"quantize kernel takes blocks that are a multiple of 8, got {block}")
+    flat = x.reshape(-1, d).contiguous()
+    q = torch.empty(flat.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((flat.shape[0], nb), dtype=torch.float32, device=x.device)
+    vec = int(flat.data_ptr() % 16 == 0 and q.data_ptr() % 8 == 0)
+    fn = _build.load("quantize_rows").quantize_rows_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    code = fn(flat.data_ptr(), q.data_ptr(), s.data_ptr(), flat.shape[0], d, block,
+              int(x.dtype == torch.bfloat16), vec, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "quantize rows kernel")
+    quantize_rows.launches += 1
+    return q.reshape(x.shape), s.reshape(*x.shape[:-1], nb)
+
+
+quantize_rows.launches = 0
+
+
+def store_bytes(shape: tuple[int, ...], block: int) -> int:
+    """Bytes of an int8 store of this logical shape: the int8 payload plus
+    the f32 per-block scales."""
+    n = int(np.prod(shape))
+    return n + 4 * (n // block)

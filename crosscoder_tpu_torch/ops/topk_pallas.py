@@ -12,12 +12,23 @@
   ``(vals [..., k], idx [..., k] int32)``, ascending index,
   ``(0, 0)``-padded; a row past k overwrites slot k-1) launches K8,
   ``csrc/sparsify.cu``, on CUDA tensors, bf16 or f32.
+- :func:`batchtopk` (every ReLU'd entry at or above the ``min(k·rows,
+  numel)``-th largest of the whole batch, all ties kept) and
+  :func:`batchtopk_fixed` (its eval mode, a fixed threshold) are
+  :class:`torch.autograd.Function`s with the straight-through backward
+  ``where(out > 0, g, 0)`` over K9, ``csrc/batchtopk.cu``: the select
+  kernel (:func:`batchtopk_select`, the threshold as a device int32) and
+  the emit kernel (:func:`batchtopk_emit`), bf16 or f32. Entries rank by
+  clamped bit patterns, K5's rule: sign-set patterns are 0, a NaN ranks
+  above +inf.
 
 Each has a plain PyTorch version (:func:`topk_plain`,
-:func:`sparsify_plain`) with the same bits as the kernel; the wrappers use
-it for CPU tensors only. :func:`supported` and :func:`sparsify_supported`
-mirror the JAX package's dispatch gates of the same names, which decide
-the crosscoder's TopK tiers; they are not limits of the Hopper kernels.
+:func:`sparsify_plain`, :func:`batchtopk_select_plain`,
+:func:`batchtopk_emit_plain`) with the same bits as the kernel; the
+wrappers use it for CPU tensors only. :func:`supported` and
+:func:`sparsify_supported` mirror the JAX package's dispatch gates of the
+same names, which decide the crosscoder's TopK tiers; they are not limits
+of the Hopper kernels.
 """
 
 from __future__ import annotations
@@ -134,6 +145,12 @@ def topk_forward(h: torch.Tensor, k: int) -> torch.Tensor:
     return out.reshape(h.shape)
 
 
+def _straight_through(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The masks' backward: ``g`` on the survivors; survivors that are
+    exactly 0 get no gradient, as under relu's subgradient at 0."""
+    return torch.where(out > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
 class _TopK(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, k):
@@ -143,10 +160,8 @@ class _TopK(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # straight-through on the survivors: survivors that are exactly 0
-        # get no gradient, as under relu's subgradient at 0
         (out,) = ctx.saved_tensors
-        return torch.where(out > 0, g, torch.zeros((), dtype=g.dtype, device=g.device)), None
+        return _straight_through(out, g), None
 
 
 def topk(h: torch.Tensor, k: int) -> torch.Tensor:
@@ -218,3 +233,205 @@ def sparsify(f: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 sparsify.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: BatchTopK (global threshold)
+
+_BATCHTOPK_T = 15              # thresholds per bisection pass (the JAX package's)
+
+
+def _n_bisect_passes(range_size: int, t: int = _BATCHTOPK_T) -> int:
+    """Passes until ``hi - lo == 1`` from a range of ``range_size``."""
+    n, r = 0, range_size
+    while r > 1:
+        r = -((1 - r) // t)
+        n += 1
+    return n
+
+
+def _bt_patterns(h: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``(patterns int64 [numel], top)``: each entry's clamped pattern (the
+    K9 rule, ``csrc/batchtopk.cu``: sign-set → 0, NaN → the pattern below
+    the top of the range, bf16 in 15 bits, f32 in 31) and ``top``, a pattern
+    above every one of them."""
+    if h.dtype == torch.bfloat16:
+        u = h.reshape(-1).view(torch.int16).to(torch.int64) & 0xFFFF
+        neg, nan_neg, top = 0x8000, 0xFF80, 0x7FFF
+    elif h.dtype == torch.float32:
+        u = h.reshape(-1).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        neg, nan_neg, top = 0x80000000, 0xFF800000, 0x7FFFFFFF
+    else:
+        raise ValueError(f"batchtopk takes bf16 or f32 pre-activations, got {h.dtype}")
+    p = torch.where(u >= neg, torch.where(u > nan_neg, top - 1, 0), torch.clamp(u, max=top - 1))
+    return p, top
+
+
+def kth_largest_pattern(pats: torch.Tensor, kk: int, hi: int) -> int:
+    """The largest ``p`` in ``[0, hi)`` with ``count(pats >= p) >= kk``, by
+    the JAX package's multi-threshold bisection (T = 15 candidates a pass;
+    invariant ``count(>= lo) >= kk > count(>= hi)``)."""
+    t, lo = _BATCHTOPK_T, 0
+    for _ in range(_n_bisect_passes(hi)):
+        q, rem = divmod(hi - lo - 1, t)
+        mids = [lo + 1 + q * j + (rem * j) // t for j in range(t)]
+        num_ge = sum(int((pats >= m).sum()) >= kk for m in mids)
+        lo, hi = (mids[num_ge - 1] if num_ge > 0 else lo), (mids[num_ge] if num_ge < t else hi)
+    return lo
+
+
+def batchtopk_select_plain(h: torch.Tensor, kk: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`batchtopk_select`."""
+    pats, top = _bt_patterns(h)
+    return torch.tensor([kth_largest_pattern(pats, kk, top)], dtype=torch.int32,
+                        device=h.device)
+
+
+def batchtopk_emit_plain(h: torch.Tensor, kth: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`batchtopk_emit`."""
+    pats, _ = _bt_patterns(h)
+    t = kth.to(torch.int64).reshape(())
+    out = torch.where((pats >= t) & (pats > 0), pats, torch.zeros((), dtype=pats.dtype,
+                                                                   device=h.device))
+    view = torch.int16 if h.dtype == torch.bfloat16 else torch.int32
+    return out.to(view).view(h.dtype).reshape(h.shape)
+
+
+def _check_bt(h: torch.Tensor, name: str) -> torch.Tensor:
+    if h.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {h.device}")
+    if h.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name} kernel takes bf16 or f32 pre-activations, got {h.dtype}")
+    return h.reshape(-1).contiguous()
+
+
+def batchtopk_select(h: torch.Tensor, kk: int) -> torch.Tensor:
+    """K9 select: the device int32 ``[1]`` pattern of the ``kk``-th largest
+    ReLU'd entry of ``h`` (0 when fewer than ``kk`` entries are positive),
+    with no host sync. The plain version on CPU tensors, the kernel on CUDA
+    tensors (or :class:`ValueError`)."""
+    if h.device.type == "cpu":
+        return batchtopk_select_plain(h, kk)
+    from crosscoder_tpu_torch.ops import _build
+
+    flat = _check_bt(h, "batchtopk_select")
+    if kk < 1:
+        raise ValueError(f"batchtopk_select takes kk >= 1, got {kk}")
+    n = flat.numel()
+    vec = int(flat.data_ptr() % 16 == 0)
+    kth = torch.empty(1, dtype=torch.int32, device=h.device)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    lib = _build.load("batchtopk")
+    if h.dtype == torch.bfloat16:
+        hist = torch.zeros(_BINS + 1, dtype=torch.int64, device=h.device)   # + the ticket
+        fn = lib.batchtopk_select_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4)
+        code = fn(flat.data_ptr(), n, kk, vec, hist.data_ptr(), hist[_BINS:].data_ptr(),
+                  kth.data_ptr(), stream)
+    else:
+        top = 0x7FFFFFFF
+        state = torch.zeros(2 + _BATCHTOPK_T + 1, dtype=torch.int64)
+        state[1] = top
+        state = state.to(h.device)
+        fn = lib.batchtopk_select_f32
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        code = fn(flat.data_ptr(), n, kk, vec, state.data_ptr(), kth.data_ptr(),
+                  _n_bisect_passes(top), stream)
+    _build.check(code, "batchtopk select kernel")
+    batchtopk_select.launches += 1
+    return kth
+
+
+batchtopk_select.launches = 0
+_BINS = 1 << 15
+
+
+def batchtopk_emit(h: torch.Tensor, kth: torch.Tensor) -> torch.Tensor:
+    """K9 emit: ``h``'s entries whose clamped pattern is ``>= kth`` and
+    ``> 0``, as the values of those patterns, zeros elsewhere (``kth`` a
+    device int32 ``[1]``). The plain version on CPU tensors, the kernel on
+    CUDA tensors (or :class:`ValueError`)."""
+    if h.device.type == "cpu":
+        return batchtopk_emit_plain(h, kth)
+    from crosscoder_tpu_torch.ops import _build
+
+    flat = _check_bt(h, "batchtopk_emit")
+    kth = kth.to(device=h.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(flat)
+    vec = int(flat.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    fn = _build.load("batchtopk").batchtopk_emit
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    code = fn(flat.data_ptr(), out.data_ptr(), flat.numel(), kth.data_ptr(),
+              int(h.dtype == torch.bfloat16), vec, torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(code, "batchtopk emit kernel")
+    batchtopk_emit.launches += 1
+    return out.reshape(h.shape)
+
+
+batchtopk_emit.launches = 0
+
+
+def batchtopk_budget(h: torch.Tensor, k: int) -> int:
+    """``kk = min(k · rows, numel)``: the entries BatchTopK keeps (ties
+    aside), over every leading axis of ``h``."""
+    rows = h.numel() // max(h.shape[-1], 1) if h.dim() else 1
+    return min(k * rows, h.numel())
+
+
+def fixed_threshold_pattern(threshold: float, dtype: torch.dtype) -> int:
+    """The pattern of a fixed BatchTopK threshold, as the JAX package
+    computes it: rounded to ``dtype``, its f32 pattern, a sign-set pattern
+    clamped to 0 (``<= 0`` keeps every positive entry), bf16 shifted to 16
+    bits."""
+    pat = torch.tensor([threshold], dtype=dtype).float().view(torch.int32).item()
+    pat = max(pat, 0)
+    return pat >> 16 if dtype == torch.bfloat16 else pat
+
+
+class _BatchTopK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, k):
+        out = batchtopk_emit(h, batchtopk_select(h, batchtopk_budget(h, k)))
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return _straight_through(out, g), None
+
+
+class _BatchTopKFixed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, threshold):
+        kth = torch.tensor([fixed_threshold_pattern(threshold, h.dtype)], dtype=torch.int32,
+                           device=h.device)
+        out = batchtopk_emit(h, kth)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return _straight_through(out, g), None
+
+
+def batchtopk(h: torch.Tensor, k: int) -> torch.Tensor:
+    """BatchTopK of the ReLU'd entries of ``h`` (bf16 or f32): keep every
+    entry at or above the ``min(k·rows, numel)``-th largest of the whole
+    batch (all ties kept), zeros elsewhere; straight-through gradient on
+    the survivors. K9 select + emit on CUDA tensors, their plain versions
+    on CPU tensors."""
+    return _BatchTopK.apply(h, k)
+
+
+def batchtopk_fixed(h: torch.Tensor, threshold: float) -> torch.Tensor:
+    """BatchTopK's eval mode: keep the positive entries at or above a fixed
+    ``threshold`` (the K9 emit alone); straight-through gradient."""
+    return _BatchTopKFixed.apply(h, float(threshold))

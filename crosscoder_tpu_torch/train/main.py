@@ -5,32 +5,64 @@
         --num-tokens 8192 --batch-size 512 --dict-size 4096 --d-in 256 ...
 
 Config from the command line (every field a flag,
-:meth:`CrossCoderConfig.from_cli`), the synthetic activation source, the
-single-device :class:`Trainer` and its :class:`MetricsLogger`. The Gemma
-harvest (``--data-source gemma``) comes with the data-plane slice, and
-``--resume`` with checkpoints; both raise :class:`NotImplementedError`.
+:meth:`CrossCoderConfig.from_cli`), the activation source
+(:func:`build_buffer`), the single-device :class:`Trainer` and its
+:class:`MetricsLogger`.
+
+``--data-source gemma`` composes the Gemma-2 harvest: the model pair's
+architecture, the local token cache, :func:`make_buffer` and ``d_in`` from
+the model. Loading the Gemma-2 weights (the JAX package's ``lm.from_hf``)
+is not ported yet, so from the command line it raises
+:class:`NotImplementedError`; a caller holding LM params (random init,
+:mod:`crosscoder_tpu_torch.convert`) passes them to :func:`build_buffer`.
+``--resume`` needs checkpoints and raises too.
 """
 
 from __future__ import annotations
+
+from typing import Any, Sequence
 
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.train.trainer import Trainer
 from crosscoder_tpu_torch.utils.logging import MetricsLogger
 
 
+def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any] | None = None,
+                 lm_cfg: Any | None = None) -> tuple[Any, CrossCoderConfig]:
+    """The activation source for ``cfg.data_source`` and ``cfg`` with
+    ``d_in`` set from the harvested model. ``model_params``: one LM param
+    dict per model, on ``device``; without them the gemma source raises
+    :class:`NotImplementedError` (weight loading is not ported).
+    ``lm_cfg``: their architecture (default: from the first model name)."""
+    if cfg.data_source == "synthetic":
+        from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+
+        return SyntheticActivationSource(cfg), cfg
+    from crosscoder_tpu_torch.data.buffer import make_buffer
+    from crosscoder_tpu_torch.data.tokens import load_pile_lmsys_mixed_tokens
+    from crosscoder_tpu_torch.models import lm
+
+    names = cfg.model_names or (f"google/{cfg.model_name}", f"google/{cfg.model_name}-it")
+    if len(names) != cfg.n_models:
+        raise ValueError(f"{len(names)} model names for n_models={cfg.n_models}")
+    lm_cfg = lm_cfg or lm.config_for(names[0])
+    if model_params is None:
+        raise NotImplementedError(
+            f"--data-source gemma needs the weights of {list(names)}: loading them "
+            f"(lm.from_hf / from_torch_state_dict, ROADMAP Queue A 6) is not ported, the "
+            f"data-plane slice ported only the harvest and the buffer; pass model_params to "
+            f"build_buffer, or use --data-source synthetic")
+    cfg = cfg.replace(d_in=lm_cfg.d_model)
+    tokens = load_pile_lmsys_mixed_tokens(cfg)
+    return make_buffer(cfg, lm_cfg, model_params, tokens, device=device, lazy=cfg.resume), cfg
+
+
 def main(argv: list[str] | None = None, device=None) -> Trainer:
     """Train from ``argv`` (default: the process's arguments). Runs on
     ``cuda`` unless ``device`` names another device."""
     cfg = CrossCoderConfig.from_cli(argv)
-    if cfg.data_source != "synthetic":
-        raise NotImplementedError(
-            "--data-source gemma needs the Gemma harvest and the activation "
-            "buffer, which come with the data-plane slice (ROADMAP Queue A 6-7); "
-            "use --data-source synthetic")
-    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
-
-    trainer = Trainer(cfg, SyntheticActivationSource(cfg), logger=MetricsLogger(cfg),
-                      device=device)
+    buffer, cfg = build_buffer(cfg, device=device)
+    trainer = Trainer(cfg, buffer, logger=MetricsLogger(cfg), device=device)
     try:
         trainer.train()
     finally:

@@ -10,7 +10,10 @@ step runs the variant ``(with_metrics, aux_on, mask_refresh)`` that
 device until a log step reads them.
 
 The data source is any object with ``next()`` returning a ``[batch,
-n_sources, d_in]`` numpy array or tensor (the synthetic source here).
+n_sources, d_in]`` numpy array or tensor (the synthetic source), or with
+``next_raw()`` and ``normalisation_factor`` (the replay buffer of
+:mod:`crosscoder_tpu_torch.data.buffer`): raw bf16 rows, scaled by the
+factors inside the step as the JAX trainer does.
 
 Not ported in this slice (ROADMAP Queue A): mesh and multi-host runs,
 ``quant_grads``, chaos/watchdog/elastic, the observability plane, the
@@ -141,8 +144,8 @@ def expand_metrics(metrics: dict[str, Any], n_sources: int) -> dict[str, float]:
 class Trainer:
     """Host loop around the step.
 
-    ``buffer``: activation source with ``next()`` (default: the synthetic
-    source). ``state``: a starting :class:`TrainState` (default: a fresh
+    ``buffer``: activation source with ``next_raw()`` or ``next()``
+    (default: the synthetic source). ``state``: a starting :class:`TrainState` (default: a fresh
     one from ``cfg.seed``; :func:`crosscoder_tpu_torch.convert.train_state_from_numpy`
     carries a JAX one over). Runs on ``cuda`` unless ``device`` names
     another device.
@@ -171,7 +174,8 @@ class Trainer:
         self.opt = Optimizer(cfg, schedules.lr_schedule(cfg))
         self.state = state if state is not None else init_train_state(
             cfg, self.opt, device=self.device)
-        self._scale = torch.ones((cfg.n_sources,), dtype=torch.float32, device=self.device)
+        self._scale = None
+        self._scale_src = None
         self._step_fns: dict[tuple[bool, bool, bool], Callable] = {}
         self._host_step = self.state.step
         if cc.use_sparse_bwd(cfg, cfg.batch_size):
@@ -183,8 +187,25 @@ class Trainer:
     def step_counter(self) -> int:
         return self.state.step
 
+    def _device_scale(self) -> torch.Tensor:
+        """Per-source scale of the step: the buffer's
+        ``normalisation_factor`` when it serves raw rows (``next_raw``),
+        else ones. Uploaded again only when its values change."""
+        src = getattr(self.buffer, "normalisation_factor", None)
+        if hasattr(self.buffer, "next_raw") and src is not None:
+            vec = np.asarray(src, np.float32)
+        else:
+            vec = np.ones((self.cfg.n_sources,), np.float32)
+        if self._scale_src is None or not np.array_equal(self._scale_src, vec):
+            self._scale = torch.from_numpy(vec.copy()).to(self.device)
+            self._scale_src = vec.copy()
+        return self._scale
+
     def _next_batch(self) -> torch.Tensor:
-        b = self.buffer.next()
+        """The next batch on the device: raw rows from ``next_raw`` when the
+        source has it (scaled in the step), else ``next()``. A batch
+        already on the device is not copied."""
+        b = self.buffer.next_raw() if hasattr(self.buffer, "next_raw") else self.buffer.next()
         if not torch.is_tensor(b):
             b = torch.from_numpy(np.ascontiguousarray(b))
         return b.to(self.device, non_blocking=True)
@@ -197,7 +218,8 @@ class Trainer:
         if fn is None:
             fn = self._step_fns[key] = make_step_body(
                 self.cfg, self.opt, with_metrics=key[0], aux_on=key[1], mask_refresh=key[2])
-        self.state, metrics = fn(self.state, self._next_batch(), self._scale)
+        batch = self._next_batch()
+        self.state, metrics = fn(self.state, batch, self._device_scale())
         self._host_step += 1
         return metrics
 

@@ -11,10 +11,11 @@ import torch
 
 from crosscoder_tpu_torch import convert
 from crosscoder_tpu_torch.config import CrossCoderConfig
+from crosscoder_tpu_torch.data.buffer import make_buffer
 from crosscoder_tpu_torch.models import crosscoder, lm
 from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
 from crosscoder_tpu_torch.ops import paged_attention as pa
-from crosscoder_tpu_torch.ops import sparse_grad, topk_pallas
+from crosscoder_tpu_torch.ops import quant, sparse_grad, topk_pallas
 from crosscoder_tpu_torch.serve import InferenceEngine
 from crosscoder_tpu_torch.serve.smoke import build_engine, serve_batch
 from crosscoder_tpu_torch.train import main as train_main
@@ -53,14 +54,17 @@ def test_default_device_raises_without_cuda(monkeypatch):
                  lambda: init_train_state(cfg, Optimizer(cfg, lambda s: 0.0)),
                  lambda: convert.train_state_from_numpy(None),
                  lambda: train_main.main(["--data-source", "synthetic", "--d-in", "32",
-                                          "--dict-size", "64", "--log-backend", "null"])):
+                                          "--dict-size", "64", "--log-backend", "null"]),
+                 lambda: make_buffer(CrossCoderConfig(seq_len=17, d_in=32), lm.LMConfig.tiny(),
+                                     [{}, {}], np.zeros((8, 17), np.int64))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
 
 def test_cpu_run_launches_no_kernel():
     counters = (pa.paged_attention, fek.fused_topk_encode, topk_pallas.topk,
-                topk_pallas.sparsify, sparse_grad.scatter_add_rows)
+                topk_pallas.sparsify, sparse_grad.scatter_add_rows,
+                topk_pallas.batchtopk_select, topk_pallas.batchtopk_emit, quant.quantize_rows)
     for c in counters:
         c.launches = 0
     eng, _, lm_cfg, _, _ = build_engine(device="cpu")
@@ -73,6 +77,17 @@ def test_cpu_run_launches_no_kernel():
                             aux_dead_steps=1, log_backend="null")
     tr = Trainer(tcfg, device="cpu")
     for _ in range(3):
+        assert torch.isfinite(tr.step()["loss"])
+    # the harvest-train path: tiny LM, int8 buffer on the device store, BatchTopK
+    lm_params = [lm.init_params(lm.LMConfig.tiny(), seed=s, device="cpu") for s in (0, 1)]
+    bcfg = CrossCoderConfig(d_in=32, dict_size=128, batch_size=16, buffer_mult=16, seq_len=17,
+                            norm_calib_batches=1, hook_point="blocks.2.hook_resid_pre",
+                            activation="batchtopk", topk_k=4, l1_coeff=0.0, quant_buffer=True,
+                            quant_block=16, buffer_device="hbm", log_backend="null")
+    b = make_buffer(bcfg, lm.LMConfig.tiny(), lm_params,
+                    rng.integers(1, 257, size=(40, 17)), device="cpu")
+    tr = Trainer(bcfg, b, device="cpu")
+    for _ in range(10):                                  # crosses refills
         assert torch.isfinite(tr.step()["loss"])
     assert all(c.launches == 0 for c in counters)
     with pytest.raises(ValueError, match="runs on cpu or cuda"):

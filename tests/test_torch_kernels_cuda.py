@@ -189,6 +189,77 @@ def test_scatter_kernel_bitwise_matches_plain(cuda, B, k, n_out, m, dtype):
     assert _same_bits(got, want)
 
 
+def _planted_bt(seed, R, W, dtype):
+    """BatchTopK inputs: integer-valued rows (exact ties at the threshold),
+    an all-negative row, -0.0, NaN of both signs, +inf."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randint(-40, 41, (R, W), generator=gen, device="cuda").float() / 4
+    h[1] = -1.0
+    h[2, : W // 3] = -0.0
+    h[3, 5] = float("inf")
+    h[4, 9] = float("nan")
+    h = h.to(dtype)
+    if dtype == torch.bfloat16:
+        h.view(torch.int16)[5, 11] = -64                    # 0xFFC0, a negative NaN
+    else:
+        h.view(torch.int32)[5, 11] = -4194304               # 0xFFC00000
+    return h
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,W,k", [(4096, 32768, 32), (37, 2304 + 128, 5), (6, 1000, 1),
+                                   (16, 512, 512), (6, 13, 2)])
+def test_batchtopk_kernels_bitwise_match_plain(cuda, dtype, R, W, k):
+    h = _planted_bt(R + W + k, R, W, dtype)
+    kk = topk_pallas.batchtopk_budget(h, k)
+    before = (topk_pallas.batchtopk_select.launches, topk_pallas.batchtopk_emit.launches)
+    kth = topk_pallas.batchtopk_select(h, kk)
+    want = topk_pallas.batchtopk_select_plain(h, kk)
+    assert int(kth) == int(want), (int(kth), int(want))
+    out = topk_pallas.batchtopk(h, k)
+    assert _same_bits(out, topk_pallas.batchtopk_emit_plain(h, want))
+    for thr in (0.5, 3.0, 0.0, -1.0):
+        assert _same_bits(topk_pallas.batchtopk_fixed(h, thr),
+                          topk_pallas.batchtopk_emit_plain(
+                              h, torch.tensor([topk_pallas.fixed_threshold_pattern(thr, dtype)],
+                                              device="cuda")))
+    assert (topk_pallas.batchtopk_select.launches, topk_pallas.batchtopk_emit.launches) == (
+        before[0] + 2, before[1] + 5)
+
+
+def test_batchtopk_kernel_all_negative_and_budget_above_positives(cuda):
+    h = -torch.ones((64, 4096), device="cuda", dtype=torch.bfloat16)
+    assert int(topk_pallas.batchtopk_select(h, 64 * 8)) == 0
+    assert int(topk_pallas.batchtopk(h, 8).view(torch.int16).abs().max()) == 0
+    h[3, 7], h[9, 1] = 2.0, 3.0
+    out = topk_pallas.batchtopk(h, 8)
+    assert int((out > 0).sum()) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,W,block", [(4092 * 2, 2304, 256), (33, 512, 128), (7, 96, 32),
+                                       (5, 64, 8)])
+def test_quantize_rows_kernel_bitwise_matches_plain(cuda, dtype, R, W, block):
+    from crosscoder_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(R + W)
+    x = torch.randn((R, W), generator=gen, device="cuda") * 7
+    x[0, :block] = 0.0                                       # an all-zero block
+    x[1, :block] = (torch.arange(block, device="cuda") % 20 - 9.5)
+    x[1, 0] = 127.0                                          # scale 1: exact half-way quotients
+    x[2, 3] = float("nan")
+    x = x.to(dtype)
+    before = quant.quantize_rows.launches
+    q, s = quant.quantize_rows(x, block)
+    pq, ps = quant.quantize_blocks(x, block)
+    torch.cuda.synchronize()
+    assert quant.quantize_rows.launches == before + 1
+    assert torch.equal(q, pq)
+    assert torch.equal(s.view(torch.int32), ps.view(torch.int32)) or (
+        torch.equal(torch.isnan(s), torch.isnan(ps))
+        and torch.equal(s[~torch.isnan(s)], ps[~torch.isnan(ps)]))
+
+
 def test_sparse_train_step_on_the_card(cuda):
     """Three AuxK-enabled sparse TopK steps (bare and aux variants) on the
     card: finite losses, l0 <= k, and K5, K8 and K10 all launched."""
