@@ -26,7 +26,13 @@ one NVIDIA Hopper card and the CUDA toolkit:
    fewer than k positives and (K8) a row past k, k in {1, 32, 128}; the
    sorted-pair scatter (K10) with a latent hit by every row, dropped
    indices -1 and n_out, f32 and bf16 rows; the fused encoder→TopK (K2) at
-   the training shape on exact inputs; each timed beside its plain
+   the training shape on exact inputs, and at 2^17 and 2^15 + 128 wide,
+   where its merge takes two levels; the f32 TopK mask (K6) on f32 rows
+   [4096, 16384] and [4096, 384] and the width-chunked TopK (K7) on bf16
+   [4096, 131072], f32 [4096, 32768] and bf16 [512, 65920], bitwise on
+   planted ties (inside a row, across the 4096-column stretch edge, far
+   from the kth column), NaN of both signs, -0.0, +inf and rows with fewer
+   than k positives, k in {1, 32, 128}; each timed beside its plain
    version, one library call and the bound;
 6. train: two Trainer legs at Gemma-2-2B width (d_in 2304, two models,
    ``blocks.14.hook_resid_pre``), dict 2^15, TopK k=32, batch 4096, bf16
@@ -35,7 +41,14 @@ one NVIDIA Hopper card and the CUDA toolkit:
    synthetic batches made ahead onto the card, with every launch counter
    read around the legs; then a bare and an aux step re-run from one state
    with the plain versions (bitwise), the fused leg's first bare step
-   against leg A's, step times, a profiler split and peak memory;
+   against leg A's, step times, a profiler split and peak memory; then,
+   over the same batches, leg F: TopK k=32 at f32 compute (K6), dict 2^14,
+   AuxK 64 every 2 steps, 8 steps straight against 4 steps, a background
+   save, a fresh Trainer with ``resume=True`` and 4 more (bitwise equal
+   state), with the save's fetch and write times, the restore time and the
+   files' bytes; leg W: dict 2^17 (K7), bf16 compute, f32 masters, 6
+   steps, one re-run with the plain versions (bitwise) and one through the
+   default fused encoder (K2); launches, ms per step, peak memory;
    before it, the harvest path's kernels vs their plain versions, bitwise:
    the global-threshold BatchTopK select and emit (K9) and the emit alone
    at a fixed threshold, bf16 and f32, [4096, 32768] and [4096, 2432],
@@ -58,7 +71,10 @@ one NVIDIA Hopper card and the CUDA toolkit:
    counters read around both legs; then each leg's first 6 served batches
    against a host-store buffer built from the same params and tokens,
    byte for byte, and a leg-H step re-run with the plain versions
-   (bitwise); fill, serve, refill and step times, peak memory;
+   (bitwise); fill, serve, refill and step times, peak memory; leg H's
+   save at its last step restored into a fresh buffer and Trainer (the
+   state bitwise, the buffer's token pointer and normalisation factors as
+   saved, 2 more finite steps);
 8. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
@@ -90,6 +106,12 @@ HARVEST = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dic
                lr=1e-3, log_backend="null", seq_len=1024, model_batch_size=4, buffer_mult=8,
                norm_calib_batches=8)
 LEG_H, LEG_Q = 12, 12
+# leg F (K6, checkpoint and resume): TopK at f32 compute, dict 2^14, 8 steps
+# straight against 4 + save + restore + 4; leg W (K7): dict 2^17, 6 steps
+LEG_F = dict(TRAIN, dict_size=2 ** 14, enc_dtype="fp32", num_tokens=TRAIN["batch_size"] * 8)
+LEG_W = dict(TRAIN, dict_size=2 ** 17, aux_k=0, aux_every=1, fused_encoder="off",
+             num_tokens=TRAIN["batch_size"] * 6)
+STEPS_F, STEPS_W = 8, 6
 # the device sleep in front of a queued timing: about 25 ms at the H100's
 # clocks, longer than the host takes to issue 50 launches of a wrapper
 QUEUE_CYCLES = 50_000_000
@@ -581,6 +603,20 @@ def check_fused_topk_train(torch, fek):
         f"{'equal' if same else 'DIFFERENT'}")
     if not same:
         fail("K2 not bitwise equal to its plain version at the training shape")
+    # a wide dictionary: the merge takes a first level over groups of tiles
+    for Bw, Hw, kw in ((512, LEG_W["dict_size"], k), (512, H + 128, 128)):
+        x = torch.randint(-2, 3, (Bw, nd), generator=gen, device="cuda").to(torch.bfloat16)
+        W = torch.randint(-2, 3, (nd, Hw), generator=gen, device="cuda").to(torch.bfloat16)
+        W[:, Hw - 64:] = W[:, :64]                       # ties across the groups
+        b = torch.randint(-8, 9, (Hw,), generator=gen, device="cuda").float()
+        vk, ik = fek.fused_topk_encode(x, W, b, kw)
+        vp, ip = fek.fused_topk_encode_plain(x, W, b, kw)
+        torch.cuda.synchronize()
+        same = torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)
+        log(f"K2 fused_topk [{Bw},{nd}]x[{nd},{Hw}] k={kw} exact (two-level merge, "
+            f"{-(-Hw // fek._CW)} tiles): bitwise {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail("K2 not bitwise equal to its plain version at a wide dictionary")
     x = torch.randn((B, nd), generator=gen, device="cuda").to(torch.bfloat16)
     W = (torch.randn((nd, H), generator=gen, device="cuda") * nd ** -0.5).to(torch.bfloat16)
     b = torch.zeros(H, device="cuda")
@@ -593,6 +629,91 @@ def check_fused_topk_train(torch, fek):
     return {**_row("fused_topk_encode", "fused_topk.cu",
                    "crosscoder_tpu/ops/fused_encoder_topk.py:353", 0.0, ms, plain_ms, bnd,
                    lib_ms), "name": "fused_topk_encode (train shape)"}
+
+
+def _planted_wide(torch, gen, R, W, dtype):
+    """Integer-valued rows for K6/K7: ties wider than k, a tie straddling
+    the 4096-column stretch boundary, ties far from the kth column, rows
+    with fewer than k positives, -0.0, +inf, NaN of both signs and (f32) a
+    NaN beside +inf among a row's top k."""
+    h = torch.randint(-6, 7, (R, W), generator=gen, device="cuda").float()
+    h[0, : W // 2] = 5.0
+    h[1] = -1.0
+    h[1, 3] = 2.0
+    h[2] = -0.0
+    h[3, 4091:4101] = 9.0
+    h[3, W - 3:] = 9.0
+    h[4, 7] = h[4, W - 1] = float("inf")
+    h[4, 9] = float("nan")
+    h[5, W - 40:] = 8.0
+    h[7, 100:300] = 6.0
+    h = h.to(dtype)
+    if dtype == torch.bfloat16:
+        bits = h.view(torch.int16)
+        bits[6, 11], bits[6, 12], bits[8, :] = -64, 0x7FFF, -64      # 0xFFC0, 0x7FFF
+    else:
+        bits = h.view(torch.int32)
+        bits[6, 11], bits[6, 12], bits[8, :] = -4194304, 0x7FC00001, -4194304
+    return h
+
+
+def check_topk_wide(torch, tp):
+    """K6 (f32 rows that fit shared memory) and K7 (width-chunked, any
+    width, bf16 and f32) bitwise against their plain versions on planted
+    rows, then timed on random rows at the legs' shapes; returns the K6,
+    K7 bf16 and K7 f32 rows of the kernel table."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B = TRAIN["batch_size"]
+    cases = [("K6", tp.topk_mask_f32, tp.topk_plain, torch.float32, B, LEG_F["dict_size"]),
+             ("K6", tp.topk_mask_f32, tp.topk_plain, torch.float32, B, 384),
+             ("K7", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16, B, LEG_W["dict_size"]),
+             ("K7", tp.topk_chunked, tp.topk_chunked_plain, torch.float32, B, 2 ** 15),
+             ("K7", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16, 512, 2 ** 16 + 384)]
+    for name, kern, plain, dtype, R, W in cases:
+        h = _planted_wide(torch, gen, R, W, dtype)
+        for k in (1, 32, 128):
+            got = kern(h, k)
+            same = torch.equal(_bits(got, torch), _bits(plain(h, k), torch))
+            routed = tp.topk_route(W, k, dtype) == name
+            same = same and (not routed or torch.equal(_bits(tp.topk(h, k), torch),
+                                                       _bits(got, torch)))
+            torch.cuda.synchronize()
+            log(f"{name} [{R},{W}] {str(dtype)[6:]} k={k}{' (via topk)' if routed else ''}: "
+                f"bitwise {'equal' if same else 'DIFFERENT'}; kept a row min/max "
+                f"{int((got != 0).sum(1).min())}/{int((got != 0).sum(1).max())}")
+            if not same:
+                bad = (_bits(got, torch) != _bits(plain(h, k), torch)).any(1).nonzero()
+                fail(f"{name} not bitwise equal to its plain version at [{R},{W}] {dtype} k={k} "
+                     f"(rows {bad.flatten()[:8].tolist()})")
+        del h, got
+    k = TRAIN["topk_k"]
+    rows = []
+    for name, kern, plain, dtype, W, source, replaces, label in (
+            ("topk_mask_f32", tp.topk_mask_f32, tp.topk_plain, torch.float32,
+             LEG_F["dict_size"], "topk_mask_f32.cu", "crosscoder_tpu/ops/topk_pallas.py:259", "K6"),
+            ("topk_chunked", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16,
+             LEG_W["dict_size"], "topk_chunked.cu", "crosscoder_tpu/ops/topk_pallas.py:358", "K7"),
+            ("topk_chunked (f32)", tp.topk_chunked, tp.topk_chunked_plain, torch.float32,
+             2 ** 15, "topk_chunked.cu", "crosscoder_tpu/ops/topk_pallas.py:358", "K7")):
+        h = torch.randn((B, W), generator=gen, device="cuda").to(dtype)
+        if not torch.equal(_bits(kern(h, k), torch), _bits(plain(h, k), torch)):
+            fail(f"{label} not bitwise equal to its plain version on random {dtype} rows")
+
+        def topk_scatter():
+            v, i = torch.topk(h, k)
+            return torch.zeros_like(h).scatter_(1, i, torch.relu(v))
+
+        ms = time_ms(lambda: kern(h, k), 20)
+        q_ms = time_ms(lambda: kern(h, k), 20, queued=True)
+        plain_ms = time_ms(lambda: plain(h, k), 2)
+        lib_ms = time_ms(topk_scatter, 10)
+        b = bound(2 * h.numel() * h.element_size(), 0, "bf16")
+        log(f"{label} [{B},{W}] {str(dtype)[6:]} k={k}: {ms:.4f} ms kernel ({q_ms:.4f} ms queued), "
+            f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms topk+scatter, bound {b[0]:.4f} ms by {b[1]}")
+        rows.append({**_row(name, source, replaces, 0.0, ms, plain_ms, b, lib_ms),
+                     "queued_ms": q_ms})
+        del h
+    return rows
 
 
 def _planted_bt(torch, gen, R, W, dtype):
@@ -716,7 +837,8 @@ def check_quantize(torch, quant):
 
 
 class DeviceBatches:
-    """Synthetic batches made ahead onto the card, served in order."""
+    """Synthetic batches made ahead onto the card, served in order; the
+    position is the state a checkpoint records."""
 
     def __init__(self, torch, source, n):
         self.batches = [torch.from_numpy(source.next()).cuda() for _ in range(n)]
@@ -727,21 +849,30 @@ class DeviceBatches:
         self.i += 1
         return b
 
+    def state_dict(self):
+        return {"i": self.i}
+
+    def load_state_dict(self, d):
+        self.i = int(d["i"])
+
 
 @contextlib.contextmanager
 def plain_versions(tp, sg, fek):
     """Route the model's kernel calls to their plain versions."""
-    saved = (tp.topk_forward, tp.sparsify, sg.scatter_add_rows, fek.fused_topk_encode,
-             tp.batchtopk_select, tp.batchtopk_emit)
-    tp.topk_forward, tp.sparsify = tp.topk_plain, tp.sparsify_plain
-    sg.scatter_add_rows, fek.fused_topk_encode = (sg.scatter_add_rows_plain,
-                                                  fek.fused_topk_encode_plain)
-    tp.batchtopk_select, tp.batchtopk_emit = tp.batchtopk_select_plain, tp.batchtopk_emit_plain
+    swaps = [(tp, "topk_mask", tp.topk_plain), (tp, "topk_mask_f32", tp.topk_plain),
+             (tp, "topk_chunked", tp.topk_chunked_plain), (tp, "sparsify", tp.sparsify_plain),
+             (sg, "scatter_add_rows", sg.scatter_add_rows_plain),
+             (fek, "fused_topk_encode", fek.fused_topk_encode_plain),
+             (tp, "batchtopk_select", tp.batchtopk_select_plain),
+             (tp, "batchtopk_emit", tp.batchtopk_emit_plain)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    for m, name, plain in swaps:
+        setattr(m, name, plain)
     try:
         yield
     finally:
-        (tp.topk_forward, tp.sparsify, sg.scatter_add_rows, fek.fused_topk_encode,
-         tp.batchtopk_select, tp.batchtopk_emit) = saved
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
 def profile_step(torch, trainer, full_metrics, label):
@@ -764,11 +895,14 @@ def profile_step(torch, trainer, full_metrics, label):
     if total <= 0:
         log(f"profile {label}: the profiler recorded no device time (not measured)")
         return
-    groups = {"K2 fused_topk": 0.0, "K5 topk_mask": 0.0, "K8 sparsify": 0.0,
-              "K10 scatter_rows": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"K2 fused_topk": 0.0, "K5 topk_mask": 0.0, "K6 topk_mask_f32": 0.0,
+              "K7 topk_chunked": 0.0, "K8 sparsify": 0.0, "K10 scatter_rows": 0.0,
+              "matmul": 0.0, "other": 0.0}
     for e in kernels:
         n = e.key.lower()
-        g = ("K5 topk_mask" if "topk_mask" in n else
+        g = ("K6 topk_mask_f32" if "topk_mask_f32" in n else
+             "K7 topk_chunked" if "topk_chunked" in n else
+             "K5 topk_mask" if "topk_mask" in n else
              "K2 fused_topk" if "topk_tiles" in n or "topk_merge" in n else
              "K8 sparsify" if "sparsify" in n else
              "K10 scatter_rows" if "scatter_rows" in n else
@@ -794,7 +928,8 @@ def same_step(torch, a, b):
 
 
 def train(torch, np):
-    """The train phase; returns the launch counts of its main path."""
+    """The train phase; returns the launch counts of its main path and its
+    batches on the card."""
     from crosscoder_tpu_torch.config import CrossCoderConfig
     from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
     from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
@@ -902,7 +1037,188 @@ def train(torch, np):
         fail("the fused leg's loss disagrees with leg A's beyond the bf16 tolerance")
     profile_step(torch, tr_a, False, "bare step" if tr_a.state.step % 2 else "aux step")
     profile_step(torch, tr_a, False, "bare step" if tr_a.state.step % 2 else "aux step")
-    return launches
+    return launches, batches
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: TopK at f32 (K6) with checkpoint and resume; a wide dictionary (K7)
+
+
+def state_bits_equal(torch, a, b):
+    """Bitwise equality of two TrainStates: params, moments, count, step,
+    aux; returns (equal, what differs)."""
+    if (a.step, a.opt_state.count) != (b.step, b.opt_state.count):
+        return False, f"step/count {a.step, a.opt_state.count} vs {b.step, b.opt_state.count}"
+    for what, x, y in (("params", a.params, b.params), ("mu", a.opt_state.mu, b.opt_state.mu),
+                       ("nu", a.opt_state.nu, b.opt_state.nu), ("aux", a.aux or {}, b.aux or {})):
+        if set(x) != set(y):
+            return False, f"{what} keys"
+        for k in x:
+            if x[k].dtype != y[k].dtype or not torch.equal(x[k].view(torch.uint8),
+                                                           y[k].view(torch.uint8)):
+                return False, f"{what}[{k}]"
+    return True, ""
+
+
+def ckpt_dir(root):
+    import tempfile
+
+    (root / "build").mkdir(exist_ok=True)
+    return Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root / "build"))
+
+
+def train_wide(torch, np, root, train_batches):
+    """Legs F and W over the train phase's batches (each leg from the
+    first); returns the launch counts of each leg."""
+    import copy
+    import shutil
+
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.models import crosscoder as cc
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.ops import sparse_grad as sg
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+
+    counters = {"topk_mask_f32": tp.topk_mask_f32, "topk_chunked": tp.topk_chunked,
+                "topk_mask": tp.topk, "sparsify": tp.sparsify,
+                "scatter_add_rows": sg.scatter_add_rows}
+    legs = {}
+
+    # leg F: 8 steps straight, against 4 + background save + restore + 4
+    cfg = CrossCoderConfig(**LEG_F)
+    if not (cc.use_factored_decode(cfg) and cc.use_sparse_bwd(cfg, cfg.batch_size)
+            and tp.topk_route(cfg.dict_size, cfg.topk_k, torch.float32) == "K6"):
+        fail("leg F does not take the factored tier, the sparse plane and K6")
+    batches = copy.copy(train_batches)
+    batches.i = 0
+    state0 = init_train_state(cfg, Optimizer(cfg, lambda s: 0.0), device="cuda")
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    straight = trainer_mod.Trainer(cfg, batches, device="cuda", state=state0)
+    losses_f, step_ms = [], []
+    for _ in range(STEPS_F):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        losses_f.append(float(straight.step()["loss"]))
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+    batches.i = 0
+    tmp = ckpt_dir(root)
+    ck = Checkpointer(base_dir=tmp)
+    first = trainer_mod.Trainer(cfg, batches, device="cuda", state=state0, checkpointer=ck)
+    for _ in range(STEPS_F // 2):
+        first.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first.save(background=True)
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ck.wait()
+    write_ms = (time.perf_counter() - t0) * 1e3
+    vdir = Checkpointer.latest_version_dir(tmp)
+    n_bytes = sum(f.stat().st_size for f in vdir.iterdir())
+    del first
+    batches.i = 10 ** 6                                 # the restore must rewind it
+    t0 = time.perf_counter()
+    resumed = trainer_mod.Trainer(cfg.replace(resume=True, checkpoint_dir=str(tmp)), batches,
+                                  device="cuda", checkpointer=Checkpointer(base_dir=tmp))
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if (resumed.step_counter, batches.i) != (STEPS_F // 2, STEPS_F // 2):
+        fail(f"leg F restored step {resumed.step_counter}, batch position {batches.i}")
+    losses_r = [float(resumed.step()["loss"]) for _ in range(STEPS_F // 2)]
+    torch.cuda.synchronize()
+    legs["F"] = {n: c.launches for n, c in counters.items()}
+    peak_f = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok, what = state_bits_equal(torch, straight.state, resumed.state)
+    log(f"leg F (TopK f32, dict {cfg.dict_size}, AuxK {cfg.aux_k}): losses "
+        f"{[round(v, 4) for v in losses_f]}; resumed run's last 4 {[round(v, 4) for v in losses_r]}")
+    log(f"leg F: ms per step (CUDA events, aux steps even) {[round(v, 2) for v in step_ms]}; "
+        f"bare {np.mean(step_ms[3::2]):.3f}, aux {np.mean(step_ms[2::2]):.3f} (first two excluded)")
+    log(f"leg F save at step {STEPS_F // 2}: fetch to host {fetch_ms:.1f} ms, background write "
+        f"{write_ms:.1f} ms, {n_bytes / 1e9:.3f} GB in {sorted(f.name for f in vdir.iterdir())}; "
+        f"restore (Trainer with resume=True) {restore_ms:.1f} ms; peak memory {peak_f:.2f} GiB")
+    log(f"leg F: state after 4 + save + restore + 4 steps vs 8 straight: "
+        f"{'bitwise equal (params, moments, count, step, aux)' if ok else 'DIFFERENT ' + what}; "
+        f"launches {legs['F']}")
+    shutil.rmtree(tmp)
+    if not ok:
+        fail(f"leg F: the resumed run differs from the straight run in {what}")
+    if not all(np.isfinite(losses_f)) or losses_r != losses_f[STEPS_F // 2:]:
+        fail("leg F: losses not finite, or the resumed run's losses differ from the straight run's")
+    if not all(legs["F"][n] > 0 for n in ("topk_mask_f32", "sparsify", "scatter_add_rows")):
+        fail(f"K6, K8 or K10 never launched on leg F: {legs['F']}")
+    del straight, resumed, batches, state0
+
+    # leg W: dict 2^17, the factored tier by auto, K7 every step
+    cfg = CrossCoderConfig(**LEG_W)
+    if not (cc.use_factored_decode(cfg) and cc.use_sparse_bwd(cfg, cfg.batch_size)
+            and tp.topk_route(cfg.dict_size, cfg.topk_k, torch.bfloat16) == "K7"):
+        fail("leg W does not take the factored tier, the sparse plane and K7")
+    t0 = time.perf_counter()
+    batches = copy.copy(train_batches)
+    batches.i = 0
+    tr = trainer_mod.Trainer(cfg, batches, device="cuda")
+    torch.cuda.synchronize()
+    log(f"leg W: a {cfg.dict_size}-latent state on the card in {time.perf_counter() - t0:.1f} s")
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses_w, l0s, step_ms = [], [], []
+    for _ in range(STEPS_W):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m = tr.step(full_metrics=True)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses_w.append(float(m["loss"]))
+        l0s.append(float(m["l0_loss"]))
+    legs["W"] = {n: c.launches for n, c in counters.items()}
+    peak_w = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"leg W (TopK bf16, dict {cfg.dict_size}, f32 masters): losses "
+        f"{[round(v, 4) for v in losses_w]}; l0 max {max(l0s):.2f}; ms per step (CUDA events) "
+        f"{[round(v, 2) for v in step_ms]}, mean after the first {np.mean(step_ms[1:]):.3f}; "
+        f"peak memory {peak_w:.2f} GiB; launches {legs['W']}")
+    if not all(np.isfinite(losses_w)) or max(l0s) > cfg.topk_k:
+        fail("leg W: a loss is not finite or l0 exceeds k")
+    if not all(legs["W"][n] > 0 for n in ("topk_chunked", "sparsify", "scatter_add_rows")):
+        fail(f"K7, K8 or K10 never launched on leg W: {legs['W']}")
+    x = batches.next()
+    scale = torch.ones(cfg.n_sources, device="cuda")
+    fn = trainer_mod.make_step_body(cfg, Optimizer(cfg, lambda s: 0.0), True, True, True)
+    got = fn.loss_and_grads(tr.state, x, scale)
+    with plain_versions(tp, sg, fek):
+        want = fn.loss_and_grads(tr.state, x, scale)
+    ok, what = same_step(torch, got, want)
+    log(f"leg W step at step {tr.state.step} with kernels vs plain versions: loss "
+        f"{float(got[0]):.6f} vs {float(want[0]):.6f}, "
+        f"{'bitwise equal loss and gradients' if ok else 'DIFFERENT ' + what}")
+    if not ok:
+        fail(f"the leg W step with kernels differs from the plain versions in {what}")
+    del want
+    # the default tier at this width, fused_encoder='auto': the fused
+    # encoder (K2, two-level merge) on a bare step, against the dense encode
+    cfg_auto = cfg.replace(fused_encoder="auto")
+    before = fek.fused_topk_encode.launches
+    fused = trainer_mod.make_step_body(cfg_auto, Optimizer(cfg_auto, lambda s: 0.0),
+                                       True, True, True).loss_and_grads(tr.state, x, scale)
+    torch.cuda.synchronize()
+    rel = abs(float(fused[0]) - float(got[0])) / abs(float(got[0]))
+    log(f"leg W step with fused_encoder='auto' (K2 launched "
+        f"{fek.fused_topk_encode.launches - before}x): loss {float(fused[0]):.6f} vs dense "
+        f"encode {float(got[0]):.6f}, relative difference {rel:.2e} (tol 1e-3)")
+    if not (cc.use_fused_encoder(cfg_auto, cfg.batch_size) and rel <= 1e-3
+            and fek.fused_topk_encode.launches > before):
+        fail("leg W: the fused encoder at dict 2^17 did not run or disagrees with the dense encode")
+    profile_step(torch, tr, True, "leg W step")
+    del tr, got, fused, batches
+    return legs
 
 
 # ---------------------------------------------------------------------------
@@ -921,6 +1237,9 @@ class Recorder:
     @property
     def normalisation_factor(self):
         return self.buffer.normalisation_factor
+
+    def state_dict(self):
+        return self.buffer.state_dict()
 
     def next_raw(self):
         self.torch.cuda.synchronize()
@@ -958,12 +1277,16 @@ def harvest_tokens(np, n_seqs, seq_len, vocab, seed):
     return t
 
 
-def harvest_train(torch, np):
+def harvest_train(torch, np, root):
     """The harvest-train phase: two random-init Gemma-2-2B models harvested
     into the replay buffer, a BatchTopK leg over the bf16 card store (K9 in
-    every step, the calibrated eval mode through the K9 emit) and a ReLU leg
-    over the int8 card store (K11 on every chunk); returns the launch
-    counts of that main path."""
+    every step, the calibrated eval mode through the K9 emit, a save at its
+    last step restored into a fresh buffer and Trainer) and a ReLU leg over
+    the int8 card store (K11 on every chunk); returns the launch counts of
+    that main path."""
+    import shutil
+
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
     from crosscoder_tpu_torch.config import CrossCoderConfig
     from crosscoder_tpu_torch.data import buffer as bufmod
     from crosscoder_tpu_torch.models import crosscoder as cc
@@ -1028,6 +1351,20 @@ def harvest_train(torch, np):
             step_ms.append((time.perf_counter() - t0) * 1e3)
             l0s.append(float(m["l0_loss"]))
         trace.set_tracer(prev)
+        if name == "H":
+            # save at the last step: state, buffer position, norm factors
+            tmp = ckpt_dir(root)
+            tr.checkpointer = Checkpointer(base_dir=tmp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.save()
+            save_ms = (time.perf_counter() - t0) * 1e3
+            vdir = Checkpointer.latest_version_dir(tmp)
+            meta_h = json.loads((vdir / "0_meta.json").read_text())
+            log(f"harvest leg H save at step {meta_h['step']}: {save_ms:.1f} ms, "
+                f"{sum(f.stat().st_size for f in vdir.iterdir()) / 1e9:.3f} GB; buffer state "
+                f"token_pointer {meta_h['buffer']['token_pointer']}, normalisation factors "
+                f"{[round(v, 4) for v in meta_h['buffer']['normalisation_factor']]}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         cycles = spans.counts.get("refill", 0) - fills
         serve = rec.serve_ms
@@ -1097,6 +1434,7 @@ def harvest_train(torch, np):
 
     # leg H's last state re-run with every plain version: same bits
     leg = legs["H"]
+    state_h = leg["state"]
     fn = trainer_mod.make_step_body(cfg_h, Optimizer(cfg_h, lambda s: 0.0), True, True, True)
     x = leg["rec"].served[0]
     got = fn.loss_and_grads(leg["state"], x, leg["scale"][0, :, 0])
@@ -1118,6 +1456,29 @@ def harvest_train(torch, np):
             f"ms; step without the serve (host clock) mean {np.mean(steady):.3f} ms over "
             f"{len(steady)} steps; {b / np.mean(leg['step_ms'][1:]) * 1e3:.0f} "
             f"rows/s end to end")
+    # leg H's save restored into a fresh buffer (lazy, filled by the
+    # restore from the saved position) and a fresh Trainer with resume
+    del legs
+    cfg_r = cfg_h.replace(resume=True, checkpoint_dir=str(tmp))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = bufmod.make_buffer(cfg_r, lm_cfg, params, tokens, device="cuda", lazy=True)
+    tr = trainer_mod.Trainer(cfg_r, fresh, device="cuda", checkpointer=Checkpointer(base_dir=tmp))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    st = fresh.state_dict()
+    ok, what = state_bits_equal(torch, state_h, tr.state)
+    same_buf = (st["token_pointer"] == meta_h["buffer"]["token_pointer"]
+                and st["normalisation_factor"] == meta_h["buffer"]["normalisation_factor"])
+    losses = [float(tr.step()["loss"]) for _ in range(2)]
+    log(f"harvest leg H restore (fresh buffer refilled from token {st['token_pointer']}, fresh "
+        f"Trainer) {restore_s:.2f} s: state {'bitwise equal' if ok else 'DIFFERENT ' + what}; "
+        f"token_pointer and normalisation factors {'equal' if same_buf else 'DIFFERENT'} to the "
+        f"meta; 2 more steps, losses {[round(v, 4) for v in losses]}")
+    shutil.rmtree(tmp)
+    if not (ok and same_buf and tr.step_counter == LEG_H + 2 and all(map(math.isfinite, losses))):
+        fail("harvest leg H: the resume over the harvested buffer failed its gate")
+    del tr, fresh
     return launches
 
 
@@ -1167,16 +1528,22 @@ def main() -> int:
     train_rows = [*check_topk_mask_and_sparsify(torch, tp), check_scatter(torch, sg),
                   check_fused_topk_train(torch, fek)]
     harvest_rows = [*check_batchtopk(torch, tp), check_quantize(torch, quant)]
+    wide_rows = check_topk_wide(torch, tp)
     launches = serve(torch, np, lengths_a)
     for row in rows:
         row["launches"] = launches[row["name"]]
-    launches = train(torch, np)
+    launches, batches = train(torch, np)
     for row in train_rows:
         row["launches"] = launches[row["name"].split()[0]]
-    launches = harvest_train(torch, np)
+    legs = train_wide(torch, np, root, batches)
+    del batches
+    wide_rows[0]["launches"] = legs["F"]["topk_mask_f32"]
+    for row in wide_rows[1:]:
+        row["launches"] = legs["W"]["topk_chunked"]
+    launches = harvest_train(torch, np, root)
     for row in harvest_rows:
         row["launches"] = launches[row["name"]]
-    rows += train_rows + harvest_rows
+    rows += train_rows + harvest_rows + wide_rows
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

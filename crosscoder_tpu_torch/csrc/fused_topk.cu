@@ -16,11 +16,15 @@
 //     bias and rounds to the compute dtype exactly as `pre_acts` does, maps
 //     each value to its selection key and writes the tile's best k
 //     candidates of each row, in rank order, to a [B, n_tiles, k] scratch.
-//   pass 2, one block per row: merges the n_tiles * k candidates. The k-th
-//     best tile head is a lower bound of the k-th best candidate, so only
-//     candidates at or above it are ranked (by counting the candidates that
-//     beat them, one warp per candidate). The k winners are emitted in
-//     ascending index order.
+//   pass 2, one block per row: merges the n_tiles * k candidates, staged in
+//     shared memory. The k-th best tile head is a lower bound of the k-th
+//     best candidate, so only candidates at or above it are ranked (by
+//     counting the candidates that beat them, one warp per candidate). The
+//     k winners are emitted in ascending index order. When a row's
+//     candidates exceed shared memory (wide dictionaries: 1024 tiles of 32
+//     at 2^17), a first merge level takes groups of tiles, one block each,
+//     and writes each group's best k in rank order, the format of a tile's
+//     candidates; the second level merges those.
 // Selection key: the f32 bit pattern of the relu'd value, with every NaN
 // mapped to 0x7F800001 (just above +inf) and every value <= 0 (-0.0,
 // negatives, -inf) to 0, as `_select_keys` does. Candidates are ordered by
@@ -183,21 +187,26 @@ topk_tiles_kernel(const T* __restrict__ x,      // [B, nd]
   for (int s = min(npos, k) + lane; s < k; s += 32) out[s] = 0;
 }
 
+// Block (row, g) merges tiles [g * group, g * group + group) of a row's
+// row_tiles candidate lists; with `out`, it writes the best k in rank order
+// to out[row, g, :] instead of emitting (vals, idx).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-topk_merge_kernel(const long long* __restrict__ cand,  // [B, n_tiles, k]
+topk_merge_kernel(const long long* __restrict__ cand,  // [B, row_tiles, k]
                   T* __restrict__ vals,                // [B, k]
                   int* __restrict__ idx,               // [B, k]
-                  int n_tiles, int k) {
+                  long long* __restrict__ out,         // [B, n_groups, k] or null
+                  int row_tiles, int group, int k) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int row = blockIdx.x, g = blockIdx.y;
+  const int n_tiles = min(group, row_tiles - g * group);
   long long* cs = reinterpret_cast<long long*>(smem);  // [n_tiles * k]
   const int N = n_tiles * k;
   long long* sel = cs + N;                              // [k]
   __shared__ long long theta;
 
-  const int row = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long* base = cand + size_t(row) * N;
+  const long long* base = cand + (size_t(row) * row_tiles + size_t(g) * group) * k;
   for (int i = tid; i < N; i += kThreads) cs[i] = base[i];
   for (int i = tid; i < k; i += kThreads) sel[i] = 0;
   if (tid == 0) theta = 0;
@@ -225,6 +234,10 @@ topk_merge_kernel(const long long* __restrict__ cand,  // [B, n_tiles, k]
     if (lane == 0 && cnt < k) sel[cnt] = c;
   }
   __syncthreads();
+  if (out != nullptr) {
+    for (int i = tid; i < k; i += kThreads) out[(size_t(row) * gridDim.y + g) * k + i] = sel[i];
+    return;
+  }
 
   // emit the winners with a positive value, lowest index first
   int n_emit = 0;
@@ -255,8 +268,8 @@ topk_merge_kernel(const long long* __restrict__ cand,  // [B, n_tiles, k]
 }
 
 template <typename T>
-int launch(const void* x, const void* W, const void* b, void* cand, void* vals, void* idx, int B,
-           int nd, int width, int k, cudaStream_t stream) {
+int launch(const void* x, const void* W, const void* b, void* cand, void* cand2, void* vals,
+           void* idx, int B, int nd, int width, int k, int group, cudaStream_t stream) {
   const int n_tiles = (width + kCW - 1) / kCW;
   const size_t smem1 = tiles_smem<T>(nd);
   size_t region = smem1 - size_t(kRowsPB) * kCW * sizeof(long long);
@@ -269,21 +282,36 @@ int launch(const void* x, const void* W, const void* b, void* cand, void* vals, 
                                          static_cast<long long*>(cand), B, nd, width, k, region);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  const size_t smem2 = (size_t(n_tiles) * k + k) * sizeof(long long);
+  // group: the tiles whose candidates one merge block stages (n_tiles when
+  // they all fit, else the wrapper's cand2 [B, n_groups, k] takes a level)
+  const int n_groups = (n_tiles + group - 1) / group;
+  const int widest = n_groups > 1 ? (group > n_groups ? group : n_groups) : n_tiles;
+  const size_t smem2 = (size_t(widest) * k + k) * sizeof(long long);
   auto k2 = topk_merge_kernel<T>;
   err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem2));
   if (err != cudaSuccess) return int(err);
-  k2<<<B, kThreads, smem2, stream>>>(static_cast<const long long*>(cand), static_cast<T*>(vals),
-                                     static_cast<int*>(idx), n_tiles, k);
+  const long long* c = static_cast<const long long*>(cand);
+  int row_tiles = n_tiles;
+  if (n_groups > 1) {
+    k2<<<dim3(B, n_groups), kThreads, smem2, stream>>>(
+        c, nullptr, nullptr, static_cast<long long*>(cand2), n_tiles, group, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    c = static_cast<const long long*>(cand2);
+    row_tiles = n_groups;
+  }
+  k2<<<dim3(B, 1), kThreads, smem2, stream>>>(c, static_cast<T*>(vals), static_cast<int*>(idx),
+                                              nullptr, row_tiles, row_tiles, k);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int fused_topk_launch(const void* x, const void* W, const void* b, void* cand,
-                                 void* vals, void* idx, int B, int nd, int width, int k,
-                                 int is_bf16, void* stream) {
+                                 void* cand2, void* vals, void* idx, int B, int nd, int width,
+                                 int k, int group, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<__nv_bfloat16>(x, W, b, cand, vals, idx, B, nd, width, k, st);
-  return launch<float>(x, W, b, cand, vals, idx, B, nd, width, k, st);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(x, W, b, cand, cand2, vals, idx, B, nd, width, k, group, st);
+  return launch<float>(x, W, b, cand, cand2, vals, idx, B, nd, width, k, group, st);
 }

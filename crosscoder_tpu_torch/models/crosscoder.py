@@ -10,12 +10,15 @@ The loss surface (:func:`get_losses`, :func:`training_loss`) follows the
 JAX package: summed-square-error L2 (mean over the batch), explained
 variance overall and per source, decoder-norm-weighted L1, L0, and the
 AuxK dead-latent loss. The TopK tiers resolve from ``cfg`` exactly as the
-JAX gates do, with "kernel live" read as always true:
+JAX gates do, with "kernel live" read as always true. "The mask" below is
+the TopK mask kernel :func:`topk_pallas.topk_forward` picks for the
+pre-activations: K5 (bf16 up to 2^16 wide), K6 (f32 that fits its
+single-block gate) or K7 (wider rows, f32 or bf16):
 
-- factored (:class:`_FactoredTopK`): K5 mask → K8 drain → k-row decode,
+- factored (:class:`_FactoredTopK`): the mask → K8 drain → k-row decode,
   backward through the dense matmuls;
 - sparse step (:class:`_SparseTopKStep`, bare steps of ``sparse_bwd``):
-  encode + K5 + K8 + decode in one autograd scope, backward through the
+  encode + the mask + K8 + decode in one autograd scope, backward through the
   K10 scatter (dW_dec, then dW_enc with db_enc riding a ones column);
 - fused step (the same class with the ported K2 encoder→TopK forward);
 - sparse from h (:class:`_SparseTopKFromH`, AuxK steps: h stays a
@@ -202,7 +205,7 @@ def _d_vals(g_flat: torch.Tensor, idx: torch.Tensor, W_dec: torch.Tensor) -> tor
 
 class _FactoredTopK(torch.autograd.Function):
     """``(recon [B,n,d] f32 (no b_dec), vals, idx)`` from pre-acts ``h``:
-    K5 mask → K8 drain → k-row decode; backward through the dense
+    the mask (K5, K6 or K7) → K8 drain → k-row decode; backward through the dense
     matmuls, exactly as the dense TopK path. ``vals``/``idx`` carry no
     gradient (sound only with l1_coeff == 0, which the gate ensures)."""
 
@@ -256,8 +259,8 @@ def _sparse_step_backward(ctx, g):
 
 class _SparseTopKStep(torch.autograd.Function):
     """``(recon [B,n,d] f32 (no b_dec), vals, idx)`` from the batch: encode
-    + K5 + K8 + k-row decode in one scope (``fused``: the K2 encoder→TopK
-    kernel in place of encode + K5 + K8), so the backward never leaves
+    + the mask + K8 + k-row decode in one scope (``fused``: the K2
+    encoder→TopK kernel in place of encode + mask + K8), so the backward never leaves
     factored form. Soundness gate: l1_coeff == 0."""
 
     @staticmethod

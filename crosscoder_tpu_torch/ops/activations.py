@@ -5,9 +5,11 @@ for ``relu``, ``topk`` and ``batchtopk``.
   package's ``jax.nn.relu``).
 - :func:`topk`: the k largest ReLU'd entries per row, zeros elsewhere,
   ties to the lowest index, straight-through gradient on the survivors.
-  It dispatches to :func:`crosscoder_tpu_torch.ops.topk_pallas.topk`: the
-  K5 kernel on CUDA tensors (bf16 rows up to 2^16 wide, else
-  :class:`ValueError`), the plain version on CPU tensors.
+  It dispatches to :func:`crosscoder_tpu_torch.ops.topk_pallas.topk`, as
+  the JAX package's kernel dispatch: K5 for bf16 rows up to 2^16 wide, K6
+  for f32 rows that fit its single-block gate, K7 for every wider row
+  (f32 or bf16, any width) on CUDA tensors; their plain versions on CPU
+  tensors.
 - :func:`_topk_dense`: the dense reference (relu, exact top-k, scatter),
   differentiable through autograd; the mask it keeps is the kernel's.
 - :func:`batchtopk`: every ReLU'd entry at or above the ``k·batch``-th

@@ -93,14 +93,18 @@ def check_supported(x2, W2, b_enc, k: int) -> None:
         raise ValueError(f"fused topk kernel takes 0 < k <= min({_MAX_K}, width={width}), got {k}")
     if width % 8:
         raise ValueError(f"fused topk kernel takes a dictionary width divisible by 8, got {width}")
-    n_tiles = -(-width // _CW)
     x_bytes = 8 * nd * x2.element_size()
     smem1 = -(-max(x_bytes, 16 * 8 * _CW * 4) // 16) * 16 + 8 * _CW * 8
-    smem2 = (n_tiles * k + k) * 8
-    if max(smem1, smem2) > _SMEM_LIMIT:
+    if smem1 > _SMEM_LIMIT:
         raise ValueError(
-            f"fused topk kernel: nd={nd}, width={width}, k={k} need "
-            f"{max(smem1, smem2)} bytes of shared memory, over {_SMEM_LIMIT}")
+            f"fused topk kernel: nd={nd} needs {smem1} bytes of shared memory, over "
+            f"{_SMEM_LIMIT}")
+
+
+def _merge_group(k: int) -> int:
+    """Tiles whose k candidates (and the k winners) one merge block stages
+    in shared memory, 1 KB left for its static shared memory."""
+    return ((_SMEM_LIMIT - 1024) // 8 - k) // k
 
 
 def fused_topk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
@@ -125,16 +129,19 @@ def fused_topk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
         raise ValueError("fused topk kernel needs 16-byte aligned x2 and W2")
     b32 = b_enc.to(torch.float32).contiguous()
     n_tiles = -(-width // _CW)
+    group = min(n_tiles, _merge_group(k))
     cand = torch.empty((B, n_tiles, k), dtype=torch.int64, device=x2.device)
+    cand2 = torch.empty((B, -(-n_tiles // group) if group < n_tiles else 0, k),
+                        dtype=torch.int64, device=x2.device)
     vals = torch.empty((B, k), dtype=x2.dtype, device=x2.device)
     idx = torch.empty((B, k), dtype=torch.int32, device=x2.device)
     lib = _build.load(_KERNEL)
     fn = lib.fused_topk_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     code = fn(
-        x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), cand.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), B, nd, width, k, int(x2.dtype == torch.bfloat16),
+        x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), cand.data_ptr(), cand2.data_ptr(),
+        vals.data_ptr(), idx.data_ptr(), B, nd, width, k, group, int(x2.dtype == torch.bfloat16),
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     _build.check(code, "fused topk kernel")

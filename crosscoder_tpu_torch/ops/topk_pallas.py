@@ -1,13 +1,15 @@
-"""Exact per-row TopK mask and the sparsify drain, ported from
+"""Exact per-row TopK masks and the sparsify drain, ported from
 :mod:`crosscoder_tpu.ops.topk_pallas`.
 
 - :func:`topk` (``h [..., width]`` → the top-k of ``relu(h)`` per row,
   zeros elsewhere; ties to the lowest index) is a
   :class:`torch.autograd.Function` whose backward is the straight-through
-  mask ``where(out > 0, g, 0)``. On CUDA tensors it launches the K5 kernel
-  ``csrc/topk_mask.cu``, which takes bf16 rows up to 2^16 wide; f32 rows
-  (the TPU's K6 ``_topk_mask_kernel``) and wider rows (K7, the
-  width-chunked kernels) are not ported yet and raise :class:`ValueError`.
+  mask ``where(out > 0, g, 0)``. :func:`topk_forward` dispatches as the
+  JAX package's ``_topk_fwd_impl`` (:func:`topk_route`): bf16 rows up to
+  2^16 wide to K5 (:func:`topk_mask`, ``csrc/topk_mask.cu``), f32 rows
+  that pass the JAX single-block gate to K6 (:func:`topk_mask_f32`,
+  ``csrc/topk_mask_f32.cu``), every other bf16 or f32 row to K7
+  (:func:`topk_chunked`, ``csrc/topk_chunked.cu``, any width).
 - :func:`sparsify` (``f [..., width]`` with at most k positives a row →
   ``(vals [..., k], idx [..., k] int32)``, ascending index,
   ``(0, 0)``-padded; a row past k overwrites slot k-1) launches K8,
@@ -22,13 +24,13 @@
   clamped bit patterns, K5's rule: sign-set patterns are 0, a NaN ranks
   above +inf.
 
-Each has a plain PyTorch version (:func:`topk_plain`,
-:func:`sparsify_plain`, :func:`batchtopk_select_plain`,
-:func:`batchtopk_emit_plain`) with the same bits as the kernel; the
-wrappers use it for CPU tensors only. :func:`supported` and
-:func:`sparsify_supported` mirror the JAX package's dispatch gates of the
-same names, which decide the crosscoder's TopK tiers; they are not limits
-of the Hopper kernels.
+Each kernel has a plain PyTorch version (:func:`topk_plain` for K5 and
+K6, :func:`topk_chunked_plain`, :func:`sparsify_plain`,
+:func:`batchtopk_select_plain`, :func:`batchtopk_emit_plain`) with the
+same bits as the kernel; the wrappers use it for CPU tensors only.
+:func:`supported` and :func:`sparsify_supported` mirror the JAX package's
+dispatch gates of the same names, which decide the crosscoder's TopK
+tiers; they are not limits of the Hopper kernels.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import ctypes
 import torch
 
 _MAX_WIDTH = 1 << 16          # K5: bf16 rows up to 2^16 wide (composite-key domain)
+_K6_MAX_WIDTH = 48 * 1024     # K6: an f32 row staged in shared memory (192 KB)
 
 # --- the JAX package's dispatch gates (crosscoder_tpu/ops/topk_pallas.py) ---
 _VMEM_BUDGET_BYTES = 13 << 20
@@ -53,12 +56,22 @@ def supported(width: int, k: int, dtype: torch.dtype) -> bool:
     if dtype not in (torch.float32, torch.bfloat16):
         return False
     itemsize = 2 if dtype == torch.bfloat16 else 4
-    composite = (dtype == torch.bfloat16 and width % 128 == 0
-                 and 256 <= width <= _MAX_WIDTH and 0 < k < width)
-    single = (width % 128 == 0 and width >= 256 and 0 < k < width
-              and _MIN_ROWS * width * (2 * itemsize + 8) <= _VMEM_BUDGET_BYTES)
-    chunked = width % _CHUNK_WIDTH == 0 and width // _CHUNK_WIDTH >= 2 and 0 < k < width
-    return composite or single or chunked
+    return (_composite_supported(width, k, dtype) or _single_block_supported(width, k, itemsize)
+            or _chunked_supported(width, k))
+
+
+def _composite_supported(width: int, k: int, dtype: torch.dtype) -> bool:
+    return (dtype == torch.bfloat16 and width % 128 == 0 and 256 <= width <= _MAX_WIDTH
+            and 0 < k < width)
+
+
+def _single_block_supported(width: int, k: int, itemsize: int) -> bool:
+    return (width % 128 == 0 and width >= 256 and 0 < k < width
+            and _MIN_ROWS * width * (2 * itemsize + 8) <= _VMEM_BUDGET_BYTES)
+
+
+def _chunked_supported(width: int, k: int) -> bool:
+    return width % _CHUNK_WIDTH == 0 and width // _CHUNK_WIDTH >= 2 and 0 < k < width
 
 
 def sparsify_supported(width: int, k: int) -> bool:
@@ -67,11 +80,11 @@ def sparsify_supported(width: int, k: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# K5: TopK mask
+# K5, K6, K7: TopK masks
 
 
 def _keys(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(key, value)``: the int64 selection key of each entry (-1: never
+    """``(key, value)``: the int32 selection key of each entry (-1: never
     kept) and the value written where it is kept. bf16 rows use the TPU
     composite kernel's clamped 15-bit patterns (every NaN as 0x7FFE above
     +inf, sign-set patterns as 0, the value rebuilt from the pattern); f32
@@ -81,68 +94,152 @@ def _keys(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         p = h.view(torch.int16).to(torch.int32) & 0xFFFF
         neg = torch.where(p > 0xFF80, 0x7FFE, 0)
         p = torch.where(p >= 0x8000, neg, torch.clamp(p, max=0x7FFE))
-        return p.to(torch.int64), p.to(torch.int16).view(torch.bfloat16)
+        return p, p.to(torch.int16).view(torch.bfloat16)
     hp = torch.where(torch.isnan(h) | (h > 0), h, torch.zeros((), dtype=h.dtype, device=h.device))
-    bits = hp.view(torch.int32).to(torch.int64)
+    bits = hp.view(torch.int32)
     return torch.where(bits < 0, -1, bits), hp
 
 
-def topk_plain(h: torch.Tensor, k: int) -> torch.Tensor:
-    """The plain PyTorch version of the TopK mask: the exact top-k by
-    (key desc, column asc) through one int64 composite key, so
-    ``torch.topk``'s order among equal values never matters."""
+# K7's bit-pattern range: the JAX chunked kernel bisects over [0, top) with
+# count(pattern >= top) taken as 0 (`_shift_and_range`). bf16 keys are
+# clamped below it; f32 NaN keys lie above +inf's pattern 0x7F800000.
+_CHUNKED_TOP = {torch.bfloat16: 1 << 15, torch.float32: 0x7F800001}
+
+
+def _mask_plain(h: torch.Tensor, k: int, top: int | None) -> torch.Tensor:
+    """Keep every key above ``kth`` and the lowest-column ``k - count(>
+    kth)`` keys equal to it, where ``kth`` is the k-th largest key clamped
+    below ``top`` (0 when fewer than k keys are non-negative) and
+    ``count(> kth)`` is taken as 0 when ``kth + 1 == top``."""
     width = h.shape[-1]
     flat = h.reshape(-1, width)
     key, value = _keys(flat)
-    col = torch.arange(width, device=h.device, dtype=torch.int64)
-    comp = torch.where(key >= 0, (key << 32) | (0x7FFFFFFF - col), -1)
-    top = torch.topk(comp, k, dim=-1).indices
-    keep = torch.zeros_like(comp, dtype=torch.bool).scatter_(1, top, True) & (key >= 0)
+    kc = key if top is None else torch.clamp(key, max=top - 1)
+    kth = torch.topk(kc, k, dim=1).values[:, k - 1:].clamp(min=0)      # [R, 1]
+    n_gt = (kc > kth).sum(dim=1, keepdim=True)
+    if top is not None:
+        n_gt = torch.where(kth == top - 1, 0, n_gt)
+    del kc
+    eq = key == kth
+    keep = (key > kth) | (eq & (torch.cumsum(eq, dim=1, dtype=torch.int32) <= k - n_gt))
     out = torch.where(keep, value, torch.zeros((), dtype=h.dtype, device=h.device))
     return out.reshape(h.shape)
 
 
-def check_topk_supported(h: torch.Tensor, k: int) -> None:
-    """Raise :class:`ValueError` for rows the K5 kernel does not take."""
-    width = h.shape[-1]
-    if h.dtype == torch.float32:
-        raise ValueError(
-            "topk on f32 rows needs the f32 mask kernel (K6, "
-            "crosscoder_tpu/ops/topk_pallas.py _topk_mask_kernel), which is "
-            "not ported to CUDA yet; train with enc_dtype='bf16'")
-    if h.dtype != torch.bfloat16:
-        raise ValueError(f"topk kernel takes bf16 rows, got {h.dtype}")
-    if width > _MAX_WIDTH:
-        raise ValueError(
-            f"topk on rows {width} wide needs the width-chunked kernels (K7, "
-            f"crosscoder_tpu/ops/topk_pallas.py _bisect_kernel/_emit_kernel), "
-            f"which are not ported to CUDA yet; K5 takes rows up to {_MAX_WIDTH}")
+def topk_plain(h: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain PyTorch version of K5 (bf16) and K6 (f32): the exact
+    top-k by (key desc, column asc), as the TPU kernels bisect for the k-th
+    largest key and keep the lowest-column ties."""
+    return _mask_plain(h, k, None)
+
+
+def topk_chunked_plain(h: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain PyTorch version of K7, the JAX width-chunked kernels'
+    function: :func:`topk_plain`'s with keys clamped below the bisection's
+    range ``top``. For bf16 this is :func:`topk_plain`'s mask. For f32 it
+    differs where NaN keys (above +inf) sit among a row's top k: K7 then
+    keeps every NaN and up to k entries at +inf (ROADMAP C6)."""
+    return _mask_plain(h, k, _CHUNKED_TOP[h.dtype])
+
+
+def topk_route(width: int, k: int, dtype: torch.dtype) -> str:
+    """The TopK mask kernel that takes rows of this width and dtype, as the
+    JAX package's ``_topk_fwd_impl`` dispatches: bf16 rows up to 2^16 wide
+    go to K5 (where JAX takes the composite kernel), f32 rows that pass the
+    JAX single-block gate to K6, every other row to K7 (where JAX takes the
+    width-chunked kernels, or ``lax.top_k``, which selects the same mask).
+    :class:`ValueError` for another dtype or ``k`` outside ``(0, width]``."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"topk takes bf16 or f32 rows, got {dtype}")
     if not 0 < k <= width:
-        raise ValueError(f"topk kernel takes 0 < k <= width={width}, got {k}")
+        raise ValueError(f"topk takes 0 < k <= width={width}, got {k}")
+    if dtype == torch.bfloat16 and width <= _MAX_WIDTH:
+        return "K5"
+    if dtype == torch.float32 and _single_block_supported(width, k, 4):
+        return "K6"
+    return "K7"
 
 
 def topk_forward(h: torch.Tensor, k: int) -> torch.Tensor:
-    """The TopK mask without autograd: plain version on CPU tensors, the
-    K5 kernel on CUDA tensors (or :class:`ValueError`)."""
-    if h.device.type == "cpu":
-        return topk_plain(h, k)
-    if h.device.type != "cuda":
+    """The TopK mask without autograd, through the kernel that
+    :func:`topk_route` names (its plain version on CPU tensors)."""
+    if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"topk runs on cpu or cuda, got {h.device}")
+    route = topk_route(h.shape[-1], k, h.dtype)
+    if route == "K5":
+        return topk_mask(h, k)
+    if route == "K6":
+        return topk_mask_f32(h, k)
+    return topk_chunked(h, k)
+
+
+def _launch_mask(lib: str, fn_name: str, h: torch.Tensor, k: int,
+                 extra: tuple = ()) -> torch.Tensor:
+    """Launch a per-row TopK mask kernel ``fn(h, out, R, W, k, vec,
+    *extra, stream)`` on a contiguous copy of ``h``'s rows; ``extra``
+    holds ``(ctypes type, value)`` pairs."""
     from crosscoder_tpu_torch.ops import _build
 
-    check_topk_supported(h, k)
     width = h.shape[-1]
+    if not 0 < k <= width:
+        raise ValueError(f"{lib} kernel takes 0 < k <= width={width}, got {k}")
     flat = h.reshape(-1, width).contiguous()
     out = torch.empty_like(flat)
     vec = int(width % 8 == 0 and flat.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    fn = _build.load("topk_mask").topk_mask_launch
+    fn = getattr(_build.load(lib), fn_name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [t for t, _ in extra] + [ctypes.c_void_p])
     code = fn(flat.data_ptr(), out.data_ptr(), flat.shape[0], width, k, vec,
-              torch.cuda.current_stream(h.device).cuda_stream)
-    _build.check(code, "topk mask kernel")
-    topk.launches += 1
+              *(v for _, v in extra), torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(code, f"{lib} kernel")
     return out.reshape(h.shape)
+
+
+def topk_mask(h: torch.Tensor, k: int) -> torch.Tensor:
+    """K5, ``csrc/topk_mask.cu``: bf16 rows up to 2^16 wide. The plain
+    version on CPU tensors. Counts its launches on ``topk.launches``."""
+    if h.device.type == "cpu":
+        return topk_plain(h, k)
+    if h.dtype != torch.bfloat16 or h.shape[-1] > _MAX_WIDTH:
+        raise ValueError(f"the K5 kernel takes bf16 rows up to {_MAX_WIDTH} wide, got "
+                         f"{h.dtype} rows {h.shape[-1]} wide")
+    out = _launch_mask("topk_mask", "topk_mask_launch", h, k)
+    topk.launches += 1
+    return out
+
+
+def topk_mask_f32(h: torch.Tensor, k: int) -> torch.Tensor:
+    """K6, ``csrc/topk_mask_f32.cu``: f32 rows staged whole in shared
+    memory (up to ``_K6_MAX_WIDTH``). The plain version on CPU tensors."""
+    if h.device.type == "cpu":
+        return topk_plain(h, k)
+    if h.dtype != torch.float32 or h.shape[-1] > _K6_MAX_WIDTH:
+        raise ValueError(f"the K6 kernel takes f32 rows up to {_K6_MAX_WIDTH} wide, got "
+                         f"{h.dtype} rows {h.shape[-1]} wide")
+    out = _launch_mask("topk_mask_f32", "topk_mask_f32_launch", h, k)
+    topk_mask_f32.launches += 1
+    return out
+
+
+topk_mask_f32.launches = 0
+
+
+def topk_chunked(h: torch.Tensor, k: int) -> torch.Tensor:
+    """K7, ``csrc/topk_chunked.cu``: bf16 or f32 rows of any width, read
+    from device memory. The plain version (:func:`topk_chunked_plain`) on
+    CPU tensors."""
+    if h.device.type == "cpu":
+        return topk_chunked_plain(h, k)
+    if h.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the K7 kernel takes bf16 or f32 rows, got {h.dtype}")
+    out = _launch_mask("topk_chunked", "topk_chunked_launch", h, k,
+                       ((ctypes.c_int, int(h.dtype == torch.bfloat16)),))
+    topk_chunked.launches += 1
+    return out
+
+
+topk_chunked.launches = 0
 
 
 def _straight_through(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -166,12 +263,13 @@ class _TopK(torch.autograd.Function):
 
 def topk(h: torch.Tensor, k: int) -> torch.Tensor:
     """Exact top-k of the ReLU'd entries of each row, zeros elsewhere,
-    ties to the lowest index; differentiable (straight-through). The plain
-    version on CPU tensors, K5 on CUDA tensors (or :class:`ValueError`)."""
+    ties to the lowest index; differentiable (straight-through). Through
+    K5, K6 or K7 as :func:`topk_route` picks (their plain versions on CPU
+    tensors); :class:`ValueError` for another dtype or a bad ``k``."""
     return _TopK.apply(h, k)
 
 
-topk.launches = 0
+topk.launches = 0              # K5's launches (topk_mask)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@
 
 Config from the command line (every field a flag,
 :meth:`CrossCoderConfig.from_cli`), the activation source
-(:func:`build_buffer`), the single-device :class:`Trainer` and its
-:class:`MetricsLogger`.
+(:func:`build_buffer`), the single-device :class:`Trainer` with its
+:class:`MetricsLogger` and a :class:`Checkpointer` over
+``cfg.checkpoint_dir``. ``--resume true`` continues from the newest
+verified save there (the buffer is built lazily and restored).
 
 ``--data-source gemma`` composes the Gemma-2 harvest: the model pair's
 architecture, the local token cache, :func:`make_buffer` and ``d_in`` from
@@ -15,13 +17,13 @@ the model. Loading the Gemma-2 weights (the JAX package's ``lm.from_hf``)
 is not ported yet, so from the command line it raises
 :class:`NotImplementedError`; a caller holding LM params (random init,
 :mod:`crosscoder_tpu_torch.convert`) passes them to :func:`build_buffer`.
-``--resume`` needs checkpoints and raises too.
 """
 
 from __future__ import annotations
 
 from typing import Any, Sequence
 
+from crosscoder_tpu_torch.checkpoint import Checkpointer
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.train.trainer import Trainer
 from crosscoder_tpu_torch.utils.logging import MetricsLogger
@@ -62,7 +64,8 @@ def main(argv: list[str] | None = None, device=None) -> Trainer:
     ``cuda`` unless ``device`` names another device."""
     cfg = CrossCoderConfig.from_cli(argv)
     buffer, cfg = build_buffer(cfg, device=device)
-    trainer = Trainer(cfg, buffer, logger=MetricsLogger(cfg), device=device)
+    trainer = Trainer(cfg, buffer, logger=MetricsLogger(cfg), device=device,
+                      checkpointer=Checkpointer(cfg=cfg))
     try:
         trainer.train()
     finally:

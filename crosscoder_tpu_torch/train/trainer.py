@@ -15,15 +15,24 @@ n_sources, d_in]`` numpy array or tensor (the synthetic source), or with
 :mod:`crosscoder_tpu_torch.data.buffer`): raw bf16 rows, scaled by the
 factors inside the step as the JAX trainer does.
 
+Checkpoints (:class:`~crosscoder_tpu_torch.checkpoint.Checkpointer`), as
+the JAX trainer's: a background save every ``save_every`` steps and one
+more when ``train()`` ends, however it ends; ``cfg.resume`` restores the
+newest verified save at construction (state, step, buffer position);
+SIGTERM on the main thread finishes the step, saves and returns, and a
+second SIGTERM falls through to the previous handler.
+
 Not ported in this slice (ROADMAP Queue A): mesh and multi-host runs,
 ``quant_grads``, chaos/watchdog/elastic, the observability plane, the
-compile cache, prefetch threads, the fleet, checkpoints (and with them
-``resume`` and the loss guard's rollback), dead-latent resampling.
+compile cache, prefetch threads, the fleet, the loss guard and its
+rollback, dead-latent resampling.
 """
 
 from __future__ import annotations
 
+import signal
 import sys
+import threading
 import time
 from typing import Any, Callable
 
@@ -147,14 +156,15 @@ class Trainer:
     ``buffer``: activation source with ``next_raw()`` or ``next()``
     (default: the synthetic source). ``state``: a starting :class:`TrainState` (default: a fresh
     one from ``cfg.seed``; :func:`crosscoder_tpu_torch.convert.train_state_from_numpy`
-    carries a JAX one over). Runs on ``cuda`` unless ``device`` names
-    another device.
+    carries a JAX one over). ``checkpointer``: where :meth:`save` writes and
+    :meth:`restore` reads; with ``cfg.resume`` the newest verified save is
+    restored here. Runs on ``cuda`` unless ``device`` names another device.
     """
 
     def __init__(self, cfg: CrossCoderConfig, buffer: Any | None = None,
                  logger: MetricsLogger | None = None, device=None,
-                 state: TrainState | None = None) -> None:
-        for knob, on in (("resume", cfg.resume), ("guard_loss", cfg.guard_loss),
+                 state: TrainState | None = None, checkpointer: Any | None = None) -> None:
+        for knob, on in (("guard_loss", cfg.guard_loss),
                          ("resample_every", cfg.resample_every > 0),
                          ("quant_grads", cfg.quant_grads), ("fleet", cfg.fleet == "on"),
                          ("elastic", cfg.elastic == "on"), ("obs", cfg.obs == "on"),
@@ -170,6 +180,7 @@ class Trainer:
             buffer = SyntheticActivationSource(cfg)
         self.buffer = buffer
         self.logger = logger
+        self.checkpointer = checkpointer
         self.total_steps = cfg.total_steps
         self.opt = Optimizer(cfg, schedules.lr_schedule(cfg))
         self.state = state if state is not None else init_train_state(
@@ -182,6 +193,35 @@ class Trainer:
             print(f"[crosscoder_tpu_torch] sparse backward plane active "
                   f"({'K10 scatter kernel' if self.device.type == 'cuda' else 'plain scatter'})",
                   file=sys.stderr, flush=True)
+        if cfg.resume:
+            meta = self.restore()
+            print(f"[crosscoder_tpu_torch] resumed at step {meta['step']}", file=sys.stderr,
+                  flush=True)
+
+    def save(self, background: bool = False) -> None:
+        """Checkpoint the state and the buffer's position now (nothing
+        without a checkpointer). ``background=True`` returns once the
+        state is in host memory and writes on the checkpointer's thread."""
+        if self.checkpointer is not None:
+            self.checkpointer.save(self.state, self.cfg, buffer=self.buffer,
+                                   background=background)
+
+    def restore(self, version_dir=None, save: int | None = None) -> dict:
+        """Resume from a save (default: the newest that verifies): the
+        train state, the host step and the buffer's position, or a fresh
+        fill of the buffer when the save carries none. Returns its meta."""
+        if self.checkpointer is None:
+            raise ValueError("Trainer has no checkpointer to restore from")
+        self.state, meta = self.checkpointer.restore(self.cfg, version_dir, save,
+                                                     device=self.device)
+        self._host_step = self.state.step
+        if "buffer" in meta and hasattr(self.buffer, "load_state_dict"):
+            self.buffer.load_state_dict(meta["buffer"])
+        elif hasattr(self.buffer, "ensure_filled"):
+            print("[crosscoder_tpu_torch] checkpoint has no buffer state; refilling fresh",
+                  file=sys.stderr, flush=True)
+            self.buffer.ensure_filled()
+        return meta
 
     @property
     def step_counter(self) -> int:
@@ -230,13 +270,33 @@ class Trainer:
     def train(self, num_steps: int | None = None) -> dict[str, float]:
         """Run to ``num_steps`` (default ``total_steps``): log every
         ``log_every`` steps with ``step_time_ms`` (mean since the last log,
-        synced at log points only), then close."""
+        synced at log points only), save in the background every
+        ``save_every`` steps, then save and close. A SIGTERM ends the loop
+        after the current step."""
         num_steps = self.total_steps if num_steps is None else num_steps
         metrics: dict[str, Any] = {}
+        stop = False
+        prev_handler = None
+
+        def on_sigterm(signum, frame):
+            nonlocal stop
+            if stop:             # a second signal: give control back and re-raise
+                signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
+                signal.raise_signal(signal.SIGTERM)
+                return
+            stop = True
+            print("[crosscoder_tpu_torch] SIGTERM: stopping after this step, writing "
+                  "checkpoint", file=sys.stderr, flush=True)
+
+        in_main_thread = threading.current_thread() is threading.main_thread()
+        if in_main_thread:
+            prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
         try:
             start = self.step_counter
             last_t, last_i = time.perf_counter(), start
             for i in range(start, num_steps):
+                if stop:
+                    break
                 metrics = self.step(full_metrics=(i % self.cfg.log_every == 0))
                 if i % self.cfg.log_every == 0:
                     float(metrics["loss"])                      # device sync
@@ -245,12 +305,22 @@ class Trainer:
                     metrics["step_time_ms"] = 1000 * (now - last_t) / max(i - last_i, 1)
                     last_t, last_i = now, i
                     self.log(metrics, step=i)
+                if (i + 1) % self.cfg.save_every == 0:
+                    self.save(background=True)
         finally:
-            self.close()
+            if in_main_thread:
+                signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
+            try:
+                self.save(background=True)
+            finally:
+                self.close()
         return expand_metrics(metrics, self.cfg.n_sources) if metrics else {}
 
     def close(self) -> None:
-        """Close the logger and the source. Idempotent."""
+        """Land a background save, close the logger and the source.
+        Idempotent."""
+        if self.checkpointer is not None:
+            self.checkpointer.wait()
         if self.logger is not None:
             self.logger.close()
             self.logger = None

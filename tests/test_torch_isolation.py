@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from crosscoder_tpu_torch import convert
+from crosscoder_tpu_torch.checkpoint import Checkpointer, torch_compat
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.data.buffer import make_buffer
 from crosscoder_tpu_torch.models import crosscoder, lm
@@ -34,6 +35,12 @@ def _imports(path):
             yield node.module
 
 
+def test_checkpoint_subpackage_is_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"crosscoder_tpu_torch/checkpoint/__init__.py", "crosscoder_tpu_torch/checkpoint/ckpt.py",
+            "crosscoder_tpu_torch/checkpoint/torch_compat.py"} <= names
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imports(path)
@@ -41,9 +48,13 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_default_device_raises_without_cuda(monkeypatch):
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = CrossCoderConfig(d_in=32, dict_size=64, serve="on", serve_max_batch=2)
+    tcfg = CrossCoderConfig(d_in=32, dict_size=64, log_backend="null")
+    tr = Trainer(tcfg, device="cpu", checkpointer=Checkpointer(base_dir=tmp_path))
+    tr.save()
+    vdir = Checkpointer.latest_version_dir(tmp_path)
     for call in (lambda: lm.init_params(lm.LMConfig.tiny()),
                  lambda: crosscoder.init_params(cfg),
                  lambda: convert.lm_params_from_numpy({"embed": np.zeros((2, 2), np.float32)}),
@@ -56,13 +67,18 @@ def test_default_device_raises_without_cuda(monkeypatch):
                  lambda: train_main.main(["--data-source", "synthetic", "--d-in", "32",
                                           "--dict-size", "64", "--log-backend", "null"]),
                  lambda: make_buffer(CrossCoderConfig(seq_len=17, d_in=32), lm.LMConfig.tiny(),
-                                     [{}, {}], np.zeros((8, 17), np.int64))):
+                                     [{}, {}], np.zeros((8, 17), np.int64)),
+                 lambda: torch_compat.params_from_torch_state_dict(
+                     {n: torch.zeros(1) for n in ("W_enc", "W_dec", "b_enc", "b_dec")}, cfg),
+                 lambda: Checkpointer.load_weights(vdir),
+                 lambda: Checkpointer(base_dir=tmp_path).restore(tcfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
 
 def test_cpu_run_launches_no_kernel():
     counters = (pa.paged_attention, fek.fused_topk_encode, topk_pallas.topk,
+                topk_pallas.topk_mask_f32, topk_pallas.topk_chunked,
                 topk_pallas.sparsify, sparse_grad.scatter_add_rows,
                 topk_pallas.batchtopk_select, topk_pallas.batchtopk_emit, quant.quantize_rows)
     for c in counters:
@@ -78,6 +94,11 @@ def test_cpu_run_launches_no_kernel():
     tr = Trainer(tcfg, device="cpu")
     for _ in range(3):
         assert torch.isfinite(tr.step()["loss"])
+    # the f32 TopK routes: K6 (dict 256) and K7 (dict 2^15)
+    for dict_size in (256, 2 ** 15):
+        tr = Trainer(tcfg.replace(enc_dtype="fp32", dict_size=dict_size, d_in=8), device="cpu")
+        assert torch.isfinite(tr.step()["loss"])
+    assert topk_pallas.topk(torch.ones((2, 2 ** 17), dtype=torch.bfloat16), 4).sum() == 8
     # the harvest-train path: tiny LM, int8 buffer on the device store, BatchTopK
     lm_params = [lm.init_params(lm.LMConfig.tiny(), seed=s, device="cpu") for s in (0, 1)]
     bcfg = CrossCoderConfig(d_in=32, dict_size=128, batch_size=16, buffer_mult=16, seq_len=17,

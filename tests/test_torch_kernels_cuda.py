@@ -8,9 +8,9 @@ runs it as is:
 Tolerances: paged attention 1e-5 in fp32 and 2e-2 in bf16 on valid rows
 (online softmax reassociates the sum; the plain version rounds the
 probabilities to bf16); the fused encoder→TopK bitwise on integer-valued
-operands, whose fp32 sums are exact in any order; the TopK mask (K5), the
-sparsify drain (K8) and the sorted-pair scatter (K10) bitwise on any
-inputs, since each does the plain version's arithmetic in its order."""
+operands, whose fp32 sums are exact in any order; the TopK masks (K5, K6,
+K7), the sparsify drain (K8) and the sorted-pair scatter (K10) bitwise on
+any inputs, since each does the plain version's arithmetic in its order."""
 
 import numpy as np
 import pytest
@@ -145,6 +145,20 @@ def _same_bits(a, b):
     return torch.equal(a.view(view), b.view(view))
 
 
+@pytest.mark.parametrize("k,width", [(32, 2 ** 17 + 128), (128, 2 ** 15 + 128),
+                                     (64, 2 ** 16 + 128)])
+def test_fused_topk_kernel_two_level_merge_bitwise_matches_plain(cuda, k, width):
+    """Wide dictionaries: a row's candidates exceed shared memory and the
+    merge takes a first level over groups of tiles."""
+    x, W, b = _planted(k + width, B=12, nd=256, width=width)
+    x, W = x.to(torch.bfloat16), W.to(torch.bfloat16)
+    assert -(-width // fek._CW) > fek._merge_group(k)
+    vals, idx = fek.fused_topk_encode(x, W, b, k)
+    pv, pi = fek.fused_topk_encode_plain(x, W, b, k)
+    assert torch.equal(idx, pi)
+    assert torch.equal(vals.view(torch.int16), pv.view(torch.int16))
+
+
 @pytest.mark.parametrize("R,W", [(16, 512), (37, 1920), (5, 1000), (4096, 32768), (8, 65536)])
 @pytest.mark.parametrize("k", [1, 32, 128])
 def test_topk_mask_and_sparsify_kernels_bitwise_match_plain(cuda, R, W, k):
@@ -164,11 +178,70 @@ def test_topk_mask_and_sparsify_kernels_bitwise_match_plain(cuda, R, W, k):
                                                                           before[1] + 2)
 
 
-def test_topk_kernel_rejects_unported_shapes(cuda):
-    with pytest.raises(ValueError, match="K6"):
-        topk_pallas.topk(torch.zeros((2, 512), device="cuda"), 4)
-    with pytest.raises(ValueError, match="K7"):
-        topk_pallas.topk(torch.zeros((2, 2 ** 17), device="cuda", dtype=torch.bfloat16), 4)
+def test_topk_kernel_rejects_other_dtypes_and_bad_k(cuda):
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        topk_pallas.topk(torch.zeros((2, 512), device="cuda", dtype=torch.float16), 4)
+    with pytest.raises(ValueError, match="0 < k <= width"):
+        topk_pallas.topk(torch.zeros((2, 2 ** 17), device="cuda", dtype=torch.bfloat16), 0)
+
+
+def _planted_wide(seed, R, W, dtype):
+    """Integer-valued rows for K6/K7: ties wider than k, ties straddling
+    any stretch boundary and far from the kth column, rows with fewer than
+    k positives, -0.0, +inf, NaN of both signs (f32: a NaN beside +inf in
+    a row's top k, where K7 keeps k entries at +inf besides, ROADMAP C6)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randint(-6, 7, (R, W), generator=gen, device="cuda").float()
+    planted = [lambda: h[0, : W // 2].fill_(5.0),
+               lambda: (h[1].fill_(-1.0), h[1, 3].fill_(2.0)),
+               lambda: h[2].fill_(-0.0),
+               lambda: (h[3, 4091:4101].fill_(9.0), h[3, W - 3:].fill_(9.0)),
+               lambda: (h[4, 7].fill_(float("inf")), h[4, W - 1].fill_(float("inf")),
+                        h[4, 9].fill_(float("nan"))),
+               lambda: h[5, W - 40:].fill_(8.0)]
+    for row in planted[:R]:
+        row()
+    h = h.to(dtype)
+    if R > 6:
+        if dtype == torch.bfloat16:
+            h.view(torch.int16)[6, 11] = -64                     # 0xFFC0
+            h.view(torch.int16)[6, 12] = 0x7FFF
+        else:
+            h.view(torch.int32)[6, 11] = -4194304                # 0xFFC00000
+            h.view(torch.int32)[6, 12] = 0x7FC00001
+    return h
+
+
+@pytest.mark.parametrize("R,W", [(16, 512), (37, 384), (4096, 16384), (9, 26624), (5, 1000)])
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_topk_f32_kernel_bitwise_matches_plain(cuda, R, W, k):
+    h = _planted_wide(R + W + k, R, W, torch.float32)
+    before = topk_pallas.topk_mask_f32.launches
+    got = topk_pallas.topk_mask_f32(h, k)
+    assert _same_bits(got, topk_pallas.topk_plain(h, k))
+    assert topk_pallas.topk_mask_f32.launches == before + 1
+    if topk_pallas.topk_route(W, k, torch.float32) == "K6":
+        assert _same_bits(topk_pallas.topk(h, k), got)
+        assert topk_pallas.topk_mask_f32.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype,R,W", [
+    (torch.bfloat16, 8, 2 ** 17), (torch.bfloat16, 5, 2 ** 16 + 384),
+    (torch.bfloat16, 7, 70001), (torch.bfloat16, 4096, 2 ** 17),
+    (torch.float32, 16, 32768), (torch.float32, 7, 28672 + 8), (torch.float32, 4096, 32768),
+    (torch.float32, 9, 1000), (torch.bfloat16, 9, 512)])
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_topk_chunked_kernel_bitwise_matches_plain(cuda, dtype, R, W, k):
+    h = _planted_wide(R + W + k, R, W, dtype)
+    before = topk_pallas.topk_chunked.launches
+    got = topk_pallas.topk_chunked(h, k)
+    assert _same_bits(got, topk_pallas.topk_chunked_plain(h, k))
+    assert topk_pallas.topk_chunked.launches == before + 1
+    if topk_pallas.topk_route(W, k, dtype) == "K7":
+        assert _same_bits(topk_pallas.topk(h, k), got)
+        assert topk_pallas.topk_chunked.launches == before + 2
+    if dtype == torch.float32 and k == 1 and R > 4:
+        assert int((got[4] != 0).sum()) == 2                   # C6: the NaN and one +inf
 
 
 @pytest.mark.parametrize("B,k,n_out,m,dtype", [
