@@ -48,7 +48,9 @@ one NVIDIA Hopper card and the CUDA toolkit:
    state), with the save's fetch and write times, the restore time and the
    files' bytes; leg W: dict 2^17 (K7), bf16 compute, f32 masters, 6
    steps, one re-run with the plain versions (bitwise) and one through the
-   default fused encoder (K2); launches, ms per step, peak memory;
+   opt-in fused encoder (K2), timed against the dense encode; launches, ms
+   per step, peak memory; leg V: f32 compute at dict 2^15 (K7 on f32 rows),
+   3 steps;
    before it, the harvest path's kernels vs their plain versions, bitwise:
    the global-threshold BatchTopK select and emit (K9) and the emit alone
    at a fixed threshold, bf16 and f32, [4096, 32768] and [4096, 2432],
@@ -107,11 +109,16 @@ HARVEST = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dic
                norm_calib_batches=8)
 LEG_H, LEG_Q = 12, 12
 # leg F (K6, checkpoint and resume): TopK at f32 compute, dict 2^14, 8 steps
-# straight against 4 + save + restore + 4; leg W (K7): dict 2^17, 6 steps
-LEG_F = dict(TRAIN, dict_size=2 ** 14, enc_dtype="fp32", num_tokens=TRAIN["batch_size"] * 8)
+# straight against 4 + save + restore + 4; leg W (K7): dict 2^17, 6 steps;
+# leg V (K7 on f32 rows): f32 compute, dict 2^15, 3 steps. Each takes the
+# dense encode, the default of fused_encoder='auto' without its opt-in.
+LEG_F = dict(TRAIN, dict_size=2 ** 14, enc_dtype="fp32", fused_encoder="off",
+             num_tokens=TRAIN["batch_size"] * 8)
 LEG_W = dict(TRAIN, dict_size=2 ** 17, aux_k=0, aux_every=1, fused_encoder="off",
              num_tokens=TRAIN["batch_size"] * 6)
-STEPS_F, STEPS_W = 8, 6
+LEG_V = dict(TRAIN, enc_dtype="fp32", aux_k=0, aux_every=1, fused_encoder="off",
+             num_tokens=TRAIN["batch_size"] * 3)
+STEPS_F, STEPS_W, STEPS_V = 8, 6, 3
 # the device sleep in front of a queued timing: about 25 ms at the H100's
 # clocks, longer than the host takes to issue 50 launches of a wrapper
 QUEUE_CYCLES = 50_000_000
@@ -1068,7 +1075,7 @@ def ckpt_dir(root):
 
 
 def train_wide(torch, np, root, train_batches):
-    """Legs F and W over the train phase's batches (each leg from the
+    """Legs F, W and V over the train phase's batches (each leg from the
     first); returns the launch counts of each leg."""
     import copy
     import shutil
@@ -1153,6 +1160,9 @@ def train_wide(torch, np, root, train_batches):
         fail("leg F: losses not finite, or the resumed run's losses differ from the straight run's")
     if not all(legs["F"][n] > 0 for n in ("topk_mask_f32", "sparsify", "scatter_add_rows")):
         fail(f"K6, K8 or K10 never launched on leg F: {legs['F']}")
+    # host steps 8 and 9 after the gate: an aux step (8 % aux_every == 0), then a bare one
+    profile_step(torch, resumed, False, "leg F aux step")
+    profile_step(torch, resumed, False, "leg F bare step")
     del straight, resumed, batches, state0
 
     # leg W: dict 2^17, the factored tier by auto, K7 every step
@@ -1202,22 +1212,54 @@ def train_wide(torch, np, root, train_batches):
     if not ok:
         fail(f"the leg W step with kernels differs from the plain versions in {what}")
     del want
-    # the default tier at this width, fused_encoder='auto': the fused
-    # encoder (K2, two-level merge) on a bare step, against the dense encode
-    cfg_auto = cfg.replace(fused_encoder="auto")
+    # the opt-in fused encoder at this width, fused_encoder='on': K2 with
+    # its two-level merge on a bare step, against the dense encode, both timed
+    cfg_on = cfg.replace(fused_encoder="on")
+    fused_fn = trainer_mod.make_step_body(cfg_on, Optimizer(cfg_on, lambda s: 0.0),
+                                          True, True, True)
     before = fek.fused_topk_encode.launches
-    fused = trainer_mod.make_step_body(cfg_auto, Optimizer(cfg_auto, lambda s: 0.0),
-                                       True, True, True).loss_and_grads(tr.state, x, scale)
+    fused = fused_fn.loss_and_grads(tr.state, x, scale)
     torch.cuda.synchronize()
+    launched = fek.fused_topk_encode.launches - before
     rel = abs(float(fused[0]) - float(got[0])) / abs(float(got[0]))
-    log(f"leg W step with fused_encoder='auto' (K2 launched "
-        f"{fek.fused_topk_encode.launches - before}x): loss {float(fused[0]):.6f} vs dense "
-        f"encode {float(got[0]):.6f}, relative difference {rel:.2e} (tol 1e-3)")
-    if not (cc.use_fused_encoder(cfg_auto, cfg.batch_size) and rel <= 1e-3
-            and fek.fused_topk_encode.launches > before):
+    dense_ms = time_ms(lambda: fn.loss_and_grads(tr.state, x, scale), 2)
+    fused_ms = time_ms(lambda: fused_fn.loss_and_grads(tr.state, x, scale), 2)
+    log(f"leg W step with fused_encoder='on' (K2 launched {launched}x): loss "
+        f"{float(fused[0]):.6f} vs dense encode {float(got[0]):.6f}, relative difference "
+        f"{rel:.2e} (tol 1e-3); loss and gradients {fused_ms:.3f} ms fused vs {dense_ms:.3f} "
+        f"ms dense (CUDA events, mean of 2)")
+    if not (cc.use_fused_encoder(cfg_on, cfg.batch_size) and rel <= 1e-3 and launched > 0):
         fail("leg W: the fused encoder at dict 2^17 did not run or disagrees with the dense encode")
     profile_step(torch, tr, True, "leg W step")
     del tr, got, fused, batches
+
+    # leg V: f32 rows too wide for K6's single block go to K7
+    cfg = CrossCoderConfig(**LEG_V)
+    if not (cc.use_factored_decode(cfg) and cc.use_sparse_bwd(cfg, cfg.batch_size)
+            and tp.topk_route(cfg.dict_size, cfg.topk_k, torch.float32) == "K7"):
+        fail("leg V does not take the factored tier, the sparse plane and K7")
+    batches = copy.copy(train_batches)
+    batches.i = 0
+    tr = trainer_mod.Trainer(cfg, batches, device="cuda")
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    losses_v, step_ms = [], []
+    for _ in range(STEPS_V):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        losses_v.append(float(tr.step()["loss"]))
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+    legs["V"] = {n: c.launches for n, c in counters.items()}
+    log(f"leg V (TopK f32, dict {cfg.dict_size}): losses {[round(v, 4) for v in losses_v]}; "
+        f"ms per step (CUDA events) {[round(v, 2) for v in step_ms]}; launches {legs['V']}")
+    if not all(np.isfinite(losses_v)):
+        fail("leg V: a loss is not finite")
+    if not all(legs["V"][n] > 0 for n in ("topk_chunked", "sparsify", "scatter_add_rows")):
+        fail(f"K7, K8 or K10 never launched on leg V: {legs['V']}")
+    del tr, batches
     return legs
 
 
@@ -1538,8 +1580,8 @@ def main() -> int:
     legs = train_wide(torch, np, root, batches)
     del batches
     wide_rows[0]["launches"] = legs["F"]["topk_mask_f32"]
-    for row in wide_rows[1:]:
-        row["launches"] = legs["W"]["topk_chunked"]
+    wide_rows[1]["launches"] = legs["W"]["topk_chunked"]
+    wide_rows[2]["launches"] = legs["V"]["topk_chunked"]
     launches = harvest_train(torch, np, root)
     for row in harvest_rows:
         row["launches"] = launches[row["name"]]

@@ -25,19 +25,15 @@
 // kth and the lowest-column k - count(> kth) keys equal to it.
 //
 // Design. A persistent grid (two blocks an SM), each block taking rows in
-// turn. Per row, a radix select over the keys clamped below top: bf16 in up
-// to two passes (bits 14-8, 7-0), f32 in up to four (31-24 ... 7-0; a pass
-// whose chosen bin is kept whole ends the select), each a read of
-// the row from device memory (a 256 KB bf16 row at 2^17 does not fit
-// shared memory) building a 256-bin histogram of one digit of the keys
-// that match the digits chosen so far, one copy per warp, then a suffix
-// scan over the bins picks the digit that holds the k-th largest. Integer
-// counts make the result independent of the order the atomics land in.
-// The emit reads the row once more and writes it: one compare a column
-// when every tie at kth is kept (the common case, and always when kth is
-// 0), else a walk in column order with a block prefix count of the ties
-// carried across stretches of the row. With 264 rows in flight, the later
-// reads of a row may find it in the 50 MB L2.
+// turn. Per row, the radix select of radix_select.cuh over the keys clamped
+// below top: bf16 in up to two passes (bits 14-8, 7-0), f32 in up to four
+// (31-24 ... 7-0), each a read of the row from device memory (a 256 KB bf16
+// row at 2^17 does not fit shared memory), the histogram in one copy per
+// warp. The emit reads the row once more and writes it: one compare a
+// column when every tie at kth is kept (the common case, and always when
+// kth is 0), else a walk in column order with a block prefix count of the
+// ties carried across stretches of the row (radix::emit_ties). With 264
+// rows in flight, the later reads of a row may find it in the 50 MB L2.
 //
 // Bound. The function reads h once and writes out once: 2 x 1.07 GB at
 // [4096, 131072] bf16 (0.64 ms at 3.35 TB/s), 2 x 537 MB at [4096, 32768]
@@ -47,11 +43,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radix_select.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBins = 256;
+using radix::kBins;
+using radix::kThreads;
+using radix::kWarps;
 constexpr int kUnroll = 4;           // 8-column groups a thread loads before counting
 
 __device__ __forceinline__ unsigned key_bf16(unsigned p) {
@@ -116,29 +114,6 @@ __device__ __forceinline__ void store8(void* row, int c, int W, int vec, const u
   }
 }
 
-// Exclusive block prefix sum of v; *total gets the block's sum. `ws` holds
-// two buffers of kWarps slots used alternately (`parity`).
-__device__ __forceinline__ int block_excl_scan(int v, int* ws, int parity, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) ws[parity * kWarps + warp] = incl;
-  __syncthreads();
-  int off = 0, tot = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int s = ws[parity * kWarps + w];
-    tot += s;
-    off += w < warp ? s : 0;
-  }
-  *total = tot;
-  return off + incl - v;
-}
-
 template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 topk_chunked_kernel(const void* __restrict__ h, void* __restrict__ out, int R, int W, int k,
@@ -149,93 +124,44 @@ topk_chunked_kernel(const void* __restrict__ h, void* __restrict__ out, int R, i
   constexpr unsigned kTopM1 = BF16 ? 0x7FFFu : 0x7F800000u;   // top - 1: keys clamp here
   constexpr int kFirstShift = BF16 ? 8 : 24;
   constexpr size_t kBytes = BF16 ? 2 : 4;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  unsigned* mine = hist + warp * kBins;
+  const int tid = threadIdx.x;
   constexpr int kStride = kThreads * 8;
 
   for (int row = blockIdx.x; row < R; row += gridDim.x) {
     const char* hr = static_cast<const char*>(h) + size_t(row) * W * kBytes;
     char* orow = static_cast<char*>(out) + size_t(row) * W * kBytes;
 
-    // ---- select: radix passes over the clamped keys
-    unsigned prefix = 0, mask = 0;
-    int remaining = k, eq = 0;
-    bool few = false;                      // fewer than k positive keys: kth = 0
-    for (int shift = kFirstShift; shift >= 0; shift -= 8) {
-      for (int i = tid; i < kWarps * kBins; i += kThreads) hist[i] = 0;
-      __syncthreads();
-      for (int c0 = tid * 8; c0 < W; c0 += kStride * kUnroll) {
-        unsigned key[kUnroll][8];
+    // ---- select: radix passes over the keys clamped below top, a
+    // histogram copy per warp
+    const radix::Select s = radix::radix_select<kFirstShift, kWarps>(
+        k, hist, ws, sel, [&](int shift, unsigned mask, unsigned prefix, unsigned* mine) {
+          for (int c0 = tid * 8; c0 < W; c0 += kStride * kUnroll) {
+            unsigned key[kUnroll][8];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int c = c0 + u * kStride;
-          if (c < W) {
-            load8<BF16>(hr, c, W, vec, key[u]);
-          } else {
+            for (int u = 0; u < kUnroll; ++u) {
+              const int c = c0 + u * kStride;
+              if (c < W) {
+                load8<BF16>(hr, c, W, vec, key[u]);
+              } else {
 #pragma unroll
-            for (int j = 0; j < 8; ++j) key[u][j] = 0u;
+                for (int j = 0; j < 8; ++j) key[u][j] = 0u;
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                radix::count_key(min(key[u][j], kTopM1), shift, mask, prefix, mine);
+            }
           }
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const unsigned kc = min(key[u][j], kTopM1);
-            if (kc != 0u && (kc & mask) == prefix) atomicAdd(&mine[(kc >> shift) & 0xFFu], 1u);
-          }
-        }
-      }
-      __syncthreads();
-      // threads 0..255 take the bins in descending order: an inclusive scan
-      // over them is the count of matching keys whose digit is >= the bin
-      int c = 0, incl = 0;
-      const int b = kBins - 1 - tid;
-      if (tid < kBins) {
-        for (int w = 0; w < kWarps; ++w) c += int(hist[w * kBins + b]);
-        incl = c;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int y = __shfl_up_sync(0xffffffffu, incl, o);
-          if (lane >= o) incl += y;
-        }
-        if (lane == 31) ws[warp] = incl;
-      }
-      __syncthreads();
-      int total = 0, off = 0;
-#pragma unroll
-      for (int w = 0; w < kBins / 32; ++w) {
-        total += ws[w];
-        off += w < warp ? ws[w] : 0;
-      }
-      if (shift == kFirstShift && total < k) {
-        few = true;
-        __syncthreads();
-        break;
-      }
-      if (tid < kBins) {
-        const int ge = off + incl, gt = ge - c;
-        if (gt < remaining && ge >= remaining) {
-          sel[0] = b;
-          sel[1] = gt;
-          sel[2] = c;
-        }
-      }
-      __syncthreads();
-      prefix |= unsigned(sel[0]) << shift;
-      mask |= 0xFFu << shift;
-      remaining -= sel[1];
-      eq = sel[2];
-      __syncthreads();
-      if (remaining == eq) break;      // the whole bin is kept: kth = its lowest key's
-                                       // digits so far, every tie kept
-    }
-    const unsigned kth = few ? 0u : prefix;
+        });
+    const unsigned kth = s.kth;
     // ties to keep: k - count(> kth), where count(> kth) is taken as 0 at top - 1
-    const int need = kth == kTopM1 ? k : remaining;
+    const int need = kth == kTopM1 ? k : s.need;
 
     // ---- emit
-    if (kth == 0u || need >= eq) {
-      // every tie kept (eq counts the clamped keys equal to kth, a superset
+    if (kth == 0u || need >= s.eq) {
+      // every tie kept (eq counts the clamped keys in kth's bin, a superset
       // of the ties): out = key where key >= kth
       for (int c0 = tid * 8; c0 < W; c0 += kStride * kUnroll) {
         unsigned key[kUnroll][8];
@@ -255,37 +181,11 @@ topk_chunked_kernel(const void* __restrict__ h, void* __restrict__ out, int R, i
         }
       }
     } else {
-      // keep the first `need` ties in column order: a block prefix count of
-      // the ties of each stretch of kStride columns, carried across stretches
-      int carried = 0, parity = 0;
-      for (int s0 = 0; s0 < W; s0 += kStride) {
-        const int c = s0 + tid * 8;
-        unsigned key[8];
-        int t = 0;
-        if (c < W) {
-          load8<BF16>(hr, c, W, vec, key);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) t += key[j] == kth;
-        }
-        int tot;
-        int rank = carried + block_excl_scan(t, ws, parity, &tot);
-        parity ^= 1;
-        if (c < W) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            if (key[j] == kth) {
-              key[j] = rank < need ? key[j] : 0u;
-              ++rank;
-            } else if (key[j] < kth) {
-              key[j] = 0u;
-            }
-          }
-          store8<BF16>(orow, c, W, vec, key);
-        }
-        carried += tot;
-      }
+      radix::emit_ties<8>(
+          W, kth, need, ws, [&](int c, unsigned* key) { load8<BF16>(hr, c, W, vec, key); },
+          [&](int c, const unsigned* key) { store8<BF16>(orow, c, W, vec, key); });
     }
-    __syncthreads();   // ws and sel are reused by the next row
+    __syncthreads();   // hist, ws and sel are reused by the next row
   }
 }
 

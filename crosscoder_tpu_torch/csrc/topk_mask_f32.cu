@@ -17,17 +17,13 @@
 //
 // Design. One block per row. The row's keys are staged once in shared
 // memory (4 bytes a column: 64 KB at width 16384, so three blocks fit an
-// SM). v* is found by a radix select over the key bits instead of the TPU's
-// 31 halvings: up to four passes over shared memory (fewer when a pass's
-// chosen bin is kept whole), each building a 256-bin
-// histogram of one 8-bit digit (bits 31-24, 23-16, 15-8, 7-0) of the keys
-// that match the digits chosen so far, in four warp-group copies to spread
-// the shared-memory atomics, then a suffix scan over the bins picks the
-// digit that holds the k-th largest. Counts are integers, so the result
-// does not depend on the order the atomics land in. Ties at v* are kept by
-// column order: when every tie is kept (the common case, and always when
-// v* = 0) the emit is one compare a column; otherwise the emit walks the
-// row in column order with a block prefix count of the ties.
+// SM). v* is found by the radix select of radix_select.cuh instead of the
+// TPU's 31 halvings: up to four passes over shared memory, one 8-bit digit
+// each (bits 31-24, 23-16, 15-8, 7-0), the histogram in four warp-group
+// copies. Ties at v* are kept by column order: when every tie is kept (the
+// common case, and always when v* = 0) the emit is one compare a column;
+// otherwise it walks the row in column order with a block prefix count of
+// the ties (radix::emit_ties).
 //
 // Bound. The function reads h once and writes out once: at [4096, 16384]
 // f32 that is 2 x 268 MB, 0.16 ms at 3.35 TB/s; it does no tensor-core
@@ -37,109 +33,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radix_select.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBins = 256;
+using radix::kBins;
+using radix::kThreads;
+using radix::kWarps;
 constexpr int kSub = 4;              // histogram copies (warp % kSub)
 
 __device__ __forceinline__ unsigned key_of(unsigned b) { return (b & 0x80000000u) ? 0u : b; }
-
-// Exclusive block prefix sum of v; *total gets the block's sum. `ws` holds
-// two buffers of kWarps slots used alternately (`parity`), so a call never
-// overwrites a buffer that a thread may still be reading from the call
-// before.
-__device__ __forceinline__ int block_excl_scan(int v, int* ws, int parity, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31) ws[parity * kWarps + warp] = incl;
-  __syncthreads();
-  int off = 0, tot = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int s = ws[parity * kWarps + w];
-    tot += s;
-    off += w < warp ? s : 0;
-  }
-  *total = tot;
-  return off + incl - v;
-}
-
-struct Select {
-  unsigned kth;      // the k-th largest key (0: fewer than k positive keys)
-  int need;          // ties at kth to keep, lowest columns first
-  int eq;            // keys equal to kth (when kth > 0)
-};
-
-// Radix select over the staged keys sk[0, Wp) (zero-padded).
-__device__ Select radix_select(const unsigned* sk, int Wp, int k, unsigned* hist, int* ws,
-                               int* sel) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  unsigned* mine = hist + (warp % kSub) * kBins;
-  unsigned prefix = 0, mask = 0;
-  int remaining = k, eq = 0;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < kSub * kBins; i += kThreads) hist[i] = 0;
-    __syncthreads();
-    for (int c = tid * 4; c < Wp; c += kThreads * 4) {
-      const uint4 q = *reinterpret_cast<const uint4*>(sk + c);
-      const unsigned v[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (v[j] != 0u && (v[j] & mask) == prefix) atomicAdd(&mine[(v[j] >> shift) & 0xFFu], 1u);
-    }
-    __syncthreads();
-    // threads 0..255 take the bins in descending order: an inclusive scan
-    // over them is the count of matching keys whose digit is >= the bin
-    int c = 0, incl = 0;
-    const int b = kBins - 1 - tid;
-    if (tid < kBins) {
-#pragma unroll
-      for (int s = 0; s < kSub; ++s) c += int(hist[s * kBins + b]);
-      incl = c;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      if (lane == 31) ws[warp] = incl;
-    }
-    __syncthreads();
-    int total = 0, off = 0;
-#pragma unroll
-    for (int w = 0; w < kBins / 32; ++w) {
-      total += ws[w];
-      off += w < warp ? ws[w] : 0;
-    }
-    if (shift == 24 && total < k) {          // fewer than k positive keys
-      __syncthreads();
-      return Select{0u, 0, 0};
-    }
-    if (tid < kBins) {
-      const int ge = off + incl, gt = ge - c;
-      if (gt < remaining && ge >= remaining) {
-        sel[0] = b;
-        sel[1] = gt;
-        sel[2] = c;
-      }
-    }
-    __syncthreads();
-    prefix |= unsigned(sel[0]) << shift;
-    mask |= 0xFFu << shift;
-    remaining -= sel[1];
-    eq = sel[2];
-    __syncthreads();
-    if (remaining == eq) break;      // the whole bin is kept: kth = its lowest key's
-                                     // digits so far, every tie kept
-  }
-  return Select{prefix, remaining, eq};
-}
 
 __global__ void __launch_bounds__(kThreads)
 topk_mask_f32_kernel(const float* __restrict__ h, float* __restrict__ out, int W, int Wp, int k,
@@ -169,67 +72,47 @@ topk_mask_f32_kernel(const float* __restrict__ h, float* __restrict__ out, int W
   }
   __syncthreads();
 
-  const Select s = radix_select(sk, Wp, k, hist, ws, sel);
+  const radix::Select s = radix::radix_select<24, kSub>(
+      k, hist, ws, sel, [&](int shift, unsigned mask, unsigned prefix, unsigned* mine) {
+        for (int c = tid * 4; c < Wp; c += kThreads * 4) {
+          const uint4 q = *reinterpret_cast<const uint4*>(sk + c);
+          radix::count_key(q.x, shift, mask, prefix, mine);
+          radix::count_key(q.y, shift, mask, prefix, mine);
+          radix::count_key(q.z, shift, mask, prefix, mine);
+          radix::count_key(q.w, shift, mask, prefix, mine);
+        }
+      });
   const unsigned kth = s.kth;
+  auto store4 = [&](int c, const unsigned* o) {
+    if (vec) {
+      *reinterpret_cast<uint4*>(orow + c) = make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < W) orow[c + j] = o[j];
+    }
+  };
 
   if (kth == 0u || s.need >= s.eq) {
     // every tie kept: out = key where key >= kth (kth 0: every positive)
     for (int c = tid * 4; c < Wp; c += kThreads * 4) {
-      uint4 v = *reinterpret_cast<const uint4*>(sk + c);
-      v.x = v.x >= kth ? v.x : 0u;
-      v.y = v.y >= kth ? v.y : 0u;
-      v.z = v.z >= kth ? v.z : 0u;
-      v.w = v.w >= kth ? v.w : 0u;
-      if (vec) {
-        *reinterpret_cast<uint4*>(orow + c) = v;
-      } else {
-        const unsigned o[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < W) orow[c + j] = o[j];
-      }
+      const uint4 v = *reinterpret_cast<const uint4*>(sk + c);
+      const unsigned o[4] = {v.x >= kth ? v.x : 0u, v.y >= kth ? v.y : 0u,
+                             v.z >= kth ? v.z : 0u, v.w >= kth ? v.w : 0u};
+      store4(c, o);
     }
     return;
   }
-  // keep the first `need` ties in column order: a block prefix count of the
-  // ties of each stretch of kThreads * 4 columns, carried across stretches
-  int carried = 0, parity = 0;
-  for (int c0 = 0; c0 < Wp; c0 += kThreads * 4) {
-    const int c = c0 + tid * 4;
-    unsigned o[4] = {0u, 0u, 0u, 0u};
-    int t = 0;
-    if (c < Wp) {
-      const uint4 v = *reinterpret_cast<const uint4*>(sk + c);
-      o[0] = v.x;
-      o[1] = v.y;
-      o[2] = v.z;
-      o[3] = v.w;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) t += o[j] == kth;
-    }
-    int tot;
-    int rank = carried + block_excl_scan(t, ws, parity, &tot);
-    parity ^= 1;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (o[j] == kth) {
-        o[j] = rank < s.need ? o[j] : 0u;
-        ++rank;
-      } else if (o[j] < kth) {
-        o[j] = 0u;
-      }
-    }
-    if (c < Wp) {
-      if (vec) {
-        *reinterpret_cast<uint4*>(orow + c) = make_uint4(o[0], o[1], o[2], o[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < W) orow[c + j] = o[j];
-      }
-    }
-    carried += tot;
-  }
+  radix::emit_ties<4>(
+      Wp, kth, s.need, ws,
+      [&](int c, unsigned* key) {
+        const uint4 v = *reinterpret_cast<const uint4*>(sk + c);
+        key[0] = v.x;
+        key[1] = v.y;
+        key[2] = v.z;
+        key[3] = v.w;
+      },
+      store4);
 }
 
 }  // namespace

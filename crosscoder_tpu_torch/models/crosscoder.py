@@ -10,7 +10,9 @@ The loss surface (:func:`get_losses`, :func:`training_loss`) follows the
 JAX package: summed-square-error L2 (mean over the batch), explained
 variance overall and per source, decoder-norm-weighted L1, L0, and the
 AuxK dead-latent loss. The TopK tiers resolve from ``cfg`` exactly as the
-JAX gates do, with "kernel live" read as always true. "The mask" below is
+JAX gates do, with "kernel live" read as always true except for the
+fused encoder, which only "on" takes (:func:`use_fused_encoder`). "The
+mask" below is
 the TopK mask kernel :func:`topk_pallas.topk_forward` picks for the
 pre-activations: K5 (bf16 up to 2^16 wide), K6 (f32 that fits its
 single-block gate) or K7 (wider rows, f32 or bf16):
@@ -341,7 +343,8 @@ class _SparseAuxProduct(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# tier gates (the JAX package's, with "kernel live" read as true)
+# tier gates (the JAX package's, with "kernel live" read as true but for
+# the opt-in fused encoder)
 
 _FUSED_DEMOTION_WARNED: set[str] = set()
 
@@ -397,10 +400,12 @@ def _warn_fused_demoted(reason: str) -> None:
 
 
 def use_fused_encoder(cfg: CrossCoderConfig, batch: int | None = None) -> bool:
-    """The fused encoder→TopK tier (``cfg.fused_encoder``). For ``topk`` it
-    needs the factored tier and the sparse plane; "auto" also needs the
-    JAX package's fused gate to take the shape. An "on" demoted by a
-    prerequisite warns once on stderr. For ``batchtopk`` the fused kernel
+    """The fused encoder→TopK tier (``cfg.fused_encoder``). For ``topk``
+    "on" takes K2 when the factored tier and the sparse plane are live (an
+    "on" demoted by them warns once on stderr), and "auto" resolves to the
+    dense encode and the TopK mask: the JAX package's "auto" takes its
+    fused kernel only where ``CROSSCODER_FUSED_TOPK_PALLAS=1`` opts in, so
+    "on" is the port's opt-in. For ``batchtopk`` the fused kernel
     (K4) is not ported: "auto" resolves to the dense encode, the JAX rule
     when that kernel is not live, and "on" raises
     :class:`NotImplementedError` in training mode (a calibrated threshold
@@ -427,11 +432,7 @@ def use_fused_encoder(cfg: CrossCoderConfig, batch: int | None = None) -> bool:
                                 "backward plane live (use_factored_decode/use_sparse_bwd "
                                 "resolved off)")
         return False
-    if cfg.fused_encoder == "on":
-        return True
-    qb = cfg.quant_block if cfg.quant_encoder else 0
-    return batch is None or fek.supported(batch, cfg.n_sources * cfg.d_in, cfg.dict_size,
-                                          cfg.topk_k, dtype_of(cfg.enc_dtype), qb)
+    return cfg.fused_encoder == "on"
 
 
 # ---------------------------------------------------------------------------

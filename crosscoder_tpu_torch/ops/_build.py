@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with :mod:`ctypes`. Libraries land in
 ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the compiler flags, so an edited source rebuilds and an
-unchanged one loads at once. Nothing here runs at import: a kernel is
+source, the headers it may include (``csrc/*.cuh``) and the compiler
+flags, so an edited source or header rebuilds and an unchanged one loads
+at once. Nothing here runs at import: a kernel is
 built the first time its wrapper launches it, or ahead of traffic by
 :func:`build_all`, which starts one ``nvcc`` per source at once.
 
@@ -60,7 +61,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 

@@ -124,16 +124,29 @@ def test_training_loss_and_grads_match_jax(tier):
 
 
 def test_tier_gates_resolve_as_jax():
+    """Every tier gate as JAX's; the fused tier as JAX's without its opt-in
+    (``CROSSCODER_FUSED_TOPK_PALLAS``): "auto" is the dense encode, "on"
+    the fused kernel. Under the opt-in (interpret mode here) JAX's "auto"
+    would take the fused kernel at the three Gemma-2-2B-width shapes."""
     for kw in [*TIERS.values(), dict(activation="topk", l1_coeff=0.0, dict_size=2 ** 17,
                                      d_in=2304, batch_size=4096, topk_k=32, aux_k=64),
                dict(activation="topk", l1_coeff=0.0, dict_size=2 ** 15, d_in=2304,
-                    batch_size=4096, topk_k=32, aux_k=64, aux_every=2, sparse_bwd="on")]:
+                    batch_size=4096, topk_k=32, aux_k=64, aux_every=2, sparse_bwd="on"),
+               dict(activation="topk", l1_coeff=0.0, dict_size=2 ** 14, d_in=2304,
+                    batch_size=4096, topk_k=32, sparse_bwd="on")]:
         jcfg, cfg = JCfg(**{**BASE, **kw}), CrossCoderConfig(**{**BASE, **kw})
         B = cfg.batch_size
         assert cc.use_factored_decode(cfg) == jcc.use_factored_decode(jcfg)
         assert cc.use_sparse_bwd(cfg, B) == jcc.use_sparse_bwd(jcfg, B)
         assert cc.use_sparse_aux(cfg, B) == jcc.use_sparse_aux(jcfg, B)
-        assert cc.use_fused_encoder(cfg, B) == jcc.use_fused_encoder(jcfg, B)
+        opted_in = jcc.use_fused_encoder(jcfg, B)
+        jfek.set_interpret(False)
+        try:
+            assert cc.use_fused_encoder(cfg, B) == jcc.use_fused_encoder(jcfg, B)
+        finally:
+            jfek.set_interpret(True)
+        if kw.get("dict_size", 0) >= 2 ** 14 and "fused_encoder" not in kw:
+            assert opted_in and not cc.use_fused_encoder(cfg, B)
 
 
 def test_bare_metrics_free_loss_matches_jax():
