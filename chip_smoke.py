@@ -60,7 +60,17 @@ one NVIDIA Hopper card and the CUDA toolkit:
    half-way quotients; each timed beside its plain version, one library
    call where there is one (the emit's, ``F.threshold``, checked bitwise
    against it), and the bound, and K9/K11 also queued behind a device
-   sleep (device time without the host's launch rate);
+   sleep (device time without the host's launch rate); the int8 fused
+   encoder (K3) bitwise on random bf16 and f32 inputs ([520, 4608] x
+   [4608, 4192]: rows and a width that are not tile multiples, k in {1,
+   32, 128}, blocks 128 and 256); the fused BatchTopK select and emit (K4)
+   bitwise on exact integer-valued inputs, bf16 and f32 (ties at the
+   global threshold, a positive bias over 1000 rows, a width of 4104, a
+   budget above the count of positives); both timed at the training shape
+   (back to back and queued) beside their plain versions, one library
+   call (K3: bf16 matmul + topk, the exact function it approximates; K4:
+   matmul + topk of the flattened ReLU'd rows, matmul + ``F.threshold``)
+   and the bound;
 7. train on harvested activations: two random-init Gemma-2-2B models
    (bf16, seeds 1 and 2) harvested at ``blocks.14.hook_resid_pre`` from
    seeded token ids (seq_len 1024, some rows ending in PAD runs) into the
@@ -76,7 +86,16 @@ one NVIDIA Hopper card and the CUDA toolkit:
    (bitwise); fill, serve, refill and step times, peak memory; leg H's
    save at its last step restored into a fresh buffer and Trainer (the
    state bitwise, the buffer's token pointer and normalisation factors as
-   saved, 2 more finite steps);
+   saved, 2 more finite steps); over leg H's 6 served batches, leg K:
+   BatchTopK with ``fused_encoder='on'`` (K4 every step; no AuxK) beside
+   the dense encode (K9) on the same batches, one fused step held against
+   leg H's from its state (loss within 1e-3 relative, active-set Jaccard
+   >= 0.98), and 2 steps at f32 compute; leg I: the train cell (TopK k=32,
+   AuxK 64 every 2 steps) with ``quant_encoder`` block 256 (K3 and K10 on
+   bare steps, K5, K8 and K10 on aux steps) and the quality gate of
+   docs/SCALING.md against the exact fused encoder (K2) on one batch
+   (selection overlap >= 0.9, value error < 5e-3, loss within 5%); every
+   launch counter read around each leg, one step of each profiled;
 8. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
@@ -94,7 +113,8 @@ import time
 from pathlib import Path
 
 PEAK_BYTES_S = 3.35e12                       # H100 SXM HBM3
-PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 off the tensor cores
+# dense tensor-core bf16 and int8; fp32 off the tensor cores
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 TRAIN = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dict_size=2 ** 15,
              topk_k=32, batch_size=4096, enc_dtype="bf16", master_dtype="fp32",
              activation="topk", l1_coeff=0.0, sparse_bwd="on", aux_k=64, aux_every=2,
@@ -839,6 +859,149 @@ def check_quantize(torch, quant):
                 ms, plain_ms, b, None)
 
 
+def check_fused_topk_q(torch, fek):
+    """K3 bitwise against its plain version on random bf16 and f32 inputs
+    (a width that is not a tile multiple, rows that are not a row-block
+    multiple, k in {1, 32, 128}, blocks 128 and 256), then timed at the
+    training shape; returns its row."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    nd = TRAIN["n_models"] * TRAIN["d_in"]
+    B, width = 520, 4096 + 96
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn((B, nd), generator=gen, device="cuda").to(dt)
+        W = (torch.randn((nd, width), generator=gen, device="cuda") * nd ** -0.5).to(dt)
+        b = torch.randn((width,), generator=gen, device="cuda") * 0.01
+        for qb in (128, 256):
+            for k in (1, 32, 128):
+                vk, ik = fek.fused_topk_encode(x, W, b, k, quant_block=qb)
+                vp, ip = fek.fused_topk_encode_q_plain(x, W, b, k, qb)
+                torch.cuda.synchronize()
+                same = torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)
+                log(f"K3 fused_topk_q [{B},{nd}]x[{nd},{width}] {str(dt)[6:]} block {qb} k={k}: "
+                    f"bitwise {'equal' if same else 'DIFFERENT'}")
+                if not same:
+                    bad = (ik != ip).any(dim=1).nonzero().flatten()[:8].tolist()
+                    fail(f"K3 not bitwise equal to its plain version (rows {bad})")
+    B, H, k, qb = TRAIN["batch_size"], TRAIN["dict_size"], TRAIN["topk_k"], 256
+    x = torch.randn((B, nd), generator=gen, device="cuda").to(torch.bfloat16)
+    W = (torch.randn((nd, H), generator=gen, device="cuda") * nd ** -0.5).to(torch.bfloat16)
+    b = torch.zeros(H, device="cuda")
+    vk, ik = fek.fused_topk_encode(x, W, b, k, quant_block=qb)
+    vp, ip = fek.fused_topk_encode_q_plain(x, W, b, k, qb)
+    if not (torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)):
+        fail("K3 not bitwise equal to its plain version at the training shape")
+    ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k, quant_block=qb), 5)
+    q_ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k, quant_block=qb), 5, queued=True)
+    quant_ms = time_ms(lambda: fek.quant.quantize_contraction(x, W, qb), 5)
+    plain_ms = time_ms(lambda: fek.fused_topk_encode_q_plain(x, W, b, k, qb), 2)
+    lib_ms = time_ms(lambda: torch.topk(torch.matmul(x, W), k), 10)
+    nb = nd // qb
+    n_bytes = B * nd + B * nb * 4 + nd * H + nb * H * 4 + H * 4 + B * k * 6
+    bnd = bound(n_bytes, 2 * B * nd * H, "int8")
+    log(f"K3 training shape [{B},{nd}]x[{nd},{H}] block {qb} k={k}: {ms:.4f} ms kernel "
+        f"({q_ms:.4f} ms queued; the operands' quantization {quant_ms:.4f} ms of it), "
+        f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms bf16 matmul+topk (the exact function K3 "
+        f"approximates), bound {bnd[0]:.4f} ms by {bnd[1]}")
+    return {**_row("fused_topk_encode_q", "fused_topk_q.cu",
+                   "crosscoder_tpu/ops/fused_encoder_topk.py:362", 0.0, ms, plain_ms, bnd,
+                   lib_ms), "queued_ms": q_ms}
+
+
+def _exact_bt(torch, gen, B, nd, width, dtype, bias):
+    """Integer-valued K4 operands (every f32 sum exact) with duplicate
+    columns, so the threshold value is held by many entries at once."""
+    x = torch.randint(-2, 3, (B, nd), generator=gen, device="cuda").float()
+    W = torch.randint(-2, 3, (nd, width), generator=gen, device="cuda").float()
+    W[:, 500] = W[:, 9]
+    W[:, width - 8:] = W[:, 100:108]
+    b = (torch.randint(-8, 9, (width,), generator=gen, device="cuda").float() if bias is None
+         else torch.full((width,), float(bias), device="cuda"))
+    return x.to(dtype), W.to(dtype), b
+
+
+def check_fused_batchtopk(torch, fek):
+    """K4 select and emit bitwise against their plain versions on exact
+    inputs, bf16 and f32: ties at the global threshold, a positive bias
+    over a row count that is not a tile multiple (padded rows must not
+    count), a width that is not a tile multiple and a budget above the
+    count of positives; then timed at the training shape. Returns the
+    select and emit rows."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    nd = TRAIN["n_models"] * TRAIN["d_in"]
+    k = TRAIN["topk_k"]
+    width = 4096 + 8
+    for dt in (torch.bfloat16, torch.float32):
+        for B, bias, kk_k in ((1000, None, k), (1000, 3.0, k), (200, -60.0, width)):
+            x, W, b = _exact_bt(torch, gen, B, nd, width, dt, bias)
+            kk = fek.batchtopk_budget(B, width, kk_k)
+            kth = fek.fused_batchtopk_select(x, W, b, kk)
+            want = fek.fused_batchtopk_select_plain(x, W, b, kk)
+            out = fek.fused_batchtopk_emit(x, W, b, kth)
+            ref = fek.fused_batchtopk_emit_plain(x, W, b, want)
+            torch.cuda.synchronize()
+            same = int(kth) == int(want) and torch.equal(_bits(out, torch), _bits(ref, torch))
+            h = fek._pre_acts_plain(x, W, b).float()
+            thr = float(ref.float()[ref > 0].min()) if bool((ref > 0).any()) else 0.0
+            ties = int((h == thr).sum()) if thr > 0 else 0
+            pos = int((h > 0).sum())
+            log(f"K4 fused_batchtopk [{B},{nd}]x[{nd},{width}] {str(dt)[6:]} bias "
+                f"{'random' if bias is None else bias} kk={kk} (positives {pos}): threshold "
+                f"{thr} held by {ties} entries, kept {int((out > 0).sum())}; select and emit "
+                f"bitwise {'equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"K4 not bitwise equal to its plain version ({dt}, B {B}, bias {bias})")
+            if kk <= pos and ties < 2:
+                fail("K4 check: no tie at the global threshold was planted")
+    B, H = TRAIN["batch_size"], TRAIN["dict_size"]
+    kk = fek.batchtopk_budget(B, H, k)
+    x = torch.randn((B, nd), generator=gen, device="cuda").to(torch.bfloat16)
+    W = (torch.randn((nd, H), generator=gen, device="cuda") * nd ** -0.5).to(torch.bfloat16)
+    b = torch.zeros(H, device="cuda")
+    kth = fek.fused_batchtopk_select(x, W, b, kk)
+    out = fek.fused_batchtopk_emit(x, W, b, kth)
+    want = fek.fused_batchtopk_select_plain(x, W, b, kk)
+    ref = fek.fused_batchtopk_emit_plain(x, W, b, kth)
+    torch.cuda.synchronize()
+    kept, kept_ref = (out > 0), (ref > 0)
+    jac = float((kept & kept_ref).sum()) / max(float((kept | kept_ref).sum()), 1.0)
+    log(f"K4 training shape [{B},{nd}]x[{nd},{H}] bf16 kk={kk} random: threshold pattern "
+        f"{int(kth)} vs plain {int(want)}; kept {int(kept.sum())} vs {int(kept_ref.sum())}, "
+        f"Jaccard {jac:.5f} (the kernel and the plain matmul sum in other orders)")
+    if abs(int(kth) - int(want)) > 1 or jac < 0.99:
+        fail("K4 disagrees with its plain version beyond rounding at the training shape")
+
+    def lib_select():
+        h = torch.matmul(x, W)
+        return torch.topk(torch.relu(h).reshape(-1), kk, sorted=False).values.min()
+
+    t_lib = float(lib_select())
+
+    def lib_emit():
+        return torch.nn.functional.threshold(torch.matmul(x, W), t_lib, 0.0)
+
+    rows = []
+    n_bytes = x.numel() * 2 + W.numel() * 2 + H * 4
+    for name, fn, plain, lib, lib_label, out_bytes, line in (
+            ("fused_batchtopk select", lambda: fek.fused_batchtopk_select(x, W, b, kk),
+             lambda: fek.fused_batchtopk_select_plain(x, W, b, kk), lib_select,
+             "matmul + topk of the flattened ReLU'd rows", 4, 533),
+            ("fused_batchtopk emit", lambda: fek.fused_batchtopk_emit(x, W, b, kth),
+             lambda: fek.fused_batchtopk_emit_plain(x, W, b, kth), lib_emit,
+             "matmul + F.threshold", B * H * 2, 586)):
+        ms = time_ms(fn, 5)
+        q_ms = time_ms(fn, 5, queued=True)
+        plain_ms = time_ms(plain, 2)
+        lib_ms = time_ms(lib, 5)
+        bnd = bound(n_bytes + out_bytes, 2 * B * nd * H, "bf16")
+        log(f"K4 {name.split()[1]} training shape: {ms:.4f} ms kernel ({q_ms:.4f} ms queued), "
+            f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms {lib_label}, bound {bnd[0]:.4f} ms by "
+            f"{bnd[1]}")
+        rows.append({**_row(name, "fused_batchtopk.cu",
+                            f"crosscoder_tpu/ops/fused_encoder_topk.py:{line}", 0.0, ms,
+                            plain_ms, bnd, lib_ms), "queued_ms": q_ms})
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 6: train
 
@@ -871,7 +1034,10 @@ def plain_versions(tp, sg, fek):
              (sg, "scatter_add_rows", sg.scatter_add_rows_plain),
              (fek, "fused_topk_encode", fek.fused_topk_encode_plain),
              (tp, "batchtopk_select", tp.batchtopk_select_plain),
-             (tp, "batchtopk_emit", tp.batchtopk_emit_plain)]
+             (tp, "batchtopk_emit", tp.batchtopk_emit_plain),
+             (fek, "fused_topk_encode_q", fek.fused_topk_encode_q_plain),
+             (fek, "fused_batchtopk_select", fek.fused_batchtopk_select_plain),
+             (fek, "fused_batchtopk_emit", fek.fused_batchtopk_emit_plain)]
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     for m, name, plain in swaps:
         setattr(m, name, plain)
@@ -902,15 +1068,20 @@ def profile_step(torch, trainer, full_metrics, label):
     if total <= 0:
         log(f"profile {label}: the profiler recorded no device time (not measured)")
         return
-    groups = {"K2 fused_topk": 0.0, "K5 topk_mask": 0.0, "K6 topk_mask_f32": 0.0,
+    groups = {"K2 fused_topk": 0.0, "K3 fused_topk_q": 0.0, "K2/K3 merge": 0.0,
+              "K4 fused_batchtopk": 0.0, "K5 topk_mask": 0.0, "K6 topk_mask_f32": 0.0,
               "K7 topk_chunked": 0.0, "K8 sparsify": 0.0, "K10 scatter_rows": 0.0,
-              "matmul": 0.0, "other": 0.0}
+              "K11 quantize_rows": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         n = e.key.lower()
         g = ("K6 topk_mask_f32" if "topk_mask_f32" in n else
              "K7 topk_chunked" if "topk_chunked" in n else
              "K5 topk_mask" if "topk_mask" in n else
-             "K2 fused_topk" if "topk_tiles" in n or "topk_merge" in n else
+             "K3 fused_topk_q" if "topk_tiles_q" in n else
+             "K2 fused_topk" if "topk_tiles" in n else
+             "K2/K3 merge" if "topk_merge" in n else
+             "K4 fused_batchtopk" if "bt_pass" in n else
+             "K11 quantize_rows" if "quantize_rows" in n else
              "K8 sparsify" if "sparsify" in n else
              "K10 scatter_rows" if "scatter_rows" in n else
              "matmul" if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas"))
@@ -956,8 +1127,7 @@ def train(torch, np):
         f"{cfg_a.d_in}] on the card and a {cfg_a.dict_size}-latent state in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    counters = {"fused_topk_encode": fek.fused_topk_encode, "topk_mask": tp.topk,
-                "sparsify": tp.sparsify, "scatter_add_rows": sg.scatter_add_rows}
+    counters = launch_counters()
     for c in counters.values():
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1089,9 +1259,7 @@ def train_wide(torch, np, root, train_batches):
     from crosscoder_tpu_torch.train import trainer as trainer_mod
     from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
 
-    counters = {"topk_mask_f32": tp.topk_mask_f32, "topk_chunked": tp.topk_chunked,
-                "topk_mask": tp.topk, "sparsify": tp.sparsify,
-                "scatter_add_rows": sg.scatter_add_rows}
+    counters = launch_counters()
     legs = {}
 
     # leg F: 8 steps straight, against 4 + background save + restore + 4
@@ -1309,6 +1477,163 @@ class SpanCounter:
         return None
 
 
+class Replay:
+    """Serves recorded raw batches in order, with their buffer's
+    normalisation factor: the trainer's view of a harvested stream."""
+
+    def __init__(self, batches, normalisation_factor):
+        self.batches, self.normalisation_factor, self.i = batches, normalisation_factor, 0
+
+    def next_raw(self):
+        b = self.batches[self.i % len(self.batches)]
+        self.i += 1
+        return b
+
+
+def launch_counters():
+    """Every training kernel's launch counter, by name."""
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.ops import quant
+    from crosscoder_tpu_torch.ops import sparse_grad as sg
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+
+    return {"topk_mask": tp.topk, "topk_mask_f32": tp.topk_mask_f32,
+            "topk_chunked": tp.topk_chunked, "sparsify": tp.sparsify,
+            "scatter_add_rows": sg.scatter_add_rows, "batchtopk_select": tp.batchtopk_select,
+            "batchtopk_emit": tp.batchtopk_emit, "quantize_rows": quant.quantize_rows,
+            "fused_topk_encode": fek.fused_topk_encode,
+            "fused_topk_encode_q": fek.fused_topk_encode_q,
+            "fused_batchtopk_select": fek.fused_batchtopk_select,
+            "fused_batchtopk_emit": fek.fused_batchtopk_emit}
+
+
+def run_leg(torch, cfg, batches, factor, steps):
+    """``steps`` Trainer steps over a replay of ``batches``, every launch
+    counter set to 0 just before and read just after; per step the loss,
+    l0, whether it was an aux step and its time (CUDA events)."""
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+
+    tr = trainer_mod.Trainer(cfg, Replay(batches, factor), device="cuda")
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = []
+    for i in range(steps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m = tr.step(full_metrics=True)
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(dict(loss=float(m["loss"]), l0=float(m["l0_loss"]), ms=e0.elapsed_time(e1),
+                        aux=trainer_mod.variant_for_step(cfg, i)[1] and cfg.aux_k > 0))
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    return tr, out, launches
+
+
+def fused_legs(torch, np, leg_h, cfg_h):
+    """Leg K (K4): BatchTopK with fused_encoder='on' over leg H's harvested
+    batches, beside the dense encode (K9) over the same batches, one fused
+    step held against leg H's from its state, and 2 f32 steps; leg I (K3):
+    the train cell with quant_encoder over the same batches, and the
+    quality gate against the exact fused encoder (K2). Returns each leg's
+    launches."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.models import crosscoder as cc
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer
+
+    served, factor = leg_h["rec"].served, leg_h["buffer"].normalisation_factor
+    steps = len(served)
+    scale = leg_h["scale"][0, :, 0]
+    cfg_k = cfg_h.replace(fused_encoder="on", num_tokens=cfg_h.batch_size * steps)
+    tr, dense, dense_l = run_leg(torch, cfg_h.replace(num_tokens=cfg_k.num_tokens), served,
+                                 factor, steps)
+    del tr
+    tr_k, fused, leg_k = run_leg(torch, cfg_k, served, factor, steps)
+    _, f32, leg_k32 = run_leg(torch, cfg_k.replace(enc_dtype="fp32"), served, factor, 2)
+    log(f"leg K (BatchTopK, fused encoder K4, {steps} steps over leg H's harvested batches): "
+        f"losses {[round(r['loss'], 4) for r in fused]}; l0 {[round(r['l0'], 1) for r in fused]}; "
+        f"launches {leg_k}")
+    log(f"leg K: ms per step (CUDA events) fused {[round(r['ms'], 3) for r in fused]} vs the "
+        f"dense encode (K9) over the same batches {[round(r['ms'], 3) for r in dense]} "
+        f"(launches {dense_l}); mean of steps 2-{steps}: fused "
+        f"{np.mean([r['ms'] for r in fused[1:]]):.3f}, dense "
+        f"{np.mean([r['ms'] for r in dense[1:]]):.3f}")
+    log(f"leg K f32 (enc_dtype fp32, 2 steps): losses {[round(r['loss'], 4) for r in f32]}; ms "
+        f"{[round(r['ms'], 3) for r in f32]}; launches {leg_k32}")
+    if not all(math.isfinite(r["loss"]) for r in fused + f32):
+        fail("leg K: a loss is not finite")
+    if not (leg_k.get("fused_batchtopk_select") == steps and leg_k.get("fused_batchtopk_emit") == steps
+            and leg_k32.get("fused_batchtopk_select") == 2 and "batchtopk_select" not in leg_k):
+        fail(f"leg K: K4 did not run on every step: {leg_k}, f32 {leg_k32}")
+    # one fused step against leg H's dense step from leg H's state, same batch
+    opt = Optimizer(cfg_h, lambda s: 0.0)
+    state = leg_h["state"]
+    lk = float(trainer_mod.make_step_body(cfg_k, opt).loss_and_grads(state, served[0], scale)[0])
+    lh = float(trainer_mod.make_step_body(cfg_h, opt).loss_and_grads(state, served[0], scale)[0])
+    x = (served[0].float() * scale[None, :, None]).to(torch.bfloat16)
+    cp = cc.cast_params(state.params, torch.bfloat16)
+    f_dense = cc.encode(cp, x, cfg_h) > 0
+    f_fused = fek.fused_batchtopk_encode(x.reshape(x.shape[0], -1),
+                                         cp["W_enc"].reshape(-1, cfg_h.dict_size), cp["b_enc"],
+                                         cfg_h.topk_k) > 0
+    jac = float((f_dense & f_fused).sum()) / max(float((f_dense | f_fused).sum()), 1.0)
+    rel = abs(lk - lh) / abs(lh)
+    log(f"leg K: a fused step from leg H's state at step {state.step}: loss {lk:.6f} vs the "
+        f"dense encode {lh:.6f}, relative {rel:.2e} (tol 1e-3); active sets {int(f_fused.sum())} "
+        f"vs {int(f_dense.sum())}, Jaccard {jac:.5f} (tol >= 0.98: the matmuls sum in other "
+        f"orders, so bf16 pre-activations round apart now and then)")
+    if not (rel <= 1e-3 and jac >= 0.98):
+        fail("leg K: the fused BatchTopK step disagrees with the dense encode")
+    profile_step(torch, tr_k, True, "leg K step")
+    del tr_k, f_dense, f_fused
+
+    # leg I: the train cell with the int8 fused encoder (K3) on bare steps
+    cfg_i = CrossCoderConfig(**TRAIN, fused_encoder="on", quant_encoder=True, quant_block=256,
+                             num_tokens=TRAIN["batch_size"] * steps)
+    tr_i, legi, leg_i = run_leg(torch, cfg_i, served, factor, steps)
+    bare = [r["ms"] for r in legi if not r["aux"]]
+    aux = [r["ms"] for r in legi if r["aux"]]
+    log(f"leg I (TopK, quant_encoder block 256, {steps} steps over leg H's batches): losses "
+        f"{[round(r['loss'], 4) for r in legi]}; l0 {[round(r['l0'], 1) for r in legi]}; "
+        f"launches {leg_i}; ms per step (CUDA events) bare (K3) {[round(t, 3) for t in bare]}, "
+        f"aux (dense encode) {[round(t, 3) for t in aux]}")
+    if not all(math.isfinite(r["loss"]) and r["l0"] <= cfg_i.topk_k for r in legi):
+        fail("leg I: a loss is not finite or l0 exceeds k")
+    if not (leg_i.get("fused_topk_encode_q") == len(bare) and "fused_topk_encode" not in leg_i
+            and leg_i.get("topk_mask", 0) > 0 and leg_i.get("sparsify", 0) > 0
+            and leg_i.get("scatter_add_rows", 0) > 0):
+        fail(f"leg I: K3 on bare steps or K5/K8/K10 on aux steps did not run: {leg_i}")
+    # the quality gate (docs/SCALING.md): K3 against the exact fused K2 on one batch
+    state = tr_i.state
+    k = cfg_i.topk_k
+    cp = cc.cast_params(state.params, torch.bfloat16)
+    x2 = x.reshape(x.shape[0], -1)
+    W2 = cp["W_enc"].reshape(-1, cfg_i.dict_size)
+    ev, ei = fek.fused_topk_encode(x2, W2, cp["b_enc"], k)
+    qv, qi = fek.fused_topk_encode(x2, W2, cp["b_enc"], k, quant_block=cfg_i.quant_block)
+    ev, qv, ei, qi = (t.float().cpu().numpy() for t in (ev, qv, ei, qi))
+    overlap = np.mean([len(set(qi[r][qv[r] > 0]) & set(ei[r][ev[r] > 0]))
+                       / max((ev[r] > 0).sum(), 1) for r in range(len(ev))])
+    val_err = float(np.mean(np.abs(qv.sum(1) - ev.sum(1)) / np.maximum(ev.sum(1), 1e-6)))
+    lq = float(trainer_mod.make_step_body(cfg_i, opt, True, False, True).loss_and_grads(
+        state, served[0], scale)[0])
+    le = float(trainer_mod.make_step_body(cfg_i.replace(quant_encoder=False), opt, True, False,
+                                          True).loss_and_grads(state, served[0], scale)[0])
+    loss_rel = abs(lq - le) / abs(le)
+    log(f"leg I quality gate at step {state.step} on a harvested batch: selection overlap "
+        f"{overlap:.4f} (>= 0.9), mean value error {val_err:.2e} (< 5e-3), bare-step loss "
+        f"{lq:.6f} vs the exact fused tier {le:.6f}, relative {loss_rel:.2e} (< 0.05)")
+    if not (overlap >= 0.9 and val_err < 5e-3 and loss_rel < 0.05):
+        fail("leg I: the int8 fused encoder failed the quality gate")
+    tr_i.step()                                       # an aux step, so the next is bare
+    profile_step(torch, tr_i, False, "leg I bare step")
+    del tr_i
+    return {"K": leg_k, "K32": leg_k32, "I": leg_i}
+
+
 def harvest_tokens(np, n_seqs, seq_len, vocab, seed):
     """Seeded synthetic token ids: BOS first, some rows ending in PAD runs."""
     rng = np.random.default_rng(seed)
@@ -1335,7 +1660,6 @@ def harvest_train(torch, np, root):
     from crosscoder_tpu_torch.models import lm
     from crosscoder_tpu_torch.obs import trace
     from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
-    from crosscoder_tpu_torch.ops import quant
     from crosscoder_tpu_torch.ops import sparse_grad as sg
     from crosscoder_tpu_torch.ops import topk_pallas as tp
     from crosscoder_tpu_torch.train import trainer as trainer_mod
@@ -1365,10 +1689,7 @@ def harvest_train(torch, np, root):
         f"through both models' 14 blocks {chunk_ms:.3f} ms; one {HARVEST['batch_size']}-row "
         f"serve gather {gather_ms:.3f} ms (CUDA events)")
 
-    counters = {"batchtopk_select": tp.batchtopk_select, "batchtopk_emit": tp.batchtopk_emit,
-                "quantize_rows": quant.quantize_rows, "topk_mask": tp.topk,
-                "sparsify": tp.sparsify, "scatter_add_rows": sg.scatter_add_rows,
-                "fused_topk_encode": fek.fused_topk_encode}
+    counters = launch_counters()
     for c in counters.values():
         c.launches = 0
     legs = {}
@@ -1498,6 +1819,7 @@ def harvest_train(torch, np, root):
             f"ms; step without the serve (host clock) mean {np.mean(steady):.3f} ms over "
             f"{len(steady)} steps; {b / np.mean(leg['step_ms'][1:]) * 1e3:.0f} "
             f"rows/s end to end")
+    launches["fused legs"] = fused_legs(torch, np, legs["H"], cfg_h)
     # leg H's save restored into a fresh buffer (lazy, filled by the
     # restore from the saved position) and a fresh Trainer with resume
     del legs
@@ -1569,6 +1891,7 @@ def main() -> int:
     rows = [check_paged_attention(torch, pa, lengths_a), check_fused_topk(torch, fek)]
     train_rows = [*check_topk_mask_and_sparsify(torch, tp), check_scatter(torch, sg),
                   check_fused_topk_train(torch, fek)]
+    fused_rows = [check_fused_topk_q(torch, fek), *check_fused_batchtopk(torch, fek)]
     harvest_rows = [*check_batchtopk(torch, tp), check_quantize(torch, quant)]
     wide_rows = check_topk_wide(torch, tp)
     launches = serve(torch, np, lengths_a)
@@ -1585,7 +1908,11 @@ def main() -> int:
     launches = harvest_train(torch, np, root)
     for row in harvest_rows:
         row["launches"] = launches[row["name"]]
-    rows += train_rows + harvest_rows + wide_rows
+    fused = launches["fused legs"]
+    fused_rows[0]["launches"] = fused["I"]["fused_topk_encode_q"]
+    fused_rows[1]["launches"] = fused["K"]["fused_batchtopk_select"]
+    fused_rows[2]["launches"] = fused["K"]["fused_batchtopk_emit"]
+    rows += train_rows + harvest_rows + wide_rows + fused_rows
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

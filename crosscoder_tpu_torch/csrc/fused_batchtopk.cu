@@ -1,0 +1,369 @@
+// Fused encoder -> BatchTopK for Hopper (sm_90a): the masked activations of
+// relu(cast(x . W + b)) that reach the global (k·B)-th largest value of the
+// batch, without writing the [B, width] pre-activation matrix to select.
+//
+// Replaces the Pallas TPU kernels crosscoder_tpu/ops/fused_encoder_topk.py
+// `_fused_bt_bisect_kernel` (select) and `_fused_bt_emit_kernel` (emit),
+// reached through `fused_batchtopk_encode_raw`.
+//
+// The TPU kernels walk a sequential grid (passes, row blocks, dictionary
+// chunks) that carries 255 bisection counts in SMEM and recomputes each
+// pre-activation tile from the product in every pass. Here every pass is a
+// persistent grid over [128, 128] output tiles, each tile recomputed from
+// the product (fp32 sums on the CUDA cores: x and W staged in shared
+// memory 16 columns of the contraction at a time, an 8 x 8 register tile a
+// thread) and never stored; the pass differs only in what it does with the
+// tile. Counts are integers added with atomics, so the result does not
+// depend on the order the blocks run in:
+//   bf16: one counting pass. The pattern of each pre-activation (its bf16
+//     bits; K9's rule: sign-set -> 0, NaN -> 0x7FFE) is a 15-bit key; each
+//     block counts the positive keys of its tiles in a 32768-bin shared
+//     histogram (128 KB), flushes it into a global 64-bit histogram, and the
+//     last block (a fence and a ticket) walks the suffix sums to kth, the
+//     largest pattern p with count(pattern >= p) >= kk (0 when fewer than
+//     kk are positive).
+//   f32: two counting passes over the 31-bit pattern (NaN -> 0x7FFFFFFE):
+//     the same histogram over its top 15 bits finds the bin that holds kth,
+//     then a pass over the low 16 bits of the entries in that bin (global
+//     64-bit atomics, one per distinct bin a warp, __match_any_sync).
+//   emit: one more pass writes (pattern >= kth && pattern > 0) ? the value
+//     of the pattern : 0 in the compute dtype, so every tie at kth is kept.
+// Rows past B and columns past width are masked out of every count: a
+// positive bias would otherwise make zero rows count (the TPU kernels'
+// `_tile_bits` guard).
+//
+// Bound. At the training shape (x [4096, 4608], W [4608, 32768] bf16) the
+// product is 1.24 TFLOP, 1.25 ms at the bf16 tensor-core peak; the bytes
+// (x 38 MB, W 302 MB, f 268 MB) take 0.18 ms. The bound counts the product
+// once; this design computes it 2 times in bf16 and 3 in f32, on the CUDA
+// cores.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBM = 128;          // tile rows
+constexpr int kBN = 128;          // tile columns
+constexpr int kBK = 16;           // contraction columns staged a step
+constexpr int kBins1 = 1 << 15;   // top-15-bit histogram
+constexpr int kBins2 = 1 << 16;   // low-16-bit histogram (f32)
+
+enum Mode { kHist1 = 0, kHist2 = 1, kEmit = 2 };
+
+// device state, 64-bit words zeroed by the wrapper
+struct State {
+  unsigned long long hist1[kBins1];
+  unsigned long long hist2[kBins2];
+  unsigned long long ticket1, ticket2;
+  long long prefix, kk2, done;
+};
+
+__device__ __forceinline__ unsigned pattern16(unsigned b) {
+  if (b & 0x8000u) return b > 0xFF80u ? 0x7FFEu : 0u;
+  return b < 0x7FFEu ? b : 0x7FFEu;
+}
+
+__device__ __forceinline__ unsigned pattern32(unsigned b) {
+  if (b & 0x80000000u) return b > 0xFF800000u ? 0x7FFFFFFEu : 0u;
+  return b < 0x7FFFFFFEu ? b : 0x7FFFFFFEu;
+}
+
+// 8 consecutive elements as f32, from a 16-byte (bf16) / 32-byte (f32) boundary
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* w) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    w[2 * i] = f.x;
+    w[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* w) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+}
+
+// The pattern of a pre-activation summed in f32: rounded to the compute
+// dtype, then K9's clamp (bf16: 16-bit pattern, f32: 32-bit).
+__device__ __forceinline__ unsigned pattern_of(float h, __nv_bfloat16*) {
+  return pattern16(__bfloat16_as_ushort(__float2bfloat16_rn(h)));
+}
+__device__ __forceinline__ unsigned pattern_of(float h, float*) {
+  return pattern32(__float_as_uint(h));
+}
+
+// Thread (ty, tx) of a tile owns rows ty*4 + i and 64 + ty*4 + i, and
+// columns tx*4 + j and 64 + tx*4 + j (i, j < 4).
+__device__ __forceinline__ int tile_row(int ty, int i) { return (i >> 2) * 64 + ty * 4 + (i & 3); }
+
+// acc[i][j] = sum over the contraction of x[row0 + r_i, :] * W[:, c0 + c_j], fp32.
+template <typename T>
+__device__ __forceinline__ void tile_product(const T* __restrict__ x, const T* __restrict__ W,
+                                             int B, int nd, int width, int row0, int c0,
+                                             float (*As)[kBM], float (*Bs)[kBN],
+                                             float acc[8][8]) {
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // loaders: x rows (tid >> 1), 8 contraction columns at (tid & 1) * 8;
+  // W contraction row (tid >> 4), 8 columns at (tid & 15) * 8
+  const int xm = tid >> 1, xk = (tid & 1) * 8;
+  const int wk = tid >> 4, wc = (tid & 15) * 8;
+  const bool x_ok = row0 + xm < B, w_ok = c0 + wc < width;
+  const T* xp = x + size_t(row0 + xm) * nd + xk;
+  const T* wp = W + size_t(wk) * width + c0 + wc;
+  for (int k0 = 0; k0 < nd; k0 += kBK) {
+    float v[8];
+    if (x_ok) {
+      load8(xp + k0, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) As[xk + j][xm] = v[j];
+    if (w_ok) {
+      load8(wp + size_t(k0) * width, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = 0.f;
+    }
+    *reinterpret_cast<float4*>(&Bs[wk][wc]) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(&Bs[wk][wc + 4]) = make_float4(v[4], v[5], v[6], v[7]);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[8], b[8];
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// The last block of a counting pass: the largest bin p of hist[0, n_bins)
+// whose suffix count reaches kk. Returns p, or -1 when the total is below
+// kk; *above gets the count of the bins past p. `sums`: kThreads 64-bit
+// words of shared memory.
+__device__ int suffix_select(const unsigned long long* hist, int n_bins, long long kk,
+                             unsigned long long* sums, unsigned long long* above) {
+  __shared__ int best;
+  const int t = threadIdx.x, per = n_bins / kThreads;
+  unsigned long long mine = 0;
+  for (int q = 0; q < per; ++q) mine += __ldcg(&hist[t * per + q]);
+  if (t == 0) best = -1;
+  sums[t] = mine;
+  __syncthreads();
+  for (int o = 1; o < kThreads; o <<= 1) {        // inclusive suffix scan
+    const unsigned long long add = t + o < kThreads ? sums[t + o] : 0ull;
+    __syncthreads();
+    sums[t] += add;
+    __syncthreads();
+  }
+  unsigned long long run = t + 1 < kThreads ? sums[t + 1] : 0ull;
+  int found = -1;
+  unsigned long long run_above = 0;
+  for (int q = per - 1; q >= 0; --q) {
+    const int p = t * per + q;
+    const unsigned long long h = __ldcg(&hist[p]);
+    if (run + h >= (unsigned long long)kk) {
+      found = p;
+      run_above = run;
+      break;
+    }
+    run += h;
+  }
+  if (found >= 0) atomicMax(&best, found);
+  __syncthreads();
+  const int b = best;
+  if (b >= 0 && found == b) *above = run_above;
+  __syncthreads();
+  return b;
+}
+
+__device__ __forceinline__ bool last_block(unsigned long long* ticket) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1ull) == (unsigned long long)(gridDim.x - 1);
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// The end of a counting pass: the block's counts into the global
+// histogram (pass 1), then the last block to finish picks kth's bin (pass
+// 1: kth itself in bf16, its top 15 bits in f32) or its low 16 bits (pass 2).
+template <bool kBf16, int MODE>
+__device__ void finish_count(State* st, int* kth_out, long long kk, unsigned prefix,
+                             const unsigned* shist) {
+  __shared__ unsigned long long sums[kThreads];
+  __shared__ unsigned long long above;
+  const int tid = threadIdx.x;
+  if constexpr (MODE == kHist1) {
+    __syncthreads();
+    for (int i = tid; i < kBins1; i += kThreads)
+      if (shist[i]) atomicAdd(&st->hist1[i], (unsigned long long)shist[i]);
+    if (!last_block(&st->ticket1)) return;
+    const int p = suffix_select(st->hist1, kBins1, kk, sums, &above);
+    if (tid != 0) return;
+    if (p < 0) {                      // fewer than kk positives: keep them all
+      st->done = 1;
+      *kth_out = 0;
+    } else if (kBf16) {
+      *kth_out = p;
+    } else {
+      st->prefix = p;
+      st->kk2 = kk - (long long)above;
+    }
+  } else {
+    if (!last_block(&st->ticket2)) return;
+    const int l = suffix_select(st->hist2, kBins2, st->kk2, sums, &above);
+    if (tid == 0) *kth_out = int((prefix << 16) | unsigned(l < 0 ? 0 : l));
+  }
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+bt_pass(const T* __restrict__ x, const T* __restrict__ W, const float* __restrict__ b,
+        State* __restrict__ st, int* __restrict__ kth_out, T* __restrict__ out,
+        int B, int nd, int width, long long kk) {
+  extern __shared__ unsigned shist[];          // kHist1: [kBins1]
+  __shared__ __align__(16) float As[kBK][kBM];
+  __shared__ __align__(16) float Bs[kBK][kBN];
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, lane = tid & 31;
+
+  unsigned kth = 0, prefix = 0;
+  if constexpr (MODE == kHist1) {
+    for (int i = tid; i < kBins1; i += kThreads) shist[i] = 0;
+    __syncthreads();
+  } else if constexpr (MODE == kHist2) {
+    if (st->done) return;
+    prefix = unsigned(st->prefix);
+  } else {
+    kth = unsigned(*kth_out);
+  }
+
+  const int n_rb = (B + kBM - 1) / kBM;
+  const int n_tiles = n_rb * ((width + kBN - 1) / kBN);
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int row0 = (t % n_rb) * kBM, c0 = (t / n_rb) * kBN;
+    float acc[8][8];
+    tile_product<T>(x, W, B, nd, width, row0, c0, As, Bs, acc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = row0 + tile_row(ty, i);
+#pragma unroll
+      for (int jh = 0; jh < 2; ++jh) {
+        const int c = c0 + jh * 64 + tx * 4;
+        const bool ok = r < B && c < width;     // width % 8 == 0: 4 columns in or out together
+        unsigned p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          p[j] = ok ? pattern_of(acc[i][jh * 4 + j] + b[c + j], static_cast<T*>(nullptr)) : 0u;
+        if constexpr (MODE == kHist1) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (p[j]) atomicAdd(&shist[kBf16 ? p[j] : p[j] >> 16], 1u);
+        } else if constexpr (MODE == kHist2) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bool in = p[j] != 0u && (p[j] >> 16) == prefix;
+            const unsigned key = in ? (p[j] & 0xFFFFu) : 0xFFFFFFFFu;
+            const unsigned peers = __match_any_sync(0xffffffffu, key);
+            if (in && lane == __ffs(peers) - 1)
+              atomicAdd(&st->hist2[key], (unsigned long long)__popc(peers));
+          }
+        } else {
+          if (!ok) continue;
+          unsigned v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[j] = p[j] >= kth && p[j] > 0u ? p[j] : 0u;
+          if constexpr (kBf16) {
+            uint2 u = make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
+            *reinterpret_cast<uint2*>(reinterpret_cast<uint16_t*>(out) + size_t(r) * width + c) = u;
+          } else {
+            *reinterpret_cast<uint4*>(reinterpret_cast<unsigned*>(out) + size_t(r) * width + c) =
+                make_uint4(v[0], v[1], v[2], v[3]);
+          }
+        }
+      }
+    }
+  }
+  if constexpr (MODE != kEmit) finish_count<kBf16, MODE>(st, kth_out, kk, prefix, shist);
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+template <typename T, int MODE>
+int launch_pass(const void* x, const void* W, const void* b, void* st, void* kth, void* out, int B,
+                int nd, int width, long long kk, cudaStream_t stream) {
+  auto kern = bt_pass<T, MODE>;
+  const size_t smem = MODE == kHist1 ? kBins1 * sizeof(unsigned) : 0;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return int(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  if (e != cudaSuccess) return int(e);
+  const long long n_tiles =
+      (long long)((B + kBM - 1) / kBM) * ((width + kBN - 1) / kBN);
+  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sm_count();
+  if (grid > n_tiles) grid = n_tiles;
+  kern<<<int(grid), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(W), static_cast<const float*>(b),
+      static_cast<State*>(st), static_cast<int*>(kth), static_cast<T*>(out), B, nd, width, kk);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int run_select(const void* x, const void* W, const void* b, void* st, void* kth, int B, int nd,
+           int width, long long kk, cudaStream_t stream) {
+  int e = launch_pass<T, kHist1>(x, W, b, st, kth, nullptr, B, nd, width, kk, stream);
+  if (e != 0 || sizeof(T) == 2) return e;     // bf16: one counting pass
+  return launch_pass<T, kHist2>(x, W, b, st, kth, nullptr, B, nd, width, kk, stream);
+}
+
+}  // namespace
+
+extern "C" long long fused_bt_state_bytes() { return (long long)sizeof(State); }
+
+// `state`: fused_bt_state_bytes() zeroed bytes; `kth`: one int32, written.
+extern "C" int fused_bt_select(const void* x, const void* W, const void* b, void* state, void* kth,
+                               int B, int nd, int width, long long kk, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return run_select<__nv_bfloat16>(x, W, b, state, kth, B, nd, width, kk, st);
+  return run_select<float>(x, W, b, state, kth, B, nd, width, kk, st);
+}
+
+extern "C" int fused_bt_emit(const void* x, const void* W, const void* b, const void* kth,
+                             void* out, int B, int nd, int width, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  void* k = const_cast<void*>(kth);
+  if (is_bf16)
+    return launch_pass<__nv_bfloat16, kEmit>(x, W, b, nullptr, k, out, B, nd, width, 0, st);
+  return launch_pass<float, kEmit>(x, W, b, nullptr, k, out, B, nd, width, 0, st);
+}

@@ -22,7 +22,8 @@ single-block gate) or K7 (wider rows, f32 or bf16):
 - sparse step (:class:`_SparseTopKStep`, bare steps of ``sparse_bwd``):
   encode + the mask + K8 + decode in one autograd scope, backward through the
   K10 scatter (dW_dec, then dW_enc with db_enc riding a ones column);
-- fused step (the same class with the ported K2 encoder→TopK forward);
+- fused step (the same class with the K2 encoder→TopK forward, or K3's
+  int8 block-scaled one under ``quant_encoder``);
 - sparse from h (:class:`_SparseTopKFromH`, AuxK steps: h stays a
   differentiable residual for the aux ranking) and the aux product
   (:class:`_SparseAuxProduct`, dense forward, K10 backward).
@@ -31,11 +32,13 @@ On CPU tensors each kernel's plain version takes its place, as the JAX
 package's interpret mode does. AuxK ranks dead latents exactly with
 ``torch.topk`` (JAX's ``aux_exact_rank=True``); the TPU path ranks them
 with ``approx_max_k``. BatchTopK trains through the dense encode and the
-K9 kernels (:mod:`crosscoder_tpu_torch.ops.topk_pallas`);
+K9 kernels (:mod:`crosscoder_tpu_torch.ops.topk_pallas`), or under
+``fused_encoder='on'`` through :class:`_FusedBatchTopKEncode` (K4: the
+encoder product and the global selection fused; the dense straight-through
+backward), AuxK steps keeping the dense encode;
 :func:`calibrate_batchtopk_threshold` gives its eval-mode threshold. Not
-ported here: ``sparse_decode`` (the gather decode), JumpReLU, the fused
-BatchTopK encoder (K4) and the int8 fused encoder (K3); each raises
-:class:`NotImplementedError`.
+ported here: ``sparse_decode`` (the gather decode) and JumpReLU; each
+raises :class:`NotImplementedError`.
 
 Matmuls sum in f32: from bf16 operands on the card through
 ``torch.mm(..., out_dtype=torch.float32)`` (tensor cores; the backward
@@ -262,17 +265,18 @@ def _sparse_step_backward(ctx, g):
 class _SparseTopKStep(torch.autograd.Function):
     """``(recon [B,n,d] f32 (no b_dec), vals, idx)`` from the batch: encode
     + the mask + K8 + k-row decode in one scope (``fused``: the K2
-    encoder→TopK kernel in place of encode + mask + K8), so the backward never leaves
-    factored form. Soundness gate: l1_coeff == 0."""
+    encoder→TopK kernel in place of encode + mask + K8, K3 with
+    ``quant_block > 0``), so the backward never leaves factored form.
+    Soundness gate: l1_coeff == 0."""
 
     @staticmethod
-    def forward(ctx, x, W_enc, b_enc, W_dec, k, fused):
+    def forward(ctx, x, W_enc, b_enc, W_dec, k, fused, quant_block):
         B = x.shape[0]
         n, d, H = W_enc.shape
         x2 = x.reshape(B, n * d)
         W2 = W_enc.reshape(n * d, H)
         if fused:
-            vals, idx = fek.fused_topk_encode(x2, W2, b_enc, k)
+            vals, idx = fek.fused_topk_encode(x2, W2, b_enc, k, quant_block=quant_block)
         else:
             h = (_mm32(x2, W2) + b_enc.float()).to(x.dtype)
             f = topk_pallas.topk_forward(h, k)
@@ -284,7 +288,40 @@ class _SparseTopKStep(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _gv, _gi):
-        return (*_sparse_step_backward(ctx, g), None, None)
+        return (*_sparse_step_backward(ctx, g), None, None, None)
+
+
+class _FusedBatchTopKEncode(torch.autograd.Function):
+    """BatchTopK activations ``f [B, H]`` in x's dtype with the encoder
+    product and the global selection fused (K4,
+    :func:`fek.fused_batchtopk_encode`), equal to ``batchtopk(pre_acts(x),
+    k)``. The backward is the dense path's: straight-through on the
+    survivors (``dh = g·[f > 0]`` in f32, ``db_enc = Σ dh``), then the
+    encoder matmuls' (the JAX ``_fused_batchtopk_encode_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, W_enc, b_enc, k):
+        B = x.shape[0]
+        n, d, H = W_enc.shape
+        f = fek.fused_batchtopk_encode(x.reshape(B, n * d), W_enc.reshape(n * d, H), b_enc, k)
+        ctx.save_for_backward(x, W_enc, f)
+        ctx.b_dtype = b_enc.dtype
+        return f
+
+    @staticmethod
+    def backward(ctx, g):
+        x, W_enc, f = ctx.saved_tensors
+        B = x.shape[0]
+        n, d, H = W_enc.shape
+        x2 = x.reshape(B, n * d)
+        W2 = W_enc.reshape(n * d, H)
+        dh = torch.where(f > 0, g, torch.zeros((), dtype=g.dtype, device=g.device)).float()
+        db_enc = dh.sum(dim=0).to(ctx.b_dtype)
+        dW_enc = _mm32(x2.t(), _cot(dh, x2)).reshape(n, d, H).to(W_enc.dtype)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm32(_cot(dh, W2), W2.t()).reshape(B, n, d).to(x.dtype)
+        return dx, dW_enc, db_enc, None
 
 
 class _SparseTopKFromH(torch.autograd.Function):
@@ -400,39 +437,32 @@ def _warn_fused_demoted(reason: str) -> None:
 
 
 def use_fused_encoder(cfg: CrossCoderConfig, batch: int | None = None) -> bool:
-    """The fused encoder→TopK tier (``cfg.fused_encoder``). For ``topk``
-    "on" takes K2 when the factored tier and the sparse plane are live (an
-    "on" demoted by them warns once on stderr), and "auto" resolves to the
-    dense encode and the TopK mask: the JAX package's "auto" takes its
-    fused kernel only where ``CROSSCODER_FUSED_TOPK_PALLAS=1`` opts in, so
-    "on" is the port's opt-in. For ``batchtopk`` the fused kernel
-    (K4) is not ported: "auto" resolves to the dense encode, the JAX rule
-    when that kernel is not live, and "on" raises
-    :class:`NotImplementedError` in training mode (a calibrated threshold
-    is eval mode, with no bisection to fuse: dense, with a warning)."""
-    if cfg.fused_encoder == "off":
+    """The fused encoder tier (``cfg.fused_encoder``): "off" never, "auto"
+    the dense encode, "on" the fused kernel where it applies. The JAX
+    package's "auto" takes its fused kernels only where
+    ``CROSSCODER_FUSED_TOPK_PALLAS=1`` opts in, so "on" is the port's
+    opt-in. For ``topk`` "on" takes K2 (K3 under ``quant_encoder``) when
+    the factored tier and the sparse plane are live; for ``batchtopk`` it
+    takes K4 in training mode. An "on" demoted by a dead prerequisite tier,
+    or by a calibrated BatchTopK threshold (eval mode, no selection to
+    fuse), warns once on stderr. AuxK steps keep the dense encode at the
+    call site (the aux ranking needs the pre-activations)."""
+    if cfg.fused_encoder != "on":
         return False
     if cfg.activation == "batchtopk":
-        if cfg.fused_encoder != "on":
-            return False
         if cfg.batchtopk_threshold > 0:
             _warn_fused_demoted("batchtopk_threshold > 0 is eval mode — a calibrated "
                                 "fixed threshold has no bisection to fuse")
             return False
-        raise NotImplementedError(
-            "fused_encoder='on' with activation='batchtopk' needs the fused BatchTopK "
-            "kernel (K4, crosscoder_tpu/ops/fused_encoder_topk.py _fused_bt_bisect_kernel/"
-            "_fused_bt_emit_kernel), which is not ported yet (ROADMAP Queue B); use "
-            "fused_encoder='auto' or 'off' (the dense encode through K9)")
+        return True
     if cfg.activation != "topk":
         return False
     if not (use_factored_decode(cfg) and use_sparse_bwd(cfg, batch)):
-        if cfg.fused_encoder == "on":
-            _warn_fused_demoted("activation='topk' needs the factored tier and the sparse "
-                                "backward plane live (use_factored_decode/use_sparse_bwd "
-                                "resolved off)")
+        _warn_fused_demoted("activation='topk' needs the factored tier and the sparse "
+                            "backward plane live (use_factored_decode/use_sparse_bwd "
+                            "resolved off)")
         return False
-    return cfg.fused_encoder == "on"
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -459,11 +489,9 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     fused = use_fused_encoder(cfg, B)
     b_dec = params["b_dec"].float()
     if factored and sparse_bwd and not aux_active:
-        if fused and cfg.quant_encoder:
-            raise NotImplementedError(
-                "quant_encoder needs the int8 fused kernel (K3), not ported yet")
+        qb = cfg.quant_block if fused and cfg.quant_encoder else 0
         recon_f32, vals, idx = _SparseTopKStep.apply(
-            x, params["W_enc"], params["b_enc"], params["W_dec"], cfg.topk_k, fused)
+            x, params["W_enc"], params["b_enc"], params["W_dec"], cfg.topk_k, fused, qb)
         recon = (recon_f32 + b_dec).to(x.dtype)
         f = None
     elif factored:
@@ -472,6 +500,9 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
         recon_f32, vals, idx = tier.apply(h, params["W_dec"], cfg.topk_k)
         recon = (recon_f32 + b_dec).to(x.dtype)
         f = None
+    elif cfg.activation == "batchtopk" and fused and not aux_active:
+        f = _FusedBatchTopKEncode.apply(x, params["W_enc"], params["b_enc"], cfg.topk_k)
+        recon = decode(params, f)
     else:
         h = pre_acts(params, x)
         f = act_ops.apply(h, cfg, dict(params))

@@ -1,28 +1,43 @@
-"""Fused encoder→TopK: ``(vals, idx)`` of ``relu(x·W + b)`` without the
-``[B, width]`` pre-activation matrix.
+"""Fused encoder→TopK and encoder→BatchTopK: the selection of
+``relu(x·W + b)`` without the ``[B, width]`` pre-activation matrix.
 
-Port of :func:`crosscoder_tpu.ops.fused_encoder_topk.fused_topk_encode`
-with the same contract: ``(vals [B, k], idx [B, k] int32)``, ascending
-index, ``(0.0, 0)``-padded; the pre-activations are rounded to the compute
-dtype before selection (as ``crosscoder.pre_acts`` does); selection runs on
-the sign-clamped f32 bit patterns (every NaN above +inf, ``-0.0`` and
-negatives at 0); ties go to the lowest index; a NaN occupies a slot and is
-dropped at emit.
+Port of :mod:`crosscoder_tpu.ops.fused_encoder_topk`. Three kernels, each
+with a plain PyTorch version in this module; a wrapper takes the plain
+version for CPU tensors only, and for a CUDA tensor launches the
+hand-written Hopper kernel or raises (:class:`ValueError` for a shape the
+kernel does not take, ``KernelBuildError`` / ``KernelLaunchError``
+otherwise). The JAX wrappers fall back to the dense encode on a shape their
+kernels do not take; the port refuses instead.
 
-Two implementations behind :func:`fused_topk_encode`:
-
-- the plain PyTorch version, :func:`fused_topk_encode_plain`: fp32
-  ``torch.matmul`` plus bias, the cast, then an exact top-k through a
-  composite int64 key (selection key, then inverted index), since
-  ``torch.topk``'s order among ties is unspecified; then a sort by index.
-  The wrapper takes it for CPU tensors only;
-- the hand-written Hopper kernel in ``csrc/fused_topk.cu`` (two
-  deterministic passes: per-tile candidates, then a per-row merge). For a
-  CUDA tensor the wrapper launches it or raises.
-
-Both sum the matmul in fp32 in different orders, so they agree bitwise
-where the sums are exact (integer-valued operands) and to rounding
-elsewhere. The int8 block-scaled variant (``quant_block``) is not ported.
+- :func:`fused_topk_encode` (K2, ``csrc/fused_topk.cu``): ``(vals [B, k],
+  idx [B, k] int32)``, ascending index, ``(0.0, 0)``-padded; the
+  pre-activations are rounded to the compute dtype before selection (as
+  ``crosscoder.pre_acts`` does); selection runs on the sign-clamped f32 bit
+  patterns (every NaN above +inf, ``-0.0`` and negatives at 0); ties go to
+  the lowest index; a NaN occupies a slot and is dropped at emit. The plain
+  version (:func:`fused_topk_encode_plain`) is an fp32 ``torch.matmul``
+  plus bias, the cast, then an exact top-k through a composite int64 key
+  (selection key, then inverted index), since ``torch.topk``'s order among
+  ties is unspecified. The kernel sums the product in another order, so
+  the two agree bitwise where the sums are exact (integer-valued
+  operands) and to rounding elsewhere.
+- ``quant_block > 0`` (K3, :func:`fused_topk_encode_q`,
+  ``csrc/fused_topk_q.cu``): the same selection over the int8 block-scaled
+  product of the JAX ``_tile_preacts_quant``: x quantized per (row, block),
+  W per (block, column) (:func:`crosscoder_tpu_torch.ops.quant.quantize_contraction`),
+  each block's integer product exact, folded into f32 as ``acc + (p ·
+  xs[:, b]) · ws[b, :]`` for b = 0…nb−1. Kernel and plain version
+  (:func:`fused_topk_encode_q_plain`) round each step alike: bitwise on any
+  input.
+- :func:`fused_batchtopk_encode` (K4, ``csrc/fused_batchtopk.cu``): the
+  masked ``[B, width]`` BatchTopK activations, every entry whose clamped
+  pattern (K9's rule, :func:`topk_pallas.batchtopk_select`) reaches the
+  ``min(k·B, B·width)``-th largest of the batch, all ties kept. Select
+  (:func:`fused_batchtopk_select`, the threshold as a device int32) and emit
+  (:func:`fused_batchtopk_emit`) each recompute the product. The plain
+  versions round the dense pre-activations as ``pre_acts`` does and run
+  K9's plain select and emit: bitwise to the kernels on integer-valued
+  operands.
 """
 
 from __future__ import annotations
@@ -30,6 +45,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from crosscoder_tpu_torch.ops import quant
+from crosscoder_tpu_torch.ops import topk_pallas as tp
 
 _KERNEL = "fused_topk"
 _SENT = 0x7F800001            # every NaN: just above +inf's 0x7F800000
@@ -69,30 +87,55 @@ def topk_from_keys(keys: torch.Tensor, k: int, out_dtype: torch.dtype
     return vals.to(out_dtype), torch.where(emit, idx, torch.zeros_like(idx))
 
 
+def _pre_acts_plain(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor) -> torch.Tensor:
+    """``(x2·W2 + b).to(x2.dtype)``, summed in fp32: ``pre_acts``' rounding."""
+    return (torch.matmul(x2.float(), W2.float()) + b_enc.float()).to(x2.dtype)
+
+
 def fused_topk_encode_plain(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
-                            k: int) -> tuple[torch.Tensor, torch.Tensor]:
+                            k: int, *, quant_block: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`fused_topk_encode`."""
-    h = (torch.matmul(x2.float(), W2.float()) + b_enc.float()).to(x2.dtype)
+    if quant_block:
+        return fused_topk_encode_q_plain(x2, W2, b_enc, k, quant_block)
+    return topk_from_keys(select_keys(_pre_acts_plain(x2, W2, b_enc)), k, x2.dtype)
+
+
+def fused_topk_encode_q_plain(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
+                              k: int, quant_block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of :func:`fused_topk_encode_q`: each
+    block's integer product exactly (int8 in float64, exact while
+    ``block·127² < 2^53``), rescaled in f32 in the JAX kernel's order."""
+    xq, xs, wq, ws = quant.quantize_contraction(x2, W2, quant_block)
+    acc = torch.zeros((x2.shape[0], W2.shape[1]), dtype=torch.float32, device=x2.device)
+    for b in range(xs.shape[1]):
+        lo, hi = b * quant_block, (b + 1) * quant_block
+        p = torch.matmul(xq[:, lo:hi].double(), wq[lo:hi].double()).float()
+        acc = acc + p * xs[:, b:b + 1] * ws[b:b + 1]
+    h = (acc + b_enc.float()).to(x2.dtype)
     return topk_from_keys(select_keys(h), k, x2.dtype)
 
 
-def check_supported(x2, W2, b_enc, k: int) -> None:
-    """Raise :class:`ValueError` naming any shape or type the kernel does
-    not take."""
+def _check_operands(x2, W2, b_enc, what: str) -> None:
     if x2.dim() != 2 or W2.dim() != 2 or W2.shape[0] != x2.shape[1]:
         raise ValueError(f"expected x2 [B, nd] and W2 [nd, width], got "
                          f"{tuple(x2.shape)}, {tuple(W2.shape)}")
-    B, nd = x2.shape
     width = W2.shape[1]
     if b_enc.shape != (width,):
         raise ValueError(f"b_enc must be [{width}], got {tuple(b_enc.shape)}")
     if x2.dtype not in (torch.float32, torch.bfloat16) or W2.dtype != x2.dtype:
-        raise ValueError(f"fused topk kernel takes float32 or bfloat16, got "
-                         f"{x2.dtype}/{W2.dtype}")
+        raise ValueError(f"{what} kernel takes float32 or bfloat16, got {x2.dtype}/{W2.dtype}")
+    if width % 8:
+        raise ValueError(f"{what} kernel takes a dictionary width divisible by 8, got {width}")
+
+
+def check_supported(x2, W2, b_enc, k: int) -> None:
+    """Raise :class:`ValueError` naming any shape or type the K2 kernel
+    does not take."""
+    _check_operands(x2, W2, b_enc, "fused topk")
+    nd, width = W2.shape
     if not 0 < k <= min(_MAX_K, width):
         raise ValueError(f"fused topk kernel takes 0 < k <= min({_MAX_K}, width={width}), got {k}")
-    if width % 8:
-        raise ValueError(f"fused topk kernel takes a dictionary width divisible by 8, got {width}")
     x_bytes = 8 * nd * x2.element_size()
     smem1 = -(-max(x_bytes, 16 * 8 * _CW * 4) // 16) * 16 + 8 * _CW * 8
     if smem1 > _SMEM_LIMIT:
@@ -101,23 +144,57 @@ def check_supported(x2, W2, b_enc, k: int) -> None:
             f"{_SMEM_LIMIT}")
 
 
+def check_supported_q(x2, W2, b_enc, k: int, quant_block: int) -> None:
+    """Raise :class:`ValueError` naming any shape or type the K3 kernel
+    does not take: K2's operands and k, and a quant block that is a
+    multiple of 32 dividing the contraction axis."""
+    _check_operands(x2, W2, b_enc, "int8 fused topk")
+    nd, width = W2.shape
+    if not 0 < k <= min(_MAX_K, width):
+        raise ValueError(f"int8 fused topk kernel takes 0 < k <= min({_MAX_K}, width={width}), "
+                         f"got {k}")
+    if quant_block <= 0 or quant_block % 32 or nd % quant_block:
+        raise ValueError(f"int8 fused topk kernel takes a quant block that is a multiple of 32 "
+                         f"dividing nd={nd}, got {quant_block}")
+
+
 def _merge_group(k: int) -> int:
     """Tiles whose k candidates (and the k winners) one merge block stages
     in shared memory, 1 KB left for its static shared memory."""
     return ((_SMEM_LIMIT - 1024) // 8 - k) // k
 
 
+def _candidates(B: int, width: int, k: int, dtype: torch.dtype, device):
+    """The merge's scratch and outputs: ``(group, cand, cand2, vals, idx)``."""
+    n_tiles = -(-width // _CW)
+    group = min(n_tiles, _merge_group(k))
+    cand = torch.empty((B, n_tiles, k), dtype=torch.int64, device=device)
+    cand2 = torch.empty((B, -(-n_tiles // group) if group < n_tiles else 0, k),
+                        dtype=torch.int64, device=device)
+    vals = torch.empty((B, k), dtype=dtype, device=device)
+    idx = torch.empty((B, k), dtype=torch.int32, device=device)
+    return group, cand, cand2, vals, idx
+
+
+def _check_cuda(x2: torch.Tensor, name: str) -> None:
+    if x2.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {x2.device}")
+
+
 def fused_topk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
-                      k: int) -> tuple[torch.Tensor, torch.Tensor]:
+                      k: int, *, quant_block: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """``(vals [B, k] in x2.dtype, idx [B, k] int32)`` of the top-k of
     ``relu(cast(x2·W2 + b_enc))``, ascending index, ``(0, 0)``-padded.
     ``x2 [B, nd]`` and ``W2 [nd, width]`` in the compute dtype; ``b_enc``
-    any float dtype, applied in fp32. The plain version on CPU tensors,
-    the Hopper kernel on CUDA tensors (or :class:`ValueError`)."""
+    any float dtype, applied in fp32. ``quant_block > 0``: the int8
+    block-scaled product (:func:`fused_topk_encode_q`). The plain version
+    on CPU tensors, the Hopper kernel on CUDA tensors (or
+    :class:`ValueError`; no fallback to the dense encode)."""
+    if quant_block:
+        return fused_topk_encode_q(x2, W2, b_enc, k, quant_block)
     if x2.device.type == "cpu":
         return fused_topk_encode_plain(x2, W2, b_enc, k)
-    if x2.device.type != "cuda":
-        raise ValueError(f"fused_topk_encode runs on cpu or cuda, got {x2.device}")
+    _check_cuda(x2, "fused_topk_encode")
     from crosscoder_tpu_torch.ops import _build
 
     check_supported(x2, W2, b_enc, k)
@@ -128,13 +205,7 @@ def fused_topk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
     if W2.data_ptr() % 16 or x2.data_ptr() % 16:
         raise ValueError("fused topk kernel needs 16-byte aligned x2 and W2")
     b32 = b_enc.to(torch.float32).contiguous()
-    n_tiles = -(-width // _CW)
-    group = min(n_tiles, _merge_group(k))
-    cand = torch.empty((B, n_tiles, k), dtype=torch.int64, device=x2.device)
-    cand2 = torch.empty((B, -(-n_tiles // group) if group < n_tiles else 0, k),
-                        dtype=torch.int64, device=x2.device)
-    vals = torch.empty((B, k), dtype=x2.dtype, device=x2.device)
-    idx = torch.empty((B, k), dtype=torch.int32, device=x2.device)
+    group, cand, cand2, vals, idx = _candidates(B, width, k, x2.dtype, x2.device)
     lib = _build.load(_KERNEL)
     fn = lib.fused_topk_launch
     fn.restype = ctypes.c_int
@@ -150,3 +221,161 @@ def fused_topk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
 
 
 fused_topk_encode.launches = 0
+
+
+def fused_topk_encode_q(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor, k: int,
+                        quant_block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: :func:`fused_topk_encode` over the int8 block-scaled product
+    (blocks of ``quant_block`` along the contraction). The operands are
+    quantized first (:func:`quant.quantize_contraction`: K11 on the card);
+    then the plain version on CPU tensors, the Hopper kernel on CUDA
+    tensors (or :class:`ValueError`; no fallback)."""
+    if x2.device.type == "cpu":
+        return fused_topk_encode_q_plain(x2, W2, b_enc, k, quant_block)
+    _check_cuda(x2, "fused_topk_encode_q")
+    from crosscoder_tpu_torch.ops import _build
+
+    check_supported_q(x2, W2, b_enc, k, quant_block)
+    B, nd = x2.shape
+    width = W2.shape[1]
+    xq, xs, wq, ws = quant.quantize_contraction(x2, W2, quant_block)
+    wqT = wq.t().contiguous()              # [width, nd]: a column's contraction run contiguous
+    ws = ws.contiguous()
+    b32 = b_enc.to(torch.float32).contiguous()
+    group, cand, cand2, vals, idx = _candidates(B, width, k, x2.dtype, x2.device)
+    fn = _build.load("fused_topk_q").fused_topk_q_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    code = fn(
+        xq.data_ptr(), xs.data_ptr(), wqT.data_ptr(), ws.data_ptr(), b32.data_ptr(),
+        cand.data_ptr(), cand2.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, nd, width, k,
+        quant_block, group, int(x2.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x2.device).cuda_stream,
+    )
+    _build.check(code, "int8 fused topk kernel")
+    fused_topk_encode_q.launches += 1
+    return vals, idx
+
+
+fused_topk_encode_q.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: fused BatchTopK
+
+
+def batchtopk_budget(B: int, width: int, k: int) -> int:
+    """``kk = min(k·B, B·width)``: the entries BatchTopK keeps, ties aside."""
+    return min(k * B, B * width)
+
+
+def fused_batchtopk_select_plain(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
+                                 kk: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_batchtopk_select`."""
+    return tp.batchtopk_select_plain(_pre_acts_plain(x2, W2, b_enc), kk)
+
+
+def fused_batchtopk_emit_plain(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
+                               kth: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_batchtopk_emit`."""
+    return tp.batchtopk_emit_plain(_pre_acts_plain(x2, W2, b_enc), kth)
+
+
+def fused_batchtopk_encode_plain(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
+                                 k: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_batchtopk_encode`."""
+    h = _pre_acts_plain(x2, W2, b_enc)
+    kk = batchtopk_budget(*h.shape, k)
+    return tp.batchtopk_emit_plain(h, tp.batchtopk_select_plain(h, kk))
+
+
+def check_supported_bt(x2, W2, b_enc) -> None:
+    """Raise :class:`ValueError` naming any shape or type the K4 kernels do
+    not take: K2's operands and a contraction axis divisible by 16."""
+    _check_operands(x2, W2, b_enc, "fused batchtopk")
+    if x2.shape[1] % 16:
+        raise ValueError(f"fused batchtopk kernel takes nd divisible by 16, got {x2.shape[1]}")
+
+
+def _bt_operands(x2, W2, b_enc, name: str):
+    _check_cuda(x2, name)
+    check_supported_bt(x2, W2, b_enc)
+    x2, W2 = x2.contiguous(), W2.contiguous()
+    if W2.data_ptr() % 16 or x2.data_ptr() % 16:
+        raise ValueError("fused batchtopk kernel needs 16-byte aligned x2 and W2")
+    return x2, W2, b_enc.to(torch.float32).contiguous()
+
+
+def fused_batchtopk_select(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
+                           kk: int) -> torch.Tensor:
+    """K4 select: the device int32 ``[1]`` pattern of the ``kk``-th largest
+    clamped pattern of ``cast(x2·W2 + b_enc)`` (0 when fewer than ``kk``
+    entries are positive), with no host sync. The plain version on CPU
+    tensors, the kernel on CUDA tensors (or :class:`ValueError`)."""
+    if x2.device.type == "cpu":
+        return fused_batchtopk_select_plain(x2, W2, b_enc, kk)
+    from crosscoder_tpu_torch.ops import _build
+
+    x2, W2, b32 = _bt_operands(x2, W2, b_enc, "fused_batchtopk_select")
+    if kk < 1:
+        raise ValueError(f"fused_batchtopk_select takes kk >= 1, got {kk}")
+    B, nd = x2.shape
+    lib = _build.load("fused_batchtopk")
+    lib.fused_bt_state_bytes.restype = ctypes.c_longlong
+    state = torch.zeros(lib.fused_bt_state_bytes(), dtype=torch.uint8, device=x2.device)
+    kth = torch.zeros(1, dtype=torch.int32, device=x2.device)
+    fn = lib.fused_bt_select
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                                  ctypes.c_void_p])
+    code = fn(x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), state.data_ptr(), kth.data_ptr(),
+              B, nd, W2.shape[1], kk, int(x2.dtype == torch.bfloat16),
+              torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(code, "fused batchtopk select kernel")
+    fused_batchtopk_select.launches += 1
+    return kth
+
+
+fused_batchtopk_select.launches = 0
+
+
+def fused_batchtopk_emit(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
+                         kth: torch.Tensor) -> torch.Tensor:
+    """K4 emit: ``[B, width]`` in x2.dtype, each entry of ``cast(x2·W2 +
+    b_enc)`` whose clamped pattern is ``>= kth`` and ``> 0`` as the value of
+    that pattern, zeros elsewhere (``kth`` a device int32 ``[1]``). The
+    plain version on CPU tensors, the kernel on CUDA tensors (or
+    :class:`ValueError`)."""
+    if x2.device.type == "cpu":
+        return fused_batchtopk_emit_plain(x2, W2, b_enc, kth)
+    from crosscoder_tpu_torch.ops import _build
+
+    x2, W2, b32 = _bt_operands(x2, W2, b_enc, "fused_batchtopk_emit")
+    B, nd = x2.shape
+    kth = kth.to(device=x2.device, dtype=torch.int32).contiguous()
+    out = torch.empty((B, W2.shape[1]), dtype=x2.dtype, device=x2.device)
+    fn = _build.load("fused_batchtopk").fused_bt_emit
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    code = fn(x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), kth.data_ptr(), out.data_ptr(),
+              B, nd, W2.shape[1], int(x2.dtype == torch.bfloat16),
+              torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check(code, "fused batchtopk emit kernel")
+    fused_batchtopk_emit.launches += 1
+    return out
+
+
+fused_batchtopk_emit.launches = 0
+
+
+def fused_batchtopk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
+                           k: int) -> torch.Tensor:
+    """Fused ``batchtopk(cast(x2·W2 + b_enc), k)``: the masked ``[B,
+    width]`` activations in x2.dtype, every entry at or above the ``min(k·B,
+    B·width)``-th largest clamped pattern of the batch (all ties kept),
+    without materialising the pre-activations to select. Non-differentiable
+    (the model's autograd Function owns the straight-through gradient). K4
+    select then emit on CUDA tensors (or :class:`ValueError`; no fallback to
+    the dense encode), their plain versions on CPU tensors."""
+    kk = batchtopk_budget(x2.shape[0], W2.shape[1], k)
+    return fused_batchtopk_emit(x2, W2, b_enc, fused_batchtopk_select(x2, W2, b_enc, kk))

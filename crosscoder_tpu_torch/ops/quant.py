@@ -30,6 +30,8 @@ this way.
 - :func:`quantize_rows`: on CUDA tensors the K11 kernel
   ``csrc/quantize_rows.cu`` (one pass: block max, scale, round), bitwise
   :func:`quantize_blocks`; on CPU tensors :func:`quantize_blocks` itself.
+- :func:`quantize_contraction`: both operands of ``x2 · W2`` block-scaled
+  along the contraction axis, for the int8 fused encoder (K3).
 """
 
 from __future__ import annotations
@@ -129,6 +131,20 @@ def quantize_rows(x: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tens
 
 
 quantize_rows.launches = 0
+
+
+def quantize_contraction(x2: torch.Tensor, W2: torch.Tensor, block: int
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Block-scaled int8 operands of ``x2 [B, nd] · W2 [nd, H]`` along the
+    contraction axis (the JAX ``_quantize_contraction``): ``x2`` per (row,
+    block), ``W2`` per (block, column), i.e. ``quantize_blocks(W2.T)``
+    transposed back. Returns ``(xq int8 [B, nd], xs f32 [B, nb], wq int8
+    [nd, H], ws f32 [nb, H])``; ``wq`` and ``ws`` are transposed views of
+    the ``[H, nd]`` / ``[H, nb]`` quantization. Through :func:`quantize_rows`:
+    the compiled JAX form of the scale on any device, K11 on the card."""
+    xq, xs = quantize_rows(x2, block)
+    wqT, wsT = quantize_rows(W2.t(), block)
+    return xq, xs, wqT.t(), wsT.t()
 
 
 def store_bytes(shape: tuple[int, ...], block: int) -> int:

@@ -197,8 +197,7 @@ def test_apply_dispatch_and_fused_gate(capsys):
     assert torch.equal(act.apply(h, cfg.replace(batchtopk_threshold=0.5)),
                        tp.batchtopk_fixed(h, 0.5))
     assert not cc.use_fused_encoder(cfg)                       # auto: the dense encode
-    with pytest.raises(NotImplementedError, match="K4"):
-        cc.use_fused_encoder(cfg.replace(fused_encoder="on"))
+    assert cc.use_fused_encoder(cfg.replace(fused_encoder="on"))   # on: K4 in training mode
     assert not cc.use_fused_encoder(cfg.replace(fused_encoder="on", batchtopk_threshold=0.5))
     with pytest.raises(NotImplementedError, match="JumpReLU"):
         act.apply(h, CrossCoderConfig(activation="jumprelu"))

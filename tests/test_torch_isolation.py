@@ -80,7 +80,8 @@ def test_cpu_run_launches_no_kernel():
     counters = (pa.paged_attention, fek.fused_topk_encode, topk_pallas.topk,
                 topk_pallas.topk_mask_f32, topk_pallas.topk_chunked,
                 topk_pallas.sparsify, sparse_grad.scatter_add_rows,
-                topk_pallas.batchtopk_select, topk_pallas.batchtopk_emit, quant.quantize_rows)
+                topk_pallas.batchtopk_select, topk_pallas.batchtopk_emit, quant.quantize_rows,
+                fek.fused_topk_encode_q, fek.fused_batchtopk_select, fek.fused_batchtopk_emit)
     for c in counters:
         c.launches = 0
     eng, _, lm_cfg, _, _ = build_engine(device="cpu")
@@ -99,6 +100,12 @@ def test_cpu_run_launches_no_kernel():
         tr = Trainer(tcfg.replace(enc_dtype="fp32", dict_size=dict_size, d_in=8), device="cpu")
         assert torch.isfinite(tr.step()["loss"])
     assert topk_pallas.topk(torch.ones((2, 2 ** 17), dtype=torch.bfloat16), 4).sum() == 8
+    # the fused tiers: int8 TopK (K3) and BatchTopK (K4), AuxK steps between
+    for kw in (dict(fused_encoder="on", quant_encoder=True, quant_block=128, d_in=64),
+               dict(activation="batchtopk", sparse_bwd="auto", fused_encoder="on", aux_every=2)):
+        tr = Trainer(tcfg.replace(**kw), device="cpu")
+        for _ in range(3):
+            assert torch.isfinite(tr.step()["loss"])
     # the harvest-train path: tiny LM, int8 buffer on the device store, BatchTopK
     lm_params = [lm.init_params(lm.LMConfig.tiny(), seed=s, device="cpu") for s in (0, 1)]
     bcfg = CrossCoderConfig(d_in=32, dict_size=128, batch_size=16, buffer_mult=16, seq_len=17,
@@ -109,6 +116,9 @@ def test_cpu_run_launches_no_kernel():
                     rng.integers(1, 257, size=(40, 17)), device="cpu")
     tr = Trainer(bcfg, b, device="cpu")
     for _ in range(10):                                  # crosses refills
+        assert torch.isfinite(tr.step()["loss"])
+    tr = Trainer(bcfg.replace(fused_encoder="on"), b, device="cpu")   # K4 over the harvest
+    for _ in range(3):
         assert torch.isfinite(tr.step()["loss"])
     assert all(c.launches == 0 for c in counters)
     with pytest.raises(ValueError, match="runs on cpu or cuda"):

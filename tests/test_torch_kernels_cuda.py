@@ -7,10 +7,11 @@ runs it as is:
 
 Tolerances: paged attention 1e-5 in fp32 and 2e-2 in bf16 on valid rows
 (online softmax reassociates the sum; the plain version rounds the
-probabilities to bf16); the fused encoder→TopK bitwise on integer-valued
-operands, whose fp32 sums are exact in any order; the TopK masks (K5, K6,
-K7), the sparsify drain (K8) and the sorted-pair scatter (K10) bitwise on
-any inputs, since each does the plain version's arithmetic in its order."""
+probabilities to bf16); the fused encoder→TopK (K2) and →BatchTopK (K4)
+bitwise on integer-valued operands, whose fp32 sums are exact in any
+order; the int8 fused encoder (K3), the TopK masks (K5, K6, K7), the
+sparsify drain (K8) and the sorted-pair scatter (K10) bitwise on any
+inputs, since each does the plain version's arithmetic in its order."""
 
 import numpy as np
 import pytest
@@ -347,3 +348,90 @@ def test_sparse_train_step_on_the_card(cuda):
         m = tr.step()
         assert torch.isfinite(m["loss"]) and float(m["l0_loss"]) <= cfg.topk_k
     assert all(c.launches > b for c, b in zip(counters, before))
+
+
+def _int_bt(seed, B, nd, width, dtype, bias=None):
+    """Integer-valued K4 operands (exact fp32 sums), with an exact tie at a
+    column pair that sits at the global threshold for the budgets used."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(-3, 4, (B, nd), generator=gen, device="cuda").float()
+    W = torch.randint(-2, 3, (nd, width), generator=gen, device="cuda").float()
+    W[:, width // 2] = W[:, 9]
+    b = (torch.randint(-2, 3, (width,), generator=gen, device="cuda").float()
+         if bias is None else torch.full((width,), bias, device="cuda"))
+    return x.to(dtype), W.to(dtype), b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,nd,width,k,bias", [(48, 128, 1000, 8, None), (33, 128, 512, 4, 3.0),
+                                               (300, 256, 2048 + 8, 32, None),
+                                               (20, 128, 256, 256, -1.0)])
+def test_fused_batchtopk_kernels_bitwise_match_plain(cuda, dtype, B, nd, width, k, bias):
+    """K4 on exact inputs: a tie at the global threshold, a positive bias
+    with rows that are not a tile multiple (padded rows must not count), a
+    width that is not a tile multiple, and a budget above the positives."""
+    x, W, b = _int_bt(B + width + k, B, nd, width, dtype, bias)
+    kk = fek.batchtopk_budget(B, width, k)
+    before = (fek.fused_batchtopk_select.launches, fek.fused_batchtopk_emit.launches)
+    kth = fek.fused_batchtopk_select(x, W, b, kk)
+    want = fek.fused_batchtopk_select_plain(x, W, b, kk)
+    torch.cuda.synchronize()
+    assert int(kth) == int(want), (int(kth), int(want))
+    out = fek.fused_batchtopk_encode(x, W, b, k)
+    assert _same_bits(out, fek.fused_batchtopk_encode_plain(x, W, b, k))
+    assert _same_bits(fek.fused_batchtopk_emit(x, W, b, want), out)
+    assert (fek.fused_batchtopk_select.launches, fek.fused_batchtopk_emit.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,qb", [(12, 128), (130, 256)])
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_fused_topk_q_kernel_bitwise_matches_plain(cuda, dtype, B, qb, k):
+    """K3 on random inputs: the int8 products are exact, and the kernel
+    rounds the fold as the plain version does, so any input is bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(B + qb + k)
+    nd, width = 512, 4096 + 96
+    x = torch.randn((B, nd), generator=gen, device="cuda").to(dtype)
+    W = (torch.randn((nd, width), generator=gen, device="cuda") * 0.05).to(dtype)
+    b = torch.randn((width,), generator=gen, device="cuda") * 0.01
+    before = fek.fused_topk_encode_q.launches
+    vals, idx = fek.fused_topk_encode(x, W, b, k, quant_block=qb)
+    pv, pi = fek.fused_topk_encode_q_plain(x, W, b, k, qb)
+    torch.cuda.synchronize()
+    assert fek.fused_topk_encode_q.launches == before + 1
+    assert torch.equal(idx, pi)
+    assert _same_bits(vals, pv)
+
+
+def test_fused_kernels_reject_unsupported_shapes(cuda):
+    x = torch.zeros((4, 256), device="cuda")
+    W, b = torch.zeros((256, 1024), device="cuda"), torch.zeros(1024, device="cuda")
+    with pytest.raises(ValueError, match="quant block"):
+        fek.fused_topk_encode(x, W, b, 8, quant_block=100)
+    with pytest.raises(ValueError, match="k <="):
+        fek.fused_topk_encode(x, W, b, 129, quant_block=128)
+    with pytest.raises(ValueError, match="divisible by 8"):
+        fek.fused_batchtopk_encode(x, torch.zeros((256, 1001), device="cuda"),
+                                   torch.zeros(1001, device="cuda"), 4)
+    with pytest.raises(ValueError, match="divisible by 16"):
+        fek.fused_batchtopk_encode(torch.zeros((4, 120), device="cuda"),
+                                   torch.zeros((120, 1024), device="cuda"), b, 4)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fek.fused_batchtopk_select(x.half(), W.half(), b, 4)
+
+
+def test_fused_tiers_train_on_the_card(cuda):
+    """BatchTopK under fused_encoder='on' (K4; AuxK steps dense) and TopK
+    with quant_encoder (K3 on bare steps) train on the card."""
+    base = dict(d_in=256, dict_size=4096, batch_size=256, topk_k=16, l1_coeff=0.0,
+                num_tokens=256 * 4, log_backend="null", fused_encoder="on")
+    for kw, counters in (
+            (dict(activation="batchtopk"), (fek.fused_batchtopk_select, fek.fused_batchtopk_emit)),
+            (dict(activation="topk", sparse_bwd="on", quant_encoder=True, quant_block=256,
+                  aux_k=32, aux_every=2, aux_dead_steps=1), (fek.fused_topk_encode_q,))):
+        before = [c.launches for c in counters]
+        tr = Trainer(CrossCoderConfig(**base, **kw), device="cuda")
+        for _ in range(3):
+            assert torch.isfinite(tr.step()["loss"])
+        assert all(c.launches > n for c, n in zip(counters, before))
