@@ -11,9 +11,12 @@ one NVIDIA Hopper card and the CUDA toolkit:
    attention at the Gemma-2-2B attention shapes (mixed lengths, bf16 and
    fp32, global and windowed), the fused encoder→TopK bitwise on exact
    integer-valued inputs (planted ties, NaN, -0.0, a width that is not a
-   tile multiple, k in {1, 32, 128}) and on random bf16 at the serve shape;
-   times each kernel beside its plain version, one library call and the
-   card's bound;
+   tile multiple, k in {1, 32, 128}), on exact inputs at the serve shape in
+   bf16 (the tensor-core tile) and f32 (the CUDA cores), and on random bf16
+   at the serve shape; times each kernel (back to back and queued) beside
+   its plain version, one library call, the card's bound and, for the
+   kernels the bf16 tensor-core tile redesigned, the CUDA-core design's
+   time in brackets;
 4. serve: two random-init Gemma-2-2B models (bf16, seeds 1 and 2) hooked at
    ``blocks.14.hook_resid_pre``, a 16384-latent topk crosscoder (k=32),
    seq_len 1024, page 64, batch 8: warmup, then micro-batches of mixed
@@ -26,8 +29,10 @@ one NVIDIA Hopper card and the CUDA toolkit:
    fewer than k positives and (K8) a row past k, k in {1, 32, 128}; the
    sorted-pair scatter (K10) with a latent hit by every row, dropped
    indices -1 and n_out, f32 and bf16 rows; the fused encoder→TopK (K2) at
-   the training shape on exact inputs, and at 2^17 and 2^15 + 128 wide,
-   where its merge takes two levels; the f32 TopK mask (K6) on f32 rows
+   the training shape on exact inputs (bf16 and f32), and at 2^17 and
+   2^15 + 128 wide, where its merge takes two levels, timed back to back
+   and queued, with a torch.profiler split of its product-and-sort pass
+   against its merge; the f32 TopK mask (K6) on f32 rows
    [4096, 16384] and [4096, 384] and the width-chunked TopK (K7) on bf16
    [4096, 131072], f32 [4096, 32768] and bf16 [512, 65920], bitwise on
    planted ties (inside a row, across the 4096-column stretch edge, far
@@ -66,7 +71,11 @@ one NVIDIA Hopper card and the CUDA toolkit:
    32, 128}, blocks 128 and 256); the fused BatchTopK select and emit (K4)
    bitwise on exact integer-valued inputs, bf16 and f32 (ties at the
    global threshold, a positive bias over 1000 rows, a width of 4104, a
-   budget above the count of positives); both timed at the training shape
+   budget above the count of positives; the training and the serve
+   shapes); K2 and K4 bitwise on exact inputs at the edges of the bf16
+   tensor-core tile, bf16 and f32 (B 1, 3 and 130, a contraction of 4104,
+   a width of 2^15 + 8, k 1, 32 and 128, ties at every threshold, NaN,
+   -0.0, a positive bias over the padded rows); both timed at the training shape
    (back to back and queued) beside their plain versions, one library
    call (K3: bf16 matmul + topk, the exact function it approximates; K4:
    matmul + topk of the flattened ReLU'd rows, matmul + ``F.threshold``)
@@ -90,7 +99,8 @@ one NVIDIA Hopper card and the CUDA toolkit:
    BatchTopK with ``fused_encoder='on'`` (K4 every step; no AuxK) beside
    the dense encode (K9) on the same batches, one fused step held against
    leg H's from its state (loss within 1e-3 relative, active-set Jaccard
-   >= 0.98), and 2 steps at f32 compute; leg I: the train cell (TopK k=32,
+   >= 0.98), and 2 steps at f32 compute, one fused step profiled (K4
+   select, emit, matmul, other); leg I: the train cell (TopK k=32,
    AuxK 64 every 2 steps) with ``quant_encoder`` block 256 (K3 and K10 on
    bare steps, K5, K8 and K10 on aux steps) and the quality gate of
    docs/SCALING.md against the exact fused encoder (K2) on one batch
@@ -142,6 +152,11 @@ STEPS_F, STEPS_W, STEPS_V = 8, 6, 3
 # the device sleep in front of a queued timing: about 25 ms at the H100's
 # clocks, longer than the host takes to issue 50 launches of a wrapper
 QUEUE_CYCLES = 50_000_000
+# the times this script measured for the CUDA-core designs that the bf16
+# tensor-core tile replaced (H100 80GB HBM3 at 700.00 W), printed in
+# brackets beside the tile's
+CUDA_CORE_MS = {"K2 serve": 0.2477, "K2 train": 95.2670, "K4 select": 39.9474,
+                "K4 emit": 29.2987, "leg B bare step": 127.4, "leg K step": 104.389}
 
 
 def log(msg: str) -> None:
@@ -306,17 +321,32 @@ def check_fused_topk(torch, fek):
         f"{agree}/{rows} rows, every other row a near-tie; max |dvals| on agreeing rows {err:.3e}")
 
     ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k), 50)
+    q_ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k), 50, queued=True)
     plain_ms = time_ms(lambda: fek.fused_topk_encode_plain(x, W, b, k), 10)
     library_ms = time_ms(lambda: torch.topk(torch.matmul(x, W), k), 50)
     n_bytes = x.numel() * 2 + W.numel() * 2 + width * 4 + B * k * (2 + 4)
     b_ms, b_by = bound(n_bytes, 2 * B * nd * width, "bf16")
-    log(f"K2 serve shape: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-        f"{library_ms:.4f} ms matmul+topk, bound {b_ms:.4f} ms by {b_by}")
+    log(f"K2 serve shape: {ms:.4f} ms kernel ({q_ms:.4f} ms queued; CUDA-core design "
+        f"[{CUDA_CORE_MS['K2 serve']}]), {plain_ms:.4f} ms plain, {library_ms:.4f} ms "
+        f"matmul+topk, bound {b_ms:.4f} ms by {b_by}")
+    # exact inputs at the serve shape, both dtypes
+    for dt in (torch.bfloat16, torch.float32):
+        xe = torch.randint(-2, 3, (B, nd), generator=gen, device="cuda").to(dt)
+        We = torch.randint(-2, 3, (nd, width), generator=gen, device="cuda").to(dt)
+        be = torch.randint(-8, 9, (width,), generator=gen, device="cuda").float()
+        vk, ik = fek.fused_topk_encode(xe, We, be, k)
+        vp, ip = fek.fused_topk_encode_plain(xe, We, be, k)
+        torch.cuda.synchronize()
+        same = torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)
+        log(f"K2 fused_topk serve shape [{B},{nd}]x[{nd},{width}] {str(dt)[6:]} exact: bitwise "
+            f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail("K2 not bitwise equal to its plain version at the serve shape")
     return {"name": "fused_topk_encode", "route": "cuda",
             "source": "crosscoder_tpu_torch/csrc/fused_topk.cu",
             "replaces": "crosscoder_tpu/ops/fused_encoder_topk.py:353",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, "queued_ms": q_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -362,9 +392,7 @@ def profile_batch(torch, eng, smoke, docs) -> None:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        t = getattr(e, "self_device_time_total", None)
-        return t if t is not None else getattr(e, "self_cuda_time_total", 0)
+    dev_us = _dev_us
 
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(dev_us(e) for e in kernels) / 1e3
@@ -622,14 +650,15 @@ def check_fused_topk_train(torch, fek):
     x = torch.randint(-2, 3, (B, nd), generator=gen, device="cuda").to(torch.bfloat16)
     W = torch.randint(-2, 3, (nd, H), generator=gen, device="cuda").to(torch.bfloat16)
     b = torch.randint(-8, 9, (H,), generator=gen, device="cuda").float()
-    vk, ik = fek.fused_topk_encode(x, W, b, k)
-    vp, ip = fek.fused_topk_encode_plain(x, W, b, k)
-    torch.cuda.synchronize()
-    same = torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)
-    log(f"K2 fused_topk training shape [{B},{nd}]x[{nd},{H}] k={k} exact: bitwise "
-        f"{'equal' if same else 'DIFFERENT'}")
-    if not same:
-        fail("K2 not bitwise equal to its plain version at the training shape")
+    for dt in (torch.bfloat16, torch.float32):
+        vk, ik = fek.fused_topk_encode(x.to(dt), W.to(dt), b, k)
+        vp, ip = fek.fused_topk_encode_plain(x.to(dt), W.to(dt), b, k)
+        torch.cuda.synchronize()
+        same = torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)
+        log(f"K2 fused_topk training shape [{B},{nd}]x[{nd},{H}] k={k} {str(dt)[6:]} exact: "
+            f"bitwise {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail("K2 not bitwise equal to its plain version at the training shape")
     # a wide dictionary: the merge takes a first level over groups of tiles
     for Bw, Hw, kw in ((512, LEG_W["dict_size"], k), (512, H + 128, 128)):
         x = torch.randint(-2, 3, (Bw, nd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -647,15 +676,47 @@ def check_fused_topk_train(torch, fek):
     x = torch.randn((B, nd), generator=gen, device="cuda").to(torch.bfloat16)
     W = (torch.randn((nd, H), generator=gen, device="cuda") * nd ** -0.5).to(torch.bfloat16)
     b = torch.zeros(H, device="cuda")
-    ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k), 3)
+    ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k), 5)
+    q_ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k), 5, queued=True)
     plain_ms = time_ms(lambda: fek.fused_topk_encode_plain(x, W, b, k), 3)
     lib_ms = time_ms(lambda: torch.topk(torch.matmul(x, W), k), 10)
     bnd = bound(x.numel() * 2 + W.numel() * 2 + H * 4 + B * k * 6, 2 * B * nd * H, "bf16")
-    log(f"K2 training shape: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
+    log(f"K2 training shape: {ms:.4f} ms kernel ({q_ms:.4f} ms queued; CUDA-core design "
+        f"[{CUDA_CORE_MS['K2 train']}]), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
         f"matmul+topk, bound {bnd[0]:.4f} ms by {bnd[1]}")
+    profile_kernels(torch, lambda: fek.fused_topk_encode(x, W, b, k), "K2 training shape",
+                    {"product + tile sort (topk_tiles_tc)": "topk_tiles",
+                     "merge (topk_merge_kernel)": "topk_merge"})
     return {**_row("fused_topk_encode", "fused_topk.cu",
                    "crosscoder_tpu/ops/fused_encoder_topk.py:353", 0.0, ms, plain_ms, bnd,
-                   lib_ms), "name": "fused_topk_encode (train shape)"}
+                   lib_ms), "name": "fused_topk_encode (train shape)", "queued_ms": q_ms}
+
+
+def _dev_us(e):
+    t = getattr(e, "self_device_time_total", None)
+    return t if t is not None else getattr(e, "self_cuda_time_total", 0)
+
+
+def profile_kernels(torch, fn, label, groups):
+    """Device time of one call of ``fn`` by kernel, through torch.profiler:
+    each group sums the kernels whose name holds its substring."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(_dev_us(e) for e in kernels) / 1e3
+    if total <= 0:
+        log(f"profile {label}: the profiler recorded no device time (not measured)")
+        return
+    parts = ", ".join(
+        f"{g} {sum(_dev_us(e) for e in kernels if sub in e.key) / 1e3:.4f} ms"
+        for g, sub in groups.items())
+    log(f"profile {label}: {total:.4f} ms of device time: {parts}")
 
 
 def _planted_wide(torch, gen, R, W, dtype):
@@ -952,6 +1013,22 @@ def check_fused_batchtopk(torch, fek):
                 fail(f"K4 not bitwise equal to its plain version ({dt}, B {B}, bias {bias})")
             if kk <= pos and ties < 2:
                 fail("K4 check: no tie at the global threshold was planted")
+    # exact inputs at the training and the serve shapes, both dtypes
+    for B, H in ((TRAIN["batch_size"], TRAIN["dict_size"]), (8, 2 ** 14)):
+        for dt in (torch.bfloat16, torch.float32):
+            x, W, b = _exact_bt(torch, gen, B, nd, H, dt, None)
+            kk = fek.batchtopk_budget(B, H, k)
+            kth = fek.fused_batchtopk_select(x, W, b, kk)
+            want = fek.fused_batchtopk_select_plain(x, W, b, kk)
+            out = fek.fused_batchtopk_emit(x, W, b, kth)
+            ref = fek.fused_batchtopk_emit_plain(x, W, b, want)
+            torch.cuda.synchronize()
+            same = int(kth) == int(want) and torch.equal(_bits(out, torch), _bits(ref, torch))
+            log(f"K4 fused_batchtopk [{B},{nd}]x[{nd},{H}] {str(dt)[6:]} kk={kk} exact: select "
+                f"and emit bitwise {'equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"K4 not bitwise equal to its plain version at [{B}, {nd}] x [{nd}, {H}]")
+            del x, W, out, ref
     B, H = TRAIN["batch_size"], TRAIN["dict_size"]
     kk = fek.batchtopk_budget(B, H, k)
     x = torch.randn((B, nd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -993,13 +1070,80 @@ def check_fused_batchtopk(torch, fek):
         plain_ms = time_ms(plain, 2)
         lib_ms = time_ms(lib, 5)
         bnd = bound(n_bytes + out_bytes, 2 * B * nd * H, "bf16")
-        log(f"K4 {name.split()[1]} training shape: {ms:.4f} ms kernel ({q_ms:.4f} ms queued), "
-            f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms {lib_label}, bound {bnd[0]:.4f} ms by "
-            f"{bnd[1]}")
+        log(f"K4 {name.split()[1]} training shape: {ms:.4f} ms kernel ({q_ms:.4f} ms queued; "
+            f"CUDA-core design [{CUDA_CORE_MS['K4 ' + name.split()[1]]}]), {plain_ms:.4f} ms "
+            f"plain, {lib_ms:.4f} ms {lib_label}, bound {bnd[0]:.4f} ms by {bnd[1]}")
         rows.append({**_row(name, "fused_batchtopk.cu",
                             f"crosscoder_tpu/ops/fused_encoder_topk.py:{line}", 0.0, ms,
                             plain_ms, bnd, lib_ms), "queued_ms": q_ms})
     return rows
+
+
+def check_tile_edges(torch, fek):
+    """K2 and K4 bitwise against their plain versions on exact inputs at
+    the edges of the bf16 tensor-core tile, bf16 and f32: B in {1, 3, 130}
+    (not multiples of 64 or 128), a contraction of 4104 (not a multiple of
+    the 64-deep TMA box; f32 K4 takes 4112, since its CUDA-core tile wants
+    nd % 16 == 0), a width of 2^15 + 8 (not a multiple of 128), k in {1,
+    32, 128}, every column doubled 16388 columns on (ties at every
+    threshold, the pair in different tiles), a NaN row (K2) and a NaN
+    bias column, -0.0 in x and in the bias, and a positive bias
+    everywhere, which the padded rows of the last row block must not see."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    width = 2 ** 15 + 8
+    checked = 0
+    for dt, nds in ((torch.bfloat16, {4104: "K2 K4"}), (torch.float32, {4104: "K2", 4112: "K4"})):
+        for nd, which in nds.items():
+            W = torch.randint(-2, 3, (nd, width), generator=gen, device="cuda").float()
+            b = torch.randint(-8, 9, (width,), generator=gen, device="cuda").float()
+            half = width // 2                         # 16388: pairs in different tiles
+            W[:, half:] = W[:, :half]                 # every value twice: ties at every threshold
+            b[half:] = b[:half]
+            b[200] = -0.0
+            b[300] = float("nan")
+            W = W.to(dt)
+            for B in (1, 3, 130):
+                x = torch.randint(-2, 3, (B, nd), generator=gen, device="cuda").float()
+                if B >= 3:
+                    x[2] = -0.0
+                x_nan = x.clone()
+                if B >= 3:
+                    x_nan[1] = float("nan")           # every slot NaN, nothing emitted
+                x, x_nan = x.to(dt), x_nan.to(dt)
+                for bias, label in ((b, "random bias"), (torch.full_like(b, 3.0), "bias +3")):
+                    if "K2" in which:
+                        for k in ((1, 32, 128) if label == "random bias" else (32,)):
+                            vk, ik = fek.fused_topk_encode(x_nan, W, bias, k)
+                            vp, ip = fek.fused_topk_encode_plain(x_nan, W, bias, k)
+                            torch.cuda.synchronize()
+                            checked += 1
+                            if not (torch.equal(_bits(vk, torch), _bits(vp, torch))
+                                    and torch.equal(ik, ip)):
+                                fail(f"K2 at the tile's edge ({dt}, B {B}, nd {nd}, width "
+                                     f"{width}, k {k}, {label}) not bitwise equal to its plain "
+                                     f"version")
+                    if "K4" in which:
+                        kk = fek.batchtopk_budget(B, width, 32)
+                        kth = fek.fused_batchtopk_select(x, W, bias, kk)
+                        want = fek.fused_batchtopk_select_plain(x, W, bias, kk)
+                        out = fek.fused_batchtopk_emit(x, W, bias, kth)
+                        ref = fek.fused_batchtopk_emit_plain(x, W, bias, want)
+                        torch.cuda.synchronize()
+                        checked += 1
+                        h = fek._pre_acts_plain(x, W, bias).float()
+                        thr = float(ref.float()[ref > 0].min()) if bool((ref > 0).any()) else 0.0
+                        ties = int((h == thr).sum()) if thr > 0 else 0
+                        if not (int(kth) == int(want)
+                                and torch.equal(_bits(out, torch), _bits(ref, torch))):
+                            fail(f"K4 at the tile's edge ({dt}, B {B}, nd {nd}, {label}) not "
+                                 f"bitwise equal to its plain version")
+                        if thr > 0 and ties < 2:
+                            fail("K4 tile edge check: no tie at the global threshold")
+                        log(f"K4 edge {str(dt)[6:]} [{B},{nd}]x[{nd},{width}] {label} kk={kk}: "
+                            f"threshold {thr} held by {ties} entries; bitwise equal")
+            del W
+    log(f"K2/K4 tile edges: {checked} exact cases bitwise equal to the plain versions "
+        f"(B 1, 3, 130; nd 4104/4112; width {width}; k 1, 32, 128)")
 
 
 # ---------------------------------------------------------------------------
@@ -1059,9 +1203,7 @@ def profile_step(torch, trainer, full_metrics, label):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        t = getattr(e, "self_device_time_total", None)
-        return t if t is not None else getattr(e, "self_cuda_time_total", 0)
+    dev_us = _dev_us
 
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(dev_us(e) for e in kernels) / 1e3
@@ -1069,7 +1211,7 @@ def profile_step(torch, trainer, full_metrics, label):
         log(f"profile {label}: the profiler recorded no device time (not measured)")
         return
     groups = {"K2 fused_topk": 0.0, "K3 fused_topk_q": 0.0, "K2/K3 merge": 0.0,
-              "K4 fused_batchtopk": 0.0, "K5 topk_mask": 0.0, "K6 topk_mask_f32": 0.0,
+              "K4 select": 0.0, "K4 emit": 0.0, "K5 topk_mask": 0.0, "K6 topk_mask_f32": 0.0,
               "K7 topk_chunked": 0.0, "K8 sparsify": 0.0, "K10 scatter_rows": 0.0,
               "K11 quantize_rows": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
@@ -1080,7 +1222,8 @@ def profile_step(torch, trainer, full_metrics, label):
              "K3 fused_topk_q" if "topk_tiles_q" in n else
              "K2 fused_topk" if "topk_tiles" in n else
              "K2/K3 merge" if "topk_merge" in n else
-             "K4 fused_batchtopk" if "bt_pass" in n else
+             "K4 select" if "bt_select" in n or "bt_pass<0>" in n or "bt_pass<1>" in n else
+             "K4 emit" if "bt_emit" in n or "bt_pass<2>" in n else
              "K11 quantize_rows" if "quantize_rows" in n else
              "K8 sparsify" if "sparsify" in n else
              "K10 scatter_rows" if "scatter_rows" in n else
@@ -1171,7 +1314,9 @@ def train(torch, np):
     log(f"train: ms per step (CUDA events, first of each kind excluded): bare {bare:.3f} "
         f"({len(bare_ms) - 1} steps), aux {aux:.3f} ({len(aux_ms) - 1} steps); "
         f"{cfg_a.batch_size / bare * 1e3:.0f} rows/s on bare steps; leg B bare (fused "
-        f"encoder) steps {[round(t, 3) for t in fused_ms]} ms")
+        f"encoder) steps {[round(t, 3) for t in fused_ms]} ms (CUDA-core design "
+        f"[{CUDA_CORE_MS['leg B bare step']}]) against the dense bare step {bare:.3f} ms over "
+        f"the same batches")
     if not all(np.isfinite(losses_a + losses_b)):
         fail("a train loss is not finite")
     if max(l0s) > cfg_a.topk_k:
@@ -1559,8 +1704,8 @@ def fused_legs(torch, np, leg_h, cfg_h):
     log(f"leg K: ms per step (CUDA events) fused {[round(r['ms'], 3) for r in fused]} vs the "
         f"dense encode (K9) over the same batches {[round(r['ms'], 3) for r in dense]} "
         f"(launches {dense_l}); mean of steps 2-{steps}: fused "
-        f"{np.mean([r['ms'] for r in fused[1:]]):.3f}, dense "
-        f"{np.mean([r['ms'] for r in dense[1:]]):.3f}")
+        f"{np.mean([r['ms'] for r in fused[1:]]):.3f} (CUDA-core design "
+        f"[{CUDA_CORE_MS['leg K step']}]), dense {np.mean([r['ms'] for r in dense[1:]]):.3f}")
     log(f"leg K f32 (enc_dtype fp32, 2 steps): losses {[round(r['loss'], 4) for r in f32]}; ms "
         f"{[round(r['ms'], 3) for r in f32]}; launches {leg_k32}")
     if not all(math.isfinite(r["loss"]) for r in fused + f32):
@@ -1892,6 +2037,7 @@ def main() -> int:
     train_rows = [*check_topk_mask_and_sparsify(torch, tp), check_scatter(torch, sg),
                   check_fused_topk_train(torch, fek)]
     fused_rows = [check_fused_topk_q(torch, fek), *check_fused_batchtopk(torch, fek)]
+    check_tile_edges(torch, fek)
     harvest_rows = [*check_batchtopk(torch, tp), check_quantize(torch, quant)]
     wide_rows = check_topk_wide(torch, tp)
     launches = serve(torch, np, lengths_a)

@@ -1,0 +1,332 @@
+// The encoder product tile shared by the bf16 fused encoder kernels,
+// fused_topk.cu (K2) and fused_batchtopk.cu (K4), on Hopper's tensor cores.
+//
+// A block walks [128 rows x 128 columns] output tiles of x [B, nd] . W
+// [nd, width] (bf16, fp32 sums), the row block fastest, so the blocks that
+// run at once share a few column slices of W and W comes from device
+// memory about once. The grid is persistent: one block an SM.
+//
+// A block is three warpgroups. Thread 0 of the first is the producer: it
+// keeps a ring of kStages stages in shared memory filled with TMA loads
+// (cp.async.bulk.tensor.2d, 128-byte swizzle), each stage an x box [128
+// rows x 64 contraction] and two W boxes [64 contraction x 64 columns]
+// (a 128-byte swizzle span is 64 bf16, so the 128 columns take two boxes),
+// 32 KB a stage, with a full and an empty mbarrier a stage. The other two
+// warpgroups are consumers, 64 rows each: four wgmma.mma_async
+// m64n128k16 a stage with both operands in shared memory, A K-major, B
+// MN-major (W row-major is read through the instruction's transpose bit,
+// never copied), the sum in 64 fp32 registers a thread. After a tile, each
+// consumer warpgroup hands its accumulators to the kernel's epilogue with
+// the fragment's (row, column) map (frag_row, frag_col).
+//
+// TMA fills rows past B, columns past width and the contraction tail past
+// nd with zeros, so those products add nothing; the epilogue still masks
+// rows >= B and columns >= width out of what it emits or counts.
+//
+// On integer-valued operands every partial sum is an exact integer below
+// 2^24, so the fp32 result equals the plain version's in any order.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace etile {
+
+constexpr int kBM = 128;                         // tile rows (2 consumer warpgroups x 64)
+constexpr int kBN = 128;                         // tile columns
+constexpr int kBK = 64;                          // contraction a stage (one 128-byte swizzle span)
+constexpr int kWG = 128;                         // threads a warpgroup
+constexpr int kThreads = 3 * kWG;                // producer warpgroup + 2 consumer warpgroups
+constexpr int kXBytes = kBM * kBK * 2;           // x box, 16 KB
+constexpr int kWHalfBytes = kBK * 64 * 2;        // one W box of 64 columns, 8 KB
+constexpr int kStageBytes = kXBytes + 2 * kWHalfBytes;
+constexpr int kAlign = 1024;                     // the 128-byte swizzle atom: 8 rows x 128 B
+
+// Shared memory of a ring of kStages stages and its barriers.
+__host__ __device__ constexpr size_t ring_bytes(int stages) { return size_t(stages) * (kStageBytes + 16); }
+
+// ---------------------------------------------------------------------------
+// host: TMA tensor maps; cuTensorMapEncodeTiled is looked up at run time (no -lcuda)
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Error codes above kMapError: cuTensorMapEncodeTiled's CUresult + kMapError.
+constexpr int kMapError = 100000;
+
+// A row-major bf16 matrix [outer, inner] read in boxes [box_outer, box_inner]
+// with the 128-byte swizzle; out-of-bounds elements read as zero.
+inline int encode_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+                      uint32_t box_inner, uint32_t box_outer) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e != cudaSuccess) return int(e);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return kMapError + 500;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * 2};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + int(r);
+}
+
+// The maps of x [B, nd] (boxes [128, 64]) and W [nd, width] (boxes [64, 64]).
+inline int encode_operands(CUtensorMap* xm, CUtensorMap* wm, const void* x, const void* W, int B,
+                           int nd, int width) {
+  const int e = encode_map(xm, x, uint64_t(nd), uint64_t(B), kBK, kBM);
+  return e != 0 ? e : encode_map(wm, W, uint64_t(width), uint64_t(nd), 64, kBK);
+}
+
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 1;
+}
+
+__host__ __device__ inline int n_tiles(int B, int width) {
+  return ((B + kBM - 1) / kBM) * ((width + kBN - 1) / kBN);
+}
+
+// ---------------------------------------------------------------------------
+// device: barriers, TMA, wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spins until the phase of the given parity completes; a wait that never
+// ends (a lost TMA load) traps, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int inner,
+                                         int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
+      : "memory");
+}
+
+// Named barrier over one consumer warpgroup (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int cw) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + cw), "r"(kWG) : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128]; A K-major, B MN-major.
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Accumulator i of thread t (0..127) of a consumer warpgroup sits at row
+// frag_row(i, t) of the warpgroup's 64 and column frag_col(i, t) of the
+// tile's 128; i and i + 1 (i even) are adjacent columns of one row.
+__device__ __forceinline__ int frag_row(int i, int t) {
+  return ((t >> 5) << 4) + ((t & 31) >> 2) + (((i >> 1) & 1) << 3);
+}
+__device__ __forceinline__ int frag_col(int i, int t) {
+  return ((i >> 2) << 3) + ((t & 3) << 1) + (i & 1);
+}
+
+// The tile loop, run by all kThreads threads of the block. `ring`:
+// ring_bytes(kStages) bytes of shared memory, kAlign-aligned. After each
+// tile, each consumer warpgroup calls epi(acc, row0, c0, cw, t): cw its
+// index (0, 1; rows row0 + 64 cw ...), t its thread (0..127). The caller
+// synchronizes the block afterwards if it needs to.
+template <int kStages, class Epilogue>
+__device__ __forceinline__ void run_tiles(const CUtensorMap* xm, const CUtensorMap* wm,
+                                          unsigned char* ring, int B, int nd, int width,
+                                          Epilogue& epi) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + size_t(kStages) * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_rb = (B + kBM - 1) / kBM;
+  const int total = n_tiles(B, width);
+  const int nk = (nd + kBK - 1) / kBK;
+  const int wg = tid / kWG;
+
+  if (wg == 0) {
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const int row0 = (t % n_rb) * kBM, c0 = (t / n_rb) * kBN;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* st = ring + size_t(stage) * kStageBytes;
+          mbar_expect_tx(&full[stage], kStageBytes);
+          tma_load(st, xm, &full[stage], kb * kBK, row0);
+          tma_load(st + kXBytes, wm, &full[stage], c0, kb * kBK);
+          tma_load(st + kXBytes + kWHalfBytes, wm, &full[stage], c0 + 64, kb * kBK);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    return;
+  }
+
+  const int cw = wg - 1, t = tid % kWG;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    const int row0 = (tile % n_rb) * kBM, c0 = (tile / n_rb) * kBN;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int prev = 0;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t xa = smem_u32(ring + size_t(stage) * kStageBytes) + cw * 64 * 128;
+      const uint32_t wa = smem_u32(ring + size_t(stage) * kStageBytes + kXBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        // A: 16 contraction columns are 32 bytes into each 128-byte row;
+        // B: 16 contraction rows are 2 swizzle atoms of 8 rows x 128 B,
+        // the second 64 columns a box (8 KB) further
+        wgmma_128(acc, desc(xa + kk * 32, 16, 1024), desc(wa + kk * 2048, kWHalfBytes, 1024),
+                  kb > 0 || kk > 0);
+      wgmma_commit();
+      if (kb > 0) {
+        wgmma_wait<1>();
+        if (t == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    if (t == 0) mbar_arrive(&empty[prev]);
+    fence_acc(acc);
+    epi(acc, row0, c0, cw, t);
+  }
+}
+
+// Launch a tile kernel kern(x map, W map, args...) on one block an SM (at
+// most one a tile) with `smem` bytes of dynamic shared memory; returns a
+// CUDA error code (or a tensor-map error above kMapError).
+template <typename Kernel, typename... Args>
+int launch(Kernel kern, size_t smem, const void* x, const void* W, int B, int nd, int width,
+           cudaStream_t stream, Args... args) {
+  CUtensorMap xm, wm;
+  const int e = encode_operands(&xm, &wm, x, W, B, nd, width);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(smem));
+  if (err != cudaSuccess) return int(err);
+  const int total = n_tiles(B, width), sms = sm_count();
+  kern<<<total < sms ? total : sms, kThreads, smem, stream>>>(xm, wm, args...);
+  return int(cudaGetLastError());
+}
+
+}  // namespace etile

@@ -10,37 +10,44 @@
 // chunks) that carries 255 bisection counts in SMEM and recomputes each
 // pre-activation tile from the product in every pass. Here every pass is a
 // persistent grid over [128, 128] output tiles, each tile recomputed from
-// the product (fp32 sums on the CUDA cores: x and W staged in shared
-// memory 16 columns of the contraction at a time, an 8 x 8 register tile a
-// thread) and never stored; the pass differs only in what it does with the
-// tile. Counts are integers added with atomics, so the result does not
+// the product and never stored; the pass differs only in what it does with
+// the tile. Counts are integers added with atomics, so the result does not
 // depend on the order the blocks run in:
-//   bf16: one counting pass. The pattern of each pre-activation (its bf16
-//     bits; K9's rule: sign-set -> 0, NaN -> 0x7FFE) is a 15-bit key; each
-//     block counts the positive keys of its tiles in a 32768-bin shared
-//     histogram (128 KB), flushes it into a global 64-bit histogram, and the
-//     last block (a fence and a ticket) walks the suffix sums to kth, the
-//     largest pattern p with count(pattern >= p) >= kk (0 when fewer than
-//     kk are positive).
-//   f32: two counting passes over the 31-bit pattern (NaN -> 0x7FFFFFFE):
-//     the same histogram over its top 15 bits finds the bin that holds kth,
-//     then a pass over the low 16 bits of the entries in that bin (global
-//     64-bit atomics, one per distinct bin a warp, __match_any_sync).
+//   bf16: the product on the tensor cores (encoder_tile_sm90.cuh: TMA ring,
+//     two consumer warpgroups of wgmma, fp32 sums); one counting pass. The
+//     pattern of each pre-activation (its bf16 bits; K9's rule: sign-set ->
+//     0, NaN -> 0x7FFE) is a 15-bit key; each block counts the positive
+//     keys of its tiles in a 32768-bin shared histogram (128 KB, beside a
+//     3-stage ring of 96 KB), flushes it into a global 64-bit histogram,
+//     and the last block (a fence and a ticket) walks the suffix sums to
+//     kth, the largest pattern p with count(pattern >= p) >= kk (0 when
+//     fewer than kk are positive).
+//   f32: the product on the CUDA cores (a tensor-core f32 product would be
+//     TF32): x and W staged in shared memory 16 columns of the contraction
+//     at a time, an 8 x 8 register tile a thread. Two counting passes over
+//     the 31-bit pattern (NaN -> 0x7FFFFFFE): the same histogram over its
+//     top 15 bits finds the bin that holds kth, then a pass over the low 16
+//     bits of the entries in that bin (global 64-bit atomics, one per
+//     distinct bin a warp, __match_any_sync).
 //   emit: one more pass writes (pattern >= kth && pattern > 0) ? the value
-//     of the pattern : 0 in the compute dtype, so every tie at kth is kept.
+//     of the pattern : 0 in the compute dtype, so every tie at kth is kept
+//     (bf16: each consumer warpgroup stages its 64 rows in shared memory
+//     and stores them 16 bytes a thread).
 // Rows past B and columns past width are masked out of every count: a
 // positive bias would otherwise make zero rows count (the TPU kernels'
 // `_tile_bits` guard).
 //
 // Bound. At the training shape (x [4096, 4608], W [4608, 32768] bf16) the
-// product is 1.24 TFLOP, 1.25 ms at the bf16 tensor-core peak; the bytes
+// product is 1.24 TFLOP, 1.2507 ms at the bf16 tensor-core peak; the bytes
 // (x 38 MB, W 302 MB, f 268 MB) take 0.18 ms. The bound counts the product
-// once; this design computes it 2 times in bf16 and 3 in f32, on the CUDA
-// cores.
+// once; this design computes it 2 times in bf16 (on the tensor cores, W
+// read about once a pass) and 3 in f32 (on the CUDA cores).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "encoder_tile_sm90.cuh"
 
 namespace {
 
@@ -71,17 +78,7 @@ __device__ __forceinline__ unsigned pattern32(unsigned b) {
   return b < 0x7FFFFFFEu ? b : 0x7FFFFFFEu;
 }
 
-// 8 consecutive elements as f32, from a 16-byte (bf16) / 32-byte (f32) boundary
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* w) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    w[2 * i] = f.x;
-    w[2 * i + 1] = f.y;
-  }
-}
+// 8 consecutive elements from a 32-byte boundary
 __device__ __forceinline__ void load8(const float* p, float* w) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
@@ -89,22 +86,14 @@ __device__ __forceinline__ void load8(const float* p, float* w) {
   w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
 }
 
-// The pattern of a pre-activation summed in f32: rounded to the compute
-// dtype, then K9's clamp (bf16: 16-bit pattern, f32: 32-bit).
-__device__ __forceinline__ unsigned pattern_of(float h, __nv_bfloat16*) {
-  return pattern16(__bfloat16_as_ushort(__float2bfloat16_rn(h)));
-}
-__device__ __forceinline__ unsigned pattern_of(float h, float*) {
-  return pattern32(__float_as_uint(h));
-}
+// --- f32: the product on the CUDA cores -------------------------------------
 
 // Thread (ty, tx) of a tile owns rows ty*4 + i and 64 + ty*4 + i, and
 // columns tx*4 + j and 64 + tx*4 + j (i, j < 4).
 __device__ __forceinline__ int tile_row(int ty, int i) { return (i >> 2) * 64 + ty * 4 + (i & 3); }
 
 // acc[i][j] = sum over the contraction of x[row0 + r_i, :] * W[:, c0 + c_j], fp32.
-template <typename T>
-__device__ __forceinline__ void tile_product(const T* __restrict__ x, const T* __restrict__ W,
+__device__ __forceinline__ void tile_product(const float* __restrict__ x, const float* __restrict__ W,
                                              int B, int nd, int width, int row0, int c0,
                                              float (*As)[kBM], float (*Bs)[kBN],
                                              float acc[8][8]) {
@@ -118,8 +107,8 @@ __device__ __forceinline__ void tile_product(const T* __restrict__ x, const T* _
   const int xm = tid >> 1, xk = (tid & 1) * 8;
   const int wk = tid >> 4, wc = (tid & 15) * 8;
   const bool x_ok = row0 + xm < B, w_ok = c0 + wc < width;
-  const T* xp = x + size_t(row0 + xm) * nd + xk;
-  const T* wp = W + size_t(wk) * width + c0 + wc;
+  const float* xp = x + size_t(row0 + xm) * nd + xk;
+  const float* wp = W + size_t(wk) * width + c0 + wc;
   for (int k0 = 0; k0 < nd; k0 += kBK) {
     float v[8];
     if (x_ok) {
@@ -159,30 +148,34 @@ __device__ __forceinline__ void tile_product(const T* __restrict__ x, const T* _
   }
 }
 
+// --- the end of a counting pass, both dtypes -----------------------------------
+
 // The last block of a counting pass: the largest bin p of hist[0, n_bins)
 // whose suffix count reaches kk. Returns p, or -1 when the total is below
-// kk; *above gets the count of the bins past p. `sums`: kThreads 64-bit
-// words of shared memory.
+// kk; *above gets the count of the bins past p. NT: the block's threads;
+// `sums`: NT 64-bit words of shared memory.
+template <int NT>
 __device__ int suffix_select(const unsigned long long* hist, int n_bins, long long kk,
                              unsigned long long* sums, unsigned long long* above) {
   __shared__ int best;
-  const int t = threadIdx.x, per = n_bins / kThreads;
+  constexpr int nt = NT;
+  const int t = threadIdx.x, per = (n_bins + nt - 1) / nt;
+  const int lo = t * per, hi = min(lo + per, n_bins);
   unsigned long long mine = 0;
-  for (int q = 0; q < per; ++q) mine += __ldcg(&hist[t * per + q]);
+  for (int p = lo; p < hi; ++p) mine += __ldcg(&hist[p]);
   if (t == 0) best = -1;
   sums[t] = mine;
   __syncthreads();
-  for (int o = 1; o < kThreads; o <<= 1) {        // inclusive suffix scan
-    const unsigned long long add = t + o < kThreads ? sums[t + o] : 0ull;
+  for (int o = 1; o < nt; o <<= 1) {              // inclusive suffix scan
+    const unsigned long long add = t + o < nt ? sums[t + o] : 0ull;
     __syncthreads();
     sums[t] += add;
     __syncthreads();
   }
-  unsigned long long run = t + 1 < kThreads ? sums[t + 1] : 0ull;
+  unsigned long long run = t + 1 < nt ? sums[t + 1] : 0ull;
   int found = -1;
   unsigned long long run_above = 0;
-  for (int q = per - 1; q >= 0; --q) {
-    const int p = t * per + q;
+  for (int p = hi - 1; p >= lo; --p) {
     const unsigned long long h = __ldcg(&hist[p]);
     if (run + h >= (unsigned long long)kk) {
       found = p;
@@ -212,18 +205,18 @@ __device__ __forceinline__ bool last_block(unsigned long long* ticket) {
 // The end of a counting pass: the block's counts into the global
 // histogram (pass 1), then the last block to finish picks kth's bin (pass
 // 1: kth itself in bf16, its top 15 bits in f32) or its low 16 bits (pass 2).
-template <bool kBf16, int MODE>
+// NT: the block's threads; `sums`: NT 64-bit words of shared memory.
+template <bool kBf16, int MODE, int NT>
 __device__ void finish_count(State* st, int* kth_out, long long kk, unsigned prefix,
-                             const unsigned* shist) {
-  __shared__ unsigned long long sums[kThreads];
+                             const unsigned* shist, unsigned long long* sums) {
   __shared__ unsigned long long above;
   const int tid = threadIdx.x;
   if constexpr (MODE == kHist1) {
     __syncthreads();
-    for (int i = tid; i < kBins1; i += kThreads)
+    for (int i = tid; i < kBins1; i += NT)
       if (shist[i]) atomicAdd(&st->hist1[i], (unsigned long long)shist[i]);
     if (!last_block(&st->ticket1)) return;
-    const int p = suffix_select(st->hist1, kBins1, kk, sums, &above);
+    const int p = suffix_select<NT>(st->hist1, kBins1, kk, sums, &above);
     if (tid != 0) return;
     if (p < 0) {                      // fewer than kk positives: keep them all
       st->done = 1;
@@ -236,20 +229,22 @@ __device__ void finish_count(State* st, int* kth_out, long long kk, unsigned pre
     }
   } else {
     if (!last_block(&st->ticket2)) return;
-    const int l = suffix_select(st->hist2, kBins2, st->kk2, sums, &above);
+    const int l = suffix_select<NT>(st->hist2, kBins2, st->kk2, sums, &above);
     if (tid == 0) *kth_out = int((prefix << 16) | unsigned(l < 0 ? 0 : l));
   }
 }
 
-template <typename T, int MODE>
+// --- f32 passes -------------------------------------------------------------
+
+// One pass of the f32 path over every tile.
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-bt_pass(const T* __restrict__ x, const T* __restrict__ W, const float* __restrict__ b,
-        State* __restrict__ st, int* __restrict__ kth_out, T* __restrict__ out,
+bt_pass(const float* __restrict__ x, const float* __restrict__ W, const float* __restrict__ b,
+        State* __restrict__ st, int* __restrict__ kth_out, float* __restrict__ out,
         int B, int nd, int width, long long kk) {
   extern __shared__ unsigned shist[];          // kHist1: [kBins1]
   __shared__ __align__(16) float As[kBK][kBM];
   __shared__ __align__(16) float Bs[kBK][kBN];
-  constexpr bool kBf16 = sizeof(T) == 2;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, lane = tid & 31;
 
   unsigned kth = 0, prefix = 0;
@@ -268,7 +263,7 @@ bt_pass(const T* __restrict__ x, const T* __restrict__ W, const float* __restric
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int row0 = (t % n_rb) * kBM, c0 = (t / n_rb) * kBN;
     float acc[8][8];
-    tile_product<T>(x, W, B, nd, width, row0, c0, As, Bs, acc);
+    tile_product(x, W, B, nd, width, row0, c0, As, Bs, acc);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int r = row0 + tile_row(ty, i);
@@ -279,11 +274,11 @@ bt_pass(const T* __restrict__ x, const T* __restrict__ W, const float* __restric
         unsigned p[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          p[j] = ok ? pattern_of(acc[i][jh * 4 + j] + b[c + j], static_cast<T*>(nullptr)) : 0u;
+          p[j] = ok ? pattern32(__float_as_uint(acc[i][jh * 4 + j] + b[c + j])) : 0u;
         if constexpr (MODE == kHist1) {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (p[j]) atomicAdd(&shist[kBf16 ? p[j] : p[j] >> 16], 1u);
+            if (p[j]) atomicAdd(&shist[p[j] >> 16], 1u);
         } else if constexpr (MODE == kHist2) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -298,31 +293,120 @@ bt_pass(const T* __restrict__ x, const T* __restrict__ W, const float* __restric
           unsigned v[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) v[j] = p[j] >= kth && p[j] > 0u ? p[j] : 0u;
-          if constexpr (kBf16) {
-            uint2 u = make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
-            *reinterpret_cast<uint2*>(reinterpret_cast<uint16_t*>(out) + size_t(r) * width + c) = u;
-          } else {
-            *reinterpret_cast<uint4*>(reinterpret_cast<unsigned*>(out) + size_t(r) * width + c) =
-                make_uint4(v[0], v[1], v[2], v[3]);
-          }
+          *reinterpret_cast<uint4*>(reinterpret_cast<unsigned*>(out) + size_t(r) * width + c) =
+              make_uint4(v[0], v[1], v[2], v[3]);
         }
       }
     }
   }
-  if constexpr (MODE != kEmit) finish_count<kBf16, MODE>(st, kth_out, kk, prefix, shist);
+  if constexpr (MODE != kEmit) {
+    __shared__ unsigned long long sums[kThreads];
+    finish_count<false, MODE, kThreads>(st, kth_out, kk, prefix, shist, sums);
+  }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
+// --- bf16 on the tensor-core tile ------------------------------------------
+
+constexpr int kSelStages = 3;                // 96 KB beside the 128 KB histogram
+constexpr int kEmitStages = 4;
+constexpr int kOutPitch = etile::kBN / 2 + 4;   // 32-bit words a staged bf16 row: conflict-free
+
+__device__ __forceinline__ unsigned pattern_bf16(float h) {
+  return pattern16(__bfloat16_as_ushort(__float2bfloat16_rn(h)));
 }
 
-template <typename T, int MODE>
+struct SelectEpilogue {
+  const float* b;
+  unsigned* shist;
+  int B, width;
+
+  __device__ __forceinline__ void operator()(float (&acc)[64], int row0, int c0, int cw, int t) {
+    const int rbase = row0 + cw * 64;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = etile::frag_row(i, t), c = etile::frag_col(i, t);
+      if (rbase + r < B && c0 + c < width) {    // width % 8 == 0: c and c + 1 in or out together
+        const float2 bb = *reinterpret_cast<const float2*>(b + c0 + c);
+        const unsigned p0 = pattern_bf16(acc[i] + bb.x), p1 = pattern_bf16(acc[i + 1] + bb.y);
+        if (p0) atomicAdd(&shist[p0], 1u);
+        if (p1) atomicAdd(&shist[p1], 1u);
+      }
+    }
+  }
+};
+
+struct EmitEpilogue {
+  const float* b;
+  unsigned kth;
+  uint16_t* out;
+  uint32_t* staged;   // [kBM][kOutPitch]
+  int B, width;
+
+  __device__ __forceinline__ void operator()(float (&acc)[64], int row0, int c0, int cw, int t) {
+    uint32_t* sw = staged + cw * 64 * kOutPitch;
+    const int rbase = row0 + cw * 64;
+    etile::wg_sync(cw);                         // the previous tile's stores are done with sw
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = etile::frag_row(i, t), c = etile::frag_col(i, t);
+      unsigned v0 = 0, v1 = 0;
+      if (rbase + r < B && c0 + c < width) {
+        const float2 bb = *reinterpret_cast<const float2*>(b + c0 + c);
+        v0 = pattern_bf16(acc[i] + bb.x);
+        v1 = pattern_bf16(acc[i + 1] + bb.y);
+        v0 = v0 >= kth && v0 > 0u ? v0 : 0u;
+        v1 = v1 >= kth && v1 > 0u ? v1 : 0u;
+      }
+      sw[r * kOutPitch + (c >> 1)] = v0 | (v1 << 16);
+    }
+    etile::wg_sync(cw);
+    // 64 rows x 16 chunks of 8 columns, 16 bytes a store
+    for (int q = t; q < 64 * (etile::kBN / 8); q += etile::kWG) {
+      const int r = q >> 4, ch = q & 15, gc = c0 + ch * 8;
+      if (rbase + r < B && gc < width)
+        *reinterpret_cast<uint4*>(out + size_t(rbase + r) * width + gc) =
+            *reinterpret_cast<const uint4*>(sw + r * kOutPitch + ch * 4);
+    }
+  }
+};
+
+constexpr size_t kSelSmem = size_t(kBins1) * sizeof(unsigned) + etile::ring_bytes(kSelStages) +
+                            etile::kAlign;
+constexpr size_t kEmitSmem = etile::ring_bytes(kEmitStages) +
+                             size_t(etile::kBM) * kOutPitch * sizeof(uint32_t) + etile::kAlign;
+
+__global__ void __launch_bounds__(etile::kThreads, 1)
+bt_select_tc(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUtensorMap wm,
+             const float* __restrict__ b, State* __restrict__ st, int* __restrict__ kth_out, int B,
+             int nd, int width, long long kk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned* shist = reinterpret_cast<unsigned*>(smem_raw);
+  unsigned char* ring = etile::align_smem(smem_raw + size_t(kBins1) * sizeof(unsigned));
+  for (int i = threadIdx.x; i < kBins1; i += blockDim.x) shist[i] = 0;
+  SelectEpilogue epi{b, shist, B, width};
+  etile::run_tiles<kSelStages>(&xm, &wm, ring, B, nd, width, epi);   // syncs after the zeroing
+  // the ring is dead once every block thread is past finish_count's first barrier
+  finish_count<true, kHist1, etile::kThreads>(st, kth_out, kk, 0, shist,
+                                              reinterpret_cast<unsigned long long*>(ring));
+}
+
+__global__ void __launch_bounds__(etile::kThreads, 1)
+bt_emit_tc(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUtensorMap wm,
+           const float* __restrict__ b, const int* __restrict__ kth, uint16_t* __restrict__ out,
+           int B, int nd, int width) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = etile::align_smem(smem_raw);
+  EmitEpilogue epi{b, unsigned(*kth), out,
+                   reinterpret_cast<uint32_t*>(ring + etile::ring_bytes(kEmitStages)), B, width};
+  etile::run_tiles<kEmitStages>(&xm, &wm, ring, B, nd, width, epi);
+}
+
+// --- f32 launches ----------------------------------------------------------
+
+template <int MODE>
 int launch_pass(const void* x, const void* W, const void* b, void* st, void* kth, void* out, int B,
                 int nd, int width, long long kk, cudaStream_t stream) {
-  auto kern = bt_pass<T, MODE>;
+  auto kern = bt_pass<MODE>;
   const size_t smem = MODE == kHist1 ? kBins1 * sizeof(unsigned) : 0;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
@@ -331,20 +415,19 @@ int launch_pass(const void* x, const void* W, const void* b, void* st, void* kth
   if (e != cudaSuccess) return int(e);
   const long long n_tiles =
       (long long)((B + kBM - 1) / kBM) * ((width + kBN - 1) / kBN);
-  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sm_count();
+  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * etile::sm_count();
   if (grid > n_tiles) grid = n_tiles;
   kern<<<int(grid), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(W), static_cast<const float*>(b),
-      static_cast<State*>(st), static_cast<int*>(kth), static_cast<T*>(out), B, nd, width, kk);
+      static_cast<const float*>(x), static_cast<const float*>(W), static_cast<const float*>(b),
+      static_cast<State*>(st), static_cast<int*>(kth), static_cast<float*>(out), B, nd, width, kk);
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int run_select(const void* x, const void* W, const void* b, void* st, void* kth, int B, int nd,
-           int width, long long kk, cudaStream_t stream) {
-  int e = launch_pass<T, kHist1>(x, W, b, st, kth, nullptr, B, nd, width, kk, stream);
-  if (e != 0 || sizeof(T) == 2) return e;     // bf16: one counting pass
-  return launch_pass<T, kHist2>(x, W, b, st, kth, nullptr, B, nd, width, kk, stream);
+int run_select_f32(const void* x, const void* W, const void* b, void* st, void* kth, int B, int nd,
+                   int width, long long kk, cudaStream_t stream) {
+  int e = launch_pass<kHist1>(x, W, b, st, kth, nullptr, B, nd, width, kk, stream);
+  if (e != 0) return e;
+  return launch_pass<kHist2>(x, W, b, st, kth, nullptr, B, nd, width, kk, stream);
 }
 
 }  // namespace
@@ -355,15 +438,19 @@ extern "C" long long fused_bt_state_bytes() { return (long long)sizeof(State); }
 extern "C" int fused_bt_select(const void* x, const void* W, const void* b, void* state, void* kth,
                                int B, int nd, int width, long long kk, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return run_select<__nv_bfloat16>(x, W, b, state, kth, B, nd, width, kk, st);
-  return run_select<float>(x, W, b, state, kth, B, nd, width, kk, st);
+  if (is_bf16)
+    return etile::launch(bt_select_tc, kSelSmem, x, W, B, nd, width, st,
+                         static_cast<const float*>(b), static_cast<State*>(state),
+                         static_cast<int*>(kth), B, nd, width, kk);
+  return run_select_f32(x, W, b, state, kth, B, nd, width, kk, st);
 }
 
 extern "C" int fused_bt_emit(const void* x, const void* W, const void* b, const void* kth,
                              void* out, int B, int nd, int width, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  void* k = const_cast<void*>(kth);
   if (is_bf16)
-    return launch_pass<__nv_bfloat16, kEmit>(x, W, b, nullptr, k, out, B, nd, width, 0, st);
-  return launch_pass<float, kEmit>(x, W, b, nullptr, k, out, B, nd, width, 0, st);
+    return etile::launch(bt_emit_tc, kEmitSmem, x, W, B, nd, width, st,
+                         static_cast<const float*>(b), static_cast<const int*>(kth),
+                         static_cast<uint16_t*>(out), B, nd, width);
+  return launch_pass<kEmit>(x, W, b, nullptr, const_cast<void*>(kth), out, B, nd, width, 0, st);
 }

@@ -10,78 +10,186 @@
 // sequential grid axis over dictionary tiles. Hopper blocks run in no
 // order, so the selection is split in two deterministic passes with no
 // atomics:
-//   pass 1, grid (dict_tile, row_block): a block computes the [8, 128]
-//     pre-activation tile with fp32 accumulation (16 contraction splits x
-//     16 column groups of 8, partial sums added in a fixed order), adds the
-//     bias and rounds to the compute dtype exactly as `pre_acts` does, maps
-//     each value to its selection key and writes the tile's best k
-//     candidates of each row, in rank order, to a [B, n_tiles, k] scratch.
-//   pass 2, one block per row: merges the n_tiles * k candidates, with a
+//   pass 1 writes each [row, 128-column tile]'s best k candidates, in rank
+//     order, to a [B, n_tiles, k] scratch;
+//   pass 2, one block per row, merges the n_tiles * k candidates, with a
 //     first level over groups of tiles at wide dictionaries (1024 tiles of
 //     32 at 2^17).
-// The keys, the tile ranking and the merge are fused_topk_select.cuh's,
+// The keys, the f32 tile ranking and the merge are fused_topk_select.cuh's,
 // shared with the int8 kernel (fused_topk_q.cu).
 //
-// Bound. At the serve shape (x [8, 4608] bf16, W_enc [4608, 16384] bf16)
-// the function reads W_enc once: 151 MB, 45 us at 3.35 TB/s, against 1.2
-// GFLOP (1.2 us at the bf16 tensor-core peak), so it is bound by bytes.
-// Pass 1 streams W with 16-byte loads per thread and keeps the x rows in
-// shared memory; the multiply runs on the CUDA cores.
+// Pass 1, bf16: encoder_tile_sm90.cuh's tensor-core tile (persistent grid,
+// TMA ring, two consumer warpgroups of wgmma, fp32 sums). Its epilogue adds
+// the bias in f32, rounds to bf16 as `pre_acts` does and stages the tile's
+// keys in shared memory as 32-bit composites (the bf16 key's 16 bits, then
+// 127 - the column in the tile: a bf16 pattern's low 16 f32 bits are 0);
+// a warp then sorts each row of its 16 (a bitonic sort of 128) and writes
+// the row's candidates in the 64-bit format of fused_topk_select.cuh.
+// Pass 1, f32: the CUDA cores (a tensor-core f32 product would be TF32): a
+// block computes an [8, 128] tile with fp32 FMAs (16 contraction splits x
+// 16 column groups of 8, partial sums added in a fixed order) and ranks it
+// with fsel::rank_row_candidates.
+//
+// Bound. At the training shape (x [4096, 4608], W [4608, 32768] bf16) the
+// product is 1.24 TFLOP: 1.2507 ms at the bf16 tensor-core peak, above the
+// 0.10 ms its 340 MB take; the tile puts it on the tensor cores and reads W
+// about once. At the serve shape (x [8, 4608], W [4608, 16384]) the
+// function reads W once: 151 MB, 0.0451 ms at 3.35 TB/s, against 1.2 us of
+// product; there the 128 column tiles stream W once through the TMA ring
+// (rows past 8 are TMA's zeros).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encoder_tile_sm90.cuh"
 #include "fused_topk_select.cuh"
 
 namespace {
 
 using fsel::composite;
-using fsel::from_f;
 using fsel::kCW;
-using fsel::to_f;
 
-constexpr int kThreads = 256;
-constexpr int kRowsPB = 8;     // rows per block in pass 1
-constexpr int kSplit = 16;     // contraction splits in pass 1
-constexpr int kVec = 8;        // columns per thread in pass 1
+// --- bf16 pass 1 on the tensor-core tile ----------------------------------
 
-// 8 consecutive elements starting at a 16-byte (bf16) / 32-byte (f32) boundary
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* w) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+constexpr int kStages = 4;
+constexpr int kKeyPitch = etile::kBN + 8;   // 32-bit words a staged row: 2-way stores, the minimum
+constexpr int kNanKey16 = 0x7F81;           // a NaN's 16-bit key: just above +inf's 0x7F80
+
+__device__ __forceinline__ uint32_t key16(float h) {
+  const __nv_bfloat16 hb = __float2bfloat16_rn(h);
+  const float hc = __bfloat162float(hb);
+  return isnan(hc) ? kNanKey16 : (hc > 0.f ? uint32_t(__bfloat16_as_ushort(hb)) : 0u);
+}
+
+// The 64-bit candidate of a staged composite of tile column c0 + ...
+__device__ __forceinline__ long long wide_composite(uint32_t m, int c0) {
+  const int k16 = int(m >> 16);
+  const int key = k16 == kNanKey16 ? fsel::kSent : k16 << 16;
+  return fsel::composite(key, c0 + 127 - int(m & 0xFFFFu));
+}
+
+// One warp writes a row's tile candidates from its kBN staged composites
+// (distinct, 0 where the key is 0): a bitonic sort of the 128, descending,
+// lane l holding positions 4l .. 4l + 3 (strides 1 and 2 inside a lane,
+// the others across lanes by shuffles); position e then holds the
+// composite of rank e.
+__device__ __forceinline__ void rank_row16(const uint32_t* keys, long long* out, int k, int lane,
+                                           int c0) {
+  const uint4 q = *reinterpret_cast<const uint4*>(keys + 4 * lane);
+  uint32_t v[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    w[2 * i] = f.x;
-    w[2 * i + 1] = f.y;
+  for (int size = 2; size <= etile::kBN; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = 4 * lane + u;
+          const uint32_t o = __shfl_xor_sync(0xffffffffu, v[u], stride >> 2);
+          // the lower position of a pair keeps the larger when the run descends
+          const bool larger = ((e & stride) == 0) == ((e & size) == 0);
+          v[u] = larger ? max(v[u], o) : min(v[u], o);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (u & stride) continue;
+          const uint32_t a = v[u], b = v[u | stride];
+          const bool desc = ((4 * lane + u) & size) == 0;
+          v[u] = desc ? max(a, b) : min(a, b);
+          v[u | stride] = desc ? min(a, b) : max(a, b);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int e = 4 * lane + u;
+    if (e < k) out[e] = v[u] != 0u ? wide_composite(v[u], c0) : 0;
   }
 }
-__device__ __forceinline__ void load8(const float* p, float* w) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-  w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+
+struct TopkEpilogue {
+  const float* b;
+  long long* cand;
+  uint32_t* keys;    // [kBM][kKeyPitch]
+  int B, width, k, n_tiles;
+
+  __device__ __forceinline__ void operator()(float (&acc)[64], int row0, int c0, int cw, int t) {
+    uint32_t* kw = keys + cw * 64 * kKeyPitch;
+    const int rbase = row0 + cw * 64;
+    etile::wg_sync(cw);                       // the previous tile's ranking is done with kw
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = etile::frag_row(i, t), c = etile::frag_col(i, t);
+      uint32_t k0 = 0, k1 = 0;
+      if (rbase + r < B && c0 + c < width) {  // width % 8 == 0: c and c + 1 in or out together
+        const float2 bb = *reinterpret_cast<const float2*>(b + c0 + c);
+        k0 = key16(acc[i] + bb.x);
+        k1 = key16(acc[i + 1] + bb.y);
+        k0 = k0 ? (k0 << 16) | uint32_t(127 - c) : 0u;
+        k1 = k1 ? (k1 << 16) | uint32_t(126 - c) : 0u;
+      }
+      *reinterpret_cast<uint2*>(kw + r * kKeyPitch + c) = make_uint2(k0, k1);
+    }
+    etile::wg_sync(cw);
+    const int warp = t >> 5, lane = t & 31, tile = c0 / etile::kBN;
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = warp * 16 + rr;
+      if (rbase + r >= B) break;
+      rank_row16(kw + r * kKeyPitch, cand + (size_t(rbase + r) * n_tiles + tile) * k, k, lane, c0);
+    }
+  }
+};
+
+constexpr size_t kTcSmem =
+    etile::ring_bytes(kStages) + size_t(etile::kBM) * kKeyPitch * 4 + etile::kAlign;
+
+__global__ void __launch_bounds__(etile::kThreads, 1)
+topk_tiles_tc(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUtensorMap wm,
+              const float* __restrict__ b, long long* __restrict__ cand, int B, int nd, int width,
+              int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = etile::align_smem(smem_raw);
+  TopkEpilogue epi{b, cand, reinterpret_cast<uint32_t*>(ring + etile::ring_bytes(kStages)), B,
+                   width, k, (width + etile::kBN - 1) / etile::kBN};
+  etile::run_tiles<kStages>(&xm, &wm, ring, B, nd, width, epi);
 }
 
-template <typename T>
+int launch_tc(const void* x, const void* W, const void* b, void* cand, void* cand2, void* vals,
+              void* idx, int B, int nd, int width, int k, int group, cudaStream_t stream) {
+  const int e = etile::launch(topk_tiles_tc, kTcSmem, x, W, B, nd, width, stream,
+                              static_cast<const float*>(b), static_cast<long long*>(cand), B, nd,
+                              width, k);
+  if (e != 0) return e;
+  return fsel::launch_merge<__nv_bfloat16>(cand, cand2, vals, idx, B, (width + kCW - 1) / kCW, k,
+                                           group, stream);
+}
+
+// --- f32 pass 1 on the CUDA cores ------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kRowsPB = 8;     // rows per block
+constexpr int kSplit = 16;     // contraction splits
+constexpr int kVec = 8;        // columns per thread
+
 size_t tiles_smem(int nd) {
-  size_t x_bytes = size_t(kRowsPB) * nd * sizeof(T);
+  size_t x_bytes = size_t(kRowsPB) * nd * sizeof(float);
   size_t red_bytes = size_t(kSplit) * kRowsPB * kCW * sizeof(float);
   size_t region = x_bytes > red_bytes ? x_bytes : red_bytes;
   region = (region + 15) / 16 * 16;
   return region + size_t(kRowsPB) * kCW * sizeof(long long);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-topk_tiles_kernel(const T* __restrict__ x,      // [B, nd]
-                  const T* __restrict__ W,      // [nd, width]
+topk_tiles_kernel(const float* __restrict__ x,  // [B, nd]
+                  const float* __restrict__ W,  // [nd, width]
                   const float* __restrict__ b,  // [width]
                   long long* __restrict__ cand, // [B, n_tiles, k]
                   int B, int nd, int width, int k, size_t region) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);               // [kRowsPB][nd]
+  float* xs = reinterpret_cast<float*>(smem);       // [kRowsPB][nd]
   float* red = reinterpret_cast<float*>(smem);      // [kSplit][kRowsPB][kCW], after the matmul
   long long* keys = reinterpret_cast<long long*>(smem + region);  // [kRowsPB][kCW]
 
@@ -93,7 +201,7 @@ topk_tiles_kernel(const T* __restrict__ x,      // [B, nd]
 
   for (int i = tid; i < kRowsPB * nd; i += kThreads) {
     const int r = i / nd;
-    xs[i] = row0 + r < B ? x[size_t(row0) * nd + i] : from_f<T>(0.f);
+    xs[i] = row0 + r < B ? x[size_t(row0) * nd + i] : 0.f;
   }
   __syncthreads();
 
@@ -106,14 +214,16 @@ topk_tiles_kernel(const T* __restrict__ x,      // [B, nd]
 #pragma unroll
     for (int j = 0; j < kVec; ++j) acc[r][j] = 0.f;
   if (col < width) {
-    const T* wp = W + col;
+    const float* wp = W + col;
 #pragma unroll 4
     for (int kk = ks; kk < nd; kk += kSplit) {
-      float w[kVec];
-      load8(wp + size_t(kk) * width, w);
+      // 8 consecutive columns from a 32-byte boundary
+      const float4 w0 = __ldg(reinterpret_cast<const float4*>(wp + size_t(kk) * width));
+      const float4 w1 = __ldg(reinterpret_cast<const float4*>(wp + size_t(kk) * width) + 1);
+      const float w[kVec] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
       for (int r = 0; r < kRowsPB; ++r) {
-        const float xv = to_f(xs[r * nd + kk]);
+        const float xv = xs[r * nd + kk];
 #pragma unroll
         for (int j = 0; j < kVec; ++j) acc[r][j] = fmaf(xv, w[j], acc[r][j]);
       }
@@ -132,7 +242,7 @@ topk_tiles_kernel(const T* __restrict__ x,      // [B, nd]
     if (gcol < width) {
       float h = red[r * kCW + c];
       for (int s = 1; s < kSplit; ++s) h += red[(s * kRowsPB + r) * kCW + c];
-      comp = composite(fsel::select_key(to_f(from_f<T>(h + b[gcol]))), gcol);
+      comp = composite(fsel::select_key(h + b[gcol]), gcol);
     }
     keys[o] = comp;
   }
@@ -145,22 +255,21 @@ topk_tiles_kernel(const T* __restrict__ x,      // [B, nd]
   fsel::rank_row_candidates(keys + w * kCW, cand + (size_t(row) * n_tiles + tile) * k, k, lane);
 }
 
-template <typename T>
-int launch(const void* x, const void* W, const void* b, void* cand, void* cand2, void* vals,
-           void* idx, int B, int nd, int width, int k, int group, cudaStream_t stream) {
+int launch_f32(const void* x, const void* W, const void* b, void* cand, void* cand2, void* vals,
+               void* idx, int B, int nd, int width, int k, int group, cudaStream_t stream) {
   const int n_tiles = (width + kCW - 1) / kCW;
-  const size_t smem1 = tiles_smem<T>(nd);
+  const size_t smem1 = tiles_smem(nd);
   size_t region = smem1 - size_t(kRowsPB) * kCW * sizeof(long long);
-  auto k1 = topk_tiles_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem1));
+  cudaError_t err = cudaFuncSetAttribute(topk_tiles_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem1));
   if (err != cudaSuccess) return int(err);
   dim3 grid1(n_tiles, (B + kRowsPB - 1) / kRowsPB);
-  k1<<<grid1, kThreads, smem1, stream>>>(static_cast<const T*>(x), static_cast<const T*>(W),
-                                         static_cast<const float*>(b),
-                                         static_cast<long long*>(cand), B, nd, width, k, region);
+  topk_tiles_kernel<<<grid1, kThreads, smem1, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(W), static_cast<const float*>(b),
+      static_cast<long long*>(cand), B, nd, width, k, region);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return fsel::launch_merge<T>(cand, cand2, vals, idx, B, n_tiles, k, group, stream);
+  return fsel::launch_merge<float>(cand, cand2, vals, idx, B, n_tiles, k, group, stream);
 }
 
 }  // namespace
@@ -169,7 +278,6 @@ extern "C" int fused_topk_launch(const void* x, const void* W, const void* b, vo
                                  void* cand2, void* vals, void* idx, int B, int nd, int width,
                                  int k, int group, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, W, b, cand, cand2, vals, idx, B, nd, width, k, group, st);
-  return launch<float>(x, W, b, cand, cand2, vals, idx, B, nd, width, k, group, st);
+  if (is_bf16) return launch_tc(x, W, b, cand, cand2, vals, idx, B, nd, width, k, group, st);
+  return launch_f32(x, W, b, cand, cand2, vals, idx, B, nd, width, k, group, st);
 }

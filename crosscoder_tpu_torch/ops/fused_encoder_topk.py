@@ -9,8 +9,22 @@ kernel does not take, ``KernelBuildError`` / ``KernelLaunchError``
 otherwise). The JAX wrappers fall back to the dense encode on a shape their
 kernels do not take; the port refuses instead.
 
-- :func:`fused_topk_encode` (K2, ``csrc/fused_topk.cu``): ``(vals [B, k],
-  idx [B, k] int32)``, ascending index, ``(0.0, 0)``-padded; the
+In bf16, K2 and K4 compute the product on the tensor cores with one shared
+tile (``csrc/encoder_tile_sm90.cuh``): a persistent grid over [128, 128]
+output tiles, TMA loads of x and W into a shared-memory ring, two
+warpgroups of ``wgmma`` with fp32 sums, the kernel's selection in the
+epilogue. TMA reads rows 16 bytes at a time, so bf16 takes ``nd`` and the
+width divisible by 8 and 16-byte aligned operands (:func:`check_supported`,
+:func:`check_supported_bt`). In float32 they keep fp32 FMAs on the CUDA
+cores, since a tensor-core f32 product is TF32 and would change results.
+At the training shape ([4096, 4608] x [4608, 32768]) both are bound by the
+product's operations (1.2507 ms at the bf16 tensor-core peak); at the
+serve shape ([8, 4608] x [4608, 16384]) K2 is bound by reading W once
+(0.0451 ms).
+
+- :func:`fused_topk_encode` (K2, ``csrc/fused_topk.cu``; replaces the TPU
+  kernel ``_fused_topk_kernel``): ``(vals [B, k], idx [B, k] int32)``,
+  ascending index, ``(0.0, 0)``-padded; the
   pre-activations are rounded to the compute dtype before selection (as
   ``crosscoder.pre_acts`` does); selection runs on the sign-clamped f32 bit
   patterns (every NaN above +inf, ``-0.0`` and negatives at 0); ties go to
@@ -22,14 +36,16 @@ kernels do not take; the port refuses instead.
   the two agree bitwise where the sums are exact (integer-valued
   operands) and to rounding elsewhere.
 - ``quant_block > 0`` (K3, :func:`fused_topk_encode_q`,
-  ``csrc/fused_topk_q.cu``): the same selection over the int8 block-scaled
-  product of the JAX ``_tile_preacts_quant``: x quantized per (row, block),
+  ``csrc/fused_topk_q.cu``; replaces ``_fused_topk_kernel_q``): the same
+  selection over the int8 block-scaled product of the JAX
+  ``_tile_preacts_quant``: x quantized per (row, block),
   W per (block, column) (:func:`crosscoder_tpu_torch.ops.quant.quantize_contraction`),
   each block's integer product exact, folded into f32 as ``acc + (p ·
   xs[:, b]) · ws[b, :]`` for b = 0…nb−1. Kernel and plain version
   (:func:`fused_topk_encode_q_plain`) round each step alike: bitwise on any
   input.
-- :func:`fused_batchtopk_encode` (K4, ``csrc/fused_batchtopk.cu``): the
+- :func:`fused_batchtopk_encode` (K4, ``csrc/fused_batchtopk.cu``; replaces
+  ``_fused_bt_bisect_kernel`` and ``_fused_bt_emit_kernel``): the
   masked ``[B, width]`` BatchTopK activations, every entry whose clamped
   pattern (K9's rule, :func:`topk_pallas.batchtopk_select`) reaches the
   ``min(k·B, B·width)``-th largest of the batch, all ties kept. Select
@@ -129,13 +145,30 @@ def _check_operands(x2, W2, b_enc, what: str) -> None:
         raise ValueError(f"{what} kernel takes a dictionary width divisible by 8, got {width}")
 
 
+def _check_tma(x2, W2, what: str) -> None:
+    """The bf16 tensor-core tile's TMA loads: 16-byte row strides (``nd``
+    and the width divisible by 8) and 16-byte aligned operands."""
+    nd = x2.shape[1]
+    if nd % 8:
+        raise ValueError(f"{what} kernel takes bfloat16 nd divisible by 8 (16-byte TMA rows), "
+                         f"got nd={nd}")
+    for name, t in (("x2", x2), ("W2", W2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel needs a 16-byte aligned {name} for TMA, got "
+                             f"data_ptr % 16 = {t.data_ptr() % 16}")
+
+
 def check_supported(x2, W2, b_enc, k: int) -> None:
     """Raise :class:`ValueError` naming any shape or type the K2 kernel
-    does not take."""
+    does not take: bf16 the tensor-core tile's TMA gates, float32 the
+    shared memory of its CUDA-core pass (8 rows of x staged)."""
     _check_operands(x2, W2, b_enc, "fused topk")
     nd, width = W2.shape
     if not 0 < k <= min(_MAX_K, width):
         raise ValueError(f"fused topk kernel takes 0 < k <= min({_MAX_K}, width={width}), got {k}")
+    if x2.dtype == torch.bfloat16:
+        _check_tma(x2, W2, "fused topk")
+        return
     x_bytes = 8 * nd * x2.element_size()
     smem1 = -(-max(x_bytes, 16 * 8 * _CW * 4) // 16) * 16 + 8 * _CW * 8
     if smem1 > _SMEM_LIMIT:
@@ -197,13 +230,11 @@ def fused_topk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
     _check_cuda(x2, "fused_topk_encode")
     from crosscoder_tpu_torch.ops import _build
 
+    x2 = x2.contiguous()
+    W2 = W2.contiguous()
     check_supported(x2, W2, b_enc, k)
     B, nd = x2.shape
     width = W2.shape[1]
-    x2 = x2.contiguous()
-    W2 = W2.contiguous()
-    if W2.data_ptr() % 16 or x2.data_ptr() % 16:
-        raise ValueError("fused topk kernel needs 16-byte aligned x2 and W2")
     b32 = b_enc.to(torch.float32).contiguous()
     group, cand, cand2, vals, idx = _candidates(B, width, k, x2.dtype, x2.device)
     lib = _build.load(_KERNEL)
@@ -291,18 +322,26 @@ def fused_batchtopk_encode_plain(x2: torch.Tensor, W2: torch.Tensor, b_enc: torc
 
 def check_supported_bt(x2, W2, b_enc) -> None:
     """Raise :class:`ValueError` naming any shape or type the K4 kernels do
-    not take: K2's operands and a contraction axis divisible by 16."""
+    not take: K2's operands, then bf16 the tensor-core tile's TMA gates,
+    float32 a contraction axis divisible by 16 (its CUDA-core tile) and
+    16-byte aligned operands."""
     _check_operands(x2, W2, b_enc, "fused batchtopk")
+    if x2.dtype == torch.bfloat16:
+        _check_tma(x2, W2, "fused batchtopk")
+        return
     if x2.shape[1] % 16:
-        raise ValueError(f"fused batchtopk kernel takes nd divisible by 16, got {x2.shape[1]}")
+        raise ValueError(f"fused batchtopk kernel takes float32 nd divisible by 16, got "
+                         f"nd={x2.shape[1]}")
+    for name, t in (("x2", x2), ("W2", W2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused batchtopk kernel needs a 16-byte aligned {name}, got "
+                             f"data_ptr % 16 = {t.data_ptr() % 16}")
 
 
 def _bt_operands(x2, W2, b_enc, name: str):
     _check_cuda(x2, name)
-    check_supported_bt(x2, W2, b_enc)
     x2, W2 = x2.contiguous(), W2.contiguous()
-    if W2.data_ptr() % 16 or x2.data_ptr() % 16:
-        raise ValueError("fused batchtopk kernel needs 16-byte aligned x2 and W2")
+    check_supported_bt(x2, W2, b_enc)
     return x2, W2, b_enc.to(torch.float32).contiguous()
 
 

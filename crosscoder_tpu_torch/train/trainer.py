@@ -159,6 +159,16 @@ class Trainer:
     carries a JAX one over). ``checkpointer``: where :meth:`save` writes and
     :meth:`restore` reads; with ``cfg.resume`` the newest verified save is
     restored here. Runs on ``cuda`` unless ``device`` names another device.
+
+    A knob whose JAX behaviour is not ported raises
+    :class:`NotImplementedError` rather than being dropped: the loss guard,
+    resampling, ``quant_grads``, the fleet, elastic runs, the observability
+    plane, chaos, the harvest watchdog (``harvest_timeout_s > 0``), profiler
+    traces (``profile_dir``, ``profile_steps``) and a mesh
+    (``model_axis_size`` or ``data_axis_size`` above 1, ``shard_sources``;
+    ``data_axis_size = -1``, all devices, is this one). ``prefetch``,
+    ``remat`` and ``compile_cache_dir`` change only speed or memory in the
+    JAX trainer, never results, so the port accepts and ignores them.
     """
 
     def __init__(self, cfg: CrossCoderConfig, buffer: Any | None = None,
@@ -168,7 +178,13 @@ class Trainer:
                          ("resample_every", cfg.resample_every > 0),
                          ("quant_grads", cfg.quant_grads), ("fleet", cfg.fleet == "on"),
                          ("elastic", cfg.elastic == "on"), ("obs", cfg.obs == "on"),
-                         ("chaos", bool(cfg.chaos))):
+                         ("chaos", bool(cfg.chaos)),
+                         ("harvest_timeout_s", cfg.harvest_timeout_s > 0),
+                         ("profile_dir", bool(cfg.profile_dir)),
+                         ("profile_steps", bool(cfg.profile_steps)),
+                         ("model_axis_size", cfg.model_axis_size > 1),
+                         ("data_axis_size", cfg.data_axis_size > 1),
+                         ("shard_sources", cfg.shard_sources)):
             if on:
                 raise NotImplementedError(
                     f"cfg.{knob} is not ported to the PyTorch trainer yet (ROADMAP Queue A)")

@@ -9,7 +9,8 @@ Tolerances: paged attention 1e-5 in fp32 and 2e-2 in bf16 on valid rows
 (online softmax reassociates the sum; the plain version rounds the
 probabilities to bf16); the fused encoder→TopK (K2) and →BatchTopK (K4)
 bitwise on integer-valued operands, whose fp32 sums are exact in any
-order; the int8 fused encoder (K3), the TopK masks (K5, K6, K7), the
+order (bf16 on the tensor-core tile, also at its edges: rows, contraction
+and width that are not tile multiples); the int8 fused encoder (K3), the TopK masks (K5, K6, K7), the
 sparsify drain (K8) and the sorted-pair scatter (K10) bitwise on any
 inputs, since each does the plain version's arithmetic in its order."""
 
@@ -402,6 +403,76 @@ def test_fused_topk_q_kernel_bitwise_matches_plain(cuda, dtype, B, qb, k):
     assert fek.fused_topk_encode_q.launches == before + 1
     assert torch.equal(idx, pi)
     assert _same_bits(vals, pv)
+
+
+def _tile_edge_operands(seed, B, nd, width, dtype, bias=None):
+    """Exact operands at the bf16 tensor-core tile's edges: every column
+    doubled half the width on (ties at every threshold, the pair in other
+    tiles), -0.0 in x and in the bias, a NaN bias column (random bias)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(-2, 3, (B, nd), generator=gen, device="cuda").float()
+    W = torch.randint(-2, 3, (nd, width), generator=gen, device="cuda").float()
+    b = (torch.randint(-8, 9, (width,), generator=gen, device="cuda").float() if bias is None
+         else torch.full((width,), bias, device="cuda"))
+    half = width // 2
+    W[:, half:] = W[:, :half]
+    b[half:] = b[:half]
+    if B >= 3:
+        x[2] = -0.0
+    if bias is None:
+        b[200] = -0.0
+        b[300] = float("nan")
+    return x.to(dtype), W.to(dtype), b
+
+
+@pytest.mark.parametrize("B", [1, 3, 130])
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_fused_topk_tile_edges_bitwise_match_plain(cuda, B, k):
+    """bf16 K2 on the tensor-core tile: rows, contraction (4104, not a
+    multiple of the 64-deep TMA box) and width (2^15 + 8) off the tile,
+    with a NaN row."""
+    x, W, b = _tile_edge_operands(B * 131 + k, B, 4104, 2 ** 15 + 8, torch.bfloat16)
+    if B >= 3:
+        x[1] = float("nan")
+    before = fek.fused_topk_encode.launches
+    vals, idx = fek.fused_topk_encode(x, W, b, k)
+    pv, pi = fek.fused_topk_encode_plain(x, W, b, k)
+    torch.cuda.synchronize()
+    assert fek.fused_topk_encode.launches == before + 1
+    assert torch.equal(idx, pi)
+    assert _same_bits(vals, pv)
+
+
+@pytest.mark.parametrize("B", [1, 3, 130])
+@pytest.mark.parametrize("bias", [None, 3.0])
+def test_fused_batchtopk_tile_edges_bitwise_match_plain(cuda, B, bias):
+    """bf16 K4 on the tensor-core tile at the same edges; a positive bias
+    everywhere must not make the padded rows of the last row block count."""
+    x, W, b = _tile_edge_operands(B * 17 + int(bias or 0), B, 4104, 2 ** 15 + 8,
+                                  torch.bfloat16, bias)
+    kk = fek.batchtopk_budget(B, W.shape[1], 32)
+    kth = fek.fused_batchtopk_select(x, W, b, kk)
+    want = fek.fused_batchtopk_select_plain(x, W, b, kk)
+    torch.cuda.synchronize()
+    assert int(kth) == int(want), (int(kth), int(want))
+    assert _same_bits(fek.fused_batchtopk_emit(x, W, b, kth),
+                      fek.fused_batchtopk_emit_plain(x, W, b, want))
+
+
+def test_bf16_tile_rejects_what_tma_cannot_load(cuda):
+    b = torch.zeros(1024, device="cuda")
+    x = torch.zeros((4, 4100), device="cuda", dtype=torch.bfloat16)
+    W = torch.zeros((4100, 1024), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="nd divisible by 8.*nd=4100"):
+        fek.fused_topk_encode(x, W, b, 8)
+    with pytest.raises(ValueError, match="nd divisible by 8.*nd=4100"):
+        fek.fused_batchtopk_encode(x, W, b, 8)
+    W = torch.zeros(256 * 1024 + 1, device="cuda", dtype=torch.bfloat16)[1:].view(256, 1024)
+    x = torch.zeros((4, 256), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned W2"):
+        fek.fused_topk_encode(x, W, b, 8)
+    with pytest.raises(ValueError, match="aligned W2"):
+        fek.fused_batchtopk_select(x, W, b, 8)
 
 
 def test_fused_kernels_reject_unsupported_shapes(cuda):

@@ -1,0 +1,32 @@
+"""The port's Trainer refuses every config knob whose JAX behaviour it has
+not ported, rather than running a different job without a word; the
+defaults (and ``data_axis_size = -1``, all of one device) still train."""
+
+import pytest
+import torch
+
+from crosscoder_tpu_torch.config import CrossCoderConfig
+from crosscoder_tpu_torch.train.trainer import Trainer
+
+BASE = dict(d_in=16, dict_size=64, batch_size=8, num_tokens=16, log_backend="null")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("harvest_timeout_s", 30.0),
+    ("profile_dir", "/nonexistent/profile"),
+    ("profile_steps", "3:5"),
+    ("model_axis_size", 2),
+    ("data_axis_size", 2),
+    ("shard_sources", True),
+])
+def test_unported_knob_raises(knob, value):
+    with pytest.raises(NotImplementedError, match=f"cfg.{knob} is not ported"):
+        Trainer(CrossCoderConfig(**BASE, **{knob: value}), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{}, {"data_axis_size": -1}, {"data_axis_size": 1},
+                                {"model_axis_size": 1}, {"prefetch": False},
+                                {"remat": True}, {"compile_cache_dir": "unused"}])
+def test_defaults_and_speed_only_knobs_construct(kw):
+    tr = Trainer(CrossCoderConfig(**BASE, **kw), device="cpu")
+    assert torch.isfinite(tr.step()["loss"])
