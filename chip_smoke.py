@@ -8,12 +8,14 @@ one NVIDIA Hopper card and the CUDA toolkit:
 2. build: compiles every kernel under ``crosscoder_tpu_torch/csrc/`` with
    ``nvcc`` (one process per source, all at once) into ``build/kernels/``;
 3. kernels vs their plain PyTorch versions on the card: ragged paged
-   attention at the Gemma-2-2B attention shapes (mixed lengths, bf16 and
-   fp32, global and windowed), the fused encoder→TopK bitwise on exact
-   integer-valued inputs (planted ties, NaN, -0.0, a width that is not a
-   tile multiple, k in {1, 32, 128}), on exact inputs at the serve shape in
-   bf16 (the tensor-core tile) and f32 (the CUDA cores), and on random bf16
-   at the serve shape; times each kernel (back to back and queued) beside
+   attention at the Gemma-2-2B attention shapes (mixed lengths, bf16 on
+   its tensor-core kernel and fp32 on its CUDA-core one, each route's
+   launch counted; global, windowed, a window shorter than a page, softcap
+   on and off; the f32 kernel also timed at the serve lengths), the fused
+   encoder→TopK bitwise on exact integer-valued inputs (planted ties, NaN,
+   -0.0, a width that is not a tile multiple, k in {1, 32, 128}), on exact
+   inputs at the serve shape in bf16 (the tensor-core tile) and f32 (the
+   CUDA cores), and on random bf16 at the serve shape; times each kernel (back to back and queued) beside
    its plain version, one library call, the card's bound and, for the
    kernels the bf16 tensor-core tile redesigned, the CUDA-core design's
    time in brackets;
@@ -21,7 +23,8 @@ one NVIDIA Hopper card and the CUDA toolkit:
    ``blocks.14.hook_resid_pre``, a 16384-latent topk crosscoder (k=32),
    seq_len 1024, page 64, batch 8: warmup, then micro-batches of mixed
    lengths, a partial bucket and one extend, with both kernels' launch
-   counters read around the traffic; one batch re-run with both plain
+   counters read around the traffic (every attention launch on the bf16
+   tensor-core kernel); one batch re-run with both plain
    versions, and one through the padded (page-free) forward;
 5. training kernels vs their plain versions, bitwise, at the training
    shapes: the TopK mask (K5) and the sparsify drain (K8) on bf16 rows
@@ -68,8 +71,12 @@ one NVIDIA Hopper card and the CUDA toolkit:
    sleep (device time without the host's launch rate); the int8 fused
    encoder (K3) bitwise on random bf16 and f32 inputs ([520, 4608] x
    [4608, 4192]: rows and a width that are not tile multiples, k in {1,
-   32, 128}, blocks 128 and 256); the fused BatchTopK select and emit (K4)
-   bitwise on exact integer-valued inputs, bf16 and f32 (ties at the
+   32, 128}, blocks 128 and 256) and at the edges of its int8 tensor-core
+   tile (B 1, 3, 130, width 2^15 + 8, blocks 32, 64, 96 and 256, an
+   all-zero block, operands at +-127, a -0.0 and a NaN bias column), its
+   training-shape time split by the profiler into the quantization, the
+   product-and-sort pass and the merge; the fused BatchTopK select and
+   emit (K4) bitwise on exact integer-valued inputs, bf16 and f32 (ties at the
    global threshold, a positive bias over 1000 rows, a width of 4104, a
    budget above the count of positives; the training and the serve
    shapes); K2 and K4 bitwise on exact inputs at the edges of the bf16
@@ -152,11 +159,13 @@ STEPS_F, STEPS_W, STEPS_V = 8, 6, 3
 # the device sleep in front of a queued timing: about 25 ms at the H100's
 # clocks, longer than the host takes to issue 50 launches of a wrapper
 QUEUE_CYCLES = 50_000_000
-# the times this script measured for the CUDA-core designs that the bf16
-# tensor-core tile replaced (H100 80GB HBM3 at 700.00 W), printed in
-# brackets beside the tile's
+# the times this script measured for the CUDA-core designs that the
+# tensor-core kernels replaced (H100 80GB HBM3 at 700.00 W; K2 and K4 in
+# bf16 before the shared tile, K3 and K1 before theirs), printed in
+# brackets beside the new ones
 CUDA_CORE_MS = {"K2 serve": 0.2477, "K2 train": 95.2670, "K4 select": 39.9474,
-                "K4 emit": 29.2987, "leg B bare step": 127.4, "leg K step": 104.389}
+                "K4 emit": 29.2987, "leg B bare step": 127.4, "leg K step": 104.389,
+                "K3 train": 24.1683, "K1 serve": 1.1974, "leg I bare step": 58.3}
 
 
 def log(msg: str) -> None:
@@ -201,31 +210,84 @@ def bound(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
 
 
 def check_paged_attention(torch, pa, lengths_serve):
-    """K1 at the Gemma-2-2B attention shapes; returns its kernel-table row."""
+    """K1 at the Gemma-2-2B attention shapes, both routes; returns its
+    kernel-table row. f32 is held to 1e-5 on valid rows; bf16 to 2e-2 on
+    valid rows and, per row (a query position and head), to 2e-2 of that
+    row's largest output. Random logits are about N(0, 1), where a cap of
+    50 moves the output by less than a bf16 ulp, so bf16 adds softcap cases
+    with sharp logits (q x 30: up to about +-90 before the cap) and v / 4
+    (outputs below 2); there, and in f32's softcap cases, the plain version
+    with the cap must differ from the one without by over 5x the bar."""
     D_, S, H, KV, hd, page = 6, 1024, 8, 4, 256, 64
     scale, cap = 256 ** -0.5, 50.0
     gen = torch.Generator(device="cuda").manual_seed(0)
     lens = torch.tensor([1, 63, 64, 65, 1000, 1024], dtype=torch.int32, device="cuda")
 
     def valid_err(a, b, ln):
-        a = a.float().reshape(a.shape[0], S, -1)
-        b = b.float().reshape(b.shape[0], S, -1)
-        return max(float((a[d, :int(ln[d])] - b[d, :int(ln[d])]).abs().max())
-                   for d in range(a.shape[0]))
+        """max |a - b| on valid rows, and its largest ratio, row by row, to
+        max |b| of the row."""
+        a = a.float().reshape(a.shape[0], S, H, -1)
+        b = b.float().reshape(b.shape[0], S, H, -1)
+        worst = rel = 0.0
+        for d in range(a.shape[0]):
+            e = (a[d, :int(ln[d])] - b[d, :int(ln[d])]).abs()
+            worst = max(worst, float(e.max()))
+            peak = b[d, :int(ln[d])].abs().amax(-1).clamp_min(1e-30)
+            rel = max(rel, float((e.amax(-1) / peak).max()))
+        return worst, rel
+
+    def within(errs, dt, tol):
+        return errs[0] <= tol and (dt == torch.float32 or errs[1] <= tol)
 
     for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         q = torch.randn((D_, S, H, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((D_, S, KV, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((D_, S, KV, hd), generator=gen, device="cuda").to(dt)
-        for window in (4096, 0, 256):
-            kw = dict(page_size=page, scale=scale, softcap=cap, window=window)
-            got = pa.paged_attention(q, k, v, lens, **kw)
-            want = pa.paged_attention_plain(q, k, v, lens, **kw)
+        q_sharp, v_sharp = (q.float() * 30).to(dt), (v.float() / 4).to(dt)
+        route = pa.kernel_route(dt)
+        cases = [(4096, cap), (0, cap), (256, cap), (20, cap), (0, 0.0)]
+        if dt == torch.bfloat16:
+            cases += [(0, cap, "sharp"), (20, cap, "sharp")]
+        for window, softcap, *sharp in cases:
+            qc, vc = (q_sharp, v_sharp) if sharp else (q, v)
+            kw = dict(page_size=page, scale=scale, softcap=softcap, window=window)
+            before = pa.paged_attention.launches
+            got = pa.paged_attention(qc, k, vc, lens, **kw)
+            after = (pa.paged_attention.launches, pa.paged_attention.last_route)
+            want = pa.paged_attention_plain(qc, k, vc, lens, **kw)
             torch.cuda.synchronize()
-            err = valid_err(got, want, lens.tolist())
-            log(f"K1 paged_attention {str(dt)[6:]} window={window}: max_abs_err={err:.3e} (tol {tol})")
-            if not err <= tol:
-                fail(f"paged attention kernel disagrees with its plain version: {err} > {tol}")
+            errs = valid_err(got, want, lens.tolist())
+            sep = ""
+            if softcap and (dt == torch.float32 or sharp):
+                uncapped = pa.paged_attention_plain(qc, k, vc, lens, **{**kw, "softcap": 0.0})
+                moved = valid_err(uncapped, want, lens.tolist())
+                sep = (f"; the cap moves the plain output by {moved[0]:.3e} ({moved[1]:.3e} of "
+                       f"a row)")
+                if not moved[0] > 5 * tol:
+                    fail(f"K1 softcap case cannot see the cap: it moves the output by {moved[0]} "
+                         f"<= 5 x {tol}")
+            log(f"K1 paged_attention {str(dt)[6:]} ({route}) window={window} softcap={softcap}"
+                f"{' sharp logits' if sharp else ''}: max_abs_err={errs[0]:.3e}, row-relative "
+                f"{errs[1]:.3e} (tol {tol}{'' if dt == torch.float32 else ' both'}){sep}")
+            if not within(errs, dt, tol):
+                fail(f"paged attention kernel disagrees with its plain version: {errs} > {tol}")
+            if after != (before + 1, route):
+                fail(f"paged attention in {dt} did not launch its {route} kernel")
+        if dt == torch.float32:
+            # the f32 (CUDA-core) kernel at the serve shape's lengths, timed
+            lens_s = torch.tensor(lengths_serve, dtype=torch.int32, device="cuda")
+            qs, ks, vs = (t[:1].expand(len(lengths_serve), *t.shape[1:]).contiguous()
+                          for t in (q, k, v))
+            kw = dict(page_size=page, scale=scale, softcap=cap, window=0)
+            f32_ms = time_ms(lambda: pa.paged_attention(qs, ks, vs, lens_s, **kw), 10)
+            f32_plain = time_ms(lambda: pa.paged_attention_plain(qs, ks, vs, lens_s, **kw), 3)
+            n_tok = sum(lengths_serve)
+            pairs = sum(t + 1 for ln in lengths_serve for t in range(ln))
+            b_ms, b_by = bound(n_tok * (2 * H + 2 * KV) * hd * 4 + len(lengths_serve) * 4,
+                               4 * hd * H * pairs, "fp32")
+            log(f"K1 serve shape {len(lengths_serve)}x{S} f32 (cuda_cores): {f32_ms:.4f} ms "
+                f"kernel, {f32_plain:.4f} ms plain, bound {b_ms:.4f} ms by {b_by}")
+            del qs, ks, vs
 
     # the serve shape: 8 documents of the traffic's first micro-batch, bf16
     D_ = len(lengths_serve)
@@ -234,10 +296,11 @@ def check_paged_attention(torch, pa, lengths_serve):
     k = torch.randn((D_, S, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn((D_, S, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
     kw = dict(page_size=page, scale=scale, softcap=cap, window=0)
-    err = valid_err(pa.paged_attention(q, k, v, lens, **kw),
-                    pa.paged_attention_plain(q, k, v, lens, **kw), lengths_serve)
-    if not err <= 2e-2:
-        fail(f"paged attention kernel at the serve shape: {err} > 2e-2")
+    errs = valid_err(pa.paged_attention(q, k, v, lens, **kw),
+                     pa.paged_attention_plain(q, k, v, lens, **kw), lengths_serve)
+    if not within(errs, torch.bfloat16, 2e-2):
+        fail(f"paged attention kernel at the serve shape: {errs} > 2e-2")
+    err = errs[0]
     ms = time_ms(lambda: pa.paged_attention(q, k, v, lens, **kw), 20)
     plain_ms = time_ms(lambda: pa.paged_attention_plain(q, k, v, lens, **kw), 5)
     pos = torch.arange(S, device="cuda")
@@ -251,8 +314,9 @@ def check_paged_attention(torch, pa, lengths_serve):
     n_bytes = n_tok * (2 * H + 2 * KV) * hd * 2 + D_ * 4
     n_ops = 4 * hd * H * pairs
     b_ms, b_by = bound(n_bytes, n_ops, "bf16")
-    log(f"K1 serve shape {D_}x{S} bf16: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-        f"{library_ms:.4f} ms sdpa, bound {b_ms:.4f} ms by {b_by}")
+    log(f"K1 serve shape {D_}x{S} bf16 (tensor_cores): {ms:.4f} ms kernel (CUDA-core design "
+        f"[{CUDA_CORE_MS['K1 serve']}]), {plain_ms:.4f} ms plain, {library_ms:.4f} ms "
+        f"sdpa, bound {b_ms:.4f} ms by {b_by}")
     return {"name": "paged_attention", "route": "cuda",
             "source": "crosscoder_tpu_torch/csrc/paged_attention.cu",
             "replaces": "crosscoder_tpu/ops/paged_attention.py:189",
@@ -402,7 +466,7 @@ def profile_batch(torch, eng, smoke, docs) -> None:
     groups = {"paged_attention (K1)": 0.0, "fused_topk (K2)": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         n = e.key.lower()
-        g = ("paged_attention (K1)" if "rpa_kernel" in n else
+        g = ("paged_attention (K1)" if "rpa_" in n else
              "fused_topk (K2)" if "topk_tiles" in n or "topk_merge" in n else
              "matmul" if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas"))
              else "other")
@@ -421,6 +485,7 @@ def serve(torch, np, lengths_a):
     from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
     from crosscoder_tpu_torch.ops import paged_attention as pa
     from crosscoder_tpu_torch.serve import smoke
+    from crosscoder_tpu_torch.utils.dtypes import dtype_of
 
     t0 = time.perf_counter()
     eng, cfg, lm_cfg, _, _ = smoke.build_engine(
@@ -446,6 +511,7 @@ def serve(torch, np, lengths_a):
     keep_doc, extra = docs_of([400, 212])
 
     pa.paged_attention.launches = 0
+    pa.paged_attention.last_route = None
     fek.fused_topk_encode.launches = 0
     served = [smoke.serve_batch(eng, batch_a)]
     served += [smoke.serve_batch(eng, d) for d in more]
@@ -463,6 +529,11 @@ def serve(torch, np, lengths_a):
         f"kernel launches {launches}")
     if not all(launches.values()):
         fail(f"a kernel of the serve path never launched: {launches}")
+    # the route is the dtype's (kernel_route), and every layer's q is the model's bf16
+    route = pa.paged_attention.last_route
+    log(f"serve: paged attention launches on the {route} route")
+    if (route, pa.kernel_route(dtype_of(lm_cfg.dtype))) != ("tensor_cores",) * 2:
+        fail(f"the bf16 serve path's attention did not run on the tensor-core kernel: {route}")
     if [r.bucket for r in served[4]] != [4, 4, 4]:
         fail(f"partial batch of 3 served under buckets {[r.bucket for r in served[4]]}")
     if not (len(ext) == 1 and ext[0].extended):
@@ -699,7 +770,8 @@ def _dev_us(e):
 
 def profile_kernels(torch, fn, label, groups):
     """Device time of one call of ``fn`` by kernel, through torch.profiler:
-    each group sums the kernels whose name holds its substring."""
+    each group sums the kernels whose name holds its substring; the rest is
+    every other kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -713,10 +785,10 @@ def profile_kernels(torch, fn, label, groups):
     if total <= 0:
         log(f"profile {label}: the profiler recorded no device time (not measured)")
         return
-    parts = ", ".join(
-        f"{g} {sum(_dev_us(e) for e in kernels if sub in e.key) / 1e3:.4f} ms"
-        for g, sub in groups.items())
-    log(f"profile {label}: {total:.4f} ms of device time: {parts}")
+    ms = {g: sum(_dev_us(e) for e in kernels if sub in e.key) / 1e3 for g, sub in groups.items()}
+    parts = ", ".join(f"{g} {t:.4f} ms" for g, t in ms.items())
+    log(f"profile {label}: {total:.4f} ms of device time: {parts}, the rest (copies, casts) "
+        f"{total - sum(ms.values()):.4f} ms")
 
 
 def _planted_wide(torch, gen, R, W, dtype):
@@ -923,8 +995,12 @@ def check_quantize(torch, quant):
 def check_fused_topk_q(torch, fek):
     """K3 bitwise against its plain version on random bf16 and f32 inputs
     (a width that is not a tile multiple, rows that are not a row-block
-    multiple, k in {1, 32, 128}, blocks 128 and 256), then timed at the
-    training shape; returns its row."""
+    multiple, k in {1, 32, 128}, blocks 128 and 256), at the edges of the
+    int8 tensor-core tile (B 1, 3 and 130, a width of 2^15 + 8, blocks 32,
+    64 and 96 with a partial last stage, an all-zero block, operands at
+    +-127, a -0.0 and a NaN bias column), then timed at the training shape
+    with the quantization, the product-and-sort pass and the merge apart;
+    returns its row."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     nd = TRAIN["n_models"] * TRAIN["d_in"]
     B, width = 520, 4096 + 96
@@ -943,6 +1019,34 @@ def check_fused_topk_q(torch, fek):
                 if not same:
                     bad = (ik != ip).any(dim=1).nonzero().flatten()[:8].tolist()
                     fail(f"K3 not bitwise equal to its plain version (rows {bad})")
+    checked = 0
+    width = 2 ** 15 + 8
+    for dt in (torch.bfloat16, torch.float32):
+        for qb, ndq in ((32, 544), (64, 576), (96, 576), (256, nd)):
+            for B in (1, 3, 130):
+                x = torch.randn((B, ndq), generator=gen, device="cuda")
+                W = torch.randn((ndq, width), generator=gen, device="cuda") * 0.05
+                b = torch.randn((width,), generator=gen, device="cuda") * 0.01
+                sign = torch.where(torch.arange(ndq, device="cuda") % 3 == 0, -1.0, 1.0)
+                x[-1] = 3.0 * sign                       # +-127 in every block
+                W[:, 7] = 0.25 * sign
+                x[0, :qb] = 0.0                          # an all-zero block: scale 0
+                W[qb:2 * qb, 5] = 0.0
+                b[11] = -0.0
+                b[13] = float("nan")
+                x, W = x.to(dt), W.to(dt)
+                for k in (1, 32, 128):
+                    vk, ik = fek.fused_topk_encode(x, W, b, k, quant_block=qb)
+                    vp, ip = fek.fused_topk_encode_q_plain(x, W, b, k, qb)
+                    torch.cuda.synchronize()
+                    checked += 1
+                    if not (torch.equal(_bits(vk, torch), _bits(vp, torch))
+                            and torch.equal(ik, ip)):
+                        fail(f"K3 at the tile's edge ({dt}, B {B}, nd {ndq}, block {qb}, k {k}) "
+                             f"not bitwise equal to its plain version")
+                del x, W
+    log(f"K3 tile edges: {checked} cases bitwise equal to the plain version (B 1, 3, 130; width "
+        f"{width}; blocks 32, 64, 96, 256; k 1, 32, 128; bf16 and f32)")
     B, H, k, qb = TRAIN["batch_size"], TRAIN["dict_size"], TRAIN["topk_k"], 256
     x = torch.randn((B, nd), generator=gen, device="cuda").to(torch.bfloat16)
     W = (torch.randn((nd, H), generator=gen, device="cuda") * nd ** -0.5).to(torch.bfloat16)
@@ -953,16 +1057,22 @@ def check_fused_topk_q(torch, fek):
         fail("K3 not bitwise equal to its plain version at the training shape")
     ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k, quant_block=qb), 5)
     q_ms = time_ms(lambda: fek.fused_topk_encode(x, W, b, k, quant_block=qb), 5, queued=True)
-    quant_ms = time_ms(lambda: fek.quant.quantize_contraction(x, W, qb), 5)
+    quant_ms = time_ms(lambda: fek.q_operands(x, W, qb), 5)
     plain_ms = time_ms(lambda: fek.fused_topk_encode_q_plain(x, W, b, k, qb), 2)
     lib_ms = time_ms(lambda: torch.topk(torch.matmul(x, W), k), 10)
     nb = nd // qb
     n_bytes = B * nd + B * nb * 4 + nd * H + nb * H * 4 + H * 4 + B * k * 6
     bnd = bound(n_bytes, 2 * B * nd * H, "int8")
     log(f"K3 training shape [{B},{nd}]x[{nd},{H}] block {qb} k={k}: {ms:.4f} ms kernel "
-        f"({q_ms:.4f} ms queued; the operands' quantization {quant_ms:.4f} ms of it), "
-        f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms bf16 matmul+topk (the exact function K3 "
-        f"approximates), bound {bnd[0]:.4f} ms by {bnd[1]}")
+        f"({q_ms:.4f} ms queued; the operands' quantization {quant_ms:.4f} ms of it; "
+        f"CUDA-core design [{CUDA_CORE_MS['K3 train']}]), {plain_ms:.4f} ms plain, {lib_ms:.4f} "
+        f"ms bf16 matmul+topk (the exact function K3 approximates), bound {bnd[0]:.4f} ms by "
+        f"{bnd[1]}")
+    profile_kernels(torch, lambda: fek.fused_topk_encode(x, W, b, k, quant_block=qb),
+                    "K3 training shape",
+                    {"quantization (quantize_rows)": "quantize_rows",
+                     "product + tile sort (topk_tiles_q_tc)": "topk_tiles_q",
+                     "merge (topk_merge_kernel)": "topk_merge"})
     return {**_row("fused_topk_encode_q", "fused_topk_q.cu",
                    "crosscoder_tpu/ops/fused_encoder_topk.py:362", 0.0, ms, plain_ms, bnd,
                    lib_ms), "queued_ms": q_ms}
@@ -1743,8 +1853,9 @@ def fused_legs(torch, np, leg_h, cfg_h):
     aux = [r["ms"] for r in legi if r["aux"]]
     log(f"leg I (TopK, quant_encoder block 256, {steps} steps over leg H's batches): losses "
         f"{[round(r['loss'], 4) for r in legi]}; l0 {[round(r['l0'], 1) for r in legi]}; "
-        f"launches {leg_i}; ms per step (CUDA events) bare (K3) {[round(t, 3) for t in bare]}, "
-        f"aux (dense encode) {[round(t, 3) for t in aux]}")
+        f"launches {leg_i}; ms per step (CUDA events) bare (K3) {[round(t, 3) for t in bare]} "
+        f"(CUDA-core K3 [{CUDA_CORE_MS['leg I bare step']}]), aux (dense encode) "
+        f"{[round(t, 3) for t in aux]}")
     if not all(math.isfinite(r["loss"]) and r["l0"] <= cfg_i.topk_k for r in legi):
         fail("leg I: a loss is not finite or l0 exceeds k")
     if not (leg_i.get("fused_topk_encode_q") == len(bare) and "fused_topk_encode" not in leg_i

@@ -19,12 +19,13 @@
 // shared with the int8 kernel (fused_topk_q.cu).
 //
 // Pass 1, bf16: encoder_tile_sm90.cuh's tensor-core tile (persistent grid,
-// TMA ring, two consumer warpgroups of wgmma, fp32 sums). Its epilogue adds
-// the bias in f32, rounds to bf16 as `pre_acts` does and stages the tile's
-// keys in shared memory as 32-bit composites (the bf16 key's 16 bits, then
-// 127 - the column in the tile: a bf16 pattern's low 16 f32 bits are 0);
-// a warp then sorts each row of its 16 (a bitonic sort of 128) and writes
-// the row's candidates in the 64-bit format of fused_topk_select.cuh.
+// TMA ring, two consumer warpgroups of wgmma, fp32 sums). Its epilogue
+// (fsel::TileTopk, shared with K3) adds the bias in f32, rounds to bf16 as
+// `pre_acts` does and stages the tile's keys in shared memory as 32-bit
+// composites (the bf16 key's 16 bits, then 127 - the column in the tile: a
+// bf16 pattern's low 16 f32 bits are 0); a warp then sorts each row of its
+// 16 (a bitonic sort of 128) and writes the row's candidates in the 64-bit
+// format of fused_topk_select.cuh.
 // Pass 1, f32: the CUDA cores (a tensor-core f32 product would be TF32): a
 // block computes an [8, 128] tile with fp32 FMAs (16 contraction splits x
 // 16 column groups of 8, partial sums added in a fixed order) and ranks it
@@ -53,98 +54,9 @@ using fsel::kCW;
 // --- bf16 pass 1 on the tensor-core tile ----------------------------------
 
 constexpr int kStages = 4;
-constexpr int kKeyPitch = etile::kBN + 8;   // 32-bit words a staged row: 2-way stores, the minimum
-constexpr int kNanKey16 = 0x7F81;           // a NaN's 16-bit key: just above +inf's 0x7F80
-
-__device__ __forceinline__ uint32_t key16(float h) {
-  const __nv_bfloat16 hb = __float2bfloat16_rn(h);
-  const float hc = __bfloat162float(hb);
-  return isnan(hc) ? kNanKey16 : (hc > 0.f ? uint32_t(__bfloat16_as_ushort(hb)) : 0u);
-}
-
-// The 64-bit candidate of a staged composite of tile column c0 + ...
-__device__ __forceinline__ long long wide_composite(uint32_t m, int c0) {
-  const int k16 = int(m >> 16);
-  const int key = k16 == kNanKey16 ? fsel::kSent : k16 << 16;
-  return fsel::composite(key, c0 + 127 - int(m & 0xFFFFu));
-}
-
-// One warp writes a row's tile candidates from its kBN staged composites
-// (distinct, 0 where the key is 0): a bitonic sort of the 128, descending,
-// lane l holding positions 4l .. 4l + 3 (strides 1 and 2 inside a lane,
-// the others across lanes by shuffles); position e then holds the
-// composite of rank e.
-__device__ __forceinline__ void rank_row16(const uint32_t* keys, long long* out, int k, int lane,
-                                           int c0) {
-  const uint4 q = *reinterpret_cast<const uint4*>(keys + 4 * lane);
-  uint32_t v[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int size = 2; size <= etile::kBN; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= 4) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e = 4 * lane + u;
-          const uint32_t o = __shfl_xor_sync(0xffffffffu, v[u], stride >> 2);
-          // the lower position of a pair keeps the larger when the run descends
-          const bool larger = ((e & stride) == 0) == ((e & size) == 0);
-          v[u] = larger ? max(v[u], o) : min(v[u], o);
-        }
-      } else {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (u & stride) continue;
-          const uint32_t a = v[u], b = v[u | stride];
-          const bool desc = ((4 * lane + u) & size) == 0;
-          v[u] = desc ? max(a, b) : min(a, b);
-          v[u | stride] = desc ? min(a, b) : max(a, b);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int e = 4 * lane + u;
-    if (e < k) out[e] = v[u] != 0u ? wide_composite(v[u], c0) : 0;
-  }
-}
-
-struct TopkEpilogue {
-  const float* b;
-  long long* cand;
-  uint32_t* keys;    // [kBM][kKeyPitch]
-  int B, width, k, n_tiles;
-
-  __device__ __forceinline__ void operator()(float (&acc)[64], int row0, int c0, int cw, int t) {
-    uint32_t* kw = keys + cw * 64 * kKeyPitch;
-    const int rbase = row0 + cw * 64;
-    etile::wg_sync(cw);                       // the previous tile's ranking is done with kw
-#pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int r = etile::frag_row(i, t), c = etile::frag_col(i, t);
-      uint32_t k0 = 0, k1 = 0;
-      if (rbase + r < B && c0 + c < width) {  // width % 8 == 0: c and c + 1 in or out together
-        const float2 bb = *reinterpret_cast<const float2*>(b + c0 + c);
-        k0 = key16(acc[i] + bb.x);
-        k1 = key16(acc[i + 1] + bb.y);
-        k0 = k0 ? (k0 << 16) | uint32_t(127 - c) : 0u;
-        k1 = k1 ? (k1 << 16) | uint32_t(126 - c) : 0u;
-      }
-      *reinterpret_cast<uint2*>(kw + r * kKeyPitch + c) = make_uint2(k0, k1);
-    }
-    etile::wg_sync(cw);
-    const int warp = t >> 5, lane = t & 31, tile = c0 / etile::kBN;
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      if (rbase + r >= B) break;
-      rank_row16(kw + r * kKeyPitch, cand + (size_t(rbase + r) * n_tiles + tile) * k, k, lane, c0);
-    }
-  }
-};
 
 constexpr size_t kTcSmem =
-    etile::ring_bytes(kStages) + size_t(etile::kBM) * kKeyPitch * 4 + etile::kAlign;
+    etile::ring_bytes(kStages) + size_t(etile::kBM) * fsel::kKeyPitch * 4 + etile::kAlign;
 
 __global__ void __launch_bounds__(etile::kThreads, 1)
 topk_tiles_tc(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUtensorMap wm,
@@ -152,8 +64,9 @@ topk_tiles_tc(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CU
               int k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ring = etile::align_smem(smem_raw);
-  TopkEpilogue epi{b, cand, reinterpret_cast<uint32_t*>(ring + etile::ring_bytes(kStages)), B,
-                   width, k, (width + etile::kBN - 1) / etile::kBN};
+  fsel::TileTopk<__nv_bfloat16> epi{
+      b, cand, reinterpret_cast<uint32_t*>(ring + etile::ring_bytes(kStages)), B, width, k,
+      (width + etile::kBN - 1) / etile::kBN};
   etile::run_tiles<kStages>(&xm, &wm, ring, B, nd, width, epi);
 }
 

@@ -13,6 +13,13 @@
 //
 // A tile's candidates: the best k composites of one row over kCW columns,
 // in rank order, zero-padded, at cand[row, tile, :] ([B, n_tiles, k]).
+// The tensor-core kernels (K2 in bf16, K3) write them from the tile's
+// accumulators with TileTopk: each consumer warpgroup stages its 64 rows'
+// keys in shared memory and a warp bitonic-sorts each row of 128 (bf16:
+// 32-bit composites, the bf16 key's 16 bits then 127 - the column in the
+// tile, since a bf16 pattern's low 16 f32 bits are 0; f32: the 64-bit
+// composites, built in registers from the staged 32-bit keys). The
+// CUDA-core f32 pass of K2 ranks with rank_row_candidates.
 // The merge: one block per row ranks the n_tiles * k candidates staged in
 // shared memory (only those at or above the k-th best tile head, a lower
 // bound of the k-th best candidate) and emits the k winners in ascending
@@ -24,6 +31,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "encoder_tile_sm90.cuh"
 
 namespace fsel {
 
@@ -77,6 +86,123 @@ __device__ __forceinline__ void rank_row_candidates(const long long* keys, long 
     if (mine[u] > 0 && rank[u] < k) out[rank[u]] = mine[u];
   for (int s = min(npos, k) + lane; s < k; s += 32) out[s] = 0;
 }
+
+// --- the tensor-core tiles' epilogue (TileTopk) ---------------------------
+
+constexpr int kKeyPitch = etile::kBN + 8;   // 32-bit words a staged row: 2-way stores, the minimum
+constexpr int kNanKey16 = 0x7F81;           // a NaN's 16-bit key: just above +inf's 0x7F80
+
+__device__ __forceinline__ uint32_t key16(float h) {
+  const __nv_bfloat16 hb = __float2bfloat16_rn(h);
+  const float hc = __bfloat162float(hb);
+  return isnan(hc) ? kNanKey16 : (hc > 0.f ? uint32_t(__bfloat16_as_ushort(hb)) : 0u);
+}
+
+// The 64-bit candidate of a staged bf16 composite of tile column c0 + ...
+__device__ __forceinline__ long long wide_composite(uint32_t m, int c0) {
+  const int k16 = int(m >> 16);
+  const int key = k16 == kNanKey16 ? kSent : k16 << 16;
+  return composite(key, c0 + 127 - int(m & 0xFFFFu));
+}
+
+// A bitonic sort of one warp's 128 values, descending: lane l holds
+// positions 4l .. 4l + 3 (strides 1 and 2 inside a lane, the others across
+// lanes by shuffles); position e then holds the value of rank e.
+template <typename V>
+__device__ __forceinline__ void bitonic_desc128(V (&v)[4], int lane) {
+#pragma unroll
+  for (int size = 2; size <= etile::kBN; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = 4 * lane + u;
+          const V o = __shfl_xor_sync(0xffffffffu, v[u], stride >> 2);
+          // the lower position of a pair keeps the larger when the run descends
+          const bool larger = ((e & stride) == 0) == ((e & size) == 0);
+          v[u] = larger ? (v[u] > o ? v[u] : o) : (v[u] < o ? v[u] : o);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (u & stride) continue;
+          const V a = v[u], b = v[u | stride];
+          const bool desc = ((4 * lane + u) & size) == 0;
+          const V hi = a > b ? a : b, lo = a > b ? b : a;
+          v[u] = desc ? hi : lo;
+          v[u | stride] = desc ? lo : hi;
+        }
+      }
+    }
+  }
+}
+
+// The epilogue of a tensor-core tile that writes each row's tile
+// candidates: the bias added in f32, the sum rounded to T (bf16 or f32)
+// as `pre_acts` does, rows >= B and columns >= width masked to key 0.
+// width % 8 == 0, so columns c and c + 1 are in or out together.
+template <typename T>
+struct TileTopk {
+  const float* b;
+  long long* cand;
+  uint32_t* keys;    // [kBM][kKeyPitch]
+  int B, width, k, n_tiles;
+
+  __device__ __forceinline__ void operator()(float (&acc)[64], int row0, int c0, int cw, int t) {
+    constexpr bool kBf16 = sizeof(T) == 2;
+    uint32_t* kw = keys + cw * 64 * kKeyPitch;
+    const int rbase = row0 + cw * 64;
+    etile::wg_sync(cw);                       // the previous tile's ranking is done with kw
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = etile::frag_row(i, t), c = etile::frag_col(i, t);
+      uint32_t k0 = 0, k1 = 0;
+      if (rbase + r < B && c0 + c < width) {
+        const float2 bb = *reinterpret_cast<const float2*>(b + c0 + c);
+        if (kBf16) {
+          k0 = key16(acc[i] + bb.x);
+          k1 = key16(acc[i + 1] + bb.y);
+          k0 = k0 ? (k0 << 16) | uint32_t(127 - c) : 0u;
+          k1 = k1 ? (k1 << 16) | uint32_t(126 - c) : 0u;
+        } else {
+          k0 = uint32_t(select_key(acc[i] + bb.x));
+          k1 = uint32_t(select_key(acc[i + 1] + bb.y));
+        }
+      }
+      *reinterpret_cast<uint2*>(kw + r * kKeyPitch + c) = make_uint2(k0, k1);
+    }
+    etile::wg_sync(cw);
+    const int warp = t >> 5, lane = t & 31, tile = c0 / etile::kBN;
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = warp * 16 + rr;
+      if (rbase + r >= B) break;
+      const uint4 q = *reinterpret_cast<const uint4*>(kw + r * kKeyPitch + 4 * lane);
+      long long* out = cand + (size_t(rbase + r) * n_tiles + tile) * k;
+      if (kBf16) {
+        uint32_t v[4] = {q.x, q.y, q.z, q.w};
+        bitonic_desc128(v, lane);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = 4 * lane + u;
+          if (e < k) out[e] = v[u] != 0u ? wide_composite(v[u], c0) : 0;
+        }
+      } else {
+        const uint32_t key[4] = {q.x, q.y, q.z, q.w};
+        unsigned long long v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[u] = (unsigned long long)composite(int(key[u]), c0 + 4 * lane + u);
+        bitonic_desc128(v, lane);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int e = 4 * lane + u;
+          if (e < k) out[e] = (long long)v[u];
+        }
+      }
+    }
+  }
+};
 
 // Block (row, g) merges tiles [g * group, g * group + group) of a row's
 // row_tiles candidate lists; with `out`, it writes the best k in rank order

@@ -41,9 +41,11 @@ serve shape ([8, 4608] x [4608, 16384]) K2 is bound by reading W once
   ``_tile_preacts_quant``: x quantized per (row, block),
   W per (block, column) (:func:`crosscoder_tpu_torch.ops.quant.quantize_contraction`),
   each block's integer product exact, folded into f32 as ``acc + (p ·
-  xs[:, b]) · ws[b, :]`` for b = 0…nb−1. Kernel and plain version
-  (:func:`fused_topk_encode_q_plain`) round each step alike: bitwise on any
-  input.
+  xs[:, b]) · ws[b, :]`` for b = 0…nb−1. The kernel runs on the same tile
+  with the int8 ``wgmma`` (both operands K-major, the scales transposed:
+  :func:`q_operands`) in bf16 and f32 alike, and folds each block in the
+  main loop; kernel and plain version (:func:`fused_topk_encode_q_plain`)
+  round each step alike: bitwise on any input.
 - :func:`fused_batchtopk_encode` (K4, ``csrc/fused_batchtopk.cu``; replaces
   ``_fused_bt_bisect_kernel`` and ``_fused_bt_emit_kernel``): the
   masked ``[B, width]`` BatchTopK activations, every entry whose clamped
@@ -254,13 +256,29 @@ def fused_topk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
 fused_topk_encode.launches = 0
 
 
+def q_operands(x2: torch.Tensor, W2: torch.Tensor, quant_block: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's operands in the layouts its TMA loads read: ``(xq int8 [B, nd],
+    xsT f32 [nb, Bp], wqT int8 [width, nd], ws f32 [nb, width])``, from
+    :func:`quant.quantize_contraction`. Both int8 operands are K-major (the
+    8-bit ``wgmma`` has no transpose); ``xsT`` holds ``xs`` transposed, so a
+    block's scales of 128 rows are one contiguous row, zero-padded to
+    ``Bp``, ``B`` rounded up to a multiple of 4 (16-byte TMA rows)."""
+    xq, xs, wq, ws = quant.quantize_contraction(x2, W2, quant_block)
+    B, nb = xs.shape
+    xsT = torch.zeros((nb, -(-B // 4) * 4), dtype=torch.float32, device=xs.device)
+    xsT[:, :B] = xs.t()
+    # wq is the transposed view of the [width, nd] quantization: no copy
+    return xq.contiguous(), xsT, wq.t().contiguous(), ws.contiguous()
+
+
 def fused_topk_encode_q(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor, k: int,
                         quant_block: int) -> tuple[torch.Tensor, torch.Tensor]:
     """K3: :func:`fused_topk_encode` over the int8 block-scaled product
     (blocks of ``quant_block`` along the contraction). The operands are
-    quantized first (:func:`quant.quantize_contraction`: K11 on the card);
-    then the plain version on CPU tensors, the Hopper kernel on CUDA
-    tensors (or :class:`ValueError`; no fallback)."""
+    quantized first (:func:`q_operands`: K11 on the card); then the plain
+    version on CPU tensors, the Hopper kernel on CUDA tensors (or
+    :class:`ValueError`; no fallback)."""
     if x2.device.type == "cpu":
         return fused_topk_encode_q_plain(x2, W2, b_enc, k, quant_block)
     _check_cuda(x2, "fused_topk_encode_q")
@@ -269,18 +287,16 @@ def fused_topk_encode_q(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
     check_supported_q(x2, W2, b_enc, k, quant_block)
     B, nd = x2.shape
     width = W2.shape[1]
-    xq, xs, wq, ws = quant.quantize_contraction(x2, W2, quant_block)
-    wqT = wq.t().contiguous()              # [width, nd]: a column's contraction run contiguous
-    ws = ws.contiguous()
+    xq, xsT, wqT, ws = q_operands(x2, W2, quant_block)
     b32 = b_enc.to(torch.float32).contiguous()
     group, cand, cand2, vals, idx = _candidates(B, width, k, x2.dtype, x2.device)
     fn = _build.load("fused_topk_q").fused_topk_q_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     code = fn(
-        xq.data_ptr(), xs.data_ptr(), wqT.data_ptr(), ws.data_ptr(), b32.data_ptr(),
-        cand.data_ptr(), cand2.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, nd, width, k,
-        quant_block, group, int(x2.dtype == torch.bfloat16),
+        xq.data_ptr(), xsT.data_ptr(), wqT.data_ptr(), ws.data_ptr(), b32.data_ptr(),
+        cand.data_ptr(), cand2.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, xsT.shape[1], nd,
+        width, k, quant_block, group, int(x2.dtype == torch.bfloat16),
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     _build.check(code, "int8 fused topk kernel")

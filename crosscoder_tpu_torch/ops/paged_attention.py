@@ -12,16 +12,21 @@ Two implementations behind one wrapper, :func:`paged_attention`:
   sequence as the JAX reference (GQA folded as ``[B, S, KV, g, hd]``,
   fp32 logits, softcap, causal/window/length masks, ``NEG_INF`` fill). The
   wrapper takes it for CPU tensors only;
-- the hand-written Hopper kernel in ``csrc/paged_attention.cu`` (grid
-  ``(doc, kv_head, q_tile)``, online softmax over the visible pages). For a
-  CUDA tensor the wrapper launches it or raises; shapes it does not take
-  raise :class:`ValueError`.
+- the hand-written Hopper kernels in ``csrc/paged_attention.cu`` (grid
+  ``(doc, kv_head, q_tile)``, online softmax over the visible pages), one
+  by dtype (:func:`kernel_route`): bf16 on the tensor cores (64 query rows
+  a block, ``mma.sync`` for Q·Kᵀ and P·V, K/V pages staged by
+  ``cp.async`` two deep), f32 on the CUDA cores (32 rows a block, fp32
+  FMAs: a tensor-core f32 product is TF32, too coarse for the f32 bar).
+  This is a dispatch, not a fallback: each route is its own kernel and
+  either raises on failure. For a CUDA tensor the wrapper launches one or
+  raises; shapes neither takes raise :class:`ValueError`.
 
-The kernel's online softmax reassociates the reduction and keeps the
-probabilities in fp32, so kernel vs plain is allclose (about 1e-5 in fp32,
-2e-2 in bf16) on valid rows, not bitwise. Rows at ``t >= lengths[d]`` are
-meaningless in both (the kernel writes 0 for tiles wholly past the
-length); every caller discards them.
+The kernels' online softmax reassociates the reduction (and the bf16 one
+rounds the probabilities to bf16 for P·V), so kernel vs plain is allclose
+(about 1e-5 in fp32, 2e-2 in bf16) on valid rows, not bitwise. Rows at
+``t >= lengths[d]`` are meaningless in both (the kernels write 0 for
+tiles wholly past the length); every caller discards them.
 """
 
 from __future__ import annotations
@@ -36,7 +41,16 @@ NEG_INF = -2.3819763e38
 _KERNEL = "paged_attention"
 _HEAD_DIMS = (128, 256)
 _PAGES = (32, 64)
-_ROWS = 32          # query rows per block (csrc/paged_attention.cu kRows)
+_ROWS = 32          # query rows a block of the f32 kernel (csrc kRows); bf16 takes 64
+_ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+
+
+def kernel_route(dtype: torch.dtype) -> str:
+    """The kernel :func:`paged_attention` launches for CUDA tensors of
+    ``dtype``: ``"tensor_cores"`` (bf16) or ``"cuda_cores"`` (f32)."""
+    if dtype not in _ROUTES:
+        raise ValueError(f"paged attention kernel takes float32 or bfloat16, got {dtype}")
+    return _ROUTES[dtype]
 
 
 def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -155,7 +169,8 @@ def paged_attention(
     window: int = 0,
 ) -> torch.Tensor:
     """Ragged attention ``[D, S, H*hd]``: the plain version on CPU tensors,
-    the Hopper kernel on CUDA tensors (or :class:`ValueError`).
+    the Hopper kernel of :func:`kernel_route` on CUDA tensors (or
+    :class:`ValueError`).
     ``window=0`` means global/causal; ``window > 0`` a sliding window."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k, v, lengths, page_size=page_size,
@@ -165,9 +180,12 @@ def paged_attention(
     from crosscoder_tpu_torch.ops import _build
 
     check_supported(q, k, v, lengths, page_size)
+    route = kernel_route(q.dtype)
     D, S, H, hd = q.shape
     KV = k.shape[2]
     q = q.contiguous()
+    if q.data_ptr() % 16:                     # the bf16 kernel reads q 16 bytes at a time
+        q = q.clone()
     kv_pages, page_tbl = paginate_kv(k, v, page_size)
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -182,9 +200,11 @@ def paged_attention(
         int(q.dtype == torch.bfloat16), float(scale), float(softcap), int(window),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(code, "paged_attention kernel")
+    _build.check(code, f"paged_attention kernel ({route})")
     paged_attention.launches += 1
+    paged_attention.last_route = route
     return out.reshape(D, S, H * hd)
 
 
 paged_attention.launches = 0
+paged_attention.last_route = None     # kernel_route of the latest launch

@@ -1,4 +1,4 @@
-"""The gates of the fused encoder kernels (K2, K4): the shapes, types and
+"""The gates of the fused encoder kernels (K2, K3, K4): the shapes, types and
 alignments each kernel takes, checked on CPU tensors before any launch. A
 shape a kernel does not take raises ValueError naming the dimension; the
 wrappers never fall back to the plain version or the dense encode on the
@@ -81,3 +81,18 @@ def test_gates_refuse_other_dtypes(fn):
             fek.check_supported(x, W, b, 8)
         else:
             fek.check_supported_bt(x, W, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("width,ok", [(1001, False), (1004, False), (1030, False),
+                                      (8, True), (2 ** 15 + 8, True)])
+def test_int8_gate_keeps_16_byte_scale_rows(dtype, width, ok):
+    """K3 reads the W scales ``ws [nb, width]`` f32 by TMA, whose rows must
+    be 16 bytes: the gate's width divisible by 8 covers that in both
+    dtypes, so every width it takes launches the int8 tile."""
+    x, W, b = _operands(4, 256, width, dtype)
+    if ok:
+        fek.check_supported_q(x, W, b, min(8, width), 128)
+        return
+    with pytest.raises(ValueError, match=f"width divisible by 8, got {width}"):
+        fek.check_supported_q(x, W, b, 8, 128)

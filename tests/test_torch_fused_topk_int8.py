@@ -102,6 +102,24 @@ def test_quant_dispatch_and_plain_versions():
     fek.check_supported_q(*args, 128)
 
 
+@pytest.mark.parametrize("B,qb", [(1, 32), (3, 96), (130, 128), (8, 256)])
+def test_q_operands_layout_matches_the_plain_scales(B, qb):
+    """K3's operand layouts (q_operands): xq and the W scales as the plain
+    quantization has them, wqT its wq transposed (K-major), xsT
+    its xs transposed with the rows padded to a multiple of 4 with zeros."""
+    x, W, _ = _gaussian(B + qb, B, 768, 520)
+    x2, W2 = torch.from_numpy(x), torch.from_numpy(W)
+    xq, xsT, wqT, ws = fek.q_operands(x2, W2, qb)
+    pxq, pxs, pwq, pws = quant.quantize_contraction(x2, W2, qb)
+    nb, Bp = 768 // qb, -(-B // 4) * 4
+    assert xsT.shape == (nb, Bp) and xsT.dtype == torch.float32
+    assert torch.equal(xsT[:, :B].view(torch.int32), pxs.t().contiguous().view(torch.int32))
+    assert not bool(xsT[:, B:].any())
+    assert torch.equal(xq, pxq) and torch.equal(wqT, pwq.t()) and wqT.shape == (520, 768)
+    assert torch.equal(ws.view(torch.int32), pws.contiguous().view(torch.int32))
+    assert all(t.is_contiguous() for t in (xq, xsT, wqT, ws))
+
+
 def test_quality_bounds_against_the_exact_fused_encoder():
     """JAX's quality-bound case: B 64, nd 512, H 2048, k 16, block 128."""
     x, W, b = _gaussian(5, 64, 512, 2048)

@@ -5,13 +5,16 @@ runs it as is:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: paged attention 1e-5 in fp32 and 2e-2 in bf16 on valid rows
-(online softmax reassociates the sum; the plain version rounds the
-probabilities to bf16); the fused encoder→TopK (K2) and →BatchTopK (K4)
-bitwise on integer-valued operands, whose fp32 sums are exact in any
-order (bf16 on the tensor-core tile, also at its edges: rows, contraction
-and width that are not tile multiples); the int8 fused encoder (K3), the TopK masks (K5, K6, K7), the
-sparsify drain (K8) and the sorted-pair scatter (K10) bitwise on any
+Tolerances: paged attention 1e-5 in fp32 (the CUDA-core kernel) and 2e-2
+in bf16 (the tensor-core kernel) on valid rows, bf16 also to 2e-2 of
+each row's largest output (online softmax reassociates the sum; the plain version rounds the normalized
+probabilities to bf16, the bf16 kernel the unnormalized ones); the fused
+encoder→TopK (K2) and →BatchTopK (K4) bitwise on integer-valued operands,
+whose fp32 sums are exact in any order (bf16 on the tensor-core tile,
+also at its edges: rows, contraction and width that are not tile
+multiples); the int8 fused encoder (K3, on the int8 tensor-core tile,
+also at its edges), the TopK masks (K5, K6, K7), the sparsify drain (K8)
+and the sorted-pair scatter (K10) bitwise on any
 inputs, since each does the plain version's arithmetic in its order."""
 
 import numpy as np
@@ -37,28 +40,61 @@ def cuda():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _attention_err(a, b, lengths, H):
+    """max |a - b| on valid rows, and its largest ratio, row by row (a
+    query position and head), to max |b| of the row."""
+    worst = rel = 0.0
+    for d, ln in enumerate(lengths):
+        x, y = (t[d, :ln].float().reshape(ln, H, -1) for t in (a, b))
+        e = (x - y).abs()
+        worst = max(worst, e.max().item())
+        rel = max(rel, (e.amax(-1) / y.abs().amax(-1).clamp_min(1e-30)).max().item())
+    return worst, rel
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("hd,page,heads", [(256, 64, (8, 4)), (128, 32, (4, 4)),
-                                           (256, 32, (16, 4)), (128, 64, (8, 2))])
-@pytest.mark.parametrize("window", [0, 96])
-def test_paged_attention_kernel_matches_plain(cuda, dtype, tol, hd, page, heads, window):
+                                           (256, 32, (16, 4)), (128, 64, (8, 2)),
+                                           (128, 64, (8, 1)), (256, 32, (8, 1))])
+@pytest.mark.parametrize("window", [0, 96, 4096, 20])
+@pytest.mark.parametrize("softcap", [50.0, 0.0])
+def test_paged_attention_kernel_matches_plain(cuda, dtype, tol, hd, page, heads, window, softcap):
+    """GQA groups 1, 2, 4 and 8, softcap on and off, global, windowed, a
+    window past the sequence and one shorter than a page; lengths 1, around
+    a page, S - 1 and S; at page 32, S = 224, which the bf16 kernel's
+    64-row tile of one head does not divide. bf16 runs the tensor-core
+    kernel, f32 the CUDA-core one. f32 is held to 1e-5 on valid rows; bf16
+    to 2e-2 there and, row by row, to 2e-2 of the row's largest output.
+    Random logits are about N(0, 1), where a cap of 50 moves a bf16 output
+    by less than an ulp, so bf16's softcap cases take sharp logits (q x 30)
+    and v / 4 (outputs below 2); every softcap case shows first that the
+    cap moves the plain output by over 5x the bar."""
     H, KV = heads
-    gen = torch.Generator(device="cuda").manual_seed(hd + page + H)
-    lengths = [1, page - 1, page, page + 1, 200, 256]
-    q = torch.randn((len(lengths), 256, H, hd), generator=gen, device="cuda").to(dtype)
-    k, v = (torch.randn((len(lengths), 256, KV, hd), generator=gen, device="cuda").to(dtype)
+    S = 256 if page == 64 else 224
+    gen = torch.Generator(device="cuda").manual_seed(hd + page + H + KV)
+    lengths = [1, page - 1, page, page + 1, 200, S - 1, S]
+    q = torch.randn((len(lengths), S, H, hd), generator=gen, device="cuda")
+    k, v = (torch.randn((len(lengths), S, KV, hd), generator=gen, device="cuda")
             for _ in range(2))
+    if dtype == torch.bfloat16 and softcap:
+        q, v = q * 30, v / 4
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     lens = torch.tensor(lengths, device="cuda", dtype=torch.int32)
-    kw = dict(page_size=page, scale=hd ** -0.5, softcap=50.0, window=window)
+    kw = dict(page_size=page, scale=hd ** -0.5, softcap=softcap, window=window)
+    route = pa.kernel_route(dtype)
+    assert route == ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
     before = pa.paged_attention.launches
     got = pa.paged_attention(q, k, v, lens, **kw)
+    assert (pa.paged_attention.launches, pa.paged_attention.last_route) == (before + 1, route)
     want = pa.paged_attention_plain(q, k, v, lens, **kw)
+    if softcap:
+        uncapped = pa.paged_attention_plain(q, k, v, lens, **{**kw, "softcap": 0.0})
+        assert _attention_err(uncapped, want, lengths, H)[0] > 5 * tol
     torch.cuda.synchronize()
-    assert pa.paged_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == want.shape
-    for d, ln in enumerate(lengths):
-        err = (got[d, :ln].float() - want[d, :ln].float()).abs().max().item()
-        assert err <= tol, (d, err)
+    worst, rel = _attention_err(got, want, lengths, H)
+    assert worst <= tol, worst
+    assert dtype == torch.float32 or rel <= tol, rel
 
 
 def test_paged_attention_kernel_rejects_unsupported(cuda):
@@ -403,6 +439,75 @@ def test_fused_topk_q_kernel_bitwise_matches_plain(cuda, dtype, B, qb, k):
     assert fek.fused_topk_encode_q.launches == before + 1
     assert torch.equal(idx, pi)
     assert _same_bits(vals, pv)
+
+
+# the contraction for each quant block: 544 and 576 leave a partial last stage;
+# 288 and 384 span three stages of the ring
+_Q_ND = {32: 544, 64: 576, 96: 576, 128: 512, 256: 512, 288: 576, 384: 768}
+
+
+def _q_edge_operands(seed, B, nd, width, qb, dtype):
+    """Random K3 operands with an all-zero block (scale 0) in row 0 and in
+    column 5, a row and a column that quantize to +-127 in every block, a
+    -0.0 and a NaN bias column."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, nd), generator=gen, device="cuda")
+    W = torch.randn((nd, width), generator=gen, device="cuda") * 0.05
+    b = torch.randn((width,), generator=gen, device="cuda") * 0.01
+    sign = torch.where(torch.arange(nd, device="cuda") % 3 == 0, -1.0, 1.0)
+    x[-1] = 3.0 * sign                       # +-127 after quantization
+    W[:, 7] = 0.25 * sign
+    x[0, :qb] = 0.0                          # an all-zero block: scale 0
+    W[qb:2 * qb, 5] = 0.0
+    b[11] = -0.0
+    b[13] = float("nan")
+    return x.to(dtype), W.to(dtype), b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("qb", [32, 64, 96, 128, 256, 288, 384])
+@pytest.mark.parametrize("width", [4096 + 8, 2 ** 15 + 8])
+@pytest.mark.parametrize("B", [1, 3, 130, 4096])
+def test_fused_topk_q_kernel_tile_edges_bitwise_match_plain(cuda, dtype, qb, width, B):
+    """K3 on the int8 tensor-core tile, bitwise to its plain version at the
+    tile's edges: rows and width off the [128, 128] tile, quant blocks of
+    32 and 64 (several a stage), 96 and 288 (not whole stages), 128, 256
+    and 384 (whole stages), a contraction that leaves a partial last stage,
+    k 1, 32 and 128, bf16 and f32."""
+    nd = _Q_ND[qb]
+    x, W, b = _q_edge_operands(B * 7 + qb + width % 97, B, nd, width, qb, dtype)
+    for k in (1, 32, 128):
+        vals, idx = fek.fused_topk_encode(x, W, b, k, quant_block=qb)
+        pv, pi = fek.fused_topk_encode_q_plain(x, W, b, k, qb)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, pi), k
+        assert _same_bits(vals, pv), k
+
+
+def test_fused_topk_q_operands_match_the_plain_scales(cuda):
+    """The kernel's operand layouts on the card: xsT is the plain
+    quantization's xs transposed (padded rows zero), wqT its wq transposed,
+    ws its ws."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((130, 512), generator=gen, device="cuda").to(torch.bfloat16)
+    W = torch.randn((512, 1032), generator=gen, device="cuda").to(torch.bfloat16)
+    xq, xsT, wqT, ws = fek.q_operands(x, W, 128)
+    pxq, pxs, pwq, pws = (t.cpu() for t in fek.quant.quantize_contraction(x.cpu(), W.cpu(), 128))
+    assert xsT.shape == (4, 132) and not bool(xsT[:, 130:].any())
+    assert torch.equal(xsT[:, :130].cpu().view(torch.int32), pxs.t().contiguous().view(torch.int32))
+    assert torch.equal(xq.cpu(), pxq) and torch.equal(wqT.cpu(), pwq.t())
+    assert torch.equal(ws.cpu().view(torch.int32), pws.contiguous().view(torch.int32))
+    assert wqT.is_contiguous() and xsT.is_contiguous() and ws.is_contiguous()
+
+
+def test_fused_topk_q_kernel_counts_its_launches(cuda):
+    x, W, b = _q_edge_operands(0, 8, 256, 1024, 128, torch.bfloat16)
+    before = (fek.fused_topk_encode_q.launches, fek.fused_topk_encode.launches)
+    fek.fused_topk_encode(x, W, b, 16, quant_block=128)
+    fek.fused_topk_encode_q(x, W, b, 16, 128)
+    torch.cuda.synchronize()
+    assert (fek.fused_topk_encode_q.launches, fek.fused_topk_encode.launches) == (
+        before[0] + 2, before[1])
 
 
 def _tile_edge_operands(seed, B, nd, width, dtype, bias=None):

@@ -98,3 +98,21 @@ def test_kernel_rejects_unsupported_shapes():
         pa.check_supported(q.half(), kv.half(), kv.half(), torch.ones(2), 64)
     pa.check_supported(q, kv, kv, torch.ones(2), 32)
 
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tensor_cores"),
+                                         (torch.float32, "cuda_cores"), (torch.float16, None)])
+def test_kernel_route_by_dtype(dtype, route):
+    """bf16 goes to the tensor-core kernel, f32 to the CUDA-core one (a
+    dispatch by dtype, no fallback); another dtype raises. A CPU call runs
+    the plain version and counts no launch on either route."""
+    if route is None:
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            pa.kernel_route(dtype)
+        return
+    assert pa.kernel_route(dtype) == route
+    before = (pa.paged_attention.launches, pa.paged_attention.last_route)
+    q = torch.zeros(1, 64, 2, 128, dtype=dtype)
+    kv = torch.zeros(1, 64, 1, 128, dtype=dtype)
+    out = pa.paged_attention(q, kv, kv, torch.tensor([5]), page_size=32, scale=1.0)
+    assert out.shape == (1, 64, 256) and out.dtype == dtype
+    assert (pa.paged_attention.launches, pa.paged_attention.last_route) == before
