@@ -11,7 +11,8 @@ one NVIDIA Hopper card and the CUDA toolkit:
    attention at the Gemma-2-2B attention shapes (mixed lengths, bf16 on
    its tensor-core kernel and fp32 on its CUDA-core one, each route's
    launch counted; global, windowed, a window shorter than a page, softcap
-   on and off; the f32 kernel also timed at the serve lengths), the fused
+   on and off; the f32 kernel also checked and timed at the serve lengths,
+   beside f32 SDPA), the fused
    encoder→TopK bitwise on exact integer-valued inputs (planted ties, NaN,
    -0.0, a width that is not a tile multiple, k in {1, 32, 128}), on exact
    inputs at the serve shape in bf16 (the tensor-core tile) and f32 (the
@@ -31,7 +32,9 @@ one NVIDIA Hopper card and the CUDA toolkit:
    [4096, 32768] with planted ties, NaN of both signs, -0.0, rows with
    fewer than k positives and (K8) a row past k, k in {1, 32, 128}; the
    sorted-pair scatter (K10) with a latent hit by every row, dropped
-   indices -1 and n_out, f32 and bf16 rows; the fused encoder→TopK (K2) at
+   indices -1 and n_out, f32 and bf16 rows, and on the AuxK term's filler
+   pattern (leg F's shape, 0, 6 and 63 dead latents), timed at the main
+   and the AuxK shapes; the fused encoder→TopK (K2) at
    the training shape on exact inputs (bf16 and f32), and at 2^17 and
    2^15 + 128 wide, where its merge takes two levels, timed back to back
    and queued, with a torch.profiler split of its product-and-sort pass
@@ -54,8 +57,10 @@ one NVIDIA Hopper card and the CUDA toolkit:
    AuxK 64 every 2 steps, 8 steps straight against 4 steps, a background
    save, a fresh Trainer with ``resume=True`` and 4 more (bitwise equal
    state), with the save's fetch and write times, the restore time and the
-   files' bytes; leg W: dict 2^17 (K7), bf16 compute, f32 masters, 6
-   steps, one re-run with the plain versions (bitwise) and one through the
+   files' bytes, the AuxK scatter launches counted apart, and one aux
+   step's scatters recorded (dead latents, each call's destination
+   histogram, its K10 time and index_add_'s); leg W: dict 2^17 (K7), bf16
+   compute, f32 masters, 6 steps, one re-run with the plain versions (bitwise) and one through the
    opt-in fused encoder (K2), timed against the dense encode; launches, ms
    per step, peak memory; leg V: f32 compute at dict 2^15 (K7 on f32 rows),
    3 steps;
@@ -156,6 +161,10 @@ LEG_W = dict(TRAIN, dict_size=2 ** 17, aux_k=0, aux_every=1, fused_encoder="off"
 LEG_V = dict(TRAIN, enc_dtype="fp32", aux_k=0, aux_every=1, fused_encoder="off",
              num_tokens=TRAIN["batch_size"] * 3)
 STEPS_F, STEPS_W, STEPS_V = 8, 6, 3
+# the dead latents of K10's timed AuxK case, as leg F's recorded aux step
+# had them: fewer than aux_k, so every row also sends pairs to the lowest
+# live columns (the filler pattern)
+AUXK_DEAD = 6
 # the device sleep in front of a queued timing: about 25 ms at the H100's
 # clocks, longer than the host takes to issue 50 launches of a wrapper
 QUEUE_CYCLES = 50_000_000
@@ -199,6 +208,22 @@ def time_ms(fn, reps: int, queued: bool = False) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Host time to issue one call of ``fn``, the card held busy by a
+    device sleep so that no launch waits for it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
 def bound(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / PEAK_OPS_S[dtype] * 1e3
@@ -211,7 +236,8 @@ def bound(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
 
 def check_paged_attention(torch, pa, lengths_serve):
     """K1 at the Gemma-2-2B attention shapes, both routes; returns its
-    kernel-table row. f32 is held to 1e-5 on valid rows; bf16 to 2e-2 on
+    kernel-table rows (bf16 at the serve shape, f32 at the serve lengths).
+    f32 is held to 1e-5 on valid rows; bf16 to 2e-2 on
     valid rows and, per row (a query position and head), to 2e-2 of that
     row's largest output. Random logits are about N(0, 1), where a cap of
     50 moves the output by less than a bf16 ulp, so bf16 adds softcap cases
@@ -279,15 +305,34 @@ def check_paged_attention(torch, pa, lengths_serve):
             qs, ks, vs = (t[:1].expand(len(lengths_serve), *t.shape[1:]).contiguous()
                           for t in (q, k, v))
             kw = dict(page_size=page, scale=scale, softcap=cap, window=0)
+            f32_err = valid_err(pa.paged_attention(qs, ks, vs, lens_s, **kw),
+                                pa.paged_attention_plain(qs, ks, vs, lens_s, **kw),
+                                lengths_serve)
+            if not within(f32_err, dt, tol):
+                fail(f"f32 paged attention kernel at the serve lengths: {f32_err} > {tol}")
             f32_ms = time_ms(lambda: pa.paged_attention(qs, ks, vs, lens_s, **kw), 10)
             f32_plain = time_ms(lambda: pa.paged_attention_plain(qs, ks, vs, lens_s, **kw), 3)
+            pos = torch.arange(S, device="cuda")
+            mask = ((pos[None, :, None] >= pos[None, None, :])
+                    & (pos[None, None, :] < lens_s[:, None, None].long()))[:, None]
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qs, ks, vs))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            f32_lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale,
+                                           enable_gqa=True), 10)
             n_tok = sum(lengths_serve)
             pairs = sum(t + 1 for ln in lengths_serve for t in range(ln))
             b_ms, b_by = bound(n_tok * (2 * H + 2 * KV) * hd * 4 + len(lengths_serve) * 4,
                                4 * hd * H * pairs, "fp32")
             log(f"K1 serve shape {len(lengths_serve)}x{S} f32 (cuda_cores): {f32_ms:.4f} ms "
-                f"kernel, {f32_plain:.4f} ms plain, bound {b_ms:.4f} ms by {b_by}")
-            del qs, ks, vs
+                f"kernel, {f32_plain:.4f} ms plain, {f32_lib:.4f} ms sdpa f32 (explicit mask, "
+                f"no softcap), bound {b_ms:.4f} ms by {b_by}")
+            row_f32 = {"name": "paged_attention (f32)", "route": "cuda",
+                       "source": "crosscoder_tpu_torch/csrc/paged_attention.cu",
+                       "replaces": "crosscoder_tpu/ops/paged_attention.py:189",
+                       "launches": None, "max_abs_err": f32_err[0], "ms": f32_ms,
+                       "plain_ms": f32_plain, "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": f32_lib}
+            del qs, ks, vs, qt, kt, vt, mask
 
     # the serve shape: 8 documents of the traffic's first micro-batch, bf16
     D_ = len(lengths_serve)
@@ -321,7 +366,7 @@ def check_paged_attention(torch, pa, lengths_serve):
             "source": "crosscoder_tpu_torch/csrc/paged_attention.cu",
             "replaces": "crosscoder_tpu/ops/paged_attention.py:189",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}, row_f32
 
 
 def _bits(t, torch):
@@ -511,7 +556,7 @@ def serve(torch, np, lengths_a):
     keep_doc, extra = docs_of([400, 212])
 
     pa.paged_attention.launches = 0
-    pa.paged_attention.last_route = None
+    pa.paged_attention.by_route.update(dict.fromkeys(pa.paged_attention.by_route, 0))
     fek.fused_topk_encode.launches = 0
     served = [smoke.serve_batch(eng, batch_a)]
     served += [smoke.serve_batch(eng, d) for d in more]
@@ -523,17 +568,19 @@ def serve(torch, np, lengths_a):
     served.append(ext)
     eng.release(rid)
     torch.cuda.synchronize()
+    by_route = dict(pa.paged_attention.by_route)
     launches = {"paged_attention": pa.paged_attention.launches,
+                "paged_attention (f32)": by_route["cuda_cores"],
                 "fused_topk_encode": fek.fused_topk_encode.launches}
     log(f"serve: {sum(len(s) for s in served)} requests in {len(served)} micro-batches; "
-        f"kernel launches {launches}")
-    if not all(launches.values()):
+        f"kernel launches {launches}; paged attention by route {by_route}")
+    if not (launches["paged_attention"] and launches["fused_topk_encode"]):
         fail(f"a kernel of the serve path never launched: {launches}")
     # the route is the dtype's (kernel_route), and every layer's q is the model's bf16
-    route = pa.paged_attention.last_route
-    log(f"serve: paged attention launches on the {route} route")
-    if (route, pa.kernel_route(dtype_of(lm_cfg.dtype))) != ("tensor_cores",) * 2:
-        fail(f"the bf16 serve path's attention did not run on the tensor-core kernel: {route}")
+    if (by_route["tensor_cores"] != launches["paged_attention"]
+            or pa.kernel_route(dtype_of(lm_cfg.dtype)) != "tensor_cores"):
+        fail(f"the bf16 serve path's attention did not run on the tensor-core kernel alone: "
+             f"{by_route}")
     if [r.bucket for r in served[4]] != [4, 4, 4]:
         fail(f"partial batch of 3 served under buckets {[r.bucket for r in served[4]]}")
     if not (len(ext) == 1 and ext[0].extended):
@@ -669,9 +716,45 @@ def check_topk_mask_and_sparsify(torch, tp):
     return row5, row8
 
 
+def auxk_pairs(torch, gen, B, H, k_aux, n_dead):
+    """The AuxK term's pairs as ``models/crosscoder.get_losses`` makes them:
+    ``n_dead`` dead latents at random columns; each row ranks its
+    pre-activations with every live latent at ``finfo.min``, keeps its top
+    ``k_aux`` by the port's exact ranking (ties to the lowest column) and
+    zeroes the values of the live columns that fill its slots."""
+    from crosscoder_tpu_torch.models.crosscoder import _exact_topk_indices
+
+    h = torch.randn((B, H), generator=gen, device="cuda")
+    dead = torch.zeros(H, dtype=torch.bool, device="cuda")
+    dead[torch.randperm(H, generator=gen, device="cuda")[:n_dead]] = True
+    ranked = torch.where(dead[None, :], h, torch.finfo(h.dtype).min)
+    aidx = _exact_topk_indices(ranked, k_aux)
+    avals = torch.where(dead[aidx], torch.gather(h, 1, aidx), 0.0)
+    return avals, aidx
+
+
+def pair_histogram(torch, idx, n_out):
+    """The destination histogram of a scatter's pairs."""
+    d = idx.reshape(-1).long()
+    cnt = torch.bincount(d[(d >= 0) & (d < n_out)], minlength=n_out)
+    blocks = torch.nn.functional.pad(cnt, (0, -n_out % 32)).reshape(-1, 32).sum(1)
+    return {"pairs": int(cnt.sum()), "destinations": int((cnt > 0).sum()),
+            "max": int(cnt.max()), ">128": int((cnt > 128).sum()),
+            ">512": int((cnt > 512).sum()), ">2048": int((cnt > 2048).sum()),
+            "busiest 32-row block": int(blocks.max())}
+
+
+def work_list_equal(torch, sg, coeff, idx, n_out):
+    """K10's work list built on the card against its plain version."""
+    dst = sg.sorted_pairs(coeff, idx, n_out)[0]
+    return torch.equal(sg.work_list(dst, n_out), sg.work_list_plain(dst, n_out))
+
+
 def check_scatter(torch, sg):
-    """K10 bitwise against its plain version at the sparse step's shapes;
-    returns its kernel-table row."""
+    """K10 bitwise against its plain version at the sparse step's shapes
+    and at the AuxK term's crowded shape (leg F: f32, dict 2^14, k_aux 64,
+    the filler pattern with 0, AUXK_DEAD and 63 dead latents); returns its
+    kernel-table rows at the main shape and at the AuxK shape."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     B, k, H = TRAIN["batch_size"], TRAIN["topk_k"], TRAIN["dict_size"]
     nd = TRAIN["n_models"] * TRAIN["d_in"]
@@ -690,26 +773,64 @@ def check_scatter(torch, sg):
             f"{'equal' if same else 'DIFFERENT'}")
         if not same:
             fail("K10 not bitwise equal to its plain version")
-    # timing on the dW_dec call's shape: random latents, no planted duplicates
-    cf = torch.randn((B, k), generator=gen, device="cuda")
-    idx = torch.randint(0, H, (B, k), generator=gen, device="cuda", dtype=torch.int32)
-    rows = torch.randn((B, nd), generator=gen, device="cuda")
-    if not torch.equal(_bits(sg.scatter_add_rows(cf, idx, rows, H), torch),
-                       _bits(sg.scatter_add_rows_plain(cf, idx, rows, H), torch)):
-        fail("K10 not bitwise equal to its plain version on random pairs")
+    H_f, k_aux = LEG_F["dict_size"], LEG_F["aux_k"]
+    for n_dead, dt in ((0, torch.float32), (AUXK_DEAD, torch.float32), (63, torch.float32),
+                       (AUXK_DEAD, torch.bfloat16)):
+        cf, idx = auxk_pairs(torch, gen, B, H_f, k_aux, n_dead)
+        rows = torch.randn((B, nd), generator=gen, device="cuda").to(dt)
+        got = sg.scatter_add_rows(cf, idx, rows, H_f)
+        want = sg.scatter_add_rows_plain(cf, idx, rows, H_f)
+        same_list = work_list_equal(torch, sg, cf, idx, H_f)
+        torch.cuda.synchronize()
+        same = torch.equal(_bits(got, torch), _bits(want, torch))
+        log(f"K10 AuxK filler pattern, {n_dead} dead of {H_f}, pairs {B}x{k_aux} rows "
+            f"[{B},{nd}] {str(dt)[6:]}: {pair_histogram(torch, idx, H_f)}; bitwise "
+            f"{'equal' if same else 'DIFFERENT'}; work list "
+            f"{'equal' if same_list else 'DIFFERENT'}")
+        if not (same and same_list):
+            fail("K10 or its work list not equal to its plain version on the AuxK filler pattern")
+    rows_out = []
+    # timing on the dW_dec call's shape (random latents, no planted
+    # duplicates) and on the AuxK term's (AUXK_DEAD dead latents)
+    main_pairs = (torch.randn((B, k), generator=gen, device="cuda"),
+                  torch.randint(0, H, (B, k), generator=gen, device="cuda", dtype=torch.int32))
+    for label, n_out, (cf, idx) in (("main", H, main_pairs),
+                                    ("AuxK", H_f, auxk_pairs(torch, gen, B, H_f, k_aux,
+                                                             AUXK_DEAD))):
+        kk = idx.shape[1]
+        rows = torch.randn((B, nd), generator=gen, device="cuda")
+        if not torch.equal(_bits(sg.scatter_add_rows(cf, idx, rows, n_out), torch),
+                           _bits(sg.scatter_add_rows_plain(cf, idx, rows, n_out), torch)):
+            fail(f"K10 not bitwise equal to its plain version on the {label} timing pairs")
+        if not work_list_equal(torch, sg, cf, idx, n_out):
+            fail(f"K10's work list differs from its plain version on the {label} pairs")
 
-    def index_add():
-        upd = cf.reshape(-1, 1) * rows.repeat_interleave(k, dim=0)
-        return torch.zeros((H, nd), device="cuda").index_add_(0, idx.reshape(-1).long(), upd)
+        def index_add():
+            upd = cf.reshape(-1, 1) * rows.repeat_interleave(kk, dim=0)
+            return torch.zeros((n_out, nd), device="cuda").index_add_(
+                0, idx.reshape(-1).long(), upd)
 
-    ms = time_ms(lambda: sg.scatter_add_rows(cf, idx, rows, H), 20)
-    plain_ms = time_ms(lambda: sg.scatter_add_rows_plain(cf, idx, rows, H), 3)
-    lib_ms = time_ms(index_add, 5)
-    b = bound(B * nd * 4 + B * k * 8 + H * nd * 4, 2 * B * k * nd, "fp32")
-    log(f"K10 pairs {B}x{k} rows [{B},{nd}] -> [{H},{nd}] f32: {ms:.4f} ms kernel, "
-        f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms index_add_, bound {b[0]:.4f} ms by {b[1]}")
-    return _row("scatter_add_rows", "scatter_rows.cu", "crosscoder_tpu/ops/sparse_grad.py:212",
-                0.0, ms, plain_ms, b, lib_ms)
+        def k10():
+            return sg.scatter_add_rows(cf, idx, rows, n_out)
+
+        ms = time_ms(k10, 20)
+        q_ms = time_ms(k10, 20, queued=True)
+        issue_ms = host_ms(k10, 20)
+        plain_ms = time_ms(lambda: sg.scatter_add_rows_plain(cf, idx, rows, n_out), 3)
+        lib_ms = time_ms(index_add, 5)
+        b = bound(B * nd * 4 + B * kk * 8 + n_out * nd * 4, 2 * B * kk * nd, "fp32")
+        log(f"K10 {label} shape, pairs {B}x{kk} rows [{B},{nd}] -> [{n_out},{nd}] f32: "
+            f"{ms:.4f} ms kernel ({q_ms:.4f} ms queued; the host issues a call in "
+            f"{issue_ms:.4f} ms), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms index_add_, bound "
+            f"{b[0]:.4f} ms by {b[1]}")
+        profile_kernels(torch, k10, f"K10 {label} shape", {"K10 scatter_rows": "scatter_rows"})
+        row = {**_row("scatter_add_rows", "scatter_rows.cu",
+                      "crosscoder_tpu/ops/sparse_grad.py:212", 0.0, ms, plain_ms, b, lib_ms),
+               "queued_ms": q_ms}
+        if label == "AuxK":
+            row["name"] = "scatter_add_rows (AuxK shape)"
+        rows_out.append(row)
+    return rows_out
 
 
 def check_fused_topk_train(torch, fek):
@@ -1322,7 +1443,8 @@ def profile_step(torch, trainer, full_metrics, label):
         return
     groups = {"K2 fused_topk": 0.0, "K3 fused_topk_q": 0.0, "K2/K3 merge": 0.0,
               "K4 select": 0.0, "K4 emit": 0.0, "K5 topk_mask": 0.0, "K6 topk_mask_f32": 0.0,
-              "K7 topk_chunked": 0.0, "K8 sparsify": 0.0, "K10 scatter_rows": 0.0,
+              "K7 topk_chunked": 0.0, "K8 sparsify": 0.0, "K9 select": 0.0, "K9 emit": 0.0,
+              "K10 scatter_rows": 0.0,
               "K11 quantize_rows": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         n = e.key.lower()
@@ -1332,6 +1454,8 @@ def profile_step(torch, trainer, full_metrics, label):
              "K3 fused_topk_q" if "topk_tiles_q" in n else
              "K2 fused_topk" if "topk_tiles" in n else
              "K2/K3 merge" if "topk_merge" in n else
+             "K9 select" if "bt_hist" in n or "bt_bisect" in n else
+             "K9 emit" if "batchtopk_emit" in n else
              "K4 select" if "bt_select" in n or "bt_pass<0>" in n or "bt_pass<1>" in n else
              "K4 emit" if "bt_emit" in n or "bt_pass<2>" in n else
              "K11 quantize_rows" if "quantize_rows" in n else
@@ -1499,6 +1623,49 @@ def ckpt_dir(root):
     return Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root / "build"))
 
 
+class ScatterCalls:
+    """Stands in for ``sparse_grad.scatter_add_rows`` (the models call it
+    through the module): splits the real wrapper's K10 launches by k, the
+    pairs a batch row sends (the wrapper's count read around each call),
+    and keeps each call's inputs while ``keep`` is set."""
+
+    def __init__(self, sg):
+        self.sg, self.real = sg, sg.scatter_add_rows
+        self.by_k, self.kept, self.keep = {}, [], False
+        sg.scatter_add_rows = self
+
+    def __call__(self, coeff, idx, rows, n_out):
+        if self.keep:
+            self.kept.append((coeff, idx, rows, n_out))
+        before = self.real.launches
+        out = self.real(coeff, idx, rows, n_out)
+        k = coeff.shape[1]
+        self.by_k[k] = self.by_k.get(k, 0) + self.real.launches - before
+        return out
+
+    def close(self):
+        self.sg.scatter_add_rows = self.real
+
+
+def log_aux_scatters(torch, rec, n_dead, label):
+    """The destination histogram and the K10 time of each scatter that one
+    recorded step made, with ``index_add_``'s time beside the AuxK one's."""
+    for coeff, idx, rows, n_out in rec.kept:
+        kk = coeff.shape[1]
+        ms = time_ms(lambda: rec.real(coeff, idx, rows, n_out), 5)
+        extra = ""
+        if kk == LEG_F["aux_k"]:
+            def index_add():
+                upd = coeff.float().reshape(-1, 1) * rows.float().repeat_interleave(kk, dim=0)
+                return torch.zeros((n_out, rows.shape[1]), device="cuda").index_add_(
+                    0, idx.reshape(-1).long(), upd)
+            extra = f", index_add_ {time_ms(index_add, 3):.4f} ms"
+        log(f"{label}: {n_dead} dead latents; K10 pairs {coeff.shape[0]}x{kk} rows "
+            f"{list(rows.shape)} -> {n_out}: {pair_histogram(torch, idx, n_out)}; "
+            f"{ms:.4f} ms kernel{extra}")
+    rec.kept.clear()
+
+
 def train_wide(torch, np, root, train_batches):
     """Legs F, W and V over the train phase's batches (each leg from the
     first); returns the launch counts of each leg."""
@@ -1519,6 +1686,8 @@ def train_wide(torch, np, root, train_batches):
 
     # leg F: 8 steps straight, against 4 + background save + restore + 4
     cfg = CrossCoderConfig(**LEG_F)
+    if cfg.aux_k == cfg.topk_k:
+        fail("leg F splits K10's launches by k: its aux_k must differ from topk_k")
     if not (cc.use_factored_decode(cfg) and cc.use_sparse_bwd(cfg, cfg.batch_size)
             and tp.topk_route(cfg.dict_size, cfg.topk_k, torch.float32) == "K6"):
         fail("leg F does not take the factored tier, the sparse plane and K6")
@@ -1528,6 +1697,7 @@ def train_wide(torch, np, root, train_batches):
     for c in counters.values():
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    rec = ScatterCalls(sg)
     straight = trainer_mod.Trainer(cfg, batches, device="cuda", state=state0)
     losses_f, step_ms = [], []
     for _ in range(STEPS_F):
@@ -1564,6 +1734,7 @@ def train_wide(torch, np, root, train_batches):
     losses_r = [float(resumed.step()["loss"]) for _ in range(STEPS_F // 2)]
     torch.cuda.synchronize()
     legs["F"] = {n: c.launches for n, c in counters.items()}
+    legs["F"]["scatter_add_rows (AuxK shape)"] = rec.by_k.get(cfg.aux_k, 0)
     peak_f = torch.cuda.max_memory_allocated() / 2 ** 30
     ok, what = state_bits_equal(torch, straight.state, resumed.state)
     log(f"leg F (TopK f32, dict {cfg.dict_size}, AuxK {cfg.aux_k}): losses "
@@ -1581,10 +1752,17 @@ def train_wide(torch, np, root, train_batches):
         fail(f"leg F: the resumed run differs from the straight run in {what}")
     if not all(np.isfinite(losses_f)) or losses_r != losses_f[STEPS_F // 2:]:
         fail("leg F: losses not finite, or the resumed run's losses differ from the straight run's")
-    if not all(legs["F"][n] > 0 for n in ("topk_mask_f32", "sparsify", "scatter_add_rows")):
+    if not all(legs["F"][n] > 0 for n in ("topk_mask_f32", "sparsify", "scatter_add_rows",
+                                          "scatter_add_rows (AuxK shape)")):
         fail(f"K6, K8 or K10 never launched on leg F: {legs['F']}")
-    # host steps 8 and 9 after the gate: an aux step (8 % aux_every == 0), then a bare one
+    # host steps 8 and 9 after the gate: an aux step (8 % aux_every == 0), then a bare one;
+    # the aux step's scatters are kept, then their pairs' histograms logged and each timed
+    n_dead = int((resumed.state.aux["steps_since_fired"] >= cfg.aux_dead_steps).sum())
+    rec.keep = True
     profile_step(torch, resumed, False, "leg F aux step")
+    rec.keep = False
+    rec.close()
+    log_aux_scatters(torch, rec, n_dead, "leg F aux step")
     profile_step(torch, resumed, False, "leg F bare step")
     del straight, resumed, batches, state0
 
@@ -2144,15 +2322,17 @@ def main() -> int:
 
     rng = np.random.default_rng(3)
     lengths_a = [1, 1024] + [int(n) for n in rng.integers(2, 1024, size=6)]
-    rows = [check_paged_attention(torch, pa, lengths_a), check_fused_topk(torch, fek)]
-    train_rows = [*check_topk_mask_and_sparsify(torch, tp), check_scatter(torch, sg),
+    row_k1, row_k1_f32 = check_paged_attention(torch, pa, lengths_a)
+    rows = [row_k1, check_fused_topk(torch, fek)]
+    row_k10, row_k10_aux = check_scatter(torch, sg)
+    train_rows = [*check_topk_mask_and_sparsify(torch, tp), row_k10,
                   check_fused_topk_train(torch, fek)]
     fused_rows = [check_fused_topk_q(torch, fek), *check_fused_batchtopk(torch, fek)]
     check_tile_edges(torch, fek)
     harvest_rows = [*check_batchtopk(torch, tp), check_quantize(torch, quant)]
     wide_rows = check_topk_wide(torch, tp)
     launches = serve(torch, np, lengths_a)
-    for row in rows:
+    for row in (*rows, row_k1_f32):
         row["launches"] = launches[row["name"]]
     launches, batches = train(torch, np)
     for row in train_rows:
@@ -2162,6 +2342,7 @@ def main() -> int:
     wide_rows[0]["launches"] = legs["F"]["topk_mask_f32"]
     wide_rows[1]["launches"] = legs["W"]["topk_chunked"]
     wide_rows[2]["launches"] = legs["V"]["topk_chunked"]
+    row_k10_aux["launches"] = legs["F"]["scatter_add_rows (AuxK shape)"]
     launches = harvest_train(torch, np, root)
     for row in harvest_rows:
         row["launches"] = launches[row["name"]]
@@ -2169,7 +2350,7 @@ def main() -> int:
     fused_rows[0]["launches"] = fused["I"]["fused_topk_encode_q"]
     fused_rows[1]["launches"] = fused["K"]["fused_batchtopk_select"]
     fused_rows[2]["launches"] = fused["K"]["fused_batchtopk_emit"]
-    rows += train_rows + harvest_rows + wide_rows + fused_rows
+    rows += [row_k1_f32] + train_rows + [row_k10_aux] + harvest_rows + wide_rows + fused_rows
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

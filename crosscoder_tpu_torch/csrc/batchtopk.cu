@@ -33,9 +33,22 @@
 //   64-bit totals; the last block narrows [lo, hi) for the next pass.
 // Neither path syncs with the host: the threshold stays a device int32.
 //
-// Emit. out = (pattern >= kth && pattern > 0) ? value of the pattern : 0,
-// with 16-byte loads and stores; `batchtopk_fixed` launches it alone with
-// a threshold pattern computed on the host.
+// Emit. out = (pattern >= kth && pattern > 0) ? value of the pattern : 0;
+// `batchtopk_fixed` launches it alone with a threshold pattern computed on
+// the host. It reads h once and writes out once: 537 MB at [4096, 32768]
+// bf16, 0.16 ms at 3.35 TB/s, by bytes, with one compare and select an
+// entry. So the emit is a pure stream, and the design keeps enough bytes
+// in flight to reach the memory's rate: the grid has one thread for every
+// 16-byte vector (a block's warps on consecutive 512-byte runs; no
+// grid-stride loop capped at a few blocks an SM), each thread loads its
+// vector, masks it and stores it, and out goes out with streaming stores
+// (st.global.cs) so it does not evict h, which the AuxK ranking reads
+// again, from L2. h keeps the default policy. On an H100 at 700 W one
+// load a thread ran 0.4-1.1% behind F.threshold, 2 independent loads a
+// thread 0.9-1.2%, 4 or 8 2.1-3.4% (scripts/torch_kernel_variants.py
+// emit), so the kernel keeps one. An unaligned h or out
+// (`vec` = 0) takes one entry a thread; the n % 8 (bf16) or n % 4 (f32)
+// entries past the last vector go to the first threads of the grid.
 //
 // Bound. Select reads the batch once, emit reads it once and writes it
 // once: 805 MB at [4096, 32768] bf16, 0.24 ms at 3.35 TB/s.
@@ -212,49 +225,44 @@ bt_bisect_f32(const float* __restrict__ h, long long n, long long kk, int vec,
 
 // ----------------------------------------------------------------------- emit
 
-__global__ void __launch_bounds__(kEmitThreads)
-bt_emit_bf16(const uint16_t* __restrict__ h, uint16_t* __restrict__ out, long long n,
-             const int* __restrict__ kth_ptr, int vec) {
-  const unsigned kth = unsigned(*kth_ptr);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n8 = vec ? n / 8 : 0;
-  for (long long i = start; i < n8; i += stride) {
-    union { uint4 u; uint16_t s[8]; } d;
-    d.u = __ldg(reinterpret_cast<const uint4*>(h) + i);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const unsigned p = pattern16(d.s[j]);
-      d.s[j] = uint16_t(p >= kth && p > 0 ? p : 0u);
-    }
-    reinterpret_cast<uint4*>(out)[i] = d.u;
-  }
-  for (long long i = n8 * 8 + start; i < n; i += stride) {
-    const unsigned p = pattern16(h[i]);
-    out[i] = uint16_t(p >= kth && p > 0 ? p : 0u);
-  }
+__device__ __forceinline__ unsigned emit16(unsigned b, unsigned kth) {
+  const unsigned p = pattern16(b);
+  return p >= kth && p > 0 ? p : 0u;
 }
 
-__global__ void __launch_bounds__(kEmitThreads)
-bt_emit_f32(const unsigned* __restrict__ h, unsigned* __restrict__ out, long long n,
-            const int* __restrict__ kth_ptr, int vec) {
-  const unsigned kth = unsigned(*kth_ptr);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long start = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n4 = vec ? n / 4 : 0;
-  for (long long i = start; i < n4; i += stride) {
-    uint4 u = __ldg(reinterpret_cast<const uint4*>(h) + i);
-    unsigned* b = reinterpret_cast<unsigned*>(&u);
+__device__ __forceinline__ unsigned emit32(unsigned b, unsigned kth) {
+  const unsigned p = pattern32(b);
+  return p >= kth && p > 0 ? p : 0u;
+}
+
+__device__ __forceinline__ uint4 emit_vec(uint4 u, unsigned kth, bool bf16) {
+  unsigned* w = reinterpret_cast<unsigned*>(&u);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const unsigned p = pattern32(b[e]);
-      b[e] = p >= kth && p > 0 ? p : 0u;
-    }
-    reinterpret_cast<uint4*>(out)[i] = u;
-  }
-  for (long long i = n4 * 4 + start; i < n; i += stride) {
-    const unsigned p = pattern32(h[i]);
-    out[i] = p >= kth && p > 0 ? p : 0u;
+  for (int e = 0; e < 4; ++e)
+    w[e] = bf16 ? emit16(w[e] & 0xFFFFu, kth) | (emit16(w[e] >> 16, kth) << 16)
+                : emit32(w[e], kth);
+  return u;
+}
+
+// One unit a thread: a 16-byte vector when `vec`, else one entry; the tail
+// past the last vector goes to the first threads.
+template <typename E>
+__global__ void __launch_bounds__(kEmitThreads)
+batchtopk_emit_kernel(const E* __restrict__ h, E* __restrict__ out, long long n,
+                      const int* __restrict__ kth_ptr, int vec) {
+  constexpr bool kBf16 = sizeof(E) == 2;
+  constexpr int kPer = 16 / sizeof(E);
+  const unsigned kth = unsigned(*kth_ptr);
+  const long long i = (long long)blockIdx.x * kEmitThreads + threadIdx.x;
+  if (vec) {
+    const long long nv = n / kPer;
+    if (i < nv)
+      __stcs(reinterpret_cast<uint4*>(out) + i,
+             emit_vec(__ldg(reinterpret_cast<const uint4*>(h) + i), kth, kBf16));
+    const long long t = nv * kPer + i;
+    if (t < n) out[t] = E(kBf16 ? emit16(h[t], kth) : emit32(h[t], kth));
+  } else if (i < n) {
+    out[i] = E(kBf16 ? emit16(h[i], kth) : emit32(h[i], kth));
   }
 }
 
@@ -307,15 +315,15 @@ extern "C" int batchtopk_select_f32(const void* h, long long n, long long kk, in
 extern "C" int batchtopk_emit(const void* h, void* out, long long n, const void* kth,
                               int is_bf16, int vec, void* stream) {
   const long long units = vec ? n / (is_bf16 ? 8 : 4) : n;
-  const int grid = int(grid_for(units, kEmitThreads, 16LL * sm_count()));
+  const dim3 grid(unsigned(units > 0 ? (units + kEmitThreads - 1) / kEmitThreads : 1));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    bt_emit_bf16<<<grid, kEmitThreads, 0, st>>>(static_cast<const uint16_t*>(h),
-                                                 static_cast<uint16_t*>(out), n,
-                                                 static_cast<const int*>(kth), vec);
+    batchtopk_emit_kernel<uint16_t><<<grid, kEmitThreads, 0, st>>>(
+        static_cast<const uint16_t*>(h), static_cast<uint16_t*>(out), n,
+        static_cast<const int*>(kth), vec);
   else
-    bt_emit_f32<<<grid, kEmitThreads, 0, st>>>(static_cast<const unsigned*>(h),
-                                               static_cast<unsigned*>(out), n,
-                                               static_cast<const int*>(kth), vec);
+    batchtopk_emit_kernel<unsigned><<<grid, kEmitThreads, 0, st>>>(
+        static_cast<const unsigned*>(h), static_cast<unsigned*>(out), n,
+        static_cast<const int*>(kth), vec);
   return int(cudaGetLastError());
 }

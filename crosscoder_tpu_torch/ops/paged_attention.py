@@ -202,9 +202,11 @@ def paged_attention(
     )
     _build.check(code, f"paged_attention kernel ({route})")
     paged_attention.launches += 1
+    paged_attention.by_route[route] += 1
     paged_attention.last_route = route
     return out.reshape(D, S, H * hd)
 
 
 paged_attention.launches = 0
+paged_attention.by_route = {"tensor_cores": 0, "cuda_cores": 0}   # launches of each route
 paged_attention.last_route = None     # kernel_route of the latest launch

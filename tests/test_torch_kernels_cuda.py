@@ -83,9 +83,10 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, tol, hd, page, heads,
     kw = dict(page_size=page, scale=hd ** -0.5, softcap=softcap, window=window)
     route = pa.kernel_route(dtype)
     assert route == ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
-    before = pa.paged_attention.launches
+    before = (pa.paged_attention.launches, dict(pa.paged_attention.by_route))
     got = pa.paged_attention(q, k, v, lens, **kw)
-    assert (pa.paged_attention.launches, pa.paged_attention.last_route) == (before + 1, route)
+    assert (pa.paged_attention.launches, pa.paged_attention.last_route) == (before[0] + 1, route)
+    assert pa.paged_attention.by_route == {**before[1], route: before[1][route] + 1}
     want = pa.paged_attention_plain(q, k, v, lens, **kw)
     if softcap:
         uncapped = pa.paged_attention_plain(q, k, v, lens, **{**kw, "softcap": 0.0})
@@ -280,6 +281,25 @@ def test_topk_chunked_kernel_bitwise_matches_plain(cuda, dtype, R, W, k):
         assert topk_pallas.topk_chunked.launches == before + 2
     if dtype == torch.float32 and k == 1 and R > 4:
         assert int((got[4] != 0).sum()) == 2                   # C6: the NaN and one +inf
+
+
+def test_scatter_counter_stays_the_wrappers_under_a_stand_in(cuda, monkeypatch):
+    """A function bound to the module's name in the wrapper's place (as
+    chip_smoke.py's ScatterCalls is) leaves the count on the wrapper."""
+    real = sparse_grad.scatter_add_rows
+    calls = []
+
+    def stand_in(*a):
+        calls.append(a)
+        return real(*a)
+
+    monkeypatch.setattr(sparse_grad, "scatter_add_rows", stand_in)
+    cf = torch.ones((8, 2), device="cuda")
+    idx = torch.arange(16, device="cuda", dtype=torch.int32).reshape(8, 2)
+    before = real.launches
+    sparse_grad.scatter_add_rows(cf, idx, torch.ones((8, 128), device="cuda"), 16)
+    assert (len(calls), real.launches) == (1, before + 1)
+    assert not hasattr(stand_in, "launches")
 
 
 @pytest.mark.parametrize("B,k,n_out,m,dtype", [
@@ -611,3 +631,97 @@ def test_fused_tiers_train_on_the_card(cuda):
         for _ in range(3):
             assert torch.isfinite(tr.step()["loss"])
         assert all(c.launches > n for c, n in zip(counters, before))
+
+
+def _scatter_case(case, dtype, m):
+    """``(coeff, idx, rows, n_out)`` on the card for one K10 edge case."""
+    gen = torch.Generator(device="cuda").manual_seed(len(case) + m)
+    T = sparse_grad._T
+    if case.startswith("auxk"):                        # the AuxK filler, auxk<dead latents>
+        from crosscoder_tpu_torch.models.crosscoder import _exact_topk_indices
+
+        B, H, k_aux = 4096, 2 ** 14, 64
+        h = torch.randn((B, H), generator=gen, device="cuda")
+        dead = torch.zeros(H, dtype=torch.bool, device="cuda")
+        dead[torch.randperm(H, generator=gen, device="cuda")[:int(case[4:])]] = True
+        idx = _exact_topk_indices(torch.where(dead[None, :], h, torch.finfo(h.dtype).min), k_aux)
+        coeff = torch.where(dead[idx], torch.gather(h, 1, idx), 0.0)
+        n_out = H
+    elif case == "one destination":
+        coeff = torch.randn((4096, 8), generator=gen, device="cuda")
+        idx = torch.full((4096, 8), 1234, dtype=torch.int32, device="cuda")
+        n_out = 2 ** 14
+    elif case == "T and T+1":
+        coeff = torch.randn((T + 1, 4), generator=gen, device="cuda")
+        idx = torch.randint(0, 500, (T + 1, 4), generator=gen, device="cuda", dtype=torch.int32)
+        idx[:, 0] = 40                                 # T + 1 pairs: hot
+        idx[:T, 1] = 41                                # T pairs: cold
+        idx[T, 1] = 7
+        n_out = 500
+    else:                                              # "mixed"
+        coeff = torch.randn((600, 16), generator=gen, device="cuda")
+        idx = torch.randint(0, 1000, (600, 16), generator=gen, device="cuda", dtype=torch.int32)
+        idx[:, 0] = 70                                 # hot, in the group of cold rows 64..95
+        idx[:400, 1] = 75                              # a second hot row there
+        idx[0, 2], idx[1, 2], idx[2, 2] = -1, 1000, 2 ** 20   # dropped
+        coeff[:, 3] = 0.0                              # zero coefficients beside inf and NaN
+        n_out = 1000                                   # not a multiple of the row group
+    rows = torch.randn((coeff.shape[0], m), generator=gen, device="cuda")
+    rows[5, :7] = torch.tensor([float("inf"), -float("inf"), float("nan"), -0.0, 0.0, 1e38,
+                                -1e38])
+    if dtype == torch.bfloat16:
+        rows = rows.to(dtype)
+        rows.view(torch.int16)[6, 1] = -64             # a negative NaN
+    return coeff, idx, rows, n_out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,m", [("auxk0", 4608), ("auxk5", 4608), ("auxk63", 4608),
+                                    ("one destination", 4608), ("T and T+1", 4736),
+                                    ("mixed", 128), ("mixed", 130), ("mixed", 4608),
+                                    ("mixed", 4736)])
+def test_scatter_kernel_work_list_edges_bitwise_match_plain(cuda, dtype, case, m):
+    """K10's work list: the AuxK filler (0, 5, 63 dead latents of 2^14,
+    4096 x 64 pairs), one destination taking every pair, destinations at
+    T and T + 1 pairs, hot and cold rows in one 32-row group, zero
+    coefficients beside +-inf and NaN, indices -1 and past n_out, m not a
+    multiple of 4 (the element-by-element path) and n_out not a multiple
+    of 32."""
+    coeff, idx, rows, n_out = _scatter_case(case, dtype, m)
+    before = sparse_grad.scatter_add_rows.launches
+    got = sparse_grad.scatter_add_rows(coeff, idx, rows, n_out)
+    want = sparse_grad.scatter_add_rows_plain(coeff, idx, rows, n_out)
+    assert sparse_grad.scatter_add_rows.launches == before + 1
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("case,m", [("auxk0", 4608), ("auxk63", 4608), ("one destination", 4608),
+                                    ("T and T+1", 4736), ("mixed", 130)])
+def test_scatter_work_list_kernel_matches_plain(cuda, case, m):
+    """K10's list builder on the card writes the plain version's items."""
+    coeff, idx, _, n_out = _scatter_case(case, torch.float32, m)
+    dst, _, _ = sparse_grad.sorted_pairs(coeff, idx, n_out)
+    assert torch.equal(sparse_grad.work_list(dst, n_out), sparse_grad.work_list_plain(dst, n_out))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [4096 * 8 + 3, 8 * 1024 * 1024 + 5, 7])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_batchtopk_emit_kernel_bitwise_matches_plain(cuda, dtype, n, aligned):
+    """The K9 emit on n not a multiple of 8 or 4 (the tail past the last
+    vector), an unaligned view (vec = 0), NaN of both signs, -0.0 and +inf;
+    one launch a call."""
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    base = (torch.randint(-40, 41, (n + 1,), generator=gen, device="cuda").float() / 4).to(dtype)
+    h = base[:n] if aligned else base[1:]
+    bits = h.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    h[0], h[1], h[2] = float("inf"), -0.0, float("nan")
+    h[-1] = float("inf")
+    bits[3] = -64 if dtype == torch.bfloat16 else -4194304     # a negative NaN
+    assert (h.data_ptr() % 16 == 0) == aligned
+    for thr in (0.0, 0.5, 3.0):
+        kth = torch.tensor([topk_pallas.fixed_threshold_pattern(thr, dtype)], device="cuda")
+        before = topk_pallas.batchtopk_emit.launches
+        got = topk_pallas.batchtopk_emit(h, kth)
+        assert topk_pallas.batchtopk_emit.launches == before + 1
+        assert _same_bits(got, topk_pallas.batchtopk_emit_plain(h, kth))

@@ -110,9 +110,11 @@ def test_kernel_route_by_dtype(dtype, route):
             pa.kernel_route(dtype)
         return
     assert pa.kernel_route(dtype) == route
-    before = (pa.paged_attention.launches, pa.paged_attention.last_route)
+    before = (pa.paged_attention.launches, pa.paged_attention.last_route,
+              dict(pa.paged_attention.by_route))
     q = torch.zeros(1, 64, 2, 128, dtype=dtype)
     kv = torch.zeros(1, 64, 1, 128, dtype=dtype)
     out = pa.paged_attention(q, kv, kv, torch.tensor([5]), page_size=32, scale=1.0)
     assert out.shape == (1, 64, 256) and out.dtype == dtype
-    assert (pa.paged_attention.launches, pa.paged_attention.last_route) == before
+    assert (pa.paged_attention.launches, pa.paged_attention.last_route,
+            pa.paged_attention.by_route) == before
