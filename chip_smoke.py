@@ -39,12 +39,16 @@ one NVIDIA Hopper card and the CUDA toolkit:
    2^15 + 128 wide, where its merge takes two levels, timed back to back
    and queued, with a torch.profiler split of its product-and-sort pass
    against its merge; the f32 TopK mask (K6) on f32 rows
-   [4096, 16384] and [4096, 384] and the width-chunked TopK (K7) on bf16
-   [4096, 131072], f32 [4096, 32768] and bf16 [512, 65920], bitwise on
+   [4096, 16384] and [4096, 384] and the TopK of any width (K7) on bf16
+   [4096, 131072], f32 [4096, 32768] and bf16 [512, 65920], on its cluster
+   route at every cluster size (1 to 8 blocks a row, bf16 and f32, 16 rows,
+   the last slice full and ragged, ties straddling every slice edge) and on
+   its streaming route (bf16 [256, 524312], f32 [256, 131080]), bitwise on
    planted ties (inside a row, across the 4096-column stretch edge, far
    from the kth column), NaN of both signs, -0.0, +inf and rows with fewer
    than k positives, k in {1, 32, 128}; each timed beside its plain
-   version, one library call and the bound;
+   version, one library call and the bound, K7's streaming route at bf16
+   [512, 524288];
 6. train: two Trainer legs at Gemma-2-2B width (d_in 2304, two models,
    ``blocks.14.hook_resid_pre``), dict 2^15, TopK k=32, batch 4096, bf16
    compute, f32 masters, sparse backward on, AuxK 64 every 2 steps: leg A
@@ -161,6 +165,9 @@ LEG_W = dict(TRAIN, dict_size=2 ** 17, aux_k=0, aux_every=1, fused_encoder="off"
 LEG_V = dict(TRAIN, enc_dtype="fp32", aux_k=0, aux_every=1, fused_encoder="off",
              num_tokens=TRAIN["batch_size"] * 3)
 STEPS_F, STEPS_W, STEPS_V = 8, 6, 3
+# K7's streaming route, timed apart: bf16 rows of 2^19 latents, past the
+# reach of a cluster of eight 64 KB slices, fewer rows than a batch
+STREAM_ROW = (512, 2 ** 19)
 # the dead latents of K10's timed AuxK case, as leg F's recorded aux step
 # had them: fewer than aux_k, so every row also sends pairs to the lowest
 # live columns (the filler pattern)
@@ -691,8 +698,9 @@ def check_topk_mask_and_sparsify(torch, tp):
     plain_ms = time_ms(lambda: tp.topk_plain(h, k), 3)
     lib_ms = time_ms(topk_scatter, 20)
     b = bound(2 * n, 0, "bf16")
-    log(f"K5 [{R},{W}] k={k}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
-        f"topk+scatter, bound {b[0]:.4f} ms by {b[1]}")
+    log(f"K5 [{R},{W}] k={k} (topk_slice.cuh, one block a row: cluster size 1): {ms:.4f} ms "
+        f"kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms topk+scatter, bound {b[0]:.4f} ms by "
+        f"{b[1]}")
     row5 = _row("topk_mask", "topk_mask.cu", "crosscoder_tpu/ops/topk_pallas.py:157", 0.0,
                 ms, plain_ms, b, lib_ms)
     vals, idx = tp.sparsify(f, k)
@@ -939,19 +947,35 @@ def _planted_wide(torch, gen, R, W, dtype):
 
 
 def check_topk_wide(torch, tp):
-    """K6 (f32 rows that fit shared memory) and K7 (width-chunked, any
-    width, bf16 and f32) bitwise against their plain versions on planted
-    rows, then timed on random rows at the legs' shapes; returns the K6,
-    K7 bf16 and K7 f32 rows of the kernel table."""
+    """K6 (f32 rows that fit shared memory) and K7 (any width, bf16 and
+    f32: its cluster route at every cluster size, its streaming route past
+    the cluster's reach) bitwise against their plain versions on planted
+    rows, then timed on random rows at the legs' shapes and at STREAM_ROW;
+    returns the K6, K7 bf16, K7 f32 and K7 streaming rows of the kernel
+    table."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     B = TRAIN["batch_size"]
     cases = [("K6", tp.topk_mask_f32, tp.topk_plain, torch.float32, B, LEG_F["dict_size"]),
              ("K6", tp.topk_mask_f32, tp.topk_plain, torch.float32, B, 384),
              ("K7", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16, B, LEG_W["dict_size"]),
              ("K7", tp.topk_chunked, tp.topk_chunked_plain, torch.float32, B, 2 ** 15),
-             ("K7", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16, 512, 2 ** 16 + 384)]
+             ("K7", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16, 512, 2 ** 16 + 384),
+             ("K7", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16, 256, 2 ** 19 + 24),
+             ("K7", tp.topk_chunked, tp.topk_chunked_plain, torch.float32, 256, 2 ** 17 + 8)]
+    # K7's cluster route at every cluster size its plan uses, the last
+    # slice full and ragged, ties straddling every slice edge
+    for dtype in (torch.bfloat16, torch.float32):
+        per = tp._SLICE_BYTES // (2 if dtype == torch.bfloat16 else 4)
+        for n in range(1, tp._MAX_CLUSTER + 1):
+            cases.append(("K7", tp.topk_chunked, tp.topk_chunked_plain, dtype, 16,
+                          n * per - 24 * (n % 2)))
     for name, kern, plain, dtype, R, W in cases:
         h = _planted_wide(torch, gen, R, W, dtype)
+        plan = tp.topk_plan(W, dtype) if name == "K7" else None
+        if plan is not None and plan[1] > 1:
+            for e in range(plan[2], W, plan[2]):
+                h[3, e - 3: e + 3] = 9.0
+                h[5, e - 20: e + 20] = 8.0
         for k in (1, 32, 128):
             got = kern(h, k)
             same = torch.equal(_bits(got, torch), _bits(plain(h, k), torch))
@@ -959,8 +983,9 @@ def check_topk_wide(torch, tp):
             same = same and (not routed or torch.equal(_bits(tp.topk(h, k), torch),
                                                        _bits(got, torch)))
             torch.cuda.synchronize()
-            log(f"{name} [{R},{W}] {str(dtype)[6:]} k={k}{' (via topk)' if routed else ''}: "
-                f"bitwise {'equal' if same else 'DIFFERENT'}; kept a row min/max "
+            log(f"{name} [{R},{W}] {str(dtype)[6:]} k={k}{' (via topk)' if routed else ''}"
+                f"{f' plan {plan}' if plan else ''}: bitwise {'equal' if same else 'DIFFERENT'}; "
+                f"kept a row min/max "
                 f"{int((got != 0).sum(1).min())}/{int((got != 0).sum(1).max())}")
             if not same:
                 bad = (_bits(got, torch) != _bits(plain(h, k), torch)).any(1).nonzero()
@@ -969,14 +994,17 @@ def check_topk_wide(torch, tp):
         del h, got
     k = TRAIN["topk_k"]
     rows = []
-    for name, kern, plain, dtype, W, source, replaces, label in (
-            ("topk_mask_f32", tp.topk_mask_f32, tp.topk_plain, torch.float32,
+    for name, kern, plain, dtype, R, W, source, replaces, label in (
+            ("topk_mask_f32", tp.topk_mask_f32, tp.topk_plain, torch.float32, B,
              LEG_F["dict_size"], "topk_mask_f32.cu", "crosscoder_tpu/ops/topk_pallas.py:259", "K6"),
-            ("topk_chunked", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16,
+            ("topk_chunked", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16, B,
              LEG_W["dict_size"], "topk_chunked.cu", "crosscoder_tpu/ops/topk_pallas.py:358", "K7"),
-            ("topk_chunked (f32)", tp.topk_chunked, tp.topk_chunked_plain, torch.float32,
-             2 ** 15, "topk_chunked.cu", "crosscoder_tpu/ops/topk_pallas.py:358", "K7")):
-        h = torch.randn((B, W), generator=gen, device="cuda").to(dtype)
+            ("topk_chunked (f32)", tp.topk_chunked, tp.topk_chunked_plain, torch.float32, B,
+             2 ** 15, "topk_chunked.cu", "crosscoder_tpu/ops/topk_pallas.py:358", "K7"),
+            ("topk_chunked (streaming)", tp.topk_chunked, tp.topk_chunked_plain, torch.bfloat16,
+             STREAM_ROW[0], STREAM_ROW[1], "topk_chunked.cu",
+             "crosscoder_tpu/ops/topk_pallas.py:358", "K7")):
+        h = torch.randn((R, W), generator=gen, device="cuda").to(dtype)
         if not torch.equal(_bits(kern(h, k), torch), _bits(plain(h, k), torch)):
             fail(f"{label} not bitwise equal to its plain version on random {dtype} rows")
 
@@ -989,8 +1017,10 @@ def check_topk_wide(torch, tp):
         plain_ms = time_ms(lambda: plain(h, k), 2)
         lib_ms = time_ms(topk_scatter, 10)
         b = bound(2 * h.numel() * h.element_size(), 0, "bf16")
-        log(f"{label} [{B},{W}] {str(dtype)[6:]} k={k}: {ms:.4f} ms kernel ({q_ms:.4f} ms queued), "
-            f"{plain_ms:.4f} ms plain, {lib_ms:.4f} ms topk+scatter, bound {b[0]:.4f} ms by {b[1]}")
+        plan = f", plan {tp.topk_plan(W, dtype)}" if label == "K7" else ""
+        log(f"{label} [{R},{W}] {str(dtype)[6:]} k={k}{plan}: {ms:.4f} ms kernel ({q_ms:.4f} ms "
+            f"queued), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms topk+scatter, bound {b[0]:.4f} ms "
+            f"by {b[1]}")
         rows.append({**_row(name, source, replaces, 0.0, ms, plain_ms, b, lib_ms),
                      "queued_ms": q_ms})
         del h
@@ -1449,7 +1479,9 @@ def profile_step(torch, trainer, full_metrics, label):
     for e in kernels:
         n = e.key.lower()
         g = ("K6 topk_mask_f32" if "topk_mask_f32" in n else
-             "K7 topk_chunked" if "topk_chunked" in n else
+             # topk_slice.cuh: bf16 blocks alone are K5, the rest K7's cluster route
+             "K5 topk_mask" if "topk_slice_kernel<true, false>" in n else
+             "K7 topk_chunked" if "topk_chunked" in n or "topk_slice_kernel" in n else
              "K5 topk_mask" if "topk_mask" in n else
              "K3 fused_topk_q" if "topk_tiles_q" in n else
              "K2 fused_topk" if "topk_tiles" in n else
@@ -1779,6 +1811,8 @@ def train_wide(torch, np, root, train_batches):
     log(f"leg W: a {cfg.dict_size}-latent state on the card in {time.perf_counter() - t0:.1f} s")
     for c in counters.values():
         c.launches = 0
+    k7_routes = tp.topk_chunked.by_route
+    k7_routes.update(dict.fromkeys(k7_routes, 0))
     torch.cuda.reset_peak_memory_stats()
     losses_w, l0s, step_ms = [], [], []
     for _ in range(STEPS_W):
@@ -1791,15 +1825,19 @@ def train_wide(torch, np, root, train_batches):
         losses_w.append(float(m["loss"]))
         l0s.append(float(m["l0_loss"]))
     legs["W"] = {n: c.launches for n, c in counters.items()}
+    legs["K7 by route"] = {"W": dict(k7_routes)}
     peak_w = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"leg W (TopK bf16, dict {cfg.dict_size}, f32 masters): losses "
         f"{[round(v, 4) for v in losses_w]}; l0 max {max(l0s):.2f}; ms per step (CUDA events) "
         f"{[round(v, 2) for v in step_ms]}, mean after the first {np.mean(step_ms[1:]):.3f}; "
-        f"peak memory {peak_w:.2f} GiB; launches {legs['W']}")
+        f"peak memory {peak_w:.2f} GiB; launches {legs['W']}; K7 by route {k7_routes} "
+        f"(plan {tp.topk_plan(cfg.dict_size, torch.bfloat16)})")
     if not all(np.isfinite(losses_w)) or max(l0s) > cfg.topk_k:
         fail("leg W: a loss is not finite or l0 exceeds k")
     if not all(legs["W"][n] > 0 for n in ("topk_chunked", "sparsify", "scatter_add_rows")):
         fail(f"K7, K8 or K10 never launched on leg W: {legs['W']}")
+    if legs["K7 by route"]["W"]["cluster"] != legs["W"]["topk_chunked"]:
+        fail(f"leg W: a K7 launch did not take the cluster route: {legs['K7 by route']}")
     x = batches.next()
     scale = torch.ones(cfg.n_sources, device="cuda")
     fn = trainer_mod.make_step_body(cfg, Optimizer(cfg, lambda s: 0.0), True, True, True)
@@ -1845,6 +1883,7 @@ def train_wide(torch, np, root, train_batches):
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
+    k7_routes.update(dict.fromkeys(k7_routes, 0))
     losses_v, step_ms = [], []
     for _ in range(STEPS_V):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1854,12 +1893,16 @@ def train_wide(torch, np, root, train_batches):
         torch.cuda.synchronize()
         step_ms.append(e0.elapsed_time(e1))
     legs["V"] = {n: c.launches for n, c in counters.items()}
+    legs["K7 by route"]["V"] = dict(k7_routes)
     log(f"leg V (TopK f32, dict {cfg.dict_size}): losses {[round(v, 4) for v in losses_v]}; "
-        f"ms per step (CUDA events) {[round(v, 2) for v in step_ms]}; launches {legs['V']}")
+        f"ms per step (CUDA events) {[round(v, 2) for v in step_ms]}; launches {legs['V']}; "
+        f"K7 by route {k7_routes} (plan {tp.topk_plan(cfg.dict_size, torch.float32)})")
     if not all(np.isfinite(losses_v)):
         fail("leg V: a loss is not finite")
     if not all(legs["V"][n] > 0 for n in ("topk_chunked", "sparsify", "scatter_add_rows")):
         fail(f"K7, K8 or K10 never launched on leg V: {legs['V']}")
+    if legs["K7 by route"]["V"]["cluster"] != legs["V"]["topk_chunked"]:
+        fail(f"leg V: a K7 launch did not take the cluster route: {legs['K7 by route']}")
     del tr, batches
     return legs
 
@@ -2340,8 +2383,9 @@ def main() -> int:
     legs = train_wide(torch, np, root, batches)
     del batches
     wide_rows[0]["launches"] = legs["F"]["topk_mask_f32"]
-    wide_rows[1]["launches"] = legs["W"]["topk_chunked"]
-    wide_rows[2]["launches"] = legs["V"]["topk_chunked"]
+    wide_rows[1]["launches"] = legs["K7 by route"]["W"]["cluster"]
+    wide_rows[2]["launches"] = legs["K7 by route"]["V"]["cluster"]
+    wide_rows[3]["launches"] = sum(r["streaming"] for r in legs["K7 by route"].values())
     row_k10_aux["launches"] = legs["F"]["scatter_add_rows (AuxK shape)"]
     launches = harvest_train(torch, np, root)
     for row in harvest_rows:

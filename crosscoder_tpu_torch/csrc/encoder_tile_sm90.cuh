@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_sync.cuh"
+
 namespace etile {
 
 constexpr int kBM = 128;                         // tile rows (2 consumer warpgroups x 64)
@@ -153,44 +155,15 @@ __host__ __device__ inline int n_tiles(int B, int width) {
 // ---------------------------------------------------------------------------
 // device: barriers, TMA, wgmma
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using sm90::mbar_arrive;
+using sm90::mbar_expect_tx;
+using sm90::mbar_init;
+using sm90::mbar_wait;
+using sm90::smem_u32;
 
 __device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
   const uint32_t a = smem_u32(p);
   return p + ((kAlign - (a & (kAlign - 1))) & (kAlign - 1));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Spins until the phase of the given parity completes; a wait that never
-// ends (a lost TMA load) traps, so the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
 }
 
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int inner,
@@ -323,7 +296,7 @@ struct Ring {
         mbar_init(&full[s], 1);
         mbar_init(&empty[s], 2);
       }
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      sm90::mbar_init_fence();
     }
     __syncthreads();
   }

@@ -1,7 +1,9 @@
 // The radix select and the column-ordered tie emit shared by the row TopK
-// mask kernels: topk_mask_f32.cu (K6, a row staged in shared memory) and
-// topk_chunked.cu (K7, a row read from device memory). Each kernel brings
-// its own keys, where they are read from and how they are written back.
+// mask kernels: topk_mask_f32.cu (K6, a row staged in shared memory),
+// topk_slice.cuh (K5 and K7's cluster route, a row in the shared memory of
+// one block or of a cluster's blocks) and topk_chunked.cu (K7's streaming
+// route, a row read from device memory). Each kernel brings its own keys,
+// where they are read from and how they are written back.
 //
 // Keys are unsigned and a key of 0 is never selected. The select finds kth,
 // the k-th largest key of a row, over 8-bit digits from kFirstShift down:
@@ -59,28 +61,46 @@ struct Select {
                  // `need` others when the select ended early
 };
 
+// One block's histogram of a select pass: kCopies copies of kBins bins
+// (warp % kCopies spreads the shared-memory atomics), summed by the block.
+// `buffer(pass)` is where a pass counts; `publish()` makes the counts
+// visible to every thread that sums them; `total(pass, b)` is bin b's count.
+template <int kCopies>
+struct BlockHist {
+  unsigned* hist;   // kCopies * kBins, shared
+  __device__ __forceinline__ unsigned* buffer(int) const { return hist; }
+  __device__ __forceinline__ void publish() const { __syncthreads(); }
+  __device__ __forceinline__ int total(int, int b) const {
+    int c = 0;
+#pragma unroll
+    for (int s = 0; s < kCopies; ++s) c += int(hist[s * kBins + b]);
+    return c;
+  }
+};
+
 // The select over one row. `count(shift, mask, prefix, hist)` adds each of
-// the row's keys to `hist` with count_key; `hist` is one of kCopies copies
-// of kBins bins (warp % kCopies), which spread the shared-memory atomics.
-// `hist` (kCopies * kBins), `ws` (2 * kWarps) and `sel` (3) are shared.
-template <int kFirstShift, int kCopies, class Count>
-__device__ Select radix_select(int k, unsigned* hist, int* ws, int* sel, Count count) {
+// the row's keys to `hist` with count_key; `hist` is one of the kCopies
+// copies of the pass's buffer (warp % kCopies). `hs` is a BlockHist or a
+// histogram summed over more than one block (topk_slice.cuh); every block
+// that sums the same counts takes the same digits and the same exits.
+// `ws` (2 * kWarps) and `sel` (3) are shared.
+template <int kFirstShift, int kCopies, class Hist, class Count>
+__device__ Select radix_select_over(int k, const Hist& hs, int* ws, int* sel, Count count) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  unsigned* mine = hist + (warp % kCopies) * kBins;
   unsigned prefix = 0, mask = 0;
   int remaining = k, eq = 0;
-  for (int shift = kFirstShift; shift >= 0; shift -= 8) {
+  for (int shift = kFirstShift, pass = 0; shift >= 0; shift -= 8, ++pass) {
+    unsigned* hist = hs.buffer(pass);
     for (int i = tid; i < kCopies * kBins; i += kThreads) hist[i] = 0;
     __syncthreads();
-    count(shift, mask, prefix, mine);
-    __syncthreads();
+    count(shift, mask, prefix, hist + (warp % kCopies) * kBins);
+    hs.publish();
     // threads 0..255 take the bins in descending order: an inclusive scan
     // over them is the count of matching keys whose digit is >= the bin
     int c = 0, incl = 0;
     const int b = kBins - 1 - tid;
     if (tid < kBins) {
-#pragma unroll
-      for (int s = 0; s < kCopies; ++s) c += int(hist[s * kBins + b]);
+      c = hs.total(pass, b);
       incl = c;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
@@ -118,6 +138,13 @@ __device__ Select radix_select(int k, unsigned* hist, int* ws, int* sel, Count c
                                      // digits so far, every tie kept
   }
   return Select{prefix, remaining, eq};
+}
+
+// The select over one block's row, its histogram in `hist` (kCopies *
+// kBins, shared).
+template <int kFirstShift, int kCopies, class Count>
+__device__ Select radix_select(int k, unsigned* hist, int* ws, int* sel, Count count) {
+  return radix_select_over<kFirstShift, kCopies>(k, BlockHist<kCopies>{hist}, ws, sel, count);
 }
 
 // The emit when some ties at kth are dropped: keeps every key above kth and

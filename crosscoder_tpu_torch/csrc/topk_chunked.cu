@@ -1,5 +1,5 @@
-// Exact per-row TopK mask of bf16 or f32 rows of any width, read from
-// device memory, for Hopper (sm_90a).
+// Exact per-row TopK mask of bf16 or f32 rows of any width, for Hopper
+// (sm_90a): K7, in two routes chosen by width.
 //
 // Replaces the Pallas TPU kernels crosscoder_tpu/ops/topk_pallas.py
 // `_bisect_kernel` and `_emit_kernel` (reached through `_topk_chunked_impl`
@@ -7,8 +7,7 @@
 // above 2^16, f32 above the single-block gate). Those walk a row in
 // 4096-column chunks over a sequential grid: a multi-threshold bisection
 // that carries per-row counts across chunks, then an emit that carries the
-// count of ties seen in earlier chunks. Here one block walks a whole row,
-// so both carries become loops inside the block.
+// count of ties seen in earlier chunks.
 //
 // Keys. bf16 entries take K5's clamped 15-bit pattern (sign-set patterns 0
 // unless a negative NaN, which maps to 0x7FFE; positive patterns clamped at
@@ -24,26 +23,34 @@
 // (ROADMAP C6; bf16 keys never reach top). The emit keeps every key above
 // kth and the lowest-column k - count(> kth) keys equal to it.
 //
-// Design. A persistent grid (two blocks an SM), each block taking rows in
-// turn. Per row, the radix select of radix_select.cuh over the keys clamped
-// below top: bf16 in up to two passes (bits 14-8, 7-0), f32 in up to four
-// (31-24 ... 7-0), each a read of the row from device memory (a 256 KB bf16
-// row at 2^17 does not fit shared memory), the histogram in one copy per
-// warp. The emit reads the row once more and writes it: one compare a
-// column when every tie at kth is kept (the common case, and always when
-// kth is 0), else a walk in column order with a block prefix count of the
-// ties carried across stretches of the row (radix::emit_ties). With 264
-// rows in flight, the later reads of a row may find it in the 50 MB L2.
+// Cluster route (topk_cluster_launch, topk_slice.cuh): a row of up to
+// eight 64 KB slices (2^18 bf16 or 2^17 f32 columns; the slicing is
+// ops/topk_pallas.py `topk_plan`'s) goes to one thread-block cluster, each
+// block holding one slice in shared memory: one read of the row, the radix
+// passes over shared memory with the histograms summed across the cluster
+// through distributed shared memory, one write.
+//
+// Streaming route (topk_chunked_launch, below), for wider rows: a
+// persistent grid (two blocks an SM), each block taking rows in turn. Per
+// row, the radix select of radix_select.cuh over the keys clamped below
+// top: bf16 in up to two passes (bits 14-8, 7-0), f32 in up to four (31-24
+// ... 7-0), each a read of the row from device memory, the histogram in one
+// copy per warp. The emit reads the row once more and writes it: one
+// compare a column when every tie at kth is kept (the common case, and
+// always when kth is 0), else a walk in column order with a block prefix
+// count of the ties carried across stretches of the row (radix::emit_ties).
 //
 // Bound. The function reads h once and writes out once: 2 x 1.07 GB at
 // [4096, 131072] bf16 (0.64 ms at 3.35 TB/s), 2 x 537 MB at [4096, 32768]
-// f32 (0.32 ms). This kernel reads the row once a select pass and once
-// more to emit: at most 3 reads in bf16, 5 in f32.
+// f32 (0.32 ms). The cluster route moves exactly that; the streaming route
+// reads the row once a select pass and once more to emit: at most 3 reads
+// in bf16, 5 in f32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "radix_select.cuh"
+#include "topk_slice.cuh"
 
 namespace {
 
@@ -205,4 +212,14 @@ extern "C" int topk_chunked_launch(const void* h, void* out, int R, int W, int k
   else
     topk_chunked_kernel<false><<<grid, kThreads, 0, s>>>(h, out, R, W, k, vec);
   return int(cudaGetLastError());
+}
+
+extern "C" int topk_cluster_launch(const void* h, void* out, int R, int W, int k, int vec, int S,
+                                   int C, int bf16, void* stream) {
+  if (C < 1 || C > tslice::kMaxCluster || S <= 0 || S % 8 != 0 ||
+      size_t(C) * size_t(S) < size_t(W))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? tslice::launch<true>(h, out, R, W, S, C, k, vec, s)
+              : tslice::launch<false>(h, out, R, W, S, C, k, vec, s);
 }

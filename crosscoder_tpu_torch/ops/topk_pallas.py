@@ -9,7 +9,11 @@
   2^16 wide to K5 (:func:`topk_mask`, ``csrc/topk_mask.cu``), f32 rows
   that pass the JAX single-block gate to K6 (:func:`topk_mask_f32`,
   ``csrc/topk_mask_f32.cu``), every other bf16 or f32 row to K7
-  (:func:`topk_chunked`, ``csrc/topk_chunked.cu``, any width).
+  (:func:`topk_chunked`, ``csrc/topk_chunked.cu``, any width). K5 and K7's
+  cluster route share ``csrc/topk_slice.cuh``: a row held in the shared
+  memory of one block (K5) or of a thread-block cluster's blocks, a slice
+  each (K7, as :func:`topk_plan` cuts it; :func:`topk_sliced_plain` models
+  it); rows too wide for a cluster take K7's streaming route.
 - :func:`sparsify` (``f [..., width]`` with at most k positives a row →
   ``(vals [..., k], idx [..., k] int32)``, ascending index,
   ``(0, 0)``-padded; a row past k overwrites slot k-1) launches K8,
@@ -38,9 +42,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 _MAX_WIDTH = 1 << 16          # K5: bf16 rows up to 2^16 wide (composite-key domain)
 _K6_MAX_WIDTH = 48 * 1024     # K6: an f32 row staged in shared memory (192 KB)
+_SLICE_BYTES = 64 * 1024      # K7's cluster route: a row slice a block, so three blocks fit an SM
+_MAX_CLUSTER = 8              # the portable thread-block cluster size (csrc/topk_slice.cuh)
+_NO_CLUSTER = -1              # launch code of csrc/topk_slice.cuh: no such cluster fits an SM
 
 # --- the JAX package's dispatch gates (crosscoder_tpu/ops/topk_pallas.py) ---
 _VMEM_BUDGET_BYTES = 13 << 20
@@ -142,6 +150,82 @@ def topk_chunked_plain(h: torch.Tensor, k: int) -> torch.Tensor:
     return _mask_plain(h, k, _CHUNKED_TOP[h.dtype])
 
 
+def _slice_cols(width: int, n_slices: int) -> int:
+    """Columns of each of ``n_slices`` slices of a row (a multiple of 8,
+    so each slice starts 16-byte aligned; the last may be shorter or
+    empty)."""
+    return (-(-width // n_slices) + 7) // 8 * 8
+
+
+def topk_plan(width: int, dtype: torch.dtype) -> tuple[str, int, int]:
+    """How K7 launches on rows of this width: ``("cluster", C, S)``, a
+    thread-block cluster of ``C`` blocks a row, each holding ``S`` columns
+    in shared memory, for rows that fit ``_MAX_CLUSTER`` slices of at most
+    ``_SLICE_BYTES``; else ``("streaming", 0, 0)``, the kernel that reads
+    the row from device memory once a pass."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    n = max(1, -(-width * itemsize // _SLICE_BYTES))
+    if n > _MAX_CLUSTER:
+        return "streaming", 0, 0
+    return "cluster", n, _slice_cols(width, n)
+
+
+def topk_sliced_plain(h: torch.Tensor, k: int, n_slices: int, top: int | None) -> torch.Tensor:
+    """A plain model of K7's cluster route (K5 at one slice): the row cut
+    into ``n_slices`` slices of :func:`topk_plan`'s columns; each radix
+    pass (8-bit digits, bf16 from bit 8, f32 from bit 24) counts a 256-bin
+    histogram of every slice's matching keys and sums them; a pass whose
+    chosen bin is kept whole ends the select; when some ties at kth are
+    dropped, each slice's tie count is prefix-summed over the lower slices
+    and ranks the slice's ties in column order. ``top`` as
+    :func:`topk_chunked_plain`'s (``None``: :func:`topk_plain`'s
+    function). The same bits as those plain versions."""
+    width = h.shape[-1]
+    flat = h.reshape(-1, width)
+    R, dev = flat.shape[0], flat.device
+    key, value = _keys(flat)
+    key = key.to(torch.int64)                                       # -1: never kept
+    kc = key.clamp(min=0) if top is None else key.clamp(min=0, max=top - 1)
+    S = _slice_cols(width, n_slices)
+    pad = n_slices * S - width
+    slice_of = torch.arange(n_slices * S, device=dev)[:width] // S
+    first = 8 if h.dtype == torch.bfloat16 else 24
+    prefix = torch.zeros(R, dtype=torch.int64, device=dev)
+    remaining = torch.full((R,), k, dtype=torch.int64, device=dev)
+    eq = torch.zeros(R, dtype=torch.int64, device=dev)
+    live = torch.ones(R, dtype=torch.bool, device=dev)
+    few = torch.zeros(R, dtype=torch.bool, device=dev)
+    rows = torch.arange(R, device=dev)
+    for shift in range(first, -1, -8):
+        above = ~((1 << (shift + 8)) - 1)
+        match = (kc != 0) & ((kc & above) == prefix[:, None])
+        digit = (kc >> shift) & 0xFF
+        hist = torch.zeros((R, n_slices * 256), dtype=torch.int64, device=dev)
+        hist.scatter_add_(1, (slice_of * 256)[None, :] + digit, match.to(torch.int64))
+        total = hist.view(R, n_slices, 256).sum(dim=1)              # summed over the slices
+        ge = total.flip(1).cumsum(1).flip(1)                        # count(digit >= b)
+        if shift == first:
+            few = ge[:, 0] < k
+            live &= ~few
+        gt = ge - total
+        b = ((gt < remaining[:, None]) & (ge >= remaining[:, None])).to(torch.int8).argmax(1)
+        prefix = torch.where(live, prefix | (b << shift), prefix)
+        remaining = torch.where(live, remaining - gt[rows, b], remaining)
+        eq = torch.where(live, total[rows, b], eq)
+        live &= remaining != eq
+    kth = torch.where(few, 0, prefix)
+    need = remaining if top is None else torch.where(kth == top - 1, k, remaining)
+    simple = (kth == 0) | (need >= eq)
+    ties = F.pad(key == kth[:, None], (0, pad)).view(R, n_slices, S)
+    per_slice = ties.sum(2)
+    before = per_slice.cumsum(1) - per_slice                        # ties of the lower slices
+    rank = before[:, :, None] + ties.cumsum(2) - 1
+    keep_tie = (ties & (rank < need[:, None, None])).view(R, -1)[:, :width]
+    keep = torch.where(simple[:, None], key >= kth[:, None], (key > kth[:, None]) | keep_tie)
+    out = torch.where(keep, value, torch.zeros((), dtype=h.dtype, device=dev))
+    return out.reshape(h.shape)
+
+
 def topk_route(width: int, k: int, dtype: torch.dtype) -> str:
     """The TopK mask kernel that takes rows of this width and dtype, as the
     JAX package's ``_topk_fwd_impl`` dispatches: bf16 rows up to 2^16 wide
@@ -192,6 +276,10 @@ def _launch_mask(lib: str, fn_name: str, h: torch.Tensor, k: int,
                    + [t for t, _ in extra] + [ctypes.c_void_p])
     code = fn(flat.data_ptr(), out.data_ptr(), flat.shape[0], width, k, vec,
               *(v for _, v in extra), torch.cuda.current_stream(h.device).cuda_stream)
+    if code == _NO_CLUSTER:
+        raise _build.KernelLaunchError(
+            f"{lib} kernel: no thread-block cluster of this launch fits an SM "
+            f"(cudaOccupancyMaxActiveClusters is 0; launch arguments {[v for _, v in extra]})")
     _build.check(code, f"{lib} kernel")
     return out.reshape(h.shape)
 
@@ -226,20 +314,30 @@ topk_mask_f32.launches = 0
 
 
 def topk_chunked(h: torch.Tensor, k: int) -> torch.Tensor:
-    """K7, ``csrc/topk_chunked.cu``: bf16 or f32 rows of any width, read
-    from device memory. The plain version (:func:`topk_chunked_plain`) on
-    CPU tensors."""
+    """K7, ``csrc/topk_chunked.cu``: bf16 or f32 rows of any width, by the
+    route :func:`topk_plan` picks from the width before anything launches:
+    a thread-block cluster a row holding it in shared memory, or, for
+    wider rows, the streaming kernel. The plain version
+    (:func:`topk_chunked_plain`) on CPU tensors. Counts its launches on
+    ``topk_chunked.launches`` and by route on ``topk_chunked.by_route``."""
     if h.device.type == "cpu":
         return topk_chunked_plain(h, k)
     if h.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the K7 kernel takes bf16 or f32 rows, got {h.dtype}")
-    out = _launch_mask("topk_chunked", "topk_chunked_launch", h, k,
-                       ((ctypes.c_int, int(h.dtype == torch.bfloat16)),))
+    route, n_blocks, cols = topk_plan(h.shape[-1], h.dtype)
+    bf16 = (ctypes.c_int, int(h.dtype == torch.bfloat16))
+    if route == "cluster":
+        out = _launch_mask("topk_chunked", "topk_cluster_launch", h, k,
+                           ((ctypes.c_int, cols), (ctypes.c_int, n_blocks), bf16))
+    else:
+        out = _launch_mask("topk_chunked", "topk_chunked_launch", h, k, (bf16,))
     topk_chunked.launches += 1
+    topk_chunked.by_route[route] += 1
     return out
 
 
 topk_chunked.launches = 0
+topk_chunked.by_route = {"cluster": 0, "streaming": 0}   # launches of each route
 
 
 def _straight_through(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,39 @@
 #!/usr/bin/env python3
-"""Time variants of two Hopper kernels' constants on one card, beside the
+"""Time variants of Hopper kernels' constants on one card, beside the
 shipped build: the sorted-pair scatter (K10, ``csrc/scatter_rows.cu`` with
-the work list of ``ops/sparse_grad.py``) and the BatchTopK emit (K9,
-``csrc/batchtopk.cu``).
+the work list of ``ops/sparse_grad.py``), the BatchTopK emit (K9,
+``csrc/batchtopk.cu``) and the row TopK masks (K5 ``csrc/topk_mask.cu``
+and K7 ``csrc/topk_chunked.cu``, both routes, on ``csrc/topk_slice.cuh``).
 
-    python3 scripts/torch_kernel_variants.py [scatter] [emit]
+    python3 scripts/torch_kernel_variants.py [scatter] [emit] [topk]
+    python3 scripts/torch_kernel_variants.py split --csrc DIR
 
 from the root of a checkout, on a machine with an H100 and ``nvcc``. Each
-variant is the shipped source with some constants replaced, built with the
-flags of ``ops/_build.py`` into ``build/variants/`` and swapped in for the
-shipped library; each result is checked bitwise against the plain
-version, then timed with CUDA events over 20 launches, the variants in
-turns, twice. Shapes: K10 at the main shape (4096 x 32 random pairs onto
-[32768, 4608] f32) and at the AuxK filler shape (4096 x 64 pairs, no dead
-latent, onto [16384, 4608] f32); the K9 emit at [4096, 32768] bf16 beside
-``F.threshold``. Prints one line a variant and shape."""
+variant is the shipped source with some constants or lines replaced (in
+the ``.cu`` file or in a header), built with the flags of
+``ops/_build.py`` into ``build/variants/`` and swapped in for the shipped
+library; each result is checked bitwise against the plain version, then
+timed with CUDA events over 20 launches, the variants in turns, twice.
+The row TopK variants: K7's slice bytes (so its cluster size), a
+lane-private first-pass histogram, warp-aggregated atomics, the load in 1
+or 8 bulk copies, streaming stores, K5 on a persistent grid with two row
+buffers a block, and two builds that stop early (the load alone; the load
+and the select), which are timed, not checked. Shapes: K10 at the
+main shape (4096 x 32 random pairs onto [32768, 4608] f32) and at the AuxK
+filler shape (4096 x 64 pairs, no dead latent, onto [16384, 4608] f32);
+the K9 emit at [4096, 32768] bf16 beside ``F.threshold``; K7 at bf16
+[4096, 131072] and f32 [4096, 32768] and K5 at bf16 [4096, 32768] (k 32,
+random normal rows, the training shapes), with K7's streaming route at
+bf16 [512, 2^19].
+
+``split`` times where the row TopK kernels of another source tree spend
+their time (``--csrc``: its ``csrc`` directory, e.g. a parent commit's
+unpacked with ``git archive``): K7's streaming kernel whole, without its
+emit, with its first select pass alone, and with a warp-aggregated or a
+single-copy histogram; K5's bisection kernel (the design before
+``topk_slice.cuh``) as its stage alone, stage and bisection, and whole.
+Builds that skip a phase write no output and are timed, not checked.
+Prints one line a variant and shape."""
 
 from __future__ import annotations
 
@@ -77,21 +96,34 @@ EMIT = [
 ]
 
 
-def build(name: str, label: str, subs: dict[str, str]) -> ctypes.CDLL:
+def build(name: str, label: str, subs: dict[str, str],
+          header_subs: dict[str, dict[str, str]] | None = None,
+          csrc: Path | None = None) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` with ``subs`` replaced, and its headers with
+    ``header_subs`` (``{header: subs}``), built into ``build/variants/``;
+    ``csrc``: another source tree's ``csrc`` directory."""
     from crosscoder_tpu_torch.ops import _build
 
-    text = (_build.CSRC / f"{name}.cu").read_text()
-    for old, new in subs.items():
-        if old not in text:
-            raise SystemExit(f"{name}.cu has no {old!r}")
-        text = text.replace(old, new)
+    csrc = csrc or _build.CSRC
+
+    def replaced(path: Path, table: dict[str, str]) -> str:
+        text = path.read_text()
+        for old, new in table.items():
+            if old not in text:
+                raise SystemExit(f"{path.name} has no {old!r}")
+            text = text.replace(old, new)
+        return text
+
     out = ROOT / "build" / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    tag = "".join(c if c.isalnum() else "_" for c in label)
-    src = out / f"{name}_{tag}.cu"
-    src.write_text(text)
-    lib = out / f"{name}_{tag}.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+    tag = f"{name}_" + "".join(c if c.isalnum() else "_" for c in label)
+    inc = out / tag
+    inc.mkdir(parents=True, exist_ok=True)
+    for header in csrc.glob("*.cuh"):
+        (inc / header.name).write_text(replaced(header, (header_subs or {}).get(header.name, {})))
+    src = out / f"{tag}.cu"
+    src.write_text(replaced(csrc / f"{name}.cu", subs))
+    lib = out / f"{tag}.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(inc), "-o", str(lib),
                     str(src)], check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
 
@@ -177,6 +209,283 @@ def emit(torch) -> None:
     _build._libs.pop("batchtopk")
 
 
+# ---- the row TopK masks
+
+# K7's streaming kernel (csrc/topk_chunked.cu, unchanged since it was the
+# only route) and K5's bisection kernel (csrc/topk_mask.cu before the
+# redesign): builds that end a phase early. `k > 0` always holds, so each
+# skip is taken at run time while the compiler keeps the work before it.
+SKIP_EMIT = {"    // ---- emit\n": "    if (k > 0) {   // the emit skipped\n      __syncthreads();\n"
+                                       "      continue;\n    }\n"}
+FIRST_PASS = {"radix_select.cuh": {"    if (remaining == eq) break;":
+                                   "    if (remaining == eq || k > 0) break;"}}
+AGG_COUNT = """#include "radix_select.cuh"
+
+__device__ __forceinline__ void count_key_agg(unsigned v, int shift, unsigned mask,
+                                              unsigned prefix, unsigned* hist) {
+  const bool m = v != 0u && (v & mask) == prefix;
+  const unsigned d = (v >> shift) & 0xFFu, lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(0xffffffffu, m ? d : 0x100u + lane);
+  if (m && lane == unsigned(__ffs(peers) - 1)) atomicAdd(&hist[d], unsigned(__popc(peers)));
+}
+"""
+STREAM_COUNT = "radix::count_key(min(key[u][j], kTopM1), shift, mask, prefix, mine);"
+STREAM_SELECT = "radix::radix_select<kFirstShift, kWarps>("
+SPLIT_K7 = [
+    ("whole", {}, {}),
+    ("select only", SKIP_EMIT, {}),
+    ("first pass only", SKIP_EMIT, FIRST_PASS),
+    ("aggregated atomics", {'#include "radix_select.cuh"\n': AGG_COUNT,
+                            STREAM_COUNT: STREAM_COUNT.replace("radix::count_key", "count_key_agg")},
+     {}),
+    ("one histogram copy", {STREAM_SELECT: "radix::radix_select<kFirstShift, 1>("}, {}),
+]
+K5_STAGE_ONLY = {"  // bisection for v*, the k-th largest pattern:\n":
+                 "  if (k > 0) {   // the bisection and the emit skipped\n"
+                 "    if (tid == 0 && mx < 0) orow[0] = 0;\n    return;\n  }\n"}
+K5_NO_EMIT = {"  // emit: one write of the row\n":
+              "  if (k > 0) {   // the emit skipped\n"
+              "    if (tid == 0 && cstar < -1) orow[0] = 0;\n    return;\n  }\n"}
+SPLIT_K5 = [("stage only", K5_STAGE_ONLY), ("stage and bisection", K5_NO_EMIT), ("whole", {})]
+
+
+def _topk_inputs(torch):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    return {"K7 bf16 [4096, 131072]": torch.randn((4096, 2 ** 17), generator=gen, device="cuda")
+            .to(torch.bfloat16),
+            "K7 f32 [4096, 32768]": torch.randn((4096, 2 ** 15), generator=gen, device="cuda"),
+            "K5 bf16 [4096, 32768]": torch.randn((4096, 2 ** 15), generator=gen, device="cuda")
+            .to(torch.bfloat16)}
+
+
+def split(torch, csrc: Path) -> None:
+    import ctypes as ct
+
+    from crosscoder_tpu_torch.ops import _build
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+
+    hs = _topk_inputs(torch)
+    k = 32
+    with ThreadPoolExecutor(len(SPLIT_K7) + len(SPLIT_K5)) as pool:
+        k7 = list(pool.map(lambda v: build("topk_chunked", v[0], v[1], v[2], csrc), SPLIT_K7))
+        k5 = list(pool.map(lambda v: build("topk_mask", v[0], v[1], None, csrc), SPLIT_K5))
+    for turn in range(2):
+        for (label, *_), lib in zip(SPLIT_K7, k7):
+            _build._libs["topk_chunked"] = lib
+            for shape in ("K7 bf16 [4096, 131072]", "K7 f32 [4096, 32768]"):
+                h = hs[shape]
+                bf16 = (ct.c_int, int(h.dtype == torch.bfloat16))
+
+                def run():
+                    return tp._launch_mask("topk_chunked", "topk_chunked_launch", h, k, (bf16,))
+
+                check = ""
+                if label in ("whole", "aggregated atomics", "one histogram copy"):
+                    same = torch.equal(_int_view(torch, run()), _int_view(
+                        torch, tp.topk_chunked_plain(h, k)))
+                    check = f", bitwise {'equal' if same else 'DIFFERENT'}"
+                print(f"split {shape} turn {turn} [streaming: {label}]: "
+                      f"{time_ms(torch, run):.4f} ms{check}", flush=True)
+        for (label, _), lib in zip(SPLIT_K5, k5):
+            _build._libs["topk_mask"] = lib
+            h = hs["K5 bf16 [4096, 32768]"]
+
+            def run():
+                return tp._launch_mask("topk_mask", "topk_mask_launch", h, k)
+
+            check = ""
+            if label == "whole":
+                same = torch.equal(_int_view(torch, run()), _int_view(torch, tp.topk_plain(h, k)))
+                check = f", bitwise {'equal' if same else 'DIFFERENT'}"
+            print(f"split K5 bf16 [4096, 32768] turn {turn} [bisection: {label}]: "
+                  f"{time_ms(torch, run):.4f} ms{check}", flush=True)
+    _build._libs.pop("topk_chunked")
+    _build._libs.pop("topk_mask")
+
+
+SLICE = "topk_slice.cuh"
+K5_LAUNCH = """extern "C" int topk_mask_launch(const void* h, void* out, int R, int W, int k, int vec,
+                                void* stream) {
+  return tslice::launch<true>(h, out, R, W, (W + 7) / 8 * 8, 1, k, vec,
+                              static_cast<cudaStream_t>(stream));
+}
+"""
+# K5 on a persistent grid with two row buffers a block: the next row's
+# bulk copy runs while this row is selected and emitted (aligned rows only)
+K5_DOUBLE_BUFFER = """namespace {
+
+__global__ void __launch_bounds__(tslice::kThreads)
+topk_mask_db_kernel(const uint16_t* __restrict__ h, uint16_t* __restrict__ out, int R, int W,
+                    int k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* buf = reinterpret_cast<uint16_t*>(smem);
+  __shared__ tslice::Scratch<false> sc;
+  __shared__ __align__(8) uint64_t bar[2];
+  const int tid = threadIdx.x;
+  const uint32_t bytes = uint32_t(W) * 2u;
+  if (tid == 0) {
+    sm90::mbar_init(&bar[0], 1);
+    sm90::mbar_init(&bar[1], 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0 && int(blockIdx.x) < R) {
+    sm90::mbar_expect_tx(&bar[0], bytes);
+    sm90::bulk_load(buf, h + size_t(blockIdx.x) * W, bytes, &bar[0]);
+  }
+  int it = 0;
+  for (int row = blockIdx.x; row < R; row += gridDim.x, ++it) {
+    const int b = it & 1;
+    const int next = row + gridDim.x;
+    if (tid == 0 && next < R) {
+      sm90::mbar_expect_tx(&bar[b ^ 1], bytes);
+      sm90::bulk_load(buf + (b ^ 1) * W, h + size_t(next) * W, bytes, &bar[b ^ 1]);
+    }
+    sm90::mbar_wait(&bar[b], (it >> 1) & 1);
+    tslice::mask_slice<true, false>(buf + b * W, out + size_t(row) * W, W, k, 1, 0u, 1u, sc,
+                                    tslice::Arrival{nullptr, 0});
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" int topk_mask_launch(const void* h, void* out, int R, int W, int k, int vec,
+                                void* stream) {
+  if (!vec) return int(cudaErrorInvalidValue);
+  if (R == 0 || W == 0) return 0;
+  const size_t smem = 4 * size_t(W);
+  cudaError_t err = cudaFuncSetAttribute(topk_mask_db_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_mask_db_kernel, tslice::kThreads,
+                                                smem);
+  const int grid = min(R, sms * max(per_sm, 1));
+  topk_mask_db_kernel<<<grid, tslice::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(h), static_cast<uint16_t*>(out), R, W, k);
+  return int(cudaGetLastError());
+}
+"""
+# the first select pass counted into lane-private 16-bit counters (a word
+# for each pair of digits and lane, so a warp's atomics never share an
+# address; its keys are below 2^31 or 2^15, so 128 digits), summed into the
+# pass's histogram, in place of one atomic a key into the histogram
+SHARED_COUNT = """#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        radix::count_key(min(key[j], R::kTopM1), shift, mask, prefix, hist);
+    }
+  };
+"""
+LANE_COUNT = """#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const unsigned v = min(key[j], R::kTopM1);
+        if (!first)
+          radix::count_key(v, shift, mask, prefix, hist);
+        else if (v != 0u)
+          atomicAdd(&sc.lanes[(v >> (shift + 1)) * 32 + lane], 1u << (((v >> shift) & 1u) * 16));
+      }
+    }
+    if (first) {
+      __syncthreads();
+      if (tid < 128) {
+        const int w = tid >> 1, half = (tid & 1) * 16;
+        unsigned c = 0;
+        for (int l = 0; l < 32; ++l) c += (sc.lanes[w * 32 + ((l + w) & 31)] >> half) & 0xFFFFu;
+        hist[tid] = c;
+      }
+    }
+  };
+"""
+LANE_FIRST = {"  unsigned hist[(kCluster ? 2 : 1) * kBins];\n":
+              "  unsigned hist[(kCluster ? 2 : 1) * kBins];\n  unsigned lanes[64 * 32];\n",
+              "  if (tid < kMaxStretches) sc.stretch[tid] = 0;\n":
+              "  if (tid < kMaxStretches) sc.stretch[tid] = 0;\n"
+              "  for (int i = tid; i < 64 * 32; i += kThreads) sc.lanes[i] = 0;\n",
+              SHARED_COUNT: LANE_COUNT}
+# builds of topk_slice.cuh that stop early (timed, their output not
+# checked): the slice loaded, or loaded and selected, and nothing written
+LOAD_ONLY = """  if (k > 0) {   // the select and the emit skipped
+    for (int i = 0; vec && i < kLoadChunks; ++i) sm90::mbar_wait(&bar[i], 0);
+    return;
+  }
+  mask_slice<BF16, kCluster>(slice,"""
+SKIP_SLICE_EMIT = """  if (k > 0) {   // the emit skipped
+    if (kCluster) sm90::cluster_sync();
+    return;
+  }
+"""
+# (label, header substitutions, module constants, topk_mask.cu substitutions)
+TOPK = [
+    ("shipped", {}, {}, {}),
+    ("32 KB slices", {}, {"_SLICE_BYTES": 32 * 1024}, {}),
+    ("96 KB slices", {}, {"_SLICE_BYTES": 96 * 1024}, {}),
+    ("128 KB slices", {}, {"_SLICE_BYTES": 128 * 1024}, {}),
+    ("lane-private first pass", {SLICE: LANE_FIRST}, {}, {}),
+    ("aggregated atomics", {SLICE: {'#include "radix_select.cuh"\n': AGG_COUNT,
+                                    SHARED_COUNT: SHARED_COUNT.replace("radix::count_key",
+                                                                       "count_key_agg")}}, {}, {}),
+    ("load only", {SLICE: {"  mask_slice<BF16, kCluster>(slice,": LOAD_ONLY}}, {}, {}),
+    ("load and select", {SLICE: {"  // ---- emit:": SKIP_SLICE_EMIT + "  // ---- emit:"}}, {}, {}),
+    ("1 load chunk", {SLICE: {"constexpr int kLoadChunks = 4;": "constexpr int kLoadChunks = 1;"}},
+     {}, {}),
+    ("8 load chunks", {SLICE: {"constexpr int kLoadChunks = 4;": "constexpr int kLoadChunks = 8;"}},
+     {}, {}),
+    ("streaming stores", {SLICE: {"      *reinterpret_cast<uint4*>(r + c) = d.u;":
+                                  "      __stcs(reinterpret_cast<uint4*>(r + c), d.u);",
+                                  "      *reinterpret_cast<uint4*>(r + c) = make_uint4("
+                                  "o[0], o[1], o[2], o[3]);":
+                                  "      __stcs(reinterpret_cast<uint4*>(r + c), make_uint4("
+                                  "o[0], o[1], o[2], o[3]));",
+                                  "      *reinterpret_cast<uint4*>(r + c + 4) = make_uint4("
+                                  "o[4], o[5], o[6], o[7]);":
+                                  "      __stcs(reinterpret_cast<uint4*>(r + c + 4), make_uint4("
+                                  "o[4], o[5], o[6], o[7]));"}}, {}, {}),
+    ("K5 double buffer", {}, {}, {K5_LAUNCH: K5_DOUBLE_BUFFER}),
+]
+
+
+def topk(torch) -> None:
+    from crosscoder_tpu_torch.ops import _build
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+
+    hs = _topk_inputs(torch)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    hs["K7 streaming bf16 [512, 524288]"] = torch.randn(
+        (512, 2 ** 19), generator=gen, device="cuda").to(torch.bfloat16)
+    k = 32
+    want = {s: _int_view(torch, (tp.topk_plain if s.startswith("K5") else tp.topk_chunked_plain)(
+        h, k)) for s, h in hs.items()}
+    with ThreadPoolExecutor(2 * len(TOPK)) as pool:
+        k7 = list(pool.map(lambda v: build("topk_chunked", v[0], {}, v[1]), TOPK))
+        k5 = list(pool.map(lambda v: build("topk_mask", v[0], v[3], v[1]), TOPK))
+    shipped = {n: getattr(tp, n) for n in ("_SLICE_BYTES",)}
+    for turn in range(2):
+        for (label, _, py, _), lib7, lib5 in zip(TOPK, k7, k5):
+            _build._libs["topk_chunked"], _build._libs["topk_mask"] = lib7, lib5
+            for n, v in {**shipped, **py}.items():
+                setattr(tp, n, v)
+            for shape, h in hs.items():
+                fn = tp.topk_mask if shape.startswith("K5") else tp.topk_chunked
+                plan = "" if shape.startswith("K5") else f" {tp.topk_plan(h.shape[-1], h.dtype)}"
+                check = ""
+                if label not in ("load only", "load and select"):
+                    same = torch.equal(_int_view(torch, fn(h, k)), want[shape])
+                    check = f", bitwise {'equal' if same else 'DIFFERENT'}"
+                ms = time_ms(torch, lambda: fn(h, k))
+                print(f"{shape} turn {turn} [{label}]{plan}: {ms:.4f} ms{check}", flush=True)
+    for n, v in shipped.items():
+        setattr(tp, n, v)
+    _build._libs.pop("topk_chunked")
+    _build._libs.pop("topk_mask")
+
+
+def _int_view(torch, t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
 def main() -> int:
     import torch
 
@@ -186,11 +495,19 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"device: {card}", flush=True)
-    which = sys.argv[1:] or ["scatter", "emit"]
+    args = sys.argv[1:]
+    if "split" in args:
+        if "--csrc" not in args:
+            raise SystemExit("split needs --csrc DIR: the source tree whose kernels it splits")
+        split(torch, Path(args[args.index("--csrc") + 1]).resolve())
+        return 0
+    which = args or ["scatter", "emit", "topk"]
     if "scatter" in which:
         scatter(torch)
     if "emit" in which:
         emit(torch)
+    if "topk" in which:
+        topk(torch)
     return 0
 
 

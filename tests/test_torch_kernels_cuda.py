@@ -13,7 +13,8 @@ encoder→TopK (K2) and →BatchTopK (K4) bitwise on integer-valued operands,
 whose fp32 sums are exact in any order (bf16 on the tensor-core tile,
 also at its edges: rows, contraction and width that are not tile
 multiples); the int8 fused encoder (K3, on the int8 tensor-core tile,
-also at its edges), the TopK masks (K5, K6, K7), the sparsify drain (K8)
+also at its edges), the TopK masks (K5, K6, K7 on both its routes and at
+every cluster size), the sparsify drain (K8)
 and the sorted-pair scatter (K10) bitwise on any
 inputs, since each does the plain version's arithmetic in its order."""
 
@@ -281,6 +282,86 @@ def test_topk_chunked_kernel_bitwise_matches_plain(cuda, dtype, R, W, k):
         assert topk_pallas.topk_chunked.launches == before + 2
     if dtype == torch.float32 and k == 1 and R > 4:
         assert int((got[4] != 0).sum()) == 2                   # C6: the NaN and one +inf
+
+
+def _planted_slices(seed, R, W, dtype):
+    """Integer-valued rows whose ties straddle the edges of the slices
+    topk_plan cuts (row 3 at 9, a wide run at 7 in row 4, so that k = 32
+    keeps ties from two slices), besides _planted_wide's cases."""
+    h = _planted_wide(seed, R, W, dtype).float()
+    _, n, S = topk_pallas.topk_plan(W, dtype)
+    for e in range(S, W, S) if n > 1 else (W // 2,):
+        h[3, max(e - 3, 0): e + 3] = 9.0
+        h[4, max(e - 20, 0): e + 20] = 7.0
+    out = h.to(dtype)
+    if R > 6:                                                   # _planted_wide's NaN row
+        src = _planted_wide(seed, R, W, dtype)
+        out[6] = src[6]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_blocks", range(1, topk_pallas._MAX_CLUSTER + 1))
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("k", [1, 32, "W"])
+def test_topk_cluster_route_at_each_cluster_size(cuda, dtype, n_blocks, ragged, k):
+    """K7's cluster route at every cluster size the plan uses, full slices
+    and a ragged last slice, bitwise against the plain version and the
+    plain model of the slicing."""
+    per = topk_pallas._SLICE_BYTES // (2 if dtype == torch.bfloat16 else 4)
+    W = n_blocks * per - (24 if ragged else 0)
+    k = W if k == "W" else k
+    assert topk_pallas.topk_plan(W, dtype)[:2] == ("cluster", n_blocks)
+    h = _planted_slices(n_blocks + k, 7, W, dtype)
+    before = dict(topk_pallas.topk_chunked.by_route)
+    got = topk_pallas.topk_chunked(h, k)
+    assert _same_bits(got, topk_pallas.topk_chunked_plain(h, k))
+    assert _same_bits(got, topk_pallas.topk_sliced_plain(h, k, n_blocks,
+                                                         topk_pallas._CHUNKED_TOP[dtype]))
+    assert topk_pallas.topk_chunked.by_route == {**before, "cluster": before["cluster"] + 1}
+    if k == 32:
+        assert int((got[4] != 0).sum()) == 32
+
+
+@pytest.mark.parametrize("dtype,W,route", [
+    (torch.bfloat16, 2 ** 18, "cluster"), (torch.bfloat16, 2 ** 18 + 8, "streaming"),
+    (torch.bfloat16, 2 ** 18 + 3, "streaming"), (torch.float32, 2 ** 17, "cluster"),
+    (torch.float32, 2 ** 17 + 8, "streaming"), (torch.float32, 2 ** 17 - 5, "cluster")])
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_topk_chunked_routes_on_both_sides_of_the_cluster_reach(cuda, dtype, W, route, k):
+    h = _planted_slices(W + k, 6, W, dtype)
+    assert topk_pallas.topk_plan(W, dtype)[0] == route
+    before = (topk_pallas.topk_chunked.launches, dict(topk_pallas.topk_chunked.by_route))
+    got = topk_pallas.topk_chunked(h, k)
+    assert _same_bits(got, topk_pallas.topk_chunked_plain(h, k))
+    assert topk_pallas.topk_chunked.launches == before[0] + 1
+    assert topk_pallas.topk_chunked.by_route == {**before[1], route: before[1][route] + 1}
+
+
+@pytest.mark.parametrize("W", [256, 2 ** 16, 1001, 32768 + 4])
+@pytest.mark.parametrize("k", [1, 32, "W"])
+def test_topk_mask_kernel_widths_bitwise_match_plain(cuda, W, k):
+    """K5 (one block a row on topk_slice.cuh) at its narrowest and widest
+    rows, and at widths that are not a multiple of 8 (no bulk copy)."""
+    k = W if k == "W" else k
+    h = _planted_slices(W + k, 9, W, torch.bfloat16)
+    before = topk_pallas.topk.launches
+    got = topk_pallas.topk_mask(h, k)
+    assert _same_bits(got, topk_pallas.topk_plain(h, k))
+    assert _same_bits(got, topk_pallas.topk_sliced_plain(h, k, 1, None))
+    assert topk_pallas.topk.launches == before + 1
+
+
+def test_topk_cluster_launch_refuses_a_cluster_past_eight(cuda):
+    """A cluster shape the kernel does not take raises; nothing falls back."""
+    import ctypes
+
+    from crosscoder_tpu_torch.ops import _build
+
+    h = torch.ones((4, 2 ** 18), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(_build.KernelLaunchError):
+        topk_pallas._launch_mask("topk_chunked", "topk_cluster_launch", h, 4,
+                                 ((ctypes.c_int, 2 ** 15), (ctypes.c_int, 9), (ctypes.c_int, 1)))
 
 
 def test_scatter_counter_stays_the_wrappers_under_a_stand_in(cuda, monkeypatch):
