@@ -30,8 +30,12 @@ one NVIDIA Hopper card and the CUDA toolkit:
 5. training kernels vs their plain versions, bitwise, at the training
    shapes: the TopK mask (K5) and the sparsify drain (K8) on bf16 rows
    [4096, 32768] with planted ties, NaN of both signs, -0.0, rows with
-   fewer than k positives and (K8) a row past k, k in {1, 32, 128}; the
-   sorted-pair scatter (K10) with a latent hit by every row, dropped
+   fewer than k positives and (K8) a row past k, k in {1, 32, 128}; K8
+   also at the other main-path shapes (bf16 [4096, 131072], f32 [4096,
+   16384] and [4096, 32768], on TopK masks and on rows past k whose last
+   positive lies in each part of its split route) and on its warp route
+   (k past the split route's staging limit), each timed back to back and
+   queued; the sorted-pair scatter (K10) with a latent hit by every row, dropped
    indices -1 and n_out, f32 and bf16 rows, and on the AuxK term's filler
    pattern (leg F's shape, 0, 6 and 63 dead latents), timed at the main
    and the AuxK shapes; the fused encoder→TopK (K2) at
@@ -54,7 +58,8 @@ one NVIDIA Hopper card and the CUDA toolkit:
    compute, f32 masters, sparse backward on, AuxK 64 every 2 steps: leg A
    (dense encode, 12 steps) and leg B (fused encoder, 4 steps) over
    synthetic batches made ahead onto the card, with every launch counter
-   read around the legs; then a bare and an aux step re-run from one state
+   (and K8's and K11's launches by route) read around the legs, every K8
+   launch of a training leg on its split route; then a bare and an aux step re-run from one state
    with the plain versions (bitwise), the fused leg's first bare step
    against leg A's, step times, a profiler split and peak memory; then,
    over the same batches, leg F: TopK k=32 at f32 compute (K6), dict 2^14,
@@ -72,9 +77,13 @@ one NVIDIA Hopper card and the CUDA toolkit:
    the global-threshold BatchTopK select and emit (K9) and the emit alone
    at a fixed threshold, bf16 and f32, [4096, 32768] and [4096, 2432],
    with ties at the threshold, a budget above the count of positives,
-   all-negative rows, -0.0 and NaN; the block int8 quantize (K11) on a
-   Gemma-2-2B harvest chunk's rows [8184, 2304] with all-zero blocks and
-   half-way quotients; each timed beside its plain version, one library
+   all-negative rows, -0.0 and NaN; the block int8 quantize (K11) on its
+   row route (a Gemma-2-2B harvest chunk's rows [8184, 2304]) and its
+   column route (the int8 encoder's ``W2.t()``, W2 [4608, 32768], read in
+   place), with all-zero blocks, half-way quotients and a NaN block, the
+   row route's host time to issue a call, the column route beside
+   ``W2.t().contiguous()``, the copy it removes; each timed beside its
+   plain version, one library
    call where there is one (the emit's, ``F.threshold``, checked bitwise
    against it), and the bound, and K9/K11 also queued behind a device
    sleep (device time without the host's launch rate); the int8 fused
@@ -118,7 +127,8 @@ one NVIDIA Hopper card and the CUDA toolkit:
    >= 0.98), and 2 steps at f32 compute, one fused step profiled (K4
    select, emit, matmul, other); leg I: the train cell (TopK k=32,
    AuxK 64 every 2 steps) with ``quant_encoder`` block 256 (K3 and K10 on
-   bare steps, K5, K8 and K10 on aux steps) and the quality gate of
+   bare steps, K11's row route on x and column route on W for every K3
+   call, K5, K8 and K10 on aux steps) and the quality gate of
    docs/SCALING.md against the exact fused encoder (K2) on one batch
    (selection overlap >= 0.9, value error < 5e-3, loss within 5%); every
    launch counter read around each leg, one step of each profiled;
@@ -707,21 +717,78 @@ def check_topk_mask_and_sparsify(torch, tp):
     vp, ip = tp.sparsify_plain(f, k)
     if not (torch.equal(_bits(vals, torch), _bits(vp, torch)) and torch.equal(idx, ip)):
         fail("K8 not bitwise equal to its plain version on the masked random rows")
+    return row5, time_sparsify(torch, tp, f, k, "sparsify")
+
+
+def time_sparsify(torch, tp, f, k, name):
+    """K8's kernel-table row at ``f``'s shape: back to back and queued,
+    beside its plain version, topk + sort and the bound."""
+    R, W = f.shape
 
     def topk_sort():
         v, i = torch.topk(f, k)
         i, o = torch.sort(i, dim=1)
         return torch.gather(v, 1, o), i
 
+    route = tp.sparsify_plan(W, k, f.dtype)
     ms = time_ms(lambda: tp.sparsify(f, k), 20)
+    q_ms = time_ms(lambda: tp.sparsify(f, k), 20, queued=True)
     plain_ms = time_ms(lambda: tp.sparsify_plain(f, k), 3)
     lib_ms = time_ms(topk_sort, 20)
-    b = bound(n + R * k * (2 + 4), 0, "bf16")
-    log(f"K8 [{R},{W}] k={k}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, {lib_ms:.4f} ms "
-        f"topk+sort, bound {b[0]:.4f} ms by {b[1]}")
-    row8 = _row("sparsify", "sparsify.cu", "crosscoder_tpu/ops/topk_pallas.py:662", 0.0,
-                ms, plain_ms, b, lib_ms)
-    return row5, row8
+    b = bound(f.numel() * f.element_size() + R * k * (f.element_size() + 4), 0, "bf16")
+    log(f"K8 [{R},{W}] {str(f.dtype)[6:]} k={k} (route {route}): {ms:.4f} ms kernel ({q_ms:.4f} "
+        f"ms queued), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms topk+sort, bound {b[0]:.4f} ms "
+        f"by {b[1]}")
+    return {**_row(name, "sparsify.cu", "crosscoder_tpu/ops/topk_pallas.py:662", 0.0, ms,
+                   plain_ms, b, lib_ms), "queued_ms": q_ms}
+
+
+def check_sparsify_shapes(torch, tp):
+    """K8 bitwise against its plain version on TopK masks (k = 32) of
+    random rows at the other main-path shapes, with a row far past k, a row
+    of exactly k and rows past k whose last positive closes each eighth of
+    the row (so lies in each part of a split); each timed. Then its warp
+    route, for k past the split route's staging limit, at [4096, 32768] bf16.
+    Returns their kernel-table rows."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    k = TRAIN["topk_k"]
+    rows = []
+    for R, W, dt, leg in ((4096, 2 ** 17, torch.bfloat16, "leg W"),
+                          (4096, 2 ** 14, torch.float32, "leg F"),
+                          (4096, 2 ** 15, torch.float32, "leg V")):
+        f = tp.topk(torch.randn((R, W), generator=gen, device="cuda").to(dt), k)
+        g = f.clone()
+        g[0, ::3] = 1.0                                          # far past k
+        for i in range(8):                                       # k + 1, the last in eighth i
+            g[1 + i] = 0.0
+            g[1 + i, torch.randperm((i + 1) * W // 8, generator=gen, device="cuda")[:k + 1]] = 2.0
+            g[1 + i, (i + 1) * W // 8 - 1] = 2.0
+        g[9] = 0.0
+        g[9, torch.randperm(W, generator=gen, device="cuda")[:k]] = 2.0  # exactly k
+        for kk in (1, k, 128):
+            vk, ik = tp.sparsify(g, kk)
+            vp, ip = tp.sparsify_plain(g, kk)
+            if not (torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)):
+                fail(f"K8 not bitwise equal to its plain version at {dt} [{R}, {W}], k={kk}")
+        vk, ik = tp.sparsify(f, k)
+        vp, ip = tp.sparsify_plain(f, k)
+        if not (torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)):
+            fail(f"K8 not bitwise equal to its plain version on {dt} [{R}, {W}] masks")
+        log(f"K8 sparsify [{R},{W}] {str(dt)[6:]}: bitwise equal at k 1, 32, 128 on planted "
+            f"rows and on TopK masks")
+        rows.append(time_sparsify(torch, tp, f, k, f"sparsify ({str(dt)[6:]} [{R}, {W}], {leg})"))
+        del f, g, vk, vp
+    kw = tp._SPLIT_MAX_K + 1
+    f = tp.topk(torch.randn((4096, 2 ** 15), generator=gen, device="cuda").to(torch.bfloat16), kw)
+    before = tp.sparsify.by_route["warp"]
+    vk, ik = tp.sparsify(f, kw)
+    vp, ip = tp.sparsify_plain(f, kw)
+    if not (torch.equal(_bits(vk, torch), _bits(vp, torch)) and torch.equal(ik, ip)
+            and tp.sparsify.by_route["warp"] == before + 1):
+        fail(f"K8's warp route (k={kw}) not bitwise equal to its plain version, or not taken")
+    rows.append(time_sparsify(torch, tp, f, kw, f"sparsify (warp route, bf16 [4096, 32768], "
+                                               f"k {kw})"))
+    return rows
 
 
 def auxk_pairs(torch, gen, B, H, k_aux, n_dead):
@@ -1111,36 +1178,91 @@ def check_batchtopk(torch, tp):
     return row_s, row_e
 
 
+def _same_quant(torch, a, b):
+    """int8 equal, scales bitwise (a NaN scale against a NaN, whatever its
+    payload)."""
+    (q, s), (pq, ps) = a, b
+    return (torch.equal(q, pq) and torch.equal(torch.isnan(s), torch.isnan(ps))
+            and torch.equal(s.nan_to_num(0.0).view(torch.int32), ps.nan_to_num(0.0).view(torch.int32)))
+
+
 def check_quantize(torch, quant):
-    """K11 bitwise (int8 and scales) against its plain version on a
-    Gemma-2-2B harvest chunk's rows with all-zero blocks and exact half-way
-    quotients; returns its row."""
+    """K11 bitwise (int8 and scales) against its plain version: the row
+    route on a Gemma-2-2B harvest chunk's rows and the column route on the
+    int8 encoder's transposed weight (``W2.t()``, W2 [4608, 32768]), each
+    with all-zero blocks, exact half-way quotients and a NaN block, bf16 and
+    f32; each timed back to back and queued, the row route's host time to
+    issue a call; then the row route on K3's x operand ([4096, 4608], leg
+    I), checked and timed; returns their rows."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     R, d, block = 4 * 1023 * 2, 2304, 256
-    for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn((R, d), generator=gen, device="cuda") * 7
+    nd, H = TRAIN["n_models"] * TRAIN["d_in"], TRAIN["dict_size"]
+
+    def planted(shape, dtype):
+        x = torch.randn(shape, generator=gen, device="cuda") * 7
         x[0, :block] = 0.0
         x[5, 512:768] = 0.0
         x[1, :block] = torch.arange(block, device="cuda") % 20 - 9.5
         x[1, 0] = 127.0                                      # scale 1: half-way quotients
-        x = x.to(dtype)
-        q, s = quant.quantize_rows(x, block)
-        pq, ps = quant.quantize_blocks(x, block)
+        x[2, 3 * block + 7] = float("nan")
+        return x.to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x = planted((R, d), dtype)
+        w = planted((H, nd), dtype).t().contiguous()         # W2 [nd, H]; W2.t() holds the plants
+        before = dict(quant.quantize_rows.by_route)
+        row = quant.quantize_rows(x, block)
+        col = quant.quantize_rows(w.t(), block)
+        same_row = _same_quant(torch, row, quant.quantize_blocks(x, block))
+        same_col = (_same_quant(torch, col, quant.quantize_blocks(w.t(), block))
+                    and _same_quant(torch, col, quant.quantize_rows(w.t().contiguous(), block)))
         torch.cuda.synchronize()
-        same = torch.equal(q, pq) and torch.equal(s.view(torch.int32), ps.view(torch.int32))
-        log(f"K11 quantize_rows [{R},{d}] {str(dtype)[6:]} block {block}: int8 and scales "
-            f"bitwise {'equal' if same else 'DIFFERENT'}")
-        if not same:
-            fail(f"K11 not bitwise equal to its plain version ({dtype})")
+        routes = {r: quant.quantize_rows.by_route[r] - before[r] for r in before}
+        log(f"K11 quantize_rows {str(dtype)[6:]} block {block}: row route [{R},{d}] "
+            f"{'equal' if same_row else 'DIFFERENT'}, column route W2.t() [{H},{nd}] "
+            f"{'equal' if same_col else 'DIFFERENT'} (int8 and scales bitwise; launches by "
+            f"route {routes})")
+        if not (same_row and same_col and routes == {"row": 2, "column": 1}):
+            fail(f"K11 not bitwise equal to its plain version, or off its routes ({dtype})")
+        del x, w, row, col
     x = (torch.randn((R, d), generator=gen, device="cuda") * 3).to(torch.bfloat16)
     ms = time_ms(lambda: quant.quantize_rows(x, block), 50)
     q_ms = time_ms(lambda: quant.quantize_rows(x, block), 50, queued=True)
+    issue_ms = host_ms(lambda: quant.quantize_rows(x, block), 50)
     plain_ms = time_ms(lambda: quant.quantize_blocks(x, block), 10)
     b = bound(R * d * 3 + R * (d // block) * 4, 0, "bf16")
-    log(f"K11 [{R},{d}] bf16: {ms:.4f} ms kernel ({q_ms:.4f} ms queued), {plain_ms:.4f} ms "
-        f"plain, no single library call, bound {b[0]:.4f} ms by {b[1]}")
-    return _row("quantize_rows", "quantize_rows.cu", "crosscoder_tpu/ops/quant.py:154", 0.0,
-                ms, plain_ms, b, None)
+    log(f"K11 row route [{R},{d}] bf16: {ms:.4f} ms kernel ({q_ms:.4f} ms queued; the host "
+        f"issues a call in {issue_ms:.4f} ms), {plain_ms:.4f} ms plain, no single library call, "
+        f"bound {b[0]:.4f} ms by {b[1]}")
+    row = {**_row("quantize_rows", "quantize_rows.cu", "crosscoder_tpu/ops/quant.py:154", 0.0,
+                  ms, plain_ms, b, None), "queued_ms": q_ms}
+    W2 = (torch.randn((nd, H), generator=gen, device="cuda") * nd ** -0.5).to(torch.bfloat16)
+    ms = time_ms(lambda: quant.quantize_rows(W2.t(), block), 20)
+    q_ms = time_ms(lambda: quant.quantize_rows(W2.t(), block), 20, queued=True)
+    plain_ms = time_ms(lambda: quant.quantize_blocks(W2.t(), block), 3)
+    lib_ms = time_ms(lambda: W2.t().contiguous(), 20)
+    b = bound(nd * H * 3 + H * (nd // block) * 4, 0, "bf16")
+    log(f"K11 column route W2.t() [{H},{nd}] bf16 (K3's weight operand): {ms:.4f} ms kernel "
+        f"({q_ms:.4f} ms queued), {plain_ms:.4f} ms plain, {lib_ms:.4f} ms W2.t().contiguous() "
+        f"alone (the copy the route removes), bound {b[0]:.4f} ms by {b[1]}")
+    col = {**_row("quantize_rows (column route)", "quantize_rows.cu",
+                  "crosscoder_tpu/ops/quant.py:154", 0.0, ms, plain_ms, b, lib_ms),
+           "queued_ms": q_ms}
+    B = TRAIN["batch_size"]
+    x = planted((B, nd), torch.bfloat16)
+    if not _same_quant(torch, quant.quantize_rows(x, block), quant.quantize_blocks(x, block)):
+        fail(f"K11's row route not bitwise equal to its plain version on x [{B}, {nd}]")
+    ms = time_ms(lambda: quant.quantize_rows(x, block), 50)
+    q_ms = time_ms(lambda: quant.quantize_rows(x, block), 50, queued=True)
+    plain_ms = time_ms(lambda: quant.quantize_blocks(x, block), 10)
+    b = bound(B * nd * 3 + B * (nd // block) * 4, 0, "bf16")
+    log(f"K11 row route x [{B},{nd}] bf16 (K3's x operand): bitwise equal; {ms:.4f} ms kernel "
+        f"({q_ms:.4f} ms queued), {plain_ms:.4f} ms plain, no single library call, bound "
+        f"{b[0]:.4f} ms by {b[1]}")
+    row_x = {**_row(f"quantize_rows (bf16 [{B}, {nd}], leg I's x)", "quantize_rows.cu",
+                    "crosscoder_tpu/ops/quant.py:154", 0.0, ms, plain_ms, b, None),
+             "queued_ms": q_ms}
+    return row, col, row_x
 
 
 def check_fused_topk_q(torch, fek):
@@ -1221,7 +1343,7 @@ def check_fused_topk_q(torch, fek):
         f"{bnd[1]}")
     profile_kernels(torch, lambda: fek.fused_topk_encode(x, W, b, k, quant_block=qb),
                     "K3 training shape",
-                    {"quantization (quantize_rows)": "quantize_rows",
+                    {"quantization (K11, both routes)": "quantize_",
                      "product + tile sort (topk_tiles_q_tc)": "topk_tiles_q",
                      "merge (topk_merge_kernel)": "topk_merge"})
     return {**_row("fused_topk_encode_q", "fused_topk_q.cu",
@@ -1490,7 +1612,7 @@ def profile_step(torch, trainer, full_metrics, label):
              "K9 emit" if "batchtopk_emit" in n else
              "K4 select" if "bt_select" in n or "bt_pass<0>" in n or "bt_pass<1>" in n else
              "K4 emit" if "bt_emit" in n or "bt_pass<2>" in n else
-             "K11 quantize_rows" if "quantize_rows" in n else
+             "K11 quantize_rows" if "quantize_rows" in n or "quantize_cols" in n else
              "K8 sparsify" if "sparsify" in n else
              "K10 scatter_rows" if "scatter_rows" in n else
              "matmul" if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas"))
@@ -1537,8 +1659,7 @@ def train(torch, np):
         f"{time.perf_counter() - t0:.1f} s")
 
     counters = launch_counters()
-    for c in counters.values():
-        c.launches = 0
+    reset_counters(counters)
     torch.cuda.reset_peak_memory_stats()
     # leg A: dense encode + K5 + K8, K10 backward
     tr_a = trainer_mod.Trainer(cfg_a, batches, device="cuda", state=state0)
@@ -1589,8 +1710,12 @@ def train(torch, np):
         fail(f"l0 {max(l0s)} exceeds k={cfg_a.topk_k}")
     if not all(after_a[n] > 0 for n in ("topk_mask", "sparsify", "scatter_add_rows")):
         fail(f"a kernel of leg A never launched: {after_a}")
-    if not (leg_b["fused_topk_encode"] > 0 and leg_b["scatter_add_rows"] > 0):
-        fail(f"K2 or K10 never launched on leg B: {leg_b}")
+    if not (leg_b["fused_topk_encode"] > 0 and leg_b["scatter_add_rows"] > 0
+            and leg_b["sparsify"] > 0):
+        fail(f"K2, K8 or K10 never launched on leg B: {leg_b}")
+    launches["by route"] = routes = read_routes()
+    log(f"train: legs A and B by route {routes}")
+    check_routes("legs A and B", launches, routes)
     first, last = np.mean(losses_a[:4]), np.mean(losses_a[-4:])
     log(f"train: leg A mean loss of the first 4 steps {first:.5f}, of the last 4 {last:.5f}")
     if not last < first:
@@ -1726,8 +1851,7 @@ def train_wide(torch, np, root, train_batches):
     batches = copy.copy(train_batches)
     batches.i = 0
     state0 = init_train_state(cfg, Optimizer(cfg, lambda s: 0.0), device="cuda")
-    for c in counters.values():
-        c.launches = 0
+    reset_counters(counters)
     torch.cuda.reset_peak_memory_stats()
     rec = ScatterCalls(sg)
     straight = trainer_mod.Trainer(cfg, batches, device="cuda", state=state0)
@@ -1767,6 +1891,8 @@ def train_wide(torch, np, root, train_batches):
     torch.cuda.synchronize()
     legs["F"] = {n: c.launches for n, c in counters.items()}
     legs["F"]["scatter_add_rows (AuxK shape)"] = rec.by_k.get(cfg.aux_k, 0)
+    legs["F"]["by route"] = read_routes()
+    check_routes("leg F", legs["F"], legs["F"]["by route"])
     peak_f = torch.cuda.max_memory_allocated() / 2 ** 30
     ok, what = state_bits_equal(torch, straight.state, resumed.state)
     log(f"leg F (TopK f32, dict {cfg.dict_size}, AuxK {cfg.aux_k}): losses "
@@ -1809,8 +1935,7 @@ def train_wide(torch, np, root, train_batches):
     tr = trainer_mod.Trainer(cfg, batches, device="cuda")
     torch.cuda.synchronize()
     log(f"leg W: a {cfg.dict_size}-latent state on the card in {time.perf_counter() - t0:.1f} s")
-    for c in counters.values():
-        c.launches = 0
+    reset_counters(counters)
     k7_routes = tp.topk_chunked.by_route
     k7_routes.update(dict.fromkeys(k7_routes, 0))
     torch.cuda.reset_peak_memory_stats()
@@ -1836,6 +1961,8 @@ def train_wide(torch, np, root, train_batches):
         fail("leg W: a loss is not finite or l0 exceeds k")
     if not all(legs["W"][n] > 0 for n in ("topk_chunked", "sparsify", "scatter_add_rows")):
         fail(f"K7, K8 or K10 never launched on leg W: {legs['W']}")
+    legs["W"]["by route"] = read_routes()
+    check_routes("leg W", legs["W"], legs["W"]["by route"])
     if legs["K7 by route"]["W"]["cluster"] != legs["W"]["topk_chunked"]:
         fail(f"leg W: a K7 launch did not take the cluster route: {legs['K7 by route']}")
     x = batches.next()
@@ -1881,8 +2008,7 @@ def train_wide(torch, np, root, train_batches):
     batches.i = 0
     tr = trainer_mod.Trainer(cfg, batches, device="cuda")
     torch.cuda.synchronize()
-    for c in counters.values():
-        c.launches = 0
+    reset_counters(counters)
     k7_routes.update(dict.fromkeys(k7_routes, 0))
     losses_v, step_ms = [], []
     for _ in range(STEPS_V):
@@ -1901,6 +2027,8 @@ def train_wide(torch, np, root, train_batches):
         fail("leg V: a loss is not finite")
     if not all(legs["V"][n] > 0 for n in ("topk_chunked", "sparsify", "scatter_add_rows")):
         fail(f"K7, K8 or K10 never launched on leg V: {legs['V']}")
+    legs["V"]["by route"] = read_routes()
+    check_routes("leg V", legs["V"], legs["V"]["by route"])
     if legs["K7 by route"]["V"]["cluster"] != legs["V"]["topk_chunked"]:
         fail(f"leg V: a K7 launch did not take the cluster route: {legs['K7 by route']}")
     del tr, batches
@@ -1983,6 +2111,31 @@ def launch_counters():
             "fused_batchtopk_emit": fek.fused_batchtopk_emit}
 
 
+def reset_counters(counters):
+    """Every launch counter, and the by-route counts kept beside some, to 0."""
+    for c in counters.values():
+        c.launches = 0
+        by_route = getattr(c, "by_route", None)
+        if by_route is not None:
+            by_route.update(dict.fromkeys(by_route, 0))
+
+
+def read_routes():
+    """K8's and K11's launches by route since the counters were reset."""
+    from crosscoder_tpu_torch.ops import quant
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+
+    return {"sparsify": dict(tp.sparsify.by_route),
+            "quantize_rows": dict(quant.quantize_rows.by_route)}
+
+
+def check_routes(label, launches, routes):
+    """Every K8 launch of a main path takes its split route (k = 32 at the
+    main shapes); fails otherwise."""
+    if routes["sparsify"]["split"] != launches.get("sparsify", 0):
+        fail(f"{label}: a K8 launch did not take the split route: {routes}")
+
+
 def run_leg(torch, cfg, batches, factor, steps):
     """``steps`` Trainer steps over a replay of ``batches``, every launch
     counter set to 0 just before and read just after; per step the loss,
@@ -1992,8 +2145,7 @@ def run_leg(torch, cfg, batches, factor, steps):
     tr = trainer_mod.Trainer(cfg, Replay(batches, factor), device="cuda")
     torch.cuda.synchronize()
     counters = launch_counters()
-    for c in counters.values():
-        c.launches = 0
+    reset_counters(counters)
     out = []
     for i in range(steps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2004,6 +2156,7 @@ def run_leg(torch, cfg, batches, factor, steps):
         out.append(dict(loss=float(m["loss"]), l0=float(m["l0_loss"]), ms=e0.elapsed_time(e1),
                         aux=trainer_mod.variant_for_step(cfg, i)[1] and cfg.aux_k > 0))
     launches = {n: c.launches for n, c in counters.items() if c.launches}
+    launches["by route"] = read_routes()
     return tr, out, launches
 
 
@@ -2041,6 +2194,8 @@ def fused_legs(torch, np, leg_h, cfg_h):
         f"{[round(r['ms'], 3) for r in f32]}; launches {leg_k32}")
     if not all(math.isfinite(r["loss"]) for r in fused + f32):
         fail("leg K: a loss is not finite")
+    for label, leg in (("leg K's dense encode", dense_l), ("leg K", leg_k), ("leg K f32", leg_k32)):
+        check_routes(label, leg, leg["by route"])
     if not (leg_k.get("fused_batchtopk_select") == steps and leg_k.get("fused_batchtopk_emit") == steps
             and leg_k32.get("fused_batchtopk_select") == 2 and "batchtopk_select" not in leg_k):
         fail(f"leg K: K4 did not run on every step: {leg_k}, f32 {leg_k32}")
@@ -2083,6 +2238,12 @@ def fused_legs(torch, np, leg_h, cfg_h):
             and leg_i.get("topk_mask", 0) > 0 and leg_i.get("sparsify", 0) > 0
             and leg_i.get("scatter_add_rows", 0) > 0):
         fail(f"leg I: K3 on bare steps or K5/K8/K10 on aux steps did not run: {leg_i}")
+    q_routes = leg_i["by route"]["quantize_rows"]
+    check_routes("leg I", leg_i, leg_i["by route"])
+    if not (leg_i.get("quantize_rows") == 2 * len(bare)
+            and q_routes == {"row": len(bare), "column": len(bare)}):
+        fail(f"leg I: K11 did not quantize x (row route) and W (column route) for every K3 "
+             f"call: {leg_i}")
     # the quality gate (docs/SCALING.md): K3 against the exact fused K2 on one batch
     state = tr_i.state
     k = cfg_i.topk_k
@@ -2108,7 +2269,7 @@ def fused_legs(torch, np, leg_h, cfg_h):
     tr_i.step()                                       # an aux step, so the next is bare
     profile_step(torch, tr_i, False, "leg I bare step")
     del tr_i
-    return {"K": leg_k, "K32": leg_k32, "I": leg_i}
+    return {"K dense": dense_l, "K": leg_k, "K32": leg_k32, "I": leg_i}
 
 
 def harvest_tokens(np, n_seqs, seq_len, vocab, seed):
@@ -2167,8 +2328,7 @@ def harvest_train(torch, np, root):
         f"serve gather {gather_ms:.3f} ms (CUDA events)")
 
     counters = launch_counters()
-    for c in counters.values():
-        c.launches = 0
+    reset_counters(counters)
     legs = {}
     for name, cfg, steps in (("H", cfg_h, LEG_H), ("Q", cfg_q, LEG_Q)):
         spans = SpanCounter()
@@ -2238,7 +2398,9 @@ def harvest_train(torch, np, root):
             del tr, f, batches
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
-    log(f"harvest: main-path kernel launches {launches}")
+    launches["by route"] = routes = read_routes()
+    log(f"harvest: main-path kernel launches {launches}; K11 by route {routes['quantize_rows']}")
+    check_routes("harvest legs H and Q", launches, routes)
 
     for name, leg in legs.items():
         if not all(math.isfinite(v) for v in leg["losses"]):
@@ -2248,8 +2410,10 @@ def harvest_train(torch, np, root):
     if np.mean(legs["H"]["l0s"]) < cfg_h.topk_k:
         fail(f"leg H mean l0 {np.mean(legs['H']['l0s'])} below k={cfg_h.topk_k}")
     if not (launches["batchtopk_select"] >= LEG_H and launches["batchtopk_emit"] > LEG_H
-            and launches["quantize_rows"] > 0):
-        fail(f"K9 or K11 never launched on the harvest-train path: {launches}")
+            and launches["quantize_rows"] > 0
+            and routes["quantize_rows"]["row"] == launches["quantize_rows"]):
+        fail(f"K9 or K11 (row route) never launched on the harvest-train path: {launches}, "
+             f"{routes}")
 
     # the card stores' raw streams against host stores built from the same
     # params and tokens: byte for byte across a refill
@@ -2372,14 +2536,17 @@ def main() -> int:
                   check_fused_topk_train(torch, fek)]
     fused_rows = [check_fused_topk_q(torch, fek), *check_fused_batchtopk(torch, fek)]
     check_tile_edges(torch, fek)
-    harvest_rows = [*check_batchtopk(torch, tp), check_quantize(torch, quant)]
+    harvest_rows = check_batchtopk(torch, tp)
+    quant_rows = check_quantize(torch, quant)
     wide_rows = check_topk_wide(torch, tp)
+    drain_rows = check_sparsify_shapes(torch, tp)
     launches = serve(torch, np, lengths_a)
     for row in (*rows, row_k1_f32):
         row["launches"] = launches[row["name"]]
     launches, batches = train(torch, np)
     for row in train_rows:
         row["launches"] = launches[row["name"].split()[0]]
+    windows = [launches["by route"]]             # K8/K11 by route, each leg's counts from 0
     legs = train_wide(torch, np, root, batches)
     del batches
     wide_rows[0]["launches"] = legs["F"]["topk_mask_f32"]
@@ -2387,14 +2554,25 @@ def main() -> int:
     wide_rows[2]["launches"] = legs["K7 by route"]["V"]["cluster"]
     wide_rows[3]["launches"] = sum(r["streaming"] for r in legs["K7 by route"].values())
     row_k10_aux["launches"] = legs["F"]["scatter_add_rows (AuxK shape)"]
+    for row, leg in zip(drain_rows, ("W", "F", "V")):
+        row["launches"] = legs[leg]["sparsify"]
+    windows += [legs[leg]["by route"] for leg in ("F", "W", "V")]
     launches = harvest_train(torch, np, root)
     for row in harvest_rows:
         row["launches"] = launches[row["name"]]
     fused = launches["fused legs"]
+    windows += [launches["by route"], *(leg["by route"] for leg in fused.values())]
+    drain_rows[-1]["launches"] = sum(w["sparsify"]["warp"] for w in windows)
+    train_rows[1]["launches"] += fused["I"]["sparsify"]  # leg I's aux steps: the same shape, k
+    i_routes = fused["I"]["by route"]["quantize_rows"]
+    quant_rows[0]["launches"] = launches["quantize_rows"]
+    quant_rows[1]["launches"] = i_routes["column"]
+    quant_rows[2]["launches"] = i_routes["row"]
     fused_rows[0]["launches"] = fused["I"]["fused_topk_encode_q"]
     fused_rows[1]["launches"] = fused["K"]["fused_batchtopk_select"]
     fused_rows[2]["launches"] = fused["K"]["fused_batchtopk_emit"]
-    rows += [row_k1_f32] + train_rows + [row_k10_aux] + harvest_rows + wide_rows + fused_rows
+    rows += ([row_k1_f32, *train_rows, *drain_rows, row_k10_aux, *harvest_rows, *quant_rows,
+              *wide_rows, *fused_rows])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

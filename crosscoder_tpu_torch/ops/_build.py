@@ -14,6 +14,10 @@ output; nothing catches it. Every C entry point returns
 ``cudaGetLastError()`` after its launch and :func:`check` raises on a
 nonzero code, since a refused launch never runs and a later
 ``torch.cuda.synchronize()`` would not report it.
+
+The K8 and K11 wrappers give :func:`load` their entry points' prototypes,
+set once when the library loads, and pass :func:`stream`; the other
+wrappers still set their prototypes and read the stream on every call.
 """
 
 from __future__ import annotations
@@ -111,16 +115,39 @@ def build_all() -> dict[str, str]:
         return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def set_prototypes(lib: ctypes.CDLL, prototypes: dict[str, list]) -> ctypes.CDLL:
+    """Give each entry point ``{name: argtypes}`` of ``lib`` its argument
+    types and an ``int`` result, once, so that a call pays no setup."""
+    for fn_name, argtypes in prototypes.items():
+        fn = getattr(lib, fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return lib
+
+
+def load(name: str, prototypes: dict[str, list] | None = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use; its
+    entry points get ``prototypes`` (:func:`set_prototypes`) when it loads."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             s = _start(name)
             if s is not None:
                 _finish(name, s)
-            lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            lib = set_prototypes(ctypes.CDLL(str(_lib_path(name))), prototypes or {})
+            _libs[name] = lib
         return lib
+
+
+def stream(device) -> int:
+    """The raw handle of the current CUDA stream on ``device`` (a
+    ``torch.device`` with an index), without building a ``Stream`` object."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(code: int, what: str) -> None:

@@ -29,7 +29,10 @@ this way.
   so its scale may differ from :func:`quantize_blocks`' in the last bit.
 - :func:`quantize_rows`: on CUDA tensors the K11 kernel
   ``csrc/quantize_rows.cu`` (one pass: block max, scale, round), bitwise
-  :func:`quantize_blocks`; on CPU tensors :func:`quantize_blocks` itself.
+  :func:`quantize_blocks`; contiguous rows take its row route, a
+  transposed view (``W2.t()``) its column route, which reads the view's
+  storage in place (:func:`quantize_route`); on CPU tensors
+  :func:`quantize_blocks` itself.
 - :func:`quantize_contraction`: both operands of ``x2 · W2`` block-scaled
   along the contraction axis, for the int8 fused encoder (K3).
 """
@@ -99,10 +102,32 @@ def quantize_np(x: np.ndarray, block: int) -> tuple[np.ndarray, np.ndarray]:
     return q.astype(np.int8).reshape(x.shape), scale
 
 
+_PROTOTYPES = {
+    "quantize_rows_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                             + [ctypes.c_void_p]),
+    "quantize_cols_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                             + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+}
+
+
+def quantize_route(x: torch.Tensor) -> str:
+    """The K11 route for ``x``: ``"column"`` for a 2-D transposed view (its
+    rows strided, its first axis contiguous, as ``W2.t()`` is), quantized
+    where it lies; ``"row"`` for anything else, whose rows are made
+    contiguous first (no copy when they already are)."""
+    if (x.dim() == 2 and not x.is_contiguous() and x.stride(0) == 1
+            and x.stride(1) >= x.shape[0]):
+        return "column"
+    return "row"
+
+
 def quantize_rows(x: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize ``[..., d]`` rows: :func:`quantize_blocks` on CPU tensors,
     the K11 kernel on CUDA tensors (bf16 or f32, ``block`` a multiple of 8
-    dividing ``d``; else :class:`ValueError`). Bitwise equal either way."""
+    dividing ``d``; else :class:`ValueError`), by the route
+    :func:`quantize_route` picks before anything launches. Bitwise equal
+    either way. Counts its launches on ``quantize_rows.launches`` and by
+    route on ``quantize_rows.by_route``."""
     if x.device.type == "cpu":
         return quantize_blocks(x, block)
     if x.device.type != "cuda":
@@ -115,22 +140,33 @@ def quantize_rows(x: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tens
         raise ValueError(f"quantize kernel takes bf16 or f32 rows, got {x.dtype}")
     if block % 8:
         raise ValueError(f"quantize kernel takes blocks that are a multiple of 8, got {block}")
-    flat = x.reshape(-1, d).contiguous()
-    q = torch.empty(flat.shape, dtype=torch.int8, device=x.device)
-    s = torch.empty((flat.shape[0], nb), dtype=torch.float32, device=x.device)
-    vec = int(flat.data_ptr() % 16 == 0 and q.data_ptr() % 8 == 0)
-    fn = _build.load("quantize_rows").quantize_rows_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    code = fn(flat.data_ptr(), q.data_ptr(), s.data_ptr(), flat.shape[0], d, block,
-              int(x.dtype == torch.bfloat16), vec, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(code, "quantize rows kernel")
+    lib = _build.load("quantize_rows", _PROTOTYPES)
+    bf16 = int(x.dtype == torch.bfloat16)
+    route = quantize_route(x)
+    if route == "column":
+        R, ld = x.shape[0], x.stride(1)
+        q = torch.empty((R, d), dtype=torch.int8, device=x.device)
+        s = torch.empty((R, nb), dtype=torch.float32, device=x.device)
+        vec = int(x.data_ptr() % 16 == 0 and ld * x.element_size() % 16 == 0)
+        code = lib.quantize_cols_launch(x.data_ptr(), q.data_ptr(), s.data_ptr(), R, d, ld, block,
+                                        bf16, vec, _build.stream(x.device))
+    else:
+        flat = x.reshape(-1, d)
+        if not flat.is_contiguous():
+            flat = flat.contiguous()
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        s = torch.empty((*x.shape[:-1], nb), dtype=torch.float32, device=x.device)
+        code = lib.quantize_rows_launch(flat.data_ptr(), q.data_ptr(), s.data_ptr(),
+                                        flat.shape[0] * nb, block, bf16,
+                                        int(flat.data_ptr() % 16 == 0), _build.stream(x.device))
+    _build.check(code, f"quantize rows kernel ({route} route)")
     quantize_rows.launches += 1
-    return q.reshape(x.shape), s.reshape(*x.shape[:-1], nb)
+    quantize_rows.by_route[route] += 1
+    return q, s
 
 
 quantize_rows.launches = 0
+quantize_rows.by_route = {"row": 0, "column": 0}   # launches of each route
 
 
 def quantize_contraction(x2: torch.Tensor, W2: torch.Tensor, block: int
@@ -141,7 +177,9 @@ def quantize_contraction(x2: torch.Tensor, W2: torch.Tensor, block: int
     transposed back. Returns ``(xq int8 [B, nd], xs f32 [B, nb], wq int8
     [nd, H], ws f32 [nb, H])``; ``wq`` and ``ws`` are transposed views of
     the ``[H, nd]`` / ``[H, nb]`` quantization. Through :func:`quantize_rows`:
-    the compiled JAX form of the scale on any device, K11 on the card."""
+    the compiled JAX form of the scale on any device, K11 on the card,
+    where ``W2.t()`` takes its column route (``W2`` read in place, no
+    transposed copy)."""
     xq, xs = quantize_rows(x2, block)
     wqT, wsT = quantize_rows(W2.t(), block)
     return xq, xs, wqT.t(), wsT.t()

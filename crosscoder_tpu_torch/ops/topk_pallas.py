@@ -17,7 +17,9 @@
 - :func:`sparsify` (``f [..., width]`` with at most k positives a row →
   ``(vals [..., k], idx [..., k] int32)``, ascending index,
   ``(0, 0)``-padded; a row past k overwrites slot k-1) launches K8,
-  ``csrc/sparsify.cu``, on CUDA tensors, bf16 or f32.
+  ``csrc/sparsify.cu``, on CUDA tensors, bf16 or f32: a row split over
+  2, 4 or 8 warps, or a warp a row, as :func:`sparsify_plan` picks
+  (:func:`sparsify_split_plain` models the split).
 - :func:`batchtopk` (every ReLU'd entry at or above the ``min(k·rows,
   numel)``-th largest of the whole batch, all ties kept) and
   :func:`batchtopk_fixed` (its eval mode, a fixed threshold) are
@@ -374,12 +376,24 @@ topk.launches = 0              # K5's launches (topk_mask)
 # K8: sparsify
 
 
+_PART_BYTES = 32 * 1024       # K8's split route: a warp for each part of a row of this many bytes
+_MAX_PARTS = 8                 # parts of a row: the warps of a 256-thread block
+_SPLIT_MAX_K = 512             # the split route stages 8 x (k-1) pairs of 8 bytes a block
+_SPARSIFY_PROTOTYPES = {"sparsify_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                        + [ctypes.c_void_p]}
+
+
+def _drained(flat: torch.Tensor) -> torch.Tensor:
+    """The entries K8 drains: value > 0 (NaN, -0.0 and negatives never)."""
+    return flat.float() > 0
+
+
 def sparsify_plain(f: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`sparsify`."""
     width = f.shape[-1]
     flat = f.reshape(-1, width)
     R = flat.shape[0]
-    pos = flat.float() > 0
+    pos = _drained(flat)
     rank = torch.cumsum(pos.to(torch.int32), dim=1) - 1
     vals = torch.zeros((R, k), dtype=f.dtype, device=f.device)
     idx = torch.zeros((R, k), dtype=torch.int32, device=f.device)
@@ -396,12 +410,63 @@ def sparsify_plain(f: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]
     return vals.reshape(*f.shape[:-1], k), idx.reshape(*f.shape[:-1], k)
 
 
+def sparsify_plan(width: int, k: int, dtype: torch.dtype) -> tuple[str, int, int]:
+    """How K8 launches on rows of this width: ``("split", P, S)``, ``P``
+    warps a row (the largest power of two up to ``_MAX_PARTS`` parts of at
+    least ``_PART_BYTES``), each draining ``S`` columns, for rows of two
+    parts or more and ``2 <= k <= _SPLIT_MAX_K``; else ``("warp", 1,
+    width)``, a warp a row, which takes any k."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    n = min(_MAX_PARTS, width * itemsize // _PART_BYTES)
+    if n < 2 or not 2 <= k <= _SPLIT_MAX_K:
+        return "warp", 1, width
+    P = 1 << (n.bit_length() - 1)
+    return "split", P, _slice_cols(width, P)
+
+
+def sparsify_split_plain(f: torch.Tensor, k: int, n_parts: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A plain model of K8's split route: each row cut into ``n_parts``
+    parts of :func:`_slice_cols` columns; each part drains alone (its count,
+    its first k-1 entries ranked within the part, its last entry); the
+    parts' counts are prefix-summed, each part's entries land at its
+    offset where that is below slot k-1, and the highest part with an
+    entry fills slot k-1 when the row has k or more. The same bits as
+    :func:`sparsify_plain` for any ``n_parts`` >= 1."""
+    width = f.shape[-1]
+    flat = f.reshape(-1, width)
+    R, dev = flat.shape[0], flat.device
+    S = _slice_cols(width, n_parts)
+    pad = n_parts * S - width
+    pos = F.pad(_drained(flat), (0, pad)).view(R, n_parts, S)
+    count = pos.sum(2)                                              # [R, parts]
+    local = pos.to(torch.int32).cumsum(2) - 1                       # rank within the part
+    staged = pos & (local < k - 1)
+    slot = (count.cumsum(1) - count)[:, :, None] + local            # offset by the lower parts
+    r, p, c = torch.nonzero(staged & (slot < k - 1), as_tuple=True)
+    col = p * S + c
+    vals = torch.zeros((R, k), dtype=f.dtype, device=dev)
+    idx = torch.zeros((R, k), dtype=torch.int32, device=dev)
+    vals[r, slot[r, p, c].long()] = flat[r, col]
+    idx[r, slot[r, p, c].long()] = col.to(torch.int32)
+    parts = torch.arange(n_parts, device=dev)
+    top = torch.where(count > 0, parts, -1).amax(1)                 # the highest part with one
+    cols = torch.arange(S, device=dev)
+    last_in = torch.where(pos, cols, -1).amax(2)                    # each part's last column
+    over = torch.nonzero(count.sum(1) >= k, as_tuple=True)[0]
+    last = top[over] * S + last_in[over, top[over]]
+    vals[over, k - 1] = flat[over, last]
+    idx[over, k - 1] = last.to(torch.int32)
+    return vals.reshape(*f.shape[:-1], k), idx.reshape(*f.shape[:-1], k)
+
+
 def sparsify(f: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``(vals [..., k] in f.dtype, idx [..., k] int32)``: the entries > 0
     of each row in ascending index order, ``(0, 0)``-padded; a row with
     more than k of them keeps its last in slot k-1. Not differentiable.
     The plain version on CPU tensors, K8 on CUDA tensors (or
-    :class:`ValueError`)."""
+    :class:`ValueError`), by the route :func:`sparsify_plan` picks before
+    anything launches. Counts its launches on ``sparsify.launches`` and by
+    route on ``sparsify.by_route``."""
     if f.device.type == "cpu":
         return sparsify_plain(f, k)
     if f.device.type != "cuda":
@@ -413,22 +478,25 @@ def sparsify(f: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     if k < 1:
         raise ValueError(f"sparsify kernel takes k >= 1, got {k}")
     width = f.shape[-1]
-    flat = f.reshape(-1, width).contiguous()
+    route, parts, cols = sparsify_plan(width, k, f.dtype)
+    flat = f.reshape(-1, width)
+    if not flat.is_contiguous():
+        flat = flat.contiguous()
     R = flat.shape[0]
     vals = torch.empty((R, k), dtype=f.dtype, device=f.device)
     idx = torch.empty((R, k), dtype=torch.int32, device=f.device)
     vec = int(width % 8 == 0 and flat.data_ptr() % 16 == 0)
-    fn = _build.load("sparsify").sparsify_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    code = fn(flat.data_ptr(), vals.data_ptr(), idx.data_ptr(), R, width, k,
-              int(f.dtype == torch.bfloat16), vec, torch.cuda.current_stream(f.device).cuda_stream)
+    code = _build.load("sparsify", _SPARSIFY_PROTOTYPES).sparsify_launch(
+        flat.data_ptr(), vals.data_ptr(), idx.data_ptr(), R, width, k,
+        int(f.dtype == torch.bfloat16), vec, parts, cols, _build.stream(f.device))
     _build.check(code, "sparsify kernel")
     sparsify.launches += 1
+    sparsify.by_route[route] += 1
     return vals.reshape(*f.shape[:-1], k), idx.reshape(*f.shape[:-1], k)
 
 
 sparsify.launches = 0
+sparsify.by_route = {"warp": 0, "split": 0}   # launches of each route
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,12 @@
 """Time variants of Hopper kernels' constants on one card, beside the
 shipped build: the sorted-pair scatter (K10, ``csrc/scatter_rows.cu`` with
 the work list of ``ops/sparse_grad.py``), the BatchTopK emit (K9,
-``csrc/batchtopk.cu``) and the row TopK masks (K5 ``csrc/topk_mask.cu``
-and K7 ``csrc/topk_chunked.cu``, both routes, on ``csrc/topk_slice.cuh``).
+``csrc/batchtopk.cu``), the row TopK masks (K5 ``csrc/topk_mask.cu``
+and K7 ``csrc/topk_chunked.cu``, both routes, on ``csrc/topk_slice.cuh``),
+the sparsify drain (K8) and the int8 row quantize (K11).
 
-    python3 scripts/torch_kernel_variants.py [scatter] [emit] [topk]
+    python3 scripts/torch_kernel_variants.py [scatter] [emit] [topk] [sparsify] [quant]
+    python3 scripts/torch_kernel_variants.py sparsify --csrc DIR
     python3 scripts/torch_kernel_variants.py split --csrc DIR
 
 from the root of a checkout, on a machine with an H100 and ``nvcc``. Each
@@ -24,7 +26,15 @@ filler shape (4096 x 64 pairs, no dead latent, onto [16384, 4608] f32);
 the K9 emit at [4096, 32768] bf16 beside ``F.threshold``; K7 at bf16
 [4096, 131072] and f32 [4096, 32768] and K5 at bf16 [4096, 32768] (k 32,
 random normal rows, the training shapes), with K7's streaming route at
-bf16 [512, 2^19].
+bf16 [512, 2^19]. The drain (K8, ``csrc/sparsify.cu``): its chunks a lane
+a step and plain ``__ldg`` loads, each at 1, 2, 4 and 8 parts a row, on
+TopK masks (k 32) at bf16 [4096, 32768] and [4096, 131072] and f32
+[4096, 16384]; with ``--csrc`` of a tree holding the one-warp-a-row K8,
+that kernel against rings of 2 and 4 chunks a lane. The int8 quantize
+(K11, ``csrc/quantize_rows.cu``): K3's operand quantization at [4096,
+4608] x [4608, 32768] split into its parts, the host time to issue a
+row-route call, then the row route's loads a lane and grid and the
+column route's occupancy and swizzle, at [8184, 2304] and on ``W2.t()``.
 
 ``split`` times where the row TopK kernels of another source tree spend
 their time (``--csrc``: its ``csrc`` directory, e.g. a parent commit's
@@ -128,17 +138,40 @@ def build(name: str, label: str, subs: dict[str, str],
     return ctypes.CDLL(str(lib))
 
 
-def time_ms(torch, fn, reps=20):
+QUEUE_CYCLES = 50_000_000    # a device sleep longer than the host takes to issue the launches
+
+
+def time_ms(torch, fn, reps=20, queued=False):
+    """Mean device time over ``reps`` launches back to back (CUDA events);
+    ``queued``: behind a device sleep, so the events see the device alone."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     e0.record()
     for _ in range(reps):
         fn()
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def host_ms(torch, fn, reps=50):
+    """Host time to issue one call of ``fn``, the card held busy by a device
+    sleep so that no launch waits for it."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
 
 
 def scatter(torch) -> None:
@@ -482,6 +515,213 @@ def topk(torch) -> None:
     _build._libs.pop("topk_mask")
 
 
+# ---- the sparsify drain (K8) and the int8 row quantize (K11)
+
+# K8's earlier design (one warp a row, one chunk of 8 entries a lane in
+# flight, the next prefetched) turned into a ring of `u` chunks a lane a step, all `u`
+# loads (and the next step's `u`) issued before the first is drained
+RING_FROM, RING_TO = "  Chunk<T> cur, nxt;\n", "    cur = nxt;\n  }\n"
+
+
+def ring(csrc: Path, u: int) -> dict[str, str]:
+    text = (csrc / "sparsify.cu").read_text()
+    a = text.index(RING_FROM)
+    old = text[a:text.index(RING_TO, a) + len(RING_TO)]
+    body = old[old.index("    unsigned m = 0;\n"):old.index("    cur = nxt;\n")]
+    body = body.replace("cur.", "cur[u].").replace("\n    ", "\n      ").replace("    unsigned m", "      unsigned m", 1)
+    new = f"""  constexpr int kU = {u};
+  Chunk<T> cur[kU], nxt[kU];
+#pragma unroll
+  for (int u = 0; u < kU; ++u) load_chunk(cur[u], fr, lane * 8 + u * 256, W, vec);
+  for (int base0 = 0; base0 < W; base0 += 256 * kU) {{
+    if (base0 + 256 * kU < W) {{
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        load_chunk(nxt[u], fr, base0 + 256 * kU + u * 256 + lane * 8, W, vec);
+    }}
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {{
+      const int base = base0 + u * 256;
+      const int c = base + lane * 8;
+{body}    }}
+#pragma unroll
+    for (int u = 0; u < kU; ++u) cur[u] = nxt[u];
+  }}
+"""
+    return {old: new}
+
+
+def _drain_inputs(torch):
+    """The main path's K8 inputs: TopK masks (k 32) of random normal rows."""
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for R, W, dt in ((4096, 2 ** 15, torch.bfloat16), (4096, 2 ** 17, torch.bfloat16),
+                     (4096, 2 ** 14, torch.float32)):
+        h = torch.randn((R, W), generator=gen, device="cuda").to(dt)
+        out[f"K8 {str(dt)[6:]} [{R}, {W}]"] = tp.topk(h, 32)
+        del h
+    return out
+
+
+def _warp_row_sparsify(torch, lib, f, k):
+    """A launch of the earlier one-warp-a-row K8 library (its C signature:
+    no parts)."""
+    fn = lib.sparsify_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    R, W = f.shape
+    vals = torch.empty((R, k), dtype=f.dtype, device=f.device)
+    idx = torch.empty((R, k), dtype=torch.int32, device=f.device)
+    fn(f.data_ptr(), vals.data_ptr(), idx.data_ptr(), R, W, k, int(f.dtype == torch.bfloat16),
+       int(W % 8 == 0), torch.cuda.current_stream().cuda_stream)
+    return vals, idx
+
+
+# the shipped K8's constants: chunks a lane a step (bf16, f32), and plain
+# `__ldg` loads in place of its L1-bypassing loads with a 256-byte L2 hint
+LDG_L2 = """  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  return r;
+"""
+LDG = "  return __ldg(reinterpret_cast<const uint4*>(p));\n"
+
+
+def k_u(bf16: int, f32: int) -> dict[str, str]:
+    return {"  static constexpr int kU = 4;": f"  static constexpr int kU = {bf16};",
+            "  static constexpr int kU = 2;": f"  static constexpr int kU = {f32};"}
+
+
+SPARSIFY = [("shipped", {}), ("kU 1/1", k_u(1, 1)), ("kU 2/1", k_u(2, 1)),
+            ("__ldg loads", {LDG_L2: LDG})]
+
+
+def sparsify(torch, csrc: Path | None) -> None:
+    """K8 variants on the main path's three shapes, each bitwise against
+    the plain version. With ``csrc`` holding the earlier one-warp-a-row kernel:
+    that kernel and rings of 2 and 4 chunks a lane. Otherwise the shipped
+    kernel's constants (``SPARSIFY``), each at 1, 2, 4 and 8 parts a row."""
+    from crosscoder_tpu_torch.ops import _build
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+
+    csrc = csrc or _build.CSRC
+    warp_row = RING_FROM in (csrc / "sparsify.cu").read_text()
+    fs = _drain_inputs(torch)
+    k = 32
+    want = {s: tuple(_int_view(torch, t) for t in tp.sparsify_plain(f, k)) for s, f in fs.items()}
+    variants = ([("one chunk a lane (warp a row)", {}), ("ring of 2", ring(csrc, 2)),
+                 ("ring of 4", ring(csrc, 4))] if warp_row else SPARSIFY)
+    with ThreadPoolExecutor(len(variants)) as pool:
+        libs = list(pool.map(lambda v: build("sparsify", v[0], v[1], None, csrc), variants))
+    plan = tp.sparsify_plan
+    for turn in range(2):
+        for (label, _), lib in zip(variants, libs):
+            for parts in ((1,) if warp_row else (1, 2, 4, 8)):
+                if warp_row:
+                    run = lambda f: _warp_row_sparsify(torch, lib, f, k)   # noqa: E731
+                else:
+                    _build._libs["sparsify"] = _build.set_prototypes(lib, tp._SPARSIFY_PROTOTYPES)
+                    tp.sparsify_plan = lambda W, kk, dt, P=parts: (
+                        ("split", P, tp._slice_cols(W, P)) if P > 1 else ("warp", 1, W))
+                    run = lambda f: tp.sparsify(f, k)                  # noqa: E731
+                for shape, f in fs.items():
+                    got = tuple(_int_view(torch, t) for t in run(f))
+                    same = all(torch.equal(a, b) for a, b in zip(got, want[shape]))
+                    ms = time_ms(torch, lambda: run(f))
+                    tag = "" if warp_row else f", {parts} parts"
+                    print(f"{shape} turn {turn} [{label}{tag}]: {ms:.4f} ms, bitwise "
+                          f"{'equal' if same else 'DIFFERENT'}", flush=True)
+    tp.sparsify_plan = plan
+    _build._libs.pop("sparsify", None)
+
+
+# the shipped K11's constants: the row route's 16-byte loads a lane (bf16
+# and f32) and its grid (sized to the SMs, or a block for every 8 warps'
+# units), the column route held to 3 or 4 blocks an SM, and its shared
+# memory's words XOR-swizzled by the column's load group (no two lanes of
+# a packing or a reading warp on one bank)
+KMAX16 = "  static constexpr int kMax = 4;               // row route: 16-byte loads a lane holds"
+KMAX32 = "  static constexpr int kN = 4;\n  static constexpr int kMax = 4;"
+GRID = "const int grid = int(want < grid_max ? want : grid_max);"
+COLS = "__launch_bounds__(kThreads)\nquantize_cols_kernel"
+QUANT = [("shipped", {}),
+         ("row: 2 loads a lane", {KMAX16: KMAX16.replace("4;", "2;"),
+                                  KMAX32: KMAX32.replace("kMax = 4;", "kMax = 2;")}),
+         ("row: 8 loads a lane", {KMAX16: KMAX16.replace("4;", "8;"),
+                                  KMAX32: KMAX32.replace("kMax = 4;", "kMax = 8;")}),
+         ("row: a block for every 8 warps' units", {GRID: "const int grid = int(want);"}),
+         ("column: 4 blocks an SM", {COLS: COLS.replace("(kThreads)", "(kThreads, 4)")}),
+         ("column: 3 blocks an SM", {COLS: COLS.replace("(kThreads)", "(kThreads, 3)")}),
+         ("column: swizzled words", {"qt[(cg * kV + e) * 64 + rq + 32 * i] = w;":
+                                     "qt[(cg * kV + e) * 64 + ((rq + 32 * i) ^ (cg << 2))] = w;",
+                                     "qt[c * 64 + w]": "qt[c * 64 + (w ^ ((c / kV) << 2))]"})]
+
+
+def quant(torch, csrc: Path | None = None) -> None:
+    """K3's operand quantization at leg I's shape (x [4096, 4608], W [4608,
+    32768] bf16, block 256) split into its parts, and K11 at leg Q's shape
+    ([8184, 2304] bf16): back to back, queued behind a device sleep, and
+    the host's time to issue one call; then, on a tree with K11's column
+    route, the shipped K11's constants (``QUANT``) at both shapes, each
+    bitwise against the plain version."""
+    from crosscoder_tpu_torch.ops import _build
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.ops import quant as q
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    nd, H, qb = 4608, 2 ** 15, 256
+    x = torch.randn((4096, nd), generator=gen, device="cuda").to(torch.bfloat16)
+    W = (torch.randn((nd, H), generator=gen, device="cuda") * nd ** -0.5).to(torch.bfloat16)
+    Wc = W.t().contiguous()
+    parts = q.quantize_contraction(x, W, qb)
+    real = q.quantize_contraction
+
+    def reshuffles():
+        q.quantize_contraction = lambda *a: parts
+        try:
+            return fek.q_operands(x, W, qb)
+        finally:
+            q.quantize_contraction = real
+
+    for turn in range(2):
+        for label, fn in (("W2.t().contiguous()", lambda: W.t().contiguous()),
+                          ("K11 on x", lambda: q.quantize_rows(x, qb)),
+                          ("K11 on the copied W", lambda: q.quantize_rows(Wc, qb)),
+                          ("quantize_rows(W2.t())", lambda: q.quantize_rows(W.t(), qb)),
+                          ("the xsT/ws reshuffles", reshuffles),
+                          ("q_operands", lambda: fek.q_operands(x, W, qb))):
+            print(f"q_operands split turn {turn} [{label}]: {time_ms(torch, fn, 10):.4f} ms",
+                  flush=True)
+    xq = (torch.randn((8184, 2304), generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    for turn in range(2):
+        run = lambda: q.quantize_rows(xq, qb)   # noqa: E731
+        print(f"K11 [8184, 2304] turn {turn}: {time_ms(torch, run, 50):.4f} ms back to back, "
+              f"{time_ms(torch, run, 50, queued=True):.4f} ms queued, host {host_ms(torch, run, 50):.4f} "
+              f"ms a call", flush=True)
+
+    variants = QUANT if "quantize_cols_launch" in (csrc or _build.CSRC).joinpath(
+        "quantize_rows.cu").read_text() else []
+    with ThreadPoolExecutor(max(1, len(variants))) as pool:
+        libs = list(pool.map(lambda v: build("quantize_rows", v[0], v[1]), variants))
+    want_x = q.quantize_blocks(xq, qb)
+    want_w = q.quantize_blocks(W.t(), qb)
+    for turn in range(2):
+        for (label, _), lib in zip(variants, libs):
+            _build._libs["quantize_rows"] = _build.set_prototypes(lib, q._PROTOTYPES)
+            for shape, x_, want in (("row route [8184, 2304]", xq, want_x),
+                                    ("column route W.t() [32768, 4608]", W.t(), want_w)):
+                got = q.quantize_rows(x_, qb)
+                same = torch.equal(got[0], want[0]) and torch.equal(
+                    got[1].view(torch.int32), want[1].view(torch.int32))
+                ms = time_ms(torch, lambda: q.quantize_rows(x_, qb), 20)
+                qms = time_ms(torch, lambda: q.quantize_rows(x_, qb), 20, queued=True)
+                print(f"K11 {shape} turn {turn} [{label}]: {ms:.4f} ms, {qms:.4f} ms queued, "
+                      f"bitwise {'equal' if same else 'DIFFERENT'}", flush=True)
+    _build._libs.pop("quantize_rows", None)
+
+
 def _int_view(torch, t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
@@ -501,13 +741,18 @@ def main() -> int:
             raise SystemExit("split needs --csrc DIR: the source tree whose kernels it splits")
         split(torch, Path(args[args.index("--csrc") + 1]).resolve())
         return 0
-    which = args or ["scatter", "emit", "topk"]
+    csrc = Path(args[args.index("--csrc") + 1]).resolve() if "--csrc" in args else None
+    which = args or ["scatter", "emit", "topk", "sparsify", "quant"]
     if "scatter" in which:
         scatter(torch)
     if "emit" in which:
         emit(torch)
     if "topk" in which:
         topk(torch)
+    if "sparsify" in which:
+        sparsify(torch, csrc)
+    if "quant" in which:
+        quant(torch, csrc)
     return 0
 
 

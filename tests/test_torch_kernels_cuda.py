@@ -14,9 +14,10 @@ whose fp32 sums are exact in any order (bf16 on the tensor-core tile,
 also at its edges: rows, contraction and width that are not tile
 multiples); the int8 fused encoder (K3, on the int8 tensor-core tile,
 also at its edges), the TopK masks (K5, K6, K7 on both its routes and at
-every cluster size), the sparsify drain (K8)
-and the sorted-pair scatter (K10) bitwise on any
-inputs, since each does the plain version's arithmetic in its order."""
+every cluster size), the sparsify drain (K8, both routes), the int8
+quantize (K11, both routes) and the sorted-pair scatter (K10) bitwise on
+any inputs, since each does the plain version's arithmetic in its order
+(K11's NaN scales compared as NaN, whatever their payload)."""
 
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.models import lm
 from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
 from crosscoder_tpu_torch.ops import paged_attention as pa
-from crosscoder_tpu_torch.ops import sparse_grad, topk_pallas
+from crosscoder_tpu_torch.ops import quant, sparse_grad, topk_pallas
 from crosscoder_tpu_torch.train.trainer import Trainer
 from crosscoder_tpu_torch.serve.smoke import build_engine, oracle, serve_batch, serve_plain
 
@@ -806,3 +807,130 @@ def test_batchtopk_emit_kernel_bitwise_matches_plain(cuda, dtype, n, aligned):
         got = topk_pallas.batchtopk_emit(h, kth)
         assert topk_pallas.batchtopk_emit.launches == before + 1
         assert _same_bits(got, topk_pallas.batchtopk_emit_plain(h, kth))
+
+
+def _drain_rows(seed, R, W, dtype, k):
+    """Rows for K8: random signs at a density that varies by row, so rows
+    hold no positive, fewer than k, exactly k, about 2k and half the row;
+    a row with exactly k positives, rows past k whose last positive lies
+    in each eighth of the row (so in each part of any split), NaN of both
+    signs, -0.0 and +inf."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn((R, W), generator=gen, device="cuda")
+    dens = torch.tensor([0.0, 0.5 * k / W, k / W, 2.0 * k / W, 0.5], device="cuda")
+    keep = torch.rand((R, W), generator=gen, device="cuda") < dens[torch.arange(R, device="cuda")
+                                                                   % 5][:, None]
+    f = torch.where(keep, h, torch.zeros((), device="cuda"))
+    if R > 1 and W >= k:
+        f[1] = -1.0
+        f[1, torch.randperm(W, generator=gen, device="cuda")[:k]] = 2.0      # exactly k
+    for i in range(8):
+        r = 2 + i
+        if r < R:
+            end = max(1, (i + 1) * W // 8)
+            f[r, end:] = -1.0                                               # last positive in
+            f[r, :end] = torch.rand(end, generator=gen, device="cuda") + 0.5  # eighth i
+    if R > 10 and W > 6:
+        f[10, 1], f[10, 2], f[10, 4], f[10, 5] = float("nan"), -0.0, float("inf"), 3.0
+    f = f.to(dtype)
+    if R > 10 and W > 6:
+        f.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)[10, 3] = -64  # -NaN
+    return f
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("W", [1, 7, 8, 255, 256, 257, 2 ** 15, 2 ** 17 + 8])
+@pytest.mark.parametrize("R", [1, 3, 4096])
+def test_sparsify_kernel_routes_bitwise_match_plain(cuda, dtype, W, R):
+    """K8 on both its routes at their edges, bitwise against the plain
+    version: k 1, 32, 128 and past the split route's staging limit, rows
+    past k whose last positive lies in each part; one launch a call,
+    counted on the route :func:`sparsify_plan` names."""
+    for k in (1, 32, 128, topk_pallas._SPLIT_MAX_K + 1):
+        f = _drain_rows(R * 7 + W + k, R, W, dtype, k)
+        route = topk_pallas.sparsify_plan(W, k, dtype)[0]
+        before = (topk_pallas.sparsify.launches, dict(topk_pallas.sparsify.by_route))
+        vals, idx = topk_pallas.sparsify(f, k)
+        pv, pi = topk_pallas.sparsify_plain(f, k)
+        torch.cuda.synchronize()
+        assert _same_bits(vals, pv) and torch.equal(idx, pi), (k, route)
+        assert topk_pallas.sparsify.launches == before[0] + 1
+        assert topk_pallas.sparsify.by_route[route] == before[1][route] + 1
+        del f, vals, idx, pv, pi
+
+
+def _quant_rows(seed, R, d, block, dtype):
+    """Rows for K11: random normal x 7, an all-zero block, exact half-way
+    quotients (a block whose max is 127: scale 1), a NaN block."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((R, d), generator=gen, device="cuda") * 7
+    x[0, :block] = 0.0
+    if R > 1:
+        x[1, :block] = torch.arange(block, device="cuda") % 20 - 9.5
+        x[1, 0] = 127.0
+    if R > 2:
+        x[2, block + 3 if d > block else 3] = float("nan")
+    return x.to(dtype)
+
+
+def _same_quant(a, b):
+    (q, s), (pq, ps) = a, b
+    return torch.equal(q, pq) and torch.equal(torch.isnan(s), torch.isnan(ps)) and torch.equal(
+        s.nan_to_num(0.0).view(torch.int32), ps.nan_to_num(0.0).view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [1, 3, 8184, 32768])
+@pytest.mark.parametrize("d", [2304, 4608])
+@pytest.mark.parametrize("block", [8, 32, 256])
+def test_quantize_rows_routes_bitwise_match_plain(cuda, dtype, R, d, block):
+    """K11's row route on contiguous rows and its column route on the
+    transposed view of a [d, R] tensor, both bitwise against the plain
+    version (the column route also against the row route on the copy);
+    zero and NaN blocks, R not a multiple of the column tile."""
+    x = _quant_rows(R + d + block, R, d, block, dtype)
+    before = dict(quant.quantize_rows.by_route)
+    got = quant.quantize_rows(x, block)
+    assert _same_quant(got, quant.quantize_blocks(x, block))
+    xt = x.t().contiguous().t()                        # the same values as a transposed view
+    assert quant.quantize_route(xt) == ("column" if R > 1 else "row")
+    col = quant.quantize_rows(xt, block)
+    torch.cuda.synchronize()
+    assert col[0].is_contiguous() and col[1].is_contiguous()
+    assert _same_quant(col, got)
+    assert _same_quant(col, quant.quantize_blocks(xt, block))
+    assert quant.quantize_rows.by_route["row"] == before["row"] + (1 if R > 1 else 2)
+    assert quant.quantize_rows.by_route["column"] == before["column"] + (1 if R > 1 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block", [96, 512, 2304])
+def test_quantize_rows_wide_and_odd_blocks_bitwise_match_plain(cuda, dtype, block):
+    """Blocks that are not a power of two (lanes a unit below the chunk
+    count) and blocks past the registers (the row route's second sweep,
+    the column route's several 256-row stretches), both routes."""
+    x = _quant_rows(block, 1000, 4608, block, dtype)
+    want = quant.quantize_blocks(x, block)
+    assert _same_quant(quant.quantize_rows(x, block), want)
+    assert _same_quant(quant.quantize_rows(x.t().contiguous().t(), block), want)
+
+
+def test_quantize_rows_column_route_reads_in_place(cuda):
+    """``quantize_rows(W.t())``, as the int8 encoder calls it, launches the
+    column route once a call and allocates nothing but its outputs: no
+    transposed copy of W."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    W = torch.randn((4608, 32768), generator=gen, device="cuda").to(torch.bfloat16)
+    quant.quantize_rows(W.t(), 256)                    # built and loaded
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = (quant.quantize_rows.launches, quant.quantize_rows.by_route["column"])
+    for _ in range(3):
+        q, s = quant.quantize_rows(W.t(), 256)
+        del q, s
+    torch.cuda.synchronize()
+    assert quant.quantize_rows.launches == before[0] + 3
+    assert quant.quantize_rows.by_route["column"] == before[1] + 3
+    outputs = 32768 * 4608 + 32768 * 18 * 4
+    assert torch.cuda.max_memory_allocated() - base < outputs + (4 << 20)   # a copy: 302 MB
