@@ -132,7 +132,23 @@ one NVIDIA Hopper card and the CUDA toolkit:
    docs/SCALING.md against the exact fused encoder (K2) on one batch
    (selection overlap >= 0.9, value error < 5e-3, loss within 5%); every
    launch counter read around each leg, one step of each profiled;
-8. prints the kernel table as one JSON line, the card line, and
+8. analysis: two random-init Gemma-2-2B models (bf16, seeds 1 and 2, all
+   26 blocks) written as HF-layout state dicts and loaded back through
+   ``lm.from_torch_state_dict`` (model A through a file: ``torch.save``,
+   fsync, its pages dropped from the page cache, a mapped ``torch.load``;
+   model B from memory), bitwise to their params, both timed; one
+   forward with logits on [4, 1024] tokens timed, with its peak memory;
+   over seeded tokens [8, 1024] (BOS first, chunks of 4) at
+   ``blocks.14.hook_resid_pre``: the CE-recovered eval with the identity
+   reconstructor (spliced CE bitwise the clean CE, recovered 1.0), the zero
+   reconstructor (recovered by its formula) and a folded 2^14-latent TopK
+   crosscoder (k=32, f32; K6 once a chunk), firing rates over the
+   harvested f32 rows (K6 once a batch) and the dashboards of the features
+   ``replicate.pick_features`` picks, with the logit lens (K6 once a
+   minibatch), the launch counters read around them; one chunk's CEs,
+   the firing rates and the dashboards each against a re-run with the
+   plain versions, exactly; ``dashboards.html`` written;
+9. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -2487,6 +2503,251 @@ def harvest_train(torch, np, root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the analysis path
+
+
+# the CE eval's crosscoder: TopK k=32 at f32 over 2^14 latents, so its f32
+# rows take K6; folded with two seeded factors
+ANALYSIS = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dict_size=2 ** 14,
+                topk_k=32, activation="topk", enc_dtype="fp32", log_backend="null")
+ANALYSIS_SEQS, ANALYSIS_CHUNK = 8, 4
+_HF_NAMES = {"attn_norm": "input_layernorm", "post_attn_norm": "post_attention_layernorm",
+             "pre_ffw_norm": "pre_feedforward_layernorm",
+             "post_ffw_norm": "post_feedforward_layernorm", "wq": "self_attn.q_proj",
+             "wk": "self_attn.k_proj", "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj", "w_down": "mlp.down_proj"}
+
+
+def hf_state_dict(params, n_layers):
+    """The inverse of ``lm.from_torch_state_dict``: an HF Gemma2 state dict
+    (``[out, in]`` projections, one contiguous tensor each) on the card."""
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"]}
+    for key, leaf in params["layers"].items():
+        for i in range(n_layers):
+            t = leaf[i]
+            sd[f"model.layers.{i}.{_HF_NAMES[key]}.weight"] = (t.t() if t.dim() == 2
+                                                                else t).contiguous()
+    return sd
+
+
+def same_params(torch, a, b):
+    """Bitwise equality of two LM param dicts."""
+    flat = [(a["embed"], b["embed"]), (a["final_norm"], b["final_norm"])]
+    flat += [(a["layers"][k], b["layers"][k]) for k in a["layers"]]
+    return all(x.dtype == y.dtype and torch.equal(_bits(x, torch), _bits(y, torch))
+               for x, y in flat)
+
+
+def same_dashboards(np, a, b):
+    """Feature activations, top sequences, interval groups and logit-lens
+    tables of two ``FeatureVisData``, exactly."""
+    return all(fa.feature == fb.feature and np.array_equal(fa.acts_sample, fb.acts_sample)
+               and fa.max_act == fb.max_act and fa.top_seqs == fb.top_seqs
+               and fa.interval_groups == fb.interval_groups and fa.logit_lens == fb.logit_lens
+               for fa, fb in zip(a.features, b.features)) and len(a.features) == len(b.features)
+
+
+def analysis(torch, np, root):
+    """The analysis phase: two random-init Gemma-2-2B models (all 26
+    blocks) loaded from HF-layout state dicts (one through a file on disk,
+    one in memory) bitwise to their params; one forward with logits timed;
+    the CE-recovered eval with the identity, zero and crosscoder
+    reconstructors (K6 on every chunk), firing rates and the dashboards,
+    each against its re-run with the plain versions. Returns the launch
+    counts of its main path (the crosscoder CE eval, firing rates,
+    dashboards)."""
+    import os
+    import shutil
+
+    from crosscoder_tpu_torch import replicate
+    from crosscoder_tpu_torch.analysis import ce_eval
+    from crosscoder_tpu_torch.analysis.dashboards import FeatureVisConfig, FeatureVisData
+    from crosscoder_tpu_torch.analysis.decoder import dead_latent_fraction, firing_rates
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.models import crosscoder as cc
+    from crosscoder_tpu_torch.models import lm
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.ops import sparse_grad as sg
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+
+    t_phase = time.perf_counter()
+    lm_cfg = lm.LMConfig.gemma2_2b()
+    hook = ANALYSIS["hook_point"]
+    orig = [lm.init_params(lm_cfg, seed=s, device="cuda") for s in (1, 2)]
+    tmp = ckpt_dir(root)
+    try:
+        # model A through a file: torch.save, fsync, the file's pages
+        # dropped from the page cache, then a mapped load onto the card
+        sd = hf_state_dict(orig[0], lm_cfg.n_layers)
+        path = tmp / "model_a.pt"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.save(sd, path)
+        fd = os.open(path, os.O_RDONLY)
+        os.fsync(fd)
+        save_s = time.perf_counter() - t0
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        os.close(fd)
+        del sd
+        size = path.stat().st_size
+        t0 = time.perf_counter()
+        sd = torch.load(path, map_location="cpu", mmap=True)
+        params_a = lm.from_torch_state_dict(sd, lm_cfg, device="cuda")
+        torch.cuda.synchronize()
+        disk_s = time.perf_counter() - t0
+        del sd
+        path.unlink()
+        # model B in memory: its state dict on the card
+        sd = hf_state_dict(orig[1], lm_cfg.n_layers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params_b = lm.from_torch_state_dict(sd, lm_cfg, device="cuda")
+        torch.cuda.synchronize()
+        mem_s = time.perf_counter() - t0
+        del sd
+        same = [same_params(torch, params_a, orig[0]), same_params(torch, params_b, orig[1])]
+        log(f"analysis: two random-init Gemma-2-2B (bf16, {lm_cfg.n_layers} blocks) as HF-layout "
+            f"state dicts; "
+            f"model A torch.save + fsync {save_s:.2f} s ({size / 1e9:.3f} GB), load from the "
+            f"file (page cache dropped, mapped) through from_torch_state_dict {disk_s:.2f} s; "
+            f"model B from the state dict in card memory {mem_s:.2f} s; bitwise equal to the "
+            f"params {same}")
+        if not all(same):
+            fail("a model loaded through from_torch_state_dict differs from its params")
+        del orig
+        params = [params_a, params_b]
+
+        rng = np.random.default_rng(8)
+        tokens = rng.integers(3, lm_cfg.vocab_size, size=(ANALYSIS_SEQS, 1024))
+        tokens[:, 0] = 2                                         # BOS
+        tok = torch.as_tensor(tokens[:ANALYSIS_CHUNK], device="cuda")
+        with torch.no_grad():
+            lm.forward(params_a, tok, lm_cfg)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            logits, _ = lm.forward(params_a, tok, lm_cfg)
+            e1.record()
+            torch.cuda.synchronize()
+            fwd_ms = e0.elapsed_time(e1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            ce = float(lm.loss_fn(logits, tok))
+        shape = tuple(logits.shape)
+        log(f"analysis: one forward with logits, [{ANALYSIS_CHUNK}, 1024] tokens through "
+            f"{lm_cfg.n_layers} blocks and the unembedding, {fwd_ms:.3f} ms (CUDA events); logits {shape} "
+            f"{logits.dtype}; peak memory above the weights {peak:.2f} GiB; CE {ce:.4f}")
+        if not (shape == (ANALYSIS_CHUNK, 1024, lm_cfg.vocab_size)
+                and logits.dtype == torch.float32 and math.isfinite(ce)):
+            fail("the forward with logits gave the wrong shape, dtype or a non-finite CE")
+        del logits
+        profile_kernels(torch, lambda: lm.forward(params_a, tok, lm_cfg), "forward with logits",
+                        {"nvjet matmuls": "nvjet", "gemm matmuls": "gemm", "softmax": "softmax",
+                         "tanh (softcaps, GELU)": "tanh"})
+
+        # the oracles: identity splices back the clean rows, zero the zeros
+        t0 = time.perf_counter()
+        m_id = ce_eval.get_ce_recovered_metrics(tokens, lm_cfg, params, hook, lambda r: r,
+                                                chunk=ANALYSIS_CHUNK)
+        id_s = time.perf_counter() - t0
+        m_z = ce_eval.get_ce_recovered_metrics(tokens, lm_cfg, params, hook, torch.zeros_like,
+                                               chunk=ANALYSIS_CHUNK)
+        ok_id = all(m_id[f"ce_spliced_{t}"] == m_id[f"ce_clean_{t}"]
+                    and m_id[f"ce_recovered_{t}"] == 1.0 for t in "AB")
+        ok_z = all(m_z[f"ce_recovered_{t}"] == 1.0 - (m_z[f"ce_spliced_{t}"] - m_z[f"ce_clean_{t}"])
+                   / (m_z[f"ce_zero_abl_{t}"] - m_z[f"ce_clean_{t}"]) for t in "AB")
+        log(f"analysis: CE oracles over {ANALYSIS_SEQS} x 1024 tokens in chunks of "
+            f"{ANALYSIS_CHUNK} at {hook}: identity {m_id} ({id_s:.2f} s), spliced == clean "
+            f"bitwise and recovered 1.0: {ok_id}; zero {m_z}, recovered by its formula: {ok_z}")
+        if not (ok_id and ok_z):
+            fail("the CE eval's identity or zero oracle failed")
+
+        cfg = CrossCoderConfig(**ANALYSIS)
+        ccp = cc.init_params(cfg, seed=4, device="cuda")
+        # per-latent decoder scales a source: the three relative-norm
+        # clusters a trained crosscoder shows, so pick_features takes each
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        scale = 0.05 + 0.95 * torch.rand((cfg.dict_size, cfg.n_sources), generator=gen,
+                                         device="cuda")
+        ccp["W_dec"] = ccp["W_dec"] * scale[:, :, None]
+        factors = rng.uniform(0.2, 0.3, size=2)
+        folded = cc.fold_scaling_factors(ccp, factors)
+        rec = ce_eval.crosscoder_reconstruct_fn(folded, cfg)
+        feats = replicate.pick_features(ccp, k=8)
+        vis_cfg = FeatureVisConfig(hook_point=hook, features=feats)
+
+        def row_batches():
+            for s in range(0, ANALYSIS_SEQS, ANALYSIS_CHUNK):
+                acts = lm.run_with_cache_multi(params, tokens[s:s + ANALYSIS_CHUNK], lm_cfg,
+                                               (hook,))
+                yield acts[:, 1:].reshape(-1, cfg.n_sources, cfg.d_in).float()
+
+        rows = list(row_batches())
+        counters = launch_counters()
+        reset_counters(counters)
+        k6 = counters["topk_mask_f32"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_cc = ce_eval.get_ce_recovered_metrics(tokens, lm_cfg, params, hook, rec,
+                                                chunk=ANALYSIS_CHUNK)
+        cc_s = time.perf_counter() - t0
+        ce_launches = k6.launches
+        rates = firing_rates(folded, cfg, rows)
+        torch.cuda.synchronize()
+        fire_launches = k6.launches - ce_launches
+        t0 = time.perf_counter()
+        dash = FeatureVisData.create(folded, cfg, lm_cfg, params, tokens, vis_cfg)
+        dash_s = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        dash_launches = launches["topk_mask_f32"] - ce_launches - fire_launches
+        n_chunks = -(-ANALYSIS_SEQS // ANALYSIS_CHUNK)
+        log(f"analysis: crosscoder {cfg.dict_size}x{cfg.topk_k} (f32, folded with factors "
+            f"{[round(float(f), 4) for f in factors]}): CE {m_cc} in {cc_s:.2f} s, "
+            f"{cc_s / n_chunks * 1e3:.1f} ms a chunk (host clock, 6 forwards with logits and "
+            f"one reconstruction a chunk); firing rates over {sum(len(r) for r in rows)} rows: "
+            f"dead fraction {dead_latent_fraction(rates):.4f}, median {np.median(rates):.6f}; "
+            f"dashboards of features {feats} in {dash_s:.2f} s; K6 launches: CE "
+            f"{ce_launches}, firing {fire_launches}, dashboards {dash_launches}; every "
+            f"counter {launches}")
+        if not all(math.isfinite(v) for v in m_cc.values()):
+            fail(f"a crosscoder CE metric is not finite: {m_cc}")
+        if (ce_launches, fire_launches, dash_launches) != (n_chunks, len(rows), n_chunks):
+            fail(f"K6 launches on the analysis path: CE {ce_launches} (want one a chunk, "
+                 f"{n_chunks}), firing {fire_launches} (want {len(rows)}), dashboards "
+                 f"{dash_launches} (want {n_chunks})")
+        if sum(launches.values()) != launches["topk_mask_f32"]:
+            fail(f"a kernel other than K6 launched on the analysis path: {launches}")
+
+        # each against its re-run with the plain versions
+        tok = torch.as_tensor(tokens[:ANALYSIS_CHUNK], device="cuda")
+        got = ce_eval.chunk_ces(params, rec, tok, lm_cfg, hook)
+        with plain_versions(tp, sg, fek):
+            want = ce_eval.chunk_ces(params, rec, tok, lm_cfg, hook)
+            rates_plain = firing_rates(folded, cfg, rows)
+            dash_plain = FeatureVisData.create(folded, cfg, lm_cfg, params, tokens, vis_cfg)
+        same_ce = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        same_rates = np.array_equal(rates, rates_plain)
+        same_dash = same_dashboards(np, dash, dash_plain)
+        log(f"analysis: with K6 vs the plain versions: one chunk's [n_models, 3] CEs "
+            f"{got.tolist()} {'bitwise equal' if same_ce else 'DIFFERENT'}; firing rates "
+            f"{'equal' if same_rates else 'DIFFERENT'}; dashboards (activations, top sequences, "
+            f"logit-lens tables) {'equal' if same_dash else 'DIFFERENT'}")
+        if not (same_ce and same_rates and same_dash):
+            fail("the analysis path with K6 differs from its plain re-run")
+        html = dash.save_feature_centric_vis(tmp / "dashboards.html")
+        n_bytes = html.stat().st_size
+        cards = html.read_text().count('class="card"')
+        log(f"analysis: dashboards.html {n_bytes} bytes, {cards} cards; phase wall "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        if not (n_bytes > 0 and cards == len(feats)):
+            fail("dashboards.html is empty or lacks a feature's card")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2563,6 +2824,7 @@ def main() -> int:
     fused = launches["fused legs"]
     windows += [launches["by route"], *(leg["by route"] for leg in fused.values())]
     drain_rows[-1]["launches"] = sum(w["sparsify"]["warp"] for w in windows)
+    wide_rows[0]["launches"] += analysis(torch, np, root)["topk_mask_f32"]
     train_rows[1]["launches"] += fused["I"]["sparsify"]  # leg I's aux steps: the same shape, k
     i_routes = fused["I"]["by route"]["quantize_rows"]
     quant_rows[0]["launches"] = launches["quantize_rows"]

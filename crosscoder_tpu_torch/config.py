@@ -374,15 +374,19 @@ class CrossCoderConfig:
         """Raise for a replay buffer this config cannot build in the port:
         :class:`NotImplementedError` for the buffer knobs not ported yet,
         :class:`ValueError` for a buffer smaller than two batches."""
-        for knob, on in (("refill_overlap='on'", self.refill_overlap == "on"),
-                         ("harvest_runtime='paged'", self.harvest_runtime == "paged"),
-                         ("seq_shards > 1", self.seq_shards > 1),
-                         ("shard_lm", self.shard_lm),
-                         ("fleet='on' (multi-consumer fan-out)", self.fleet == "on")):
+        for knob, on, waits in (
+                ("refill_overlap='on'", self.refill_overlap == "on",
+                 "crosscoder_tpu/utils/pipeline.py"),
+                ("harvest_runtime='paged'", self.harvest_runtime == "paged",
+                 "crosscoder_tpu/models/lm.py run_with_cache_multi_paged"),
+                ("seq_shards > 1", self.seq_shards > 1, "crosscoder_tpu/parallel/"),
+                ("shard_lm", self.shard_lm, "crosscoder_tpu/parallel/"),
+                ("fleet='on' (multi-consumer fan-out)", self.fleet == "on",
+                 "crosscoder_tpu/train/fleet.py")):
             if on:
                 raise NotImplementedError(
-                    f"{knob} is not ported to the PyTorch replay buffer yet "
-                    f"(ROADMAP Queue A 9-12)")
+                    f"{knob} is not ported to the PyTorch replay buffer yet: it waits for "
+                    f"the port of {waits} (ROADMAP Queue A)")
         rows_per_seq = self.seq_len - 1
         if rows_per_seq < 1:
             raise ValueError(f"the replay buffer needs seq_len >= 2 (BOS is dropped), "
@@ -484,7 +488,7 @@ class CrossCoderConfig:
             raise NotImplementedError(
                 "--tuned: TUNED.json artifacts come from the autotuner "
                 "(crosscoder_tpu/tune/), which the port does not have yet "
-                "(ROADMAP Queue A 14)")
+                "(ROADMAP Queue A)")
         overrides: dict[str, Any] = {}
         for f in dataclasses.fields(cls):
             if f.name == "extras":

@@ -49,7 +49,7 @@ multi-consumer fan-out, sequence-parallel harvest.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable, Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -60,23 +60,7 @@ from crosscoder_tpu_torch.models import lm
 from crosscoder_tpu_torch.obs import trace
 from crosscoder_tpu_torch.ops import quant
 from crosscoder_tpu_torch.utils.device import resolve_device
-
-# harvest chunks in flight: the device computes ahead of the host's drains
-DEFAULT_DEPTH = 3
-
-
-def drive(produced: Iterable[Any], drain: Callable[[Any], None],
-          depth: int = DEFAULT_DEPTH) -> None:
-    """Consume ``produced`` (an iterator that dispatches device work as it
-    advances) keeping at most ``depth`` items in flight, draining them in
-    order."""
-    inflight: list[Any] = []
-    for item in produced:
-        inflight.append(item)
-        if len(inflight) >= depth:
-            drain(inflight.pop(0))
-    for item in inflight:
-        drain(item)
+from crosscoder_tpu_torch.utils.pipeline import DEFAULT_DEPTH, drive
 
 
 def _chunk_norm_sums(acts: torch.Tensor, n_valid: int) -> torch.Tensor:

@@ -1,8 +1,14 @@
-"""Gemma-2 capture runtime, ported from :mod:`crosscoder_tpu.models.lm`.
+"""Gemma-2 runtime with capture and edits, ported from
+:mod:`crosscoder_tpu.models.lm`.
 
-As far as serving reads it: the architecture config, random init, the
-padded capture forward (:func:`run_with_cache_multi`, the test oracle) and
-the paged capture forward (:func:`paged_capture`, the serve prefill).
+The architecture config, random init, weight loading from an HF-layout
+state dict or a local HF checkpoint (:func:`from_torch_state_dict`,
+:func:`from_hf`), the padded forward with logits and edits
+(:func:`forward`, :func:`loss_fn`, :func:`ce_loss`: the CE-recovered
+eval and the demo's training), the padded capture forward
+(:func:`run_with_cache_multi`: the harvest, the test oracle) and the paged
+capture forward (:func:`paged_capture`, the serve prefill). All share one
+block loop (:func:`_run_blocks`).
 Params are a plain dict with the JAX package's leaf names and layout:
 layer leaves stacked on a leading ``[n_layers]`` axis, matmul weights
 ``[in, out]``, so :mod:`crosscoder_tpu_torch.convert` carries them across
@@ -15,7 +21,8 @@ split-half RoPE; attention-logit softcap; alternating sliding-window
 ``query_pre_attn_scalar**-0.5``. Matmuls run in the model dtype with fp32
 accumulation (``torch.matmul``); in bf16 their outputs round to bf16
 before the GELU, where the JAX package keeps fp32, which is one bf16
-rounding apart.
+rounding apart. The logits are f32: the tied unembedding sums in f32 and
+returns f32, as the JAX package's ``preferred_element_type`` does.
 
 A capture forward runs only the blocks below the highest hooked layer:
 ``blocks.14.hook_resid_pre`` runs 14 of Gemma-2-2B's 26 blocks.
@@ -25,12 +32,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Sequence
+from pathlib import Path
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from crosscoder_tpu_torch.config import parse_hook_point
+from crosscoder_tpu_torch.models.crosscoder import matmul_f32
 from crosscoder_tpu_torch.ops import paged_attention as pa
 from crosscoder_tpu_torch.utils.device import resolve_device
 from crosscoder_tpu_torch.utils.dtypes import dtype_of
@@ -237,40 +246,158 @@ def _capture(buf: torch.Tensor, x: torch.Tensor, i: int, pairs, site: int) -> No
 
 
 # ---------------------------------------------------------------------------
-# capture forwards
+# edits
+
+
+def splice_edit(resid: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """Replace every post-BOS position with ``value``'s, keep position 0
+    (the reference's ``splice_act_hook``)."""
+    return torch.cat([resid[:, :1], value[:, 1:].to(resid.dtype)], dim=1)
+
+
+def zero_edit(resid: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """Zero the whole hook activation (the reference's
+    ``zero_ablation_hook``)."""
+    del value
+    return torch.zeros_like(resid)
+
+
+def replace_edit(resid: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """Replace the whole hook activation with ``value``."""
+    return value.to(resid.dtype)
+
+
+@dataclass(frozen=True)
+class Edit:
+    """An intervention at one hook point: ``fn(resid, value) -> resid``,
+    shape-preserving; ``value`` is ``[B, S, d_model]`` (zeros when None)."""
+
+    hook_point: str
+    fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    value: torch.Tensor | None = None
+
+
+# ---------------------------------------------------------------------------
+# forwards
 
 
 AttentionFn = Callable[..., torch.Tensor]
 
 
-def _capture_forward(params, resid, cfg: LMConfig, pairs, n_scan: int,
-                     attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int],
-                                      torch.Tensor],
-                     pos: torch.Tensor) -> torch.Tensor:
+def _run_blocks(params, resid, cfg: LMConfig, pairs, n_scan: int,
+                attend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, int], torch.Tensor],
+                pos: torch.Tensor, edits=()) -> tuple[torch.Tensor, torch.Tensor]:
     """Blocks ``[0, n_scan)`` on ``resid [R, S, D]``; ``attend(q, k, v,
-    window)`` maps projected heads to ``[R, S, H*hd]``. Returns the capture
-    buffer ``[n_cap, R, S, D]``."""
+    window)`` maps projected heads to ``[R, S, H*hd]``. ``edits``: ``(layer,
+    site, fn, value)`` tuples, each applied at its hook before that hook's
+    capture (a sublayer edit before the contribution joins the stream).
+    Returns the final stream and the capture buffer ``[n_cap, R, S, D]``."""
     want_attn = any(c == _SITE_ATTN for _, c in pairs)
     want_mlp = any(c == _SITE_MLP for _, c in pairs)
     buf = torch.zeros((len(pairs),) + tuple(resid.shape), dtype=resid.dtype,
                       device=resid.device)
+
+    def edited(x, i, site):
+        for layer, code, fn, value in edits:
+            if layer == i and code == site:
+                x = fn(x, value)
+        return x
+
     for i in range(n_scan):
         lp = _layer(params, i)
+        resid = edited(resid, i, _SITE_RESID)
         _capture(buf, resid, i, pairs, _SITE_RESID)
         window = cfg.sliding_window if i % 2 == 0 else 0    # even layers: local
         q, k, v = _qkv(_rms_norm(resid, lp["attn_norm"], cfg.rms_eps), lp, cfg, pos)
         a = torch.matmul(attend(q, k, v, window), lp["wo"])
-        attn_out = _rms_norm(a, lp["post_attn_norm"], cfg.rms_eps)
+        attn_out = edited(_rms_norm(a, lp["post_attn_norm"], cfg.rms_eps), i, _SITE_ATTN)
         if want_attn:
             _capture(buf, attn_out, i, pairs, _SITE_ATTN)
         resid = resid + attn_out
         m = _mlp(_rms_norm(resid, lp["pre_ffw_norm"], cfg.rms_eps), lp)
-        mlp_out = _rms_norm(m, lp["post_ffw_norm"], cfg.rms_eps)
+        mlp_out = edited(_rms_norm(m, lp["post_ffw_norm"], cfg.rms_eps), i, _SITE_MLP)
         if want_mlp:
             _capture(buf, mlp_out, i, pairs, _SITE_MLP)
         resid = resid + mlp_out
+    resid = edited(resid, n_scan, _SITE_RESID)
     _capture(buf, resid, n_scan, pairs, _SITE_RESID)
-    return buf
+    return resid, buf
+
+
+def _padded_attend(cfg: LMConfig):
+    """The padded forward's attention: the plain masked softmax over the
+    whole row."""
+    scale = cfg.query_pre_attn_scalar ** -0.5
+
+    def attend(q, k, v, window):
+        return pa.ragged_attention_reference(
+            q, k, v, None, scale=scale, softcap=cfg.attn_softcap,
+            window=cfg.sliding_window, is_local=bool(window))
+
+    return attend
+
+
+def _unembed(params: LMParams, resid: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """Final RMSNorm → tied unembedding (summed in f32, f32 out) → final
+    softcap."""
+    x = _rms_norm(resid, params["final_norm"], cfg.rms_eps)
+    logits = matmul_f32(x.reshape(-1, cfg.d_model), params["embed"].t())
+    logits = logits.reshape(*x.shape[:-1], -1)
+    return _softcap(logits, cfg.final_softcap) if cfg.final_softcap else logits
+
+
+def forward(params: LMParams, tokens, cfg: LMConfig, *, capture: Sequence[str] = (),
+            edits: Sequence[Edit] = (), return_logits: bool = True
+            ) -> tuple[torch.Tensor | None, dict[str, torch.Tensor]]:
+    """The padded forward: ``(logits [B, S, vocab] f32 or None, cache)``.
+
+    ``capture``: hook points to record, each ``[B, S, d_model]`` in the
+    cache. ``edits``: interventions applied before capture at the same
+    hook; residual sites edit the stream, ``attn_out``/``mlp_out`` sites
+    that sublayer's contribution before it joins the stream.
+    ``return_logits=False`` runs only the blocks below the highest hook or
+    edit and skips the unembedding. Differentiable (no ``no_grad``)."""
+    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+    cap_pairs = _hook_layers(cfg, tuple(capture))
+    edit_pairs = _hook_layers(cfg, [e.hook_point for e in edits])
+    zeros = None
+    ed = []
+    for (layer, code), e in zip(edit_pairs, edits):
+        value = e.value
+        if value is None:
+            if zeros is None:
+                zeros = torch.zeros(tuple(tokens.shape) + (cfg.d_model,),
+                                    dtype=dtype_of(cfg.dtype), device=tokens.device)
+            value = zeros
+        ed.append((layer, code, e.fn, value))
+    # without logits, nothing above the highest hooked layer is observable
+    n_scan = (cfg.n_layers if return_logits
+              else min(cfg.n_layers, max(_scan_stop(cap_pairs), _scan_stop(edit_pairs))))
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    resid, buf = _run_blocks(params, _embed(params, tokens, cfg), cfg, cap_pairs, n_scan,
+                             _padded_attend(cfg), pos, ed)
+    logits = _unembed(params, resid, cfg) if return_logits else None
+    return logits, {hp: buf[i] for i, hp in enumerate(capture)}
+
+
+def loss_fn(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy (f32)."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = torch.as_tensor(tokens, device=logits.device).long()[:, 1:]
+    return -torch.gather(logp, -1, tgt[..., None])[..., 0].mean()
+
+
+def run_with_cache(params: LMParams, tokens, cfg: LMConfig,
+                   hook_points: Sequence[str]) -> dict[str, torch.Tensor]:
+    """Capture-only forward (no unembedding)."""
+    return forward(params, tokens, cfg, capture=hook_points, return_logits=False)[1]
+
+
+def ce_loss(params: LMParams, tokens, cfg: LMConfig, edits: Sequence[Edit] = ()
+            ) -> torch.Tensor:
+    """CE of a (possibly edited) forward: one f32 scalar on the device."""
+    logits, _ = forward(params, tokens, cfg, edits=edits)
+    return loss_fn(logits, tokens)
 
 
 @torch.no_grad()
@@ -281,18 +408,12 @@ def run_with_cache_multi(params_seq: Sequence[LMParams], tokens: torch.Tensor,
     is the plain masked softmax over the whole padded row."""
     pairs = _hook_layers(cfg, tuple(hook_points))
     n_scan = min(cfg.n_layers, _scan_stop(pairs))
-    S = tokens.shape[1]
-    pos = torch.arange(S, device=tokens.device)
-    scale = cfg.query_pre_attn_scalar ** -0.5
-
-    def attend(q, k, v, window):
-        return pa.ragged_attention_reference(
-            q, k, v, None, scale=scale, softcap=cfg.attn_softcap,
-            window=cfg.sliding_window, is_local=bool(window))
-
+    tokens = torch.as_tensor(tokens, device=params_seq[0]["embed"].device).long()
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
     outs = []
     for p in params_seq:
-        buf = _capture_forward(p, _embed(p, tokens, cfg), cfg, pairs, n_scan, attend, pos)
+        _, buf = _run_blocks(p, _embed(p, tokens, cfg), cfg, pairs, n_scan,
+                             _padded_attend(cfg), pos)
         outs.extend(buf[i] for i in range(len(pairs)))
     return torch.stack(outs, dim=2)
 
@@ -338,9 +459,90 @@ def paged_capture(params_seq: Sequence[LMParams], chunk, cfg: LMConfig,
 
     outs = []
     for p in params_seq:
-        buf = _capture_forward(p, _embed(p, plane, cfg), cfg, pairs, n_scan, attend, pos2d)
+        _, buf = _run_blocks(p, _embed(p, plane, cfg), cfg, pairs, n_scan, attend, pos2d)
         flat = buf.reshape(len(pairs), R * Sp, cfg.d_model)
         outs.extend(flat[i][doc_idx] for i in range(len(pairs)))   # [D, S, d]
     out = torch.stack(outs, dim=2)                                 # [D, S, n_src, d]
     valid = torch.arange(S, device=dev)[None] < lengths[:, None].long()
     return torch.where(valid[:, :, None, None], out, torch.zeros((), dtype=out.dtype, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# weight loading
+
+
+def from_torch_state_dict(sd: Mapping[str, Any], cfg: LMConfig, dtype: str | None = None,
+                          device=None) -> LMParams:
+    """Params from an HF-transformers Gemma2 ``state_dict`` (tensors or
+    numpy arrays): HF projections ``[out, in]`` become stacked ``[in,
+    out]`` leaves. Each leaf goes to ``device`` in its stored dtype, to f32
+    there, and is rounded once to ``dtype`` (default ``cfg.dtype``), so the
+    values are the JAX package's (f32 on the host, then cast) whichever
+    device converts. Runs on ``cuda`` unless ``device`` names another
+    device."""
+    dev = resolve_device(device)
+    dt = dtype_of(dtype or cfg.dtype)
+
+    def get(name: str) -> torch.Tensor:
+        v = sd[name]
+        t = v.detach() if torch.is_tensor(v) else torch.from_numpy(np.asarray(v, np.float32))
+        return t.to(dev).float()
+
+    def leaf(name: str) -> torch.Tensor:
+        return get(name).to(dt)
+
+    def stack(fmt: str, transpose: bool) -> torch.Tensor:
+        out = None
+        for i in range(cfg.n_layers):
+            m = get(fmt.format(i))
+            m = m.t() if transpose else m
+            if out is None:
+                out = torch.empty((cfg.n_layers,) + tuple(m.shape), dtype=dt, device=dev)
+            out[i] = m                      # one rounding to dt
+        return out
+
+    p = "model.layers.{}."
+    return {
+        "embed": leaf("model.embed_tokens.weight"),
+        "final_norm": leaf("model.norm.weight"),
+        "layers": {
+            "attn_norm": stack(p + "input_layernorm.weight", False),
+            "post_attn_norm": stack(p + "post_attention_layernorm.weight", False),
+            "pre_ffw_norm": stack(p + "pre_feedforward_layernorm.weight", False),
+            "post_ffw_norm": stack(p + "post_feedforward_layernorm.weight", False),
+            "wq": stack(p + "self_attn.q_proj.weight", True),
+            "wk": stack(p + "self_attn.k_proj.weight", True),
+            "wv": stack(p + "self_attn.v_proj.weight", True),
+            "wo": stack(p + "self_attn.o_proj.weight", True),
+            "w_gate": stack(p + "mlp.gate_proj.weight", True),
+            "w_up": stack(p + "mlp.up_proj.weight", True),
+            "w_down": stack(p + "mlp.down_proj.weight", True),
+        },
+    }
+
+
+def from_hf(path: str, cfg: LMConfig | None = None, device=None) -> tuple[LMParams, LMConfig]:
+    """``(params, cfg)`` of a Gemma-2 checkpoint in a LOCAL HF directory
+    (``save_pretrained`` layout), read by ``transformers`` in bf16 with
+    ``local_files_only``; the hub is never asked. ``cfg`` None maps the
+    checkpoint's own config. Runs on ``cuda`` unless ``device`` names
+    another device. :class:`ValueError` when ``path`` is not a directory."""
+    if not Path(path).is_dir():
+        raise ValueError(
+            f"from_hf loads a local HF checkpoint directory, and {path!r} is not one "
+            f"(the port downloads nothing: save the model with save_pretrained first)")
+    dev = resolve_device(device)
+    import transformers  # deferred: heavyweight, and only this loader needs it
+
+    model = transformers.AutoModelForCausalLM.from_pretrained(
+        path, dtype=torch.bfloat16, local_files_only=True)
+    hf = model.config
+    if cfg is None:
+        cfg = LMConfig(
+            vocab_size=hf.vocab_size, d_model=hf.hidden_size, n_layers=hf.num_hidden_layers,
+            n_heads=hf.num_attention_heads, n_kv_heads=hf.num_key_value_heads,
+            head_dim=hf.head_dim, d_ff=hf.intermediate_size, rope_theta=hf.rope_theta,
+            rms_eps=hf.rms_norm_eps, attn_softcap=hf.attn_logit_softcapping,
+            final_softcap=hf.final_logit_softcapping, sliding_window=hf.sliding_window,
+            query_pre_attn_scalar=float(hf.query_pre_attn_scalar))
+    return from_torch_state_dict(model.state_dict(), cfg, device=dev), cfg

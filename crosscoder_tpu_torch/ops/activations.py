@@ -98,6 +98,6 @@ def apply(h: torch.Tensor, cfg: "CrossCoderConfig", params: dict | None = None) 
         return batchtopk(h, cfg.topk_k)
     if cfg.activation == "jumprelu":
         raise NotImplementedError(
-            "activation='jumprelu' is not ported yet: it comes with the JumpReLU "
-            "slice (ROADMAP Queue A 2)")
+            "activation='jumprelu' is not ported yet: the JumpReLU activation waits for "
+            "the port of crosscoder_tpu/ops/activations.py jumprelu (ROADMAP Queue A)")
     raise ValueError(f"unknown activation {cfg.activation!r}")

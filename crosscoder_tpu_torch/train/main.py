@@ -11,12 +11,13 @@ Config from the command line (every field a flag,
 ``cfg.checkpoint_dir``. ``--resume true`` continues from the newest
 verified save there (the buffer is built lazily and restored).
 
-``--data-source gemma`` composes the Gemma-2 harvest: the model pair's
-architecture, the local token cache, :func:`make_buffer` and ``d_in`` from
-the model. Loading the Gemma-2 weights (the JAX package's ``lm.from_hf``)
-is not ported yet, so from the command line it raises
-:class:`NotImplementedError`; a caller holding LM params (random init,
-:mod:`crosscoder_tpu_torch.convert`) passes them to :func:`build_buffer`.
+``--data-source gemma`` composes the Gemma-2 harvest: the models of
+``--model-names`` loaded from local HF checkpoint directories
+(:func:`crosscoder_tpu_torch.models.lm.from_hf`; the first one's config
+is the pair's architecture), the local token cache, :func:`make_buffer`
+and ``d_in`` from the model. A caller holding LM params (random init,
+:mod:`crosscoder_tpu_torch.convert`) passes them to :func:`build_buffer`
+instead.
 """
 
 from __future__ import annotations
@@ -33,9 +34,11 @@ def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any]
                  lm_cfg: Any | None = None) -> tuple[Any, CrossCoderConfig]:
     """The activation source for ``cfg.data_source`` and ``cfg`` with
     ``d_in`` set from the harvested model. ``model_params``: one LM param
-    dict per model, on ``device``; without them the gemma source raises
-    :class:`NotImplementedError` (weight loading is not ported).
-    ``lm_cfg``: their architecture (default: from the first model name)."""
+    dict per model, on ``device``; without them the gemma source loads
+    each model name with ``lm.from_hf`` (a local directory, else
+    :class:`ValueError`). ``lm_cfg``: their architecture (default: the
+    named Gemma-2 config with ``model_params``, the first checkpoint's own
+    config when loading)."""
     if cfg.data_source == "synthetic":
         from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
 
@@ -47,13 +50,12 @@ def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any]
     names = cfg.model_names or (f"google/{cfg.model_name}", f"google/{cfg.model_name}-it")
     if len(names) != cfg.n_models:
         raise ValueError(f"{len(names)} model names for n_models={cfg.n_models}")
-    lm_cfg = lm_cfg or lm.config_for(names[0])
     if model_params is None:
-        raise NotImplementedError(
-            f"--data-source gemma needs the weights of {list(names)}: loading them "
-            f"(lm.from_hf / from_torch_state_dict, ROADMAP Queue A 6) is not ported, the "
-            f"data-plane slice ported only the harvest and the buffer; pass model_params to "
-            f"build_buffer, or use --data-source synthetic")
+        model_params = []
+        for name in names:
+            params, lm_cfg = lm.from_hf(name, lm_cfg, device=device)
+            model_params.append(params)
+    lm_cfg = lm_cfg or lm.config_for(names[0])
     cfg = cfg.replace(d_in=lm_cfg.d_model)
     tokens = load_pile_lmsys_mixed_tokens(cfg)
     return make_buffer(cfg, lm_cfg, model_params, tokens, device=device, lazy=cfg.resume), cfg

@@ -323,8 +323,9 @@ def test_end_to_end_tiny_lm_within_one_bf16_ulp(lm_pair, tokens, variant):
 
 def test_build_buffer_from_token_cache(lm_pair, tmp_path, tokens):
     """train.main.build_buffer composes the local token cache, the model's
-    d_in and make_buffer; without LM params it raises (weights not ported),
-    without a cache FileNotFoundError names the expected path."""
+    d_in and make_buffer; without LM params it loads each model name as a
+    local HF directory, and a name that is not one raises ValueError naming
+    it; without a cache FileNotFoundError names the expected path."""
     _, _, cfg_lm, params = lm_pair
     cfg = CrossCoderConfig(**make_kw(d_in=7, data_dir=str(tmp_path), model_names=("a", "b")))
     with pytest.raises(FileNotFoundError, match="pile-lmsys-mix-1m-tokenized-gemma-2.npy"):
@@ -333,6 +334,6 @@ def test_build_buffer_from_token_cache(lm_pair, tmp_path, tokens):
     b, cfg2 = tmain.build_buffer(cfg, device="cpu", model_params=params, lm_cfg=cfg_lm)
     assert cfg2.d_in == 32 and isinstance(b, buf.PairedActivationBuffer)
     assert tuple(b.next_raw().shape) == (32, 2, 32)
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
+    with pytest.raises(ValueError, match="'google/gemma-2-2b' is not one"):
         tmain.build_buffer(cfg.replace(model_names=("google/gemma-2-2b", "google/gemma-2-2b-it")),
                            device="cpu")

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from crosscoder_tpu_torch import convert
+from crosscoder_tpu_torch import convert, demo, eval_ce, replicate
 from crosscoder_tpu_torch.checkpoint import Checkpointer, torch_compat
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.data.buffer import make_buffer
@@ -71,6 +71,11 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
                  lambda: torch_compat.params_from_torch_state_dict(
                      {n: torch.zeros(1) for n in ("W_enc", "W_dec", "b_enc", "b_dec")}, cfg),
                  lambda: Checkpointer.load_weights(vdir),
+                 lambda: lm.from_torch_state_dict({}, lm.LMConfig.tiny()),
+                 lambda: lm.from_hf(str(tmp_path)),
+                 lambda: demo.train_tiny_lm(0, lm.LMConfig.tiny(), np.zeros((16, 4), np.int64), 1),
+                 lambda: replicate.main(["--demo", "--out", str(tmp_path / "replicate")]),
+                 lambda: eval_ce.main(["--demo"]),
                  lambda: Checkpointer(base_dir=tmp_path).restore(tcfg)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

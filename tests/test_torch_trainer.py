@@ -138,5 +138,6 @@ def test_main_writes_reference_metrics(tmp_path):
             "explained_variance_A", "explained_variance_B", "step_time_ms"}
     assert want <= set(rows[0])
     assert all(np.isfinite(r["loss"]) for r in rows)
-    with pytest.raises(NotImplementedError, match="data-plane slice"):
+    # the gemma source loads local HF directories; a hub name is not one
+    with pytest.raises(ValueError, match="'google/gemma-2-2b' is not one"):
         tmain.main(["--data-source", "gemma"], device="cpu")
