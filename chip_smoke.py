@@ -55,13 +55,22 @@ one NVIDIA Hopper card and the CUDA toolkit:
    [512, 524288];
 6. train: two Trainer legs at Gemma-2-2B width (d_in 2304, two models,
    ``blocks.14.hook_resid_pre``), dict 2^15, TopK k=32, batch 4096, bf16
-   compute, f32 masters, sparse backward on, AuxK 64 every 2 steps: leg A
+   compute, f32 masters, sparse backward on, AuxK 64 every 2 steps, every
+   step of every training leg (here and in phases 6b, 7 and 9) updating
+   through O1, the fused clip + Adam + lr kernel, once a step: leg A
    (dense encode, 12 steps) and leg B (fused encoder, 4 steps) over
    synthetic batches made ahead onto the card, with every launch counter
    (and K8's and K11's launches by route) read around the legs, every K8
    launch of a training leg on its split route; then a bare and an aux step re-run from one state
    with the plain versions (bitwise), the fused leg's first bare step
-   against leg A's, step times, a profiler split and peak memory; then,
+   against leg A's, a whole bare step (update included) bitwise against
+   its re-run with the plain versions and the plain update, O1 alone at
+   leg A's state and gradients (f32 masters, and once in bf16) bitwise
+   against the plain update on both sides of the clip and timed (back to
+   back, queued) beside the plain update, ``torch.optim.Adam(fused=True)``
+   and the bound, leg A's bare step with O1 against the parent's eager
+   update in turns and both profiled, step times, a profiler split and
+   peak memory; then,
    over the same batches, leg F: TopK k=32 at f32 compute (K6), dict 2^14,
    AuxK 64 every 2 steps, 8 steps straight against 4 steps, a background
    save, a fresh Trainer with ``resume=True`` and 4 more (bitwise equal
@@ -148,7 +157,23 @@ one NVIDIA Hopper card and the CUDA toolkit:
    minibatch), the launch counters read around them; one chunk's CEs,
    the firing rates and the dashboards each against a re-run with the
    plain versions, exactly; ``dashboards.html`` written;
-9. prints the kernel table as one JSON line, the card line, and
+9. the compiled data plane, over phase 7's models, corpus and leg H
+   config: the corpus's first chunk (4 x 1024) through the paged harvest
+   (``run_with_cache_multi_paged``, ``pad_mode="wrap"``), each of its 28
+   K1 launches held against the plain attention (2e-2) and the capture
+   against its plain-attention re-run (relative error per source, 2e-2);
+   chunk times, padded against paged, on that chunk and on an
+   all-full-length one; K1 alone at the harvest shape, timed beside its
+   plain version, SDPA and the bound; leg S, leg H with
+   ``refill_overlap="on"`` (SegmentedHarvest quanta from the dispatcher
+   thread), its 12 served batches bitwise leg H's and its step times
+   beside leg H's; leg P, ``harvest_runtime="paged"`` with refill
+   overlap, BatchTopK over the bf16 card store, 12 steps (finite losses,
+   l0 against k, no all-zero store row, 28 K1 launches a chunk on the
+   tensor cores, the padding efficiency, the harvest's share of the
+   steps), then a save mid shadow cycle and a restore into a fresh buffer
+   and Trainer, both through the dispatcher;
+10. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -180,6 +205,15 @@ HARVEST = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dic
                lr=1e-3, log_backend="null", seq_len=1024, model_batch_size=4, buffer_mult=8,
                norm_calib_batches=8)
 LEG_H, LEG_Q = 12, 12
+# phase 9: leg S (leg H with refill overlap) runs LEG_H steps, leg P (the
+# paged harvest with refill overlap) LEG_P; a paged chunk launches K1 once
+# a block a model (14 blocks below blocks.14.hook_resid_pre, 2 models); a
+# chunk's capture through K1 is held to its plain-attention re-run at this
+# relative error per source (bf16 forwards through 14 blocks, each
+# attention output within K1's 2e-2)
+LEG_P = 12
+K1_PER_CHUNK = 2 * 14
+HARVEST_REL_TOL = 2e-2
 # leg F (K6, checkpoint and resume): TopK at f32 compute, dict 2^14, 8 steps
 # straight against 4 + save + restore + 4; leg W (K7): dict 2^17, 6 steps;
 # leg V (K7 on f32 rows): f32 compute, dict 2^15, 3 steps. Each takes the
@@ -1571,8 +1605,11 @@ class DeviceBatches:
 
 @contextlib.contextmanager
 def plain_versions(tp, sg, fek):
-    """Route the model's kernel calls to their plain versions."""
-    swaps = [(tp, "topk_mask", tp.topk_plain), (tp, "topk_mask_f32", tp.topk_plain),
+    """Route the model's kernel calls, the optimizer's O1 included, to
+    their plain versions."""
+    from crosscoder_tpu_torch.ops import adam
+
+    swaps = [(adam, "adam_update", adam.adam_update_plain), (tp, "topk_mask", tp.topk_plain), (tp, "topk_mask_f32", tp.topk_plain),
              (tp, "topk_chunked", tp.topk_chunked_plain), (tp, "sparsify", tp.sparsify_plain),
              (sg, "scatter_add_rows", sg.scatter_add_rows_plain),
              (fek, "fused_topk_encode", fek.fused_topk_encode_plain),
@@ -1613,7 +1650,7 @@ def profile_step(torch, trainer, full_metrics, label):
               "K4 select": 0.0, "K4 emit": 0.0, "K5 topk_mask": 0.0, "K6 topk_mask_f32": 0.0,
               "K7 topk_chunked": 0.0, "K8 sparsify": 0.0, "K9 select": 0.0, "K9 emit": 0.0,
               "K10 scatter_rows": 0.0,
-              "K11 quantize_rows": 0.0, "matmul": 0.0, "other": 0.0}
+              "K11 quantize_rows": 0.0, "O1 adam_update": 0.0, "matmul": 0.0, "other": 0.0}
     for e in kernels:
         n = e.key.lower()
         g = ("K6 topk_mask_f32" if "topk_mask_f32" in n else
@@ -1631,6 +1668,7 @@ def profile_step(torch, trainer, full_metrics, label):
              "K11 quantize_rows" if "quantize_rows" in n or "quantize_cols" in n else
              "K8 sparsify" if "sparsify" in n else
              "K10 scatter_rows" if "scatter_rows" in n else
+             "O1 adam_update" if "adam_update" in n else
              "matmul" if any(t in n for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas"))
              else "other")
         groups[g] += dev_us(e) / 1e3
@@ -1652,9 +1690,96 @@ def same_step(torch, a, b):
     return True, ""
 
 
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """``module.name`` is ``fn`` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def check_adam(torch, np, state, grads, lr):
+    """O1 (the fused clip + Adam + lr update) at leg A's state and
+    gradients: bitwise against its plain version on both sides of the clip
+    (the gradients scaled to a global norm of 0.5 and of 4), f32 masters
+    and once with the state and gradients in bf16; timed back to back and
+    queued beside the plain update, one fused Adam call of PyTorch's and
+    the bound (each of p, g, m, v read once, p, m, v written once). Returns
+    the f32 row of the kernel table."""
+    from crosscoder_tpu_torch.ops import adam
+    from crosscoder_tpu_torch.train.state import Optimizer
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    kw = dict(max_norm=1.0, b1=0.9, b2=0.999, eps=1e-8, bc1=float(np.float32(1 - 0.9 ** 13)),
+              bc2=float(np.float32(1 - 0.999 ** 13)), step_size=float(-np.float32(lr)))
+    n = sum(v.numel() for v in state.params.values())
+    row = None
+    before = adam.adam_update.launches
+    for dt in (torch.float32, torch.bfloat16):
+        p, m, v = ({k: t.to(dt) for k, t in d.items()}
+                   for d in (state.params, state.opt_state.mu, state.opt_state.nu))
+        g0 = {k: t.to(dt) for k, t in grads.items()}
+        norm0 = float(Optimizer.global_norm(g0))
+        outs = [tuple({k: torch.empty_like(t) for k, t in p.items()} for _ in range(3))
+                for _ in range(2)]
+        for target in (0.5, 4.0):
+            g = {k: (t.float() * (target / norm0)).to(dt) for k, t in g0.items()}
+            norm = Optimizer.global_norm(g)
+            adam.adam_update(p, g, m, v, norm, out=outs[0], **kw)
+            adam.adam_update_plain(p, g, m, v, norm, out=outs[1], **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(bits(a[k]), bits(b[k])) for a, b in zip(*outs) for k in p)
+            err = max(float((a[k].float() - b[k].float()).abs().max())
+                      for a, b in zip(*outs) for k in p)
+            log(f"O1 adam_update {str(dt)[6:]} masters at leg A's state, gradients at a global "
+                f"norm of {float(norm):.4f} ({'clipped' if float(norm) >= 1 else 'not clipped'}): "
+                f"{'bitwise equal' if same else 'DIFFERENT'} params and moments to the plain "
+                f"update (max_abs_err {err:.3e})")
+            if not same:
+                fail(f"O1 differs from the plain update in {dt} at norm {float(norm)}")
+        if dt != torch.float32:
+            continue
+        ms = time_ms(lambda: adam.adam_update(p, g, m, v, norm, out=outs[0], **kw), 20)
+        ms_q = time_ms(lambda: adam.adam_update(p, g, m, v, norm, out=outs[0], **kw), 20,
+                       queued=True)
+        plain_ms = time_ms(lambda: adam.adam_update_plain(p, g, m, v, norm, out=outs[1], **kw), 3)
+        fused_p = {k: t.clone() for k, t in p.items()}
+        for k, t in fused_p.items():
+            t.grad = g[k]
+        lib = torch.optim.Adam(list(fused_p.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                               fused=True)
+        library_ms = time_ms(lib.step, 20)
+        del fused_p, lib
+        b_ms, b_by = bound(7 * 4 * n, 20 * n, "fp32")
+        log(f"O1 adam_update f32 over {len(p)} leaves ({n} values): {ms:.4f} ms back to back, "
+            f"{ms_q:.4f} ms queued; the plain update {plain_ms:.4f} ms; torch.optim.Adam "
+            f"(fused=True, no clip) {library_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+            f"({7 * 4 * n / 1e9:.3f} GB); {7 * 4 * n / ms / 1e6:.0f} GB/s")
+        row = {"name": "adam_update", "route": "cuda",
+               "source": "crosscoder_tpu_torch/csrc/adam_update.cu",
+               "replaces": "crosscoder_tpu/train/state.py:33 (the optax chain XLA fuses in "
+                           "crosscoder_tpu/train/trainer.py:351; no Pallas site)",
+               "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+        del outs
+    adam.adam_update.launches = before            # the probe's launches are not the path's
+    return row
+
+
+def next_bare(trainer_mod, cfg, tr):
+    """Step ``tr`` through aux steps until its next step is a bare one."""
+    while trainer_mod.variant_for_step(cfg, tr._host_step)[1]:
+        tr.step(full_metrics=False)
+
+
 def train(torch, np):
-    """The train phase; returns the launch counts of its main path and its
-    batches on the card."""
+    """The train phase; returns the launch counts of its main path, its
+    batches on the card and O1's kernel-table row."""
     from crosscoder_tpu_torch.config import CrossCoderConfig
     from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
     from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
@@ -1729,6 +1854,8 @@ def train(torch, np):
     if not (leg_b["fused_topk_encode"] > 0 and leg_b["scatter_add_rows"] > 0
             and leg_b["sparsify"] > 0):
         fail(f"K2, K8 or K10 never launched on leg B: {leg_b}")
+    check_o1("leg A", after_a, LEG_A)
+    check_o1("leg B", leg_b, LEG_B)
     launches["by route"] = routes = read_routes()
     log(f"train: legs A and B by route {routes}")
     check_routes("legs A and B", launches, routes)
@@ -1753,6 +1880,24 @@ def train(torch, np):
             f"{'bitwise equal loss and gradients' if ok else 'DIFFERENT ' + what}")
         if not ok:
             fail(f"the {label} step with kernels differs from the plain versions in {what}")
+    # the whole step, the update included (O1 against the plain update), at
+    # the schedule's learning rate so the update moves the params
+    opt_lr = Optimizer(cfg_a, trainer_mod.schedules.lr_schedule(cfg_a))
+    fn = trainer_mod.make_step_body(cfg_a, opt_lr, True, False, True)
+    got, _ = fn(tr_a.state, x, scale)
+    with plain_versions(tp, sg, fek):
+        want, _ = fn(tr_a.state, x, scale)
+    ok, what = state_bits_equal(torch, got, want)
+    grads = fn.loss_and_grads(tr_a.state, x, scale)[2]
+    g_norm = float(opt_lr.global_norm(grads))
+    log(f"train: a whole bare step (gradient norm {g_norm:.4f}, clip at {cfg_a.grad_clip}) with "
+        f"kernels and O1 vs plain versions and the plain update: "
+        f"{'bitwise equal params, moments and aux' if ok else 'DIFFERENT ' + what}")
+    if not ok:
+        fail(f"the whole step with O1 differs from the plain update in {what}")
+    del got, want
+    row_o1 = check_adam(torch, np, tr_a.state, grads, 1e-3)
+    del grads
     # the fused leg's first bare step against leg A's, from the initial state
     bare_a = trainer_mod.make_step_body(cfg_a, opt, True, False, True)
     bare_b = trainer_mod.make_step_body(cfg_b, opt, True, False, True)
@@ -1766,7 +1911,34 @@ def train(torch, np):
         fail("the fused leg's loss disagrees with leg A's beyond the bf16 tolerance")
     profile_step(torch, tr_a, False, "bare step" if tr_a.state.step % 2 else "aux step")
     profile_step(torch, tr_a, False, "bare step" if tr_a.state.step % 2 else "aux step")
-    return launches, batches
+    # leg A's bare step on the parent's path (the eager update: the plain
+    # version) against O1, in turns, then each profiled
+    from crosscoder_tpu_torch.ops import adam
+
+    times = {"O1": [], "plain": []}
+    for route in ("O1", "plain", "plain", "O1", "O1", "plain"):
+        next_bare(trainer_mod, cfg_a, tr_a)
+        with (swapped(adam, "adam_update", adam.adam_update_plain) if route == "plain"
+              else contextlib.nullcontext()):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            tr_a.step(full_metrics=False)
+            e1.record()
+            torch.cuda.synchronize()
+        times[route].append(e0.elapsed_time(e1))
+    o1, plain = np.median(times["O1"]), np.median(times["plain"])
+    log(f"train: leg A bare step (CUDA events, 3 each, in turns) with O1 {[round(t, 3) for t in times['O1']]} "
+        f"ms, with the eager update (the parent's path) {[round(t, 3) for t in times['plain']]} ms; "
+        f"medians {o1:.3f} vs {plain:.3f}: the update's share of the parent's bare step about "
+        f"{100 * (row_o1['plain_ms']) / plain:.1f}% (the plain update alone, "
+        f"{row_o1['plain_ms']:.3f} ms), of the new one {100 * row_o1['ms'] / o1:.1f}%")
+    for route in ("plain", "O1"):
+        next_bare(trainer_mod, cfg_a, tr_a)
+        with (swapped(adam, "adam_update", adam.adam_update_plain) if route == "plain"
+              else contextlib.nullcontext()):
+            profile_step(torch, tr_a, False,
+                         "bare step, eager update" if route == "plain" else "bare step, O1")
+    return launches, batches, row_o1
 
 
 # ---------------------------------------------------------------------------
@@ -1909,6 +2081,7 @@ def train_wide(torch, np, root, train_batches):
     legs["F"]["scatter_add_rows (AuxK shape)"] = rec.by_k.get(cfg.aux_k, 0)
     legs["F"]["by route"] = read_routes()
     check_routes("leg F", legs["F"], legs["F"]["by route"])
+    check_o1("leg F", legs["F"], 2 * STEPS_F)
     peak_f = torch.cuda.max_memory_allocated() / 2 ** 30
     ok, what = state_bits_equal(torch, straight.state, resumed.state)
     log(f"leg F (TopK f32, dict {cfg.dict_size}, AuxK {cfg.aux_k}): losses "
@@ -1979,6 +2152,7 @@ def train_wide(torch, np, root, train_batches):
         fail(f"K7, K8 or K10 never launched on leg W: {legs['W']}")
     legs["W"]["by route"] = read_routes()
     check_routes("leg W", legs["W"], legs["W"]["by route"])
+    check_o1("leg W", legs["W"], STEPS_W)
     if legs["K7 by route"]["W"]["cluster"] != legs["W"]["topk_chunked"]:
         fail(f"leg W: a K7 launch did not take the cluster route: {legs['K7 by route']}")
     x = batches.next()
@@ -2045,6 +2219,7 @@ def train_wide(torch, np, root, train_batches):
         fail(f"K7, K8 or K10 never launched on leg V: {legs['V']}")
     legs["V"]["by route"] = read_routes()
     check_routes("leg V", legs["V"], legs["V"]["by route"])
+    check_o1("leg V", legs["V"], STEPS_V)
     if legs["K7 by route"]["V"]["cluster"] != legs["V"]["topk_chunked"]:
         fail(f"leg V: a K7 launch did not take the cluster route: {legs['K7 by route']}")
     del tr, batches
@@ -2058,11 +2233,12 @@ def train_wide(torch, np, root, train_batches):
 class Recorder:
     """Wraps a replay buffer for the Trainer: times every ``next_raw`` (the
     card synced on both sides, so the serve's share of the incremental
-    refill is inside it) and keeps the first ``keep`` batches served."""
+    refill is inside it) and keeps the first ``keep`` batches served
+    (``keep_all``: every batch, in ``stream``)."""
 
-    def __init__(self, torch, buffer, keep):
-        self.torch, self.buffer, self.keep = torch, buffer, keep
-        self.served, self.serve_ms = [], []
+    def __init__(self, torch, buffer, keep, keep_all=False):
+        self.torch, self.buffer, self.keep, self.keep_all = torch, buffer, keep, keep_all
+        self.served, self.serve_ms, self.stream = [], [], []
 
     @property
     def normalisation_factor(self):
@@ -2079,18 +2255,25 @@ class Recorder:
         self.serve_ms.append((time.perf_counter() - t0) * 1e3)
         if len(self.served) < self.keep:
             self.served.append(out)
+        if self.keep_all:
+            self.stream.append(out)
         return out
 
 
 class SpanCounter:
     """A tracer that counts the buffer's spans (``refill``: completed refill
-    cycles, the first fill included)."""
+    cycles, the first fill included); the refill dispatcher's thread
+    records spans too, so the count takes a lock."""
 
     def __init__(self):
+        import threading
+
         self.counts = {}
+        self._lock = threading.Lock()
 
     def span(self, name, **args):
-        self.counts[name] = self.counts.get(name, 0) + 1
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + 1
         return contextlib.nullcontext()
 
     def instant(self, name, **args):
@@ -2112,12 +2295,13 @@ class Replay:
 
 def launch_counters():
     """Every training kernel's launch counter, by name."""
+    from crosscoder_tpu_torch.ops import adam
     from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
     from crosscoder_tpu_torch.ops import quant
     from crosscoder_tpu_torch.ops import sparse_grad as sg
     from crosscoder_tpu_torch.ops import topk_pallas as tp
 
-    return {"topk_mask": tp.topk, "topk_mask_f32": tp.topk_mask_f32,
+    return {"adam_update": adam.adam_update, "topk_mask": tp.topk, "topk_mask_f32": tp.topk_mask_f32,
             "topk_chunked": tp.topk_chunked, "sparsify": tp.sparsify,
             "scatter_add_rows": sg.scatter_add_rows, "batchtopk_select": tp.batchtopk_select,
             "batchtopk_emit": tp.batchtopk_emit, "quantize_rows": quant.quantize_rows,
@@ -2152,6 +2336,12 @@ def check_routes(label, launches, routes):
         fail(f"{label}: a K8 launch did not take the split route: {routes}")
 
 
+def check_o1(label, launches, steps):
+    """Every training step of a leg launches O1 once; fails otherwise."""
+    if launches.get("adam_update", 0) != steps:
+        fail(f"{label}: O1 launched {launches.get('adam_update', 0)} times in {steps} steps")
+
+
 def run_leg(torch, cfg, batches, factor, steps):
     """``steps`` Trainer steps over a replay of ``batches``, every launch
     counter set to 0 just before and read just after; per step the loss,
@@ -2173,6 +2363,7 @@ def run_leg(torch, cfg, batches, factor, steps):
                         aux=trainer_mod.variant_for_step(cfg, i)[1] and cfg.aux_k > 0))
     launches = {n: c.launches for n, c in counters.items() if c.launches}
     launches["by route"] = read_routes()
+    check_o1(f"a {cfg.activation} leg of {steps} steps", launches, steps)
     return tr, out, launches
 
 
@@ -2356,7 +2547,7 @@ def harvest_train(torch, np, root):
         torch.cuda.synchronize()
         fill_s = time.perf_counter() - t0
         fills = spans.counts.get("refill", 0)
-        rec = Recorder(torch, buffer, keep=6)
+        rec = Recorder(torch, buffer, keep=6, keep_all=name == "H")
         tr = trainer_mod.Trainer(cfg, rec, device="cuda")
         losses, l0s, step_ms = [], [], []
         for _ in range(steps):
@@ -2417,6 +2608,7 @@ def harvest_train(torch, np, root):
     launches["by route"] = routes = read_routes()
     log(f"harvest: main-path kernel launches {launches}; K11 by route {routes['quantize_rows']}")
     check_routes("harvest legs H and Q", launches, routes)
+    check_o1("harvest legs H and Q", launches, LEG_H + LEG_Q)
 
     for name, leg in legs.items():
         if not all(math.isfinite(v) for v in leg["losses"]):
@@ -2477,6 +2669,9 @@ def harvest_train(torch, np, root):
             f"{len(steady)} steps; {b / np.mean(leg['step_ms'][1:]) * 1e3:.0f} "
             f"rows/s end to end")
     launches["fused legs"] = fused_legs(torch, np, legs["H"], cfg_h)
+    leg_h_run = dict(stream=legs["H"]["rec"].stream, step_ms=legs["H"]["step_ms"],
+                     serve_ms=legs["H"]["rec"].serve_ms, params=params, tokens=tokens,
+                     cfg=cfg_h, lm_cfg=lm_cfg, chunk_ms=chunk_ms)
     # leg H's save restored into a fresh buffer (lazy, filled by the
     # restore from the saved position) and a fresh Trainer with resume
     del legs
@@ -2500,7 +2695,7 @@ def harvest_train(torch, np, root):
     if not (ok and same_buf and tr.step_counter == LEG_H + 2 and all(map(math.isfinite, losses))):
         fail("harvest leg H: the resume over the harvested buffer failed its gate")
     del tr, fresh
-    return launches
+    return launches, leg_h_run
 
 
 # ---------------------------------------------------------------------------
@@ -2748,6 +2943,279 @@ def analysis(torch, np, root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the compiled data plane
+
+
+def _k1_err(a, b, lengths, H):
+    """max |a - b| on valid rows, and its largest ratio, row by row (a
+    query position and head), to max |b| of the row."""
+    worst = rel = 0.0
+    for d, ln in enumerate(lengths):
+        x, y = (t[d, :int(ln)].float().reshape(int(ln), H, -1) for t in (a, b))
+        e = (x - y).abs()
+        worst = max(worst, float(e.max()))
+        rel = max(rel, float((e.amax(-1) / y.abs().amax(-1).clamp_min(1e-30)).max()))
+    return worst, rel
+
+
+def timed_steps(torch, tr, steps):
+    """``steps`` Trainer steps: per step the loss, l0 and host-clock ms
+    from the previous step's loss read back to this one's, so that the
+    harvest a dispatcher thread queues between two steps is counted."""
+    losses, l0s, step_ms = [], [], []
+    torch.cuda.synchronize()
+    t_prev = time.perf_counter()
+    for _ in range(steps):
+        m = tr.step(full_metrics=True)
+        losses.append(float(m["loss"]))
+        now = time.perf_counter()
+        step_ms.append((now - t_prev) * 1e3)
+        t_prev = now
+        l0s.append(float(m["l0_loss"]))
+    return losses, l0s, step_ms
+
+
+def _ms_line(np, ms):
+    return (f"{[round(t, 2) for t in ms]} ms; steps 2-{len(ms)}: median "
+            f"{np.median(ms[1:]):.2f}, max {max(ms[1:]):.2f}")
+
+
+def data_plane(torch, np, root, leg_h):
+    """The compiled data plane over leg H's models, corpus and config: K1
+    at the harvest shape (one chunk of the corpus through the paged
+    harvest, every launch held against the plain attention, the capture
+    against its plain-attention re-run; chunk times paged against padded
+    on this corpus and on an all-full-length one); leg S (refill overlap:
+    the padded harvest in SegmentedHarvest quanta from the dispatcher
+    thread), its served stream bitwise leg H's; leg P (the paged harvest
+    through K1 with refill overlap, BatchTopK over the bf16 card store),
+    12 steps, a save and a restore through the dispatcher. Returns K1's
+    harvest row and the launches of legs S and P."""
+    import shutil
+
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.data import buffer as bufmod
+    from crosscoder_tpu_torch.data.tokens import valid_lengths
+    from crosscoder_tpu_torch.models import lm
+    from crosscoder_tpu_torch.obs import trace
+    from crosscoder_tpu_torch.ops import paged_attention as pa
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+
+    params, tokens, cfg_h, lm_cfg = leg_h["params"], leg_h["tokens"], leg_h["cfg"], leg_h["lm_cfg"]
+    hooks = cfg_h.resolved_hook_points()
+    C, S, page = cfg_h.model_batch_size, cfg_h.seq_len, cfg_h.page_size
+    H, KV, hd = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.head_dim
+    n_src = cfg_h.n_sources
+    t_phase = time.perf_counter()
+
+    # K1 at the harvest shape: the corpus's first chunk through the paged
+    # harvest, each launch against the plain attention on its inputs
+    chunk = tokens[:C]
+    lengths = valid_lengths(chunk)
+    errs = []
+
+    def checked(q, k, v, lens, **kw):
+        out = pa.paged_attention(q, k, v, lens, **kw)
+        errs.append(_k1_err(out, pa.paged_attention_plain(q, k, v, lens, **kw), lengths, H))
+        return out
+
+    pa.paged_attention.launches = 0
+    got = lm.run_with_cache_multi_paged(params, chunk, lengths, lm_cfg, hooks, page_size=page,
+                                        pad_mode="wrap", out_dtype=torch.bfloat16,
+                                        attention=checked)
+    n_k1 = pa.paged_attention.launches
+    want = lm.run_with_cache_multi_paged(params, chunk, lengths, lm_cfg, hooks, page_size=page,
+                                         pad_mode="wrap", out_dtype=torch.bfloat16,
+                                         attention=pa.paged_attention_plain)
+    rel = [float((got[:, :, i].float() - want[:, :, i].float()).norm()
+                 / want[:, :, i].float().norm()) for i in range(n_src)]
+    worst = max(e[0] for e in errs), max(e[1] for e in errs)
+    log(f"K1 in the paged harvest: one chunk {C}x{S} (lengths {lengths.tolist()}), "
+        f"{n_k1} K1 launches ({len(errs)} held against the plain attention: max_abs_err "
+        f"{worst[0]:.3e}, row-relative {worst[1]:.3e}, tol 2e-2 both); the capture against "
+        f"its plain-attention re-run, relative error per source {[f'{r:.3e}' for r in rel]} "
+        f"(tol {HARVEST_REL_TOL})")
+    if n_k1 != K1_PER_CHUNK:
+        fail(f"the paged harvest of one chunk launched K1 {n_k1} times, want {K1_PER_CHUNK}")
+    if not (worst[0] <= 2e-2 and worst[1] <= 2e-2 and max(rel) <= HARVEST_REL_TOL):
+        fail("K1 in the paged harvest disagrees with the plain attention")
+    del got, want
+
+    # chunk times, padded against paged, on this corpus and an all-full-length one
+    full = np.random.default_rng(16).integers(3, lm_cfg.vocab_size, size=(C, S))
+    full[:, 0] = 2                                  # BOS, then no PAD
+    pad_b = bufmod.make_buffer(cfg_h, lm_cfg, params, tokens, lazy=True, device="cuda")
+    pag_b = bufmod.make_buffer(cfg_h.replace(harvest_runtime="paged"), lm_cfg, params, tokens,
+                               lazy=True, device="cuda")
+    chunk_ms = {}
+    for name, toks in (("corpus", chunk), ("full length", full)):
+        for runtime, b in (("padded", pad_b), ("paged", pag_b), ("paged ", pag_b),
+                           ("padded ", pad_b)):
+            chunk_ms.setdefault((name, runtime.strip()), []).append(
+                time_ms(lambda: b._harvest_dev(toks), 3))
+    del pad_b, pag_b
+    for name in ("corpus", "full length"):
+        log(f"harvest chunk {C}x{S} on the {name} chunk (CUDA events, mean of 3, two turns "
+            f"each): padded {[round(t, 3) for t in chunk_ms[(name, 'padded')]]} ms, paged "
+            f"{[round(t, 3) for t in chunk_ms[(name, 'paged')]]} ms")
+
+    # K1 alone at the harvest shape, timed
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn((C, S, H, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((C, S, KV, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    lens = torch.as_tensor(lengths, device="cuda")
+    kw = dict(page_size=page, scale=lm_cfg.query_pre_attn_scalar ** -0.5,
+              softcap=lm_cfg.attn_softcap, window=0)
+    err = _k1_err(pa.paged_attention(q, k, v, lens, **kw),
+                  pa.paged_attention_plain(q, k, v, lens, **kw), lengths, H)
+    if not (err[0] <= 2e-2 and err[1] <= 2e-2):
+        fail(f"K1 at the harvest shape: {err} > 2e-2")
+    ms = time_ms(lambda: pa.paged_attention(q, k, v, lens, **kw), 20)
+    plain_ms = time_ms(lambda: pa.paged_attention_plain(q, k, v, lens, **kw), 5)
+    pos = torch.arange(S, device="cuda")
+    mask = ((pos[None, :, None] >= pos[None, None, :])
+            & (pos[None, None, :] < lens[:, None, None].long()))[:, None]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                      scale=kw["scale"], enable_gqa=True), 20)
+    n_tok = int(lengths.sum())
+    pairs = sum(t + 1 for ln in lengths for t in range(int(ln)))
+    b_ms, b_by = bound(n_tok * (2 * H + 2 * KV) * hd * 2 + C * 4, 4 * hd * H * pairs, "bf16")
+    log(f"K1 harvest shape {C}x{S} bf16 (tensor_cores): {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+        f"plain, {library_ms:.4f} ms sdpa (explicit mask, no softcap), bound {b_ms:.4f} ms by "
+        f"{b_by}")
+    row_k1 = {"name": "paged_attention (harvest)", "route": "cuda",
+              "source": "crosscoder_tpu_torch/csrc/paged_attention.cu",
+              "replaces": "crosscoder_tpu/ops/paged_attention.py:189", "launches": None,
+              "max_abs_err": max(err[0], worst[0]), "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+    del q, k, v, qt, kt, vt, mask
+
+    counters = launch_counters()
+    legs = {}
+    # leg S: leg H's config with refill overlap: SegmentedHarvest quanta
+    # from the dispatcher thread; the served stream must be leg H's
+    cfg_s = cfg_h.replace(refill_overlap="on")
+    spans = SpanCounter()
+    prev = trace.set_tracer(spans)
+    reset_counters(counters)
+    buffer = bufmod.make_buffer(cfg_s, lm_cfg, params, tokens, device="cuda")
+    rec = Recorder(torch, buffer, keep=0, keep_all=True)
+    tr = trainer_mod.Trainer(cfg_s, rec, device="cuda")
+    losses, l0s, step_ms = timed_steps(torch, tr, LEG_H)
+    trace.set_tracer(prev)
+    legs["S"] = {n: c.launches for n, c in counters.items() if c.launches}
+    same = [torch.equal(a.view(torch.int16), b.view(torch.int16))
+            for a, b in zip(rec.stream, leg_h["stream"])]
+    cycles = spans.counts.get("refill", 0) - 1
+    log(f"leg S (leg H with refill_overlap='on': {buffer._spare_rows} spare rows, "
+        f"{spans.counts.get('refill_dispatch', 0)} dispatcher pumps, {cycles} refill cycles): "
+        f"losses {[round(x, 4) for x in losses]}; launches {legs['S']}")
+    log(f"leg S: {len(same)} served batches against leg H's: "
+        f"{'bitwise equal' if all(same) and len(same) == LEG_H else 'DIFFERENT at ' + str(same)}")
+    log(f"leg S: ms per step incl. serve (host clock, loss to loss) {_ms_line(np, step_ms)}; next_raw "
+        f"{[round(t, 2) for t in rec.serve_ms]} ms")
+    log(f"leg H (overlap off) ms per step {_ms_line(np, leg_h['step_ms'])}; next_raw "
+        f"{[round(t, 2) for t in leg_h['serve_ms']]} ms")
+    buffer.close()
+    if not (all(same) and len(same) == LEG_H):
+        fail("leg S: the overlapped buffer's served stream differs from leg H's")
+    if not (all(map(math.isfinite, losses)) and cycles >= 2
+            and spans.counts.get("refill_dispatch", 0) > 0):
+        fail(f"leg S: a loss is not finite, or fewer than 2 refill cycles ({cycles}) went "
+             f"through the dispatcher")
+    check_o1("leg S", legs["S"], LEG_H)
+    legs["S ms"] = step_ms
+    del tr, rec, buffer
+
+    # leg P: the paged harvest through K1 with refill overlap, BatchTopK
+    # over the bf16 card store; a save and a restore through the dispatcher
+    cfg_p = cfg_h.replace(harvest_runtime="paged", refill_overlap="on")
+    spans = SpanCounter()
+    prev = trace.set_tracer(spans)
+    reset_counters(counters)
+    pa.paged_attention.launches = 0
+    pa.paged_attention.by_route.update(dict.fromkeys(pa.paged_attention.by_route, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buffer = bufmod.make_buffer(cfg_p, lm_cfg, params, tokens, device="cuda")
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    tr = trainer_mod.Trainer(cfg_p, buffer, device="cuda")
+    chunks0 = buffer._paged_total_tokens // (C * S)
+    losses, l0s, step_ms = timed_steps(torch, tr, LEG_P)
+    buffer._quiesce_dispatch()
+    torch.cuda.synchronize()
+    trace.set_tracer(prev)
+    legs["P"] = {n: c.launches for n, c in counters.items() if c.launches}
+    k1 = pa.paged_attention.launches
+    legs["P"]["paged_attention"] = k1
+    chunks = buffer._paged_total_tokens // (C * S)
+    cycles = spans.counts.get("refill", 0) - 1
+    eff = buffer.padding_efficiency()
+    live = buffer._row_map
+    zero_rows = 0
+    for i in range(0, len(live), 4096):
+        rows = buffer._store[torch.as_tensor(live[i:i + 4096], device="cuda")]
+        zero_rows += int((rows.view(torch.int16).abs().amax(dim=(1, 2)) == 0).sum())
+    harvest_ms = (chunks - chunks0) * np.mean(chunk_ms[("corpus", "paged")])
+    log(f"leg P (paged harvest through K1, refill overlap, BatchTopK, {type(buffer).__name__} "
+        f"on {buffer.store_device}): fill {fill_s:.2f} s; {chunks} chunks harvested ({chunks0} "
+        f"by the fill), {cycles} refill cycles; padding efficiency {eff:.4f}; losses "
+        f"{[round(x, 4) for x in losses]}; l0 {[round(x, 1) for x in l0s]} (k={cfg_p.topk_k})")
+    log(f"leg P: ms per step incl. serve (host clock, loss to loss) {_ms_line(np, step_ms)}; the "
+        f"harvest's share of the steps about {100 * harvest_ms / sum(step_ms):.1f}% "
+        f"({chunks - chunks0} chunks at the corpus chunk's paged time); launches {legs['P']}; "
+        f"K1 by route {pa.paged_attention.by_route}; all-zero live store rows {zero_rows}")
+    if not (all(map(math.isfinite, losses)) and np.mean(l0s) >= cfg_p.topk_k):
+        fail(f"leg P: a loss is not finite or mean l0 {np.mean(l0s)} below k={cfg_p.topk_k}")
+    if (k1 != K1_PER_CHUNK * chunks or pa.paged_attention.by_route["tensor_cores"] != k1
+            or chunks == 0):
+        fail(f"leg P: K1 launched {k1} times for {chunks} chunks, want {K1_PER_CHUNK} a chunk "
+             f"on the tensor cores")
+    if zero_rows or cycles < 2 or not 0 < eff < 1:
+        fail(f"leg P: {zero_rows} all-zero store rows, {cycles} refill cycles, efficiency {eff}")
+    check_o1("leg P", legs["P"], LEG_P)
+    legs["P ms"] = step_ms
+    tmp = ckpt_dir(root)
+    tr.checkpointer = Checkpointer(base_dir=tmp)
+    for _ in range(2):                              # into the next shadow cycle
+        tr.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.save()                                       # quiesces the dispatcher first
+    save_s = time.perf_counter() - t0
+    meta = json.loads((Checkpointer.latest_version_dir(tmp) / "0_meta.json").read_text())
+    cfg_r = cfg_p.replace(resume=True, checkpoint_dir=str(tmp))
+    t0 = time.perf_counter()
+    fresh = bufmod.make_buffer(cfg_r, lm_cfg, params, tokens, device="cuda", lazy=True)
+    tr2 = trainer_mod.Trainer(cfg_r, fresh, device="cuda",
+                              checkpointer=Checkpointer(base_dir=tmp))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    st = fresh.state_dict()
+    ok, what = state_bits_equal(torch, tr.state, tr2.state)
+    same_buf = (st["token_pointer"] == meta["buffer"]["token_pointer"]
+                and st["normalisation_factor"] == meta["buffer"]["normalisation_factor"])
+    more = [float(tr2.step()["loss"]) for _ in range(2)]
+    log(f"leg P save at step {meta['step']} mid shadow cycle: {save_s:.2f} s; restore into a "
+        f"fresh paged overlap buffer and Trainer {restore_s:.2f} s: state "
+        f"{'bitwise equal' if ok else 'DIFFERENT ' + what}; token_pointer "
+        f"{st['token_pointer']} and normalisation factors {'equal' if same_buf else 'DIFFERENT'} "
+        f"to the meta; 2 more steps, losses {[round(x, 4) for x in more]}")
+    shutil.rmtree(tmp)
+    tr.close()
+    tr2.close()
+    if not (ok and same_buf and all(map(math.isfinite, more))):
+        fail("leg P: the save and restore through the dispatcher failed its gate")
+    log(f"data plane phase {time.perf_counter() - t_phase:.1f} s")
+    del tr, tr2, buffer, fresh
+    return row_k1, legs
+
+
 def main() -> int:
     try:
         import torch
@@ -2804,7 +3272,8 @@ def main() -> int:
     launches = serve(torch, np, lengths_a)
     for row in (*rows, row_k1_f32):
         row["launches"] = launches[row["name"]]
-    launches, batches = train(torch, np)
+    launches, batches, row_o1 = train(torch, np)
+    o1 = launches["adam_update"]                 # each leg's O1 launches, counted from 0
     for row in train_rows:
         row["launches"] = launches[row["name"].split()[0]]
     windows = [launches["by route"]]             # K8/K11 by route, each leg's counts from 0
@@ -2818,10 +3287,13 @@ def main() -> int:
     for row, leg in zip(drain_rows, ("W", "F", "V")):
         row["launches"] = legs[leg]["sparsify"]
     windows += [legs[leg]["by route"] for leg in ("F", "W", "V")]
-    launches = harvest_train(torch, np, root)
+    o1 += sum(legs[leg]["adam_update"] for leg in ("F", "W", "V"))
+    launches, leg_h = harvest_train(torch, np, root)
+    o1 += launches["adam_update"]
     for row in harvest_rows:
         row["launches"] = launches[row["name"]]
     fused = launches["fused legs"]
+    o1 += sum(leg["adam_update"] for leg in fused.values())
     windows += [launches["by route"], *(leg["by route"] for leg in fused.values())]
     drain_rows[-1]["launches"] = sum(w["sparsify"]["warp"] for w in windows)
     wide_rows[0]["launches"] += analysis(torch, np, root)["topk_mask_f32"]
@@ -2833,8 +3305,12 @@ def main() -> int:
     fused_rows[0]["launches"] = fused["I"]["fused_topk_encode_q"]
     fused_rows[1]["launches"] = fused["K"]["fused_batchtopk_select"]
     fused_rows[2]["launches"] = fused["K"]["fused_batchtopk_emit"]
-    rows += ([row_k1_f32, *train_rows, *drain_rows, row_k10_aux, *harvest_rows, *quant_rows,
-              *wide_rows, *fused_rows])
+    row_k1_harvest, plane = data_plane(torch, np, root, leg_h)
+    del leg_h
+    row_k1_harvest["launches"] = plane["P"]["paged_attention"]
+    row_o1["launches"] = o1 + plane["S"]["adam_update"] + plane["P"]["adam_update"]
+    rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
+              *quant_rows, *wide_rows, *fused_rows, row_o1])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -375,10 +375,6 @@ class CrossCoderConfig:
         :class:`NotImplementedError` for the buffer knobs not ported yet,
         :class:`ValueError` for a buffer smaller than two batches."""
         for knob, on, waits in (
-                ("refill_overlap='on'", self.refill_overlap == "on",
-                 "crosscoder_tpu/utils/pipeline.py"),
-                ("harvest_runtime='paged'", self.harvest_runtime == "paged",
-                 "crosscoder_tpu/models/lm.py run_with_cache_multi_paged"),
                 ("seq_shards > 1", self.seq_shards > 1, "crosscoder_tpu/parallel/"),
                 ("shard_lm", self.shard_lm, "crosscoder_tpu/parallel/"),
                 ("fleet='on' (multi-consumer fan-out)", self.fleet == "on",

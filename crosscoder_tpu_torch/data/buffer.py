@@ -4,9 +4,18 @@
 Harvest → calibrate → store → shuffle → serve, as the JAX package does it:
 
 - **Harvest** on the device: every model's hook activations for a chunk of
-  ``model_batch_size`` token sequences come from one padded capture
-  forward (:func:`crosscoder_tpu_torch.models.lm.run_with_cache_multi`),
-  ``[C, S, n_sources, d_in]`` in bf16; BOS rows are dropped before storing.
+  ``model_batch_size`` token sequences, ``[C, S, n_sources, d_in]`` in
+  bf16; BOS rows are dropped before storing. The padded runtime
+  (``harvest_runtime="padded"``) runs the padded capture forward, the
+  refill's chunks cut into :class:`~crosscoder_tpu_torch.models.lm.SegmentedHarvest`
+  quanta of a few blocks so a chunk's forwards spread over several train
+  steps; the paged runtime (``"paged"``) packs each chunk's documents by
+  their real lengths (trailing PAD ids) into a token plane and attends
+  through K1 (:func:`~crosscoder_tpu_torch.models.lm.run_with_cache_multi_paged`,
+  ``pad_mode="wrap"``: positions past a document's end repeat its own
+  rows, so no stored row is all zeros), one dispatch a chunk;
+  :meth:`PairedActivationBuffer.padding_efficiency` reports the real-token
+  share.
 - **Sizes**: ``buffer_size = batch_size·buffer_mult`` rounded down to whole
   ``seq_len − 1``-row sequences; the first fill harvests the whole buffer,
   every later cycle ``refill_frac`` of it.
@@ -18,6 +27,14 @@ Harvest → calibrate → store → shuffle → serve, as the JAX package does i
   runs incrementally between serves, chunk writes landing only on rows
   the current fill can no longer serve, and the cycle completes (re-shuffle,
   pointer reset) once the read pointer passes ``buffer_size//2 − batch``.
+- **Refill overlap** (``refill_overlap="on"``): a steady-state cycle
+  harvests into spare store rows (``refill_frac`` of the buffer more)
+  while the live rows keep serving, from a dispatcher thread
+  (:class:`~crosscoder_tpu_torch.utils.pipeline.QuantumDispatcher`) that
+  spends the pacing credit each serve posts, launching on the stream the
+  buffer was built on; at the cycle's end a logical→physical row map
+  swaps, so no row moves and the served stream is byte-identical to
+  overlap off. A full fill (the first, a restore) stays in place.
 - **Resume**: :meth:`PairedActivationBuffer.state_dict` records the token
   position of the oldest unserved row; a restore refills from there.
 
@@ -42,8 +59,7 @@ reaches a store. The JAX package's four class names stay:
 are the two classes above, whose store place follows
 ``cfg.buffer_device``.
 
-Not ported here (``cfg.check_buffer`` raises): the paged harvest runtime,
-the segmented harvest and refill-overlap dispatcher, mesh-sharded stores,
+Not ported here (``cfg.check_buffer`` raises): mesh-sharded stores,
 multi-consumer fan-out, sequence-parallel harvest.
 """
 
@@ -56,9 +72,12 @@ import torch
 
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.data import hostops
+from crosscoder_tpu_torch.data import tokens as tokens_mod
 from crosscoder_tpu_torch.models import lm
 from crosscoder_tpu_torch.obs import trace
+from crosscoder_tpu_torch.ops import paged_attention as pa
 from crosscoder_tpu_torch.ops import quant
+from crosscoder_tpu_torch.utils import pipeline
 from crosscoder_tpu_torch.utils.device import resolve_device
 from crosscoder_tpu_torch.utils.pipeline import DEFAULT_DEPTH, drive
 
@@ -69,6 +88,27 @@ def _chunk_norm_sums(acts: torch.Tensor, n_valid: int) -> torch.Tensor:
     norms = torch.linalg.norm(acts.float(), dim=-1)                      # [C, S, n]
     mask = (torch.arange(acts.shape[0], device=acts.device) < n_valid)[:, None, None]
     return (norms * mask).sum(dim=(0, 1))
+
+
+class _SingleDispatchJob:
+    """A harvest already dispatched in full, with
+    :class:`~crosscoder_tpu_torch.models.lm.SegmentedHarvest`'s step
+    protocol (the paged harvest: one dispatch a chunk)."""
+
+    def __init__(self, result: torch.Tensor) -> None:
+        self._result = result
+
+    def step(self) -> bool:
+        return False
+
+    def step_many(self, quanta: int) -> tuple[int, bool]:
+        return 1, False              # one quantum of the pacing budget
+
+    def inflight(self) -> list[torch.Tensor]:
+        return [self._result]
+
+    def result(self) -> torch.Tensor:
+        return self._result
 
 
 class PairedActivationBuffer:
@@ -104,6 +144,24 @@ class PairedActivationBuffer:
         self.buffer_batches = cfg.batch_size * cfg.buffer_mult // rows_per_seq
         self.buffer_size = self.buffer_batches * rows_per_seq
         self._chunk_seqs = cfg.model_batch_size
+        self._paged = cfg.harvest_runtime == "paged"
+        if self._paged and self.device.type == "cuda" and cfg.page_size not in pa.PAGE_SIZES:
+            raise ValueError(f"harvest_runtime='paged' on the card attends through K1, which "
+                             f"takes page_size in {pa.PAGE_SIZES}, got {cfg.page_size}")
+        self._plane_multiple = 1
+        self._paged_valid_tokens = 0            # padding-efficiency telemetry
+        self._paged_total_tokens = 0
+        # refill overlap: one steady-state cycle harvests into spare rows
+        self._overlap = cfg.refill_overlap == "on"
+        self._spare_rows = self._refill_batches() * rows_per_seq if self._overlap else 0
+        self._store_rows = self.buffer_size + self._spare_rows
+        self._row_map = np.arange(self.buffer_size)
+        self._free_rows = self.buffer_size + np.arange(self._spare_rows)
+        # the dispatcher thread launches on the stream the buffer was built on
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._dispatcher = (pipeline.QuantumDispatcher(self._pump_locked)
+                            if self._overlap else None)
         self._alloc_store()
         self._perm = np.arange(self.buffer_size)
         self._rng = np.random.default_rng(cfg.seed)
@@ -116,6 +174,7 @@ class PairedActivationBuffer:
         self._filled = False
         self._cyc_seq_done = 0
         self._cyc_inflight: list[tuple] = []
+        self._cyc_job: tuple | None = None
         if not lazy:
             self.normalisation_factor = self._estimate_norm_scaling_factors()
             self.refresh()
@@ -124,7 +183,8 @@ class PairedActivationBuffer:
     # store
 
     def _alloc_store(self) -> None:
-        self._store = torch.zeros((self.buffer_size, self.cfg.n_sources, self.cfg.d_in),
+        # buffer_size rows, plus the overlap engine's spare rows
+        self._store = torch.zeros((self._store_rows, self.cfg.n_sources, self.cfg.d_in),
                                   dtype=torch.bfloat16, device=self.store_device)
 
     def _store_tensors(self) -> tuple[torch.Tensor, ...]:
@@ -163,10 +223,35 @@ class PairedActivationBuffer:
     def _harvest_dev(self, padded_tokens: np.ndarray) -> torch.Tensor:
         """All sources' hook activations for one fixed-shape chunk,
         ``[C, S, n_sources, d_in]`` bf16 on the device (source axis
-        model-major). Asynchronous on the card."""
+        model-major), through the configured runtime. Asynchronous on the
+        card."""
+        if self._paged:
+            return self._harvest_dev_paged(padded_tokens)
         tok = torch.as_tensor(np.asarray(padded_tokens, dtype=np.int64), device=self.device)
         acts = lm.run_with_cache_multi(self.model_params, tok, self.lm_cfg, self.hook_points)
         return acts.to(torch.bfloat16)
+
+    def _harvest_dev_paged(self, padded_tokens: np.ndarray) -> torch.Tensor:
+        """The paged harvest of one chunk: lengths from the trailing PAD
+        ids, the documents packed into a token plane, ragged attention
+        (K1 on the card), positions past each length refilled from the
+        document's own rows (``pad_mode="wrap"``); the padded layout's
+        shape and dtype."""
+        lengths = tokens_mod.valid_lengths(padded_tokens)
+        self._paged_valid_tokens += int(lengths.sum())
+        self._paged_total_tokens += int(padded_tokens.size)
+        return lm.run_with_cache_multi_paged(
+            self.model_params, padded_tokens, lengths, self.lm_cfg, self.hook_points,
+            page_size=self.cfg.page_size, row_multiple=self._plane_multiple, pad_mode="wrap",
+            out_dtype=torch.bfloat16)
+
+    def padding_efficiency(self) -> float | None:
+        """Real tokens over all tokens harvested so far by the paged
+        runtime; None under the padded runtime. The trainer logs it as
+        ``harvest/padding_efficiency``."""
+        if not self._paged or self._paged_total_tokens == 0:
+            return None
+        return self._paged_valid_tokens / self._paged_total_tokens
 
     def _estimate_norm_scaling_factors(self) -> np.ndarray:
         """Per-source ``sqrt(d_in) / mean_token_norm`` (BOS included): each
@@ -196,6 +281,7 @@ class PairedActivationBuffer:
     def refresh(self) -> None:
         """Synchronous refill (first fill, resume, tests): the whole buffer
         the first time, ``refill_frac`` of it after."""
+        self._quiesce_dispatch()
         num_batches = self.buffer_batches if self.first else self._refill_batches()
         self.first = False
         self._begin_cycle(num_batches)
@@ -208,9 +294,16 @@ class PairedActivationBuffer:
     # statically unserved tail [m·batch, target) past the m serves that
     # reach the trigger. Writes go tail-first (rotation `_cyc_rot`), then
     # follow the read pointer; a chunk at write offset w of r rows may land
-    # once w + r <= pointer + tail. Chunks are dispatched `_cyc_segs_per_serve`
-    # a serve, at most PIPELINE_DEPTH in flight; only the drain waits on
-    # the write-safety rule.
+    # once w + r <= pointer + tail. A chunk's harvest is a job of quanta
+    # (SegmentedHarvest: a few blocks of one model; the paged harvest: the
+    # whole chunk), dispatched `_cyc_segs_per_serve` quanta a serve, at
+    # most PIPELINE_DEPTH chunks in flight; only the drain waits on the
+    # write-safety rule.
+    #
+    # With refill_overlap a steady-state cycle is a shadow cycle: its rows
+    # land in spare physical rows, drains need no safety gate (one chunk
+    # of lag), the dispatcher thread spends the serves' credit, and the
+    # finish swaps the row map.
 
     def _begin_cycle(self, num_batches: int | None = None) -> None:
         rows_per_seq = self.cfg.seq_len - 1
@@ -221,6 +314,7 @@ class PairedActivationBuffer:
             self.token_pointer = (self.token_pointer - dropped) % self.tokens.shape[0]
             self._global_seq -= dropped
             self._cyc_inflight = []
+            self._cyc_job = None
         if num_batches is None:
             num_batches = self._refill_batches()
         b = self.cfg.batch_size
@@ -238,55 +332,153 @@ class PairedActivationBuffer:
         self._cyc_write = 0             # rows dispatched so far
         self._cyc_drained = 0           # rows landed in the store
         self._cyc_inflight = []
+        self._cyc_job = None            # (job, n, seq_globals, woff) mid-dispatch
         n_chunks = -(-num_batches // self._chunk_seqs)
         serves = max(1, trigger // b + 1)
-        self._cyc_segs_per_serve = -(-n_chunks // serves)
+        self._cyc_segs_per_serve = -(-n_chunks * self._segs_per_chunk() // serves)
+        # a shadow cycle fits the spare rows; full fills stay in place
+        self._cyc_shadow = self._overlap and self._cyc_target <= self._spare_rows
+        self._cyc_phys = self._free_rows[: self._cyc_target] if self._cyc_shadow else None
+        # a shadow cycle's provenance, applied at the swap
+        self._cyc_src = np.empty(self._cyc_target, np.int64) if self._cyc_shadow else None
+
+    def _segs_per_chunk(self) -> int:
+        """Dispatch quanta one chunk's harvest costs (the pacing unit)."""
+        if self._paged:
+            return 1
+        return lm.SegmentedHarvest.count(self.lm_cfg, self.hook_points, len(self.model_params))
+
+    def _harvest_job(self, padded_tokens: np.ndarray):
+        """A steppable harvest of one fixed-shape chunk: the padded
+        runtime's :class:`~crosscoder_tpu_torch.models.lm.SegmentedHarvest`
+        (nothing dispatched yet), or the paged harvest dispatched whole."""
+        if self._paged:
+            return _SingleDispatchJob(self._harvest_dev(padded_tokens))
+        tok = torch.as_tensor(np.asarray(padded_tokens, dtype=np.int64), device=self.device)
+        return lm.SegmentedHarvest(self.model_params, tok, self.lm_cfg, self.hook_points,
+                                   out_dtype=torch.bfloat16)
 
     def _cyc_logical(self, woff: int, n_rows: int) -> np.ndarray:
-        """Store rows for cycle write offsets ``[woff, woff + n_rows)``."""
+        """Logical store rows for cycle write offsets ``[woff, woff + n_rows)``."""
         j = np.arange(woff, woff + n_rows)
         order = np.where(j < self._cyc_tail, self._cyc_rot + j, j - self._cyc_tail)
         return self._perm[order]
 
-    def _record_src(self, woff: int, n_rows: int, seq_globals: np.ndarray) -> None:
-        self._src_global[self._cyc_logical(woff, n_rows)] = np.repeat(
-            seq_globals, self.cfg.seq_len - 1)
+    def _cyc_positions(self, woff: int, n_rows: int) -> np.ndarray:
+        """Physical rows a drain writes: a shadow cycle's spare rows, else
+        the live rows of the logical targets (``_row_map`` is the identity
+        with overlap off)."""
+        if self._cyc_shadow:
+            return self._cyc_phys[woff: woff + n_rows]
+        logical = self._cyc_logical(woff, n_rows)
+        return self._row_map[logical] if self._overlap else logical
 
-    def _step_job(self) -> bool:
-        """Dispatch the next chunk's harvest, unless the cycle has nothing
-        left to dispatch or PIPELINE_DEPTH chunks are in flight."""
-        if (self._cyc_seq_done >= self._cyc_batches
-                or len(self._cyc_inflight) + 1 > self.PIPELINE_DEPTH):
-            return False
+    def _record_src(self, woff: int, n_rows: int, seq_globals: np.ndarray) -> None:
+        """Per-row provenance of a drained chunk; a shadow cycle defers it
+        to the swap, so an abandoned one leaves ``_src_global`` untouched."""
+        src = np.repeat(seq_globals, self.cfg.seq_len - 1)
+        if self._cyc_shadow:
+            self._cyc_src[woff: woff + n_rows] = src
+        else:
+            self._src_global[self._cyc_logical(woff, n_rows)] = src
+
+    def _create_job(self) -> tuple:
+        """Open the next chunk's job and count its sequences as dispatched
+        (the token stream advances here, so an abandon-rewind covers a job
+        mid-dispatch as it covers landed chunks)."""
         n_seqs = min(self._chunk_seqs, self._cyc_batches - self._cyc_seq_done)
         seq_globals = self._global_seq + np.arange(n_seqs)
         padded, n = self._pad_chunk(self._take_tokens(n_seqs))
-        self._cyc_inflight.append((self._harvest_dev(padded), n, seq_globals, self._cyc_write))
+        entry = (self._harvest_job(padded), n, seq_globals, self._cyc_write)
         self._cyc_seq_done += n_seqs
         self._cyc_write += n_seqs * (self.cfg.seq_len - 1)
-        return True
+        return entry
+
+    def _step_job(self) -> bool:
+        """Advance the harvest by one dispatch quantum: open a job if none
+        is open (unless the cycle is fully dispatched or PIPELINE_DEPTH
+        chunks are in flight), else step it; a finished job joins the
+        drain queue. False when nothing can be dispatched now."""
+        return self._dispatch_quanta(1) > 0
+
+    def _dispatch_quanta(self, quanta: int) -> int:
+        """Spend up to ``quanta`` dispatch credit on the open job, at most
+        ``cfg.refill_dispatch_batch`` quanta in one block loop
+        (:meth:`SegmentedHarvest.step_many`). Returns the credit spent; 0
+        when nothing is dispatchable now."""
+        if self._cyc_job is None:
+            if (self._cyc_seq_done >= self._cyc_batches
+                    or len(self._cyc_inflight) + 1 > self.PIPELINE_DEPTH):
+                return 0
+            self._cyc_job = self._create_job()
+        job, n, seq_globals, woff = self._cyc_job
+        used, alive = job.step_many(min(quanta, max(1, self.cfg.refill_dispatch_batch)))
+        pipeline.finish_on_cpu(job.inflight())
+        if not alive:
+            self._cyc_inflight.append((job.result(), n, seq_globals, woff))
+            self._cyc_job = None
+        return max(used, 1)
 
     def _drain_one(self) -> None:
         cfg = self.cfg
         acts_dev, n, seq_globals, woff = self._cyc_inflight.pop(0)
         # the real sequences only, BOS dropped
         rows = acts_dev[:n, 1:].reshape(-1, cfg.n_sources, cfg.d_in)
-        self._write_rows(self._cyc_logical(woff, rows.shape[0]), rows)
+        self._write_rows(self._cyc_positions(woff, rows.shape[0]), rows)
         self._record_src(woff, rows.shape[0], seq_globals)
         self._cyc_drained += rows.shape[0]
 
     def _head_drainable(self) -> bool:
-        """The oldest in-flight chunk's rows are free once the read pointer
-        (plus the unserved tail) covers its write extent."""
+        """The oldest in-flight chunk may land: a shadow cycle writes spare
+        rows only, so it keeps one chunk of lag; otherwise its rows are free
+        once the read pointer (plus the unserved tail) covers them."""
         if not self._cyc_inflight:
             return False
+        if self._cyc_shadow:
+            return len(self._cyc_inflight) > 1
         _, n, _, woff = self._cyc_inflight[0]
         return woff + n * (self.cfg.seq_len - 1) <= self.pointer + self._cyc_tail
 
+    def _overlap_pump(self, credit: int) -> None:
+        """A shadow cycle's progress for ``credit`` quanta: dispatch them
+        (batched), then land every chunk past the drain lag."""
+        with trace.span("refill_dispatch", credit=credit):
+            while credit > 0:
+                used = self._dispatch_quanta(credit)
+                if used == 0:
+                    break
+                credit -= used
+            while self._head_drainable():
+                with trace.span("harvest"):
+                    self._drain_one()
+
+    def _pump_locked(self, credit: int) -> None:
+        """The dispatcher thread's pump: launches on the buffer's stream
+        (a thread starts on its device's default stream, not the caller's)."""
+        with pipeline.sharded_program_guard():
+            if self._stream is None:
+                self._overlap_pump(credit)
+                return
+            with torch.cuda.stream(self._stream):
+                self._overlap_pump(credit)
+
+    def _quiesce_dispatch(self) -> None:
+        """Wait out the dispatcher's work before cycle state changes under
+        it (forced refresh, restore); re-raises its error, if any."""
+        if self._dispatcher is not None:
+            self._dispatcher.drain()
+
     def _advance_cycle(self) -> None:
-        """One serve's worth of refill: dispatch the paced chunks and land
-        every chunk whose rows the read pointer has freed."""
+        """One serve's worth of refill: the paced dispatch quanta, and every
+        chunk whose rows are free lands. A shadow cycle hands the credit to
+        the dispatcher thread (or pumps it here once the thread is closed)."""
         credit = self._cyc_segs_per_serve
+        if self._cyc_shadow:
+            if self._dispatcher is not None:
+                self._dispatcher.submit(credit)
+            else:
+                self._overlap_pump(credit)
+            return
         while credit > 0 and self._step_job():
             credit -= 1
         while self._head_drainable():
@@ -294,17 +486,31 @@ class PairedActivationBuffer:
                 self._drain_one()
 
     def _finish_cycle(self) -> None:
-        """Dispatch and land what is left of the cycle, re-shuffle, reset
-        the read pointer and open the next cycle."""
+        """Dispatch and land what is left of the cycle, swap a shadow
+        cycle's rows in, re-shuffle, reset the read pointer and open the
+        next cycle."""
+        self._quiesce_dispatch()
         with trace.span("refill", target_rows=self._cyc_target):
-            while self._cyc_seq_done < self._cyc_batches:
-                if not self._step_job():            # depth window full: free a slot
+            while self._cyc_seq_done < self._cyc_batches or self._cyc_job is not None:
+                advanced = (self._dispatch_quanta(1 << 30) if self._cyc_shadow
+                            else self._step_job())
+                if not advanced:            # depth window full: free a slot
                     with trace.span("harvest"):
                         self._drain_one()
             while self._cyc_inflight:
                 with trace.span("harvest"):
                     self._drain_one()
-        assert self._cyc_drained == self._cyc_write == self._cyc_target
+        if not self._cyc_drained == self._cyc_write == self._cyc_target:
+            raise RuntimeError(f"refill cycle ended with {self._cyc_drained} rows landed, "
+                               f"{self._cyc_write} dispatched, {self._cyc_target} wanted")
+        if self._cyc_shadow:
+            # the swap: the spare rows become the logical content and the
+            # displaced rows the next spare region; no row moves
+            logical = self._cyc_logical(0, self._cyc_target)
+            old_phys = self._row_map[logical].copy()
+            self._row_map[logical] = self._cyc_phys
+            self._free_rows = np.concatenate([old_phys, self._free_rows[self._cyc_target:]])
+            self._src_global[logical] = self._cyc_src
         self._cyc_seq_done = 0
         self._perm = self._rng.permutation(self.buffer_size)
         self.pointer = 0
@@ -331,7 +537,7 @@ class PairedActivationBuffer:
                 "(resume) or refresh() first")
         idx = self._perm[self.pointer: self.pointer + self.cfg.batch_size]
         self.pointer += self.cfg.batch_size
-        return idx
+        return self._row_map[idx] if self._overlap else idx     # logical → physical
 
     def next(self) -> torch.Tensor:
         """One training batch ``[batch_size, n_sources, d_in]`` f32 with the
@@ -374,11 +580,17 @@ class PairedActivationBuffer:
         }
 
     def load_state_dict(self, state: dict[str, Any]) -> None:
-        """Restart the stream at ``state``: drop the live cycle (no rewind),
-        reset the permutation and refill from the saved token position."""
+        """Restart the stream at ``state``: quiesce the dispatcher, drop the
+        live cycle (no rewind), reset the permutation and the row map and
+        refill from the saved token position."""
+        self._quiesce_dispatch()
         self._cyc_inflight = []
+        self._cyc_job = None
         self._cyc_seq_done = 0
         self._perm = np.arange(self.buffer_size)
+        if self._overlap:
+            self._row_map = np.arange(self.buffer_size)
+            self._free_rows = self.buffer_size + np.arange(self._spare_rows)
         self.token_pointer = int(state["token_pointer"])
         self._global_seq = self.token_pointer
         self._rng.bit_generator.state = state["rng_state"]
@@ -398,7 +610,11 @@ class PairedActivationBuffer:
             self.refresh()
 
     def close(self) -> None:
-        """Nothing to stop (the synchronous path has no worker threads)."""
+        """Stop the refill dispatcher thread (none with overlap off).
+        Idempotent; drops in-flight work: the buffer is torn down after."""
+        if self._dispatcher is not None:
+            self._dispatcher.close()
+            self._dispatcher = None
 
 
 class QuantPairedActivationBuffer(PairedActivationBuffer):
@@ -410,9 +626,9 @@ class QuantPairedActivationBuffer(PairedActivationBuffer):
     def _alloc_store(self) -> None:
         cfg = self.cfg
         nb = quant.n_blocks(cfg.d_in, cfg.quant_block)
-        self._store_q = torch.zeros((self.buffer_size, cfg.n_sources, cfg.d_in),
+        self._store_q = torch.zeros((self._store_rows, cfg.n_sources, cfg.d_in),
                                     dtype=torch.int8, device=self.store_device)
-        self._store_scale = torch.zeros((self.buffer_size, cfg.n_sources, nb),
+        self._store_scale = torch.zeros((self._store_rows, cfg.n_sources, nb),
                                         dtype=torch.float32, device=self.store_device)
 
     def _store_tensors(self) -> tuple[torch.Tensor, ...]:

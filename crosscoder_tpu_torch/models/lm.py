@@ -6,9 +6,11 @@ state dict or a local HF checkpoint (:func:`from_torch_state_dict`,
 :func:`from_hf`), the padded forward with logits and edits
 (:func:`forward`, :func:`loss_fn`, :func:`ce_loss`: the CE-recovered
 eval and the demo's training), the padded capture forward
-(:func:`run_with_cache_multi`: the harvest, the test oracle) and the paged
-capture forward (:func:`paged_capture`, the serve prefill). All share one
-block loop (:func:`_run_blocks`).
+(:func:`run_with_cache_multi`: the test oracle and the norm calibration;
+:class:`SegmentedHarvest`, the same forward in quanta of a few blocks: the
+replay buffer's refill) and the paged capture forward
+(:func:`paged_capture`, the serve prefill; :func:`run_with_cache_multi_paged`,
+the paged harvest). All share one block loop (:func:`_run_layers`).
 Params are a plain dict with the JAX package's leaf names and layout:
 layer leaves stacked on a leading ``[n_layers]`` axis, matmul weights
 ``[in, out]``, so :mod:`crosscoder_tpu_torch.convert` carries them across
@@ -31,6 +33,7 @@ A capture forward runs only the blocks below the highest hooked layer:
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable, Mapping, Sequence
@@ -75,6 +78,23 @@ class LMConfig:
         )
 
     @classmethod
+    def gemma2_9b(cls) -> "LMConfig":
+        """Gemma-2-9B (d_model 3584)."""
+        return cls(
+            vocab_size=256_000, d_model=3584, n_layers=42, n_heads=16,
+            n_kv_heads=8, head_dim=256, d_ff=14_336, query_pre_attn_scalar=256.0,
+        )
+
+    @classmethod
+    def gemma2_27b(cls) -> "LMConfig":
+        """Gemma-2-27B: unlike 2B and 9B, its query scale is d_model /
+        n_heads = 144, not head_dim."""
+        return cls(
+            vocab_size=256_000, d_model=4608, n_layers=46, n_heads=32,
+            n_kv_heads=16, head_dim=128, d_ff=36_864, query_pre_attn_scalar=144.0,
+        )
+
+    @classmethod
     def tiny(cls, vocab_size: int = 257, n_layers: int = 4) -> "LMConfig":
         """Test-sized config with the real model's hook semantics."""
         return cls(
@@ -84,7 +104,14 @@ class LMConfig:
         )
 
 
-_NAMED_CONFIGS = {"gemma-2-2b": LMConfig.gemma2_2b, "gemma-2-2b-it": LMConfig.gemma2_2b}
+_NAMED_CONFIGS = {
+    "gemma-2-2b": LMConfig.gemma2_2b,
+    "gemma-2-2b-it": LMConfig.gemma2_2b,
+    "gemma-2-9b": LMConfig.gemma2_9b,
+    "gemma-2-9b-it": LMConfig.gemma2_9b,
+    "gemma-2-27b": LMConfig.gemma2_27b,
+    "gemma-2-27b-it": LMConfig.gemma2_27b,
+}
 
 
 def config_for(model_name: str) -> LMConfig:
@@ -190,7 +217,9 @@ def _mlp(x: torch.Tensor, lp) -> torch.Tensor:
 
 def _embed(params: LMParams, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     dt = dtype_of(cfg.dtype)
-    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=dt, device=tokens.device)
+    # made on the device: a host tensor copied to the card would sync the
+    # stream, and the refill dispatcher must queue quanta ahead of the card
+    scale = torch.full((), math.sqrt(cfg.d_model), dtype=dt, device=tokens.device)
     return params["embed"][tokens].to(dt) * scale
 
 
@@ -292,36 +321,46 @@ def _run_blocks(params, resid, cfg: LMConfig, pairs, n_scan: int,
     site, fn, value)`` tuples, each applied at its hook before that hook's
     capture (a sublayer edit before the contribution joins the stream).
     Returns the final stream and the capture buffer ``[n_cap, R, S, D]``."""
-    want_attn = any(c == _SITE_ATTN for _, c in pairs)
-    want_mlp = any(c == _SITE_MLP for _, c in pairs)
     buf = torch.zeros((len(pairs),) + tuple(resid.shape), dtype=resid.dtype,
                       device=resid.device)
+    resid = _run_layers(params, resid, buf, cfg, pairs, 0, n_scan, attend, pos, edits)
+    resid = _edited(edits, resid, n_scan, _SITE_RESID)
+    _capture(buf, resid, n_scan, pairs, _SITE_RESID)
+    return resid, buf
 
-    def edited(x, i, site):
-        for layer, code, fn, value in edits:
-            if layer == i and code == site:
-                x = fn(x, value)
-        return x
 
-    for i in range(n_scan):
+def _edited(edits, x: torch.Tensor, i: int, site: int) -> torch.Tensor:
+    for layer, code, fn, value in edits:
+        if layer == i and code == site:
+            x = fn(x, value)
+    return x
+
+
+def _run_layers(params, resid, buf, cfg: LMConfig, pairs, lo: int, hi: int, attend,
+                pos: torch.Tensor, edits=()) -> torch.Tensor:
+    """Blocks ``[lo, hi)`` of :func:`_run_blocks`, capturing into ``buf``;
+    returns the stream after block ``hi - 1``. The segmented harvest runs
+    the same blocks a range at a time, so its result is bitwise the whole
+    loop's."""
+    want_attn = any(c == _SITE_ATTN for _, c in pairs)
+    want_mlp = any(c == _SITE_MLP for _, c in pairs)
+    for i in range(lo, hi):
         lp = _layer(params, i)
-        resid = edited(resid, i, _SITE_RESID)
+        resid = _edited(edits, resid, i, _SITE_RESID)
         _capture(buf, resid, i, pairs, _SITE_RESID)
         window = cfg.sliding_window if i % 2 == 0 else 0    # even layers: local
         q, k, v = _qkv(_rms_norm(resid, lp["attn_norm"], cfg.rms_eps), lp, cfg, pos)
         a = torch.matmul(attend(q, k, v, window), lp["wo"])
-        attn_out = edited(_rms_norm(a, lp["post_attn_norm"], cfg.rms_eps), i, _SITE_ATTN)
+        attn_out = _edited(edits, _rms_norm(a, lp["post_attn_norm"], cfg.rms_eps), i, _SITE_ATTN)
         if want_attn:
             _capture(buf, attn_out, i, pairs, _SITE_ATTN)
         resid = resid + attn_out
         m = _mlp(_rms_norm(resid, lp["pre_ffw_norm"], cfg.rms_eps), lp)
-        mlp_out = edited(_rms_norm(m, lp["post_ffw_norm"], cfg.rms_eps), i, _SITE_MLP)
+        mlp_out = _edited(edits, _rms_norm(m, lp["post_ffw_norm"], cfg.rms_eps), i, _SITE_MLP)
         if want_mlp:
             _capture(buf, mlp_out, i, pairs, _SITE_MLP)
         resid = resid + mlp_out
-    resid = edited(resid, n_scan, _SITE_RESID)
-    _capture(buf, resid, n_scan, pairs, _SITE_RESID)
-    return resid, buf
+    return resid
 
 
 def _padded_attend(cfg: LMConfig):
@@ -465,6 +504,170 @@ def paged_capture(params_seq: Sequence[LMParams], chunk, cfg: LMConfig,
     out = torch.stack(outs, dim=2)                                 # [D, S, n_src, d]
     valid = torch.arange(S, device=dev)[None] < lengths[:, None].long()
     return torch.where(valid[:, :, None, None], out, torch.zeros((), dtype=out.dtype, device=dev))
+
+
+@torch.no_grad()
+def run_with_cache_multi_paged(params_seq: Sequence[LMParams], tokens, lengths, cfg: LMConfig,
+                               hook_points: Sequence[str], *, page_size: int,
+                               n_rows: int | None = None, row_multiple: int = 1,
+                               pad_mode: str = "zero", out_dtype: torch.dtype | None = None,
+                               attention: AttentionFn | None = None) -> torch.Tensor:
+    """All models' captures through the PAGED runtime: documents ``tokens
+    [D, seq_len]`` (padded layout) with ``lengths [D]`` are packed on the
+    host into a dense token plane (:func:`crosscoder_tpu_torch.data.paging.pack_chunk`,
+    ``n_rows``/``row_multiple`` as there), run through :func:`paged_capture`
+    (ragged attention through ``attention``, by default
+    :func:`~crosscoder_tpu_torch.ops.paged_attention.paged_attention`: K1
+    on the card) and unpacked
+    to ``[D, seq_len, n_models·n_hooks, d_model]``, source axis
+    model-major, as :func:`run_with_cache_multi` returns. Positions at
+    ``t >= lengths[d]`` are zeros (``pad_mode="zero"``) or cycle the
+    document's own post-BOS rows (``"wrap"``, the replay buffer's choice:
+    ``src = t`` below the length, else ``1 + (t - 1) % max(len - 1, 1)``,
+    and 0 for a single-token document), so no row is all zeros.
+
+    On an all-full-length chunk the packing is the identity, and with the
+    plain attention the result is bitwise :func:`run_with_cache_multi`'s.
+    """
+    from crosscoder_tpu_torch.data import paging
+
+    if pad_mode not in ("zero", "wrap"):
+        raise ValueError(f"pad_mode must be zero|wrap, got {pad_mode!r}")
+    chunk = paging.pack_chunk(np.asarray(tokens), np.asarray(lengths), n_rows=n_rows,
+                              row_multiple=row_multiple)
+    out = paged_capture(params_seq, chunk, cfg, hook_points, page_size,
+                        attention=attention or pa.paged_attention)
+    if pad_mode == "wrap":
+        S = out.shape[1]
+        t = torch.arange(S, device=out.device)[None]                       # [1, S]
+        ln = torch.as_tensor(chunk.lengths, device=out.device).long()[:, None]
+        src = torch.where(t < ln, t, 1 + (t - 1) % torch.clamp(ln - 1, min=1))
+        src = torch.where((t >= ln) & (ln == 1), torch.zeros_like(src), src)
+        out = torch.take_along_dim(out, src[:, :, None, None], dim=1)
+    return out.to(out_dtype) if out_dtype is not None else out
+
+
+# ---------------------------------------------------------------------------
+# segmented harvest (dispatch quanta for the replay buffer's refill)
+
+
+class SegmentedHarvest:
+    """:func:`run_with_cache_multi` as a sequence of small dispatches: each
+    model's capture forward cut into ``seg_layers()``-block quanta, so the
+    replay buffer can spread a chunk's harvest evenly over the train steps
+    that share the card's stream instead of queueing a whole chunk's
+    forwards behind one step (the refill bubble).
+
+    ``step()`` dispatches one quantum (asynchronous on the card; nothing
+    waits) and returns False once the stacked result has been dispatched;
+    ``step_many(q)`` advances up to ``q`` quanta, one block loop over the
+    same model's consecutive quanta, with ``step()``'s accounting;
+    ``result()`` dispatches what is left and returns the ``[B, S,
+    n_sources, d_model]`` capture (in ``out_dtype`` when given). The blocks
+    run the whole forward's ops in its order (:func:`_run_layers`), so the
+    result is bitwise :func:`run_with_cache_multi`'s.
+
+    ``SEG_LAYERS`` None reads ``$CROSSCODER_SEG_LAYERS`` at use time
+    (default 3); an int set on the class overrides it.
+    """
+
+    SEG_LAYERS: int | None = None
+
+    @classmethod
+    def seg_layers(cls) -> int:
+        if cls.SEG_LAYERS is not None:
+            return cls.SEG_LAYERS
+        return int(os.environ.get("CROSSCODER_SEG_LAYERS", "3"))
+
+    @classmethod
+    def count(cls, cfg: LMConfig, hook_points: Sequence[str], n_models: int) -> int:
+        """``step()`` calls a job over these hooks needs (for pacing)."""
+        n_scan = min(cfg.n_layers, _scan_stop(_hook_layers(cfg, tuple(hook_points))))
+        return n_models * max(1, -(-n_scan // cls.seg_layers()))
+
+    def __init__(self, params_seq: Sequence[LMParams], tokens, cfg: LMConfig,
+                 hook_points: Sequence[str], out_dtype: torch.dtype | None = None) -> None:
+        self.params_seq = tuple(params_seq)
+        self.tokens = torch.as_tensor(tokens, device=self.params_seq[0]["embed"].device).long()
+        self.cfg = cfg
+        self.capture = _hook_layers(cfg, tuple(hook_points))
+        self.n_scan = min(cfg.n_layers, _scan_stop(self.capture))
+        self.out_dtype = out_dtype
+        # the granularity is fixed for the job's life: n_steps (the pacing
+        # denominator) and the quantum width must agree
+        self._seg_layers = self.seg_layers()
+        self.n_steps = self.count(cfg, hook_points, len(self.params_seq))
+        self._pos = torch.arange(self.tokens.shape[1], device=self.tokens.device)
+        self._attend = _padded_attend(cfg)
+        self._model_idx = 0
+        self._lo = 0
+        self._resid = self._buf = None
+        self._bufs: list[torch.Tensor] = []
+        self._out = None
+
+    def inflight(self) -> list[torch.Tensor]:
+        """Tensors dispatched whose values may still be computing."""
+        return [x for x in (self._resid, self._buf, self._out) if x is not None]
+
+    def _start_model(self) -> None:
+        p = self.params_seq[self._model_idx]
+        self._resid = _embed(p, self.tokens, self.cfg)
+        self._buf = torch.zeros((len(self.capture),) + tuple(self._resid.shape),
+                                dtype=self._resid.dtype, device=self._resid.device)
+
+    def _scan(self, k: int) -> None:
+        self._resid = _run_layers(self.params_seq[self._model_idx], self._resid, self._buf,
+                                  self.cfg, self.capture, self._lo, self._lo + k,
+                                  self._attend, self._pos)
+        self._lo += k
+
+    def _end_model(self) -> bool:
+        """Close the model whose blocks are done; True once every model is."""
+        _capture(self._buf, self._resid, self.n_scan, self.capture, _SITE_RESID)
+        self._bufs.append(self._buf)
+        self._resid = self._buf = None
+        self._lo = 0
+        self._model_idx += 1
+        if self._model_idx < len(self.params_seq):
+            return False
+        out = torch.stack([b[i] for b in self._bufs for i in range(b.shape[0])], dim=2)
+        self._out = out.to(self.out_dtype) if self.out_dtype is not None else out
+        self._bufs = []
+        return True
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Dispatch the next quantum; False once fully dispatched."""
+        if self._out is not None:
+            return False
+        if self._resid is None:
+            self._start_model()
+        if self._lo < self.n_scan:
+            self._scan(min(self._seg_layers, self.n_scan - self._lo))
+        return not (self._lo >= self.n_scan and self._end_model())
+
+    @torch.no_grad()
+    def step_many(self, quanta: int) -> tuple[int, bool]:
+        """Advance by up to ``quanta`` quanta; ``(quanta used, alive)`` with
+        the accounting of as many :meth:`step` calls."""
+        used = 0
+        while used < quanta:
+            if self._out is not None:
+                return used, False
+            if self._resid is None:
+                self._start_model()
+            if self._lo < self.n_scan:
+                n_q = min(quanta - used, -(-(self.n_scan - self._lo) // self._seg_layers))
+                self._scan(min(n_q * self._seg_layers, self.n_scan - self._lo))
+                used += n_q
+            if self._lo >= self.n_scan and self._end_model():
+                return used, False
+        return used, True
+
+    def result(self) -> torch.Tensor:
+        while self._out is None:
+            self.step()
+        return self._out
 
 
 # ---------------------------------------------------------------------------

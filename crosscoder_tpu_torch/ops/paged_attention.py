@@ -40,9 +40,13 @@ NEG_INF = -2.3819763e38
 
 _KERNEL = "paged_attention"
 _HEAD_DIMS = (128, 256)
-_PAGES = (32, 64)
+PAGE_SIZES = (32, 64)   # the page sizes K1 takes
 _ROWS = 32          # query rows a block of the f32 kernel (csrc kRows); bf16 takes 64
 _ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
+_PROTOTYPES = {
+    "rpa_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+}
 
 
 def kernel_route(dtype: torch.dtype) -> str:
@@ -90,8 +94,9 @@ def ragged_attention_reference(
     else:
         in_len = pos[None, None, :] < lengths.to(q.device)[:, None, None]   # [B,1,S]
         maskb = (mask[None] & in_len)[:, None, None]                  # [B,1,1,S,S]
-    logits = torch.where(maskb, logits, torch.tensor(NEG_INF, dtype=logits.dtype,
-                                                     device=logits.device))
+    # the fill made on the device: a host scalar copied in would sync the stream
+    logits = torch.where(maskb, logits, torch.full((), NEG_INF, dtype=logits.dtype,
+                                                   device=logits.device))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs.float(), v.float())
     return out.to(v.dtype).reshape(B, S, H * hd)
@@ -146,8 +151,8 @@ def check_supported(q, k, v, lengths, page_size: int) -> None:
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"paged attention kernel takes head_dim in {_HEAD_DIMS}, got {hd}")
-    if page_size not in _PAGES:
-        raise ValueError(f"paged attention kernel takes page_size in {_PAGES}, got {page_size}")
+    if page_size not in PAGE_SIZES:
+        raise ValueError(f"paged attention kernel takes page_size in {PAGE_SIZES}, got {page_size}")
     if S % page_size:
         raise ValueError(f"seq_len {S} not divisible by page_size {page_size}")
     if H % KV or _ROWS % (H // KV):
@@ -189,16 +194,12 @@ def paged_attention(
     kv_pages, page_tbl = paginate_kv(k, v, page_size)
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    lib = _build.load(_KERNEL)
-    fn = lib.rpa_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    code = fn(
+    lib = _build.load(_KERNEL, _PROTOTYPES)
+    code = lib.rpa_launch(
         q.data_ptr(), kv_pages.data_ptr(), page_tbl.data_ptr(), lens.data_ptr(),
         out.data_ptr(), D, S, H, KV, hd, page_size,
         int(q.dtype == torch.bfloat16), float(scale), float(softcap), int(window),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _build.stream(q.device),
     )
     _build.check(code, f"paged_attention kernel ({route})")
     paged_attention.launches += 1

@@ -11,7 +11,12 @@ params, the optimizer state, the step counter and the non-optimizer state
 ``max_norm / norm`` only when ``norm >= max_norm``, with no epsilon (where
 ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm and would drift
 the trajectory); the bias corrections use ``1 - b**t`` in f32; the update
-is ``-lr(count) · m̂ / (sqrt(v̂) + eps)``.
+is ``-lr(count) · m̂ / (sqrt(v̂) + eps)``. The global norm is a torch
+reduction; the clip, Adam and the learning rate are one pass
+(:func:`crosscoder_tpu_torch.ops.adam.adam_update`: O1 on the card), the
+clip chosen on the device, so an update never syncs the host. With
+``donate=True`` the pass writes params and moments in place, as the JAX
+step's ``donate_argnums`` lets XLA do.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.models import crosscoder as cc
+from crosscoder_tpu_torch.ops import adam
 from crosscoder_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, torch.Tensor]
@@ -56,32 +62,33 @@ class Optimizer:
         return AdamState(0, {k: torch.zeros_like(v) for k, v in params.items()},
                          {k: torch.zeros_like(v) for k, v in params.items()})
 
-    def clip(self, grads: Params) -> Params:
-        # sum of squares over the leaves in sorted-name order, as
-        # optax.global_norm walks a dict
-        norm = torch.sqrt(sum(torch.sum(torch.square(grads[k].float())) for k in sorted(grads)))
-        if bool(norm < self.max_norm):
-            return grads
-        return {k: (g / norm.to(g.dtype)) * self.max_norm for k, g in grads.items()}
+    @staticmethod
+    def global_norm(grads: Params) -> torch.Tensor:
+        """The f32 global norm of ``grads`` on their device: the sum of
+        squares over the leaves in sorted-name order, as optax.global_norm
+        walks a dict."""
+        return torch.sqrt(sum(torch.sum(torch.square(grads[k].float())) for k in sorted(grads)))
 
     @torch.no_grad()
-    def update(self, grads: Params, state: AdamState, params: Params) -> tuple[Params, AdamState]:
-        """``(new params, new state)``."""
-        grads = self.clip(grads)
+    def update(self, grads: Params, state: AdamState, params: Params, *, donate: bool = False
+               ) -> tuple[Params, AdamState]:
+        """``(new params, new state)``. ``donate=True`` writes them into
+        ``params``, ``state.mu`` and ``state.nu`` (the caller gives those
+        up); otherwise the inputs stay intact."""
+        norm = self.global_norm(grads)
         t = state.count + 1
         bc1 = np.float32(1.0) - np.float32(self.b1) ** np.float32(t)
         bc2 = np.float32(1.0) - np.float32(self.b2) ** np.float32(t)
         step_size = -np.float32(self.lr_fn(state.count))
-        new_params, mu, nu = {}, {}, {}
-        for k, g in grads.items():
-            mu[k] = (1 - self.b1) * g + self.b1 * state.mu[k]
-            nu[k] = (1 - self.b2) * torch.square(g) + self.b2 * state.nu[k]
-            m_hat = mu[k] / torch.tensor(bc1, dtype=mu[k].dtype, device=g.device)
-            v_hat = nu[k] / torch.tensor(bc2, dtype=nu[k].dtype, device=g.device)
-            upd = m_hat / (torch.sqrt(v_hat) + self.eps)
-            upd = torch.tensor(step_size, dtype=upd.dtype, device=g.device) * upd
-            new_params[k] = (params[k] + upd).to(params[k].dtype)
-        return new_params, AdamState(t, mu, nu)
+        if donate:
+            new, out = (params, state.mu, state.nu), None
+        else:
+            new = out = tuple({k: torch.empty_like(v) for k, v in d.items()}
+                              for d in (params, state.mu, state.nu))
+        adam.adam_update(params, grads, state.mu, state.nu, norm, max_norm=self.max_norm,
+                         b1=self.b1, b2=self.b2, eps=self.eps, bc1=float(bc1), bc2=float(bc2),
+                         step_size=float(step_size), out=out)
+        return new[0], AdamState(t, new[1], new[2])
 
 
 def init_train_state(cfg: CrossCoderConfig, opt: Optimizer, *, seed: int | None = None,

@@ -62,10 +62,12 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
                    aux_on: bool = True, mask_refresh: bool = True
                    ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                  tuple[TrainState, dict[str, Any]]]:
-    """``step_fn(state, batch, scale) -> (new_state, metrics)`` for one
-    variant: ``x = batch · scale`` per source, value and gradients of
-    :func:`crosscoder.training_loss`, the optimizer update and the AuxK
-    bookkeeping. ``metrics`` hold device tensors (no sync).
+    """``step_fn(state, batch, scale, donate=False) -> (new_state,
+    metrics)`` for one variant: ``x = batch · scale`` per source, value and
+    gradients of :func:`crosscoder.training_loss`, the optimizer update and
+    the AuxK bookkeeping. ``metrics`` hold device tensors (no sync).
+    ``state`` stays intact unless ``donate=True``, which writes the new
+    params and Adam moments into its tensors (the trainer's step).
     ``step_fn.loss_and_grads(state, batch, scale)`` gives the step's loss,
     loss surface and gradients without the update."""
     if cfg.batchtopk_threshold > 0:
@@ -104,10 +106,11 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
                  for k, g in zip(names, grads)}
         return loss.detach(), losses, grads, dead, aux
 
-    def step_fn(state: TrainState, batch: torch.Tensor, scale: torch.Tensor):
+    def step_fn(state: TrainState, batch: torch.Tensor, scale: torch.Tensor,
+                donate: bool = False):
         l1_coeff = l1_fn(state.step)
         loss, losses, grads, dead, aux = loss_and_grads(state, batch, scale)
-        new_params, new_opt = opt.update(grads, state.opt_state, state.params)
+        new_params, new_opt = opt.update(grads, state.opt_state, state.params, donate=donate)
         metrics: dict[str, Any] = {
             "loss": loss,
             "l2_loss": losses.l2_loss.detach(),
@@ -201,6 +204,9 @@ class Trainer:
         self.opt = Optimizer(cfg, schedules.lr_schedule(cfg))
         self.state = state if state is not None else init_train_state(
             cfg, self.opt, device=self.device)
+        # a step updates in place only a state this trainer made (init,
+        # restore, an earlier step): a state handed in stays the caller's
+        self._owns_state = state is None
         self._scale = None
         self._scale_src = None
         self._step_fns: dict[tuple[bool, bool, bool], Callable] = {}
@@ -219,8 +225,24 @@ class Trainer:
         without a checkpointer). ``background=True`` returns once the
         state is in host memory and writes on the checkpointer's thread."""
         if self.checkpointer is not None:
+            self._quiesce_refill()
             self.checkpointer.save(self.state, self.cfg, buffer=self.buffer,
                                    background=background)
+
+    def _quiesce_refill(self) -> None:
+        """Drain the buffer's refill dispatcher, whose thread moves the
+        cycle state the stream snapshot reads. A harvest error it reports
+        does not stop the save (the snapshot is consistent either way, and
+        a final save is when losing it hurts most): it is printed and
+        dropped, as the JAX trainer does."""
+        q = getattr(self.buffer, "_quiesce_dispatch", None)
+        if q is None:
+            return
+        try:
+            q()
+        except Exception as e:  # noqa: BLE001 — reported; a lasting fault raises at the cycle end
+            print(f"[crosscoder_tpu_torch] refill drain raised during save quiesce "
+                  f"({type(e).__name__}: {e}); saving anyway"[:400], file=sys.stderr, flush=True)
 
     def restore(self, version_dir=None, save: int | None = None) -> dict:
         """Resume from a save (default: the newest that verifies): the
@@ -230,6 +252,7 @@ class Trainer:
             raise ValueError("Trainer has no checkpointer to restore from")
         self.state, meta = self.checkpointer.restore(self.cfg, version_dir, save,
                                                      device=self.device)
+        self._owns_state = True
         self._host_step = self.state.step
         if "buffer" in meta and hasattr(self.buffer, "load_state_dict"):
             self.buffer.load_state_dict(meta["buffer"])
@@ -268,20 +291,33 @@ class Trainer:
 
     def step(self, full_metrics: bool = True) -> dict[str, Any]:
         """One optimizer step; returns device-resident metrics (no sync).
-        ``full_metrics=False`` runs the bare variant (no l0/EV metrics)."""
+        ``full_metrics=False`` runs the bare variant (no l0/EV metrics).
+        The update writes in place into a state this trainer made (see
+        :func:`make_step_body`); a ``state`` passed at construction is
+        copied by the first step instead."""
         key = variant_for_step(self.cfg, self._host_step, full_metrics)
         fn = self._step_fns.get(key)
         if fn is None:
             fn = self._step_fns[key] = make_step_body(
                 self.cfg, self.opt, with_metrics=key[0], aux_on=key[1], mask_refresh=key[2])
         batch = self._next_batch()
-        self.state, metrics = fn(self.state, batch, self._device_scale())
+        self.state, metrics = fn(self.state, batch, self._device_scale(),
+                                 donate=self._owns_state)
+        self._owns_state = True
         self._host_step += 1
         return metrics
 
     def log(self, metrics: dict[str, Any], step: int) -> None:
+        """Log the step's scalars; under the paged harvest also
+        ``harvest/padding_efficiency``, the real-token share of everything
+        harvested so far (padded runs log the reference's scalars only)."""
         if self.logger is not None:
-            self.logger.log(expand_metrics(metrics, self.cfg.n_sources), step)
+            scalars = expand_metrics(metrics, self.cfg.n_sources)
+            eff = getattr(self.buffer, "padding_efficiency", None)
+            eff = eff() if callable(eff) else None
+            if eff is not None:
+                scalars["harvest/padding_efficiency"] = eff
+            self.logger.log(scalars, step)
 
     def train(self, num_steps: int | None = None) -> dict[str, float]:
         """Run to ``num_steps`` (default ``total_steps``): log every

@@ -85,6 +85,9 @@ def stubbed(monkeypatch):
         monkeypatch.setattr(jbuf.PairedActivationBuffer, "_segs_per_chunk", lambda self: 1)
         monkeypatch.setattr(buf.PairedActivationBuffer, "_harvest_dev",
                             lambda self, p: torch.from_numpy(stub(p)).to(torch.bfloat16))
+        monkeypatch.setattr(buf.PairedActivationBuffer, "_harvest_job",
+                            lambda self, p: buf._SingleDispatchJob(self._harvest_dev(p)))
+        monkeypatch.setattr(buf.PairedActivationBuffer, "_segs_per_chunk", lambda self: 1)
         return stub
     return install
 
@@ -274,8 +277,7 @@ def test_validation(tokens):
     with pytest.raises(ValueError, match="param sets"):
         buf.PairedActivationBuffer(CrossCoderConfig(**make_kw(n_models=3)), None,
                                    [{}, {}], tokens, device="cpu")
-    for kw in (dict(refill_overlap="on"), dict(harvest_runtime="paged", page_size=1),
-               dict(seq_shards=17), dict(fleet="on")):
+    for kw in (dict(seq_shards=17), dict(fleet="on")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             buf.make_buffer(CrossCoderConfig(**make_kw(**kw)), None, [{}, {}], tokens,
                             device="cpu")

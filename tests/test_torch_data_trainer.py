@@ -74,6 +74,8 @@ def stubbed(monkeypatch, harvest):
                         lambda self, p: jbuf._SingleDispatchJob(self._harvest_dev(p)))
     monkeypatch.setattr(buf.PairedActivationBuffer, "_harvest_dev",
                         lambda self, p: torch.from_numpy(harvest(p)).to(torch.bfloat16))
+    monkeypatch.setattr(buf.PairedActivationBuffer, "_harvest_job",
+                        lambda self, p: buf._SingleDispatchJob(self._harvest_dev(p)))
 
 
 @pytest.fixture(scope="module")
