@@ -173,7 +173,31 @@ one NVIDIA Hopper card and the CUDA toolkit:
    tensor cores, the padding efficiency, the harvest's share of the
    steps), then a save mid shadow cycle and a restore into a fresh buffer
    and Trainer, both through the dispatcher;
-10. prints the kernel table as one JSON line, the card line, and
+10. the trainer's remaining numerics and recovery, over synthetic batches
+   made ahead onto the card at the train phase's width (dict 2^15 unless
+   stated): leg J, a 4-step BatchTopK run (K9) whose threshold
+   ``train/warmstart.py`` calibrates into a JumpReLU θ, 6 JumpReLU steps
+   (``l0_coeff`` 1, bandwidth 0.03; finite losses, log_theta moving, the
+   first step's L0 beside k), a step against its re-run with the plain
+   update (bitwise), 2 steps at bf16 masters with O1 taking the bf16
+   weights and the f32 log_theta in one launch (bitwise the plain update;
+   O1 timed there beside its bound), one step profiled beside the
+   JumpReLU forward and backward timed alone; leg D, ``sparse_decode``
+   (TopK k=32) at 2^15 (K5, K8) and 2^17 (K7, K8), 4 steps each, one
+   step's loss and gradients against the dense TopK path from the same
+   state, step times and peak memory; leg R, leg A's config resampling
+   every 4 steps, 8 steps, the revived rows checked right after the edit
+   (decoder norms, b_enc, moments, trackers) and the edit re-run from the
+   same generator state (bitwise); leg G, leg A's config under the loss
+   guard over a source whose serve 9 is all NaN: one rollback, the
+   counters as the JAX trainer counts them, the restore timed, the final
+   state bitwise a fresh Trainer's restored from the same save with the
+   same serves skipped by hand. After phase 4, the replica hand-off: a
+   second engine on phase 4's models and crosscoder adopts the 8
+   mixed-length requests engine A spools on preemption through a shared
+   board, each result bitwise engine A's serving it directly (K1, K2
+   launches counted);
+11. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -239,6 +263,31 @@ QUEUE_CYCLES = 50_000_000
 # tensor-core kernels replaced (H100 80GB HBM3 at 700.00 W; K2 and K4 in
 # bf16 before the shared tile, K3 and K1 before theirs), printed in
 # brackets beside the new ones
+# phase 10 at the train phase's width: leg J, JumpReLU (l0_coeff 1, bandwidth
+# 0.03) warm-started from a 4-step BatchTopK run, 6 steps, then 2 at bf16
+# masters; leg D, sparse_decode (TopK k=32, no AuxK) at dict 2^15 and 2^17, 4
+# steps each; leg R, leg A's config resampling every 4 steps (dead after 2
+# quiet steps), 8 steps; leg G, leg A's config under the loss guard (a log
+# every 2 steps, a save every 4) over a source whose serve 9 is all NaN, 12
+# steps (the fault lands past the 8 of the other legs); the replica
+# hand-off, 8 mixed-length requests
+LEG_BT = dict(TRAIN, activation="batchtopk", aux_k=0, aux_every=1, sparse_bwd="off",
+              fused_encoder="off")
+LEG_J = dict(LEG_BT, activation="jumprelu", l0_coeff=1.0, jumprelu_bandwidth=0.03)
+LEG_D = dict(TRAIN, sparse_decode=True, sparse_bwd="off", fused_encoder="off", aux_k=0,
+             aux_every=1)
+LEG_R = dict(TRAIN, fused_encoder="off", resample_every=4, resample_dead_steps=2)
+LEG_G = dict(TRAIN, fused_encoder="off", guard_loss=True, log_every=2, save_every=4,
+             keep_saves=3)
+STEPS_BT, STEPS_J, STEPS_JB, STEPS_D, STEPS_R, STEPS_G = 4, 6, 2, 4, 8, 12
+NAN_SERVE = 9
+N_REPLICA = 8
+# leg D against the dense TopK path from one state: the same mask, the
+# decode summed in another order and the dense backward's cotangent rounded
+# to bf16 for the tensor cores (the sparse one stays f32): the loss within
+# 1e-3 relative, each gradient within 2e-2 relative in norm
+SPARSE_DECODE_TOL = (1e-3, 2e-2)
+STEP_MS: dict[str, float] = {}
 CUDA_CORE_MS = {"K2 serve": 0.2477, "K2 train": 95.2670, "K4 select": 39.9474,
                 "K4 emit": 29.2987, "leg B bare step": 127.4, "leg K step": 104.389,
                 "K3 train": 24.1683, "K1 serve": 1.1974, "leg I bare step": 58.3}
@@ -691,7 +740,7 @@ def serve(torch, np, lengths_a):
     log(f"serve: prefill p50 {st['serve/prefill_ms_p50']:.3f} ms, encode p50 "
         f"{st['serve/encode_ms_p50']:.3f} ms over {st['serve/prefill_ms_n']} micro-batches "
         f"(warmup included)")
-    return launches
+    return launches, eng
 
 
 # ---------------------------------------------------------------------------
@@ -1678,6 +1727,7 @@ def profile_step(torch, trainer, full_metrics, label):
         log(f"profile {label}:   {g}: {t:.3f} ms ({100 * t / total:.1f}%)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         log(f"profile {label}:   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:80]}")
+    return total
 
 
 def same_step(torch, a, b):
@@ -1839,6 +1889,7 @@ def train(torch, np):
     log(f"train: launches leg A {after_a}, leg B {leg_b}; l0 max {max(l0s):.2f} "
         f"(k={cfg_a.topk_k}); peak memory {peak:.2f} GiB")
     bare, aux = np.mean(bare_ms[1:]), np.mean(aux_ms[1:])
+    STEP_MS["leg A bare"] = bare
     log(f"train: ms per step (CUDA events, first of each kind excluded): bare {bare:.3f} "
         f"({len(bare_ms) - 1} steps), aux {aux:.3f} ({len(aux_ms) - 1} steps); "
         f"{cfg_a.batch_size / bare * 1e3:.0f} rows/s on bare steps; leg B bare (fused "
@@ -3215,6 +3266,497 @@ def data_plane(torch, np, root, leg_h):
     del tr, tr2, buffer, fresh
     return row_k1, legs
 
+# ---------------------------------------------------------------------------
+# phase 10: the trainer's remaining numerics and recovery
+
+
+class PoisonedBatches:
+    """Serves ``inner``'s batches, serve ``nan_serve`` (counted from 0 over
+    every serve of this wrapper) all NaN; the checkpointed position is the
+    inner source's."""
+
+    def __init__(self, inner, nan_serve):
+        self.inner, self.nan_serve, self.serves = inner, nan_serve, 0
+
+    def next(self):
+        b = self.inner.next()
+        if self.serves == self.nan_serve:
+            b = b.new_full(b.shape, float("nan"))
+        self.serves += 1
+        return b
+
+    def state_dict(self):
+        return self.inner.state_dict()
+
+    def load_state_dict(self, d):
+        self.inner.load_state_dict(d)
+
+
+class CaptureResample:
+    """Stands in for a trainer's resample function: runs it and keeps a
+    copy of its input state, the generator's state, the batch and the
+    output state (the trainer's next step writes into the output)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, state, batch, scale, gen):
+        import copy
+
+        g0 = gen.get_state()
+        new, n = self.fn(state, batch, scale, gen)
+        self.calls.append(dict(state=copy.deepcopy(state), out=copy.deepcopy(new), n=int(n),
+                               gen=g0, batch=batch, scale=scale))
+        return new, n
+
+
+def leg_steps(torch, tr, steps, full=True):
+    """``steps`` trainer steps, each timed by CUDA events; the metrics as
+    host floats."""
+    out = []
+    for _ in range(steps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        m = tr.step(full_metrics=full)
+        e1.record()
+        torch.cuda.synchronize()
+        out.append({**{k: float(v) for k, v in m.items()
+                       if k != "explained_variance_per_source"}, "ms": e0.elapsed_time(e1)})
+    return out
+
+
+def leg_launches(counters, label, steps, routes=True):
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    launches["by route"] = read_routes()
+    check_o1(label, launches, steps)
+    if routes:
+        check_routes(label, launches, launches["by route"])
+    return launches
+
+
+def jumprelu_leg(torch, np, batches):
+    """Leg J: a 4-step BatchTopK run, its θ calibrated into a JumpReLU
+    warm start, 6 JumpReLU steps and 2 at bf16 masters (O1 over bf16
+    weights and the f32 log_theta in one launch), a step against its
+    re-run with the plain update, one step profiled."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.models import crosscoder as cc
+    from crosscoder_tpu_torch.ops import activations as act
+    from crosscoder_tpu_torch.ops import adam
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer, TrainState
+    from crosscoder_tpu_torch.train.warmstart import jumprelu_warmstart_params
+
+    B = TRAIN["batch_size"]
+    cfg_bt = CrossCoderConfig(**LEG_BT, num_tokens=B * STEPS_BT)
+    cfg_j = CrossCoderConfig(**LEG_J, num_tokens=B * STEPS_J)
+    counters = launch_counters()
+    reset_counters(counters)
+    batches.i = 0
+    tr_bt = trainer_mod.Trainer(cfg_bt, batches, device="cuda")
+    bt = leg_steps(torch, tr_bt, STEPS_BT)
+    t0 = time.perf_counter()
+    params = jumprelu_warmstart_params(tr_bt.state.params, cfg_bt, cfg_j, batches.batches[:2])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del tr_bt
+    lt0 = params["log_theta"].clone()
+    opt = Optimizer(cfg_j, trainer_mod.schedules.lr_schedule(cfg_j))
+    batches.i = 0
+    tr = trainer_mod.Trainer(cfg_j, batches, device="cuda",
+                             state=TrainState(params, opt.init(params), 0, None))
+    js = leg_steps(torch, tr, STEPS_J)
+    launches = leg_launches(counters, "leg J", STEPS_BT + STEPS_J, routes=False)
+    theta = float(torch.exp(lt0[0]))
+    moved = float((tr.state.params["log_theta"] - lt0).abs().max())
+    log(f"leg J: BatchTopK warm-up losses {[round(m['loss'], 4) for m in bt]}; θ calibrated "
+        f"at {theta:.6f} in {warm_s:.2f} s; JumpReLU losses "
+        f"{[round(m['loss'], 4) for m in js]}, l0 {[round(m['l0_loss'], 1) for m in js]} "
+        f"(k={cfg_bt.topk_k}; the first step's L0 {js[0]['l0_loss']:.2f} beside k), "
+        f"l2 {[round(m['l2_loss'], 4) for m in js]}; log_theta moved by up to {moved:.3e}; "
+        f"ms per step {[round(m['ms'], 3) for m in js]}; launches {launches}")
+    if not (all(math.isfinite(m["loss"]) for m in bt + js) and moved > 0):
+        fail("leg J: a loss is not finite or log_theta did not move")
+    if not launches.get("batchtopk_select"):
+        fail(f"leg J: the BatchTopK warm-up never launched K9: {launches}")
+    # one step re-run with the plain update: the same bits
+    x, scale = batches.next(), torch.ones(cfg_j.n_sources, device="cuda")
+    fn = trainer_mod.make_step_body(cfg_j, opt, True, True, True)
+    got, _ = fn(tr.state, x, scale)
+    with swapped(adam, "adam_update", adam.adam_update_plain):
+        want, _ = fn(tr.state, x, scale)
+    ok, what = state_bits_equal(torch, got, want)
+    log(f"leg J: a step with O1 vs the plain update: "
+        f"{'bitwise equal params, log_theta and moments' if ok else 'DIFFERENT ' + what}")
+    if not ok:
+        fail(f"leg J: the step with O1 differs from the plain update in {what}")
+    del got, want
+    # bf16 masters beside the f32 log_theta: one O1 launch a step
+    cfg_jb = cfg_j.replace(master_dtype="bf16", num_tokens=B * STEPS_JB)
+    pb = {k: v.clone() if k == "log_theta" else v.to(torch.bfloat16)
+          for k, v in tr.state.params.items()}
+    opt_b = Optimizer(cfg_jb, trainer_mod.schedules.lr_schedule(cfg_jb))
+    reset_counters(counters)
+    tr_b = trainer_mod.Trainer(cfg_jb, batches, device="cuda",
+                               state=TrainState(pb, opt_b.init(pb), 0, None))
+    jb = leg_steps(torch, tr_b, STEPS_JB)
+    launches_b = leg_launches(counters, "leg J at bf16 masters", STEPS_JB, routes=False)
+    dts = {k: str(v.dtype)[6:] for k, v in tr_b.state.params.items()}
+    fn_b = trainer_mod.make_step_body(cfg_jb, opt_b, True, True, True)
+    got, _ = fn_b(tr_b.state, x, scale)
+    with swapped(adam, "adam_update", adam.adam_update_plain):
+        want, _ = fn_b(tr_b.state, x, scale)
+    ok, what = state_bits_equal(torch, got, want)
+    log(f"leg J at bf16 masters ({dts}): losses {[round(m['loss'], 4) for m in jb]}, O1 "
+        f"launches {launches_b['adam_update']} in {STEPS_JB} steps; a step with O1 over the "
+        f"mixed leaves vs the plain update: "
+        f"{'bitwise equal' if ok else 'DIFFERENT ' + what}")
+    if not (ok and dts["log_theta"] == "float32" and dts["W_enc"] == "bfloat16"
+            and all(math.isfinite(m["loss"]) for m in jb)):
+        fail(f"leg J at bf16 masters: O1 over mixed leaves failed ({what}, {dts})")
+    del got, want
+    row = check_adam_mixed(torch, np, tr_b.state, fn_b.loss_and_grads(tr_b.state, x, scale)[2],
+                           cfg_jb)
+    row["launches"] = launches_b["adam_update"]
+    del tr_b, pb
+    # the JumpReLU elementwise work's share of a step's device time
+    total = profile_step(torch, tr, True, "leg J step")
+    cp = cc.cast_params(tr.state.params, torch.bfloat16)
+    h = cc.pre_acts(cp, x.to(torch.bfloat16))
+    g = torch.randn(h.shape, device="cuda").to(h.dtype)
+    lt = tr.state.params["log_theta"]
+    one = torch.ones((), device="cuda")
+
+    def jumprelu_fwd_bwd():
+        hh, ll = h.detach().requires_grad_(True), lt.detach().requires_grad_(True)
+        out = act.jumprelu(hh, ll, cfg_j.jumprelu_bandwidth)
+        pen = act.jumprelu_l0(hh, ll, cfg_j.jumprelu_bandwidth)
+        torch.autograd.backward([out, pen], [g, one])
+
+    jr_ms = time_ms(jumprelu_fwd_bwd, 5)
+    share = f"{100 * jr_ms / total:.1f}%" if total else "not measured"
+    log(f"leg J: the JumpReLU forward and backward with the L0 term on h {list(h.shape)} "
+        f"{str(h.dtype)[6:]}: {jr_ms:.3f} ms (CUDA events) of a {total or 0:.3f} ms step "
+        f"(profiled device time): {share}")
+    # the bf16 steps' O1 launches are the mixed row's (`row`), not the f32 row's
+    return launches, row
+
+
+def check_adam_mixed(torch, np, state, grads, cfg):
+    """O1 at leg J's bf16 state (bf16 weights, the f32 log_theta): bitwise
+    against the plain update, timed back to back and queued beside it, one
+    fused Adam call of PyTorch's where it takes the mixed leaves, and the
+    bound (each leaf's p, g, m, v read once, p, m, v written once, in its
+    own dtype). Returns the kernel-table row."""
+    from crosscoder_tpu_torch.ops import adam
+    from crosscoder_tpu_torch.train.state import Optimizer
+
+    p, m, v = state.params, state.opt_state.mu, state.opt_state.nu
+    t = state.opt_state.count + 1
+    kw = dict(max_norm=cfg.grad_clip, b1=cfg.beta1, b2=cfg.beta2, eps=1e-8,
+              bc1=float(np.float32(1) - np.float32(cfg.beta1) ** np.float32(t)),
+              bc2=float(np.float32(1) - np.float32(cfg.beta2) ** np.float32(t)),
+              step_size=float(-np.float32(cfg.lr)))
+    norm = Optimizer.global_norm(grads)
+    outs = [tuple({k: torch.empty_like(a) for k, a in p.items()} for _ in range(3))
+            for _ in range(2)]
+    before = adam.adam_update.launches
+    adam.adam_update(p, grads, m, v, norm, out=outs[0], **kw)
+    adam.adam_update_plain(p, grads, m, v, norm, out=outs[1], **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8))
+               for a, b in zip(*outs) for k in p)
+    err = max(float((a[k].float() - b[k].float()).abs().max()) for a, b in zip(*outs) for k in p)
+    if not same:
+        fail("O1 over bf16 weights and the f32 log_theta differs from the plain update")
+    ms = time_ms(lambda: adam.adam_update(p, grads, m, v, norm, out=outs[0], **kw), 20)
+    q_ms = time_ms(lambda: adam.adam_update(p, grads, m, v, norm, out=outs[0], **kw), 20,
+                   queued=True)
+    plain_ms = time_ms(lambda: adam.adam_update_plain(p, grads, m, v, norm, out=outs[1], **kw), 3)
+    lib_p = {k: a.clone() for k, a in p.items()}
+    for k, a in lib_p.items():
+        a.grad = grads[k]
+    try:
+        lib = torch.optim.Adam(list(lib_p.values()), lr=cfg.lr, betas=(cfg.beta1, cfg.beta2),
+                               eps=1e-8, fused=True)
+        library_ms = time_ms(lib.step, 20)
+    except (RuntimeError, ValueError) as e:
+        log(f"O1 mixed: torch.optim.Adam(fused=True) refused the mixed leaves ({e})"[:300])
+        library_ms = None
+    del lib_p
+    adam.adam_update.launches = before            # the probe's launches are not the path's
+    n = sum(a.numel() for a in p.values())
+    n_bytes = sum(7 * a.element_size() * a.numel() for a in p.values())
+    b_ms, b_by = bound(n_bytes, 20 * n, "fp32")
+    log(f"O1 adam_update over {len(p)} leaves ({n} values: "
+        f"{ {k: str(a.dtype)[6:] for k, a in p.items()} }), bitwise the plain update: "
+        f"{ms:.4f} ms back to back, {q_ms:.4f} ms queued; the plain update {plain_ms:.4f} ms; "
+        f"torch.optim.Adam(fused=True, no clip) "
+        f"{'not measured' if library_ms is None else f'{library_ms:.4f} ms'}; bound "
+        f"{b_ms:.4f} ms by {b_by} ({n_bytes / 1e9:.3f} GB)")
+    del outs
+    return {"name": "adam_update (bf16 masters, f32 log_theta)", "route": "cuda",
+            "source": "crosscoder_tpu_torch/csrc/adam_update.cu",
+            "replaces": "crosscoder_tpu/train/state.py:33 (the optax chain XLA fuses in "
+                        "crosscoder_tpu/train/trainer.py:351; no Pallas site)",
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms, "queued_ms": q_ms}
+
+
+def sparse_decode_leg(torch, np, batches):
+    """Leg D: sparse_decode at dict 2^15 (K5, K8) and 2^17 (K7, K8), 4
+    steps each, one step's loss and gradients against the dense TopK path
+    from the same state, step times and peak memory."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer
+
+    out = {}
+    counters = launch_counters()
+    for H, mask in ((2 ** 15, "topk_mask"), (2 ** 17, "topk_chunked")):
+        cfg = CrossCoderConfig(**{**LEG_D, "dict_size": H},
+                               num_tokens=TRAIN["batch_size"] * STEPS_D)
+        batches.i = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters(counters)
+        tr = trainer_mod.Trainer(cfg, batches, device="cuda")
+        ms = leg_steps(torch, tr, STEPS_D)
+        launches = leg_launches(counters, f"leg D at {H}", STEPS_D)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not (launches.get(mask) and launches.get("sparsify")
+                and all(math.isfinite(m["loss"]) for m in ms)):
+            fail(f"leg D at {H}: a loss is not finite or the mask ({mask}) or K8 never "
+                 f"launched: {launches}")
+        x, scale = batches.next(), torch.ones(cfg.n_sources, device="cuda")
+        opt = Optimizer(cfg, lambda s: 0.0)
+        dense = cfg.replace(sparse_decode=False, factored_decode="off")
+        a = trainer_mod.make_step_body(cfg, opt).loss_and_grads(tr.state, x, scale)
+        b = trainer_mod.make_step_body(dense, opt).loss_and_grads(tr.state, x, scale)
+        rel_loss = abs(float(a[0]) - float(b[0])) / abs(float(b[0]))
+        rel_g = {k: float(torch.linalg.norm((a[2][k] - b[2][k]).float())
+                          / torch.linalg.norm(b[2][k].float())) for k in a[2]}
+        log(f"leg D at dict {H}: losses {[round(m['loss'], 4) for m in ms]}, l0 "
+            f"{[round(m['l0_loss'], 2) for m in ms]}; ms per step "
+            f"{[round(m['ms'], 3) for m in ms]} (leg A's bare dense step "
+            f"{STEP_MS.get('leg A bare', float('nan')):.3f} ms at 2^15); peak memory "
+            f"{peak:.2f} GiB; launches {launches}; one step against the dense TopK path: loss "
+            f"{float(a[0]):.6f} vs {float(b[0]):.6f} (relative {rel_loss:.2e}, tol "
+            f"{SPARSE_DECODE_TOL[0]}), gradients relative in norm "
+            f"{ {k: f'{v:.2e}' for k, v in rel_g.items()} } (tol {SPARSE_DECODE_TOL[1]})")
+        if not (rel_loss <= SPARSE_DECODE_TOL[0] and max(rel_g.values()) <= SPARSE_DECODE_TOL[1]):
+            fail(f"leg D at {H}: sparse_decode disagrees with the dense TopK path")
+        if any(m["l0_loss"] > cfg.topk_k for m in ms):
+            fail(f"leg D at {H}: l0 above k")
+        out[H] = launches
+        del tr, a, b
+    return out
+
+
+def resample_leg(torch, np, batches):
+    """Leg R: leg A's config resampling every 4 steps, 8 steps; the revived
+    rows checked right after the edit and the edit re-run from the same
+    generator state."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.resample import make_resample_fn
+
+    cfg = CrossCoderConfig(**LEG_R, num_tokens=TRAIN["batch_size"] * STEPS_R)
+    counters = launch_counters()
+    batches.i = 0
+    reset_counters(counters)
+    tr = trainer_mod.Trainer(cfg, batches, device="cuda")
+    cap = tr._resample_fn = CaptureResample(make_resample_fn(cfg))
+    ms = leg_steps(torch, tr, STEPS_R)
+    launches = leg_launches(counters, "leg R", STEPS_R)
+    res = [(i, int(m["resampled"])) for i, m in enumerate(ms) if "resampled" in m]
+    log(f"leg R: losses {[round(m['loss'], 4) for m in ms]}; dead_frac "
+        f"{[round(m['dead_frac'], 4) for m in ms]}; resampled (step, latents) {res}; ms per "
+        f"step {[round(m['ms'], 3) for m in ms]}; launches {launches}")
+    if not (res and all(n > 0 for _, n in res) and all(math.isfinite(m["loss"]) for m in ms)):
+        fail(f"leg R: no resample revived a latent, or a loss is not finite: {res}")
+    if not all(launches.get(n) for n in ("topk_mask", "sparsify", "scatter_add_rows")):
+        fail(f"leg R: a kernel of the path never launched: {launches}")
+    c = cap.calls[0]
+    dead = c["state"].aux["steps_since_fired"] >= cfg.resample_threshold_steps
+    out = c["out"]
+    dec = torch.linalg.norm(out.params["W_dec"][dead].float(), dim=-1)
+    dec_err = float((dec - cfg.dec_init_norm).abs().max() / cfg.dec_init_norm)
+    zero = (not out.params["b_enc"][dead].any()
+            and all(not t["W_dec"][dead].any() and not t["W_enc"][..., dead].any()
+                    and not t["b_enc"][dead].any() for t in (out.opt_state.mu, out.opt_state.nu))
+            and not out.aux["steps_since_fired"][dead].any())
+    alive = ~dead
+    kept = torch.equal(out.params["W_dec"][alive], c["state"].params["W_dec"][alive])
+    gen = torch.Generator(device="cuda")
+    gen.set_state(c["gen"])
+    again, n2 = make_resample_fn(cfg)(c["state"], c["batch"], c["scale"], gen)
+    ok, what = state_bits_equal(torch, again, out)
+    log(f"leg R: the resample at step 4 revived {c['n']} latents: decoder norms within "
+        f"{dec_err:.2e} of dec_init_norm {cfg.dec_init_norm} (tol 1e-5), b_enc, moments and "
+        f"trackers {'0' if zero else 'NOT 0'}, live rows {'untouched' if kept else 'CHANGED'}; "
+        f"re-run from the same generator state: {'bitwise equal' if ok else 'DIFFERENT ' + what}")
+    if not (c["n"] == int(dead.sum()) == int(n2) and dec_err <= 1e-5 and zero and kept and ok):
+        fail("leg R: the revived rows failed their checks or the edit does not re-run bitwise")
+    del cap, c, again, tr
+    return launches
+
+
+def guard_leg(torch, np, root, batches):
+    """Leg G: leg A's config under the loss guard over a source whose serve
+    9 is all NaN; one rollback, the counters as the JAX trainer counts
+    them, and the final state bitwise a fresh Trainer's, restored from the
+    same save, that skips the same serves by hand."""
+    import shutil
+
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+
+    d = ckpt_dir(root)
+    cfg = CrossCoderConfig(**LEG_G, num_tokens=TRAIN["batch_size"] * STEPS_G,
+                           checkpoint_dir=str(d))
+    ck = Checkpointer(cfg=cfg)
+    restores = []
+    real_restore = ck.restore
+
+    def timed_restore(*a, **kw):
+        # the wait for a background save still writing, then the restore
+        t0 = time.perf_counter()
+        ck.wait()
+        t1 = time.perf_counter()
+        state, meta = real_restore(*a, **kw)
+        torch.cuda.synchronize()
+        restores.append((t1 - t0, time.perf_counter() - t1, meta["save_version"], meta["step"]))
+        return state, meta
+
+    ck.restore = timed_restore
+    counters = launch_counters()
+    batches.i = 0
+    src = PoisonedBatches(batches, NAN_SERVE)
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    tr = trainer_mod.Trainer(cfg, src, device="cuda", checkpointer=ck)
+    tr.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    launches["by route"] = read_routes()
+    check_routes("leg G", launches, launches["by route"])
+    snap = tr.resilience.snapshot()
+    # the first log step at or after the poisoned one detects; the newest
+    # save at or before it (a save every save_every steps) is restored; the
+    # serves from there to the detection are skipped
+    detect = -(-NAN_SERVE // cfg.log_every) * cfg.log_every
+    restored = detect // cfg.save_every * cfg.save_every
+    n_skip = detect + 1 - restored
+    want = {"resilience/rollbacks": 1, "resilience/skipped_batches": n_skip}
+    n_steps = detect + 1 + STEPS_G - restored
+    state_bytes = sum(t.numel() * t.element_size() for tree in (
+        tr.state.params, tr.state.opt_state.mu, tr.state.opt_state.nu) for t in tree.values())
+    log(f"leg G: {tr.step_counter} steps ({n_steps} run: 0..{detect}, then {restored}.."
+        f"{STEPS_G - 1}) in {wall:.1f} s with saves; counters {snap} (the JAX trainer's count: "
+        f"{want}); serves {src.serves}; the rollback's restore: {restores[0][0]:.2f} s waiting "
+        f"for the background save in flight, then {restores[0][1]:.2f} s restoring save "
+        f"{restores[0][2]} (step {restores[0][3]}: {state_bytes / 1e9:.2f} GB of state, its "
+        f"checksums verified); launches {launches}")
+    if not (snap == want and tr.step_counter == STEPS_G and len(restores) == 1
+            and restores[0][3] == restored and src.serves == n_steps + n_skip):
+        fail(f"leg G: expected one rollback to step {restored} with {want}, got {snap}")
+    check_o1("leg G", launches, n_steps)
+    # a fresh Trainer from the rollback's save, the poisoned window skipped by hand
+    _, _, v, step = restores[0]
+    batches.i = 0
+    tr2 = trainer_mod.Trainer(cfg.replace(guard_loss=False), batches, device="cuda",
+                              checkpointer=Checkpointer(base_dir=d))
+    tr2.restore(version_dir=ck.save_dir, save=v)
+    for _ in range(n_skip):
+        batches.next()
+    while tr2.step_counter < STEPS_G:
+        tr2.step()
+    ok, what = state_bits_equal(torch, tr.state, tr2.state)
+    log(f"leg G: a fresh Trainer restored from save {v} (step {step}), {n_skip} serves skipped "
+        f"by hand, {STEPS_G - step} steps: final state "
+        f"{'bitwise equal' if ok else 'DIFFERENT ' + what} to the guarded run's")
+    if not ok:
+        fail(f"leg G: the guarded run's final state differs from the replay in {what}")
+    del tr, tr2
+    shutil.rmtree(d)
+    return launches
+
+
+def replica_leg(torch, np, eng):
+    """The replica hand-off: engine A (phase 4's) queues 8 mixed-length
+    requests and is preempted; engine B, on the same models and
+    crosscoder, adopts them from a shared board and serves them; each
+    result bitwise engine A's serving the same request directly."""
+    import shutil
+    import tempfile
+
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.ops import paged_attention as pa
+    from crosscoder_tpu_torch.serve import InferenceEngine, ReplicaBoard, ServeReplica
+
+    eng_b = InferenceEngine(eng.cfg, eng.lm_cfg, eng._lm_params, eng._cc_params,
+                            norm_factors=eng._norm.cpu().numpy(), device="cuda")
+    rng = np.random.default_rng(13)
+    S = eng.cfg.seq_len
+    lengths = [1, S] + [int(n) for n in rng.integers(2, S, size=N_REPLICA - 2)]
+    docs = [rng.integers(1, eng.lm_cfg.vocab_size, size=n, dtype=np.int32) for n in lengths]
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_board_"))
+    board = ReplicaBoard(d)
+    rep_a, rep_b = ServeReplica("a", eng, board), ServeReplica("b", eng_b, board)
+    pa.paged_attention.launches = 0
+    fek.fused_topk_encode.launches = 0
+    rep_a.heartbeat()
+    rep_b.heartbeat()
+    for doc in docs:
+        eng.submit(doc)
+    spooled = rep_a.preempt()
+    adopted = rep_b.heartbeat()
+    got = eng_b.step(force=True)
+    rids = [eng.submit(doc) for doc in docs]
+    direct = {r.request_id: r for r in eng.step(force=True)}
+    want = [direct[r] for r in rids]
+    torch.cuda.synchronize()
+    launches = {"paged_attention": pa.paged_attention.launches,
+                "fused_topk_encode": fek.fused_topk_encode.launches}
+    same = len(got) == len(want) == N_REPLICA and all(
+        np.array_equal(a.vals.view(np.int32), b.vals.view(np.int32))
+        and np.array_equal(a.idx, b.idx)
+        and np.array_equal(a.diff.view(np.int32), b.diff.view(np.int32))
+        for a, b in zip(got, want))
+    log(f"replica: lengths {lengths}; A spooled {spooled}, B adopted {adopted} "
+        f"(serve/adopted_total {eng_b.stats().get('serve/adopted_total')}), served "
+        f"{len(got)} under bucket {sorted({r.bucket for r in got})}; results "
+        f"{'bitwise equal' if same else 'DIFFERENT'} to A serving the same requests directly; "
+        f"launches {launches}")
+    shutil.rmtree(d)
+    if not (spooled == adopted == N_REPLICA and same):
+        fail("replica: the hand-off lost a request or served it differently")
+    if not all(launches.values()):
+        fail(f"replica: a serve kernel never launched: {launches}")
+    del eng_b
+    return launches
+
+
+def recovery(torch, np, root):
+    """Phase 10: legs J, D, R and G over synthetic batches made ahead
+    onto the card; returns each leg's launch counts."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+
+    t_phase = time.perf_counter()
+    batches = DeviceBatches(torch, SyntheticActivationSource(CrossCoderConfig(**TRAIN)),
+                            STEPS_G + 4)
+    legs = {}
+    legs["J"], row_o1_mixed = jumprelu_leg(torch, np, batches)
+    legs["D"] = sparse_decode_leg(torch, np, batches)
+    legs["R"] = resample_leg(torch, np, batches)
+    legs["G"] = guard_leg(torch, np, root, batches)
+    log(f"recovery phase {time.perf_counter() - t_phase:.1f} s")
+    return legs, row_o1_mixed
+
 
 def main() -> int:
     try:
@@ -3269,9 +3811,13 @@ def main() -> int:
     quant_rows = check_quantize(torch, quant)
     wide_rows = check_topk_wide(torch, tp)
     drain_rows = check_sparsify_shapes(torch, tp)
-    launches = serve(torch, np, lengths_a)
+    launches, eng = serve(torch, np, lengths_a)
     for row in (*rows, row_k1_f32):
         row["launches"] = launches[row["name"]]
+    launches = replica_leg(torch, np, eng)
+    del eng
+    for row in rows:
+        row["launches"] += launches[row["name"]]
     launches, batches, row_o1 = train(torch, np)
     o1 = launches["adam_update"]                 # each leg's O1 launches, counted from 0
     for row in train_rows:
@@ -3308,9 +3854,20 @@ def main() -> int:
     row_k1_harvest, plane = data_plane(torch, np, root, leg_h)
     del leg_h
     row_k1_harvest["launches"] = plane["P"]["paged_attention"]
-    row_o1["launches"] = o1 + plane["S"]["adam_update"] + plane["P"]["adam_update"]
+    o1 += plane["S"]["adam_update"] + plane["P"]["adam_update"]
+    legs, row_o1_mixed = recovery(torch, np, root)
+    d15, d17 = legs["D"][2 ** 15], legs["D"][2 ** 17]
+    for leg in (d15, legs["R"], legs["G"]):
+        for row in train_rows[:3]:
+            row["launches"] += leg.get(row["name"].split()[0], 0)
+    wide_rows[1]["launches"] += d17.get("topk_chunked", 0)
+    drain_rows[0]["launches"] += d17.get("sparsify", 0)
+    for row in harvest_rows:
+        row["launches"] += legs["J"].get(row["name"], 0)
+    row_o1["launches"] = o1 + sum(leg.get("adam_update", 0)
+                                  for leg in (legs["J"], d15, d17, legs["R"], legs["G"]))
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
-              *quant_rows, *wide_rows, *fused_rows, row_o1])
+              *quant_rows, *wide_rows, *fused_rows, row_o1, row_o1_mixed])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

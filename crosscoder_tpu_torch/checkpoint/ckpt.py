@@ -6,7 +6,7 @@ Layout, as the JAX package's (the reference's auto-versioned scheme):
 save ``v``:
 
 - ``{v}.npz``: the crosscoder weights, f32, named ``W_enc``, ``W_dec``,
-  ``b_enc``, ``b_dec``;
+  ``b_enc``, ``b_dec`` (and ``log_theta`` for JumpReLU);
 - ``{v}_cfg.json``: :meth:`CrossCoderConfig.to_json_str`;
 - ``{v}_train_state.npz``: every leaf of the :class:`TrainState`, keyed by
   the JAX package's pytree paths (``.params['W_enc']``,
@@ -49,6 +49,12 @@ from crosscoder_tpu_torch.utils.device import resolve_device
 FORMAT = "crosscoder_tpu/v1"
 PARAM_NAMES = ("W_dec", "W_enc", "b_dec", "b_enc")
 _ADAM, _SCHEDULE = ".opt_state[1]", ".opt_state[2]"
+
+
+def param_names(cfg: CrossCoderConfig) -> tuple[str, ...]:
+    """The param leaves ``cfg`` trains: :data:`PARAM_NAMES`, plus
+    ``log_theta`` for JumpReLU."""
+    return PARAM_NAMES + (("log_theta",) if cfg.activation == "jumprelu" else ())
 
 
 def _sha256_file(path: Path) -> str:
@@ -105,11 +111,15 @@ def state_spec(cfg: CrossCoderConfig) -> dict[str, tuple[tuple[int, ...], torch.
     the JAX package's pytree-path keys (optax chain: clip, Adam, schedule)."""
     n, d, H = cfg.n_sources, cfg.d_in, cfg.dict_size
     dt = torch.float32 if cfg.master_dtype == "fp32" else torch.bfloat16
-    shapes = {"W_dec": (H, n, d), "W_enc": (n, d, H), "b_dec": (n, d), "b_enc": (H,)}
-    spec = {f".params['{p}']": (shapes[p], dt) for p in PARAM_NAMES}
+    shapes = {"W_dec": (H, n, d), "W_enc": (n, d, H), "b_dec": (n, d), "b_enc": (H,),
+              "log_theta": (H,)}
+    # log_theta (JumpReLU) and its moments stay f32 whatever the masters' dtype
+    dts = {p: torch.float32 if p == "log_theta" else dt for p in shapes}
+    names = param_names(cfg)
+    spec = {f".params['{p}']": (shapes[p], dts[p]) for p in names}
     spec[f"{_ADAM}.count"] = ((), torch.int32)
     for moment in ("mu", "nu"):
-        spec.update({f"{_ADAM}.{moment}['{p}']": (shapes[p], dt) for p in PARAM_NAMES})
+        spec.update({f"{_ADAM}.{moment}['{p}']": (shapes[p], dts[p]) for p in names})
     spec[f"{_SCHEDULE}.count"] = ((), torch.int32)
     spec[".step"] = ((), torch.int32)
     if cfg.aux_k > 0 or cfg.resample_every > 0:
@@ -139,11 +149,12 @@ def flatten_state(state: Any) -> dict[str, torch.Tensor]:
     """The train state's leaves on the host, keyed as :func:`state_spec`.
     The port's single Adam count is written to both optax counters."""
     opt = state.opt_state
-    leaves: dict[str, Any] = {f".params['{p}']": state.params[p] for p in PARAM_NAMES}
+    names = sorted(state.params)
+    leaves: dict[str, Any] = {f".params['{p}']": state.params[p] for p in names}
     leaves[f"{_ADAM}.count"] = opt.count
     for moment in ("mu", "nu"):
         tree = getattr(opt, moment)
-        leaves.update({f"{_ADAM}.{moment}['{p}']": tree[p] for p in PARAM_NAMES})
+        leaves.update({f"{_ADAM}.{moment}['{p}']": tree[p] for p in names})
     leaves[f"{_SCHEDULE}.count"] = opt.count
     leaves[".step"] = state.step
     for name, t in sorted((state.aux or {}).items()):
@@ -185,7 +196,7 @@ def unflatten_state(leaves: dict[str, np.ndarray], cfg: CrossCoderConfig, device
                          "optimizer count")
 
     def tree(prefix):
-        return {p: t[f"{prefix}['{p}']"].to(dev) for p in PARAM_NAMES}
+        return {p: t[f"{prefix}['{p}']"].to(dev) for p in param_names(cfg)}
 
     aux = {key[len(".aux['"):-2]: v.to(dev) for key, v in t.items() if key.startswith(".aux[")}
     return TrainState(params=tree(".params"),
@@ -235,7 +246,7 @@ class Checkpointer:
         with trace.span("save", version=self.save_version, background=background):
             self.wait()
             leaves = flatten_state(state)
-            weights = {p: leaves[f".params['{p}']"].float().numpy() for p in PARAM_NAMES}
+            weights = {p: leaves[f".params['{p}']"].float().numpy() for p in sorted(state.params)}
             flat = {k: _numpy(v) for k, v in leaves.items()}
             if self.save_dir is None:
                 self._create_save_dir()

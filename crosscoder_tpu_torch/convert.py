@@ -41,7 +41,10 @@ def _tensor(a, device: torch.device, dtype: torch.dtype | None) -> torch.Tensor:
 
 
 def _tree(tree: Mapping[str, Any], device: torch.device, dtype) -> dict[str, Any]:
-    return {k: _tree(v, device, dtype) if isinstance(v, Mapping) else _tensor(v, device, dtype)
+    """Leaf by leaf; a JumpReLU ``log_theta`` stays f32 whatever ``dtype``
+    (the JAX package keeps it f32 beside weights of any dtype)."""
+    return {k: _tree(v, device, dtype) if isinstance(v, Mapping)
+            else _tensor(v, device, None if k == "log_theta" else dtype)
             for k, v in tree.items()}
 
 
@@ -56,7 +59,7 @@ def lm_params_from_numpy(tree: Mapping[str, Any], device=None,
 def crosscoder_params_from_numpy(params: Mapping[str, Any], device=None,
                                  dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
     """The port's crosscoder params from the JAX package's crosscoder
-    params dict of numpy leaves."""
+    params dict of numpy leaves; ``log_theta`` (JumpReLU) keeps its f32."""
     return _tree(params, resolve_device(device), dtype)
 
 

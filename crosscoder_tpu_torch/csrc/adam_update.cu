@@ -7,10 +7,11 @@
 // `make_train_step`). Run eagerly, the same chain is some 36 elementwise
 // passes over each leaf; this kernel is the one pass XLA makes.
 //
-// Function, per element of each leaf, with T the master dtype (f32 or
-// bf16) and every step rounded to T as PyTorch's eager ops round
-// (`adam_update_plain` in ops/adam.py, the op sequence of the port's
-// Optimizer):
+// Function, per element of each leaf, with T the leaf's dtype (f32 or
+// bf16, leaf by leaf: bf16 masters beside the f32 `log_theta` of a
+// JumpReLU crosscoder in one launch) and every step rounded to T as
+// PyTorch's eager ops round (`adam_update_plain` in ops/adam.py, the op
+// sequence of the port's Optimizer):
 //
 //   clip     = !(norm < max_norm)                 (norm: f32, on the card)
 //   g        = clip ? T(T(g / T(norm)) * max_norm) : g
@@ -24,7 +25,8 @@
 // FMA), then rounded to T, so the result is bitwise the plain version's on
 // the card given the same norm. The scalars are f32 as PyTorch makes them
 // from Python floats; bc1, bc2 and step are rounded to T as the plain
-// version's 0-d tensors are. The norm is read on the card: no host sync.
+// version's 0-d tensors are, each leaf to its own T. The norm is read on
+// the card: no host sync.
 //
 // Bound. Each element is read from p, g, m and v once and p', m' and v'
 // are written once: 28 bytes an element in f32 (14 in bf16). Leg A's four
@@ -33,7 +35,8 @@
 // element are far below the card's rate. So the design is a stream: one
 // 16-byte load of each input a thread (4 f32 or 8 bf16 elements), 256
 // threads a block, every leaf in one launch (a block finds its leaf from
-// the leaves' first blocks, passed by value), the tail of a leaf and
+// the leaves' first blocks, passed by value, and branches on the leaf's
+// dtype tag, the same for the whole block), the tail of a leaf and
 // unaligned leaves element by element. In place when the outputs are the
 // inputs (the trainer's donated step); each element is read before it is
 // written, by the same thread.
@@ -58,6 +61,7 @@ struct Leaf {
   long long n;
   long long first_block;   // blocks of earlier leaves
   int vec;                 // every pointer 16-byte aligned
+  int bf16;                // dtype tag: 1 bf16, 0 f32
 };
 
 struct Leaves {
@@ -104,19 +108,14 @@ __device__ __forceinline__ void adam_one(float g, float p, float m, float v, boo
   po = E::rt(__fadd_rn(p, u));
 }
 
+// One block's share of leaf L, whose elements are T.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-adam_update_kernel(Leaves leaves, const float* __restrict__ norm_ptr, Coef c) {
+__device__ __forceinline__ void adam_leaf(const Leaf& L, long long b, float norm, Coef c) {
   using E = Elt<T>;
   constexpr int V = E::kVec;
   c.bc1 = E::rt(c.bc1);
   c.bc2 = E::rt(c.bc2);
   c.step = E::rt(c.step);
-  const long long b = blockIdx.x;
-  int li = 0;
-  while (li + 1 < leaves.count && leaves.leaf[li + 1].first_block <= b) ++li;
-  const Leaf& L = leaves.leaf[li];
-  const float norm = *norm_ptr;
   const bool clip = !(norm < c.max_norm);
   const float normT = E::rt(norm);
   const long long i0 = ((b - L.first_block) * kThreads + threadIdx.x) * V;
@@ -160,19 +159,31 @@ adam_update_kernel(Leaves leaves, const float* __restrict__ norm_ptr, Coef c) {
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+adam_update_kernel(Leaves leaves, const float* __restrict__ norm_ptr, Coef c) {
+  const long long b = blockIdx.x;
+  int li = 0;
+  while (li + 1 < leaves.count && leaves.leaf[li + 1].first_block <= b) ++li;
+  const Leaf& L = leaves.leaf[li];
+  const float norm = *norm_ptr;
+  if (L.bf16)
+    adam_leaf<uint16_t>(L, b, norm, c);
+  else
+    adam_leaf<float>(L, b, norm, c);
+}
+
 }  // namespace
 
 // One launch over n_leaves leaves. ptrs: 7 pointers a leaf (g, p, m, v,
-// p_out, m_out, v_out); sizes: elements a leaf; norm: the f32 global norm
-// on the card. bc1, bc2 and step are f32 and rounded to the master dtype
-// in the kernel; max_norm, c1 = 1 - b1, b1, c2 = 1 - b2, b2 and eps stay f32.
-extern "C" int adam_update_launch(const long long* ptrs, const long long* sizes, int n_leaves,
-                                  const void* norm, float max_norm, float c1, float b1,
-                                  float c2, float b2, float eps, float bc1, float bc2,
-                                  float step, int is_bf16, void* stream) {
+// p_out, m_out, v_out); sizes: elements a leaf; is_bf16: a leaf's dtype
+// tag (1 bf16, 0 f32); norm: the f32 global norm on the card. bc1, bc2 and
+// step are f32 and rounded to each leaf's dtype in the kernel; max_norm,
+// c1 = 1 - b1, b1, c2 = 1 - b2, b2 and eps stay f32.
+extern "C" int adam_update_launch(const long long* ptrs, const long long* sizes,
+                                  const int* is_bf16, int n_leaves, const void* norm,
+                                  float max_norm, float c1, float b1, float c2, float b2,
+                                  float eps, float bc1, float bc2, float step, void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves) return int(cudaErrorInvalidValue);
-  const int V = is_bf16 ? Elt<uint16_t>::kVec : Elt<float>::kVec;
-  const long long per_block = (long long)kThreads * V;
   Leaves leaves;
   leaves.count = n_leaves;
   long long blocks = 0;
@@ -187,7 +198,10 @@ extern "C" int adam_update_launch(const long long* ptrs, const long long* sizes,
     L.mo = reinterpret_cast<void*>(q[5]);
     L.vo = reinterpret_cast<void*>(q[6]);
     L.n = sizes[i];
+    L.bf16 = is_bf16[i] ? 1 : 0;
     L.first_block = blocks;
+    const long long per_block =
+        (long long)kThreads * (L.bf16 ? Elt<uint16_t>::kVec : Elt<float>::kVec);
     int vec = 1;
     for (int j = 0; j < 7; ++j) vec &= int(q[j] % 16 == 0);
     L.vec = vec;
@@ -198,9 +212,6 @@ extern "C" int adam_update_launch(const long long* ptrs, const long long* sizes,
   const Coef c{max_norm, c1, b1, c2, b2, eps, bc1, bc2, step};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nrm = static_cast<const float*>(norm);
-  if (is_bf16)
-    adam_update_kernel<uint16_t><<<unsigned(blocks), kThreads, 0, st>>>(leaves, nrm, c);
-  else
-    adam_update_kernel<float><<<unsigned(blocks), kThreads, 0, st>>>(leaves, nrm, c);
+  adam_update_kernel<<<unsigned(blocks), kThreads, 0, st>>>(leaves, nrm, c);
   return int(cudaGetLastError());
 }

@@ -26,7 +26,12 @@ single-block gate) or K7 (wider rows, f32 or bf16):
   int8 block-scaled one under ``quant_encoder``);
 - sparse from h (:class:`_SparseTopKFromH`, AuxK steps: h stays a
   differentiable residual for the aux ranking) and the aux product
-  (:class:`_SparseAuxProduct`, dense forward, K10 backward).
+  (:class:`_SparseAuxProduct`, dense forward, K10 backward);
+- ``sparse_decode`` (:func:`sparse_topk_forward`): the selected set from
+  the mask and K8, the values gathered from ``relu(h)`` (so the encoder
+  gets its gradient through the gather), the decode through the k active
+  rows (:class:`_SparseDecodeProduct`, dW_dec by the dense-scatter
+  product).
 
 On CPU tensors each kernel's plain version takes its place, as the JAX
 package's interpret mode does. AuxK ranks dead latents exactly with
@@ -36,9 +41,11 @@ K9 kernels (:mod:`crosscoder_tpu_torch.ops.topk_pallas`), or under
 ``fused_encoder='on'`` through :class:`_FusedBatchTopKEncode` (K4: the
 encoder product and the global selection fused; the dense straight-through
 backward), AuxK steps keeping the dense encode;
-:func:`calibrate_batchtopk_threshold` gives its eval-mode threshold. Not
-ported here: ``sparse_decode`` (the gather decode) and JumpReLU; each
-raises :class:`NotImplementedError`.
+:func:`calibrate_batchtopk_threshold` gives its eval-mode threshold.
+JumpReLU keeps an f32 ``log_theta [d_hidden]`` leaf beside the weights
+(whatever their dtype) and, with ``cfg.l0_coeff > 0``, adds the L0
+objective (:func:`crosscoder_tpu_torch.ops.activations.jumprelu_l0`) as
+``l0_penalty``.
 
 Matmuls sum in f32: from bf16 operands on the card through
 ``torch.mm(..., out_dtype=torch.float32)`` (tensor cores; the backward
@@ -74,6 +81,7 @@ class LossOutput(NamedTuple):
     l0_loss: torch.Tensor
     explained_variance: torch.Tensor                 # [batch]
     explained_variance_per_source: torch.Tensor      # [n_sources, batch]
+    l0_penalty: torch.Tensor | float = 0.0           # jumprelu with l0_coeff > 0
     aux_loss: torch.Tensor | float = 0.0
     fired: torch.Tensor | None = None
 
@@ -82,20 +90,26 @@ def init_params(cfg: CrossCoderConfig, *, seed: int = 0, device=None,
                 dtype: torch.dtype | None = None) -> Params:
     """Decoder rows standard-normal, rescaled to norm ``dec_init_norm`` per
     (latent, source); the encoder is the decoder's transpose; biases 0.
-    Params are in ``dtype`` (default ``cfg.enc_dtype``). Runs on ``cuda``
-    unless ``device`` names another device."""
+    Params are in ``dtype`` (default ``cfg.enc_dtype``); JumpReLU adds
+    ``log_theta`` at ``log(cfg.jumprelu_theta)``, f32 whatever ``dtype``.
+    Runs on ``cuda`` unless ``device`` names another device."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n, d_in, d_hidden = cfg.n_sources, cfg.d_in, cfg.dict_size
     dtype = dtype_of(cfg.enc_dtype) if dtype is None else dtype
     w = torch.randn((d_hidden, n, d_in), generator=gen, device=dev)
     w = w / torch.linalg.norm(w, dim=-1, keepdim=True) * cfg.dec_init_norm
-    return {
+    params = {
         "W_dec": w.to(dtype),
         "W_enc": w.permute(1, 2, 0).to(dtype).contiguous(),
         "b_enc": torch.zeros((d_hidden,), dtype=dtype, device=dev),
         "b_dec": torch.zeros((n, d_in), dtype=dtype, device=dev),
     }
+    if cfg.activation == "jumprelu":
+        log_theta = torch.log(torch.tensor(cfg.jumprelu_theta, dtype=torch.float32))
+        params["log_theta"] = torch.full((d_hidden,), float(log_theta), dtype=torch.float32,
+                                         device=dev)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +393,62 @@ class _SparseAuxProduct(torch.autograd.Function):
         return d_avals, None, dW_dec.reshape(H, n, d).to(W_dec.dtype)
 
 
+class _SparseDecodeProduct(torch.autograd.Function):
+    """``Σ_j vals[b, j] · W_dec[idx[b, j]]`` → ``[B, n, d]`` f32 through
+    the k active rows; backward: ``d_vals`` through the same rows, ``dW_dec``
+    by scattering ``vals`` into a dense ``[B, H]`` matrix and one product
+    (the JAX package's dense-scatter trick; on the card from bf16 operands
+    on the tensor cores, as the dense path's backward)."""
+
+    @staticmethod
+    def forward(ctx, vals, idx, W_dec):
+        ctx.save_for_backward(vals, idx, W_dec)
+        return _decode_rows(vals, idx, W_dec)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, idx, W_dec = ctx.saved_tensors
+        B = vals.shape[0]
+        H, n, d = W_dec.shape
+        g_flat = g.float().reshape(B, n * d)
+        d_vals = _d_vals(g_flat, idx, W_dec).to(vals.dtype)
+        rows = torch.arange(B, device=idx.device)[:, None].expand_as(idx)
+        f_dense = torch.zeros((B, H), dtype=vals.dtype, device=vals.device)
+        f_dense.index_put_((rows, idx.long()), vals.detach(), accumulate=True)
+        dW_dec = _mm32(f_dense.t(), _cot(g_flat, f_dense)).reshape(H, n, d).to(W_dec.dtype)
+        return d_vals, None, dW_dec
+
+
+def topk_vals_idx(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCoderConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """TopK encode in factored form: ``(vals [B, k], idx [B, k] int32)``.
+    The selected set comes from the mask (K5, K6 or K7) and the K8 drain
+    (their plain versions on CPU tensors): the entries > 0 of each row's k
+    largest ReLU'd pre-activations, ties to the lowest index, in ascending
+    index order. ``vals`` are gathered from ``relu(h)``, so gradients reach
+    ``W_enc``/``b_enc`` through the gather; a row with fewer than k
+    positives pads its slots with value 0 (the drain's ``(0, 0)``, whose
+    gathered column 0 is masked out)."""
+    h = pre_acts(params, x)
+    hp = act_ops.relu(h)
+    with torch.no_grad():
+        sel, idx = topk_pallas.sparsify(topk_pallas.topk_forward(h.detach(), cfg.topk_k),
+                                        cfg.topk_k)
+    vals = hp.gather(-1, idx.long())
+    vals = torch.where(sel > 0, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+    return vals, idx
+
+
+def sparse_topk_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                        cfg: CrossCoderConfig
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """TopK encode + the k-row decode: ``(recon [B, n, d] f32, vals,
+    idx)``, the dense path's reconstruction up to f32 summation order."""
+    vals, idx = topk_vals_idx(params, x, cfg)
+    recon = _SparseDecodeProduct.apply(vals, idx, params["W_dec"])
+    return recon + params["b_dec"].float(), vals, idx
+
+
 # ---------------------------------------------------------------------------
 # tier gates (the JAX package's, with "kernel live" read as true but for
 # the opt-in fused encoder)
@@ -476,13 +546,11 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     ``crosscoder.py:96-130``, f32 reductions). ``with_metrics=False``
     returns zeros for the metric-only terms (l0, explained variances, and
     l1 when ``cfg.l1_coeff == 0``)."""
-    if cfg.sparse_decode:
-        raise NotImplementedError(
-            "sparse_decode (the gather decode) is not ported; the factored tier "
-            "(factored_decode/sparse_bwd) covers the TopK decode")
     x = x.to(dtype_of(cfg.enc_dtype))
     B = x.shape[0]
     factored = use_factored_decode(cfg)
+    sparse = factored or (cfg.sparse_decode and cfg.activation == "topk")
+    l0_penalty: torch.Tensor | float = 0.0
     h = None
     aux_active = dead_mask is not None and cfg.aux_k > 0
     sparse_bwd = factored and use_sparse_bwd(cfg, B)
@@ -500,14 +568,22 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
         recon_f32, vals, idx = tier.apply(h, params["W_dec"], cfg.topk_k)
         recon = (recon_f32 + b_dec).to(x.dtype)
         f = None
+    elif sparse:
+        recon_f32, vals, idx = sparse_topk_forward(params, x, cfg)
+        recon = recon_f32.to(x.dtype)
+        f = None
     elif cfg.activation == "batchtopk" and fused and not aux_active:
         f = _FusedBatchTopKEncode.apply(x, params["W_enc"], params["b_enc"], cfg.topk_k)
         recon = decode(params, f)
+    elif cfg.activation == "jumprelu" and cfg.l0_coeff > 0:
+        h = pre_acts(params, x)
+        f = act_ops.apply(h, cfg, dict(params))
+        recon = decode(params, f)
+        l0_penalty = act_ops.jumprelu_l0(h, params["log_theta"], cfg.jumprelu_bandwidth)
     else:
         h = pre_acts(params, x)
         f = act_ops.apply(h, cfg, dict(params))
         recon = decode(params, f)
-    sparse = factored
 
     xf = x.float()
     rf = recon.float()
@@ -563,7 +639,7 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     if not with_metrics:
         return LossOutput(l2_loss, l1_loss, zero, torch.zeros_like(l2_per_row),
                           torch.zeros((x.shape[-2], B), dtype=torch.float32, device=x.device),
-                          aux_loss, fired)
+                          l0_penalty, aux_loss, fired)
 
     eps = 1e-8
     centered = xf - xf.mean(dim=0, keepdim=True)
@@ -577,7 +653,7 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     else:
         l0_loss = (f > 0).float().sum(dim=-1).mean()
     return LossOutput(l2_loss, l1_loss, l0_loss, explained_variance, ev_per_source.t(),
-                      aux_loss, fired)
+                      l0_penalty, aux_loss, fired)
 
 
 def _exact_topk_indices(ranked: torch.Tensor, k: int) -> torch.Tensor:
@@ -599,10 +675,12 @@ def cast_params(params: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Param
 def training_loss(params: Mapping[str, torch.Tensor], x: torch.Tensor, l1_coeff,
                   cfg: CrossCoderConfig, with_metrics: bool = True,
                   dead_mask: torch.Tensor | None = None, aux_coeff=None,
-                  track_fired: bool = False) -> tuple[torch.Tensor, LossOutput]:
-    """Scalar objective ``l2 + l1_coeff · l1`` (+ ``aux_coeff · aux_loss``
-    on AuxK steps) and the loss surface. Params may be f32 masters; they
-    are cast to ``cfg.enc_dtype`` here (differentiably)."""
+                  track_fired: bool = False, l0_coeff=None) -> tuple[torch.Tensor, LossOutput]:
+    """Scalar objective ``l2 + l1_coeff · l1`` (+ ``l0_coeff ·
+    l0_penalty`` for JumpReLU with ``cfg.l0_coeff > 0``, ``l0_coeff``
+    defaulting to it; + ``aux_coeff · aux_loss`` on AuxK steps) and the
+    loss surface. Params may be f32 masters; they are cast to
+    ``cfg.enc_dtype`` here (differentiably; ``log_theta`` stays f32)."""
     if not with_metrics and cfg.l1_coeff == 0 and float(l1_coeff) != 0.0:
         raise ValueError(
             f"training_loss got l1_coeff={float(l1_coeff)} but cfg.l1_coeff == 0 and "
@@ -611,10 +689,21 @@ def training_loss(params: Mapping[str, torch.Tensor], x: torch.Tensor, l1_coeff,
     losses = get_losses(cast_params(params, dtype_of(cfg.enc_dtype)), x, cfg, with_metrics,
                         dead_mask=dead_mask, track_fired=track_fired)
     loss = losses.l2_loss + l1_coeff * losses.l1_loss
+    if cfg.l0_coeff > 0:
+        eff = cfg.l0_coeff if l0_coeff is None else l0_coeff
+        loss = loss + eff * losses.l0_penalty
     if cfg.aux_k > 0 and dead_mask is not None:
         eff_aux = cfg.aux_k_coeff if aux_coeff is None else aux_coeff
         loss = loss + eff_aux * losses.aux_loss
     return loss, losses
+
+
+def param_count(cfg: CrossCoderConfig) -> int:
+    n, d, h = cfg.n_sources, cfg.d_in, cfg.dict_size
+    count = 2 * n * d * h + h + n * d
+    if cfg.activation == "jumprelu":
+        count += h  # log_theta
+    return count
 
 
 def fold_scaling_factors(params: Mapping[str, torch.Tensor], factors: Any) -> Params:
@@ -638,8 +727,9 @@ class CrossCoder(nn.Module):
                  ) -> None:
         super().__init__()
         self.cfg = cfg
-        for name in ("W_enc", "W_dec", "b_enc", "b_dec"):
-            self.register_parameter(name, nn.Parameter(params[name]))
+        for name in ("W_enc", "W_dec", "b_enc", "b_dec", "log_theta"):
+            if name in params:
+                self.register_parameter(name, nn.Parameter(params[name]))
 
     def params(self) -> Params:
         return {name: p for name, p in self.named_parameters()}

@@ -1,5 +1,5 @@
-"""Encoder nonlinearities, ported from :mod:`crosscoder_tpu.ops.activations`
-for ``relu``, ``topk`` and ``batchtopk``.
+"""Encoder nonlinearities, ported from :mod:`crosscoder_tpu.ops.activations`:
+``relu``, ``topk``, ``batchtopk`` and ``jumprelu``.
 
 - :func:`relu`: ``torch.relu`` (its subgradient at 0 is 0, as the JAX
   package's ``jax.nn.relu``).
@@ -21,8 +21,13 @@ for ``relu``, ``topk`` and ``batchtopk``.
   package's exact bit-pattern bisection (:func:`_kth_largest_nonneg`),
   shared with eval calibration.
 
-``jumprelu`` needs the JumpReLU slice; :func:`apply` raises
-:class:`NotImplementedError` for it.
+- :func:`jumprelu`: ``h · 1[h > θ]`` with ``θ = exp(log_theta)`` per
+  latent, and :func:`jumprelu_l0`, the L0 objective ``mean_b Σ_f 1[h >
+  θ_f]``; both differentiable in ``log_theta`` through the rectangle-kernel
+  straight-through estimator of width ``bandwidth`` (the JAX package's
+  ``custom_vjp`` pair: the difference ``h − θ`` in f32, the rectangle
+  inclusive, the comparison strict). Plain PyTorch: the JAX package fuses
+  them in XLA, with no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -86,6 +91,59 @@ def _kth_largest_nonneg(hp: torch.Tensor, kk: int) -> torch.Tensor:
     return torch.tensor([lo], dtype=torch.int32).view(torch.float32).to(hp.dtype).reshape(())
 
 
+class _JumpReLU(torch.autograd.Function):
+    """``h · 1[h > θ]``; backward ``dh = g·1[h > θ]`` in ``h``'s dtype and
+    ``dlog_theta = Σ_batch −(θ/ε)·1[|h − θ| ≤ ε/2]·g·θ`` in f32."""
+
+    @staticmethod
+    def forward(ctx, h, log_theta, bandwidth):
+        theta = torch.exp(log_theta).to(h.dtype)
+        ctx.save_for_backward(h, theta)
+        ctx.bandwidth = bandwidth
+        return h * (h > theta)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, theta = ctx.saved_tensors
+        hf, tf, gf = h.float(), theta.float(), g.float()
+        dh = gf * (hf > tf)
+        rect = ((hf - tf).abs() <= ctx.bandwidth / 2).float()
+        units = -(tf / ctx.bandwidth) * rect * gf
+        dlog_theta = (units * tf).sum(dim=tuple(range(units.ndim - 1)))
+        return dh.to(h.dtype), dlog_theta, None
+
+
+class _JumpReLUL0(torch.autograd.Function):
+    """``mean_b Σ_f 1[h > θ_f]`` (f32 scalar); backward: no gradient for
+    ``h``, ``dlog_theta = g·(−1/ε)·mean_b 1[|h − θ| ≤ ε/2]·θ``."""
+
+    @staticmethod
+    def forward(ctx, h, log_theta, bandwidth):
+        theta = torch.exp(log_theta).to(h.dtype)
+        ctx.save_for_backward(h, theta)
+        ctx.bandwidth = bandwidth
+        return (h > theta).float().sum(dim=-1).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        h, theta = ctx.saved_tensors
+        hf, tf = h.float(), theta.float()
+        rect = ((hf - tf).abs() <= ctx.bandwidth / 2).float()
+        dtheta = -(1.0 / ctx.bandwidth) * rect.mean(dim=tuple(range(rect.ndim - 1)))
+        return torch.zeros_like(h), (g * dtheta * tf).float(), None
+
+
+def jumprelu(h: torch.Tensor, log_theta: torch.Tensor, bandwidth: float) -> torch.Tensor:
+    """JumpReLU with per-latent threshold ``exp(log_theta)`` (f32
+    ``log_theta [d_hidden]``), straight-through in ``log_theta``."""
+    return _JumpReLU.apply(h, log_theta, bandwidth)
+
+
+def jumprelu_l0(h: torch.Tensor, log_theta: torch.Tensor, bandwidth: float) -> torch.Tensor:
+    """The JumpReLU paper's L0 objective, differentiable in ``log_theta``."""
+    return _JumpReLUL0.apply(h, log_theta, bandwidth)
+
+
 def apply(h: torch.Tensor, cfg: "CrossCoderConfig", params: dict | None = None) -> torch.Tensor:
     """Dispatch on ``cfg.activation``."""
     if cfg.activation == "relu":
@@ -97,7 +155,7 @@ def apply(h: torch.Tensor, cfg: "CrossCoderConfig", params: dict | None = None) 
             return batchtopk_fixed(h, cfg.batchtopk_threshold)
         return batchtopk(h, cfg.topk_k)
     if cfg.activation == "jumprelu":
-        raise NotImplementedError(
-            "activation='jumprelu' is not ported yet: the JumpReLU activation waits for "
-            "the port of crosscoder_tpu/ops/activations.py jumprelu (ROADMAP Queue A)")
+        if params is None or "log_theta" not in params:
+            raise ValueError("jumprelu requires params['log_theta']")
+        return jumprelu(h, params["log_theta"], cfg.jumprelu_bandwidth)
     raise ValueError(f"unknown activation {cfg.activation!r}")

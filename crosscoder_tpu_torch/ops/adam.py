@@ -11,8 +11,9 @@ each leaf. Two implementations of one function behind :func:`adam_update`:
   wrapper takes it for CPU tensors only;
 - ``csrc/adam_update.cu``, O1: one launch over every leaf, each element
   read and written once, every step rounded as the plain version's eager
-  ops round (f32 or bf16 masters), so the two are bitwise equal on the
-  card given the same norm.
+  ops round (f32 or bf16 leaves, each leaf in its own dtype: bf16 masters
+  beside a JumpReLU crosscoder's f32 ``log_theta``), so the two are
+  bitwise equal on the card given the same norm.
 
 The global norm is not computed here: the caller passes it as a 0-d f32
 tensor on the leaves' device (:meth:`crosscoder_tpu_torch.train.state.Optimizer.global_norm`,
@@ -30,8 +31,8 @@ Params = dict[str, torch.Tensor]
 
 _MAX_LEAVES = 8     # csrc kMaxLeaves
 _PROTOTYPES = {
-    "adam_update_launch": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                           + [ctypes.c_float] * 9 + [ctypes.c_int, ctypes.c_void_p]),
+    "adam_update_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+                           + [ctypes.c_float] * 9 + [ctypes.c_void_p]),
 }
 
 
@@ -66,10 +67,11 @@ def adam_update(params: Params, grads: Params, mu: Params, nu: Params, norm: tor
                 step_size: float, out: tuple[Params, Params, Params] | None = None) -> None:
     """Clip by ``norm``, Adam, ``step_size`` for every leaf: the plain
     version on CPU tensors, O1 (``csrc/adam_update.cu``, one launch for
-    all leaves) on CUDA tensors, or :class:`ValueError` for leaves the
-    kernel does not take (dtype other than f32/bf16, mixed dtypes,
-    non-contiguous params or moments, more than 8 leaves; a strided
-    gradient is copied). ``out`` as
+    all leaves, each in its own dtype) on CUDA tensors, or
+    :class:`ValueError` for leaves the kernel does not take (a leaf's dtype
+    other than f32/bf16, a gradient, moment or output whose dtype is not
+    its param's, non-contiguous params or moments, more than 8 leaves; a
+    strided gradient is copied). ``out`` as
     :func:`adam_update_plain`'s. Counts its launches on
     ``adam_update.launches``."""
     kw = dict(max_norm=max_norm, b1=b1, b2=b2, eps=eps, bc1=bc1, bc2=bc2, step_size=step_size)
@@ -83,17 +85,18 @@ def adam_update(params: Params, grads: Params, mu: Params, nu: Params, norm: tor
     from crosscoder_tpu_torch.ops import _build
 
     po, mo, vo = (params, mu, nu) if out is None else out
-    dtype = first.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"adam_update kernel takes f32 or bf16 leaves, got {dtype}")
     if len(names) > _MAX_LEAVES:
         raise ValueError(f"adam_update kernel takes at most {_MAX_LEAVES} leaves, got "
                          f"{len(names)}")
     if norm.device != first.device or norm.dtype != torch.float32 or norm.numel() != 1:
         raise ValueError(f"norm must be one f32 value on {first.device}, got "
                          f"{tuple(norm.shape)} {norm.dtype} on {norm.device}")
-    ptrs, sizes, keep = [], [], []
+    ptrs, sizes, tags, keep = [], [], [], []
     for k in names:
+        dtype = params[k].dtype
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"leaf {k}: the adam_update kernel takes f32 or bf16 leaves, "
+                             f"got {dtype}")
         # a gradient is only read: a strided one (autograd may return an
         # expanded or transposed view) is copied into a contiguous one
         g = grads[k].contiguous()
@@ -108,12 +111,13 @@ def adam_update(params: Params, grads: Params, mu: Params, nu: Params, norm: tor
                                  f"in place and takes contiguous ones")
         ptrs += [t.data_ptr() for t in ts]
         sizes.append(params[k].numel())
+        tags.append(int(dtype == torch.bfloat16))
     lib = _build.load("adam_update", _PROTOTYPES)
     code = lib.adam_update_launch(
         (ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_longlong * len(sizes))(*sizes),
-        len(names), norm.data_ptr(), float(max_norm), float(1 - b1), float(b1), float(1 - b2),
-        float(b2), float(eps), float(bc1), float(bc2), float(step_size),
-        int(dtype == torch.bfloat16), _build.stream(first.device))
+        (ctypes.c_int * len(tags))(*tags), len(names), norm.data_ptr(), float(max_norm),
+        float(1 - b1), float(b1), float(1 - b2), float(b2), float(eps), float(bc1), float(bc2),
+        float(step_size), _build.stream(first.device))
     _build.check(code, "adam_update kernel")
     adam_update.launches += 1
 

@@ -1,9 +1,11 @@
 """The single-device Trainer, ported from :mod:`crosscoder_tpu.train.trainer`.
 
 Step math as the JAX package's (reference ``trainer.py:7-82``):
-``loss = l2 + l1_coeff(step)·l1`` (+ the AuxK term on aux steps), global
-norm clip at ``cfg.grad_clip``, Adam(β1, β2, eps 1e-8), LR/L1 schedules at
-the pre-increment step, ``total_steps = num_tokens // batch_size``. Each
+``loss = l2 + l1_coeff(step)·l1`` (+ the JumpReLU L0 term, its
+coefficient ramped by the sparsity warmup, and the AuxK term on aux
+steps), global norm clip at ``cfg.grad_clip``, Adam(β1, β2, eps 1e-8),
+LR/L1 schedules at the pre-increment step, ``total_steps = num_tokens //
+batch_size``. Each
 step runs the variant ``(with_metrics, aux_on, mask_refresh)`` that
 :func:`variant_for_step` picks, updates the AuxK fired-tracking
 (``steps_since_fired``) and reports ``dead_frac``. Metrics stay on the
@@ -22,14 +24,23 @@ newest verified save at construction (state, step, buffer position);
 SIGTERM on the main thread finishes the step, saves and returns, and a
 second SIGTERM falls through to the previous handler.
 
+Recovery, as the JAX trainer's: dead-latent resampling
+(``cfg.resample_every``, :mod:`crosscoder_tpu_torch.train.resample`) runs
+before the step on the batch about to be trained; the loss guard
+(``cfg.guard_loss``) checks the loss each log step already fetched and,
+on a non-finite loss or a ``loss_spike_factor`` spike, restores the
+newest save with finite params, skips the serves up to the detection
+step and re-enters the loop, at most ``cfg.max_rollbacks`` times. The
+recoveries count on :attr:`Trainer.resilience` (``resilience/*``).
+
 Not ported in this slice (ROADMAP Queue A): mesh and multi-host runs,
 ``quant_grads``, chaos/watchdog/elastic, the observability plane, the
-compile cache, prefetch threads, the fleet, the loss guard and its
-rollback, dead-latent resampling.
+compile cache, prefetch threads, the fleet.
 """
 
 from __future__ import annotations
 
+import math
 import signal
 import sys
 import threading
@@ -41,10 +52,10 @@ import torch
 
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.models import crosscoder as cc
-from crosscoder_tpu_torch.train import schedules
+from crosscoder_tpu_torch.train import resample, schedules
 from crosscoder_tpu_torch.train.state import Optimizer, TrainState, init_train_state
 from crosscoder_tpu_torch.utils.device import resolve_device
-from crosscoder_tpu_torch.utils.logging import MetricsLogger, source_tag
+from crosscoder_tpu_torch.utils.logging import MetricsLogger, ResilienceCounters, source_tag
 
 
 def variant_for_step(cfg: CrossCoderConfig, host_step: int, full_metrics: bool = True
@@ -96,6 +107,9 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
         kwargs: dict[str, Any] = {}
         dead = _dead_mask(state)
         aux = dead is not None and cfg.aux_k > 0 and aux_on
+        if cfg.l0_coeff > 0:
+            # L0 warms up over the same window as L1 and AuxK
+            kwargs["l0_coeff"] = float(np.float32(cfg.l0_coeff) * warm_fn(state.step))
         if aux:
             kwargs["dead_mask"] = dead
             kwargs["aux_coeff"] = float(np.float32(cfg.aux_k_coeff) * warm_fn(state.step))
@@ -164,9 +178,9 @@ class Trainer:
     restored here. Runs on ``cuda`` unless ``device`` names another device.
 
     A knob whose JAX behaviour is not ported raises
-    :class:`NotImplementedError` rather than being dropped: the loss guard,
-    resampling, ``quant_grads``, the fleet, elastic runs, the observability
-    plane, chaos, the harvest watchdog (``harvest_timeout_s > 0``), profiler
+    :class:`NotImplementedError` rather than being dropped: ``quant_grads``,
+    the fleet, elastic runs, the observability plane, chaos, the harvest
+    watchdog (``harvest_timeout_s > 0``), profiler
     traces (``profile_dir``, ``profile_steps``) and a mesh
     (``model_axis_size`` or ``data_axis_size`` above 1, ``shard_sources``;
     ``data_axis_size = -1``, all devices, is this one). ``prefetch``,
@@ -177,9 +191,7 @@ class Trainer:
     def __init__(self, cfg: CrossCoderConfig, buffer: Any | None = None,
                  logger: MetricsLogger | None = None, device=None,
                  state: TrainState | None = None, checkpointer: Any | None = None) -> None:
-        for knob, on in (("guard_loss", cfg.guard_loss),
-                         ("resample_every", cfg.resample_every > 0),
-                         ("quant_grads", cfg.quant_grads), ("fleet", cfg.fleet == "on"),
+        for knob, on in (("quant_grads", cfg.quant_grads), ("fleet", cfg.fleet == "on"),
                          ("elastic", cfg.elastic == "on"), ("obs", cfg.obs == "on"),
                          ("chaos", bool(cfg.chaos)),
                          ("harvest_timeout_s", cfg.harvest_timeout_s > 0),
@@ -201,6 +213,11 @@ class Trainer:
         self.logger = logger
         self.checkpointer = checkpointer
         self.total_steps = cfg.total_steps
+        self.resilience = ResilienceCounters()
+        self._serve_count = 0           # monotone serve index, skipped serves included
+        self._rollbacks = 0             # divergence rollbacks of this Trainer
+        self._loss_ref: float | None = None   # last healthy logged loss
+        self._resample_fn = None
         self.opt = Optimizer(cfg, schedules.lr_schedule(cfg))
         self.state = state if state is not None else init_train_state(
             cfg, self.opt, device=self.device)
@@ -280,11 +297,17 @@ class Trainer:
             self._scale_src = vec.copy()
         return self._scale
 
+    def _serve_once(self) -> Any:
+        """One serve of the source (``next_raw`` when it has it, else
+        ``next()``), counted on the monotone serve index."""
+        self._serve_count += 1
+        return self.buffer.next_raw() if hasattr(self.buffer, "next_raw") else self.buffer.next()
+
     def _next_batch(self) -> torch.Tensor:
         """The next batch on the device: raw rows from ``next_raw`` when the
         source has it (scaled in the step), else ``next()``. A batch
         already on the device is not copied."""
-        b = self.buffer.next_raw() if hasattr(self.buffer, "next_raw") else self.buffer.next()
+        b = self._serve_once()
         if not torch.is_tensor(b):
             b = torch.from_numpy(np.ascontiguousarray(b))
         return b.to(self.device, non_blocking=True)
@@ -301,9 +324,20 @@ class Trainer:
             fn = self._step_fns[key] = make_step_body(
                 self.cfg, self.opt, with_metrics=key[0], aux_on=key[1], mask_refresh=key[2])
         batch = self._next_batch()
-        self.state, metrics = fn(self.state, batch, self._device_scale(),
-                                 donate=self._owns_state)
+        scale = self._device_scale()
+        n_resampled = None
+        if (self.cfg.resample_every > 0 and self._host_step > 0
+                and self._host_step % self.cfg.resample_every == 0):
+            # on the batch about to be trained, so the revived latents'
+            # first gradients come from it
+            if self._resample_fn is None:
+                self._resample_fn = resample.make_resample_fn(self.cfg)
+            gen = resample.resample_generator(self.cfg, self._host_step, self.device)
+            self.state, n_resampled = self._resample_fn(self.state, batch, scale, gen)
+        self.state, metrics = fn(self.state, batch, scale, donate=self._owns_state)
         self._owns_state = True
+        if n_resampled is not None:
+            metrics["resampled"] = n_resampled
         self._host_step += 1
         return metrics
 
@@ -313,19 +347,91 @@ class Trainer:
         harvested so far (padded runs log the reference's scalars only)."""
         if self.logger is not None:
             scalars = expand_metrics(metrics, self.cfg.n_sources)
+            scalars.update(self.resilience.snapshot())
             eff = getattr(self.buffer, "padding_efficiency", None)
             eff = eff() if callable(eff) else None
             if eff is not None:
                 scalars["harvest/padding_efficiency"] = eff
             self.logger.log(scalars, step)
 
+    # --- divergence guard + rollback (cfg.guard_loss) -----------------------
+
+    def _loss_diverged(self, loss_val: float) -> bool:
+        """Divergence test on the loss the log step already fetched (no
+        extra host sync): a non-finite loss always diverges; a finite one
+        when it passes ``cfg.loss_spike_factor`` × the last healthy logged
+        loss (none right after a start or a rollback)."""
+        if not math.isfinite(loss_val):
+            return True
+        ref = self._loss_ref
+        if ref is not None and loss_val > self.cfg.loss_spike_factor * max(ref, 1e-12):
+            return True
+        self._loss_ref = loss_val
+        return False
+
+    def _params_finite(self) -> bool:
+        """Every param finite: a device sync, made only inside a rollback."""
+        return all(bool(torch.isfinite(v.float()).all()) for v in self.state.params.values())
+
+    def _rollback(self, detect_step: int) -> None:
+        """Restore the newest intact save whose params are finite (the
+        newest may hold the poisoned state when the fault landed just
+        before it), delete the saves after it, and consume unserved the
+        serves up to ``detect_step``, so the retrained stretch runs on data
+        past the fault. At most ``cfg.max_rollbacks`` times a Trainer, then
+        :class:`RuntimeError`."""
+        cfg = self.cfg
+        self._rollbacks += 1
+        if self._rollbacks > cfg.max_rollbacks:
+            raise RuntimeError(
+                f"loss diverged at step {detect_step} and the rollback budget "
+                f"(max_rollbacks={cfg.max_rollbacks}) is exhausted; aborting. resilience "
+                f"counters: {self.resilience.snapshot()}")
+        if self.checkpointer is None:
+            raise RuntimeError(f"loss diverged at step {detect_step} but the trainer has no "
+                               "checkpointer to roll back to")
+        self.resilience.bump("rollbacks")
+        print(f"[crosscoder_tpu_torch] divergence at step {detect_step}: rolling back "
+              f"({self._rollbacks}/{cfg.max_rollbacks})", file=sys.stderr, flush=True)
+        meta = self.restore()
+        cand_v = meta["save_version"]
+        while not self._params_finite():
+            self.resilience.bump("poisoned_save_skips")
+            vdir = self.checkpointer.save_dir
+            older = sorted(s for s in self.checkpointer.complete_saves(vdir) if s < cand_v)
+            restored = False
+            while older and not restored:
+                cand_v = older.pop()
+                try:
+                    meta = self.restore(version_dir=vdir, save=cand_v)
+                    restored = True
+                except (ValueError, FileNotFoundError):
+                    continue
+            if not restored:
+                raise RuntimeError(f"divergence rollback found no intact save with finite "
+                                   f"params under {vdir}; aborting")
+        # saves newer than the restored one may hold the state it escaped
+        self.checkpointer.discard_saves_after(self.checkpointer.save_dir, cand_v)
+        n_skip = max(0, detect_step + 1 - self.step_counter)
+        for _ in range(n_skip):
+            self._serve_once()
+        if n_skip:
+            self.resilience.bump("skipped_batches", n_skip)
+        self._loss_ref = None
+        print(f"[crosscoder_tpu_torch] rolled back to step {self.step_counter} (save "
+              f"{cand_v}), skipped {n_skip} poisoned batches", file=sys.stderr, flush=True)
+
     def train(self, num_steps: int | None = None) -> dict[str, float]:
         """Run to ``num_steps`` (default ``total_steps``): log every
         ``log_every`` steps with ``step_time_ms`` (mean since the last log,
         synced at log points only), save in the background every
         ``save_every`` steps, then save and close. A SIGTERM ends the loop
-        after the current step."""
+        after the current step. Under ``cfg.guard_loss`` a first save
+        (when none was made) gives the guard a state to roll back to, and
+        a diverged log step rolls back (:meth:`_rollback`) and re-enters
+        the loop at the restored step."""
         num_steps = self.total_steps if num_steps is None else num_steps
+        guard = self.cfg.guard_loss
         metrics: dict[str, Any] = {}
         stop = False
         prev_handler = None
@@ -344,21 +450,32 @@ class Trainer:
         if in_main_thread:
             prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
         try:
-            start = self.step_counter
-            last_t, last_i = time.perf_counter(), start
-            for i in range(start, num_steps):
-                if stop:
-                    break
-                metrics = self.step(full_metrics=(i % self.cfg.log_every == 0))
-                if i % self.cfg.log_every == 0:
-                    float(metrics["loss"])                      # device sync
-                    now = time.perf_counter()
-                    metrics = dict(metrics)
-                    metrics["step_time_ms"] = 1000 * (now - last_t) / max(i - last_i, 1)
-                    last_t, last_i = now, i
-                    self.log(metrics, step=i)
-                if (i + 1) % self.cfg.save_every == 0:
-                    self.save(background=True)
+            if guard and self.checkpointer is not None and self.checkpointer.save_version == 0:
+                self.save()
+            # one pass a training stretch: the whole run, or one more after
+            # each rollback, from the restored step
+            rolled_back = True
+            while rolled_back:
+                rolled_back = False
+                start = self.step_counter
+                last_t, last_i = time.perf_counter(), start
+                for i in range(start, num_steps):
+                    if stop:
+                        break
+                    metrics = self.step(full_metrics=(i % self.cfg.log_every == 0))
+                    if i % self.cfg.log_every == 0:
+                        loss_val = float(metrics["loss"])       # device sync
+                        if guard and self._loss_diverged(loss_val):
+                            self._rollback(i)
+                            rolled_back = True
+                            break
+                        now = time.perf_counter()
+                        metrics = dict(metrics)
+                        metrics["step_time_ms"] = 1000 * (now - last_t) / max(i - last_i, 1)
+                        last_t, last_i = now, i
+                        self.log(metrics, step=i)
+                    if (i + 1) % self.cfg.save_every == 0:
+                        self.save(background=True)
         finally:
             if in_main_thread:
                 signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)

@@ -13,17 +13,45 @@ The logged scalars are the reference's surface (``trainer.py:51-61``):
 loss, l2_loss, l1_loss, l0_loss, l1_coeff, lr, explained_variance and
 ``explained_variance_<tag>`` per source (A/B for the reference pair).
 The human echo goes to stderr every ``cfg.log_print_every`` logs.
+:class:`ResilienceCounters` feeds the ``resilience/*`` channel: the
+trainer's recoveries (rollbacks, skipped batches, poisoned saves), logged
+only once one has happened.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Any
 
 _LETTERS = "ABCDEFGH"
+
+
+class ResilienceCounters:
+    """Monotone recovery counters (the ``resilience/*`` metric channel),
+    bumped from whichever thread recovered a fault. :meth:`snapshot`
+    returns the nonzero counters under ``resilience/<name>`` keys; an
+    untouched instance snapshots to ``{}``, so a run with no faults logs
+    exactly the reference's scalar surface."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counts: dict[str, int] = {}
+
+    def bump(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def get(self, name: str) -> int:
+        with self._lock:
+            return self._counts.get(name, 0)
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return {f"resilience/{k}": v for k, v in self._counts.items() if v}
 
 
 def source_tag(i: int) -> str:

@@ -199,6 +199,9 @@ def test_apply_dispatch_and_fused_gate(capsys):
     assert not cc.use_fused_encoder(cfg)                       # auto: the dense encode
     assert cc.use_fused_encoder(cfg.replace(fused_encoder="on"))   # on: K4 in training mode
     assert not cc.use_fused_encoder(cfg.replace(fused_encoder="on", batchtopk_threshold=0.5))
-    with pytest.raises(NotImplementedError, match="JumpReLU"):
-        act.apply(h, CrossCoderConfig(activation="jumprelu"))
+    jcfg = CrossCoderConfig(activation="jumprelu", dict_size=256)
+    with pytest.raises(ValueError, match="log_theta"):
+        act.apply(h, jcfg)
+    lt = torch.full((256,), -1.0)
+    assert torch.equal(act.apply(h, jcfg, {"log_theta": lt}), h * (h > torch.exp(lt)))
     assert tp.batchtopk_select.launches == 0 and tp.batchtopk_emit.launches == 0

@@ -30,3 +30,15 @@ def test_unported_knob_raises(knob, value):
 def test_defaults_and_speed_only_knobs_construct(kw):
     tr = Trainer(CrossCoderConfig(**BASE, **kw), device="cpu")
     assert torch.isfinite(tr.step()["loss"])
+
+
+@pytest.mark.parametrize("kw", [
+    {"guard_loss": True},
+    {"resample_every": 2, "aux_dead_steps": 1},
+    {"activation": "topk", "topk_k": 4, "l1_coeff": 0.0, "sparse_decode": True},
+    {"activation": "jumprelu", "l0_coeff": 0.1},
+], ids=["guard_loss", "resample_every", "sparse_decode", "jumprelu_l0"])
+def test_ported_recovery_and_numerics_knobs_construct_and_step(kw):
+    tr = Trainer(CrossCoderConfig(**BASE, **kw), device="cpu")
+    for _ in range(3):
+        assert torch.isfinite(tr.step()["loss"])
