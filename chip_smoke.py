@@ -197,7 +197,23 @@ one NVIDIA Hopper card and the CUDA toolkit:
    mixed-length requests engine A spools on preemption through a shared
    board, each result bitwise engine A's serving it directly (K1, K2
    launches counted);
-11. prints the kernel table as one JSON line, the card line, and
+11. the parallel trainer on the card, at the one grid one card holds: an
+   NCCL group of one rank in this process (a FileStore under ``build/``),
+   leg M, leg A's config through the mesh trainer (data 1 x model 1, every
+   collective and the merge run) for 12 steps in turns with leg A's
+   single-device Trainer over the same batches, loss, metrics and the full
+   state bitwise after each step, K5, K8, K10 and O1 launches and the NCCL
+   calls a step counted on the mesh path, both step times; 4 BatchTopK
+   steps (K9 under the grid's threshold) bitwise the single-device run; a
+   save through the gathered path and a restore through the agreement,
+   into a mesh Trainer and the single-device one, bitwise, then one more
+   step from each; the int8 gradient exchange (``parallel.quant_ar``) at
+   n_dev 1 over leg M's four gradient leaves, K11 bitwise the plain
+   quantize (means, residuals, q, scales), timed beside its bound and NCCL
+   all_reduce in f32 and bf16; then a CPU rehearsal of the multi-rank path
+   (this script's ``--cpu-rank`` workers on gloo, no card visible: 2 x 2
+   ranks against one at a tiny width, 3 steps, rtol 2e-4 / atol 2e-5);
+12. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -208,6 +224,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -3758,7 +3775,354 @@ def recovery(torch, np, root):
     return legs, row_o1_mixed
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the parallel trainer on one card (a grid of one rank over NCCL)
+
+# the CPU rehearsal of the multi-rank path: 2 x 2 gloo ranks against one,
+# tiny width, at the JAX mesh test's bar (tests/test_trainer.py)
+REHEARSAL = dict(d_in=16, n_models=2, dict_size=64, batch_size=16, num_tokens=16 * 3,
+                 enc_dtype="fp32", log_backend="null", seed=7, lr=5e-3, dec_init_norm=0.5)
+REHEARSAL_CONFIGS = {
+    "relu": dict(activation="relu", l1_coeff=2.0),
+    "topk_auxk": dict(activation="topk", topk_k=4, l1_coeff=0.0, sparse_bwd="on", aux_k=8,
+                      aux_dead_steps=1, aux_every=2),
+    "batchtopk": dict(activation="batchtopk", topk_k=4, l1_coeff=0.0),
+}
+REHEARSAL_STEPS, REHEARSAL_TOL = 3, (2e-4, 2e-5)
+QUANT_BLOCK = 256
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cpu_rank_worker(rank, world, port, out, grid):
+    """One gloo rank of the CPU rehearsal (``chip_smoke.py --cpu-rank``):
+    each config trained ``REHEARSAL_STEPS`` steps on the ``grid``; rank 0
+    saves the gathered params and the losses."""
+    import torch
+
+    torch.set_num_threads(1)
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+    from crosscoder_tpu_torch.parallel import multihost
+    from crosscoder_tpu_torch.train.trainer import Trainer
+
+    multihost.initialize("cpu", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                         rank=rank)
+    res = {}
+    for name, kw in REHEARSAL_CONFIGS.items():
+        cfg = CrossCoderConfig(**REHEARSAL, **kw, data_axis_size=grid[0],
+                               model_axis_size=grid[1])
+        tr = Trainer(cfg, SyntheticActivationSource(cfg), device="cpu")
+        losses = [float(tr.step()["loss"]) for _ in range(REHEARSAL_STEPS)]
+        full = mesh_lib.gather_state(tr.mesh, tr.state)
+        res[name] = {"losses": losses, "params": {k: v.clone() for k, v in full.params.items()}}
+    if rank == 0:
+        torch.save(res, out)
+    multihost.shutdown()
+
+
+def cpu_rehearsal(torch, np, root):
+    """The multi-rank path on the CPU: 2 x 2 gloo ranks and one rank, each
+    a process of this script with no card visible; the grid's params after
+    ``REHEARSAL_STEPS`` steps within the JAX mesh test's bar of the one
+    rank's. Uses nothing of the card."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_rehearsal_", dir=root / "build"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    results = {}
+    for grid in ((2, 2), (1, 1)):
+        world, port = grid[0] * grid[1], _free_port()
+        out = tmp / f"grid{grid[0]}x{grid[1]}.pt"
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-rank",
+                                   str(r), str(world), str(port), str(out), f"{grid[0]}x{grid[1]}"],
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            for r, text in enumerate(outs):
+                log(f"rehearsal rank {r}: {text[-2000:]}")
+            fail(f"the CPU rehearsal's {grid} grid failed")
+        results[grid] = torch.load(out, weights_only=False)
+    rtol, atol = REHEARSAL_TOL
+    worst = 0.0
+    for name in REHEARSAL_CONFIGS:
+        got, want = results[(2, 2)][name], results[(1, 1)][name]
+        for k, v in want["params"].items():
+            a, b = got["params"][k].numpy(), v.numpy()
+            if not np.allclose(a, b, rtol=rtol, atol=atol):
+                fail(f"CPU rehearsal: {name} {k} on 2 x 2 gloo ranks differs from one rank "
+                     f"beyond rtol {rtol} atol {atol}")
+            worst = max(worst, float(np.max(np.abs(a - b))))
+        log(f"parallel: CPU rehearsal (gloo, on the host's CPU, nothing of the card; torch "
+            f"{torch.__version__}) {name}: losses 2x2 {[round(x, 6) for x in got['losses']]} vs "
+            f"one rank {[round(x, 6) for x in want['losses']]}")
+    log(f"parallel: CPU rehearsal (nothing of the card): 2 x 2 gloo ranks within rtol {rtol} "
+        f"atol {atol} of one rank after {REHEARSAL_STEPS} steps for "
+        f"{sorted(REHEARSAL_CONFIGS)} (worst param difference {worst:.3e}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _metric_bits(torch, m):
+    return {k: (v.detach().float().reshape(-1).cpu().view(torch.int32).tolist()
+                if torch.is_tensor(v) else v) for k, v in m.items()}
+
+
+def _mesh_steps(torch, tr_s, tr_m, steps, label):
+    """``steps`` steps of the single-device trainer ``tr_s`` and the mesh
+    trainer ``tr_m`` in turns, each timed (CUDA events); after each step
+    the loss, every metric and the full state bitwise, else fail. Returns
+    the two step times and the mesh steps' kernel launches and NCCL calls
+    by op (counts from 0 around the mesh steps only)."""
+    from crosscoder_tpu_torch.parallel import collectives as coll
+
+    counters = launch_counters()
+    launches, calls = {n: 0 for n in counters}, {}
+    t_s, t_m = [], []
+    for i in range(steps):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        e[0].record()
+        ms = tr_s.step(full_metrics=True)
+        e[1].record()
+        reset_counters(counters)
+        coll.reset_counts()
+        e[2].record()
+        mm = tr_m.step(full_metrics=True)
+        e[3].record()
+        torch.cuda.synchronize()
+        for n, c in counters.items():
+            launches[n] += c.launches
+        for op, n in coll.calls.items():
+            calls.setdefault(op, []).append(n)
+        t_s.append(e[0].elapsed_time(e[1]))
+        t_m.append(e[2].elapsed_time(e[3]))
+        if _metric_bits(torch, ms) != _metric_bits(torch, mm):
+            fail(f"{label} step {i}: the mesh trainer's metrics differ from the single-device "
+                 f"trainer's: {ms} vs {mm}")
+        ok, what = state_bits_equal(torch, tr_s.state, tr_m.state)
+        if not ok:
+            fail(f"{label} step {i}: the mesh trainer's state differs in {what}")
+    return t_s, t_m, {n: c for n, c in launches.items() if c}, calls
+
+
+def _exchange(torch, quant_ar, group, grads, efs):
+    """The int8 exchange over every leaf: (means, residuals, phase 1's)."""
+    out = {}
+    for k in sorted(grads):
+        out[k] = quant_ar.quantized_pmean(group, grads[k], efs[k], QUANT_BLOCK)
+    return out
+
+
+def check_exchange(torch, np, mesh, state, cfg, batch):
+    """The int8 gradient exchange at n_dev 1 over leg M's four gradient
+    leaves: K11 on its quantize phases bitwise the plain exchange (the
+    module's quantize swapped for ``quantize_blocks``): means, residuals,
+    q and scales; K11's launches counted; timed back to back and queued
+    beside the bound and NCCL all_reduce of the same gradients in f32 and
+    bf16. Returns K11's kernel-table row for the exchange and the
+    exchange's numbers."""
+    import torch.distributed as dist
+
+    from crosscoder_tpu_torch.ops import quant
+    from crosscoder_tpu_torch.parallel import collectives as coll
+    from crosscoder_tpu_torch.parallel import quant_ar
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer
+
+    fn = trainer_mod.make_step_body(cfg, Optimizer(cfg, lambda s: 0.0), True, False, True,
+                                    mesh=mesh)
+    grads = fn.loss_and_grads(state, batch, torch.ones(cfg.n_sources, device="cuda"))[2]
+    n_vals = sum(g.numel() for g in grads.values())
+    group = mesh.data_group
+    efs = {k: torch.zeros((1, quant_ar.padded_len(g.numel(), 1, QUANT_BLOCK)),
+                          dtype=torch.float32, device="cuda") for k, g in grads.items()}
+    quant.quantize_rows.launches = 0
+    got = _exchange(torch, quant_ar, group, grads, efs)
+    torch.cuda.synchronize()
+    k11 = quant.quantize_rows.launches
+    with swapped(quant_ar, "quantize", quant.quantize_blocks):
+        want = _exchange(torch, quant_ar, group, grads, efs)
+    for k in grads:
+        (o1, e1, p1), (o2, e2, p2) = got[k], want[k]
+        for what, a, b in (("mean", o1, o2), ("residual", e1, e2), ("q", p1["q"], p2["q"]),
+                           ("scales", p1["scales"], p2["scales"])):
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                fail(f"exchange {k}: the {what} with K11 differs from the plain exchange")
+    if k11 != 2 * len(grads):
+        fail(f"exchange: K11 launched {k11} times over {len(grads)} leaves (2 a leaf)")
+    worst = max(float((got[k][0].float() - grads[k].float()).abs().max()) for k in grads)
+    ms = time_ms(lambda: _exchange(torch, quant_ar, group, grads, efs), 5)
+    ms_q = time_ms(lambda: _exchange(torch, quant_ar, group, grads, efs), 5, queued=True)
+    with swapped(quant_ar, "quantize", quant.quantize_blocks):
+        plain_ms = time_ms(lambda: _exchange(torch, quant_ar, group, grads, efs), 3)
+    # read g and ef once, write the mean, the residual, q and the scales once
+    n_ef = sum(e.numel() for e in efs.values())
+    ex_bytes = 4 * n_vals + 4 * n_ef + 4 * n_vals + 4 * n_ef + n_ef + 4 * n_ef // QUANT_BLOCK
+    ex_bound = bound(ex_bytes, 0, "fp32")
+    flat = {k: e.reshape(-1)[: grads[k].numel()] for k, e in efs.items()}
+
+    def all_reduce(ts):
+        for t in ts:
+            dist.all_reduce(t, group=group)
+
+    f32 = [g.clone() for g in grads.values()]
+    b16 = [g.to(torch.bfloat16) for g in grads.values()]
+    nccl_f32 = time_ms(lambda: all_reduce(f32), 5)
+    nccl_bf16 = time_ms(lambda: all_reduce(b16), 5)
+    coll.reset_counts()
+    # K11 alone on the exchange's phase 1 operands (one call a leaf)
+    segs = [(grads[k].reshape(-1).float() + flat[k]).reshape(1, -1) for k in sorted(grads)]
+    segs = [torch.nn.functional.pad(s, (0, efs[k].shape[-1] - s.shape[-1]))
+            for s, k in zip(segs, sorted(grads))]
+    k_ms = time_ms(lambda: [quant.quantize_rows(s, QUANT_BLOCK) for s in segs], 10)
+    k_q = time_ms(lambda: [quant.quantize_rows(s, QUANT_BLOCK) for s in segs], 10, queued=True)
+    k_plain = time_ms(lambda: [quant.quantize_blocks(s, QUANT_BLOCK) for s in segs], 3)
+    k_bound = bound(4 * n_ef + n_ef + 4 * n_ef // QUANT_BLOCK, 0, "fp32")
+    log(f"parallel: the int8 exchange (n_dev 1, block {QUANT_BLOCK}) over leg M's 4 gradient "
+        f"leaves ({n_vals} values): bitwise the plain exchange (means, residuals, q, scales), "
+        f"K11 {k11} launches, worst |mean - gradient| {worst:.3e}; {ms:.4f} ms back to back, "
+        f"{ms_q:.4f} queued, plain exchange {plain_ms:.4f}; bound {ex_bound[0]:.4f} ms by "
+        f"{ex_bound[1]} ({ex_bytes / 1e9:.3f} GB); NCCL all_reduce of the same gradients at "
+        f"world 1: f32 {nccl_f32:.4f} ms, bf16 {nccl_bf16:.4f} ms (one card shows no wire "
+        f"saving: that exists only across ranks)")
+    log(f"parallel: K11 on the exchange's phase 1 operands (4 rows, {n_ef} values, f32): "
+        f"{k_ms:.4f} ms back to back, {k_q:.4f} queued, plain {k_plain:.4f}, bound "
+        f"{k_bound[0]:.4f} ms by {k_bound[1]}")
+    row = {**_row("quantize_rows (gradient exchange)", "quantize_rows.cu",
+                  "crosscoder_tpu/ops/quant.py:154", 0.0, k_ms, k_plain, k_bound, None),
+           "launches": k11}
+    return row, {"ms": ms, "queued_ms": ms_q, "plain_ms": plain_ms, "bound_ms": ex_bound[0],
+                 "nccl_f32_ms": nccl_f32, "nccl_bf16_ms": nccl_bf16}
+
+
+def parallel(torch, np, root):
+    """Phase 11: the mesh trainer at data 1 x model 1 on an NCCL group of
+    one rank (a FileStore under the run's build root), leg M against leg
+    A's single-device Trainer and 4 BatchTopK steps against theirs, each
+    step bitwise; the int8 exchange; a gathered save and an agreed restore
+    (into the mesh and the single-device trainer); then the CPU rehearsal
+    of the multi-rank path. Returns the mesh legs' launches and K11's
+    exchange row."""
+    import torch.distributed as dist
+
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+    from crosscoder_tpu_torch.parallel import multihost
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+
+    t_phase = time.perf_counter()
+    B = TRAIN["batch_size"]
+    cfg_a = CrossCoderConfig(**TRAIN, fused_encoder="off", num_tokens=B * LEG_A)
+    cfg_bt = CrossCoderConfig(**LEG_BT, num_tokens=B * STEPS_BT)
+    batches = DeviceBatches(torch, SyntheticActivationSource(cfg_a), LEG_A + 1)
+    state0 = init_train_state(cfg_a, Optimizer(cfg_a, lambda s: 0.0), device="cuda")
+    save_root = ckpt_dir(root)
+    # the single-device trainers, built before the group exists (a Trainer
+    # built inside a group takes the group's grid)
+    tr_a = trainer_mod.Trainer(cfg_a, Replay(batches.batches, None), device="cuda",
+                               state=state0, checkpointer=Checkpointer(save_root))
+    tr_bt = trainer_mod.Trainer(cfg_bt, Replay(batches.batches, None), device="cuda")
+    store_root = ckpt_dir(root)
+    multihost.initialize("cuda:0", store=dist.FileStore(str(store_root / "store"), 1),
+                         world_size=1, rank=0)
+    log(f"parallel: NCCL group of one rank on {torch.cuda.get_device_name(0)} "
+        f"(backend {dist.get_backend()}, {multihost.process_info()})")
+    mesh = mesh_lib.make_mesh(1, 1)
+    tr_m = trainer_mod.Trainer(cfg_a, Replay(batches.batches, None), device="cuda",
+                               state=state0, mesh=mesh)
+    t_a, t_m, launches, calls = _mesh_steps(torch, tr_a, tr_m, LEG_A, "leg M")
+    for n in ("topk_mask", "sparsify", "scatter_add_rows", "adam_update"):
+        if not launches.get(n):
+            fail(f"leg M: {n} never launched on the mesh path: {launches}")
+    check_o1("leg M", launches, LEG_A)
+    aux = [trainer_mod.variant_for_step(cfg_a, i)[1] for i in range(LEG_A)]
+    med = {}
+    for leg, ts in (("A", t_a), ("M", t_m)):
+        for kind, on in (("bare", False), ("aux", True)):
+            med[f"{leg} {kind}"] = float(np.median([t for t, a in zip(ts[2:], aux[2:])
+                                                    if a == on]))
+    per_step = {op: sorted(set(n)) for op, n in calls.items()}
+    log(f"parallel: leg M (the mesh trainer, data 1 x model 1, NCCL) {LEG_A} steps bitwise "
+        f"leg A's single-device Trainer at every step (loss, metrics, params, moments, aux); "
+        f"launches {launches}; NCCL calls a step by op {per_step}")
+    log(f"parallel: step ms (CUDA events, in turns, first two excluded, median): leg A bare "
+        f"{med['A bare']:.3f} aux {med['A aux']:.3f}; leg M bare {med['M bare']:.3f} aux "
+        f"{med['M aux']:.3f}; all leg A {[round(t, 3) for t in t_a]}, leg M "
+        f"{[round(t, 3) for t in t_m]}")
+    STEP_MS["leg M bare"] = med["M bare"]
+    # save under the group (the gathered path), restore by agreement into a
+    # fresh mesh trainer and into the single-device one
+    ck = Checkpointer(save_root)
+    tr_m.checkpointer = ck
+    t0 = time.perf_counter()
+    tr_m.save()
+    t_save = time.perf_counter() - t0
+    tr_r = trainer_mod.Trainer(cfg_a, Replay(batches.batches, None), device="cuda", mesh=mesh,
+                               checkpointer=Checkpointer(save_root))
+    t0 = time.perf_counter()
+    meta = tr_r.restore()
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    ok, what = state_bits_equal(torch, tr_r.state, tr_m.state)
+    if not ok or meta["step"] != LEG_A:
+        fail(f"parallel: the agreed restore differs from the saved mesh state in {what}")
+    tr_a.restore()
+    ok, what = state_bits_equal(torch, tr_a.state, tr_m.state)
+    if not ok:
+        fail(f"parallel: the mesh save restored into the single-device Trainer differs in {what}")
+    tr_r.buffer.i = tr_a.buffer.i = LEG_A
+    _mesh_steps(torch, tr_a, tr_r, 1, "leg M restored")
+    log(f"parallel: gathered save {t_save:.2f} s, agreed restore {t_restore:.2f} s; the "
+        f"restored state bitwise the saved one in the mesh Trainer and in the single-device "
+        f"Trainer, and one more step from each bitwise")
+    shutil.rmtree(save_root, ignore_errors=True)
+    row_k11, exchange = check_exchange(torch, np, mesh, tr_m.state, cfg_a, batches.batches[0])
+    del tr_a, tr_r, tr_m
+    # BatchTopK through the mesh: K9 selects the threshold of the grid
+    tr_btm = trainer_mod.Trainer(cfg_bt, Replay(batches.batches, None), device="cuda",
+                                 mesh=mesh)
+    tr_btm.state = mesh_lib.shard_state(mesh, tr_bt.state)
+    _, _, bt_launches, bt_calls = _mesh_steps(torch, tr_bt, tr_btm, STEPS_BT, "leg M BatchTopK")
+    for n in ("batchtopk_select", "batchtopk_emit", "adam_update"):
+        if not bt_launches.get(n):
+            fail(f"leg M BatchTopK: {n} never launched on the mesh path: {bt_launches}")
+    log(f"parallel: leg M BatchTopK {STEPS_BT} steps bitwise the single-device run; launches "
+        f"{bt_launches}; NCCL calls a step by op "
+        f"{ {op: sorted(set(n)) for op, n in bt_calls.items()} }")
+    del tr_bt, tr_btm, batches
+    multihost.shutdown()
+    shutil.rmtree(store_root, ignore_errors=True)
+    cpu_rehearsal(torch, np, root)
+    log(f"parallel phase {time.perf_counter() - t_phase:.1f} s")
+    return {"M": launches, "M BatchTopK": bt_launches}, row_k11, exchange
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--cpu-rank"]:      # a rank of the CPU rehearsal (phase 11)
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        r, world, port, out, grid = sys.argv[2:7]
+        cpu_rank_worker(int(r), int(world), port, out, tuple(int(g) for g in grid.split("x")))
+        return 0
     try:
         import torch
     except ImportError:
@@ -3866,8 +4230,13 @@ def main() -> int:
         row["launches"] += legs["J"].get(row["name"], 0)
     row_o1["launches"] = o1 + sum(leg.get("adam_update", 0)
                                   for leg in (legs["J"], d15, d17, legs["R"], legs["G"]))
+    mesh_legs, row_k11_exchange, _ = parallel(torch, np, root)
+    for leg in mesh_legs.values():
+        for row in (*train_rows[:3], *harvest_rows):
+            row["launches"] += leg.get(row["name"].split()[0], 0)
+        row_o1["launches"] += leg.get("adam_update", 0)
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
-              *quant_rows, *wide_rows, *fused_rows, row_o1, row_o1_mixed])
+              *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -24,9 +24,21 @@ memory on the calling thread and writes on one writer thread; ``wait()``
 joins it and raises its error. Restore picks the newest complete save
 whose checksums verify, falling back past corrupt ones.
 
-Not ported (ROADMAP Queue A): the multi-host fetch and restore agreement,
-``tenant`` namespacing (the fleet), the ``chaos`` hook and the resilience
-``counters``.
+Across ranks (``mesh``, :mod:`crosscoder_tpu_torch.parallel.mesh`), as
+the JAX package's multi-host save and restore: every rank enters
+:meth:`Checkpointer.save`, which gathers the sharded leaves to full tensors
+(a collective) and then lets only the primary rank write; a write still in
+flight is waited for before the gather, and its error raised only after
+it, so no rank is left alone in the collective. :meth:`Checkpointer.restore`
+agrees on the save (the minimum of every rank's newest verified save), and
+each rank takes its shard of it. The on-disk format is the single-device
+one, so a save from any grid restores on one device and in the JAX
+``Checkpointer``. The ``quant_grads`` residuals (``.aux['quant_ef']``,
+``[n_data, L]`` a param) reset to zero when the restoring grid's ``data``
+width differs from the save's.
+
+Not ported (ROADMAP Queue A): ``tenant`` namespacing (the fleet), the
+``chaos`` hook and the resilience ``counters``.
 """
 
 from __future__ import annotations
@@ -106,9 +118,23 @@ def _atomic_write_text(path: Path, text: str) -> str:
 # the TrainState as the JAX package's path-keyed leaves
 
 
-def state_spec(cfg: CrossCoderConfig) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-    """``{leaf key: (shape, dtype)}`` of the train state ``cfg`` builds, in
-    the JAX package's pytree-path keys (optax chain: clip, Adam, schedule)."""
+def leaf_key(kind: str, name: str) -> str:
+    """The JAX pytree-path key of a train-state leaf: ``kind`` params, mu,
+    nu, aux or quant_ef (a residual of ``aux['quant_ef']``)."""
+    if kind == "params":
+        return f".params['{name}']"
+    if kind in ("mu", "nu"):
+        return f"{_ADAM}.{kind}['{name}']"
+    if kind == "quant_ef":
+        return f".aux['quant_ef']['{name}']"
+    return f".aux['{name}']"
+
+
+def state_spec(cfg: CrossCoderConfig, n_data: int = 1
+               ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """``{leaf key: (shape, dtype)}`` of the train state ``cfg`` builds on
+    a grid ``n_data`` ranks wide, in the JAX package's pytree-path keys
+    (optax chain: clip, Adam, schedule)."""
     n, d, H = cfg.n_sources, cfg.d_in, cfg.dict_size
     dt = torch.float32 if cfg.master_dtype == "fp32" else torch.bfloat16
     shapes = {"W_dec": (H, n, d), "W_enc": (n, d, H), "b_dec": (n, d), "b_enc": (H,),
@@ -126,6 +152,12 @@ def state_spec(cfg: CrossCoderConfig) -> dict[str, tuple[tuple[int, ...], torch.
         spec[".aux['steps_since_fired']"] = ((H,), torch.int32)
         if cfg.aux_mask_every != 1:
             spec[".aux['dead_mask']"] = ((H,), torch.bool)
+    if cfg.quant_grads and n_data > 1:
+        from crosscoder_tpu_torch.parallel.quant_ar import padded_len
+
+        for p in names:
+            L = padded_len(int(np.prod(shapes[p])), n_data, cfg.quant_block)
+            spec[leaf_key("quant_ef", p)] = ((n_data, L), torch.float32)
     return spec
 
 
@@ -150,15 +182,18 @@ def flatten_state(state: Any) -> dict[str, torch.Tensor]:
     The port's single Adam count is written to both optax counters."""
     opt = state.opt_state
     names = sorted(state.params)
-    leaves: dict[str, Any] = {f".params['{p}']": state.params[p] for p in names}
+    leaves: dict[str, Any] = {leaf_key("params", p): state.params[p] for p in names}
     leaves[f"{_ADAM}.count"] = opt.count
     for moment in ("mu", "nu"):
         tree = getattr(opt, moment)
-        leaves.update({f"{_ADAM}.{moment}['{p}']": tree[p] for p in names})
+        leaves.update({leaf_key(moment, p): tree[p] for p in names})
     leaves[f"{_SCHEDULE}.count"] = opt.count
     leaves[".step"] = state.step
     for name, t in sorted((state.aux or {}).items()):
-        leaves[f".aux['{name}']"] = t
+        if name == "quant_ef":
+            leaves.update({leaf_key("quant_ef", p): t[p] for p in sorted(t)})
+        else:
+            leaves[leaf_key("aux", name)] = t
     return {k: _host(v) for k, v in leaves.items()}
 
 
@@ -173,19 +208,34 @@ def _leaf(raw: np.ndarray, key: str, shape: tuple[int, ...], dtype: torch.dtype)
     return torch.from_numpy(np.array(raw, dtype=np_dtype))
 
 
-def unflatten_state(leaves: dict[str, np.ndarray], cfg: CrossCoderConfig, device=None) -> Any:
+def _is_ef(key: str) -> bool:
+    return key.startswith(".aux['quant_ef']")
+
+
+def unflatten_state(leaves: dict[str, np.ndarray], cfg: CrossCoderConfig, device=None,
+                    n_data: int = 1) -> Any:
     """A :class:`TrainState` on ``device`` from npz leaves keyed as
-    :func:`state_spec`; :class:`ValueError` on a missing leaf, an extra
-    one, a shape that differs or two optimizer counts that disagree."""
+    :func:`state_spec` for a grid ``n_data`` ranks wide;
+    :class:`ValueError` on a missing leaf, an extra one, a shape that
+    differs or two optimizer counts that disagree. The ``quant_ef``
+    residuals are the one exception (restore-with-respec, as the JAX
+    package's): missing, extra or shaped for another ``data`` width, they
+    reset to zero, which costs one step of re-accumulated quantization
+    error."""
     from crosscoder_tpu_torch.train.state import AdamState, TrainState
 
-    spec = state_spec(cfg)
-    if len(leaves) != len(spec):
+    spec = state_spec(cfg, n_data)
+    if (sum(not _is_ef(k) for k in leaves) != sum(not _is_ef(k) for k in spec)):
         raise ValueError(f"checkpoint has {len(leaves)} leaves but state expects {len(spec)}; "
                          "optimizer chain or model shape changed since save")
     dev = resolve_device(device)
     t = {}
+    resets = [k for k in leaves if _is_ef(k) and k not in spec]
     for key, (shape, dtype) in spec.items():
+        if _is_ef(key) and (key not in leaves or leaves[key].shape != shape):
+            resets.append(key)
+            t[key] = torch.zeros(shape, dtype=dtype)
+            continue
         if key not in leaves:
             raise ValueError(f"checkpoint is missing state leaf {key!r}; optimizer chain "
                              "changed since save (leaves are path-keyed)")
@@ -195,10 +245,20 @@ def unflatten_state(leaves: dict[str, np.ndarray], cfg: CrossCoderConfig, device
         raise ValueError(f"Adam count {count} != schedule count {sched}: the port keeps one "
                          "optimizer count")
 
+    if resets:
+        print(f"[crosscoder_tpu_torch] restore-with-respec: reset {len(resets)} quant_ef "
+              f"leaf(s) to zero init (checkpoint mesh layout differs from target)",
+              file=sys.stderr, flush=True)
+
     def tree(prefix):
         return {p: t[f"{prefix}['{p}']"].to(dev) for p in param_names(cfg)}
 
-    aux = {key[len(".aux['"):-2]: v.to(dev) for key, v in t.items() if key.startswith(".aux[")}
+    aux = {key[len(".aux['"):-2]: v.to(dev) for key, v in t.items()
+           if key.startswith(".aux[") and not _is_ef(key)}
+    ef = {p: t[leaf_key("quant_ef", p)].to(dev) for p in param_names(cfg)
+          if leaf_key("quant_ef", p) in spec}
+    if ef:
+        aux["quant_ef"] = ef
     return TrainState(params=tree(".params"),
                       opt_state=AdamState(count, tree(f"{_ADAM}.mu"), tree(f"{_ADAM}.nu")),
                       step=int(t[".step"]), aux=aux or None)
@@ -220,12 +280,13 @@ class Checkpointer:
         self._writer: threading.Thread | None = None
         self._writer_error: BaseException | None = None
 
-    def wait(self) -> None:
-        """Join an in-flight background write; raise its error here."""
+    def wait(self, raise_error: bool = True) -> None:
+        """Join an in-flight background write; raise its error here (or
+        keep it for a later :meth:`wait` with ``raise_error=False``)."""
         if self._writer is not None:
             self._writer.join()
             self._writer = None
-        if self._writer_error is not None:
+        if raise_error and self._writer_error is not None:
             err, self._writer_error = self._writer_error, None
             raise err
 
@@ -239,12 +300,28 @@ class Checkpointer:
 
     # --- save ---------------------------------------------------------------
     def save(self, state: Any, cfg: CrossCoderConfig, buffer: Any | None = None,
-             background: bool = False) -> Path:
-        """Write one versioned save; returns the weights path. The state
+             background: bool = False, mesh=None) -> Path | None:
+        """Write one versioned save; returns the weights path (``None`` on
+        a rank that is not the primary, which writes nothing). The state
         reaches host memory before this returns; ``background=True`` leaves
-        the file writes to the writer thread (:meth:`wait` joins it)."""
+        the file writes to the writer thread (:meth:`wait` joins it). Under
+        a ``mesh`` every rank must call this: the gather of the shards is a
+        collective."""
+        from crosscoder_tpu_torch.parallel import multihost
+
         with trace.span("save", version=self.save_version, background=background):
+            # a write in flight lands before the gather, but its error waits
+            # until after it: raising first would leave the other ranks alone
+            # in the collective
+            self.wait(raise_error=False)
+            if mesh is not None:
+                from crosscoder_tpu_torch.parallel.mesh import gather_state
+
+                state = gather_state(mesh, state)
             self.wait()
+            if not multihost.is_primary():
+                self.save_version += 1
+                return None
             leaves = flatten_state(state)
             weights = {p: leaves[f".params['{p}']"].float().numpy() for p in sorted(state.params)}
             flat = {k: _numpy(v) for k, v in leaves.items()}
@@ -298,7 +375,12 @@ class Checkpointer:
                 cls._unlink_save(save_dir, old)
 
     def discard_saves_after(self, version_dir: str | Path, v: int) -> None:
-        """Delete every complete save newer than ``v`` in ``version_dir``."""
+        """Delete every complete save newer than ``v`` in ``version_dir``
+        (on the primary rank only, the one that writes)."""
+        from crosscoder_tpu_torch.parallel import multihost
+
+        if not multihost.is_primary():
+            return
         vdir = Path(version_dir)
         for s in self.complete_saves(vdir):
             if s > v:
@@ -391,16 +473,50 @@ class Checkpointer:
             params = {k: torch.from_numpy(np.array(z[k])).to(dev) for k in z.files}
         return params, cfg
 
+    def _agree_min(self, x: int, mesh, device) -> int:
+        """The smallest ``x`` over every rank of ``mesh`` (an all-reduce)."""
+        import torch.distributed as dist
+
+        from crosscoder_tpu_torch.parallel import collectives as coll
+
+        t = torch.tensor([x], dtype=torch.int64).to(device)
+        return int(coll.all_reduce_(t, mesh.world_group, dist.ReduceOp.MIN)[0])
+
     def restore(self, cfg: CrossCoderConfig, version_dir: str | Path | None = None,
-                save: int | None = None, device=None) -> tuple[Any, dict]:
+                save: int | None = None, device=None, mesh=None) -> tuple[Any, dict]:
         """``(TrainState on device, meta)`` of a save. ``save=None`` takes
         the newest save that verifies (in ``version_dir``, or in any version
         dir); an explicit ``save`` must verify. Later saves continue in the
-        restored save's version dir."""
+        restored save's version dir.
+
+        Under a ``mesh`` every rank must call this. With ``save=None`` the
+        ranks agree on the save, as the JAX package's multi-host restore:
+        the smallest version dir, then the smallest newest-verified save
+        over every rank (a rank whose view is ahead falls back with the
+        rest), verified again locally, else :class:`ValueError`. Each rank
+        then takes its shard (no communication); the ``quant_ef`` residuals
+        reset when the grid's ``data`` width differs from the save's."""
         with trace.span("restore"):
             self.wait()
+            dev = resolve_device(device)
             if save is None:
                 vdir, v = self._select_verified(version_dir)
+                if mesh is not None:
+                    if version_dir is None:
+                        vnum = int(vdir.name.split("_")[1])
+                        agreed_dir = self._agree_min(vnum, mesh, dev)
+                        if agreed_dir != vnum:
+                            vdir, v = self._select_verified(
+                                self.base_dir / f"version_{agreed_dir}")
+                    agreed = self._agree_min(v, mesh, dev)
+                    if agreed != v:
+                        print(f"[crosscoder_tpu_torch] restore agreement: local save {v} -> "
+                              f"agreed save {agreed}", file=sys.stderr, flush=True)
+                        v = agreed
+                        if not self.verify_save(vdir, v):
+                            raise ValueError(
+                                f"agreed save {v} under {vdir} is missing or fails checksum "
+                                "verification on this rank; refusing to load unverified state")
             else:
                 vdir = Path(version_dir) if version_dir is not None else next(
                     (d for d in reversed(self._version_dirs(self.base_dir))
@@ -409,8 +525,13 @@ class Checkpointer:
                 if not self.verify_save(vdir, v):
                     raise ValueError(f"checkpoint save {v} under {vdir} failed checksum "
                                      "verification (corrupt or truncated artifact)")
+            n_data = mesh.data_size if mesh is not None else 1
             with np.load(vdir / f"{v}_train_state.npz") as z:
-                state = unflatten_state({k: z[k] for k in z.files}, cfg, device)
+                state = unflatten_state({k: z[k] for k in z.files}, cfg, dev, n_data)
+            if mesh is not None:
+                from crosscoder_tpu_torch.parallel.mesh import shard_state
+
+                state = shard_state(mesh, state)
             meta = json.loads((vdir / f"{v}_meta.json").read_text())
             self.save_dir, self.save_version = vdir, v + 1
             return state, meta

@@ -7,12 +7,13 @@ Validation is ported for the fields the port reads: the serving knobs
 and the training knobs (``crosscoder_tpu/config.py`` ``__post_init__``:
 the TopK tier rules for ``sparse_decode``/``factored_decode``/
 ``sparse_bwd``/``fused_encoder``/``quant_encoder``, the sparsity and AuxK
-knobs, the loop and guard knobs) and the replay-buffer knobs
+knobs, the loop and guard knobs, ``quant_grads`` only under pure data
+parallelism and not with ``batchtopk``) and the replay-buffer knobs
 (``refill_frac``, ``buffer_device``, ``seq_shards``, ``refill_overlap``,
 ``quant_block`` under ``quant_buffer``), with the JAX package's messages.
 :meth:`CrossCoderConfig.check_buffer` refuses a buffer the port cannot
 build (too small, or a buffer knob not ported yet). Knobs of parts not
-ported yet (mesh, elastic, fleet, compile cache, tuner) are carried as
+ported yet (``shard_sources``, elastic, fleet, compile cache, tuner) are carried as
 plain values. :meth:`CrossCoderConfig.from_cli` reflects every
 field into a flag as the JAX package does; ``--tuned`` raises until the
 autotuner is ported.
@@ -331,6 +332,17 @@ class CrossCoderConfig:
                 "(unbounded) or >= 2")
         if self.quant_block < 1:
             raise ValueError(f"quant_block must be >= 1, got {self.quant_block}")
+        if self.quant_grads and (self.model_axis_size > 1 or self.shard_sources):
+            raise ValueError(
+                "quant_grads supports pure data parallelism only "
+                "(model_axis_size == 1, shard_sources off): the quantized "
+                "all-reduce replaces the DP gradient psum; TP/EP grad "
+                "slices keep the exact bf16/f32 psum")
+        if self.quant_grads and self.activation == "batchtopk":
+            raise ValueError(
+                "quant_grads is incompatible with activation='batchtopk': "
+                "the quantized step computes per-device losses, but "
+                "batchtopk's threshold is a GLOBAL-batch order statistic")
         if self.log_print_every < 0:
             raise ValueError(
                 f"log_print_every must be >= 0 (0 = never echo), got "

@@ -668,6 +668,16 @@ def make_buffer(cfg: CrossCoderConfig, lm_cfg, model_params, tokens,
                 **kwargs) -> PairedActivationBuffer:
     """The replay buffer for ``cfg.quant_buffer`` (bf16 or block-scaled
     int8 rows), its store in host RAM or on the device as
-    ``cfg.buffer_device`` says."""
+    ``cfg.buffer_device`` says. One rank only: on more than one, each
+    rank's store would funnel the whole stream through itself, and the
+    mesh-sharded store is not ported yet (:class:`NotImplementedError`,
+    raised before any model loads)."""
+    from crosscoder_tpu_torch.parallel import multihost
+
+    if multihost.world_size() > 1:
+        raise NotImplementedError(
+            "the replay buffer on more than one rank is not ported to the PyTorch port yet "
+            "(ROADMAP A6b: the mesh-sharded store of crosscoder_tpu/data/buffer.py); train "
+            "a multi-rank run on --data-source synthetic")
     cls = QuantPairedActivationBuffer if cfg.quant_buffer else PairedActivationBuffer
     return cls(cfg, lm_cfg, model_params, tokens, **kwargs)

@@ -66,6 +66,7 @@ from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.ops import activations as act_ops
 from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
 from crosscoder_tpu_torch.ops import sparse_grad, topk_pallas
+from crosscoder_tpu_torch.parallel import collectives as coll
 from crosscoder_tpu_torch.utils.device import resolve_device
 from crosscoder_tpu_torch.utils.dtypes import dtype_of
 
@@ -190,11 +191,15 @@ def calibrate_batchtopk_threshold(params: Mapping[str, torch.Tensor], cfg: Cross
     return float(np.mean(vals))
 
 
-def decode(params: Mapping[str, torch.Tensor], f: torch.Tensor) -> torch.Tensor:
-    """Reconstruction ``[B, n, d_in]`` from latents ``[B, d_hidden]``."""
+def decode(params: Mapping[str, torch.Tensor], f: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Reconstruction ``[B, n, d_in]`` from latents ``[B, d_hidden]``
+    (under a ``mesh``: this rank's latents and ``W_dec`` rows, the partial
+    products summed over ``model`` before ``b_dec``)."""
     W = params["W_dec"]
     H, n, d = W.shape
     y = matmul_f32(f.reshape(-1, H), W.reshape(H, n * d))
+    if mesh is not None:
+        y = mesh.sum_model(y)
     return (y + params["b_dec"].float().reshape(1, n * d)).to(f.dtype).reshape(*f.shape[:-1], n, d)
 
 
@@ -222,6 +227,150 @@ def _d_vals(g_flat: torch.Tensor, idx: torch.Tensor, W_dec: torch.Tensor) -> tor
     return torch.bmm(w, g_flat[:, :, None])[:, :, 0]
 
 
+# ---------------------------------------------------------------------------
+# the selection over a sharded dictionary axis (a mesh's ``model`` ranks)
+
+
+def _order_key(values: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """One int64 key an entry: the f32 pattern of ``values`` mapped to a
+    signed total order, then the inverted column, so the larger key is the
+    larger value and, among equal values, the lower column."""
+    bits = values.float().view(torch.int32).to(torch.int64)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return (key << 32) | (0x7FFFFFFF - cols.to(torch.int64))
+
+
+def _merge_keep(vals: torch.Tensor, idx: torch.Tensor, k: int, mesh, width: int
+                ) -> torch.Tensor:
+    """Which of this rank's row candidates ``(vals, idx)`` ``[B, kl]``
+    (local columns of a ``width``-wide slice) are among the row's top
+    ``k`` over every ``model`` rank: the candidates' keys (value, then
+    lowest global column) gathered over ``model`` and cut at the k-th
+    largest. ``torch.topk`` sees unique keys, so its order among ties
+    never matters."""
+    key = _order_key(vals, idx.to(torch.int64) + mesh.model_rank * width)
+    every = mesh.gather_model(key)                                 # [m, B, kl]
+    every = every.permute(1, 0, 2).reshape(key.shape[0], -1)
+    kth = torch.topk(every, min(k, every.shape[-1]), dim=-1).values[:, -1:]
+    return key >= kth
+
+
+def _keep_global(vals: torch.Tensor, idx: torch.Tensor, k: int, mesh, width: int
+                 ) -> torch.Tensor:
+    """``vals`` with the candidates outside the global top ``k`` zeroed
+    (their slots then act as the drain's ``(0, 0)`` padding); ``vals``
+    itself without a mesh."""
+    if mesh is None:
+        return vals
+    keep = _merge_keep(vals, idx, k, mesh, width)
+    return torch.where(keep, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+
+
+def _kept_dense(f: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """The mask ``f`` with only the entries ``(row, idx)`` whose ``vals``
+    stay positive."""
+    hits = torch.zeros(f.shape, dtype=torch.int32, device=f.device)
+    hits.scatter_add_(1, idx.long(), (vals > 0).to(torch.int32))
+    return torch.where(hits > 0, f, torch.zeros((), dtype=f.dtype, device=f.device))
+
+
+def _local_topk(h: torch.Tensor, k: int, mesh) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(mask, vals, idx)`` of the TopK of ``h``'s rows: the mask (K5, K6
+    or K7) and its K8 drain, then, under a mesh, only the entries in the
+    row's global top k (``h`` this rank's slice of the dictionary axis)."""
+    width = h.shape[-1]
+    kl = min(k, width)
+    f = topk_pallas.topk_forward(h, kl)
+    vals, idx = topk_pallas.sparsify(f, kl)
+    if mesh is not None:
+        vals = _keep_global(vals, idx, k, mesh, width)
+        f = _kept_dense(f, idx, vals)
+    return f, vals, idx
+
+
+class _MeshTopK(torch.autograd.Function):
+    """Dense TopK of a slice of the dictionary axis under a mesh: the
+    local mask cut to the row's global top k; straight-through backward
+    on the survivors (as :func:`topk_pallas.topk`)."""
+
+    @staticmethod
+    def forward(ctx, h, k, mesh):
+        out, _, _ = _local_topk(h, k, mesh)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return topk_pallas._straight_through(out, g), None, None
+
+
+def _bt_patterns_native(h: torch.Tensor) -> torch.Tensor:
+    """K9's clamped patterns (``topk_pallas._bt_patterns``) in ``h``'s own
+    width: int16 for bf16, int32 for f32 (sign set → 0, a negative NaN →
+    the pattern below the top, the rest capped below the top)."""
+    if h.dtype == torch.bfloat16:
+        s, nan_neg, top = h.reshape(-1).view(torch.int16), -0x80, 0x7FFF
+    else:
+        s, nan_neg, top = h.reshape(-1).view(torch.int32), -0x800000, 0x7FFFFFFF
+    below = torch.full((), top - 1, dtype=s.dtype, device=s.device)
+    zero = torch.zeros((), dtype=s.dtype, device=s.device)
+    return torch.where(s < 0, torch.where(s > nan_neg, below, zero), torch.minimum(s, below))
+
+
+def _global_kth_pattern(h: torch.Tensor, kk: int, mesh) -> torch.Tensor:
+    """The pattern of the ``kk``-th largest ReLU'd entry over every rank's
+    ``h`` (int32 ``[1]`` on ``h``'s device). Each rank's K9 select at the
+    global budget gives a lower bound (a rank with ``kk`` entries at or
+    above its own k-th has them globally); the largest of those starts
+    K9's multi-threshold bisection, its counts summed over the ranks each
+    pass. One pass ends it when no rank holds the bound's successor's
+    share (always, on one rank)."""
+    lo = int(mesh.max_world(topk_pallas.batchtopk_select(h, kk))[0])
+    pats = _bt_patterns_native(h)
+    hi = 0x7FFF if h.dtype == torch.bfloat16 else 0x7FFFFFFF
+    t = topk_pallas._BATCHTOPK_T
+    while hi - lo > 1:
+        q, rem = divmod(hi - lo - 1, t)
+        mids = [lo + 1 + q * j + (rem * j) // t for j in range(t)]
+        counts = torch.stack([(pats >= m).sum() for m in mids])
+        counts = coll.all_reduce_(counts, mesh.world_group)
+        num_ge = int((counts >= kk).sum())
+        lo, hi = (mids[num_ge - 1] if num_ge > 0 else lo), (mids[num_ge] if num_ge < t else hi)
+    return torch.tensor([lo], dtype=torch.int32).to(h.device)
+
+
+class _MeshBatchTopK(torch.autograd.Function):
+    """BatchTopK over the global batch and the whole dictionary axis under
+    a mesh: the threshold of :func:`_global_kth_pattern`, then K9's emit on
+    this rank's ``h``; straight-through backward on the survivors."""
+
+    @staticmethod
+    def forward(ctx, h, k, mesh):
+        rows = h.shape[0] * mesh.data_size
+        kk = min(k * rows, rows * h.shape[-1] * mesh.model_size)
+        out = topk_pallas.batchtopk_emit(h, _global_kth_pattern(h, kk, mesh))
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return topk_pallas._straight_through(out, g), None, None
+
+
+def _activate(h: torch.Tensor, cfg: CrossCoderConfig, params: Mapping[str, torch.Tensor],
+              mesh) -> torch.Tensor:
+    """The activation of :func:`act_ops.apply`; under a mesh, TopK and
+    training BatchTopK select over every rank (ReLU, JumpReLU and the fixed
+    BatchTopK threshold are elementwise and stay local)."""
+    if mesh is not None and cfg.activation == "topk":
+        return _MeshTopK.apply(h, cfg.topk_k, mesh)
+    if mesh is not None and cfg.activation == "batchtopk" and cfg.batchtopk_threshold <= 0:
+        return _MeshBatchTopK.apply(h, cfg.topk_k, mesh)
+    return act_ops.apply(h, cfg, dict(params))
+
+
 class _FactoredTopK(torch.autograd.Function):
     """``(recon [B,n,d] f32 (no b_dec), vals, idx)`` from pre-acts ``h``:
     the mask (K5, K6 or K7) → K8 drain → k-row decode; backward through the dense
@@ -229,9 +378,8 @@ class _FactoredTopK(torch.autograd.Function):
     gradient (sound only with l1_coeff == 0, which the gate ensures)."""
 
     @staticmethod
-    def forward(ctx, h, W_dec, k):
-        f = topk_pallas.topk_forward(h, k)
-        vals, idx = topk_pallas.sparsify(f, k)
+    def forward(ctx, h, W_dec, k, mesh=None):
+        f, vals, idx = _local_topk(h, k, mesh)
         ctx.save_for_backward(f, W_dec)
         ctx.mark_non_differentiable(vals, idx)
         return _decode_rows(vals, idx, W_dec), vals, idx
@@ -245,7 +393,7 @@ class _FactoredTopK(torch.autograd.Function):
         dW_dec = torch.mm(ff.t(), g_flat).reshape(H, n, d).to(W_dec.dtype)
         df = torch.mm(g_flat, W_dec.reshape(H, n * d).float().t())
         dh = torch.where(f > 0, df, torch.zeros((), device=df.device)).to(f.dtype)
-        return dh, dW_dec, None
+        return dh, dW_dec, None, None
 
 
 def _sparse_step_backward(ctx, g):
@@ -284,17 +432,17 @@ class _SparseTopKStep(torch.autograd.Function):
     Soundness gate: l1_coeff == 0."""
 
     @staticmethod
-    def forward(ctx, x, W_enc, b_enc, W_dec, k, fused, quant_block):
+    def forward(ctx, x, W_enc, b_enc, W_dec, k, fused, quant_block, mesh=None):
         B = x.shape[0]
         n, d, H = W_enc.shape
         x2 = x.reshape(B, n * d)
         W2 = W_enc.reshape(n * d, H)
         if fused:
             vals, idx = fek.fused_topk_encode(x2, W2, b_enc, k, quant_block=quant_block)
+            vals = _keep_global(vals, idx, k, mesh, H)
         else:
             h = (_mm32(x2, W2) + b_enc.float()).to(x.dtype)
-            f = topk_pallas.topk_forward(h, k)
-            vals, idx = topk_pallas.sparsify(f, k)
+            _, vals, idx = _local_topk(h, k, mesh)
         ctx.save_for_backward(x, vals, idx, W_enc, W_dec)
         ctx.b_dtype = b_enc.dtype
         ctx.mark_non_differentiable(vals, idx)
@@ -302,7 +450,7 @@ class _SparseTopKStep(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _gv, _gi):
-        return (*_sparse_step_backward(ctx, g), None, None, None)
+        return (*_sparse_step_backward(ctx, g), None, None, None, None)
 
 
 class _FusedBatchTopKEncode(torch.autograd.Function):
@@ -344,9 +492,8 @@ class _SparseTopKFromH(torch.autograd.Function):
     to ``[B, H]`` (h has other consumers: the aux ranking)."""
 
     @staticmethod
-    def forward(ctx, h, W_dec, k):
-        f = topk_pallas.topk_forward(h, k)
-        vals, idx = topk_pallas.sparsify(f, k)
+    def forward(ctx, h, W_dec, k, mesh=None):
+        _, vals, idx = _local_topk(h, k, mesh)
         ctx.save_for_backward(vals, idx, W_dec)
         ctx.h_dtype = h.dtype
         ctx.mark_non_differentiable(vals, idx)
@@ -364,7 +511,7 @@ class _SparseTopKFromH(torch.autograd.Function):
         rows = torch.arange(B, device=idx.device)[:, None].expand_as(idx)
         dh = torch.zeros((B, H), dtype=ctx.h_dtype, device=idx.device)
         dh.index_put_((rows, idx.long()), d_vals.to(ctx.h_dtype), accumulate=True)
-        return dh, dW_dec.reshape(H, n, d).to(W_dec.dtype), None
+        return dh, dW_dec.reshape(H, n, d).to(W_dec.dtype), None, None
 
 
 class _SparseAuxProduct(torch.autograd.Function):
@@ -419,8 +566,8 @@ class _SparseDecodeProduct(torch.autograd.Function):
         return d_vals, None, dW_dec
 
 
-def topk_vals_idx(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCoderConfig
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def topk_vals_idx(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCoderConfig,
+                  mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """TopK encode in factored form: ``(vals [B, k], idx [B, k] int32)``.
     The selected set comes from the mask (K5, K6 or K7) and the K8 drain
     (their plain versions on CPU tensors): the entries > 0 of each row's k
@@ -432,20 +579,21 @@ def topk_vals_idx(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: Cros
     h = pre_acts(params, x)
     hp = act_ops.relu(h)
     with torch.no_grad():
-        sel, idx = topk_pallas.sparsify(topk_pallas.topk_forward(h.detach(), cfg.topk_k),
-                                        cfg.topk_k)
+        _, sel, idx = _local_topk(h.detach(), cfg.topk_k, mesh)
     vals = hp.gather(-1, idx.long())
     vals = torch.where(sel > 0, vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
     return vals, idx
 
 
 def sparse_topk_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor,
-                        cfg: CrossCoderConfig
+                        cfg: CrossCoderConfig, mesh=None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """TopK encode + the k-row decode: ``(recon [B, n, d] f32, vals,
     idx)``, the dense path's reconstruction up to f32 summation order."""
-    vals, idx = topk_vals_idx(params, x, cfg)
+    vals, idx = topk_vals_idx(params, x, cfg, mesh)
     recon = _SparseDecodeProduct.apply(vals, idx, params["W_dec"])
+    if mesh is not None:
+        recon = mesh.sum_model(recon)
     return recon + params["b_dec"].float(), vals, idx
 
 
@@ -541,11 +689,23 @@ def use_fused_encoder(cfg: CrossCoderConfig, batch: int | None = None) -> bool:
 
 def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCoderConfig,
                with_metrics: bool = True, dead_mask: torch.Tensor | None = None,
-               track_fired: bool = False) -> LossOutput:
+               track_fired: bool = False, mesh=None) -> LossOutput:
     """The loss surface of a batch ``x [B, n_sources, d_in]`` (reference
     ``crosscoder.py:96-130``, f32 reductions). ``with_metrics=False``
     returns zeros for the metric-only terms (l0, explained variances, and
-    l1 when ``cfg.l1_coeff == 0``)."""
+    l1 when ``cfg.l1_coeff == 0``).
+
+    Under a ``mesh`` (:class:`crosscoder_tpu_torch.parallel.mesh.Mesh`)
+    ``x`` is this rank's rows, the params its shards (the dictionary axis
+    split over ``model``), and the collectives the JAX package's GSPMD
+    inserts are written out: TopK and AuxK select over every ``model``
+    rank's candidates, BatchTopK's threshold counts over every rank, the
+    decodes' partial sums add over ``model``; ``l2``, ``l1`` and the AuxK
+    ratio's numerator and denominator are global means (differentiable,
+    replicated on every rank), ``fired`` is an OR over ``data``, the
+    explained variance centres by the global batch mean. ``l0_loss`` and
+    the explained variances stay this rank's partials (the step reduces
+    them with its other metrics)."""
     x = x.to(dtype_of(cfg.enc_dtype))
     B = x.shape[0]
     factored = use_factored_decode(cfg)
@@ -556,40 +716,45 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     sparse_bwd = factored and use_sparse_bwd(cfg, B)
     fused = use_fused_encoder(cfg, B)
     b_dec = params["b_dec"].float()
+    sum_model = mesh.sum_model if mesh is not None else (lambda t: t)
     if factored and sparse_bwd and not aux_active:
         qb = cfg.quant_block if fused and cfg.quant_encoder else 0
         recon_f32, vals, idx = _SparseTopKStep.apply(
-            x, params["W_enc"], params["b_enc"], params["W_dec"], cfg.topk_k, fused, qb)
-        recon = (recon_f32 + b_dec).to(x.dtype)
+            x, params["W_enc"], params["b_enc"], params["W_dec"], cfg.topk_k, fused, qb, mesh)
+        recon = (sum_model(recon_f32) + b_dec).to(x.dtype)
         f = None
     elif factored:
         h = pre_acts(params, x)
         tier = _SparseTopKFromH if sparse_bwd else _FactoredTopK
-        recon_f32, vals, idx = tier.apply(h, params["W_dec"], cfg.topk_k)
-        recon = (recon_f32 + b_dec).to(x.dtype)
+        recon_f32, vals, idx = tier.apply(h, params["W_dec"], cfg.topk_k, mesh)
+        recon = (sum_model(recon_f32) + b_dec).to(x.dtype)
         f = None
     elif sparse:
-        recon_f32, vals, idx = sparse_topk_forward(params, x, cfg)
+        recon_f32, vals, idx = sparse_topk_forward(params, x, cfg, mesh)
         recon = recon_f32.to(x.dtype)
         f = None
     elif cfg.activation == "batchtopk" and fused and not aux_active:
         f = _FusedBatchTopKEncode.apply(x, params["W_enc"], params["b_enc"], cfg.topk_k)
-        recon = decode(params, f)
+        recon = decode(params, f, mesh)
     elif cfg.activation == "jumprelu" and cfg.l0_coeff > 0:
         h = pre_acts(params, x)
-        f = act_ops.apply(h, cfg, dict(params))
-        recon = decode(params, f)
+        f = _activate(h, cfg, params, mesh)
+        recon = decode(params, f, mesh)
         l0_penalty = act_ops.jumprelu_l0(h, params["log_theta"], cfg.jumprelu_bandwidth)
+        if mesh is not None:
+            l0_penalty = mesh.sum_world(l0_penalty) / mesh.data_size
     else:
         h = pre_acts(params, x)
-        f = act_ops.apply(h, cfg, dict(params))
-        recon = decode(params, f)
+        f = _activate(h, cfg, params, mesh)
+        recon = decode(params, f, mesh)
 
     xf = x.float()
     rf = recon.float()
     err2 = torch.square(rf - xf)
     l2_per_row = err2.sum(dim=(-2, -1))
     l2_loss = l2_per_row.mean()
+    if mesh is not None:
+        l2_loss = mesh.mean_data(l2_loss)
 
     need_l1 = with_metrics or cfg.l1_coeff != 0
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -602,6 +767,8 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
             l1_loss = (vals.float() * w_active).sum(dim=-1).mean()
         else:
             l1_loss = (f.float() * total_dec_norm[None, :]).sum(dim=-1).mean()
+        if mesh is not None:
+            l1_loss = mesh.sum_world(l1_loss) / mesh.data_size
 
     aux_loss: torch.Tensor | float = 0.0
     fired = None
@@ -613,16 +780,20 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
             fired = hits > 0
         else:
             fired = (f > 0).any(dim=0)
+        if mesh is not None:
+            fired = mesh.any_(fired, "data")
     if aux_active:
-        k_aux = min(cfg.aux_k, d_hidden)
+        k_aux = min(cfg.aux_k, d_hidden * (mesh.model_size if mesh is not None else 1))
         h_all = h if h is not None else pre_acts(params, x)
         neg = torch.finfo(h_all.dtype).min
         ranked = torch.where(dead_mask[None, :], h_all.detach(),
                              torch.full((), neg, dtype=h_all.dtype, device=x.device))
-        aidx = _exact_topk_indices(ranked, k_aux)
+        aidx = _exact_topk_indices(ranked, min(k_aux, d_hidden))
         avals = torch.gather(h_all, 1, aidx)
-        avals = torch.where(dead_mask[aidx], avals, torch.zeros((), dtype=avals.dtype,
-                                                                device=x.device))
+        keep = dead_mask[aidx]
+        if mesh is not None:
+            keep = keep & _merge_keep(ranked.gather(1, aidx), aidx, k_aux, mesh, d_hidden)
+        avals = torch.where(keep, avals, torch.zeros((), dtype=avals.dtype, device=x.device))
         e = (xf - rf).detach()
         if use_sparse_aux(cfg, B):
             e_hat = _SparseAuxProduct.apply(avals.to(x.dtype), aidx, params["W_dec"])
@@ -632,9 +803,14 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
             f_aux = f_aux.index_put((rows, aidx), avals.to(x.dtype), accumulate=True)
             W = params["W_dec"]
             e_hat = matmul_f32(f_aux, W.reshape(d_hidden, -1)).reshape(B, *W.shape[1:])
+        e_hat = sum_model(e_hat)
         num = torch.square(e_hat - e).sum(dim=(-2, -1)).mean()
         den = torch.square(e).sum(dim=(-2, -1)).mean()
-        aux_loss = torch.where(dead_mask.any(), num / (den + 1e-8), zero)
+        any_dead = dead_mask.any()
+        if mesh is not None:
+            num, den = mesh.mean_data(torch.stack([num, den])).unbind(0)
+            any_dead = mesh.any_(any_dead, "model")
+        aux_loss = torch.where(any_dead, num / (den + 1e-8), zero)
 
     if not with_metrics:
         return LossOutput(l2_loss, l1_loss, zero, torch.zeros_like(l2_per_row),
@@ -642,7 +818,10 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
                           l0_penalty, aux_loss, fired)
 
     eps = 1e-8
-    centered = xf - xf.mean(dim=0, keepdim=True)
+    mean = xf.mean(dim=0, keepdim=True)
+    if mesh is not None:
+        mean = mesh.mean_data(mean)
+    centered = xf - mean
     tot_var = torch.square(centered).sum(dim=(-2, -1))
     explained_variance = 1.0 - l2_per_row / (tot_var + eps)
     l2_per_source = err2.sum(dim=-1)
@@ -661,10 +840,8 @@ def _exact_topk_indices(ranked: torch.Tensor, k: int) -> torch.Tensor:
     (``lax.top_k``'s order), through one int64 key per entry: the f32
     pattern mapped to a signed total order, then the inverted column, so
     ``torch.topk``'s unspecified order among equal values never matters."""
-    bits = ranked.float().view(torch.int32).to(torch.int64)
-    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     col = torch.arange(ranked.shape[-1], device=ranked.device)
-    return torch.topk((key << 32) | (0x7FFFFFFF - col), k, dim=-1).indices
+    return torch.topk(_order_key(ranked, col), k, dim=-1).indices
 
 
 def cast_params(params: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Params:
@@ -675,19 +852,21 @@ def cast_params(params: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Param
 def training_loss(params: Mapping[str, torch.Tensor], x: torch.Tensor, l1_coeff,
                   cfg: CrossCoderConfig, with_metrics: bool = True,
                   dead_mask: torch.Tensor | None = None, aux_coeff=None,
-                  track_fired: bool = False, l0_coeff=None) -> tuple[torch.Tensor, LossOutput]:
+                  track_fired: bool = False, l0_coeff=None,
+                  mesh=None) -> tuple[torch.Tensor, LossOutput]:
     """Scalar objective ``l2 + l1_coeff · l1`` (+ ``l0_coeff ·
     l0_penalty`` for JumpReLU with ``cfg.l0_coeff > 0``, ``l0_coeff``
     defaulting to it; + ``aux_coeff · aux_loss`` on AuxK steps) and the
     loss surface. Params may be f32 masters; they are cast to
-    ``cfg.enc_dtype`` here (differentiably; ``log_theta`` stays f32)."""
+    ``cfg.enc_dtype`` here (differentiably; ``log_theta`` stays f32).
+    ``mesh``: the loss over a rank grid (:func:`get_losses`)."""
     if not with_metrics and cfg.l1_coeff == 0 and float(l1_coeff) != 0.0:
         raise ValueError(
             f"training_loss got l1_coeff={float(l1_coeff)} but cfg.l1_coeff == 0 and "
             f"with_metrics=False: the L1 term is skipped on this path, so the "
             f"sparsity penalty would be silently dropped")
     losses = get_losses(cast_params(params, dtype_of(cfg.enc_dtype)), x, cfg, with_metrics,
-                        dead_mask=dead_mask, track_fired=track_fired)
+                        dead_mask=dead_mask, track_fired=track_fired, mesh=mesh)
     loss = losses.l2_loss + l1_coeff * losses.l1_loss
     if cfg.l0_coeff > 0:
         eff = cfg.l0_coeff if l0_coeff is None else l0_coeff

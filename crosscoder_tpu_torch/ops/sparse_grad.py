@@ -173,6 +173,13 @@ def work_list_plain(dst_s: torch.Tensor, n_out: int) -> torch.Tensor:
     return items.to(torch.int32)
 
 
+PROTOTYPES = {
+    "scatter_work_list": ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+                          + [ctypes.c_int, ctypes.c_void_p]),
+    "scatter_rows_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+
+
 def work_list(dst_s: torch.Tensor, n_out: int) -> torch.Tensor:
     """K10's work list of the sorted destinations ``dst_s``
     (:func:`work_list_plain`): built on the card by three launches of
@@ -190,12 +197,9 @@ def work_list(dst_s: torch.Tensor, n_out: int) -> torch.Tensor:
     scratch = torch.empty((n_out + 2) // 2 + -(-n_out // _LIST_TILE), dtype=torch.int64,
                           device=dst32.device)
     items = torch.empty((n_items, 4), dtype=torch.int32, device=dst32.device)
-    fn = _build.load("scatter_rows").scatter_work_list
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int, ctypes.c_void_p])
-    code = fn(dst32.data_ptr(), dst32.numel(), n_out, _T, _RB, scratch.data_ptr(),
-              items.data_ptr(), n_items, torch.cuda.current_stream(dst32.device).cuda_stream)
+    code = _build.load("scatter_rows", PROTOTYPES).scatter_work_list(
+        dst32.data_ptr(), dst32.numel(), n_out, _T, _RB, scratch.data_ptr(), items.data_ptr(),
+        n_items, _build.stream(dst32.device))
     _build.check(code, "scatter work list kernel")
     return items
 
@@ -226,13 +230,10 @@ def scatter_add_rows(coeff: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
     out = torch.empty((n_out, m), dtype=torch.float32, device=rows.device)
     # 16-byte copies of 4 f32 (8 of 4 bf16) a thread when every row starts aligned
     vec = int(m % 4 == 0 and rows.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    fn = _build.load("scatter_rows").scatter_rows_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    code = fn(items.data_ptr(), dst_s.data_ptr(), src_s.data_ptr(), cf_s.data_ptr(),
-              rows.data_ptr(), out.data_ptr(), items.shape[0], m,
-              int(rows.dtype == torch.bfloat16), vec,
-              torch.cuda.current_stream(rows.device).cuda_stream)
+    code = _build.load("scatter_rows", PROTOTYPES).scatter_rows_launch(
+        items.data_ptr(), dst_s.data_ptr(), src_s.data_ptr(), cf_s.data_ptr(), rows.data_ptr(),
+        out.data_ptr(), items.shape[0], m, int(rows.dtype == torch.bfloat16), vec,
+        _build.stream(rows.device))
     _build.check(code, "scatter rows kernel")
     _scatter_add_rows.launches += 1
     return out

@@ -259,11 +259,21 @@ def topk_forward(h: torch.Tensor, k: int) -> torch.Tensor:
     return topk_chunked(h, k)
 
 
+_MASK_ARGS = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+# each mask library's entry points: (h, out, R, W, k, vec, *extra ints, stream)
+MASK_PROTOTYPES = {
+    "topk_mask": {"topk_mask_launch": _MASK_ARGS + [ctypes.c_void_p]},
+    "topk_mask_f32": {"topk_mask_f32_launch": _MASK_ARGS + [ctypes.c_void_p]},
+    "topk_chunked": {"topk_chunked_launch": _MASK_ARGS + [ctypes.c_int, ctypes.c_void_p],
+                     "topk_cluster_launch": _MASK_ARGS + [ctypes.c_int] * 3 + [ctypes.c_void_p]},
+}
+
+
 def _launch_mask(lib: str, fn_name: str, h: torch.Tensor, k: int,
                  extra: tuple = ()) -> torch.Tensor:
     """Launch a per-row TopK mask kernel ``fn(h, out, R, W, k, vec,
     *extra, stream)`` on a contiguous copy of ``h``'s rows; ``extra``
-    holds ``(ctypes type, value)`` pairs."""
+    holds the trailing int arguments (:data:`MASK_PROTOTYPES`)."""
     from crosscoder_tpu_torch.ops import _build
 
     width = h.shape[-1]
@@ -272,16 +282,13 @@ def _launch_mask(lib: str, fn_name: str, h: torch.Tensor, k: int,
     flat = h.reshape(-1, width).contiguous()
     out = torch.empty_like(flat)
     vec = int(width % 8 == 0 and flat.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    fn = getattr(_build.load(lib), fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
-                   + [t for t, _ in extra] + [ctypes.c_void_p])
-    code = fn(flat.data_ptr(), out.data_ptr(), flat.shape[0], width, k, vec,
-              *(v for _, v in extra), torch.cuda.current_stream(h.device).cuda_stream)
+    fn = getattr(_build.load(lib, MASK_PROTOTYPES[lib]), fn_name)
+    code = fn(flat.data_ptr(), out.data_ptr(), flat.shape[0], width, k, vec, *extra,
+              _build.stream(h.device))
     if code == _NO_CLUSTER:
         raise _build.KernelLaunchError(
             f"{lib} kernel: no thread-block cluster of this launch fits an SM "
-            f"(cudaOccupancyMaxActiveClusters is 0; launch arguments {[v for _, v in extra]})")
+            f"(cudaOccupancyMaxActiveClusters is 0; launch arguments {list(extra)})")
     _build.check(code, f"{lib} kernel")
     return out.reshape(h.shape)
 
@@ -327,10 +334,9 @@ def topk_chunked(h: torch.Tensor, k: int) -> torch.Tensor:
     if h.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the K7 kernel takes bf16 or f32 rows, got {h.dtype}")
     route, n_blocks, cols = topk_plan(h.shape[-1], h.dtype)
-    bf16 = (ctypes.c_int, int(h.dtype == torch.bfloat16))
+    bf16 = int(h.dtype == torch.bfloat16)
     if route == "cluster":
-        out = _launch_mask("topk_chunked", "topk_cluster_launch", h, k,
-                           ((ctypes.c_int, cols), (ctypes.c_int, n_blocks), bf16))
+        out = _launch_mask("topk_chunked", "topk_cluster_launch", h, k, (cols, n_blocks, bf16))
     else:
         out = _launch_mask("topk_chunked", "topk_chunked_launch", h, k, (bf16,))
     topk_chunked.launches += 1
@@ -569,6 +575,15 @@ def _check_bt(h: torch.Tensor, name: str) -> torch.Tensor:
     return h.reshape(-1).contiguous()
 
 
+_BT_HEAD = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+BATCHTOPK_PROTOTYPES = {
+    "batchtopk_select_bf16": _BT_HEAD + [ctypes.c_void_p] * 4,
+    "batchtopk_select_f32": _BT_HEAD + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p],
+    "batchtopk_emit": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+}
+
+
 def batchtopk_select(h: torch.Tensor, kk: int) -> torch.Tensor:
     """K9 select: the device int32 ``[1]`` pattern of the ``kk``-th largest
     ReLU'd entry of ``h`` (0 when fewer than ``kk`` entries are positive),
@@ -584,27 +599,19 @@ def batchtopk_select(h: torch.Tensor, kk: int) -> torch.Tensor:
     n = flat.numel()
     vec = int(flat.data_ptr() % 16 == 0)
     kth = torch.empty(1, dtype=torch.int32, device=h.device)
-    stream = torch.cuda.current_stream(h.device).cuda_stream
-    lib = _build.load("batchtopk")
+    stream = _build.stream(h.device)
+    lib = _build.load("batchtopk", BATCHTOPK_PROTOTYPES)
     if h.dtype == torch.bfloat16:
         hist = torch.zeros(_BINS + 1, dtype=torch.int64, device=h.device)   # + the ticket
-        fn = lib.batchtopk_select_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
-                       + [ctypes.c_void_p] * 4)
-        code = fn(flat.data_ptr(), n, kk, vec, hist.data_ptr(), hist[_BINS:].data_ptr(),
-                  kth.data_ptr(), stream)
+        code = lib.batchtopk_select_bf16(flat.data_ptr(), n, kk, vec, hist.data_ptr(),
+                                         hist[_BINS:].data_ptr(), kth.data_ptr(), stream)
     else:
         top = 0x7FFFFFFF
         state = torch.zeros(2 + _BATCHTOPK_T + 1, dtype=torch.int64)
         state[1] = top
         state = state.to(h.device)
-        fn = lib.batchtopk_select_f32
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
-        code = fn(flat.data_ptr(), n, kk, vec, state.data_ptr(), kth.data_ptr(),
-                  _n_bisect_passes(top), stream)
+        code = lib.batchtopk_select_f32(flat.data_ptr(), n, kk, vec, state.data_ptr(),
+                                        kth.data_ptr(), _n_bisect_passes(top), stream)
     _build.check(code, "batchtopk select kernel")
     batchtopk_select.launches += 1
     return kth
@@ -627,12 +634,9 @@ def batchtopk_emit(h: torch.Tensor, kth: torch.Tensor) -> torch.Tensor:
     kth = kth.to(device=h.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(flat)
     vec = int(flat.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    fn = _build.load("batchtopk").batchtopk_emit
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    code = fn(flat.data_ptr(), out.data_ptr(), flat.numel(), kth.data_ptr(),
-              int(h.dtype == torch.bfloat16), vec, torch.cuda.current_stream(h.device).cuda_stream)
+    code = _build.load("batchtopk", BATCHTOPK_PROTOTYPES).batchtopk_emit(
+        flat.data_ptr(), out.data_ptr(), flat.numel(), kth.data_ptr(),
+        int(h.dtype == torch.bfloat16), vec, _build.stream(h.device))
     _build.check(code, "batchtopk emit kernel")
     batchtopk_emit.launches += 1
     return out.reshape(h.shape)

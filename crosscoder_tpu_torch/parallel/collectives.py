@@ -1,0 +1,117 @@
+"""The collectives of the parallel layer, each counted by op.
+
+Every collective the port issues goes through this module, so a run can
+show how many it made (:data:`calls`, keyed ``all_reduce``,
+``all_gather``, ``all_to_all``). A ``group`` of ``None`` is no group at
+all: the call is the identity and nothing is issued (a loss computed
+rank-locally, as the quantized-gradient step does); the trainer's mesh
+always passes real groups, size 1 included, so a one-rank run issues
+every collective a wider run does.
+
+The two differentiable collectives (the JAX package gets them from
+GSPMD):
+
+- :func:`sum_over`: forward sums over the group, backward is the
+  identity. Right when every rank computes the same downstream value from
+  the sum (the loss is replicated over the group), so each rank's input
+  gets the full cotangent once. ``torch.distributed.nn.functional.
+  all_reduce`` sums the cotangent again, which would scale the gradient
+  by the group's size.
+- :func:`copy_to`: its mirror, forward the identity, backward sums the
+  cotangent over the group: a value replicated over the group (a
+  parameter over ``data``) used by rank-local work, whose gradient is the
+  sum of the ranks' partial gradients.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+import torch.distributed as dist
+
+calls: Counter = Counter()        # collectives issued, by op
+
+
+def reset_counts() -> None:
+    calls.clear()
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over ``group`` in place (returned)."""
+    if group is not None:
+        dist.all_reduce(t, op=op, group=group)
+        calls["all_reduce"] += 1
+    return t
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """``[n, *t.shape]``: every rank's ``t`` (at least 1-d), in group-rank
+    order."""
+    if group is None:
+        return t.unsqueeze(0)
+    n = group_size(group)
+    t = t.contiguous()
+    out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(out, t, group=group)
+    calls["all_gather"] += 1
+    return out.reshape(n, *t.shape)
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in group-rank order."""
+    if group is None:
+        return t
+    g = all_gather(t, group)                              # [n, ...]
+    return torch.cat(list(g.unbind(0)), dim=dim)
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t [n, ...]``: row ``j`` goes to rank ``j``; returns the rows every
+    rank sent here, in group-rank order."""
+    if group is None:
+        return t
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    calls["all_to_all"] += 1
+    return out
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group), None
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group``; the backward passes the cotangent through."""
+    if group is None:
+        return t
+    return _SumOver.apply(t, group)
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """The identity; the backward sums the cotangent over ``group``."""
+    if group is None:
+        return t
+    return _CopyTo.apply(t, group)

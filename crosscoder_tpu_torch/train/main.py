@@ -11,6 +11,14 @@ Config from the command line (every field a flag,
 ``cfg.checkpoint_dir``. ``--resume true`` continues from the newest
 verified save there (the buffer is built lazily and restored).
 
+On several ranks (``torchrun --nproc-per-node N -m
+crosscoder_tpu_torch.train.main ...``) each rank joins the process group
+first (:func:`crosscoder_tpu_torch.parallel.multihost.initialize`: NCCL
+on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``), builds the
+``data`` × ``model`` grid from ``--data-axis-size``/``--model-axis-size``
+and trains its shards; only the primary rank logs and writes
+checkpoints. ``--device`` names the device (default ``cuda:LOCAL_RANK``).
+
 ``--data-source gemma`` composes the Gemma-2 harvest: the models of
 ``--model-names`` loaded from local HF checkpoint directories
 (:func:`crosscoder_tpu_torch.models.lm.from_hf`; the first one's config
@@ -22,6 +30,8 @@ instead.
 
 from __future__ import annotations
 
+import argparse
+import sys
 from typing import Any, Sequence
 
 from crosscoder_tpu_torch.checkpoint import Checkpointer
@@ -62,16 +72,32 @@ def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any]
 
 
 def main(argv: list[str] | None = None, device=None) -> Trainer:
-    """Train from ``argv`` (default: the process's arguments). Runs on
-    ``cuda`` unless ``device`` names another device."""
-    cfg = CrossCoderConfig.from_cli(argv)
+    """Train from ``argv`` (default: the process's arguments; ``--device``
+    there, else ``device``). Runs on ``cuda`` (``cuda:LOCAL_RANK`` under
+    torchrun) unless a device is named."""
+    import torch.distributed as dist
+
+    from crosscoder_tpu_torch.parallel import multihost
+
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default=None)
+    known, rest = pre.parse_known_args(sys.argv[1:] if argv is None else argv)
+    device = multihost.local_device(known.device or device)
+    joined_here = not dist.is_initialized()
+    distributed = multihost.initialize(device)
+    cfg = CrossCoderConfig.from_cli(rest)
+    if distributed:
+        print(f"[crosscoder_tpu_torch] multihost: {multihost.process_info()}", file=sys.stderr,
+              flush=True)
     buffer, cfg = build_buffer(cfg, device=device)
-    trainer = Trainer(cfg, buffer, logger=MetricsLogger(cfg), device=device,
-                      checkpointer=Checkpointer(cfg=cfg))
+    trainer = Trainer(cfg, buffer, logger=MetricsLogger(cfg) if multihost.is_primary() else None,
+                      device=device, checkpointer=Checkpointer(cfg=cfg))
     try:
         trainer.train()
     finally:
         trainer.close()
+        if joined_here:
+            multihost.shutdown()
     return trainer
 
 

@@ -3,7 +3,9 @@
 :class:`TrainState` holds the f32 (or bf16, ``cfg.master_dtype``) master
 params, the optimizer state, the step counter and the non-optimizer state
 ``aux`` (AuxK: ``steps_since_fired`` [d_hidden] int32, plus the cached
-``dead_mask`` when ``cfg.aux_mask_every != 1``).
+``dead_mask`` when ``cfg.aux_mask_every != 1``; the quantized exchange's
+residuals ``quant_ef``, a dict of ``[n_data, L]`` f32, under
+``cfg.quant_grads`` on a mesh).
 
 :class:`Optimizer` reproduces the JAX package's ``make_optimizer`` (optax
 ``clip_by_global_norm(grad_clip)`` → ``scale_by_adam(b1, b2, eps=1e-8)``
@@ -63,19 +65,33 @@ class Optimizer:
                          {k: torch.zeros_like(v) for k, v in params.items()})
 
     @staticmethod
-    def global_norm(grads: Params) -> torch.Tensor:
+    def global_norm(grads: Params, mesh=None) -> torch.Tensor:
         """The f32 global norm of ``grads`` on their device: the sum of
         squares over the leaves in sorted-name order, as optax.global_norm
-        walks a dict."""
-        return torch.sqrt(sum(torch.sum(torch.square(grads[k].float())) for k in sorted(grads)))
+        walks a dict. Under a ``mesh`` (``grads`` this rank's shards) the
+        sums of the leaves sharded over ``model`` are summed over it first,
+        in one all-reduce; a replicated leaf counts once."""
+        names = sorted(grads)
+        sq = {k: torch.sum(torch.square(grads[k].float())) for k in names}
+        if mesh is not None:
+            from crosscoder_tpu_torch.parallel import collectives as coll
+            from crosscoder_tpu_torch.parallel.mesh import param_spec, shard_dim
+
+            sharded = [k for k in names if shard_dim(param_spec(k)) is not None]
+            if sharded:
+                sums = coll.all_reduce_(torch.stack([sq[k] for k in sharded]), mesh.model_group)
+                sq.update(zip(sharded, sums.unbind(0)))
+        return torch.sqrt(sum(sq[k] for k in names))
 
     @torch.no_grad()
-    def update(self, grads: Params, state: AdamState, params: Params, *, donate: bool = False
-               ) -> tuple[Params, AdamState]:
+    def update(self, grads: Params, state: AdamState, params: Params, *, donate: bool = False,
+               mesh=None) -> tuple[Params, AdamState]:
         """``(new params, new state)``. ``donate=True`` writes them into
         ``params``, ``state.mu`` and ``state.nu`` (the caller gives those
-        up); otherwise the inputs stay intact."""
-        norm = self.global_norm(grads)
+        up); otherwise the inputs stay intact. Under a ``mesh`` every
+        argument is this rank's shards and the clip reads the global norm
+        (:meth:`global_norm`)."""
+        norm = self.global_norm(grads, mesh)
         t = state.count + 1
         bc1 = np.float32(1.0) - np.float32(self.b1) ** np.float32(t)
         bc2 = np.float32(1.0) - np.float32(self.b2) ** np.float32(t)
@@ -91,12 +107,27 @@ class Optimizer:
         return new[0], AdamState(t, new[1], new[2])
 
 
+def resolve_data_axis(cfg: CrossCoderConfig) -> int:
+    """The ``data``-axis width a cfg-built mesh has over the joined
+    process group (one rank a device): the width of state pieces whose
+    shape depends on it (the ``quant_grads`` residuals)."""
+    if cfg.data_axis_size > 0:
+        return cfg.data_axis_size
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    return max(1, world // max(1, cfg.model_axis_size))
+
+
 def init_train_state(cfg: CrossCoderConfig, opt: Optimizer, *, seed: int | None = None,
-                     device=None) -> TrainState:
+                     device=None, n_data: int | None = None) -> TrainState:
     """Fresh state: params from :func:`crosscoder.init_params` in
     ``cfg.master_dtype``, zero Adam moments, step 0, and the AuxK tracker
-    (every latent "recently fired"). Runs on ``cuda`` unless ``device``
-    names another device."""
+    (every latent "recently fired"); with ``cfg.quant_grads`` on a
+    ``data`` axis wider than 1 (``n_data``, default
+    :func:`resolve_data_axis`) the exchange's zero residuals
+    ``aux["quant_ef"]``, ``[n_data, L]`` a param. Runs on ``cuda`` unless
+    ``device`` names another device."""
     dev = resolve_device(device)
     dtype = torch.float32 if cfg.master_dtype == "fp32" else torch.bfloat16
     params = cc.init_params(cfg, seed=cfg.seed if seed is None else seed, device=dev,
@@ -106,4 +137,11 @@ def init_train_state(cfg: CrossCoderConfig, opt: Optimizer, *, seed: int | None 
         aux = {"steps_since_fired": torch.zeros((cfg.dict_size,), dtype=torch.int32, device=dev)}
         if cfg.aux_mask_every != 1:
             aux["dead_mask"] = torch.zeros((cfg.dict_size,), dtype=torch.bool, device=dev)
+    if cfg.quant_grads:
+        nd = resolve_data_axis(cfg) if n_data is None else n_data
+        if nd > 1:
+            from crosscoder_tpu_torch.parallel import quant_ar
+
+            aux = dict(aux or {})
+            aux["quant_ef"] = quant_ar.ef_init(params, nd, cfg.quant_block)
     return TrainState(params=params, opt_state=opt.init(params), step=0, aux=aux)

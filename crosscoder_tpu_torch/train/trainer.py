@@ -22,7 +22,8 @@ the JAX trainer's: a background save every ``save_every`` steps and one
 more when ``train()`` ends, however it ends; ``cfg.resume`` restores the
 newest verified save at construction (state, step, buffer position);
 SIGTERM on the main thread finishes the step, saves and returns, and a
-second SIGTERM falls through to the previous handler.
+second SIGTERM falls through to the previous handler; on more than one
+rank the ranks agree on the stop every ``cfg.stop_poll_every`` steps.
 
 Recovery, as the JAX trainer's: dead-latent resampling
 (``cfg.resample_every``, :mod:`crosscoder_tpu_torch.train.resample`) runs
@@ -33,9 +34,22 @@ newest save with finite params, skips the serves up to the detection
 step and re-enters the loop, at most ``cfg.max_rollbacks`` times. The
 recoveries count on :attr:`Trainer.resilience` (``resilience/*``).
 
-Not ported in this slice (ROADMAP Queue A): mesh and multi-host runs,
-``quant_grads``, chaos/watchdog/elastic, the observability plane, the
-compile cache, prefetch threads, the fleet.
+On a rank grid (``mesh``, :mod:`crosscoder_tpu_torch.parallel.mesh`: one
+rank a device over ``torch.distributed``, ``data`` × ``model``), as the
+JAX mesh trainer: each rank trains its rows of every global batch on its
+shards of the dictionary axis; the loss and its statistics are global
+(:func:`crosscoder_tpu_torch.models.crosscoder.get_losses` with the mesh),
+the gradients of each leaf sum over ``data``, the clip reads the global
+norm, and O1 updates each rank's shards. Under
+``cfg.quant_grads`` (pure data parallelism) each rank's loss and
+gradients are local and the gradients' mean goes through the int8
+exchange (:mod:`crosscoder_tpu_torch.parallel.quant_ar`). A grid of one
+rank runs every collective and the merge as a wider one does.
+
+Not ported in this slice (ROADMAP Queue A): ``shard_sources``, the
+mesh-sharded replay store and the sharded harvest, the ticketed prefetch,
+chaos/watchdog/elastic, the observability plane, the compile cache, the
+fleet.
 """
 
 from __future__ import annotations
@@ -49,10 +63,15 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.models import crosscoder as cc
+from crosscoder_tpu_torch.parallel import collectives as coll
+from crosscoder_tpu_torch.parallel import multihost
+from crosscoder_tpu_torch.parallel import mesh as mesh_lib
 from crosscoder_tpu_torch.train import resample, schedules
+from crosscoder_tpu_torch.parallel import quant_ar
 from crosscoder_tpu_torch.train.state import Optimizer, TrainState, init_train_state
 from crosscoder_tpu_torch.utils.device import resolve_device
 from crosscoder_tpu_torch.utils.logging import MetricsLogger, ResilienceCounters, source_tag
@@ -69,8 +88,23 @@ def variant_for_step(cfg: CrossCoderConfig, host_step: int, full_metrics: bool =
     return (full_metrics, aux_on, mask_refresh)
 
 
+def _reduce_metrics(metrics: dict[str, Any], divisors: dict[str, int], group
+                    ) -> dict[str, Any]:
+    """``metrics[k]`` summed over ``group`` and divided by ``divisors[k]``
+    for each key of ``divisors``, in one all-reduce."""
+    keys = [k for k in divisors if k in metrics]
+    if not keys:
+        return metrics
+    parts = [metrics[k].detach().float().reshape(-1) for k in keys]
+    flat = coll.all_reduce_(torch.cat(parts), group)
+    out = dict(metrics)
+    for k, v in zip(keys, flat.split([p.numel() for p in parts])):
+        out[k] = (v / divisors[k]).reshape(metrics[k].shape)
+    return out
+
+
 def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = True,
-                   aux_on: bool = True, mask_refresh: bool = True
+                   aux_on: bool = True, mask_refresh: bool = True, mesh=None
                    ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                  tuple[TrainState, dict[str, Any]]]:
     """``step_fn(state, batch, scale, donate=False) -> (new_state,
@@ -80,7 +114,18 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
     ``state`` stays intact unless ``donate=True``, which writes the new
     params and Adam moments into its tensors (the trainer's step).
     ``step_fn.loss_and_grads(state, batch, scale)`` gives the step's loss,
-    loss surface and gradients without the update."""
+    loss surface and gradients without the update.
+
+    Under a ``mesh`` ``state`` is this rank's shards and ``batch`` its
+    rows. The loss is the global one on every rank, each rank's gradients
+    of it (through its own rows) are summed over ``data`` in place, one
+    all-reduce a leaf, and the metrics that are partials (l0, the
+    explained variances, ``dead_frac``) are reduced in one all-reduce.
+    With ``cfg.quant_grads`` on a ``data`` axis wider than 1 (the JAX
+    ``quant_step_fn``): the loss and gradients are this rank's, the
+    gradients' mean goes through the int8 exchange with error feedback
+    (``aux["quant_ef"]``), every metric is a mean over ``data`` and
+    ``fired`` an OR."""
     if cfg.batchtopk_threshold > 0:
         raise ValueError("cfg.batchtopk_threshold is an eval-mode setting; clear it "
                          "(0.0) before building a train step")
@@ -89,6 +134,8 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
     warm_fn = schedules.sparsity_warmup_schedule(cfg)
     track_fired = cfg.aux_k > 0 or cfg.resample_every > 0
     cached_mask = track_fired and cfg.aux_mask_every != 1
+    quant = mesh is not None and cfg.quant_grads and mesh.data_size > 1
+    loss_mesh = mesh.local() if quant else mesh
 
     def _dead_mask(state: TrainState):
         if not track_fired:
@@ -114,17 +161,30 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
             kwargs["dead_mask"] = dead
             kwargs["aux_coeff"] = float(np.float32(cfg.aux_k_coeff) * warm_fn(state.step))
         loss, losses = cc.training_loss(params, x, float(l1_fn(state.step)), cfg, with_metrics,
-                                        track_fired=track_fired, **kwargs)
+                                        track_fired=track_fired, mesh=loss_mesh, **kwargs)
         grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(names, grads)}
+        if mesh is not None and not quant:
+            # each rank's gradient of the global loss through its own rows:
+            # the gradient is their sum over data (in place, leaves in order)
+            for k in names:
+                coll.all_reduce_(grads[k], mesh.data_group)
         return loss.detach(), losses, grads, dead, aux
 
     def step_fn(state: TrainState, batch: torch.Tensor, scale: torch.Tensor,
                 donate: bool = False):
         l1_coeff = l1_fn(state.step)
         loss, losses, grads, dead, aux = loss_and_grads(state, batch, scale)
-        new_params, new_opt = opt.update(grads, state.opt_state, state.params, donate=donate)
+        fired = losses.fired
+        new_ef = None
+        if quant:
+            grads, new_ef = quant_ar.quantized_pmean_tree(grads, state.aux["quant_ef"],
+                                                          mesh.data_group, cfg.quant_block)
+            if track_fired:
+                fired = mesh.any_(fired, "data")
+        new_params, new_opt = opt.update(grads, state.opt_state, state.params, donate=donate,
+                                         mesh=mesh)
         metrics: dict[str, Any] = {
             "loss": loss,
             "l2_loss": losses.l2_loss.detach(),
@@ -133,10 +193,13 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
             "lr": float(lr_fn(state.step)),
         }
         new_aux = state.aux
-        if track_fired:
+        if track_fired or new_ef is not None:
             new_aux = dict(state.aux)
+        if new_ef is not None:
+            new_aux["quant_ef"] = new_ef
+        if track_fired:
             new_aux["steps_since_fired"] = torch.where(
-                losses.fired, 0, state.aux["steps_since_fired"] + 1).to(torch.int32)
+                fired, 0, state.aux["steps_since_fired"] + 1).to(torch.int32)
             if cached_mask:
                 new_aux["dead_mask"] = dead
             metrics["dead_frac"] = dead.float().mean()
@@ -147,6 +210,16 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
             metrics["explained_variance"] = losses.explained_variance.detach().mean()
             metrics["explained_variance_per_source"] = (
                 losses.explained_variance_per_source.detach().mean(dim=-1))
+        if mesh is not None:
+            n, m = mesh.data_size, mesh.model_size
+            if quant:       # every metric this rank's: their mean over data
+                div = {k: n for k in ("loss", "l2_loss", "l1_loss", "aux_loss", "dead_frac",
+                                      "l0_loss", "explained_variance",
+                                      "explained_variance_per_source")}
+            else:           # loss terms already global; l0 a partial, the rest replicated
+                div = {"dead_frac": n * m, "l0_loss": n, "explained_variance": n * m,
+                       "explained_variance_per_source": n * m}
+            metrics = _reduce_metrics(metrics, div, mesh.world_group)
         return TrainState(new_params, new_opt, state.step + 1, new_aux), metrics
 
     step_fn.loss_and_grads = loss_and_grads
@@ -167,6 +240,29 @@ def expand_metrics(metrics: dict[str, Any], n_sources: int) -> dict[str, float]:
     return out
 
 
+def _check_mesh(cfg: CrossCoderConfig, mesh: mesh_lib.Mesh) -> None:
+    """Raise for a config the mesh step cannot run as the JAX mesh trainer
+    does: :class:`ValueError` for shapes the grid does not split,
+    :class:`NotImplementedError` for what is not ported yet (ROADMAP A6b)."""
+    n, m = mesh.data_size, mesh.model_size
+    if cfg.dict_size % m:
+        raise ValueError(f"dict_size {cfg.dict_size} must divide by model_axis_size {m}")
+    if cfg.batch_size % n:
+        raise ValueError(f"batch_size {cfg.batch_size} must divide by the data axis {n}")
+    fused = cc.use_fused_encoder(cfg, cfg.batch_size)
+    for what, on in (
+            ("a fused encoder tier (fused_encoder='on', quant_encoder) whose TopK spans a "
+             "model axis wider than 1", fused and cfg.activation == "topk" and m > 1),
+            ("the fused BatchTopK encoder (fused_encoder='on') on an axis wider than 1",
+             fused and cfg.activation == "batchtopk" and n * m > 1),
+            ("sparse_decode over a model axis wider than 1", cfg.sparse_decode and m > 1),
+            ("dead-latent resampling (resample_every) on a mesh", cfg.resample_every > 0),
+            ("the loss guard (guard_loss) on a mesh", cfg.guard_loss)):
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported to the PyTorch mesh trainer yet (ROADMAP A6b)")
+
+
 class Trainer:
     """Host loop around the step.
 
@@ -177,32 +273,49 @@ class Trainer:
     :meth:`restore` reads; with ``cfg.resume`` the newest verified save is
     restored here. Runs on ``cuda`` unless ``device`` names another device.
 
+    ``mesh``: the rank grid to train on (default: ``cfg``'s axes over the
+    joined process group, :func:`~crosscoder_tpu_torch.parallel.mesh.mesh_from_cfg`,
+    whenever a group is joined or an axis above 1 is asked for; no mesh,
+    the single-device step, otherwise). Every rank builds the same full
+    state (or the caller's ``state``) and keeps its shards; each serve's
+    global batch gives the rank its ``data`` rows. Metrics are global on
+    every rank; only the primary rank should carry a ``logger``.
+
     A knob whose JAX behaviour is not ported raises
-    :class:`NotImplementedError` rather than being dropped: ``quant_grads``,
-    the fleet, elastic runs, the observability plane, chaos, the harvest
-    watchdog (``harvest_timeout_s > 0``), profiler
-    traces (``profile_dir``, ``profile_steps``) and a mesh
-    (``model_axis_size`` or ``data_axis_size`` above 1, ``shard_sources``;
-    ``data_axis_size = -1``, all devices, is this one). ``prefetch``,
-    ``remat`` and ``compile_cache_dir`` change only speed or memory in the
-    JAX trainer, never results, so the port accepts and ignores them.
+    :class:`NotImplementedError` rather than being dropped: the fleet,
+    elastic runs, the observability plane, chaos, the harvest watchdog
+    (``harvest_timeout_s > 0``), profiler traces (``profile_dir``,
+    ``profile_steps``), ``shard_sources``, and on a mesh the selections
+    that are not split over it yet (a fused encoder tier across a sharded
+    selection axis, ``sparse_decode`` over ``model``) and resampling and
+    the loss guard (ROADMAP A6b). ``prefetch``, ``remat`` and
+    ``compile_cache_dir`` change only speed or memory in the JAX trainer,
+    never results, so the port accepts and ignores them.
     """
 
     def __init__(self, cfg: CrossCoderConfig, buffer: Any | None = None,
                  logger: MetricsLogger | None = None, device=None,
-                 state: TrainState | None = None, checkpointer: Any | None = None) -> None:
-        for knob, on in (("quant_grads", cfg.quant_grads), ("fleet", cfg.fleet == "on"),
+                 state: TrainState | None = None, checkpointer: Any | None = None,
+                 mesh: mesh_lib.Mesh | None = None) -> None:
+        for knob, on in (("fleet", cfg.fleet == "on"),
                          ("elastic", cfg.elastic == "on"), ("obs", cfg.obs == "on"),
                          ("chaos", bool(cfg.chaos)),
                          ("harvest_timeout_s", cfg.harvest_timeout_s > 0),
                          ("profile_dir", bool(cfg.profile_dir)),
-                         ("profile_steps", bool(cfg.profile_steps)),
-                         ("model_axis_size", cfg.model_axis_size > 1),
-                         ("data_axis_size", cfg.data_axis_size > 1),
-                         ("shard_sources", cfg.shard_sources)):
+                         ("profile_steps", bool(cfg.profile_steps))):
             if on:
                 raise NotImplementedError(
                     f"cfg.{knob} is not ported to the PyTorch trainer yet (ROADMAP Queue A)")
+        if cfg.shard_sources:
+            raise NotImplementedError(
+                "cfg.shard_sources is not ported to the PyTorch trainer yet (ROADMAP A6b: "
+                "the source-axis sharding of crosscoder_tpu/parallel/mesh.py _SOURCE_SPECS)")
+        if mesh is None and (dist.is_initialized() or cfg.model_axis_size > 1
+                             or cfg.data_axis_size > 1):
+            mesh = mesh_lib.mesh_from_cfg(cfg)
+        if mesh is not None:
+            _check_mesh(cfg, mesh)
+        self.mesh = mesh
         self.cfg = cfg
         self.device = resolve_device(device)
         if buffer is None:
@@ -220,22 +333,28 @@ class Trainer:
         self._resample_fn = None
         self.opt = Optimizer(cfg, schedules.lr_schedule(cfg))
         self.state = state if state is not None else init_train_state(
-            cfg, self.opt, device=self.device)
+            cfg, self.opt, device=self.device,
+            n_data=mesh.data_size if mesh is not None else None)
         # a step updates in place only a state this trainer made (init,
         # restore, an earlier step): a state handed in stays the caller's
         self._owns_state = state is None
+        if mesh is not None:
+            self.state = mesh_lib.shard_state(mesh, self.state)
+            self._owns_state = True
         self._scale = None
         self._scale_src = None
         self._step_fns: dict[tuple[bool, bool, bool], Callable] = {}
         self._host_step = self.state.step
-        if cc.use_sparse_bwd(cfg, cfg.batch_size):
+        primary = multihost.is_primary()
+        if cc.use_sparse_bwd(cfg, cfg.batch_size) and primary:
             print(f"[crosscoder_tpu_torch] sparse backward plane active "
                   f"({'K10 scatter kernel' if self.device.type == 'cuda' else 'plain scatter'})",
                   file=sys.stderr, flush=True)
         if cfg.resume:
             meta = self.restore()
-            print(f"[crosscoder_tpu_torch] resumed at step {meta['step']}", file=sys.stderr,
-                  flush=True)
+            if primary:
+                print(f"[crosscoder_tpu_torch] resumed at step {meta['step']}", file=sys.stderr,
+                      flush=True)
 
     def save(self, background: bool = False) -> None:
         """Checkpoint the state and the buffer's position now (nothing
@@ -244,7 +363,7 @@ class Trainer:
         if self.checkpointer is not None:
             self._quiesce_refill()
             self.checkpointer.save(self.state, self.cfg, buffer=self.buffer,
-                                   background=background)
+                                   background=background, mesh=self.mesh)
 
     def _quiesce_refill(self) -> None:
         """Drain the buffer's refill dispatcher, whose thread moves the
@@ -268,7 +387,7 @@ class Trainer:
         if self.checkpointer is None:
             raise ValueError("Trainer has no checkpointer to restore from")
         self.state, meta = self.checkpointer.restore(self.cfg, version_dir, save,
-                                                     device=self.device)
+                                                     device=self.device, mesh=self.mesh)
         self._owns_state = True
         self._host_step = self.state.step
         if "buffer" in meta and hasattr(self.buffer, "load_state_dict"):
@@ -308,6 +427,9 @@ class Trainer:
         source has it (scaled in the step), else ``next()``. A batch
         already on the device is not copied."""
         b = self._serve_once()
+        if self.mesh is not None:       # this rank's rows of the global batch
+            rows = b.shape[0] // self.mesh.data_size
+            b = b[self.mesh.data_rank * rows:(self.mesh.data_rank + 1) * rows]
         if not torch.is_tensor(b):
             b = torch.from_numpy(np.ascontiguousarray(b))
         return b.to(self.device, non_blocking=True)
@@ -322,7 +444,8 @@ class Trainer:
         fn = self._step_fns.get(key)
         if fn is None:
             fn = self._step_fns[key] = make_step_body(
-                self.cfg, self.opt, with_metrics=key[0], aux_on=key[1], mask_refresh=key[2])
+                self.cfg, self.opt, with_metrics=key[0], aux_on=key[1], mask_refresh=key[2],
+                mesh=self.mesh)
         batch = self._next_batch()
         scale = self._device_scale()
         n_resampled = None
@@ -345,7 +468,7 @@ class Trainer:
         """Log the step's scalars; under the paged harvest also
         ``harvest/padding_efficiency``, the real-token share of everything
         harvested so far (padded runs log the reference's scalars only)."""
-        if self.logger is not None:
+        if self.logger is not None and multihost.is_primary():
             scalars = expand_metrics(metrics, self.cfg.n_sources)
             scalars.update(self.resilience.snapshot())
             eff = getattr(self.buffer, "padding_efficiency", None)
@@ -446,6 +569,20 @@ class Trainer:
             print("[crosscoder_tpu_torch] SIGTERM: stopping after this step, writing "
                   "checkpoint", file=sys.stderr, flush=True)
 
+        multi_rank = self.mesh is not None and multihost.world_size() > 1
+
+        def stop_agreed(i: int) -> bool:
+            """The stop as every rank sees it: a SIGTERM may reach one rank
+            only, and the save after the loop is a collective, so on more
+            than one rank the flag is OR-reduced every
+            ``cfg.stop_poll_every`` steps (the same steps on every rank)."""
+            if not multi_rank:
+                return stop
+            if i % self.cfg.stop_poll_every:
+                return False
+            flag = torch.full((1,), int(stop), dtype=torch.int32, device=self.device)
+            return bool(coll.all_reduce_(flag, self.mesh.world_group, dist.ReduceOp.MAX)[0])
+
         in_main_thread = threading.current_thread() is threading.main_thread()
         if in_main_thread:
             prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
@@ -460,7 +597,7 @@ class Trainer:
                 start = self.step_counter
                 last_t, last_i = time.perf_counter(), start
                 for i in range(start, num_steps):
-                    if stop:
+                    if stop_agreed(i):
                         break
                     metrics = self.step(full_metrics=(i % self.cfg.log_every == 0))
                     if i % self.cfg.log_every == 0:

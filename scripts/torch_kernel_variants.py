@@ -203,7 +203,7 @@ def scatter(torch) -> None:
     defaults = {"_T": sg._T, "_RB": sg._RB, "work_list": shipped_list}
     for turn in range(2):
         for label, lib, py in libs:
-            _build._libs["scatter_rows"] = lib
+            _build._libs["scatter_rows"] = _build.set_prototypes(lib, sg.PROTOTYPES)
             for k, v in {**defaults, **py}.items():
                 setattr(sg, k, row_order if v == "row order" else v)
             for shape, (c, i, n) in shapes.items():
@@ -234,7 +234,7 @@ def emit(torch) -> None:
         lib_ms = time_ms(torch, lambda: torch.nn.functional.threshold(h, t, 0.0))
         print(f"K9 emit turn {turn} [F.threshold]: {lib_ms:.4f} ms", flush=True)
         for label, lib in libs:
-            _build._libs["batchtopk"] = lib
+            _build._libs["batchtopk"] = _build.set_prototypes(lib, tp.BATCHTOPK_PROTOTYPES)
             same = torch.equal(tp.batchtopk_emit(h, kth).view(torch.int16), want)
             ms = time_ms(torch, lambda: tp.batchtopk_emit(h, kth))
             print(f"K9 emit turn {turn} [{label}]: {ms:.4f} ms, bitwise "
@@ -292,8 +292,6 @@ def _topk_inputs(torch):
 
 
 def split(torch, csrc: Path) -> None:
-    import ctypes as ct
-
     from crosscoder_tpu_torch.ops import _build
     from crosscoder_tpu_torch.ops import topk_pallas as tp
 
@@ -304,10 +302,11 @@ def split(torch, csrc: Path) -> None:
         k5 = list(pool.map(lambda v: build("topk_mask", v[0], v[1], None, csrc), SPLIT_K5))
     for turn in range(2):
         for (label, *_), lib in zip(SPLIT_K7, k7):
-            _build._libs["topk_chunked"] = lib
+            _build._libs["topk_chunked"] = _build.set_prototypes(
+                lib, tp.MASK_PROTOTYPES["topk_chunked"])
             for shape in ("K7 bf16 [4096, 131072]", "K7 f32 [4096, 32768]"):
                 h = hs[shape]
-                bf16 = (ct.c_int, int(h.dtype == torch.bfloat16))
+                bf16 = int(h.dtype == torch.bfloat16)
 
                 def run():
                     return tp._launch_mask("topk_chunked", "topk_chunked_launch", h, k, (bf16,))
@@ -320,7 +319,7 @@ def split(torch, csrc: Path) -> None:
                 print(f"split {shape} turn {turn} [streaming: {label}]: "
                       f"{time_ms(torch, run):.4f} ms{check}", flush=True)
         for (label, _), lib in zip(SPLIT_K5, k5):
-            _build._libs["topk_mask"] = lib
+            _build._libs["topk_mask"] = _build.set_prototypes(lib, tp.MASK_PROTOTYPES["topk_mask"])
             h = hs["K5 bf16 [4096, 32768]"]
 
             def run():
@@ -497,7 +496,9 @@ def topk(torch) -> None:
     shipped = {n: getattr(tp, n) for n in ("_SLICE_BYTES",)}
     for turn in range(2):
         for (label, _, py, _), lib7, lib5 in zip(TOPK, k7, k5):
-            _build._libs["topk_chunked"], _build._libs["topk_mask"] = lib7, lib5
+            _build._libs["topk_chunked"] = _build.set_prototypes(
+                lib7, tp.MASK_PROTOTYPES["topk_chunked"])
+            _build._libs["topk_mask"] = _build.set_prototypes(lib5, tp.MASK_PROTOTYPES["topk_mask"])
             for n, v in {**shipped, **py}.items():
                 setattr(tp, n, v)
             for shape, h in hs.items():

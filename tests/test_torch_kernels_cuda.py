@@ -355,14 +355,11 @@ def test_topk_mask_kernel_widths_bitwise_match_plain(cuda, W, k):
 
 def test_topk_cluster_launch_refuses_a_cluster_past_eight(cuda):
     """A cluster shape the kernel does not take raises; nothing falls back."""
-    import ctypes
-
     from crosscoder_tpu_torch.ops import _build
 
     h = torch.ones((4, 2 ** 18), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(_build.KernelLaunchError):
-        topk_pallas._launch_mask("topk_chunked", "topk_cluster_launch", h, 4,
-                                 ((ctypes.c_int, 2 ** 15), (ctypes.c_int, 9), (ctypes.c_int, 1)))
+        topk_pallas._launch_mask("topk_chunked", "topk_cluster_launch", h, 4, (2 ** 15, 9, 1))
 
 
 def test_scatter_counter_stays_the_wrappers_under_a_stand_in(cuda, monkeypatch):

@@ -1,6 +1,8 @@
 """The port's Trainer refuses every config knob whose JAX behaviour it has
 not ported, rather than running a different job without a word; the
-defaults (and ``data_axis_size = -1``, all of one device) still train."""
+defaults (and ``data_axis_size = -1``, all of one device) still train. A
+mesh axis wider than the ranks present is refused as the JAX ``make_mesh``
+refuses it (the mesh itself is ported)."""
 
 import pytest
 import torch
@@ -9,6 +11,9 @@ from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.train.trainer import Trainer
 
 BASE = dict(d_in=16, dict_size=64, batch_size=8, num_tokens=16, log_backend="null")
+# one process, no process group: a 2-wide axis does not fit one rank
+_MESH_WIDER_THAN_WORLD = {"model_axis_size": (ValueError, "must divide device count 1"),
+                          "data_axis_size": (ValueError, "mesh 2x1 != 1 devices")}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -20,7 +25,9 @@ BASE = dict(d_in=16, dict_size=64, batch_size=8, num_tokens=16, log_backend="nul
     ("shard_sources", True),
 ])
 def test_unported_knob_raises(knob, value):
-    with pytest.raises(NotImplementedError, match=f"cfg.{knob} is not ported"):
+    exc, match = _MESH_WIDER_THAN_WORLD.get(knob, (NotImplementedError,
+                                                   f"cfg.{knob} is not ported"))
+    with pytest.raises(exc, match=match):
         Trainer(CrossCoderConfig(**BASE, **{knob: value}), device="cpu")
 
 
