@@ -213,7 +213,28 @@ one NVIDIA Hopper card and the CUDA toolkit:
    all_reduce in f32 and bf16; then a CPU rehearsal of the multi-rank path
    (this script's ``--cpu-rank`` workers on gloo, no card visible: 2 x 2
    ranks against one at a tiny width, 3 steps, rtol 2e-4 / atol 2e-5);
-12. prints the kernel table as one JSON line, the card line, and
+12. the parallel harvest on the card, at the one grid one card holds (an
+   NCCL group of one rank: every collective an identity, no ring hop ever
+   runs on the card): leg RA, the ring's fold (``ring_attention.fold_block``)
+   over 8 blocks of 1024 in one process at Gemma-2-2B's attention shape (B
+   1, S 8192, 8 query heads on 4 KV heads of 256, softcap 50, window 4096)
+   against the dense attention over the row, global and local, f32 and
+   bf16 and one bf16 case with sharp logits, at K1's bars, timed; leg SP,
+   ``run_with_cache_multi_seq_parallel`` of two random-init Gemma-2-2B
+   models on a [4, 1024] chunk at ``blocks.14.hook_resid_pre`` against
+   ``run_with_cache_multi`` at phase 9's harvest bar (2e-2 relative error
+   per source, in norm; the largest error over the largest value logged),
+   and against the same forward in f32, where its error, in norm and at
+   the worst position, is at most 1.1x the dense harvest's, timed; leg TP,
+   the tensor-parallel forward (``shard_params_tp`` over the one-rank
+   model group, logits and capture) bitwise the whole
+   forward, timed; leg MS, the mesh-sharded stores (bf16 and int8, K11 on
+   the int8 refill) 8 serves bitwise the device stores from the same
+   tokens, then 6 TopK steps (sparse backward) of a mesh Trainer on each
+   bitwise a single-device Trainer on the device store, K11, K5, K8, K10
+   and O1 counted; leg SS, ``shard_sources`` on a grid of one, 4 steps
+   bitwise the single-device Trainer;
+13. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -222,6 +243,7 @@ Any failed check exits nonzero before the last line is printed.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import shutil
@@ -4117,6 +4139,347 @@ def parallel(torch, np, root):
     return {"M": launches, "M BatchTopK": bt_launches}, row_k11, exchange
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the parallel harvest at world size 1 (one card), and the ring's
+# fold over 8 blocks in one process
+
+# leg RA at Gemma-2-2B's attention shape: 8 query heads on 4 KV heads of
+# 256, softcap 50, window 4096 (so an 8192-token row has both masks live),
+# 8 blocks of 1024; held to K1's bars
+RA = dict(B=1, S=8192, blocks=8, H=8, KV=4, hd=256, softcap=50.0, window=4096,
+          scale=256.0 ** -0.5)
+RA_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+# legs SP and TP: a [4, 1024] chunk of phase 7's corpus; TP with logits on 2
+# rows (its unembedding's logits are [2, 1024, 256000] f32)
+SP_ROWS, TP_ROWS = 4, 2
+# leg SP's second bar: its error against an f32 forward of the same models
+# at most this multiple of the dense harvest's, in norm and at the worst
+# position
+SP_F32_RATIO = 1.1
+# leg MS: phase 7's harvest config, TopK k=32 with the sparse backward, 8
+# serves and 6 steps on each store; leg SS: leg A's config with
+# shard_sources, 4 steps
+MS = dict(HARVEST, activation="topk", sparse_bwd="on", fused_encoder="off", aux_k=0,
+          buffer_device="hbm")
+MS_SERVES, MS_STEPS, SS_STEPS = 8, 6, 4
+
+
+def ring_fold(torch, ra, q, k, v, is_local):
+    """Each block's output by folding the blocks it would receive, in ring
+    order (its own first), with ``ring_attention.fold_block``; the whole
+    ``[B, S, H*hd]`` output and the ms of the last block's 8 folds and of
+    all 64 (CUDA events)."""
+    S, n = q.shape[1], RA["blocks"]
+    Sb = S // n
+    outs = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for r in range(n):
+        if r == n - 1:
+            ev[2].record()
+        qb = q[:, r * Sb:(r + 1) * Sb]
+        qg = ra.scaled_queries(qb, RA["KV"], RA["scale"])
+        q_pos = r * Sb + torch.arange(Sb, device=q.device)
+        m, l, o = ra.init_state(q.shape[0], Sb, RA["KV"], RA["H"] // RA["KV"], RA["hd"],
+                                q.device)
+        for step in range(n):
+            owner = (r - step) % n
+            blk = slice(owner * Sb, (owner + 1) * Sb)
+            k_pos = owner * Sb + torch.arange(Sb, device=q.device)
+            m, l, o = ra.fold_block(m, l, o, qg, q_pos, k[:, blk], v[:, blk], k_pos,
+                                    softcap=RA["softcap"], sliding_window=RA["window"],
+                                    is_local=is_local)
+        outs.append(ra.finish(l, o, q.dtype))
+    ev[3].record()
+    ev[1].record()
+    torch.cuda.synchronize()
+    out = torch.cat(outs, dim=1).reshape(q.shape[0], S, -1)
+    return out, ev[2].elapsed_time(ev[3]), ev[0].elapsed_time(ev[1])
+
+
+def ring_leg(torch):
+    """Leg RA: the ring's fold over 8 blocks against the dense attention
+    over the whole row, global and local layers, f32 and bf16, and one
+    bf16 case with sharp logits (q x 30, v / 4) so the cap shows."""
+    from crosscoder_tpu_torch.ops import paged_attention as pa
+    from crosscoder_tpu_torch.parallel import ring_attention as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shape = (RA["B"], RA["S"])
+    base = [torch.randn((*shape, n, RA["hd"]), generator=gen, device="cuda")
+            for n in (RA["H"], RA["KV"], RA["KV"])]
+    res = []
+    cases = [(dt, loc, False) for dt in ("fp32", "bf16") for loc in (False, True)]
+    cases.append(("bf16", True, True))
+    ring_fold(torch, ra, *base, False)          # warm-up: the first einsums' set-up
+    for dt, is_local, sharp in cases:
+        dtype = torch.float32 if dt == "fp32" else torch.bfloat16
+        q, k, v = (t.to(dtype) for t in base)
+        if sharp:
+            q, v = (q.float() * 30).to(dtype), (v.float() / 4).to(dtype)
+        got, ms8, ms64 = ring_fold(torch, ra, q, k, v, is_local)
+        dense_ms = time_ms(lambda: pa.ragged_attention_reference(
+            q, k, v, None, scale=RA["scale"], softcap=RA["softcap"], window=RA["window"],
+            is_local=is_local), 2)
+        want = pa.ragged_attention_reference(q, k, v, None, scale=RA["scale"],
+                                             softcap=RA["softcap"], window=RA["window"],
+                                             is_local=is_local)
+        err, rel = _k1_err(got, want, [RA["S"]] * RA["B"], RA["H"])
+        tol = RA_TOL[dt]
+        label = (f"{dt} {'local' if is_local else 'global'}{' sharp' if sharp else ''}")
+        if not (err <= tol and (dt == "fp32" or rel <= tol)):
+            fail(f"ring leg RA {label}: max |ring - dense| {err:.3e}, row-relative {rel:.3e} "
+                 f"over the bar {tol}")
+        res.append(f"{label}: err {err:.3e} rel {rel:.3e}, 8 folds {ms8:.3f} ms, 64 folds "
+                   f"{ms64:.3f} ms, dense {dense_ms:.3f} ms")
+    log(f"parallel harvest: leg RA, the ring fold over {RA['blocks']} blocks of "
+        f"{RA['S'] // RA['blocks']} (B {RA['B']}, S {RA['S']}, {RA['H']} heads on {RA['KV']} "
+        f"KV of {RA['hd']}, softcap {RA['softcap']}, window {RA['window']}) against the dense "
+        f"attention over the row (CUDA events): " + "; ".join(res))
+
+
+def _rel_errs(got, want):
+    """Per source: the relative error in norm (phase 9's harvest measure)
+    and max |got - want| over max |want|."""
+    g, w = got.float(), want.float()
+    out = []
+    for s in range(g.shape[2]):
+        d = g[:, :, s] - w[:, :, s]
+        out.append((float(d.norm() / w[:, :, s].norm()),
+                    float(d.abs().max() / w[:, :, s].abs().max())))
+    return out
+
+
+def _pos_errs(got, want):
+    """Per source: the largest relative error in norm of one position (the
+    norm over ``d_model``), which a fault confined to a few positions
+    cannot hide as the norm over the whole chunk does."""
+    g, w = got.float(), want.float()
+    e = (g - w).norm(dim=-1) / w.norm(dim=-1)
+    return [float(e[:, :, s].max()) for s in range(e.shape[2])]
+
+
+def _f32_params(torch, params):
+    return {k: (_f32_params(torch, v) if isinstance(v, dict) else v.float())
+            for k, v in params.items()}
+
+
+def _counted(torch, counters, acc, fn):
+    """``fn()`` with every launch counter set to 0 just before and read
+    just after, added to ``acc``."""
+    reset_counters(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    for n, c in counters.items():
+        if c.launches:
+            acc[n] = acc.get(n, 0) + c.launches
+    return out
+
+
+def device_leg(torch, lm_cfg, params, tokens, quant):
+    """Leg MS's reference for one store format, built before the group is
+    joined: the device store make_buffer picks on one rank and a
+    single-device Trainer on it, from a fresh state."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data import buffer as bufmod
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+
+    cfg = CrossCoderConfig(**MS, quant_buffer=quant, num_tokens=MS["batch_size"] * MS_STEPS)
+    t0 = time.perf_counter()
+    bd = bufmod.make_buffer(cfg, lm_cfg, params, tokens, device="cuda")
+    torch.cuda.synchronize()
+    fill = time.perf_counter() - t0
+    if type(bd).__name__ != ("QuantPairedActivationBuffer" if quant else "PairedActivationBuffer"):
+        fail(f"leg MS: make_buffer on one rank picked {type(bd).__name__}")
+    state0 = init_train_state(cfg, Optimizer(cfg, lambda s: 0.0), device="cuda")
+    tr_d = trainer_mod.Trainer(cfg, bd, device="cuda", state=state0)
+    if tr_d.mesh is not None:
+        fail("leg MS: the reference Trainer took a grid")
+    return dict(cfg=cfg, bd=bd, tr_d=tr_d, state0=state0, fill_dev_s=fill)
+
+
+def store_leg(torch, np, mesh, lm_cfg, params, tokens, ref):
+    """Leg MS for one store format: the mesh-sharded store on the one-rank
+    data group from the tokens of the reference device store, 8 serves
+    bitwise its serves, then a mesh Trainer on the mesh store in turns with
+    the reference's single-device Trainer, 6 steps bitwise. Returns the
+    mesh path's launches (its fill, serves and steps) and times."""
+    from crosscoder_tpu_torch.data import buffer as bufmod
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+
+    cfg, bd = ref["cfg"], ref["bd"]
+    quant = cfg.quant_buffer
+    label = f"leg MS {'int8' if quant else 'bf16'}"
+    cls = bufmod.QuantMeshPairedActivationBuffer if quant else bufmod.MeshPairedActivationBuffer
+    counters = launch_counters()
+    acc: dict = {}
+    t0 = time.perf_counter()
+    bm = _counted(torch, counters, acc, lambda: cls(cfg, lm_cfg, params, tokens, device="cuda",
+                                                    mesh=mesh))
+    fill_m = time.perf_counter() - t0
+    if not np.array_equal(bm.normalisation_factor, bd.normalisation_factor):
+        fail(f"{label}: the mesh store's norm factors {bm.normalisation_factor} differ from "
+             f"the device store's {bd.normalisation_factor}")
+    for i in range(MS_SERVES):
+        a = _counted(torch, counters, acc, bm.next_raw)
+        b = bd.next_raw()
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            fail(f"{label}: serve {i} of the mesh store differs from the device store's")
+    tr_m = trainer_mod.Trainer(cfg, bm, device="cuda", state=ref["state0"], mesh=mesh)
+    _, t_m, launches, _ = _mesh_steps(torch, ref["tr_d"], tr_m, MS_STEPS, label)
+    for n, c in launches.items():
+        acc[n] = acc.get(n, 0) + c
+    check_o1(label, launches, MS_STEPS)
+    nbytes = bm.store_nbytes()
+    del tr_m, bm
+    return acc, dict(fill_mesh_s=fill_m, fill_dev_s=ref["fill_dev_s"], step_ms=t_m,
+                     nbytes=nbytes)
+
+
+def parallel_harvest(torch, np, root):
+    """Phase 12: the parallel harvest on an NCCL group of one rank: leg RA
+    (the ring's fold over 8 blocks, no group), leg SP (the sequence-parallel
+    harvest), leg TP (the tensor-parallel LM, bitwise), leg MS (the
+    mesh-sharded stores, bf16 and int8, bitwise the device stores, and
+    TopK training on their rows) and leg SS (shard_sources, bitwise).
+    Returns the launches of the MS and SS paths."""
+    import torch.distributed as dist
+
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.models import lm
+    from crosscoder_tpu_torch.parallel import collectives as coll
+    from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+    from crosscoder_tpu_torch.parallel import multihost
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+
+    t_phase = time.perf_counter()
+    ring_leg(torch)
+    lm_cfg = lm.LMConfig.gemma2_2b()
+    params = [lm.init_params(lm_cfg, seed=s, device="cuda") for s in (1, 2)]
+    tokens = harvest_tokens(np, 256, HARVEST["seq_len"], lm_cfg.vocab_size, 6)
+    # the single-device references, built before the group exists (a
+    # Trainer built inside a group takes the group's grid)
+    refs = {quant: device_leg(torch, lm_cfg, params, tokens, quant) for quant in (False, True)}
+    B = TRAIN["batch_size"]
+    cfg_s = CrossCoderConfig(**TRAIN, fused_encoder="off", num_tokens=B * SS_STEPS)
+    batches = DeviceBatches(torch, SyntheticActivationSource(cfg_s), SS_STEPS + 1)
+    state_s = init_train_state(cfg_s, Optimizer(cfg_s, lambda s: 0.0), device="cuda")
+    tr_s = trainer_mod.Trainer(cfg_s, Replay(batches.batches, None), device="cuda",
+                               state=state_s)
+    store_root = ckpt_dir(root)
+    multihost.initialize("cuda:0", store=dist.FileStore(str(store_root / "store"), 1),
+                         world_size=1, rank=0)
+    mesh = mesh_lib.make_mesh(1, 1)
+    hook = (HARVEST["hook_point"],)
+
+    # leg SP: the sequence split over the one-rank data group
+    tok = torch.as_tensor(tokens[:SP_ROWS], device="cuda")
+    coll.reset_counts()
+    sp = lm.run_with_cache_multi_seq_parallel(params, tok, lm_cfg, hook, mesh)
+    sp_calls = dict(coll.calls)
+    dense = lm.run_with_cache_multi(params, tok, lm_cfg, hook)
+    errs = _rel_errs(sp, dense)
+    if sp.shape != dense.shape or not max(e[0] for e in errs) <= HARVEST_REL_TOL:
+        fail(f"leg SP: the sequence-parallel harvest {tuple(sp.shape)} differs from the dense "
+             f"one {tuple(dense.shape)}: relative error per source (in norm, max over max) "
+             f"{errs}, bar {HARVEST_REL_TOL} in norm")
+    # both bf16 harvests against the same forward in f32
+    ref = lm.run_with_cache_multi([_f32_params(torch, p) for p in params], tok,
+                                  dataclasses.replace(lm_cfg, dtype="fp32"), hook)
+    e32 = {"seq-parallel": _rel_errs(sp, ref), "dense": _rel_errs(dense, ref)}
+    p32 = {"seq-parallel": _pos_errs(sp, ref), "dense": _pos_errs(dense, ref)}
+    del ref
+    # the ring no further from the f32 forward than the dense harvest, in
+    # norm and at its worst position
+    for what, e in (("in norm", [(a[0], b[0]) for a, b in zip(e32["seq-parallel"],
+                                                             e32["dense"])]),
+                    ("at the worst position", list(zip(p32["seq-parallel"], p32["dense"])))):
+        if not all(a <= SP_F32_RATIO * b for a, b in e):
+            fail(f"leg SP: against the f32 forward, {what}, the sequence-parallel harvest's "
+                 f"error per source exceeds {SP_F32_RATIO}x the dense harvest's: {e}")
+    sp_ms = time_ms(lambda: lm.run_with_cache_multi_seq_parallel(params, tok, lm_cfg, hook,
+                                                                 mesh), 2)
+    dense_ms = time_ms(lambda: lm.run_with_cache_multi(params, tok, lm_cfg, hook), 2)
+    fmt = lambda es: [f"{a:.3e} / {b:.3e}" for a, b in es]   # noqa: E731
+    log(f"parallel harvest: leg SP, run_with_cache_multi_seq_parallel of both models on "
+        f"[{SP_ROWS}, {HARVEST['seq_len']}] at {hook[0]} over the one-rank data group "
+        f"(collectives {sp_calls}) against run_with_cache_multi: relative error per source, "
+        f"in norm / max over max, {fmt(errs)} (bar {HARVEST_REL_TOL} in norm, phase 9's "
+        f"harvest measure); against the f32 forward: seq-parallel {fmt(e32['seq-parallel'])}, "
+        f"dense {fmt(e32['dense'])}; at the worst position, seq-parallel "
+        f"{[f'{a:.3e}' for a in p32['seq-parallel']]}, dense "
+        f"{[f'{a:.3e}' for a in p32['dense']]} (bar: seq-parallel <= {SP_F32_RATIO}x dense, "
+        f"both measures); {sp_ms:.3f} ms against {dense_ms:.3f} ms (CUDA events)")
+    del sp, dense
+
+    # leg TP: the tensor-parallel LM over the one-rank model group, bitwise
+    tp = lm.shard_params_tp(params[0], mesh, lm_cfg)
+    tok2 = torch.as_tensor(tokens[:TP_ROWS], device="cuda")
+    with torch.no_grad():
+        coll.reset_counts()
+        lt, ct = lm.forward(tp, tok2, lm_cfg, capture=hook)
+        tp_calls = dict(coll.calls)
+        lw, cw = lm.forward(params[0], tok2, lm_cfg, capture=hook)
+    if not (torch.equal(lt.view(torch.int32), lw.view(torch.int32))
+            and torch.equal(ct[hook[0]].view(torch.int16), cw[hook[0]].view(torch.int16))):
+        fail("leg TP: the tensor-parallel forward at one rank differs from the whole forward")
+    del lt, ct, lw, cw
+    with torch.no_grad():
+        tp_ms = time_ms(lambda: lm.forward(tp, tok2, lm_cfg, capture=hook), 2)
+        whole_ms = time_ms(lambda: lm.forward(params[0], tok2, lm_cfg, capture=hook), 2)
+    log(f"parallel harvest: leg TP, the tensor-parallel forward (logits [{TP_ROWS}, "
+        f"{HARVEST['seq_len']}, {lm_cfg.vocab_size}] f32 and {hook[0]}) over the one-rank "
+        f"model group bitwise the whole forward; collectives {tp_calls}; {tp_ms:.3f} ms "
+        f"against {whole_ms:.3f} ms (CUDA events)")
+    del tp
+
+    # leg MS: the mesh-sharded stores
+    launches: dict = {}
+    ms_info = {}
+    for quant in (False, True):
+        acc, info = store_leg(torch, np, mesh, lm_cfg, params, tokens, refs.pop(quant))
+        ms_info["int8" if quant else "bf16"] = info
+        for n, c in acc.items():
+            launches[n] = launches.get(n, 0) + c
+    if not launches.get("quantize_rows"):
+        fail(f"leg MS: K11 never launched on the int8 mesh store's refill: {launches}")
+    for n in ("topk_mask", "sparsify", "scatter_add_rows", "adam_update"):
+        if not launches.get(n):
+            fail(f"leg MS: {n} never launched on the mesh store's steps: {launches}")
+    log(f"parallel harvest: leg MS, MeshPairedActivationBuffer and "
+        f"QuantMeshPairedActivationBuffer on the one-rank data group, {MS_SERVES} serves "
+        f"each bitwise the device store's from the same tokens, then {MS_STEPS} TopK steps "
+        f"(sparse backward) each bitwise the single-device Trainer on the device store; "
+        f"launches (fills, serves, steps) {launches}; "
+        + "; ".join(f"{k}: fill {v['fill_mesh_s']:.2f} s (device store {v['fill_dev_s']:.2f} "
+                    f"s), store {v['nbytes'] / 1e6:.1f} MB, mesh step ms "
+                    f"{[round(t, 2) for t in v['step_ms']]}" for k, v in ms_info.items()))
+    del params
+
+    # leg SS: shard_sources on a grid of one
+    tr_ss = trainer_mod.Trainer(cfg_s.replace(shard_sources=True),
+                                Replay(batches.batches, None), device="cuda", state=state_s,
+                                mesh=mesh)
+    _, t_ss, ss_launches, ss_calls = _mesh_steps(torch, tr_s, tr_ss, SS_STEPS, "leg SS")
+    check_o1("leg SS", ss_launches, SS_STEPS)
+    for n, c in ss_launches.items():
+        launches[n] = launches.get(n, 0) + c
+    log(f"parallel harvest: leg SS, shard_sources on a grid of one (W_enc split on its "
+        f"source axis, the pre-activations summed over model), {SS_STEPS} steps each bitwise "
+        f"the single-device Trainer; launches {ss_launches}; NCCL calls a step by op "
+        f"{ {op: sorted(set(n)) for op, n in ss_calls.items()} }; step ms "
+        f"{[round(t, 2) for t in t_ss]}")
+    del tr_s, tr_ss, batches
+    multihost.shutdown()
+    shutil.rmtree(store_root, ignore_errors=True)
+    log(f"parallel harvest phase {time.perf_counter() - t_phase:.1f} s (one card: NCCL at "
+        f"world size 1, every collective an identity, no ring hop)")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cpu-rank"]:      # a rank of the CPU rehearsal (phase 11)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -4231,10 +4594,12 @@ def main() -> int:
     row_o1["launches"] = o1 + sum(leg.get("adam_update", 0)
                                   for leg in (legs["J"], d15, d17, legs["R"], legs["G"]))
     mesh_legs, row_k11_exchange, _ = parallel(torch, np, root)
+    mesh_legs["MS and SS"] = parallel_harvest(torch, np, root)
     for leg in mesh_legs.values():
         for row in (*train_rows[:3], *harvest_rows):
             row["launches"] += leg.get(row["name"].split()[0], 0)
         row_o1["launches"] += leg.get("adam_update", 0)
+    quant_rows[0]["launches"] += mesh_legs["MS and SS"].get("quantize_rows", 0)
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
               *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

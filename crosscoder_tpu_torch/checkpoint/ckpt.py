@@ -317,7 +317,7 @@ class Checkpointer:
             if mesh is not None:
                 from crosscoder_tpu_torch.parallel.mesh import gather_state
 
-                state = gather_state(mesh, state)
+                state = gather_state(mesh, state, cfg.shard_sources)
             self.wait()
             if not multihost.is_primary():
                 self.save_version += 1
@@ -531,7 +531,7 @@ class Checkpointer:
             if mesh is not None:
                 from crosscoder_tpu_torch.parallel.mesh import shard_state
 
-                state = shard_state(mesh, state)
+                state = shard_state(mesh, state, cfg.shard_sources)
             meta = json.loads((vdir / f"{v}_meta.json").read_text())
             self.save_dir, self.save_version = vdir, v + 1
             return state, meta

@@ -8,13 +8,14 @@ and the training knobs (``crosscoder_tpu/config.py`` ``__post_init__``:
 the TopK tier rules for ``sparse_decode``/``factored_decode``/
 ``sparse_bwd``/``fused_encoder``/``quant_encoder``, the sparsity and AuxK
 knobs, the loop and guard knobs, ``quant_grads`` only under pure data
-parallelism and not with ``batchtopk``) and the replay-buffer knobs
-(``refill_frac``, ``buffer_device``, ``seq_shards``, ``refill_overlap``,
-``quant_block`` under ``quant_buffer``), with the JAX package's messages.
-:meth:`CrossCoderConfig.check_buffer` refuses a buffer the port cannot
-build (too small, or a buffer knob not ported yet). Knobs of parts not
-ported yet (``shard_sources``, elastic, fleet, compile cache, tuner) are carried as
-plain values. :meth:`CrossCoderConfig.from_cli` reflects every
+parallelism and not with ``batchtopk``, ``n_sources`` divisible by the
+model axis under ``shard_sources``) and the replay-buffer knobs
+(``refill_frac``, ``buffer_device``, ``seq_shards``, ``shard_lm``,
+``refill_overlap``, ``quant_block`` under ``quant_buffer``), with the JAX
+package's messages. :meth:`CrossCoderConfig.check_buffer` refuses a
+buffer the port cannot build (too small, or a buffer knob not ported
+yet). Knobs of parts not ported yet (elastic, fleet, compile cache,
+tuner) are carried as plain values. :meth:`CrossCoderConfig.from_cli` reflects every
 field into a flag as the JAX package does; ``--tuned`` raises until the
 autotuner is ported.
 """
@@ -332,6 +333,11 @@ class CrossCoderConfig:
                 "(unbounded) or >= 2")
         if self.quant_block < 1:
             raise ValueError(f"quant_block must be >= 1, got {self.quant_block}")
+        if (self.shard_sources and self.model_axis_size > 1
+                and self.n_sources % self.model_axis_size != 0):
+            raise ValueError(
+                f"shard_sources: n_sources {self.n_sources} must divide by "
+                f"model_axis_size {self.model_axis_size}")
         if self.quant_grads and (self.model_axis_size > 1 or self.shard_sources):
             raise ValueError(
                 "quant_grads supports pure data parallelism only "
@@ -368,8 +374,23 @@ class CrossCoderConfig:
         _check_choice("buffer_device", self.buffer_device, ("host", "hbm"))
         if self.seq_shards < 0:
             raise ValueError("seq_shards must be >= 0")
+        if self.shard_lm and self.model_axis_size < 2:
+            raise ValueError(
+                "shard_lm needs model_axis_size >= 2 (a 1-wide model axis "
+                "shards nothing)")
+        if self.shard_lm and self.seq_shards > 1:
+            raise ValueError(
+                "shard_lm is incompatible with seq_shards: the seq-parallel "
+                "harvest runs whole LM params on every rank, the memory "
+                "shard_lm exists to save")
         if self.seq_shards > 1 and self.seq_len % self.seq_shards != 0:
             raise ValueError(f"seq_shards {self.seq_shards} must divide seq_len {self.seq_len}")
+        if self.harvest_runtime == "paged" and self.seq_shards > 1:
+            raise ValueError(
+                "harvest_runtime='paged' is incompatible with "
+                "seq_shards: the paged plane packs the sequence axis "
+                "densely, while the seq-parallel harvest shards it "
+                "over the mesh — pick one")
         _check_choice("refill_overlap", self.refill_overlap, ("off", "on"))
         if self.refill_dispatch_batch < 1:
             raise ValueError(
@@ -384,17 +405,18 @@ class CrossCoderConfig:
 
     def check_buffer(self) -> None:
         """Raise for a replay buffer this config cannot build in the port:
-        :class:`NotImplementedError` for the buffer knobs not ported yet,
+        :class:`NotImplementedError` for the buffer knobs not ported yet
+        (the fleet's fan-out; the paged harvest under ``shard_lm``),
         :class:`ValueError` for a buffer smaller than two batches."""
-        for knob, on, waits in (
-                ("seq_shards > 1", self.seq_shards > 1, "crosscoder_tpu/parallel/"),
-                ("shard_lm", self.shard_lm, "crosscoder_tpu/parallel/"),
-                ("fleet='on' (multi-consumer fan-out)", self.fleet == "on",
-                 "crosscoder_tpu/train/fleet.py")):
-            if on:
-                raise NotImplementedError(
-                    f"{knob} is not ported to the PyTorch replay buffer yet: it waits for "
-                    f"the port of {waits} (ROADMAP Queue A)")
+        if self.fleet == "on":
+            raise NotImplementedError(
+                "fleet='on' (multi-consumer fan-out) is not ported to the PyTorch replay "
+                "buffer yet: it waits for the port of crosscoder_tpu/train/fleet.py "
+                "(ROADMAP Queue A)")
+        if self.shard_lm and self.harvest_runtime == "paged":
+            raise NotImplementedError(
+                "harvest_runtime='paged' under shard_lm is not ported yet (ROADMAP A6b "
+                "item 4b): harvest with harvest_runtime='padded'")
         rows_per_seq = self.seq_len - 1
         if rows_per_seq < 1:
             raise ValueError(f"the replay buffer needs seq_len >= 2 (BOS is dropped), "

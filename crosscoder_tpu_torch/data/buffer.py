@@ -59,8 +59,19 @@ reaches a store. The JAX package's four class names stay:
 are the two classes above, whose store place follows
 ``cfg.buffer_device``.
 
-Not ported here (``cfg.check_buffer`` raises): mesh-sharded stores,
-multi-consumer fan-out, sequence-parallel harvest.
+Across ranks (a ``mesh``, :mod:`crosscoder_tpu_torch.parallel.mesh`),
+:func:`make_buffer` picks, under ``buffer_device="hbm"`` with a ``data``
+axis wider than 1, the store sharded over ``data``
+(:class:`MeshPairedActivationBuffer`, :class:`QuantMeshPairedActivationBuffer`):
+each rank holds ``ceil(rows / n)`` rows of it, harvests its share of each
+chunk's sequences (or, under ``seq_shards``, the whole chunk through the
+sequence-parallel forward) and serves its own rows of every batch. The
+harvest forward takes tensor-parallel LM params (``shard_lm``) as it
+takes whole ones. A host store refuses more than one rank, as the JAX
+package's does.
+
+Not ported here (``cfg.check_buffer`` raises): multi-consumer fan-out;
+the refill overlap on a mesh store (ROADMAP A6b item 4a).
 """
 
 from __future__ import annotations
@@ -77,16 +88,21 @@ from crosscoder_tpu_torch.models import lm
 from crosscoder_tpu_torch.obs import trace
 from crosscoder_tpu_torch.ops import paged_attention as pa
 from crosscoder_tpu_torch.ops import quant
+from crosscoder_tpu_torch.parallel import collectives as coll
 from crosscoder_tpu_torch.utils import pipeline
 from crosscoder_tpu_torch.utils.device import resolve_device
 from crosscoder_tpu_torch.utils.pipeline import DEFAULT_DEPTH, drive
 
 
-def _chunk_norm_sums(acts: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """Per-source sum of token norms over the first ``n_valid`` sequences
-    of a chunk ``[C, S, n, d]``, f32 ``[n]``, on the chunk's device."""
-    norms = torch.linalg.norm(acts.float(), dim=-1)                      # [C, S, n]
-    mask = (torch.arange(acts.shape[0], device=acts.device) < n_valid)[:, None, None]
+def _token_norms(acts: torch.Tensor) -> torch.Tensor:
+    """The f32 norm of every row of a chunk ``[C, S, n, d]``: ``[C, S, n]``."""
+    return torch.linalg.norm(acts.float(), dim=-1)
+
+
+def _masked_norm_sum(norms: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """Per-source sum of token norms ``[C, S, n]`` over the first
+    ``n_valid`` sequences, f32 ``[n]``, on the chunk's device."""
+    mask = (torch.arange(norms.shape[0], device=norms.device) < n_valid)[:, None, None]
     return (norms * mask).sum(dim=(0, 1))
 
 
@@ -118,19 +134,50 @@ class PairedActivationBuffer:
     copy again).
 
     ``model_params``: one LM param dict per model (``len == cfg.n_models``),
-    on ``device``; ``tokens``: ``[n_seqs, seq_len]`` token ids. Runs on
-    ``cuda`` unless ``device`` names another device. ``lazy=True`` defers
-    calibration and the first fill to :meth:`load_state_dict`.
+    on ``device`` (tensor-parallel ones too, :func:`lm.shard_params_tp`);
+    ``tokens``: ``[n_seqs, seq_len]`` token ids. ``mesh``: the rank grid
+    (needed for ``seq_shards > 1``, whose ``data`` axis carries the
+    sequence). Runs on ``cuda`` unless ``device`` names another device.
+    ``lazy=True`` defers calibration and the first fill to
+    :meth:`load_state_dict`.
     """
 
     PIPELINE_DEPTH = DEFAULT_DEPTH
+    serves_local_rows = False       # each serve is the global batch
 
     def __init__(self, cfg: CrossCoderConfig, lm_cfg: lm.LMConfig,
                  model_params: Sequence[lm.LMParams], tokens, lazy: bool = False,
-                 device=None) -> None:
+                 device=None, mesh=None) -> None:
+        from crosscoder_tpu_torch.parallel import multihost
+
+        if cfg.buffer_device == "host" and multihost.world_size() > 1:
+            # before anything else: every chunk would funnel through one rank
+            raise ValueError(
+                "buffer_device='host' cannot run on a multi-process mesh "
+                "(chunks funnel through one process's RAM); use "
+                "buffer_device='hbm' — the mesh-sharded store")
         if len(model_params) != cfg.n_models:
             raise ValueError(f"got {len(model_params)} param sets for n_models={cfg.n_models}")
         cfg.check_buffer()
+        self.mesh = mesh
+        # sequence-parallel harvest: the mesh's data axis carries the sequence
+        self._seq_mesh = None
+        if cfg.seq_shards > 1:
+            n_data = mesh.data_size if mesh is not None else 1
+            if n_data != cfg.seq_shards:
+                raise ValueError(f"seq_shards {cfg.seq_shards} != mesh data axis {n_data}")
+            self._seq_mesh = mesh
+        if cfg.refill_overlap == "on" and (
+                cfg.shard_lm or self._seq_mesh is not None or self.serves_local_rows
+                or any(lm.TP_KEY in p for p in model_params)):
+            # the harvest (tensor-parallel, sequence-parallel) or the store
+            # (mesh-sharded) issues collectives: the dispatcher thread would
+            # launch them beside the main thread's, in an order the ranks do
+            # not share
+            raise NotImplementedError(
+                "refill_overlap='on' with a harvest or store that issues collectives "
+                "(shard_lm or tensor-parallel LM params, seq_shards > 1, the mesh-sharded "
+                "store) is not ported yet (ROADMAP A6b item 4a)")
         self.cfg = cfg
         self.lm_cfg = lm_cfg
         self.model_params = list(model_params)
@@ -143,7 +190,11 @@ class PairedActivationBuffer:
         rows_per_seq = cfg.seq_len - 1                     # BOS dropped
         self.buffer_batches = cfg.batch_size * cfg.buffer_mult // rows_per_seq
         self.buffer_size = self.buffer_batches * rows_per_seq
-        self._chunk_seqs = cfg.model_batch_size
+        # every harvest runs at this sequence count: a multiple of the data
+        # axis a batch-sharded harvest splits (not under seq_shards, whose
+        # data axis carries the sequence), ragged tails padded
+        data_axis = self._harvest_split()
+        self._chunk_seqs = -(-cfg.model_batch_size // data_axis) * data_axis
         self._paged = cfg.harvest_runtime == "paged"
         if self._paged and self.device.type == "cuda" and cfg.page_size not in pa.PAGE_SIZES:
             raise ValueError(f"harvest_runtime='paged' on the card attends through K1, which "
@@ -181,6 +232,11 @@ class PairedActivationBuffer:
 
     # ------------------------------------------------------------------
     # store
+
+    def _harvest_split(self) -> int:
+        """Ranks a chunk's sequences are split over (1: every rank harvests
+        the whole chunk)."""
+        return 1
 
     def _alloc_store(self) -> None:
         # buffer_size rows, plus the overlap engine's spare rows
@@ -228,7 +284,14 @@ class PairedActivationBuffer:
         if self._paged:
             return self._harvest_dev_paged(padded_tokens)
         tok = torch.as_tensor(np.asarray(padded_tokens, dtype=np.int64), device=self.device)
-        acts = lm.run_with_cache_multi(self.model_params, tok, self.lm_cfg, self.hook_points)
+        if self._seq_mesh is not None:
+            # the sequence split over data (ring attention); the capture
+            # comes back stitched, in the padded layout
+            acts = lm.run_with_cache_multi_seq_parallel(
+                self.model_params, tok, self.lm_cfg, self.hook_points, self._seq_mesh)
+        else:
+            acts = lm.run_with_cache_multi(self.model_params, tok, self.lm_cfg,
+                                           self.hook_points)
         return acts.to(torch.bfloat16)
 
     def _harvest_dev_paged(self, padded_tokens: np.ndarray) -> torch.Tensor:
@@ -268,7 +331,7 @@ class PairedActivationBuffer:
                 chunk = self.tokens[start: start + self._chunk_seqs][:n_seqs - start]
                 padded, n = self._pad_chunk(chunk)
                 count += n * chunk.shape[1]
-                yield _chunk_norm_sums(self._harvest_dev(padded), n)
+                yield _masked_norm_sum(self._chunk_norms(self._harvest_dev(padded)), n)
 
         def drain(part: torch.Tensor) -> None:
             nonlocal sums
@@ -277,6 +340,10 @@ class PairedActivationBuffer:
         drive(produced(), drain, depth=self.PIPELINE_DEPTH)
         mean_norm = sums / max(count, 1)
         return (np.sqrt(cfg.d_in) / mean_norm).astype(np.float32)
+
+    def _chunk_norms(self, acts: torch.Tensor) -> torch.Tensor:
+        """Token norms ``[C, S, n]`` of a whole harvested chunk."""
+        return _token_norms(acts)
 
     def refresh(self) -> None:
         """Synchronous refill (first fill, resume, tests): the whole buffer
@@ -344,7 +411,7 @@ class PairedActivationBuffer:
 
     def _segs_per_chunk(self) -> int:
         """Dispatch quanta one chunk's harvest costs (the pacing unit)."""
-        if self._paged:
+        if self._paged or self._seq_mesh is not None:
             return 1
         return lm.SegmentedHarvest.count(self.lm_cfg, self.hook_points, len(self.model_params))
 
@@ -352,7 +419,7 @@ class PairedActivationBuffer:
         """A steppable harvest of one fixed-shape chunk: the padded
         runtime's :class:`~crosscoder_tpu_torch.models.lm.SegmentedHarvest`
         (nothing dispatched yet), or the paged harvest dispatched whole."""
-        if self._paged:
+        if self._paged or self._seq_mesh is not None:
             return _SingleDispatchJob(self._harvest_dev(padded_tokens))
         tok = torch.as_tensor(np.asarray(padded_tokens, dtype=np.int64), device=self.device)
         return lm.SegmentedHarvest(self.model_params, tok, self.lm_cfg, self.hook_points,
@@ -664,20 +731,199 @@ DevicePairedActivationBuffer = PairedActivationBuffer
 QuantDevicePairedActivationBuffer = QuantPairedActivationBuffer
 
 
-def make_buffer(cfg: CrossCoderConfig, lm_cfg, model_params, tokens,
+# ---------------------------------------------------------------------------
+# the store sharded over the mesh's data axis
+
+
+class MeshPairedActivationBuffer(PairedActivationBuffer):
+    """The replay store on the device, sharded over the ``data`` axis of
+    ``mesh`` on its row dimension: data rank ``d`` holds rows ``[d·L,
+    (d+1)·L)``, ``L = ceil(store rows / n)`` (the store padded to ``n·L``;
+    no permutation entry reaches the padding). The permutation, the cycle
+    accounting, the provenance and :meth:`state_dict` are the host-side
+    state of every buffer, identical on every rank; only the rows move
+    differently:
+
+    - **refill**: each data rank harvests its ``_chunk_seqs / n``
+      sequences of a chunk (under ``seq_shards`` every rank runs the whole
+      chunk through the sequence-parallel forward instead); the chunk's
+      rows are all-gathered over ``data`` and each rank writes the
+      positions that fall in its shard;
+    - **serve**: each rank gathers the batch's rows it holds, zeroes the
+      others, and a reduce-scatter over ``data`` leaves it its ``B/n``
+      rows of the batch (exact: the contributions are disjoint), so each
+      serve is this rank's rows (:attr:`serves_local_rows`);
+    - **norm calibration**: the token norms of a chunk are all-gathered,
+      so every rank sums the whole chunk's norms as one rank does.
+
+    Every rank must call every method that moves rows (a serve, a refill,
+    :meth:`load_state_dict`), in the same order. ``refill_overlap="on"``
+    is refused (ROADMAP A6b item 4a).
+    """
+
+    serves_local_rows = True
+
+    def __init__(self, cfg: CrossCoderConfig, lm_cfg, model_params, tokens, lazy: bool = False,
+                 device=None, mesh=None) -> None:
+        if mesh is None:
+            raise ValueError(f"{type(self).__name__} needs the rank grid (mesh=)")
+        n = mesh.data_size
+        if cfg.batch_size % n:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide by the mesh data "
+                             f"axis {n} for the sharded-store serve path")
+        super().__init__(cfg, lm_cfg, model_params, tokens, lazy=lazy, device=device, mesh=mesh)
+
+    @property
+    def _group(self):
+        return self.mesh.data_group
+
+    def _harvest_split(self) -> int:
+        return 1 if self._seq_mesh is not None else self.mesh.data_size
+
+    def _mesh_geometry(self) -> None:
+        n = self.mesh.data_size
+        if self._seq_mesh is None and self._chunk_seqs % n:
+            raise ValueError(
+                f"harvest chunk of {self._chunk_seqs} seqs must divide by the mesh data axis "
+                f"{n} for the batch-sharded scatter (model_batch_size="
+                f"{self.cfg.model_batch_size})")
+        self._rows_local = -(-self._store_rows // n)
+        self._row0 = self.mesh.data_rank * self._rows_local
+
+    def _alloc_store(self) -> None:
+        self._mesh_geometry()
+        self._store_dev = torch.zeros((self._rows_local, self.cfg.n_sources, self.cfg.d_in),
+                                      dtype=torch.bfloat16, device=self.store_device)
+
+    def _store_tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self._store_dev,)
+
+    @property
+    def _store(self) -> torch.Tensor:
+        """The whole LOGICAL store on every rank (tests and analysis; a
+        collective every rank must join)."""
+        whole = [coll.all_gather_cat(t, 0, self._group) for t in self._store_tensors()]
+        return self._decode(whole)[torch.as_tensor(self._row_map)]
+
+    # -- harvest on this rank's share ------------------------------------
+
+    def _my_tokens(self, padded_tokens: np.ndarray) -> np.ndarray:
+        if self._seq_mesh is not None:
+            return padded_tokens
+        c = self._chunk_seqs // self.mesh.data_size
+        return padded_tokens[self.mesh.data_rank * c:(self.mesh.data_rank + 1) * c]
+
+    def _harvest_dev(self, padded_tokens: np.ndarray) -> torch.Tensor:
+        """This rank's share of a chunk's harvest (the whole chunk under
+        ``seq_shards``)."""
+        return super()._harvest_dev(self._my_tokens(padded_tokens))
+
+    def _harvest_job(self, padded_tokens: np.ndarray):
+        if self._paged or self._seq_mesh is not None:       # _harvest_dev cuts the share
+            return super()._harvest_job(padded_tokens)
+        return super()._harvest_job(self._my_tokens(padded_tokens))
+
+    def _chunk_norms(self, acts: torch.Tensor) -> torch.Tensor:
+        norms = _token_norms(acts)
+        if self._seq_mesh is not None:
+            return norms
+        return coll.all_gather_cat(norms, 0, self._group)
+
+    # -- rows in and out ---------------------------------------------------
+
+    def _encode(self, rows: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """Harvested bf16 rows in the store's format."""
+        return (rows,)
+
+    def _decode(self, parts) -> torch.Tensor:
+        """Stored parts back to bf16 rows."""
+        return parts[0]
+
+    def _drain_one(self) -> None:
+        cfg = self.cfg
+        acts_dev, n, seq_globals, woff = self._cyc_inflight.pop(0)
+        rows = acts_dev[:, 1:].reshape(-1, cfg.n_sources, cfg.d_in)       # BOS dropped
+        parts = self._encode(rows)
+        if self._seq_mesh is None:       # every rank's share, in sequence order
+            parts = [coll.all_gather_cat(t, 0, self._group) for t in parts]
+        n_rows = n * (cfg.seq_len - 1)   # the real sequences' rows
+        pos = self._cyc_positions(woff, n_rows) - self._row0
+        mine = np.nonzero((pos >= 0) & (pos < self._rows_local))[0]
+        if mine.size:
+            sel = torch.as_tensor(mine, device=rows.device)
+            for store, t in zip(self._store_tensors(), parts):
+                hostops.scatter_rows(store, pos[mine], t[:n_rows].index_select(0, sel))
+        self._record_src(woff, n_rows, seq_globals)
+        self._cyc_drained += n_rows
+
+    def _gather_local(self, idx: np.ndarray) -> list[torch.Tensor]:
+        """This rank's rows of the batch ``idx``, in the store's parts."""
+        li = np.asarray(idx, np.int64) - self._row0
+        hit = (li >= 0) & (li < self._rows_local)
+        hit_t = torch.as_tensor(hit, device=self.store_device)[:, None, None]
+        out = []
+        for store in self._store_tensors():
+            rows = hostops.gather_rows(store, np.clip(li, 0, self._rows_local - 1))
+            rows = torch.where(hit_t, rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+            out.append(coll.reduce_scatter(rows, self._group))
+        return out
+
+    def _read_rows(self, idx: np.ndarray) -> torch.Tensor:
+        """This rank's ``B/n`` rows of the batch ``idx`` as bf16."""
+        return self._decode(self._gather_local(idx))
+
+    def next(self) -> torch.Tensor:
+        """This rank's rows of one training batch, f32 with the norm
+        factors applied."""
+        out = self._read_rows(self._next_idx()).float()
+        out *= torch.as_tensor(self.normalisation_factor, device=out.device)[None, :, None]
+        self._after_serve()
+        return out
+
+
+class QuantMeshPairedActivationBuffer(MeshPairedActivationBuffer):
+    """:class:`MeshPairedActivationBuffer` in block-scaled int8 plus f32
+    scales: each rank quantizes its share of a chunk's rows (K11 on the
+    card) BEFORE the all-gather, so the refill moves int8 payload and
+    scales; the serve's reduce-scatter runs on the payload and the scales
+    apart, and each rank dequantizes its own rows."""
+
+    def _alloc_store(self) -> None:
+        cfg = self.cfg
+        self._mesh_geometry()
+        nb = quant.n_blocks(cfg.d_in, cfg.quant_block)
+        self._store_q = torch.zeros((self._rows_local, cfg.n_sources, cfg.d_in),
+                                    dtype=torch.int8, device=self.store_device)
+        self._store_scale = torch.zeros((self._rows_local, cfg.n_sources, nb),
+                                        dtype=torch.float32, device=self.store_device)
+
+    def _store_tensors(self) -> tuple[torch.Tensor, ...]:
+        return self._store_q, self._store_scale
+
+    def _encode(self, rows: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return quant.quantize_rows(rows, self.cfg.quant_block)
+
+    def _decode(self, parts) -> torch.Tensor:
+        return quant.dequantize_blocks(parts[0], parts[1], torch.bfloat16)
+
+
+def make_buffer(cfg: CrossCoderConfig, lm_cfg, model_params, tokens, mesh=None,
                 **kwargs) -> PairedActivationBuffer:
     """The replay buffer for ``cfg.quant_buffer`` (bf16 or block-scaled
     int8 rows), its store in host RAM or on the device as
-    ``cfg.buffer_device`` says. One rank only: on more than one, each
-    rank's store would funnel the whole stream through itself, and the
-    mesh-sharded store is not ported yet (:class:`NotImplementedError`,
-    raised before any model loads)."""
+    ``cfg.buffer_device`` says, as the JAX ``make_buffer`` picks it: on a
+    ``mesh`` (default: ``cfg``'s axes over the joined process group, when
+    more than one rank runs) whose ``data`` axis is wider than 1 a device
+    store is the mesh-sharded one. A host store on more than one rank is a
+    :class:`ValueError`, raised before any model runs."""
+    from crosscoder_tpu_torch.parallel import mesh as mesh_lib
     from crosscoder_tpu_torch.parallel import multihost
 
-    if multihost.world_size() > 1:
-        raise NotImplementedError(
-            "the replay buffer on more than one rank is not ported to the PyTorch port yet "
-            "(ROADMAP A6b: the mesh-sharded store of crosscoder_tpu/data/buffer.py); train "
-            "a multi-rank run on --data-source synthetic")
-    cls = QuantPairedActivationBuffer if cfg.quant_buffer else PairedActivationBuffer
-    return cls(cfg, lm_cfg, model_params, tokens, **kwargs)
+    if mesh is None and cfg.buffer_device == "hbm" and multihost.world_size() > 1:
+        mesh = mesh_lib.mesh_from_cfg(cfg)
+    if cfg.buffer_device == "hbm" and mesh is not None and mesh.data_size > 1:
+        cls = QuantMeshPairedActivationBuffer if cfg.quant_buffer else MeshPairedActivationBuffer
+    else:
+        cls = QuantPairedActivationBuffer if cfg.quant_buffer else PairedActivationBuffer
+    return cls(cfg, lm_cfg, model_params, tokens, mesh=mesh, **kwargs)

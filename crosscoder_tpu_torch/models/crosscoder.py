@@ -153,13 +153,17 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _MatmulF32.apply(a, b)
 
 
-def pre_acts(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def pre_acts(params: Mapping[str, torch.Tensor], x: torch.Tensor, src_group=None
+             ) -> torch.Tensor:
     """Encoder pre-activations ``x @ W_enc + b_enc`` summed over sources:
     ``[B, n, d_in]`` → ``[B, d_hidden]``, f32 accumulation, result in
-    ``x``'s dtype."""
+    ``x``'s dtype. ``src_group``: the ranks the sources are split over
+    (``shard_sources``; ``x`` and ``W_enc`` this rank's sources): the f32
+    partial products sum over it before ``b_enc`` (differentiably)."""
     W = params["W_enc"]
     lead = x.shape[:-2]
     h = matmul_f32(x.reshape(-1, W.shape[0] * W.shape[1]), W.reshape(-1, W.shape[2]))
+    h = coll.sum_over(h, src_group)
     return (h + params["b_enc"].float()).to(x.dtype).reshape(*lead, W.shape[2])
 
 
@@ -405,7 +409,8 @@ def _sparse_step_backward(ctx, g):
     H, n, d = W_dec.shape
     nd = n * d
     g_flat = g.float().reshape(B, nd)
-    d_vals = _d_vals(g_flat, idx, W_dec)
+    # this rank's sources' share, summed over the source group (shard_sources)
+    d_vals = coll.all_reduce_(_d_vals(g_flat, idx, W_dec), ctx.src_group)
     d_vals = torch.where(vals > 0, d_vals, torch.zeros((), device=d_vals.device))
     dW_dec = sparse_grad.scatter_add_rows(vals.float(), idx, g_flat, H)
     dW_dec = dW_dec.reshape(H, n, d).to(W_dec.dtype)
@@ -429,10 +434,13 @@ class _SparseTopKStep(torch.autograd.Function):
     + the mask + K8 + k-row decode in one scope (``fused``: the K2
     encoder→TopK kernel in place of encode + mask + K8, K3 with
     ``quant_block > 0``), so the backward never leaves factored form.
+    ``src_group``: the source group under ``shard_sources`` (``x``,
+    ``W_enc`` and ``W_dec`` this rank's sources; the encode's partial
+    products and the backward's ``d_vals`` sum over it; not with ``fused``).
     Soundness gate: l1_coeff == 0."""
 
     @staticmethod
-    def forward(ctx, x, W_enc, b_enc, W_dec, k, fused, quant_block, mesh=None):
+    def forward(ctx, x, W_enc, b_enc, W_dec, k, fused, quant_block, mesh=None, src_group=None):
         B = x.shape[0]
         n, d, H = W_enc.shape
         x2 = x.reshape(B, n * d)
@@ -441,16 +449,17 @@ class _SparseTopKStep(torch.autograd.Function):
             vals, idx = fek.fused_topk_encode(x2, W2, b_enc, k, quant_block=quant_block)
             vals = _keep_global(vals, idx, k, mesh, H)
         else:
-            h = (_mm32(x2, W2) + b_enc.float()).to(x.dtype)
+            h = (coll.all_reduce_(_mm32(x2, W2), src_group) + b_enc.float()).to(x.dtype)
             _, vals, idx = _local_topk(h, k, mesh)
         ctx.save_for_backward(x, vals, idx, W_enc, W_dec)
+        ctx.src_group = src_group
         ctx.b_dtype = b_enc.dtype
         ctx.mark_non_differentiable(vals, idx)
         return _decode_rows(vals, idx, W_dec), vals, idx
 
     @staticmethod
     def backward(ctx, g, _gv, _gi):
-        return (*_sparse_step_backward(ctx, g), None, None, None, None)
+        return (*_sparse_step_backward(ctx, g), None, None, None, None, None)
 
 
 class _FusedBatchTopKEncode(torch.autograd.Function):
@@ -705,7 +714,24 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     replicated on every rank), ``fired`` is an OR over ``data``, the
     explained variance centres by the global batch mean. ``l0_loss`` and
     the explained variances stay this rank's partials (the step reduces
-    them with its other metrics)."""
+    them with its other metrics).
+
+    Under a ``shard_sources`` mesh ``model`` splits the sources (the JAX
+    ``_SOURCE_SPECS``): this rank encodes its slab of ``x`` (all sources
+    passed) and the pre-activations sum over ``model``; the activation
+    runs on the whole replicated dictionary (the statistics over ``data``
+    only, :meth:`Mesh.dict_view`); the decode writes this rank's sources,
+    and every sum over sources (L2, the L1 weight ``Σ_s ‖W_dec[:, s]‖``,
+    the AuxK ratio, the variances) sums over ``model``. A replicated
+    latent entering a decode of this rank's sources passes
+    :func:`~crosscoder_tpu_torch.parallel.collectives.copy_to`, so its
+    gradient sums the sources' shares."""
+    n_sources = x.shape[-2]
+    src_group = None
+    if mesh is not None and cfg.shard_sources:
+        src_group = mesh.model_group
+        x = x[..., mesh.source_slice(n_sources), :]
+        mesh = mesh.dict_view()
     x = x.to(dtype_of(cfg.enc_dtype))
     B = x.shape[0]
     factored = use_factored_decode(cfg)
@@ -717,16 +743,21 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     fused = use_fused_encoder(cfg, B)
     b_dec = params["b_dec"].float()
     sum_model = mesh.sum_model if mesh is not None else (lambda t: t)
+
+    def to_sources(t):      # a replicated latent into this rank's sources' decode
+        return coll.copy_to(t, src_group)
+
     if factored and sparse_bwd and not aux_active:
         qb = cfg.quant_block if fused and cfg.quant_encoder else 0
         recon_f32, vals, idx = _SparseTopKStep.apply(
-            x, params["W_enc"], params["b_enc"], params["W_dec"], cfg.topk_k, fused, qb, mesh)
+            x, params["W_enc"], params["b_enc"], params["W_dec"], cfg.topk_k, fused, qb, mesh,
+            src_group)
         recon = (sum_model(recon_f32) + b_dec).to(x.dtype)
         f = None
     elif factored:
-        h = pre_acts(params, x)
+        h = pre_acts(params, x, src_group)
         tier = _SparseTopKFromH if sparse_bwd else _FactoredTopK
-        recon_f32, vals, idx = tier.apply(h, params["W_dec"], cfg.topk_k, mesh)
+        recon_f32, vals, idx = tier.apply(to_sources(h), params["W_dec"], cfg.topk_k, mesh)
         recon = (sum_model(recon_f32) + b_dec).to(x.dtype)
         f = None
     elif sparse:
@@ -735,23 +766,23 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
         f = None
     elif cfg.activation == "batchtopk" and fused and not aux_active:
         f = _FusedBatchTopKEncode.apply(x, params["W_enc"], params["b_enc"], cfg.topk_k)
-        recon = decode(params, f, mesh)
+        recon = decode(params, to_sources(f), mesh)
     elif cfg.activation == "jumprelu" and cfg.l0_coeff > 0:
-        h = pre_acts(params, x)
+        h = pre_acts(params, x, src_group)
         f = _activate(h, cfg, params, mesh)
-        recon = decode(params, f, mesh)
+        recon = decode(params, to_sources(f), mesh)
         l0_penalty = act_ops.jumprelu_l0(h, params["log_theta"], cfg.jumprelu_bandwidth)
         if mesh is not None:
             l0_penalty = mesh.sum_world(l0_penalty) / mesh.data_size
     else:
-        h = pre_acts(params, x)
+        h = pre_acts(params, x, src_group)
         f = _activate(h, cfg, params, mesh)
-        recon = decode(params, f, mesh)
+        recon = decode(params, to_sources(f), mesh)
 
     xf = x.float()
     rf = recon.float()
     err2 = torch.square(rf - xf)
-    l2_per_row = err2.sum(dim=(-2, -1))
+    l2_per_row = coll.sum_over(err2.sum(dim=(-2, -1)), src_group)
     l2_loss = l2_per_row.mean()
     if mesh is not None:
         l2_loss = mesh.mean_data(l2_loss)
@@ -761,7 +792,8 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     if not need_l1:
         l1_loss = zero
     else:
-        total_dec_norm = torch.linalg.norm(params["W_dec"].float(), dim=-1).sum(dim=-1)
+        total_dec_norm = coll.sum_over(
+            torch.linalg.norm(params["W_dec"].float(), dim=-1).sum(dim=-1), src_group)
         if sparse:
             w_active = total_dec_norm[idx.long()]
             l1_loss = (vals.float() * w_active).sum(dim=-1).mean()
@@ -784,7 +816,7 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
             fired = mesh.any_(fired, "data")
     if aux_active:
         k_aux = min(cfg.aux_k, d_hidden * (mesh.model_size if mesh is not None else 1))
-        h_all = h if h is not None else pre_acts(params, x)
+        h_all = h if h is not None else pre_acts(params, x, src_group)
         neg = torch.finfo(h_all.dtype).min
         ranked = torch.where(dead_mask[None, :], h_all.detach(),
                              torch.full((), neg, dtype=h_all.dtype, device=x.device))
@@ -794,6 +826,7 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
         if mesh is not None:
             keep = keep & _merge_keep(ranked.gather(1, aidx), aidx, k_aux, mesh, d_hidden)
         avals = torch.where(keep, avals, torch.zeros((), dtype=avals.dtype, device=x.device))
+        avals = to_sources(avals)
         e = (xf - rf).detach()
         if use_sparse_aux(cfg, B):
             e_hat = _SparseAuxProduct.apply(avals.to(x.dtype), aidx, params["W_dec"])
@@ -804,8 +837,8 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
             W = params["W_dec"]
             e_hat = matmul_f32(f_aux, W.reshape(d_hidden, -1)).reshape(B, *W.shape[1:])
         e_hat = sum_model(e_hat)
-        num = torch.square(e_hat - e).sum(dim=(-2, -1)).mean()
-        den = torch.square(e).sum(dim=(-2, -1)).mean()
+        num = coll.sum_over(torch.square(e_hat - e).sum(dim=(-2, -1)), src_group).mean()
+        den = coll.sum_over(torch.square(e).sum(dim=(-2, -1)), src_group).mean()
         any_dead = dead_mask.any()
         if mesh is not None:
             num, den = mesh.mean_data(torch.stack([num, den])).unbind(0)
@@ -814,7 +847,7 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
 
     if not with_metrics:
         return LossOutput(l2_loss, l1_loss, zero, torch.zeros_like(l2_per_row),
-                          torch.zeros((x.shape[-2], B), dtype=torch.float32, device=x.device),
+                          torch.zeros((n_sources, B), dtype=torch.float32, device=x.device),
                           l0_penalty, aux_loss, fired)
 
     eps = 1e-8
@@ -822,11 +855,13 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     if mesh is not None:
         mean = mesh.mean_data(mean)
     centered = xf - mean
-    tot_var = torch.square(centered).sum(dim=(-2, -1))
+    tot_var = coll.sum_over(torch.square(centered).sum(dim=(-2, -1)), src_group)
     explained_variance = 1.0 - l2_per_row / (tot_var + eps)
     l2_per_source = err2.sum(dim=-1)
     var_per_source = torch.square(centered).sum(dim=-1)
     ev_per_source = 1.0 - l2_per_source / (var_per_source + eps)
+    if src_group is not None:       # every rank's sources, in source order
+        ev_per_source = coll.all_gather_cat(ev_per_source.detach(), 1, src_group)
     if sparse:
         l0_loss = (vals > 0).float().sum(dim=-1).mean()
     else:

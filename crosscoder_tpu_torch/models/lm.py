@@ -28,6 +28,30 @@ returns f32, as the JAX package's ``preferred_element_type`` does.
 
 A capture forward runs only the blocks below the highest hooked layer:
 ``blocks.14.hook_resid_pre`` runs 14 of Gemma-2-2B's 26 blocks.
+
+Two parallel forms, over the rank grid of
+:mod:`crosscoder_tpu_torch.parallel.mesh`:
+
+- **Tensor-parallel** (:func:`tp_shardings`, :func:`shard_params_tp`,
+  ``from_hf(..., tp=mesh)``): each ``model`` rank keeps the Megatron
+  slices of every matmul leaf (heads of ``wq``/``wk``/``wv``, the
+  contracting axis of ``wo``/``w_down``, the hidden axis of
+  ``w_gate``/``w_up``, the ``d_model`` axis of ``embed``; norms whole).
+  The params carry their group under the marker key ``"tp"`` (a
+  :class:`TPGroup`), and every forward that takes params inserts the
+  collectives GSPMD inserts in the JAX package: a sum over ``model`` after
+  ``wo`` and after ``w_down`` (in the model dtype), an all-gather of the
+  embedding lookup along ``d_model``, and a sum of the tied unembedding's
+  partial logits in f32 before the final softcap. Attention stays
+  head-local, which needs ``n_heads`` and ``n_kv_heads`` both divisible by
+  the axis. Forward only: a tensor-parallel forward refuses a graph that
+  needs gradients.
+- **Sequence-parallel** (:func:`forward_seq_parallel`,
+  :func:`run_with_cache_multi_seq_parallel`): the sequence split over
+  ``data``, attention as an exact ring
+  (:mod:`crosscoder_tpu_torch.parallel.ring_attention`), every other op
+  position-local; the results come back stitched along the sequence on
+  every rank.
 """
 
 from __future__ import annotations
@@ -44,6 +68,7 @@ import torch
 from crosscoder_tpu_torch.config import parse_hook_point
 from crosscoder_tpu_torch.models.crosscoder import matmul_f32
 from crosscoder_tpu_torch.ops import paged_attention as pa
+from crosscoder_tpu_torch.parallel import collectives as coll
 from crosscoder_tpu_torch.utils.device import resolve_device
 from crosscoder_tpu_torch.utils.dtypes import dtype_of
 
@@ -170,6 +195,100 @@ def _layer(params: LMParams, i: int) -> dict[str, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism
+
+
+TP_KEY = "tp"
+
+
+@dataclass(frozen=True)
+class TPGroup:
+    """The ``model`` group a tensor-parallel param dict is split over (its
+    ``"tp"`` entry) and this rank's index in it."""
+
+    group: Any
+    rank: int
+
+
+def _tp(params: LMParams) -> TPGroup | None:
+    return params.get(TP_KEY)
+
+
+def _tp_group(mesh, axis: str = "model") -> TPGroup:
+    return TPGroup(mesh.group(axis), mesh.index(axis))
+
+
+def _tp_live(t: torch.Tensor) -> None:
+    if t.requires_grad:
+        raise NotImplementedError(
+            "backward through a tensor-parallel LM forward is not ported: run it under "
+            "torch.no_grad() (the harvest and the CE eval do)")
+
+
+def _tp_sum(t: torch.Tensor, tp: TPGroup | None) -> torch.Tensor:
+    """The partial products of a row-parallel matmul summed over the
+    group, in ``t``'s dtype (the identity without a group)."""
+    if tp is None:
+        return t
+    _tp_live(t)
+    return coll.all_reduce_(t, tp.group)
+
+
+def tp_shardings(mesh, axis: str = "model") -> dict:
+    """Each leaf's shard under tensor parallelism over ``mesh``'s ``axis``,
+    as :func:`crosscoder_tpu_torch.parallel.multihost.local_shard` takes
+    it: ``(dim, axis size, this rank's index)`` in the stacked layout, or
+    ``None`` for a leaf kept whole. The JAX ``tp_shardings`` layout: heads
+    of ``wq``/``wk``/``wv`` and the hidden axis of ``w_gate``/``w_up``
+    (their outputs), the contracting axis of ``wo``/``w_down``, the
+    ``d_model`` axis of ``embed``; the norms whole."""
+    n, i = mesh.size(axis), mesh.index(axis)
+
+    def on(dim):
+        return (dim, n, i)
+
+    return {
+        "embed": on(1),
+        "final_norm": None,
+        "layers": {
+            "attn_norm": None, "post_attn_norm": None, "pre_ffw_norm": None,
+            "post_ffw_norm": None,
+            "wq": on(2), "wk": on(2), "wv": on(2), "wo": on(1),
+            "w_gate": on(2), "w_up": on(2), "w_down": on(1),
+        },
+    }
+
+
+def check_tp(cfg: LMConfig, m: int) -> None:
+    """Raise :class:`ValueError` unless ``cfg`` splits over ``m`` model
+    ranks with attention head-local: contiguous head blocks keep each query
+    head with its KV head only when ``m`` divides both head counts (the
+    JAX package reshards silently there; ROADMAP A6b item 4c)."""
+    if cfg.n_heads % m or cfg.n_kv_heads % m:
+        raise ValueError(
+            f"tensor-parallel LM over {m} ranks needs n_heads {cfg.n_heads} and n_kv_heads "
+            f"{cfg.n_kv_heads} both divisible by {m}, so attention stays head-local (other "
+            f"head counts: ROADMAP A6b item 4c)")
+    for name, size in (("d_model", cfg.d_model), ("d_ff", cfg.d_ff)):
+        if size % m:
+            raise ValueError(f"tensor-parallel LM: {name} {size} must divide by {m}")
+
+
+def shard_params_tp(params: LMParams, mesh, cfg: LMConfig, axis: str = "model") -> LMParams:
+    """This rank's tensor-parallel slices of whole params (every rank holds
+    the same), each in memory of its own, marked with the group
+    (:class:`TPGroup`): every forward entry point takes the result
+    unchanged."""
+    from crosscoder_tpu_torch.parallel.multihost import local_shard
+
+    check_tp(cfg, mesh.size(axis))
+    whole = {k: v for k, v in params.items() if k != TP_KEY}
+    out = local_shard(whole, tp_shardings(mesh, axis))
+    out[TP_KEY] = _tp_group(mesh, axis)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # numerics
 
 
@@ -200,19 +319,21 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
 def _qkv(x: torch.Tensor, lp, cfg: LMConfig, pos: torch.Tensor):
     """Project + RoPE: q ``[B,S,H,hd]``, k/v ``[B,S,KV,hd]``."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, KV = lp["wq"].shape[-1] // hd, lp["wk"].shape[-1] // hd     # this rank's heads
     q = _rope(torch.matmul(x, lp["wq"]).reshape(B, S, H, hd), pos, cfg.rope_theta)
     k = _rope(torch.matmul(x, lp["wk"]).reshape(B, S, KV, hd), pos, cfg.rope_theta)
     v = torch.matmul(x, lp["wv"]).reshape(B, S, KV, hd)
     return q, k, v
 
 
-def _mlp(x: torch.Tensor, lp) -> torch.Tensor:
-    """GeGLU: gelu_tanh(x·W_gate) ⊙ (x·W_up) · W_down."""
+def _mlp(x: torch.Tensor, lp, tp: TPGroup | None = None) -> torch.Tensor:
+    """GeGLU: gelu_tanh(x·W_gate) ⊙ (x·W_up) · W_down (the partial
+    products summed over ``tp``)."""
     gate = torch.matmul(x, lp["w_gate"]).float()
     up = torch.matmul(x, lp["w_up"]).float()
     h = (torch.nn.functional.gelu(gate, approximate="tanh") * up).to(x.dtype)
-    return torch.matmul(h, lp["w_down"])
+    return _tp_sum(torch.matmul(h, lp["w_down"]), tp)
 
 
 def _embed(params: LMParams, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -220,7 +341,12 @@ def _embed(params: LMParams, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tenso
     # made on the device: a host tensor copied to the card would sync the
     # stream, and the refill dispatcher must queue quanta ahead of the card
     scale = torch.full((), math.sqrt(cfg.d_model), dtype=dt, device=tokens.device)
-    return params["embed"][tokens].to(dt) * scale
+    e = params["embed"][tokens]
+    tp = _tp(params)
+    if tp is not None:                  # this rank's d_model columns, gathered
+        _tp_live(e)
+        e = coll.all_gather_cat(e, e.dim() - 1, tp.group)
+    return e.to(dt) * scale
 
 
 # ---------------------------------------------------------------------------
@@ -344,18 +470,19 @@ def _run_layers(params, resid, buf, cfg: LMConfig, pairs, lo: int, hi: int, atte
     loop's."""
     want_attn = any(c == _SITE_ATTN for _, c in pairs)
     want_mlp = any(c == _SITE_MLP for _, c in pairs)
+    tp = _tp(params)
     for i in range(lo, hi):
         lp = _layer(params, i)
         resid = _edited(edits, resid, i, _SITE_RESID)
         _capture(buf, resid, i, pairs, _SITE_RESID)
         window = cfg.sliding_window if i % 2 == 0 else 0    # even layers: local
         q, k, v = _qkv(_rms_norm(resid, lp["attn_norm"], cfg.rms_eps), lp, cfg, pos)
-        a = torch.matmul(attend(q, k, v, window), lp["wo"])
+        a = _tp_sum(torch.matmul(attend(q, k, v, window), lp["wo"]), tp)
         attn_out = _edited(edits, _rms_norm(a, lp["post_attn_norm"], cfg.rms_eps), i, _SITE_ATTN)
         if want_attn:
             _capture(buf, attn_out, i, pairs, _SITE_ATTN)
         resid = resid + attn_out
-        m = _mlp(_rms_norm(resid, lp["pre_ffw_norm"], cfg.rms_eps), lp)
+        m = _mlp(_rms_norm(resid, lp["pre_ffw_norm"], cfg.rms_eps), lp, tp)
         mlp_out = _edited(edits, _rms_norm(m, lp["post_ffw_norm"], cfg.rms_eps), i, _SITE_MLP)
         if want_mlp:
             _capture(buf, mlp_out, i, pairs, _SITE_MLP)
@@ -378,10 +505,16 @@ def _padded_attend(cfg: LMConfig):
 
 def _unembed(params: LMParams, resid: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     """Final RMSNorm → tied unembedding (summed in f32, f32 out) → final
-    softcap."""
+    softcap; tensor-parallel, each rank's ``d_model`` columns give partial
+    logits, summed over the group in f32."""
     x = _rms_norm(resid, params["final_norm"], cfg.rms_eps)
-    logits = matmul_f32(x.reshape(-1, cfg.d_model), params["embed"].t())
-    logits = logits.reshape(*x.shape[:-1], -1)
+    tp = _tp(params)
+    w = params["embed"]
+    if tp is not None:
+        cols = w.shape[1]
+        x = x[..., tp.rank * cols:(tp.rank + 1) * cols]
+    logits = matmul_f32(x.reshape(-1, w.shape[1]), w.t())
+    logits = _tp_sum(logits.reshape(*x.shape[:-1], -1), tp)
     return _softcap(logits, cfg.final_softcap) if cfg.final_softcap else logits
 
 
@@ -475,6 +608,10 @@ def paged_capture(params_seq: Sequence[LMParams], chunk, cfg: LMConfig,
     signature; passing its plain version re-runs the path without the
     kernel.
     """
+    if _tp(params_seq[0]) is not None:
+        raise NotImplementedError(
+            "the paged forward over tensor-parallel params is not ported yet (ROADMAP A6b "
+            "item 4b): harvest a shard_lm run with harvest_runtime='padded'")
     dev = params_seq[0]["embed"].device
     pairs = _hook_layers(cfg, tuple(hook_points))
     n_scan = min(cfg.n_layers, _scan_stop(pairs))
@@ -671,65 +808,172 @@ class SegmentedHarvest:
 
 
 # ---------------------------------------------------------------------------
+# sequence-parallel forward (long-context harvest)
+
+
+def _check_seq_divisible(tokens: torch.Tensor, n: int) -> None:
+    if tokens.shape[1] % n:
+        raise ValueError(f"seq len {tokens.shape[1]} not divisible by {n} sequence shards")
+
+
+def _ring_attend(cfg: LMConfig, group, n: int):
+    """The sequence-parallel forward's attention: the ring over ``group``."""
+    from crosscoder_tpu_torch.parallel.ring_attention import ring_attention
+
+    scale = cfg.query_pre_attn_scalar ** -0.5
+
+    def attend(q, k, v, window):
+        B, S = q.shape[:2]
+        return ring_attention(q, k, v, group=group, n_shards=n, scale=scale,
+                              softcap=cfg.attn_softcap, sliding_window=cfg.sliding_window,
+                              is_local=bool(window)).reshape(B, S, -1)
+
+    return attend
+
+
+def _seq_local(params: LMParams, tokens, cfg: LMConfig, mesh, axis_name: str, pairs,
+               n_scan: int):
+    """This rank's blocks over its slice of the sequence: ``(resid, buf,
+    group)`` with the stream and the capture buffer ``[n_cap, B, S/n, D]``
+    of positions ``[r·S/n, (r+1)·S/n)``."""
+    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+    n, r, group = mesh.size(axis_name), mesh.index(axis_name), mesh.group(axis_name)
+    _check_seq_divisible(tokens, n)
+    Sl = tokens.shape[1] // n
+    tok = tokens[:, r * Sl:(r + 1) * Sl]
+    pos = r * Sl + torch.arange(Sl, device=tok.device)
+    resid, buf = _run_blocks(params, _embed(params, tok, cfg), cfg, pairs, n_scan,
+                             _ring_attend(cfg, group, n), pos)
+    return resid, buf, group
+
+
+@torch.no_grad()
+def forward_seq_parallel(params: LMParams, tokens, cfg: LMConfig, mesh, *,
+                         axis_name: str = "data", capture: Sequence[str] = (),
+                         return_logits: bool = False
+                         ) -> tuple[torch.Tensor | None, dict[str, torch.Tensor]]:
+    """:func:`forward` with the SEQUENCE axis split over ``mesh``'s
+    ``axis_name`` (a :class:`crosscoder_tpu_torch.parallel.mesh.Mesh`):
+    every rank passes the whole ``tokens [B, S]`` (``S`` divisible by the
+    axis, else :class:`ValueError`) and runs the blocks over its slice,
+    attention as an exact ring. Without logits the blocks stop at the
+    highest hooked layer. Returns ``(logits [B, S, vocab] f32 or None,
+    cache)`` stitched along the sequence on every rank (one all-gather
+    each). Edits are not supported, as in the JAX package."""
+    pairs = _hook_layers(cfg, tuple(capture))
+    n_scan = cfg.n_layers if return_logits else min(cfg.n_layers, _scan_stop(pairs))
+    resid, buf, group = _seq_local(params, tokens, cfg, mesh, axis_name, pairs, n_scan)
+    logits = None
+    if return_logits:
+        logits = coll.all_gather_cat(_unembed(params, resid, cfg), 1, group)
+    if pairs:
+        buf = coll.all_gather_cat(buf, 2, group)
+    return logits, {hp: buf[i] for i, hp in enumerate(capture)}
+
+
+@torch.no_grad()
+def run_with_cache_multi_seq_parallel(params_seq: Sequence[LMParams], tokens, cfg: LMConfig,
+                                      hook_points: Sequence[str], mesh, *,
+                                      axis_name: str = "data") -> torch.Tensor:
+    """All models' captures with the SEQUENCE axis split over ``mesh``'s
+    ``axis_name`` (ring attention): ``[B, S, n_models·n_hooks, d_model]``,
+    source axis model-major, the shape and order of
+    :func:`run_with_cache_multi`, stitched on every rank (one all-gather)."""
+    pairs = _hook_layers(cfg, tuple(hook_points))
+    n_scan = min(cfg.n_layers, _scan_stop(pairs))
+    outs = []
+    group = None
+    for p in params_seq:
+        _, buf, group = _seq_local(p, tokens, cfg, mesh, axis_name, pairs, n_scan)
+        outs.extend(buf[i] for i in range(len(pairs)))
+    return coll.all_gather_cat(torch.stack(outs, dim=2), 1, group)
+
+
+# ---------------------------------------------------------------------------
 # weight loading
 
 
 def from_torch_state_dict(sd: Mapping[str, Any], cfg: LMConfig, dtype: str | None = None,
-                          device=None) -> LMParams:
+                          device=None, tp=None) -> LMParams:
     """Params from an HF-transformers Gemma2 ``state_dict`` (tensors or
     numpy arrays): HF projections ``[out, in]`` become stacked ``[in,
     out]`` leaves. Each leaf goes to ``device`` in its stored dtype, to f32
     there, and is rounded once to ``dtype`` (default ``cfg.dtype``), so the
     values are the JAX package's (f32 on the host, then cast) whichever
-    device converts. Runs on ``cuda`` unless ``device`` names another
+    device converts. ``tp``: a mesh whose ``model`` axis the params are
+    tensor-parallel over; each matrix is cut to this rank's slice
+    (:func:`tp_shardings`) before it moves, so the whole model never lands
+    on one device, and the result equals :func:`shard_params_tp` of the
+    whole params. Runs on ``cuda`` unless ``device`` names another
     device."""
     dev = resolve_device(device)
     dt = dtype_of(dtype or cfg.dtype)
+    specs = None
+    if tp is not None:
+        check_tp(cfg, tp.size("model"))
+        specs = tp_shardings(tp)
 
-    def get(name: str) -> torch.Tensor:
+    def get(name: str, spec=None, transpose: bool = False) -> torch.Tensor:
         v = sd[name]
         t = v.detach() if torch.is_tensor(v) else torch.from_numpy(np.asarray(v, np.float32))
+        t = t.t() if transpose else t
+        if spec is not None:            # (dim, n, i) of this leaf
+            dim, n, i = spec
+            w = t.shape[dim] // n
+            t = t.narrow(dim, i * w, w)
         return t.to(dev).float()
 
-    def leaf(name: str) -> torch.Tensor:
-        return get(name).to(dt)
+    def leaf(name: str, key: str) -> torch.Tensor:
+        return get(name, specs and specs[key]).to(dt)
 
-    def stack(fmt: str, transpose: bool) -> torch.Tensor:
+    def stack(key: str, fmt: str, transpose: bool) -> torch.Tensor:
+        spec = specs and specs["layers"][key]
+        if spec is not None:            # the layer axis leads the stacked leaf
+            spec = (spec[0] - 1, spec[1], spec[2])
         out = None
         for i in range(cfg.n_layers):
-            m = get(fmt.format(i))
-            m = m.t() if transpose else m
+            m = get(fmt.format(i), spec, transpose)
             if out is None:
                 out = torch.empty((cfg.n_layers,) + tuple(m.shape), dtype=dt, device=dev)
             out[i] = m                      # one rounding to dt
         return out
 
     p = "model.layers.{}."
-    return {
-        "embed": leaf("model.embed_tokens.weight"),
-        "final_norm": leaf("model.norm.weight"),
+    params = {
+        "embed": leaf("model.embed_tokens.weight", "embed"),
+        "final_norm": leaf("model.norm.weight", "final_norm"),
         "layers": {
-            "attn_norm": stack(p + "input_layernorm.weight", False),
-            "post_attn_norm": stack(p + "post_attention_layernorm.weight", False),
-            "pre_ffw_norm": stack(p + "pre_feedforward_layernorm.weight", False),
-            "post_ffw_norm": stack(p + "post_feedforward_layernorm.weight", False),
-            "wq": stack(p + "self_attn.q_proj.weight", True),
-            "wk": stack(p + "self_attn.k_proj.weight", True),
-            "wv": stack(p + "self_attn.v_proj.weight", True),
-            "wo": stack(p + "self_attn.o_proj.weight", True),
-            "w_gate": stack(p + "mlp.gate_proj.weight", True),
-            "w_up": stack(p + "mlp.up_proj.weight", True),
-            "w_down": stack(p + "mlp.down_proj.weight", True),
+            "attn_norm": stack("attn_norm", p + "input_layernorm.weight", False),
+            "post_attn_norm": stack("post_attn_norm", p + "post_attention_layernorm.weight",
+                                    False),
+            "pre_ffw_norm": stack("pre_ffw_norm", p + "pre_feedforward_layernorm.weight",
+                                  False),
+            "post_ffw_norm": stack("post_ffw_norm", p + "post_feedforward_layernorm.weight",
+                                   False),
+            "wq": stack("wq", p + "self_attn.q_proj.weight", True),
+            "wk": stack("wk", p + "self_attn.k_proj.weight", True),
+            "wv": stack("wv", p + "self_attn.v_proj.weight", True),
+            "wo": stack("wo", p + "self_attn.o_proj.weight", True),
+            "w_gate": stack("w_gate", p + "mlp.gate_proj.weight", True),
+            "w_up": stack("w_up", p + "mlp.up_proj.weight", True),
+            "w_down": stack("w_down", p + "mlp.down_proj.weight", True),
         },
     }
+    if tp is not None:
+        params[TP_KEY] = _tp_group(tp)
+    return params
 
 
-def from_hf(path: str, cfg: LMConfig | None = None, device=None) -> tuple[LMParams, LMConfig]:
+def from_hf(path: str, cfg: LMConfig | None = None, device=None, tp=None
+            ) -> tuple[LMParams, LMConfig]:
     """``(params, cfg)`` of a Gemma-2 checkpoint in a LOCAL HF directory
     (``save_pretrained`` layout), read by ``transformers`` in bf16 with
     ``local_files_only``; the hub is never asked. ``cfg`` None maps the
-    checkpoint's own config. Runs on ``cuda`` unless ``device`` names
-    another device. :class:`ValueError` when ``path`` is not a directory."""
+    checkpoint's own config. ``tp``: a mesh to load tensor-parallel over
+    its ``model`` axis, this rank's slices only
+    (:func:`from_torch_state_dict`). Runs on ``cuda`` unless ``device``
+    names another device. :class:`ValueError` when ``path`` is not a
+    directory."""
     if not Path(path).is_dir():
         raise ValueError(
             f"from_hf loads a local HF checkpoint directory, and {path!r} is not one "
@@ -748,4 +992,4 @@ def from_hf(path: str, cfg: LMConfig | None = None, device=None) -> tuple[LMPara
             rms_eps=hf.rms_norm_eps, attn_softcap=hf.attn_logit_softcapping,
             final_softcap=hf.final_logit_softcapping, sliding_window=hf.sliding_window,
             query_pre_attn_scalar=float(hf.query_pre_attn_scalar))
-    return from_torch_state_dict(model.state_dict(), cfg, device=dev), cfg
+    return from_torch_state_dict(model.state_dict(), cfg, device=dev, tp=tp), cfg

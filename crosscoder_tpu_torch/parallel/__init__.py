@@ -9,11 +9,15 @@
 - :mod:`.collectives`: the counted collectives and the two differentiable
   ones (a sum whose backward is the identity, and its mirror);
 - :mod:`.quant_ar`: the block-scaled int8 gradient exchange
-  (``cfg.quant_grads``).
+  (``cfg.quant_grads``);
+- :mod:`.ring_attention`: exact attention over a sequence split across
+  ranks (the sequence-parallel harvest, ``cfg.seq_shards``).
 
-Where the JAX package lets GSPMD partition the step, the port writes each
-collective out (:func:`crosscoder_tpu_torch.models.crosscoder.get_losses`
-with a ``mesh``, :func:`crosscoder_tpu_torch.train.trainer.make_step_body`).
-Ring attention, the sharded LM harvest, the mesh-sharded replay store,
-``shard_sources`` and the communication model are not ported yet.
+Where the JAX package lets GSPMD partition the step or the harvest, the
+port writes each collective out
+(:func:`crosscoder_tpu_torch.models.crosscoder.get_losses` with a
+``mesh``, :func:`crosscoder_tpu_torch.train.trainer.make_step_body`, the
+tensor-parallel LM of :mod:`crosscoder_tpu_torch.models.lm`, the
+mesh-sharded store of :mod:`crosscoder_tpu_torch.data.buffer`). The
+communication model is not ported yet.
 """

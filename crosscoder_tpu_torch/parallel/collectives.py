@@ -2,7 +2,8 @@
 
 Every collective the port issues goes through this module, so a run can
 show how many it made (:data:`calls`, keyed ``all_reduce``,
-``all_gather``, ``all_to_all``). A ``group`` of ``None`` is no group at
+``all_gather``, ``all_to_all``, ``reduce_scatter`` and ``ring_shift``,
+the ring attention's hop). A ``group`` of ``None`` is no group at
 all: the call is the identity and nothing is issued (a loss computed
 rank-locally, as the quantized-gradient step does); the trainer's mesh
 always passes real groups, size 1 included, so a one-rank run issues
@@ -80,6 +81,45 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     dist.all_to_all_single(out, t, group=group)
     calls["all_to_all"] += 1
     return out
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """``t [n·r, ...]`` summed over ``group``; this rank keeps its ``r``
+    rows (group-rank order)."""
+    if group is None:
+        return t
+    n = group_size(group)
+    t = t.contiguous()
+    out = torch.empty((t.shape[0] // n, *t.shape[1:]), dtype=t.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, t, group=group)
+    calls["reduce_scatter"] += 1
+    return out
+
+
+def ring_shift_start(tensors, group):
+    """Send each of ``tensors`` to the next rank of ``group`` (group rank
+    ``r + 1`` mod ``n``) and receive the previous rank's, without waiting:
+    returns the pending exchange, which :func:`ring_shift_wait` completes
+    into the received tensors. One batched point-to-point call for all the
+    tensors."""
+    n = group_size(group)
+    r = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (r + 1) % n)
+    prv = dist.get_global_rank(group, (r - 1) % n)
+    send = [t.contiguous() for t in tensors]     # alive until the wait
+    recv = [torch.empty_like(t) for t in send]
+    ops = [dist.P2POp(dist.isend, t, nxt, group) for t in send]
+    ops += [dist.P2POp(dist.irecv, t, prv, group) for t in recv]
+    reqs = dist.batch_isend_irecv(ops)
+    calls["ring_shift"] += 1
+    return reqs, recv, send
+
+
+def ring_shift_wait(pending) -> list[torch.Tensor]:
+    reqs, recv, _ = pending
+    for q in reqs:
+        q.wait()
+    return recv
 
 
 class _SumOver(torch.autograd.Function):

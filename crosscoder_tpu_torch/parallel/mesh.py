@@ -8,10 +8,14 @@ dictionary axis ``d_hidden`` of ``W_enc``, ``W_dec``, ``b_enc`` and the
 latent-axis state (:data:`_PARAM_SPECS`, the JAX package's
 ``PartitionSpec`` tuples). Everything else is replicated; the quantized
 exchange's residuals ``quant_ef`` ``[n_data, L]`` split over ``data``.
+Under ``shard_sources`` (:data:`_SOURCE_SPECS`) ``model`` shards the
+SOURCE axis instead: ``W_enc`` on dim 0, ``W_dec`` on dim 1, ``b_dec`` on
+dim 0; the latent-axis leaves are replicated.
 
 :class:`Mesh` holds this rank's coordinates and the process groups; its
-helpers are the reductions the step and the loss make over an axis.
-``shard_sources`` (the JAX ``_SOURCE_SPECS``) is not ported yet.
+helpers are the reductions the step and the loss make over an axis. The
+sharding mode is ``cfg.shard_sources`` alone: every consumer that picks
+the rules holds the config and passes the flag.
 """
 
 from __future__ import annotations
@@ -35,12 +39,27 @@ _PARAM_SPECS: dict[str, tuple] = {
     "steps_since_fired": ("model",),
     "dead_mask": ("model",),
 }
+# cfg.shard_sources: whole source slabs a rank, the dictionary replicated;
+# the encode's contraction over sources becomes a sum over ``model``
+_SOURCE_SPECS: dict[str, tuple] = {
+    "W_enc": ("model", None, None),
+    "W_dec": (None, "model", None),
+    "b_enc": (None,),
+    "b_dec": ("model", None),
+    "log_theta": (None,),
+    "steps_since_fired": (None,),
+    "dead_mask": (None,),
+}
 _EF_SPEC = ("data", None)
 
 
-def param_spec(name: str) -> tuple:
+def _specs(shard_sources: bool = False) -> dict[str, tuple]:
+    return _SOURCE_SPECS if shard_sources else _PARAM_SPECS
+
+
+def param_spec(name: str, shard_sources: bool = False) -> tuple:
     try:
-        return _PARAM_SPECS[name]
+        return _specs(shard_sources)[name]
     except KeyError:
         raise ValueError(f"no sharding rule for param {name!r}") from None
 
@@ -81,6 +100,18 @@ class Mesh:
         return replace(self, data_size=1, data_rank=0, data_group=None,
                        world_group=self.model_group)
 
+    def dict_view(self) -> "Mesh":
+        """The grid as the dictionary sees it under ``shard_sources``: the
+        latents replicated over ``model``, so the selection and the latent
+        statistics reduce over ``data`` only."""
+        return replace(self, model_size=1, model_rank=0, model_group=None,
+                       world_group=self.data_group)
+
+    def source_slice(self, n_sources: int) -> slice:
+        """This rank's sources under ``shard_sources``."""
+        w = n_sources // self.model_size
+        return slice(self.model_rank * w, (self.model_rank + 1) * w)
+
     # -- reductions the loss and the step make ---------------------------
     def mean_data(self, t: torch.Tensor) -> torch.Tensor:
         """The mean over ``data`` of a per-rank mean (equal shards),
@@ -113,11 +144,11 @@ def _groups(rows: list[list[int]]) -> list:
 
 
 def make_mesh(data_axis_size: int = -1, model_axis_size: int = 1) -> Mesh:
-    """The grid over the joined process group (one rank without one, no
-    groups to reduce over: call :func:`~.multihost.initialize` first for a
-    mesh whose reductions run). ``data_axis_size=-1`` takes every rank not
-    claimed by the model axis. Raises as the JAX ``make_mesh`` does.
-    Every rank must call this, in the same order (it creates groups)."""
+    """The grid over the joined process group (call
+    :func:`~.multihost.initialize` first). ``data_axis_size=-1`` takes
+    every rank not claimed by the model axis. Raises as the JAX
+    ``make_mesh`` does. Every rank must call this, in the same order (it
+    creates groups)."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     if model_axis_size < 1 or n % model_axis_size:
         raise ValueError(f"model_axis_size {model_axis_size} must divide device count {n}")
@@ -147,10 +178,10 @@ def mesh_from_cfg(cfg) -> Mesh:
 # the train state's leaves under the rules
 
 
-def _leaf_spec(kind: str, name: str, leaf: torch.Tensor) -> tuple:
+def _leaf_spec(kind: str, name: str, leaf: torch.Tensor, shard_sources: bool = False) -> tuple:
     if kind == "quant_ef":
         return _EF_SPEC
-    spec = _PARAM_SPECS.get(name)
+    spec = _specs(shard_sources).get(name)
     if spec is None or not torch.is_tensor(leaf) or leaf.dim() != len(spec):
         return ()
     return spec
@@ -174,31 +205,31 @@ def _map_state(state, fn: Callable[[str, str, Any], Any]):
                       state.step, aux)
 
 
-def state_specs(state) -> dict[str, tuple]:
+def state_specs(state, shard_sources: bool = False) -> dict[str, tuple]:
     """``{checkpoint key: spec}`` of every tensor leaf of a TrainState, in
     the keys of :func:`crosscoder_tpu_torch.checkpoint.ckpt.flatten_state`
     (the JAX pytree paths): what the JAX ``state_shardings`` gives each
-    leaf."""
+    leaf under the mode ``shard_sources`` picks."""
     from crosscoder_tpu_torch.checkpoint.ckpt import leaf_key
 
     out: dict[str, tuple] = {}
 
     def record(kind, name, leaf):
-        out[leaf_key(kind, name)] = _leaf_spec(kind, name, leaf)
+        out[leaf_key(kind, name)] = _leaf_spec(kind, name, leaf, shard_sources)
         return leaf
 
     _map_state(state, record)
     return out
 
 
-def shard_state(mesh: Mesh, state):
-    """This rank's shards of a full TrainState that every rank built
-    identically, every leaf in memory of its own
-    (:func:`~.multihost.local_shard`; no communication)."""
+def shard_state(mesh: Mesh, state, shard_sources: bool = False):
+    """This rank's shards (under the rules ``shard_sources`` picks) of a
+    full TrainState that every rank built identically, every leaf in
+    memory of its own (:func:`~.multihost.local_shard`; no communication)."""
     from crosscoder_tpu_torch.parallel.multihost import local_shard
 
     def shard(kind, name, leaf):
-        sd = shard_dim(_leaf_spec(kind, name, leaf))
+        sd = shard_dim(_leaf_spec(kind, name, leaf, shard_sources))
         if sd is None:
             return local_shard(leaf, None)
         dim, axis = sd
@@ -207,12 +238,13 @@ def shard_state(mesh: Mesh, state):
     return _map_state(state, shard)
 
 
-def gather_state(mesh: Mesh, state):
-    """The full TrainState on every rank from the ranks' shards (one
-    all-gather a sharded leaf, in the same order on every rank)."""
+def gather_state(mesh: Mesh, state, shard_sources: bool = False):
+    """The full TrainState on every rank from the ranks' shards (under
+    the rules ``shard_sources`` picks; one all-gather a sharded leaf, in the
+    same order on every rank)."""
 
     def gather(kind, name, leaf):
-        sd = shard_dim(_leaf_spec(kind, name, leaf))
+        sd = shard_dim(_leaf_spec(kind, name, leaf, shard_sources))
         if sd is None:
             return leaf
         dim, axis = sd

@@ -18,6 +18,12 @@ on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``), builds the
 ``data`` × ``model`` grid from ``--data-axis-size``/``--model-axis-size``
 and trains its shards; only the primary rank logs and writes
 checkpoints. ``--device`` names the device (default ``cuda:LOCAL_RANK``).
+The buffer and the trainer share that grid: with ``--buffer-device hbm``
+and a ``data`` axis wider than 1 the replay store is sharded over it;
+``--seq-shards N`` harvests the sequence split over ``data`` (ring
+attention); ``--shard-lm true`` loads each model tensor-parallel over
+``model`` (``lm.from_hf(..., tp=mesh)``: this rank's slices only), every
+rank reading the same local token cache.
 
 ``--data-source gemma`` composes the Gemma-2 harvest: the models of
 ``--model-names`` loaded from local HF checkpoint directories
@@ -41,14 +47,15 @@ from crosscoder_tpu_torch.utils.logging import MetricsLogger
 
 
 def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any] | None = None,
-                 lm_cfg: Any | None = None) -> tuple[Any, CrossCoderConfig]:
+                 lm_cfg: Any | None = None, mesh=None) -> tuple[Any, CrossCoderConfig]:
     """The activation source for ``cfg.data_source`` and ``cfg`` with
     ``d_in`` set from the harvested model. ``model_params``: one LM param
     dict per model, on ``device``; without them the gemma source loads
     each model name with ``lm.from_hf`` (a local directory, else
-    :class:`ValueError`). ``lm_cfg``: their architecture (default: the
+    :class:`ValueError`), tensor-parallel over ``mesh``'s ``model`` axis
+    under ``cfg.shard_lm``. ``lm_cfg``: their architecture (default: the
     named Gemma-2 config with ``model_params``, the first checkpoint's own
-    config when loading)."""
+    config when loading). ``mesh``: the rank grid the buffer shards over."""
     if cfg.data_source == "synthetic":
         from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
 
@@ -61,14 +68,18 @@ def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any]
     if len(names) != cfg.n_models:
         raise ValueError(f"{len(names)} model names for n_models={cfg.n_models}")
     if model_params is None:
+        if cfg.shard_lm and mesh is None:
+            raise ValueError("shard_lm loads over the rank grid: pass mesh=")
+        tp = mesh if cfg.shard_lm else None
         model_params = []
         for name in names:
-            params, lm_cfg = lm.from_hf(name, lm_cfg, device=device)
+            params, lm_cfg = lm.from_hf(name, lm_cfg, device=device, tp=tp)
             model_params.append(params)
     lm_cfg = lm_cfg or lm.config_for(names[0])
     cfg = cfg.replace(d_in=lm_cfg.d_model)
     tokens = load_pile_lmsys_mixed_tokens(cfg)
-    return make_buffer(cfg, lm_cfg, model_params, tokens, device=device, lazy=cfg.resume), cfg
+    return make_buffer(cfg, lm_cfg, model_params, tokens, mesh=mesh, device=device,
+                       lazy=cfg.resume), cfg
 
 
 def main(argv: list[str] | None = None, device=None) -> Trainer:
@@ -89,9 +100,14 @@ def main(argv: list[str] | None = None, device=None) -> Trainer:
     if distributed:
         print(f"[crosscoder_tpu_torch] multihost: {multihost.process_info()}", file=sys.stderr,
               flush=True)
-    buffer, cfg = build_buffer(cfg, device=device)
+    mesh = None
+    if dist.is_initialized() or cfg.model_axis_size > 1 or cfg.data_axis_size > 1:
+        from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+
+        mesh = mesh_lib.mesh_from_cfg(cfg)      # one grid for the buffer and the trainer
+    buffer, cfg = build_buffer(cfg, device=device, mesh=mesh)
     trainer = Trainer(cfg, buffer, logger=MetricsLogger(cfg) if multihost.is_primary() else None,
-                      device=device, checkpointer=Checkpointer(cfg=cfg))
+                      device=device, checkpointer=Checkpointer(cfg=cfg), mesh=mesh)
     try:
         trainer.train()
     finally:

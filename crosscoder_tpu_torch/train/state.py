@@ -59,25 +59,28 @@ class Optimizer:
         self.max_norm = float(cfg.grad_clip)
         self.b1, self.b2, self.eps = float(cfg.beta1), float(cfg.beta2), 1e-8
         self.lr_fn = lr_fn
+        self.shard_sources = cfg.shard_sources      # the rules the mesh shards by
 
     def init(self, params: Params) -> AdamState:
         return AdamState(0, {k: torch.zeros_like(v) for k, v in params.items()},
                          {k: torch.zeros_like(v) for k, v in params.items()})
 
     @staticmethod
-    def global_norm(grads: Params, mesh=None) -> torch.Tensor:
+    def global_norm(grads: Params, mesh=None, shard_sources: bool = False) -> torch.Tensor:
         """The f32 global norm of ``grads`` on their device: the sum of
         squares over the leaves in sorted-name order, as optax.global_norm
         walks a dict. Under a ``mesh`` (``grads`` this rank's shards) the
-        sums of the leaves sharded over ``model`` are summed over it first,
-        in one all-reduce; a replicated leaf counts once."""
+        sums of the leaves sharded over ``model`` (by the rules
+        ``shard_sources`` picks) are summed over it first, in one
+        all-reduce; a replicated leaf counts once."""
         names = sorted(grads)
         sq = {k: torch.sum(torch.square(grads[k].float())) for k in names}
         if mesh is not None:
             from crosscoder_tpu_torch.parallel import collectives as coll
             from crosscoder_tpu_torch.parallel.mesh import param_spec, shard_dim
 
-            sharded = [k for k in names if shard_dim(param_spec(k)) is not None]
+            sharded = [k for k in names
+                       if shard_dim(param_spec(k, shard_sources)) is not None]
             if sharded:
                 sums = coll.all_reduce_(torch.stack([sq[k] for k in sharded]), mesh.model_group)
                 sq.update(zip(sharded, sums.unbind(0)))
@@ -91,7 +94,7 @@ class Optimizer:
         up); otherwise the inputs stay intact. Under a ``mesh`` every
         argument is this rank's shards and the clip reads the global norm
         (:meth:`global_norm`)."""
-        norm = self.global_norm(grads, mesh)
+        norm = self.global_norm(grads, mesh, self.shard_sources)
         t = state.count + 1
         bc1 = np.float32(1.0) - np.float32(self.b1) ** np.float32(t)
         bc2 = np.float32(1.0) - np.float32(self.b2) ** np.float32(t)

@@ -43,11 +43,15 @@ the gradients of each leaf sum over ``data``, the clip reads the global
 norm, and O1 updates each rank's shards. Under
 ``cfg.quant_grads`` (pure data parallelism) each rank's loss and
 gradients are local and the gradients' mean goes through the int8
-exchange (:mod:`crosscoder_tpu_torch.parallel.quant_ar`). A grid of one
-rank runs every collective and the merge as a wider one does.
+exchange (:mod:`crosscoder_tpu_torch.parallel.quant_ar`). Under
+``cfg.shard_sources`` ``model`` splits the source axis instead of the
+dictionary (:data:`crosscoder_tpu_torch.parallel.mesh._SOURCE_SPECS`). A
+grid of one rank runs every collective and the merge as a wider one does.
+A source that serves each rank its own rows (the mesh-sharded replay
+store, ``serves_local_rows``) is taken as it serves; any other source
+serves the global batch and each rank keeps its ``data`` rows.
 
-Not ported in this slice (ROADMAP Queue A): ``shard_sources``, the
-mesh-sharded replay store and the sharded harvest, the ticketed prefetch,
+Not ported in this slice (ROADMAP Queue A): the ticketed prefetch,
 chaos/watchdog/elastic, the observability plane, the compile cache, the
 fleet.
 """
@@ -217,8 +221,9 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
                                       "l0_loss", "explained_variance",
                                       "explained_variance_per_source")}
             else:           # loss terms already global; l0 a partial, the rest replicated
-                div = {"dead_frac": n * m, "l0_loss": n, "explained_variance": n * m,
-                       "explained_variance_per_source": n * m}
+                # (under shard_sources the dictionary is whole on every rank)
+                div = {"dead_frac": n * m, "l0_loss": n * m if cfg.shard_sources else n,
+                       "explained_variance": n * m, "explained_variance_per_source": n * m}
             metrics = _reduce_metrics(metrics, div, mesh.world_group)
         return TrainState(new_params, new_opt, state.step + 1, new_aux), metrics
 
@@ -245,7 +250,10 @@ def _check_mesh(cfg: CrossCoderConfig, mesh: mesh_lib.Mesh) -> None:
     does: :class:`ValueError` for shapes the grid does not split,
     :class:`NotImplementedError` for what is not ported yet (ROADMAP A6b)."""
     n, m = mesh.data_size, mesh.model_size
-    if cfg.dict_size % m:
+    if cfg.shard_sources and cfg.n_sources % m:
+        raise ValueError(f"shard_sources: n_sources {cfg.n_sources} must divide by "
+                         f"model_axis_size {m}")
+    if not cfg.shard_sources and cfg.dict_size % m:
         raise ValueError(f"dict_size {cfg.dict_size} must divide by model_axis_size {m}")
     if cfg.batch_size % n:
         raise ValueError(f"batch_size {cfg.batch_size} must divide by the data axis {n}")
@@ -285,7 +293,7 @@ class Trainer:
     :class:`NotImplementedError` rather than being dropped: the fleet,
     elastic runs, the observability plane, chaos, the harvest watchdog
     (``harvest_timeout_s > 0``), profiler traces (``profile_dir``,
-    ``profile_steps``), ``shard_sources``, and on a mesh the selections
+    ``profile_steps``), and on a mesh the selections
     that are not split over it yet (a fused encoder tier across a sharded
     selection axis, ``sparse_decode`` over ``model``) and resampling and
     the loss guard (ROADMAP A6b). ``prefetch``, ``remat`` and
@@ -306,10 +314,6 @@ class Trainer:
             if on:
                 raise NotImplementedError(
                     f"cfg.{knob} is not ported to the PyTorch trainer yet (ROADMAP Queue A)")
-        if cfg.shard_sources:
-            raise NotImplementedError(
-                "cfg.shard_sources is not ported to the PyTorch trainer yet (ROADMAP A6b: "
-                "the source-axis sharding of crosscoder_tpu/parallel/mesh.py _SOURCE_SPECS)")
         if mesh is None and (dist.is_initialized() or cfg.model_axis_size > 1
                              or cfg.data_axis_size > 1):
             mesh = mesh_lib.mesh_from_cfg(cfg)
@@ -339,7 +343,7 @@ class Trainer:
         # restore, an earlier step): a state handed in stays the caller's
         self._owns_state = state is None
         if mesh is not None:
-            self.state = mesh_lib.shard_state(mesh, self.state)
+            self.state = mesh_lib.shard_state(mesh, self.state, cfg.shard_sources)
             self._owns_state = True
         self._scale = None
         self._scale_src = None
@@ -427,7 +431,8 @@ class Trainer:
         source has it (scaled in the step), else ``next()``. A batch
         already on the device is not copied."""
         b = self._serve_once()
-        if self.mesh is not None:       # this rank's rows of the global batch
+        if self.mesh is not None and not getattr(self.buffer, "serves_local_rows", False):
+            # this rank's rows of the global batch
             rows = b.shape[0] // self.mesh.data_size
             b = b[self.mesh.data_rank * rows:(self.mesh.data_rank + 1) * rows]
         if not torch.is_tensor(b):

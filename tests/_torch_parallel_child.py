@@ -17,7 +17,8 @@ found to ``<out>/rank<r>.pt`` (``torch.save``):
   tensor;
 - ``ckpt``: a ``Trainer`` saves after ``steps`` steps; then fresh
   trainers on the same grid restore (from ``views``: one checkpoint root
-  a rank) and report the restored state and step.
+  a rank) and report the restored state and step;
+- ``harvest``: the parallel harvest's cases (``tests/_torch_harvest_child.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from __future__ import annotations
 import json
 import os
 import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -39,37 +39,95 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(world: int, task: dict, tmp: Path, timeout: float = 240.0) -> list[dict]:
-    """Run ``task`` on ``world`` gloo ranks (one process each, one thread
-    each); returns every rank's results, rank order. Raises with the
-    ranks' output when one fails or the time runs out."""
-    import torch
+def _server():
+    """The process context the ranks start from: a fork server, a fresh
+    interpreter with no threads that has imported torch once, so a rank is
+    a fork of it (a few ms) rather than a fresh interpreter importing torch
+    (seconds of CPU a rank). As with any fork server, a script that
+    launches ranks guards its top level with ``if __name__ ==
+    "__main__"``: each rank imports the main module."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver
 
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "numpy"])
+    # the server's environment, fixed when it starts, is every rank's: one
+    # thread a rank
+    saved = dict(os.environ)
+    os.environ.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    try:
+        forkserver.ensure_running()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    return ctx
+
+
+def _rank_entry(argv: list[str], log_path: str) -> None:
+    """One rank, in a process forked from :func:`_server`: its output goes
+    to ``log_path``, it runs from the repo root, then :func:`main`."""
+    fd = os.open(log_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    os.chdir(ROOT)
+    for d in (str(HERE), str(ROOT)):
+        if d not in sys.path:
+            sys.path.insert(0, d)
+    sys.argv = [str(HERE / "_torch_parallel_child.py"), *argv]
+    main()
+
+
+def start_ranks(world: int, task: dict, tmp: Path):
+    """Start ``task`` on ``world`` gloo ranks (one process each, one thread
+    each, output to ``<tmp>/rank<r>.log``) and return at once; the caller
+    may work while they run, then :func:`finish_ranks`."""
     tmp.mkdir(parents=True, exist_ok=True)
     task = dict(task, out=str(tmp))
     path = tmp / "task.json"
     path.write_text(json.dumps(task))
     port = free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
-               PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs = [subprocess.Popen([sys.executable, str(HERE / "_torch_parallel_child.py"), str(r),
-                               str(world), str(port), str(path)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
-             for r in range(world)]
-    outs = []
+    ctx = _server()
+    procs = []
+    for r in range(world):
+        p = ctx.Process(target=_rank_entry, args=(
+            [str(r), str(world), str(port), str(path)], str(tmp / f"rank{r}.log")))
+        p.start()
+        procs.append(p)
+    return procs, tmp
+
+
+def finish_ranks(started, timeout: float = 240.0) -> list[dict]:
+    """Every rank's results of a :func:`start_ranks` launch, rank order.
+    Raises with the ranks' output when one fails or the time runs out."""
+    import time
+
+    import torch
+
+    procs, tmp = started
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
     finally:
         for p in procs:
-            if p.poll() is None:
+            if p.is_alive():
                 p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
+                p.join()
+    if any(p.exitcode for p in procs):
+        logs = [tmp / f"rank{r}.log" for r in range(len(procs))]
+        outs = [log.read_bytes().decode(errors="replace") if log.exists()
+                else "(no log: the rank failed before it started)" for log in logs]
         raise RuntimeError("rank failed:\n" + "\n".join(
-            f"--- rank {r} rc {p.returncode}\n{o[-4000:]}" for r, (p, o) in
+            f"--- rank {r} rc {p.exitcode}\n{o[-4000:]}" for r, (p, o) in
             enumerate(zip(procs, outs))))
-    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(len(procs))]
+
+
+def run_ranks(world: int, task: dict, tmp: Path, timeout: float = 240.0) -> list[dict]:
+    """Run ``task`` on ``world`` gloo ranks and return every rank's results
+    (:func:`start_ranks`, then :func:`finish_ranks`)."""
+    return finish_ranks(start_ranks(world, task, tmp), timeout)
 
 
 def _cfg(task, name, **extra):
@@ -229,6 +287,12 @@ def _stop(task, rank):
     return {"step": tr.step_counter}
 
 
+def _harvest(task, rank):
+    import _torch_harvest_child
+
+    return _torch_harvest_child.run(task, rank)
+
+
 def main() -> None:
     rank, world, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     import torch
@@ -241,7 +305,7 @@ def main() -> None:
                          world_size=world, rank=rank)
     try:
         res = {"train": _train, "quant": _quant, "ckpt": _ckpt,
-               "coll": _coll, "stop": _stop}[task["kind"]](task, rank)
+               "coll": _coll, "stop": _stop, "harvest": _harvest}[task["kind"]](task, rank)
         torch.save(res, Path(task["out"]) / f"rank{rank}.pt")
     finally:
         multihost.shutdown()

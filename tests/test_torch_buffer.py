@@ -277,10 +277,13 @@ def test_validation(tokens):
     with pytest.raises(ValueError, match="param sets"):
         buf.PairedActivationBuffer(CrossCoderConfig(**make_kw(n_models=3)), None,
                                    [{}, {}], tokens, device="cpu")
-    for kw in (dict(seq_shards=17), dict(fleet="on")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            buf.make_buffer(CrossCoderConfig(**make_kw(**kw)), None, [{}, {}], tokens,
-                            device="cpu")
+    # seq_shards needs a data axis as wide (one rank here), as the JAX buffer's
+    with pytest.raises(ValueError, match="seq_shards 17 != mesh data axis 1"):
+        buf.make_buffer(CrossCoderConfig(**make_kw(seq_shards=17)), None, [{}, {}], tokens,
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        buf.make_buffer(CrossCoderConfig(**make_kw(fleet="on")), None, [{}, {}], tokens,
+                        device="cpu")
     with pytest.raises(ValueError, match="tokens must be"):
         buf.PairedActivationBuffer(CrossCoderConfig(**make_kw()), None, [{}, {}],
                                    tokens[:, :5], device="cpu")

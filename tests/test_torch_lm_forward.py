@@ -201,6 +201,30 @@ def test_from_hf_local_checkpoint(tmp_path):
         lm.from_hf("google/gemma-2-2b", device="cpu")
 
 
+def test_from_hf_tp_loads_each_ranks_slices(tmp_path):
+    """``from_hf(..., tp=mesh)`` keeps rank r's tensor-parallel slices of
+    every leaf (the ``model`` axis of a 1 × 2 grid, seen from each rank):
+    the two ranks' slices concatenate to the whole load, the norms stay
+    whole, and the params carry the rank."""
+    from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+
+    _save_tiny_gemma2(tmp_path / "tiny-gemma2", 0)
+    whole, cfg = lm.from_hf(str(tmp_path / "tiny-gemma2"), device="cpu")
+    ranks = [lm.from_hf(str(tmp_path / "tiny-gemma2"), cfg, device="cpu",
+                        tp=mesh_lib.Mesh(1, 2, 0, r, None, None, None))[0] for r in (0, 1)]
+    specs = lm.tp_shardings(mesh_lib.Mesh(1, 2, 0, 0, None, None, None))
+    for r, p in enumerate(ranks):
+        assert p[lm.TP_KEY].rank == r
+    for key, spec in [("embed", specs["embed"]), ("final_norm", specs["final_norm"]),
+                      *[(("layers", k), v) for k, v in specs["layers"].items()]]:
+        get = (lambda d: d["layers"][key[1]]) if isinstance(key, tuple) else (lambda d: d[key])
+        if spec is None:
+            assert all(torch.equal(get(p), get(whole)) for p in ranks), key
+        else:
+            joined = torch.cat([get(p) for p in ranks], dim=spec[0])
+            assert torch.equal(joined, get(whole)), key
+
+
 def test_train_main_gemma_source_from_two_local_dirs(tmp_path):
     """--data-source gemma loads both --model-names as local HF
     directories and trains over the local token cache."""

@@ -142,10 +142,12 @@ def test_mesh_refuses_what_it_does_not_run_yet(kw, grid, match):
 
 
 def test_shard_sources_and_the_buffer_on_many_ranks_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="shard_sources.*A6b"):
-        Trainer(CrossCoderConfig(**BASE, shard_sources=True), device="cpu")
+    """shard_sources trains (one device holds every source); a host store on
+    more than one rank is the JAX ValueError, raised before any harvest."""
+    tr = Trainer(CrossCoderConfig(**BASE, shard_sources=True), device="cpu")
+    assert torch.isfinite(tr.step()["loss"])
     monkeypatch.setattr(multihost, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="more than one rank.*A6b"):
+    with pytest.raises(ValueError, match="buffer_device='host' cannot run on a multi-process"):
         make_buffer(CrossCoderConfig(**BASE), None, [], None)
 
 
