@@ -234,7 +234,25 @@ one NVIDIA Hopper card and the CUDA toolkit:
    bitwise a single-device Trainer on the device store, K11, K5, K8, K10
    and O1 counted; leg SS, ``shard_sources`` on a grid of one, 4 steps
    bitwise the single-device Trainer;
-13. prints the kernel table as one JSON line, the card line, and
+13. the mesh's last refusals on the card (an NCCL group of one rank): leg
+   OV, the bf16 and int8 mesh stores fed by a tensor-parallel harvest
+   with ``refill_overlap="on"`` (no dispatcher thread: the credit pumped
+   inline), 8 serves and 6 TopK steps of a mesh Trainer on each bitwise
+   the same with the overlap off; leg PT, the paged harvest (K1) of a [4,
+   1024] chunk over tensor-parallel params bitwise the paged harvest over
+   whole params, K1's launches counted, timed; leg FM, the mesh trainer at
+   Gemma-2-2B width, 4 steps a knob in turns with the single-device
+   Trainer, loss, metrics and state bitwise after each step: fused TopK
+   (K2), ``quant_encoder`` (K3, K11), fused BatchTopK (K4 select, count
+   and emit), ``sparse_decode`` (K5, K8), resampling with a resample in
+   the window, and the loss guard with one NaN serve and one rollback
+   (dictionary 2^12, its saves and agreed restore kept small); K2, K3 and
+   K4's select, count and emit timed at the step's operands (CUDA events);
+   then leg FM again at data 1 x model 2 on two gloo ranks sharing the card
+   (this process and one more, ``--gloo-rank``), each rank's losses and
+   shard of the params against its own single-device run (a loss within
+   1e-4 relative, each leaf within 1e-3 relative in norm);
+14. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -243,12 +261,14 @@ Any failed check exits nonzero before the last line is printed.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -327,6 +347,7 @@ N_REPLICA = 8
 # 1e-3 relative, each gradient within 2e-2 relative in norm
 SPARSE_DECODE_TOL = (1e-3, 2e-2)
 STEP_MS: dict[str, float] = {}
+BT_T = 15                    # candidate patterns a bisection pass counts (K9's T)
 CUDA_CORE_MS = {"K2 serve": 0.2477, "K2 train": 95.2670, "K4 select": 39.9474,
                 "K4 emit": 29.2987, "leg B bare step": 127.4, "leg K step": 104.389,
                 "K3 train": 24.1683, "K1 serve": 1.1974, "leg I bare step": 58.3}
@@ -1597,7 +1618,36 @@ def check_fused_batchtopk(torch, fek):
         rows.append({**_row(name, "fused_batchtopk.cu",
                             f"crosscoder_tpu/ops/fused_encoder_topk.py:{line}", 0.0, ms,
                             plain_ms, bnd, lib_ms), "queued_ms": q_ms})
+    # the count entry (a pass of the threshold over a rank grid), bitwise on
+    # the training shape's exact inputs from 0 and from the exact threshold,
+    # timed on the random bf16 operands from 0 (its first pass on a grid)
+    top = 0x7FFF
+    for dt in (torch.bfloat16, torch.float32):
+        xe, We, be = _exact_bt(torch, gen, B, nd, H, dt, None)
+        kth_e = int(fek.fused_batchtopk_select_plain(xe, We, be, kk))
+        hi = top if dt == torch.bfloat16 else 0x7FFFFFFF
+        for lo in (0, kth_e):
+            got = fek.fused_batchtopk_count(xe, We, be, lo, hi)
+            want = fek.fused_batchtopk_count_plain(xe, We, be, lo, hi)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"K4 count not bitwise equal to its plain version ({dt}, lo {lo}): "
+                     f"{got.tolist()} vs {want.tolist()}")
+        log(f"K4 count [{B},{nd}]x[{nd},{H}] {str(dt)[6:]} exact, from 0 and from the exact "
+            f"threshold {kth_e}: bitwise equal")
+        del xe, We
+    ms = time_ms(lambda: fek.fused_batchtopk_count(x, W, b, 0, top), 5)
+    q_ms = time_ms(lambda: fek.fused_batchtopk_count(x, W, b, 0, top), 5, queued=True)
+    plain_ms = time_ms(lambda: fek.fused_batchtopk_count_plain(x, W, b, 0, top), 2)
+    bnd = bound(n_bytes + 8 * BT_T, 2 * B * nd * H, "bf16")
+    log(f"K4 count training shape (T {BT_T} candidates from [0, {top})): {ms:.4f} ms kernel "
+        f"({q_ms:.4f} ms queued), {plain_ms:.4f} ms plain, no single library call, bound "
+        f"{bnd[0]:.4f} ms by {bnd[1]}")
+    rows.append({**_row("fused_batchtopk count", "fused_batchtopk.cu",
+                        "crosscoder_tpu/ops/fused_encoder_topk.py:533", 0.0, ms, plain_ms, bnd,
+                        None), "queued_ms": q_ms})
     return rows
+
 
 
 def check_tile_edges(torch, fek):
@@ -1705,6 +1755,7 @@ def plain_versions(tp, sg, fek):
              (tp, "batchtopk_emit", tp.batchtopk_emit_plain),
              (fek, "fused_topk_encode_q", fek.fused_topk_encode_q_plain),
              (fek, "fused_batchtopk_select", fek.fused_batchtopk_select_plain),
+             (fek, "fused_batchtopk_count", fek.fused_batchtopk_count_plain),
              (fek, "fused_batchtopk_emit", fek.fused_batchtopk_emit_plain)]
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     for m, name, plain in swaps:
@@ -2398,6 +2449,7 @@ def launch_counters():
             "fused_topk_encode": fek.fused_topk_encode,
             "fused_topk_encode_q": fek.fused_topk_encode_q,
             "fused_batchtopk_select": fek.fused_batchtopk_select,
+            "fused_batchtopk_count": fek.fused_batchtopk_count,
             "fused_batchtopk_emit": fek.fused_batchtopk_emit}
 
 
@@ -3907,12 +3959,13 @@ def _metric_bits(torch, m):
                 if torch.is_tensor(v) else v) for k, v in m.items()}
 
 
-def _mesh_steps(torch, tr_s, tr_m, steps, label):
+def _mesh_steps(torch, tr_s, tr_m, steps, label, routes=None):
     """``steps`` steps of the single-device trainer ``tr_s`` and the mesh
     trainer ``tr_m`` in turns, each timed (CUDA events); after each step
     the loss, every metric and the full state bitwise, else fail. Returns
     the two step times and the mesh steps' kernel launches and NCCL calls
-    by op (counts from 0 around the mesh steps only)."""
+    by op (counts from 0 around the mesh steps only); ``routes``, when
+    given, sums the mesh steps' K8 and K11 launches by route."""
     from crosscoder_tpu_torch.parallel import collectives as coll
 
     counters = launch_counters()
@@ -3931,6 +3984,11 @@ def _mesh_steps(torch, tr_s, tr_m, steps, label):
         torch.cuda.synchronize()
         for n, c in counters.items():
             launches[n] += c.launches
+        if routes is not None:
+            for kernel, by in read_routes().items():
+                for route, n in by.items():
+                    routes.setdefault(kernel, {}).setdefault(route, 0)
+                    routes[kernel][route] += n
         for op, n in coll.calls.items():
             calls.setdefault(op, []).append(n)
         t_s.append(e[0].elapsed_time(e[1]))
@@ -4480,7 +4538,524 @@ def parallel_harvest(torch, np, root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the mesh's last refusals on one card (an NCCL group of one rank)
+
+# leg OV: phase 12's leg MS config with the refill overlap, fed by
+# tensor-parallel params; 8 serves and 6 steps against the overlap off
+OV_SERVES, OV_STEPS = 8, 6
+# leg PT: the paged harvest of a [4, 1024] chunk of phase 7's corpus, page 64
+PT_ROWS, PT_PAGE = 4, 64
+# leg FM: each knob at the train phase's width for 4 steps, AuxK off so that
+# every step takes the knob's path; the guard at dict 2^12 (its saves and its
+# agreed restore are the leg's cost), a log every step, serve 1 all NaN
+FM_STEPS = 4
+FM_NAN_SERVE = 1
+_FM_BASE = dict(TRAIN, aux_k=0, aux_every=1)
+FM = {
+    "K2": dict(_FM_BASE, fused_encoder="on"),
+    "K3": dict(_FM_BASE, fused_encoder="on", quant_encoder=True, quant_block=256),
+    "K4": dict(LEG_BT, fused_encoder="on"),
+    "D": dict(LEG_D),
+    "R": dict(_FM_BASE, fused_encoder="off", resample_every=2, resample_dead_steps=1),
+    "G": dict(_FM_BASE, fused_encoder="off", dict_size=2 ** 12, guard_loss=True, log_every=1,
+              save_every=100, keep_saves=3),
+}
+
+
+def overlap_leg(torch, np, mesh, lm_cfg, tp_params, tokens, quant):
+    """Leg OV for one store format: the mesh store over ``tp_params`` with
+    the overlap on and off, 8 serves bitwise, then a mesh Trainer on each
+    for 6 steps in turns, bitwise. Returns the overlap-on path's launches
+    (its fill, serves and steps) and its times."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data import buffer as bufmod
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+
+    label = f"leg OV {'int8' if quant else 'bf16'}"
+    cls = bufmod.QuantMeshPairedActivationBuffer if quant else bufmod.MeshPairedActivationBuffer
+    counters = launch_counters()
+    acc: dict = {}
+    stores, fill = {}, {}
+    for ov in ("off", "on"):
+        cfg = CrossCoderConfig(**MS, quant_buffer=quant, refill_overlap=ov,
+                               num_tokens=MS["batch_size"] * OV_STEPS)
+        t0 = time.perf_counter()
+        if ov == "on":
+            stores[ov] = _counted(torch, counters, acc, lambda: cls(
+                cfg, lm_cfg, tp_params, tokens, device="cuda", mesh=mesh))
+        else:
+            stores[ov] = cls(cfg, lm_cfg, tp_params, tokens, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        fill[ov] = time.perf_counter() - t0
+    on, off = stores["on"], stores["off"]
+    if on._dispatcher is not None or not on._overlap or on._spare_rows == 0:
+        fail(f"{label}: the overlap store started a dispatcher thread or has no spare rows")
+    serve_ms = {"on": [], "off": []}
+    for i in range(OV_SERVES):
+        t0 = time.perf_counter()
+        a = _counted(torch, counters, acc, on.next_raw)
+        serve_ms["on"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        b = off.next_raw()
+        torch.cuda.synchronize()
+        serve_ms["off"].append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            fail(f"{label}: serve {i} with the overlap on differs from the overlap off")
+    if on.state_dict() != off.state_dict():
+        fail(f"{label}: the stream states differ: {on.state_dict()} vs {off.state_dict()}")
+    cfg = on.cfg
+    state0 = init_train_state(cfg, Optimizer(cfg, lambda s: 0.0), device="cuda")
+    tr_off = trainer_mod.Trainer(cfg.replace(refill_overlap="off"), off, device="cuda",
+                                 state=state0, mesh=mesh)
+    tr_on = trainer_mod.Trainer(cfg, on, device="cuda", state=state0, mesh=mesh)
+    t_off, t_on, launches, _ = _mesh_steps(torch, tr_off, tr_on, OV_STEPS, label)
+    check_o1(label, launches, OV_STEPS)
+    for n, c in launches.items():
+        acc[n] = acc.get(n, 0) + c
+    if quant and not acc.get("quantize_rows"):
+        fail(f"{label}: K11 never launched on the int8 store's refill: {acc}")
+    info = dict(fill_on=fill["on"], fill_off=fill["off"], serve_on=serve_ms["on"],
+                serve_off=serve_ms["off"], step_on=t_on, step_off=t_off,
+                spare=on._spare_rows, nbytes=on.store_nbytes())
+    on.close()
+    off.close()
+    return acc, info
+
+
+def paged_tp_leg(torch, np, mesh, lm_cfg, params, tp_params, tokens):
+    """Leg PT: the paged harvest of a [4, 1024] chunk over the
+    tensor-parallel params, bitwise the paged harvest over the whole params,
+    K1's launches counted on the TP run; both timed. Returns K1's launches."""
+    from crosscoder_tpu_torch.data.tokens import valid_lengths
+    from crosscoder_tpu_torch.models import lm
+    from crosscoder_tpu_torch.ops import paged_attention as pa
+    from crosscoder_tpu_torch.parallel import collectives as coll
+
+    chunk = tokens[:PT_ROWS]
+    lengths = valid_lengths(chunk)
+    hooks = (HARVEST["hook_point"],)
+    kw = dict(page_size=PT_PAGE, pad_mode="wrap", out_dtype=torch.bfloat16)
+    pa.paged_attention.launches = 0
+    pa.paged_attention.by_route.update(dict.fromkeys(pa.paged_attention.by_route, 0))
+    coll.reset_counts()
+    got = lm.run_with_cache_multi_paged(tp_params, chunk, lengths, lm_cfg, hooks, **kw)
+    torch.cuda.synchronize()
+    k1 = pa.paged_attention.launches
+    routes = dict(pa.paged_attention.by_route)
+    calls = dict(coll.calls)
+    want = lm.run_with_cache_multi_paged(params, chunk, lengths, lm_cfg, hooks, **kw)
+    torch.cuda.synchronize()
+    if k1 != K1_PER_CHUNK or routes["tensor_cores"] != k1:
+        fail(f"leg PT: K1 launched {k1} times ({routes}) on the TP paged harvest, want "
+             f"{K1_PER_CHUNK} on the tensor-core route")
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        fail("leg PT: the paged harvest over TP params differs from the one over whole params")
+    tp_ms = time_ms(lambda: lm.run_with_cache_multi_paged(tp_params, chunk, lengths, lm_cfg,
+                                                          hooks, **kw), 2)
+    whole_ms = time_ms(lambda: lm.run_with_cache_multi_paged(params, chunk, lengths, lm_cfg,
+                                                             hooks, **kw), 2)
+    log(f"mesh rest: leg PT, run_with_cache_multi_paged of both models over TP params (the "
+        f"one-rank model group: {lm_cfg.n_heads} query heads on {lm_cfg.n_kv_heads} KV heads a "
+        f"rank) on [{PT_ROWS}, {HARVEST['seq_len']}] (lengths {lengths.tolist()}) bitwise the "
+        f"whole params' paged harvest; K1 launches {k1} ({routes}); collectives {calls}; "
+        f"{tp_ms:.3f} ms against {whole_ms:.3f} ms (CUDA events)")
+    return k1
+
+
+def _fm_trainers(torch, np, root):
+    """Leg FM's single-device Trainers, built before the group exists (a
+    Trainer built inside a group takes the group's grid), with their
+    configs, start states and sources."""
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+
+    B = TRAIN["batch_size"]
+    batches = DeviceBatches(torch, SyntheticActivationSource(CrossCoderConfig(**TRAIN)),
+                            2 * FM_STEPS)
+    refs = {}
+    for name, kw in FM.items():
+        cfg = CrossCoderConfig(**kw, num_tokens=B * FM_STEPS)
+        state0 = init_train_state(cfg, Optimizer(cfg, lambda s: 0.0), device="cuda")
+        if name == "G":
+            dirs = [ckpt_dir(root), ckpt_dir(root)]
+            cfg = cfg.replace(checkpoint_dir=str(dirs[0]))
+            src = copy.copy(batches)
+            tr = trainer_mod.Trainer(cfg, PoisonedBatches(src, FM_NAN_SERVE), device="cuda",
+                                     state=state0, checkpointer=Checkpointer(cfg=cfg))
+            refs[name] = dict(cfg=cfg, state0=state0, tr=tr, dirs=dirs, batches=batches)
+        else:
+            tr = trainer_mod.Trainer(cfg, Replay(batches.batches, None), device="cuda",
+                                     state=state0)
+            refs[name] = dict(cfg=cfg, state0=state0, tr=tr)
+    return refs, batches
+
+
+def _fm_kernel_ms(torch, fek, name, tr, batch):
+    """The leg's fused kernel timed on the step's operands (the batch and
+    the mesh trainer's encoder in the compute dtype), CUDA events."""
+    cfg = tr.cfg
+    p = tr.state.params
+    x2 = batch.reshape(batch.shape[0], -1).to(torch.bfloat16)
+    W2 = p["W_enc"].to(torch.bfloat16).reshape(x2.shape[1], -1)
+    b = p["b_enc"].float()
+    k = cfg.topk_k
+    if name == "K2":
+        return {"fused_topk_encode": time_ms(lambda: fek.fused_topk_encode(x2, W2, b, k), 5)}
+    if name == "K3":
+        return {"fused_topk_encode_q": time_ms(
+            lambda: fek.fused_topk_encode_q(x2, W2, b, k, cfg.quant_block), 5)}
+    kk = fek.batchtopk_budget(x2.shape[0], W2.shape[1], k)
+    kth = fek.fused_batchtopk_select(x2, W2, b, kk)
+    lo = int(kth)
+    return {"fused_batchtopk_select": time_ms(lambda: fek.fused_batchtopk_select(x2, W2, b, kk),
+                                              5),
+            "fused_batchtopk_count": time_ms(
+                lambda: fek.fused_batchtopk_count(x2, W2, b, lo, 0x7FFF), 5),
+            "fused_batchtopk_emit": time_ms(lambda: fek.fused_batchtopk_emit(x2, W2, b, kth), 5)}
+
+
+def guard_mesh_leg(torch, mesh, ref):
+    """Leg FM's guard: the single-device and the mesh Trainer each train
+    4 steps under the loss guard over a source whose serve 1 is all NaN;
+    each rolls back once, to the first save; the final states, the
+    counters and the serves bitwise or equal. Returns the mesh run's
+    launches and times."""
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+
+    tr_s = ref["tr"]
+    t0 = time.perf_counter()
+    tr_s.train()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    cfg = ref["cfg"].replace(checkpoint_dir=str(ref["dirs"][1]))
+    src = PoisonedBatches(copy.copy(ref["batches"]), FM_NAN_SERVE)
+    src.inner.i = 0
+    ck = Checkpointer(cfg=cfg)
+    restores = []
+    real_restore = ck.restore
+
+    def timed_restore(*a, **kw):
+        t = time.perf_counter()
+        out = real_restore(*a, **kw)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t)
+        return out
+
+    ck.restore = timed_restore
+    counters = launch_counters()
+    reset_counters(counters)
+    tr_m = trainer_mod.Trainer(cfg, src, device="cuda", state=ref["state0"], mesh=mesh,
+                               checkpointer=ck)
+    t0 = time.perf_counter()
+    tr_m.train()
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    snap_s, snap_m = tr_s.resilience.snapshot(), tr_m.resilience.snapshot()
+    ok, what = state_bits_equal(torch, tr_s.state, tr_m.state)
+    if not (ok and snap_s == snap_m and snap_m["resilience/rollbacks"] == 1
+            and tr_m.step_counter == tr_s.step_counter == FM_STEPS
+            and tr_m.buffer.serves == tr_s.buffer.serves and len(restores) == 1):
+        fail(f"leg FM guard: the mesh run (counters {snap_m}, {tr_m.step_counter} steps, "
+             f"{tr_m.buffer.serves} serves, {len(restores)} restores) differs from the "
+             f"single-device run ({snap_s}, {tr_s.step_counter} steps, {tr_s.buffer.serves} "
+             f"serves) or its final state differs in {what}")
+    state_bytes = sum(t.numel() * t.element_size() for tree in (
+        tr_m.state.params, tr_m.state.opt_state.mu, tr_m.state.opt_state.nu)
+        for t in tree.values())
+    info = dict(wall_s=wall_s, wall_m=wall_m, restore_s=restores[0], snap=snap_m,
+                serves=tr_m.buffer.serves, state_gb=state_bytes / 1e9)
+    for d in ref["dirs"]:
+        shutil.rmtree(d, ignore_errors=True)
+    return launches, info
+
+
+# leg FM at data 1 x model 2: two gloo ranks sharing the card (this process
+# and one more of this script, ``--gloo-rank``), the only grid with a sharded
+# dictionary one card can run (NCCL refuses two ranks on one device; gloo
+# takes CUDA tensors for the all-reduce and all-gather of these paths:
+# scripts/gloo_one_card.py). Each rank's losses and its shard of the params
+# against its own single-device run: the decode's partial sums add over
+# model in another order and a bf16 near-tie may select another latent,
+# which moves that latent's update by up to lr, so the bars are a loss
+# within 1e-4 relative and each leaf's shard within 1e-3 relative in norm
+FM_GRID_TOL = (1e-4, 1e-3)
+
+
+def _leaf_rel(torch, a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def fm_grid_rank(torch, rank, port, root):
+    """One rank of leg FM at 1 x 2 (gloo): each knob's single-device run
+    first (before the group), its losses and this rank's shard of its final
+    params kept; then the group, and each knob's mesh run from the same
+    start state and batches. Returns per knob the launches, the losses and
+    the worst leaf error in norm; fails past :data:`FM_GRID_TOL`."""
+    import torch.distributed as dist
+
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+
+    B = TRAIN["batch_size"]
+    batches = DeviceBatches(torch, SyntheticActivationSource(CrossCoderConfig(**TRAIN)),
+                            2 * FM_STEPS)
+    mine = mesh_lib.Mesh(data_size=1, model_size=2, data_rank=0, model_rank=rank,
+                         data_group=None, model_group=None, world_group=None)
+
+    def run(name, cfg, mesh, ckpt):
+        state0 = init_train_state(cfg, Optimizer(cfg, lambda s: 0.0), device="cuda")
+        if cfg.guard_loss:
+            cfg = cfg.replace(checkpoint_dir=str(ckpt))
+            src = PoisonedBatches(copy.copy(batches), FM_NAN_SERVE)
+            src.inner.i = 0
+            tr = trainer_mod.Trainer(cfg, src, device="cuda", state=state0, mesh=mesh,
+                                     checkpointer=Checkpointer(cfg=cfg))
+            losses = [float(tr.train()["loss"])]
+            extra = {"snap": tr.resilience.snapshot(), "serves": src.serves,
+                     "steps": tr.step_counter}
+        else:
+            tr = trainer_mod.Trainer(cfg, Replay(batches.batches, None), device="cuda",
+                                     state=state0, mesh=mesh)
+            losses = [float(tr.step()["loss"]) for _ in range(FM_STEPS)]
+            extra = {}
+        st = tr.state if mesh is not None else mesh_lib.shard_state(mine, tr.state)
+        shard = {k: v.detach().float().cpu() for k, v in st.params.items()}
+        return losses, shard, extra
+
+    refs = {}
+    ref_dir = ckpt_dir(root)
+    for name, kw in FM.items():
+        cfg = CrossCoderConfig(**kw, num_tokens=B * FM_STEPS)
+        refs[name] = run(name, cfg, None, ref_dir)
+        torch.cuda.empty_cache()
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    mesh = mesh_lib.make_mesh(1, 2)
+    counters = launch_counters()
+    guard_dir = root / "build" / f"chip_smoke_grid_guard_{port}"
+    out = {}
+    for name, kw in FM.items():
+        cfg = CrossCoderConfig(**kw, num_tokens=B * FM_STEPS, model_axis_size=2)
+        reset_counters(counters)
+        t0 = time.perf_counter()
+        losses, shard, extra = run(name, cfg, mesh, guard_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        if name == "K3":
+            launches["by route"] = read_routes()
+        r_losses, r_shard, r_extra = refs.pop(name)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, r_losses))
+        leaf = {k: _leaf_rel(torch, v, r_shard[k]) for k, v in shard.items()}
+        out[name] = dict(losses=losses, ref_losses=r_losses, loss_rel=loss_rel, leaf=leaf,
+                         launches=launches, wall=wall, **{f"{k}": v for k, v in extra.items()})
+        if extra != r_extra or not (loss_rel <= FM_GRID_TOL[0]
+                                    and max(leaf.values()) <= FM_GRID_TOL[1]):
+            fail(f"leg FM 1x2 rank {rank} {name}: losses {losses} vs single-device {r_losses} "
+                 f"(relative {loss_rel:.3e}), leaf errors in norm {leaf}, guard {extra} vs "
+                 f"{r_extra}: past the bars {FM_GRID_TOL}")
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0:
+        shutil.rmtree(guard_dir, ignore_errors=True)
+    return out
+
+
+def fm_grid(torch, root):
+    """Leg FM at 1 x 2 on one card: this process is rank 0, one more process
+    of this script rank 1. Returns both ranks' results."""
+    port = _free_port()
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_grid_", dir=root / "build")) / "rank1.json"
+    torch.cuda.empty_cache()
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--gloo-rank", "1",
+                             str(port), str(out)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    try:
+        res0 = fm_grid_rank(torch, 0, port, root)
+        text = proc.communicate(timeout=600)[0].decode(errors="replace")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        log(f"leg FM 1x2 rank 1: {text[-3000:]}")
+        fail(f"leg FM 1x2: rank 1 exited {proc.returncode}")
+    res1 = json.loads(out.read_text())
+    shutil.rmtree(out.parent, ignore_errors=True)
+    return [res0, res1]
+
+
+def gloo_rank_worker(rank, port, out):
+    """Rank ``rank`` of leg FM at 1 x 2 (``chip_smoke.py --gloo-rank``):
+    writes its results as JSON to ``out``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    res = fm_grid_rank(torch, rank, port, root)
+    Path(out).write_text(json.dumps(res))
+
+
+def mesh_rest(torch, np, root):
+    """Phase 13: the mesh's last refusals on an NCCL group of one rank: leg
+    PT (the paged harvest over TP params, bitwise the whole params', K1
+    counted), leg OV (the mesh stores with the refill overlap over a TP
+    harvest, bitwise the overlap off) and leg FM (the mesh trainer's
+    knobs, each bitwise the single-device Trainer). Returns each leg's
+    launches (K1's on leg PT) and the fused kernels' times at the step's
+    operands."""
+    import torch.distributed as dist
+
+    from crosscoder_tpu_torch.models import lm
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.parallel import collectives as coll
+    from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+    from crosscoder_tpu_torch.parallel import multihost
+    from crosscoder_tpu_torch.train import resample
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    n_src, H = TRAIN["n_models"], TRAIN["dict_size"]
+    w_bytes = n_src * TRAIN["d_in"] * H * 2                     # W_enc in the bf16 compute dtype
+    log(f"mesh rest: under shard_sources a fused tier (K2, K3, K4) gathers W_enc's source slabs "
+        f"over model before its launch: at model m each rank receives (m - 1)/m of the bf16 "
+        f"W_enc [{n_src}, {TRAIN['d_in']}, {H}] ({w_bytes / 1e6:.1f} MB) a step, "
+        f"{w_bytes / 2 / 1e6:.1f} MB at m = 2 (x needs no gather: every rank holds its rows' "
+        f"sources); nothing moves at one rank")
+    refs, batches = _fm_trainers(torch, np, root)
+    lm_cfg = lm.LMConfig.gemma2_2b()
+    params = [lm.init_params(lm_cfg, seed=s, device="cuda") for s in (1, 2)]
+    tokens = harvest_tokens(np, 256, HARVEST["seq_len"], lm_cfg.vocab_size, 6)
+    store_root = ckpt_dir(root)
+    multihost.initialize("cuda:0", store=dist.FileStore(str(store_root / "store"), 1),
+                         world_size=1, rank=0)
+    mesh = mesh_lib.make_mesh(1, 1)
+    tp_params = [lm.shard_params_tp(p, mesh, lm_cfg) for p in params]
+    legs: dict = {}
+
+    legs["PT"] = {"paged_attention": paged_tp_leg(torch, np, mesh, lm_cfg, params, tp_params,
+                                                  tokens)}
+    del params
+    ov_info = {}
+    for quant in (False, True):
+        acc, info = overlap_leg(torch, np, mesh, lm_cfg, tp_params, tokens, quant)
+        legs[f"OV {'int8' if quant else 'bf16'}"] = acc
+        ov_info["int8" if quant else "bf16"] = info
+    for n in ("topk_mask", "sparsify", "scatter_add_rows", "adam_update"):
+        if not legs["OV bf16"].get(n):
+            fail(f"leg OV: {n} never launched on the overlap store's steps: {legs['OV bf16']}")
+    log("mesh rest: leg OV, the mesh stores over a TP harvest with refill_overlap='on' (no "
+        f"dispatcher thread; the credit pumped inline), {OV_SERVES} serves and {OV_STEPS} "
+        f"steps each bitwise the same store with the overlap off; launches "
+        f"{ {k: legs[k] for k in ('OV bf16', 'OV int8')} }; "
+        + "; ".join(f"{k}: fill on {v['fill_on']:.2f} s / off {v['fill_off']:.2f} s, spare "
+                    f"rows {v['spare']}, store {v['nbytes'] / 1e6:.1f} MB, serve ms on "
+                    f"{[round(t, 2) for t in v['serve_on']]} off "
+                    f"{[round(t, 2) for t in v['serve_off']]}, step ms on "
+                    f"{[round(t, 2) for t in v['step_on']]} off "
+                    f"{[round(t, 2) for t in v['step_off']]}" for k, v in ov_info.items()))
+    del tp_params
+
+    kernel_ms: dict = {}
+    need = {"K2": ("fused_topk_encode", "scatter_add_rows"),
+            "K3": ("fused_topk_encode_q", "quantize_rows", "scatter_add_rows"),
+            "K4": ("fused_batchtopk_select", "fused_batchtopk_count", "fused_batchtopk_emit"),
+            "D": ("topk_mask", "sparsify"), "R": ("topk_mask", "sparsify")}
+    for name, want in need.items():
+        ref = refs.pop(name)
+        coll.reset_counts()
+        tr_m = trainer_mod.Trainer(ref["cfg"], Replay(batches.batches, None), device="cuda",
+                                   state=ref["state0"], mesh=mesh)
+        revived = []
+        if name == "R":
+            fn = resample.make_resample_fn(ref["cfg"], mesh)
+
+            def counted(*a, fn=fn):
+                new, n = fn(*a)
+                revived.append(int(n))
+                return new, n
+
+            tr_m._resample_fn = counted
+        routes: dict = {}
+        t_s, t_m, launches, calls = _mesh_steps(torch, ref["tr"], tr_m, FM_STEPS,
+                                                f"leg FM {name}", routes)
+        check_o1(f"leg FM {name}", launches, FM_STEPS)
+        for n in want:
+            if not launches.get(n):
+                fail(f"leg FM {name}: {n} never launched on the mesh path: {launches}")
+        if name == "K3":
+            launches["by route"] = routes
+        legs[f"FM {name}"] = launches
+        extra = ""
+        if name in ("K2", "K3", "K4"):
+            ms = _fm_kernel_ms(torch, fek, name, tr_m, batches.batches[0])
+            kernel_ms.update(ms)
+            extra = "; at the step's operands " + ", ".join(
+                f"{n} {t:.4f} ms" for n, t in ms.items())
+        if name == "R":
+            if not (revived and all(n > 0 for n in revived)):
+                fail(f"leg FM R: no resample in the window revived a latent: {revived}")
+            extra = f"; the resample at step 2 revived {revived} latents (the grid's edit)"
+        log(f"mesh rest: leg FM {name}, {FM_STEPS} steps of the mesh trainer bitwise the "
+            f"single-device Trainer at every step; launches {launches}; NCCL calls a step by "
+            f"op { {op: sorted(set(c)) for op, c in calls.items()} }; step ms single "
+            f"{[round(t, 2) for t in t_s]} mesh {[round(t, 2) for t in t_m]}{extra}")
+        del tr_m, ref
+    launches, g = guard_mesh_leg(torch, mesh, refs.pop("G"))
+    check_o1("leg FM guard", launches, FM_STEPS + 1 + FM_NAN_SERVE)
+    legs["FM G"] = launches
+    log(f"mesh rest: leg FM guard (dict {FM['G']['dict_size']}, {g['state_gb']:.2f} GB of "
+        f"state), serve "
+        f"{FM_NAN_SERVE} all NaN: counters {g['snap']}, {g['serves']} serves, final state "
+        f"bitwise the single-device run's; wall {g['wall_m']:.1f} s on the mesh ({g['wall_s']:.1f} "
+        f"s single-device) with the first save, the agreed restore ({g['restore_s']:.2f} s) and "
+        f"the last save; launches {launches}")
+    del batches
+    multihost.shutdown()
+    shutil.rmtree(store_root, ignore_errors=True)
+    t_grid = time.perf_counter()
+    grid = fm_grid(torch, root)
+    for r, res in enumerate(grid):
+        for name, v in res.items():
+            legs[f"FM 1x2 {name} rank {r}"] = v["launches"]
+        log(f"mesh rest: leg FM at data 1 x model 2, rank {r} of two gloo ranks sharing the "
+            f"card (a dictionary of 2^15 split in halves), each knob against the rank's own "
+            f"single-device run: " + "; ".join(
+                f"{name} losses {[round(x, 6) for x in v['losses']]} vs "
+                f"{[round(x, 6) for x in v['ref_losses']]} (relative {v['loss_rel']:.2e}), "
+                f"worst leaf in norm {max(v['leaf'].values()):.2e}, {v['wall']:.1f} s, launches "
+                f"{v['launches']}" + (f", guard {v['snap']} serves {v['serves']}"
+                                      if "snap" in v else "") for name, v in res.items()))
+    for name in ("fused_topk_encode", "fused_topk_encode_q", "fused_batchtopk_select",
+                 "fused_batchtopk_count", "fused_batchtopk_emit"):
+        if not all(any(v["launches"].get(name) for v in res.values()) for res in grid):
+            fail(f"leg FM 1x2: {name} never launched on a rank's sharded dictionary")
+    log(f"mesh rest: leg FM 1 x 2 took {time.perf_counter() - t_grid:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s (NCCL at world size 1, then gloo at 2 on one "
+        f"card)")
+    return legs, kernel_ms
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--gloo-rank"]:     # rank 1 of leg FM at 1 x 2 (phase 13)
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        gloo_rank_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
     if sys.argv[1:2] == ["--cpu-rank"]:      # a rank of the CPU rehearsal (phase 11)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         r, world, port, out, grid = sys.argv[2:7]
@@ -4595,6 +5170,24 @@ def main() -> int:
                                   for leg in (legs["J"], d15, d17, legs["R"], legs["G"]))
     mesh_legs, row_k11_exchange, _ = parallel(torch, np, root)
     mesh_legs["MS and SS"] = parallel_harvest(torch, np, root)
+    rest, _ = mesh_rest(torch, np, root)
+    row_k1_harvest["launches"] += rest.pop("PT")["paged_attention"]
+    for row, name in ((train_rows[3], "fused_topk_encode"),
+                      (fused_rows[0], "fused_topk_encode_q"),
+                      (fused_rows[1], "fused_batchtopk_select"),
+                      (fused_rows[2], "fused_batchtopk_emit"),
+                      (fused_rows[3], "fused_batchtopk_count")):
+        row["launches"] = (row["launches"] or 0) + sum(leg.get(name, 0) for leg in rest.values())
+    for leg in rest.values():           # K3's legs: K11 on its operands, by route
+        routes = leg.pop("by route", None)
+        if routes:
+            quant_rows[1]["launches"] += routes["quantize_rows"]["column"]
+            quant_rows[2]["launches"] += routes["quantize_rows"]["row"]
+    quant_rows[0]["launches"] += rest["OV int8"].get("quantize_rows", 0)
+    for name in ("fused_batchtopk_select", "fused_batchtopk_count", "fused_batchtopk_emit"):
+        if not rest["FM K4"].get(name):
+            fail(f"phase 13: {name} never launched on leg FM's BatchTopK path")
+    mesh_legs.update(rest)
     for leg in mesh_legs.values():
         for row in (*train_rows[:3], *harvest_rows):
             row["launches"] += leg.get(row["name"].split()[0], 0)

@@ -406,17 +406,13 @@ class CrossCoderConfig:
     def check_buffer(self) -> None:
         """Raise for a replay buffer this config cannot build in the port:
         :class:`NotImplementedError` for the buffer knobs not ported yet
-        (the fleet's fan-out; the paged harvest under ``shard_lm``),
-        :class:`ValueError` for a buffer smaller than two batches."""
+        (the fleet's fan-out), :class:`ValueError` for a buffer smaller
+        than two batches."""
         if self.fleet == "on":
             raise NotImplementedError(
                 "fleet='on' (multi-consumer fan-out) is not ported to the PyTorch replay "
                 "buffer yet: it waits for the port of crosscoder_tpu/train/fleet.py "
                 "(ROADMAP Queue A)")
-        if self.shard_lm and self.harvest_runtime == "paged":
-            raise NotImplementedError(
-                "harvest_runtime='paged' under shard_lm is not ported yet (ROADMAP A6b "
-                "item 4b): harvest with harvest_runtime='padded'")
         rows_per_seq = self.seq_len - 1
         if rows_per_seq < 1:
             raise ValueError(f"the replay buffer needs seq_len >= 2 (BOS is dropped), "

@@ -33,6 +33,19 @@
 //     of the pattern : 0 in the compute dtype, so every tie at kth is kept
 //     (bf16: each consumer warpgroup stages its 64 rows in shared memory
 //     and stores them 16 bytes a thread).
+//   count (fused_bt_count, added for the threshold over a rank grid; it
+//     replaces no TPU kernel of its own: JAX's GSPMD runs
+//     `_fused_bt_bisect_kernel`'s counting pass over the sharded
+//     dictionary and sums its counts across devices): one pass over a
+//     rank's tiles counting, for T <= 32 candidate patterns
+//     mids[j] = lo + 1 + q·j + (rem·j)/T (q, rem = divmod(hi - lo - 1, T),
+//     K9's bisection points in [lo, hi)), the entries whose pattern reaches
+//     each. An entry adds one to shared bin n-1, n the number of mids it
+//     reaches (a 5-step binary search of the mids, staged in shared
+//     memory and padded past T with 0xFFFFFFFF, which no pattern reaches);
+//     the block adds the bins' suffix sums into the T 64-bit counts. The
+//     caller sums the counts over the ranks and narrows [lo, hi) as K9's
+//     bisection does.
 // Rows past B and columns past width are masked out of every count: a
 // positive bias would otherwise make zero rows count (the TPU kernels'
 // `_tile_bits` guard).
@@ -41,7 +54,8 @@
 // product is 1.24 TFLOP, 1.2507 ms at the bf16 tensor-core peak; the bytes
 // (x 38 MB, W 302 MB, f 268 MB) take 0.18 ms. The bound counts the product
 // once; this design computes it 2 times in bf16 (on the tensor cores, W
-// read about once a pass) and 3 in f32 (on the CUDA cores).
+// read about once a pass) and 3 in f32 (on the CUDA cores). A count pass
+// is one more product: the same 1.2507 ms bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,8 +71,42 @@ constexpr int kBN = 128;          // tile columns
 constexpr int kBK = 16;           // contraction columns staged a step
 constexpr int kBins1 = 1 << 15;   // top-15-bit histogram
 constexpr int kBins2 = 1 << 16;   // low-16-bit histogram (f32)
+constexpr int kMaxMids = 32;      // candidate patterns a count pass takes
 
-enum Mode { kHist1 = 0, kHist2 = 1, kEmit = 2 };
+enum Mode { kHist1 = 0, kHist2 = 1, kEmit = 2, kCount = 3 };
+
+// a count pass's candidate patterns, ascending, padded past t with 0xFFFFFFFF
+struct Mids {
+  unsigned v[kMaxMids];
+  int t;
+};
+
+// The mids of `m` into shared memory `v` (kMaxMids words), by the block.
+__device__ __forceinline__ void stage_mids(const Mids& m, unsigned* v) {
+  if (threadIdx.x < kMaxMids) v[threadIdx.x] = m.v[threadIdx.x];
+}
+
+// Mids reached by pattern p: the count of v[j] <= p over the sorted,
+// padded v (0 for p == 0: every mid is >= 1), by binary search.
+__device__ __forceinline__ int mids_reached(const unsigned* v, unsigned p) {
+  int n = 0;
+#pragma unroll
+  for (int step = kMaxMids / 2; step > 0; step >>= 1)
+    if (v[n + step - 1] <= p) n += step;
+  return n + (n == kMaxMids - 1 && v[n] <= p);
+}
+
+// The end of a count pass: the block's bins (sbins[n-1]: entries reaching
+// exactly n mids) as suffix sums into counts[j] (entries reaching mid j).
+__device__ __forceinline__ void flush_counts(const unsigned* sbins, int t,
+                                             unsigned long long* counts) {
+  __syncthreads();
+  if (threadIdx.x < t) {
+    unsigned long long c = 0;
+    for (int b = threadIdx.x; b < t; ++b) c += sbins[b];
+    if (c) atomicAdd(&counts[threadIdx.x], c);
+  }
+}
 
 // device state, 64-bit words zeroed by the wrapper
 struct State {
@@ -241,15 +289,17 @@ template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 bt_pass(const float* __restrict__ x, const float* __restrict__ W, const float* __restrict__ b,
         State* __restrict__ st, int* __restrict__ kth_out, float* __restrict__ out,
-        int B, int nd, int width, long long kk) {
-  extern __shared__ unsigned shist[];          // kHist1: [kBins1]
+        int B, int nd, int width, long long kk, const Mids mids,
+        unsigned long long* __restrict__ counts) {
+  extern __shared__ unsigned shist[];          // kHist1: [kBins1]; kCount: bins, then mids
   __shared__ __align__(16) float As[kBK][kBM];
   __shared__ __align__(16) float Bs[kBK][kBN];
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, lane = tid & 31;
 
   unsigned kth = 0, prefix = 0;
-  if constexpr (MODE == kHist1) {
-    for (int i = tid; i < kBins1; i += kThreads) shist[i] = 0;
+  if constexpr (MODE == kHist1 || MODE == kCount) {
+    for (int i = tid; i < (MODE == kHist1 ? kBins1 : kMaxMids); i += kThreads) shist[i] = 0;
+    if constexpr (MODE == kCount) stage_mids(mids, shist + kMaxMids);
     __syncthreads();
   } else if constexpr (MODE == kHist2) {
     if (st->done) return;
@@ -279,6 +329,12 @@ bt_pass(const float* __restrict__ x, const float* __restrict__ W, const float* _
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             if (p[j]) atomicAdd(&shist[p[j] >> 16], 1u);
+        } else if constexpr (MODE == kCount) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = mids_reached(shist + kMaxMids, p[j]);
+            if (n) atomicAdd(&shist[n - 1], 1u);
+          }
         } else if constexpr (MODE == kHist2) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -299,7 +355,9 @@ bt_pass(const float* __restrict__ x, const float* __restrict__ W, const float* _
       }
     }
   }
-  if constexpr (MODE != kEmit) {
+  if constexpr (MODE == kCount) {
+    flush_counts(shist, mids.t, counts);
+  } else if constexpr (MODE != kEmit) {
     __shared__ unsigned long long sums[kThreads];
     finish_count<false, MODE, kThreads>(st, kth_out, kk, prefix, shist, sums);
   }
@@ -370,8 +428,31 @@ struct EmitEpilogue {
   }
 };
 
+struct CountEpilogue {
+  const float* b;
+  const unsigned* mids;   // staged in shared memory
+  unsigned* sbins;
+  int B, width;
+
+  __device__ __forceinline__ void operator()(float (&acc)[64], int row0, int c0, int cw, int t) {
+    const int rbase = row0 + cw * 64;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = etile::frag_row(i, t), c = etile::frag_col(i, t);
+      if (rbase + r < B && c0 + c < width) {
+        const float2 bb = *reinterpret_cast<const float2*>(b + c0 + c);
+        const int n0 = mids_reached(mids, pattern_bf16(acc[i] + bb.x));
+        const int n1 = mids_reached(mids, pattern_bf16(acc[i + 1] + bb.y));
+        if (n0) atomicAdd(&sbins[n0 - 1], 1u);
+        if (n1) atomicAdd(&sbins[n1 - 1], 1u);
+      }
+    }
+  }
+};
+
 constexpr size_t kSelSmem = size_t(kBins1) * sizeof(unsigned) + etile::ring_bytes(kSelStages) +
                             etile::kAlign;
+constexpr size_t kCountSmem = etile::ring_bytes(kEmitStages) + etile::kAlign;
 constexpr size_t kEmitSmem = etile::ring_bytes(kEmitStages) +
                              size_t(etile::kBM) * kOutPitch * sizeof(uint32_t) + etile::kAlign;
 
@@ -391,6 +472,20 @@ bt_select_tc(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUt
 }
 
 __global__ void __launch_bounds__(etile::kThreads, 1)
+bt_count_tc(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUtensorMap wm,
+            const float* __restrict__ b, const __grid_constant__ Mids mids,
+            unsigned long long* __restrict__ counts, int B, int nd, int width) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned sbins[kMaxMids], smids[kMaxMids];
+  unsigned char* ring = etile::align_smem(smem_raw);
+  if (threadIdx.x < kMaxMids) sbins[threadIdx.x] = 0;
+  stage_mids(mids, smids);
+  CountEpilogue epi{b, smids, sbins, B, width};
+  etile::run_tiles<kEmitStages>(&xm, &wm, ring, B, nd, width, epi);   // syncs after the zeroing
+  flush_counts(sbins, mids.t, counts);
+}
+
+__global__ void __launch_bounds__(etile::kThreads, 1)
 bt_emit_tc(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUtensorMap wm,
            const float* __restrict__ b, const int* __restrict__ kth, uint16_t* __restrict__ out,
            int B, int nd, int width) {
@@ -405,9 +500,12 @@ bt_emit_tc(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUten
 
 template <int MODE>
 int launch_pass(const void* x, const void* W, const void* b, void* st, void* kth, void* out, int B,
-                int nd, int width, long long kk, cudaStream_t stream) {
+                int nd, int width, long long kk, cudaStream_t stream, const Mids& mids = Mids{},
+                void* counts = nullptr) {
   auto kern = bt_pass<MODE>;
-  const size_t smem = MODE == kHist1 ? kBins1 * sizeof(unsigned) : 0;
+  const size_t smem = MODE == kHist1   ? kBins1 * sizeof(unsigned)
+                      : MODE == kCount ? 2 * kMaxMids * sizeof(unsigned)
+                                       : 0;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   int per_sm = 0;
@@ -419,7 +517,8 @@ int launch_pass(const void* x, const void* W, const void* b, void* st, void* kth
   if (grid > n_tiles) grid = n_tiles;
   kern<<<int(grid), kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(W), static_cast<const float*>(b),
-      static_cast<State*>(st), static_cast<int*>(kth), static_cast<float*>(out), B, nd, width, kk);
+      static_cast<State*>(st), static_cast<int*>(kth), static_cast<float*>(out), B, nd, width, kk,
+      mids, static_cast<unsigned long long*>(counts));
   return int(cudaGetLastError());
 }
 
@@ -443,6 +542,27 @@ extern "C" int fused_bt_select(const void* x, const void* W, const void* b, void
                          static_cast<const float*>(b), static_cast<State*>(state),
                          static_cast<int*>(kth), B, nd, width, kk);
   return run_select_f32(x, W, b, state, kth, B, nd, width, kk, st);
+}
+
+// `counts`: t zeroed 64-bit words, counts[j] += the entries whose pattern
+// reaches mids[j] (the bisection points of [lo, hi), lo < hi - 1); t in
+// [1, 32].
+extern "C" int fused_bt_count(const void* x, const void* W, const void* b, void* counts, int B,
+                              int nd, int width, int lo, int hi, int t, int is_bf16,
+                              void* stream) {
+  if (t < 1 || t > kMaxMids || lo < 0 || hi - lo < 2) return int(cudaErrorInvalidValue);
+  Mids mids{};
+  mids.t = t;
+  const long long span = (long long)hi - lo - 1, q = span / t, rem = span % t;
+  for (int j = 0; j < kMaxMids; ++j)
+    mids.v[j] = j < t ? unsigned(lo + 1 + q * j + (rem * j) / t) : 0xFFFFFFFFu;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return etile::launch(bt_count_tc, kCountSmem, x, W, B, nd, width, st,
+                         static_cast<const float*>(b), mids,
+                         static_cast<unsigned long long*>(counts), B, nd, width);
+  return launch_pass<kCount>(x, W, b, nullptr, nullptr, nullptr, B, nd, width, 0, st, mids,
+                             counts);
 }
 
 extern "C" int fused_bt_emit(const void* x, const void* W, const void* b, const void* kth,

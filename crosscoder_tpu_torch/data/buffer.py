@@ -34,7 +34,11 @@ Harvest → calibrate → store → shuffle → serve, as the JAX package does i
   spends the pacing credit each serve posts, launching on the stream the
   buffer was built on; at the cycle's end a logical→physical row map
   swaps, so no row moves and the served stream is byte-identical to
-  overlap off. A full fill (the first, a restore) stays in place.
+  overlap off. A full fill (the first, a restore) stays in place. Where
+  the refill issues collectives (the mesh stores, ``shard_lm`` or
+  tensor-parallel params, ``seq_shards``, more than one rank) no thread
+  starts: each serve pumps its credit inline, in the same count-based
+  order on every rank, as the JAX package does on a mesh.
 - **Resume**: :meth:`PairedActivationBuffer.state_dict` records the token
   position of the oldest unserved row; a restore refills from there.
 
@@ -70,8 +74,7 @@ harvest forward takes tensor-parallel LM params (``shard_lm``) as it
 takes whole ones. A host store refuses more than one rank, as the JAX
 package's does.
 
-Not ported here (``cfg.check_buffer`` raises): multi-consumer fan-out;
-the refill overlap on a mesh store (ROADMAP A6b item 4a).
+Not ported here (``cfg.check_buffer`` raises): multi-consumer fan-out.
 """
 
 from __future__ import annotations
@@ -167,17 +170,14 @@ class PairedActivationBuffer:
             if n_data != cfg.seq_shards:
                 raise ValueError(f"seq_shards {cfg.seq_shards} != mesh data axis {n_data}")
             self._seq_mesh = mesh
-        if cfg.refill_overlap == "on" and (
-                cfg.shard_lm or self._seq_mesh is not None or self.serves_local_rows
-                or any(lm.TP_KEY in p for p in model_params)):
-            # the harvest (tensor-parallel, sequence-parallel) or the store
-            # (mesh-sharded) issues collectives: the dispatcher thread would
-            # launch them beside the main thread's, in an order the ranks do
-            # not share
-            raise NotImplementedError(
-                "refill_overlap='on' with a harvest or store that issues collectives "
-                "(shard_lm or tensor-parallel LM params, seq_shards > 1, the mesh-sharded "
-                "store) is not ported yet (ROADMAP A6b item 4a)")
+        # the harvest (tensor-parallel, sequence-parallel) or the store
+        # (mesh-sharded) issues collectives: a dispatcher thread would launch
+        # them beside the main thread's, in an order the ranks do not share,
+        # so the refill overlap pumps its credit inline there (JAX's rule:
+        # no dispatcher thread on a mesh store or on many processes)
+        collective_refill = bool(
+            cfg.shard_lm or self._seq_mesh is not None or self.serves_local_rows
+            or multihost.world_size() > 1 or any(lm.TP_KEY in p for p in model_params))
         self.cfg = cfg
         self.lm_cfg = lm_cfg
         self.model_params = list(model_params)
@@ -212,7 +212,7 @@ class PairedActivationBuffer:
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
         self._dispatcher = (pipeline.QuantumDispatcher(self._pump_locked)
-                            if self._overlap else None)
+                            if self._overlap and not collective_refill else None)
         self._alloc_store()
         self._perm = np.arange(self.buffer_size)
         self._rng = np.random.default_rng(cfg.seed)
@@ -538,7 +538,9 @@ class PairedActivationBuffer:
     def _advance_cycle(self) -> None:
         """One serve's worth of refill: the paced dispatch quanta, and every
         chunk whose rows are free lands. A shadow cycle hands the credit to
-        the dispatcher thread (or pumps it here once the thread is closed)."""
+        the dispatcher thread, or pumps it here where there is none (a
+        refill that issues collectives, or a closed thread): the same
+        count-based schedule, so every rank dispatches and drains alike."""
         credit = self._cyc_segs_per_serve
         if self._cyc_shadow:
             if self._dispatcher is not None:
@@ -758,7 +760,8 @@ class MeshPairedActivationBuffer(PairedActivationBuffer):
 
     Every rank must call every method that moves rows (a serve, a refill,
     :meth:`load_state_dict`), in the same order. ``refill_overlap="on"``
-    is refused (ROADMAP A6b item 4a).
+    harvests into the spare rows each rank's shard holds past the live
+    ones, pumped inline at each serve (no dispatcher thread).
     """
 
     serves_local_rows = True

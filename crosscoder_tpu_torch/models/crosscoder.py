@@ -322,26 +322,43 @@ def _bt_patterns_native(h: torch.Tensor) -> torch.Tensor:
     return torch.where(s < 0, torch.where(s > nan_neg, below, zero), torch.minimum(s, below))
 
 
-def _global_kth_pattern(h: torch.Tensor, kk: int, mesh) -> torch.Tensor:
+def _global_kth(select, count, dtype: torch.dtype, kk: int, mesh, device) -> torch.Tensor:
     """The pattern of the ``kk``-th largest ReLU'd entry over every rank's
-    ``h`` (int32 ``[1]`` on ``h``'s device). Each rank's K9 select at the
-    global budget gives a lower bound (a rank with ``kk`` entries at or
-    above its own k-th has them globally); the largest of those starts
-    K9's multi-threshold bisection, its counts summed over the ranks each
-    pass. One pass ends it when no rank holds the bound's successor's
-    share (always, on one rank)."""
-    lo = int(mesh.max_world(topk_pallas.batchtopk_select(h, kk))[0])
-    pats = _bt_patterns_native(h)
-    hi = 0x7FFF if h.dtype == torch.bfloat16 else 0x7FFFFFFF
-    t = topk_pallas._BATCHTOPK_T
+    pre-activations (int32 ``[1]`` on ``device``). ``select(kk)``: this
+    rank's k-th pattern at the global budget (a device int32 ``[1]``), a
+    lower bound (a rank with ``kk`` entries at or above its own k-th has
+    them globally); the largest of those starts K9's multi-threshold
+    bisection, where ``count(lo, hi)`` gives this rank's entries at or
+    above each candidate of :func:`topk_pallas.bisection_mids`, summed over
+    the ranks each pass. One pass ends it when no rank holds the bound's
+    successor's share (always, on one rank)."""
+    lo = int(mesh.max_world(select(kk))[0])
+    hi = 0x7FFF if dtype == torch.bfloat16 else 0x7FFFFFFF
     while hi - lo > 1:
-        q, rem = divmod(hi - lo - 1, t)
-        mids = [lo + 1 + q * j + (rem * j) // t for j in range(t)]
-        counts = torch.stack([(pats >= m).sum() for m in mids])
-        counts = coll.all_reduce_(counts, mesh.world_group)
-        num_ge = int((counts >= kk).sum())
-        lo, hi = (mids[num_ge - 1] if num_ge > 0 else lo), (mids[num_ge] if num_ge < t else hi)
-    return torch.tensor([lo], dtype=torch.int32).to(h.device)
+        counts = coll.all_reduce_(count(lo, hi), mesh.world_group)
+        lo, hi = topk_pallas.narrow(lo, hi, topk_pallas.bisection_mids(lo, hi), counts.tolist(),
+                                    kk)
+    return torch.tensor([lo], dtype=torch.int32).to(device)
+
+
+def _global_kth_pattern(h: torch.Tensor, kk: int, mesh) -> torch.Tensor:
+    """:func:`_global_kth` over this rank's dense pre-activations ``h``:
+    K9's select, and counts on its clamped patterns."""
+    pats = _bt_patterns_native(h)
+
+    def count(lo, hi):
+        return torch.stack([(pats >= m).sum() for m in topk_pallas.bisection_mids(lo, hi)])
+
+    return _global_kth(lambda kk: topk_pallas.batchtopk_select(h, kk), count, h.dtype, kk,
+                       mesh, h.device)
+
+
+def _bt_budget(rows: int, width: int, k: int, mesh) -> int:
+    """BatchTopK's global budget from this rank's ``rows`` and dictionary
+    ``width`` on a grid: ``min(k·B, B·H)`` of the global batch and
+    dictionary."""
+    rows *= mesh.data_size
+    return min(k * rows, rows * width * mesh.model_size)
 
 
 class _MeshBatchTopK(torch.autograd.Function):
@@ -351,8 +368,7 @@ class _MeshBatchTopK(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, k, mesh):
-        rows = h.shape[0] * mesh.data_size
-        kk = min(k * rows, rows * h.shape[-1] * mesh.model_size)
+        kk = _bt_budget(h.shape[0], h.shape[-1], k, mesh)
         out = topk_pallas.batchtopk_emit(h, _global_kth_pattern(h, kk, mesh))
         ctx.save_for_backward(out)
         return out
@@ -429,22 +445,40 @@ def _sparse_step_backward(ctx, g):
     return dx, dW_enc, db_enc, dW_dec
 
 
+def _whole_contraction(x: torch.Tensor, W_enc: torch.Tensor, src_group, x_all
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernels' operands ``(x2 [B, n·d], W2 [n·d, H])``: this
+    rank's own under a dictionary split; under ``shard_sources``
+    (``src_group``) the whole contraction, since a fused kernel selects
+    after the product and cannot sum partial products first: the batch's
+    every source (``x_all``) and every rank's source slab of ``W_enc``,
+    gathered over the source group (GSPMD's all-gather around the JAX
+    kernel; ``(m - 1)/m`` of ``W_enc`` crosses to each rank)."""
+    if src_group is not None:
+        x, W_enc = x_all, coll.all_gather_cat(W_enc, 0, src_group)
+    n, d, H = W_enc.shape
+    return x.reshape(x.shape[0], n * d), W_enc.reshape(n * d, H)
+
+
 class _SparseTopKStep(torch.autograd.Function):
     """``(recon [B,n,d] f32 (no b_dec), vals, idx)`` from the batch: encode
     + the mask + K8 + k-row decode in one scope (``fused``: the K2
     encoder→TopK kernel in place of encode + mask + K8, K3 with
     ``quant_block > 0``), so the backward never leaves factored form.
-    ``src_group``: the source group under ``shard_sources`` (``x``,
-    ``W_enc`` and ``W_dec`` this rank's sources; the encode's partial
-    products and the backward's ``d_vals`` sum over it; not with ``fused``).
-    Soundness gate: l1_coeff == 0."""
+    Under a ``mesh`` the candidates of this rank's dictionary slice are cut
+    to the row's global top k (:func:`_keep_global`, the global column
+    offset in its key). ``src_group``: the source group under
+    ``shard_sources`` (``x``, ``W_enc`` and ``W_dec`` this rank's sources;
+    the encode's partial products and the backward's ``d_vals`` sum over
+    it; ``fused`` runs on the whole contraction, ``x_all`` the batch's
+    every source, :func:`_whole_contraction`). Soundness gate: l1_coeff == 0."""
 
     @staticmethod
-    def forward(ctx, x, W_enc, b_enc, W_dec, k, fused, quant_block, mesh=None, src_group=None):
-        B = x.shape[0]
-        n, d, H = W_enc.shape
-        x2 = x.reshape(B, n * d)
-        W2 = W_enc.reshape(n * d, H)
+    def forward(ctx, x, W_enc, b_enc, W_dec, k, fused, quant_block, mesh=None, src_group=None,
+                x_all=None):
+        H = W_enc.shape[2]
+        # the dense encode sums this rank's partial products over the sources
+        x2, W2 = _whole_contraction(x, W_enc, src_group if fused else None, x_all)
         if fused:
             vals, idx = fek.fused_topk_encode(x2, W2, b_enc, k, quant_block=quant_block)
             vals = _keep_global(vals, idx, k, mesh, H)
@@ -459,22 +493,33 @@ class _SparseTopKStep(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _gv, _gi):
-        return (*_sparse_step_backward(ctx, g), None, None, None, None, None)
+        return (*_sparse_step_backward(ctx, g), None, None, None, None, None, None)
 
 
 class _FusedBatchTopKEncode(torch.autograd.Function):
     """BatchTopK activations ``f [B, H]`` in x's dtype with the encoder
     product and the global selection fused (K4,
     :func:`fek.fused_batchtopk_encode`), equal to ``batchtopk(pre_acts(x),
-    k)``. The backward is the dense path's: straight-through on the
-    survivors (``dh = g·[f > 0]`` in f32, ``db_enc = Σ dh``), then the
-    encoder matmuls' (the JAX ``_fused_batchtopk_encode_bwd``)."""
+    k)``. Under a ``mesh`` the threshold is global over the batch and the
+    dictionary (:func:`_global_kth` from K4's select and count entries),
+    then K4's emit on this rank's slice; ``src_group``/``x_all`` as
+    :class:`_SparseTopKStep`'s (the whole contraction under
+    ``shard_sources``). The backward is the dense path's: straight-through
+    on the survivors (``dh = g·[f > 0]`` in f32, ``db_enc = Σ dh``), then
+    the encoder matmuls' on this rank's ``x`` and ``W_enc`` (the JAX
+    ``_fused_batchtopk_encode_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, W_enc, b_enc, k):
-        B = x.shape[0]
-        n, d, H = W_enc.shape
-        f = fek.fused_batchtopk_encode(x.reshape(B, n * d), W_enc.reshape(n * d, H), b_enc, k)
+    def forward(ctx, x, W_enc, b_enc, k, mesh=None, src_group=None, x_all=None):
+        x2, W2 = _whole_contraction(x, W_enc, src_group, x_all)
+        if mesh is None:
+            f = fek.fused_batchtopk_encode(x2, W2, b_enc, k)
+        else:
+            kth = _global_kth(lambda kk: fek.fused_batchtopk_select(x2, W2, b_enc, kk),
+                              lambda lo, hi: fek.fused_batchtopk_count(x2, W2, b_enc, lo, hi),
+                              x2.dtype, _bt_budget(x2.shape[0], W2.shape[1], k, mesh), mesh,
+                              x2.device)
+            f = fek.fused_batchtopk_emit(x2, W2, b_enc, kth)
         ctx.save_for_backward(x, W_enc, f)
         ctx.b_dtype = b_enc.dtype
         return f
@@ -492,7 +537,7 @@ class _FusedBatchTopKEncode(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             dx = _mm32(_cot(dh, W2), W2.t()).reshape(B, n, d).to(x.dtype)
-        return dx, dW_enc, db_enc, None
+        return dx, dW_enc, db_enc, None, None, None, None
 
 
 class _SparseTopKFromH(torch.autograd.Function):
@@ -576,7 +621,7 @@ class _SparseDecodeProduct(torch.autograd.Function):
 
 
 def topk_vals_idx(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCoderConfig,
-                  mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
+                  mesh=None, src_group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """TopK encode in factored form: ``(vals [B, k], idx [B, k] int32)``.
     The selected set comes from the mask (K5, K6 or K7) and the K8 drain
     (their plain versions on CPU tensors): the entries > 0 of each row's k
@@ -584,8 +629,10 @@ def topk_vals_idx(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: Cros
     index order. ``vals`` are gathered from ``relu(h)``, so gradients reach
     ``W_enc``/``b_enc`` through the gather; a row with fewer than k
     positives pads its slots with value 0 (the drain's ``(0, 0)``, whose
-    gathered column 0 is masked out)."""
-    h = pre_acts(params, x)
+    gathered column 0 is masked out). ``mesh``: this rank's dictionary
+    slice, its candidates cut to the row's global top k; ``src_group``:
+    the sources' group under ``shard_sources`` (:func:`pre_acts`)."""
+    h = pre_acts(params, x, src_group)
     hp = act_ops.relu(h)
     with torch.no_grad():
         _, sel, idx = _local_topk(h.detach(), cfg.topk_k, mesh)
@@ -595,12 +642,17 @@ def topk_vals_idx(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: Cros
 
 
 def sparse_topk_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor,
-                        cfg: CrossCoderConfig, mesh=None
+                        cfg: CrossCoderConfig, mesh=None, src_group=None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """TopK encode + the k-row decode: ``(recon [B, n, d] f32, vals,
-    idx)``, the dense path's reconstruction up to f32 summation order."""
-    vals, idx = topk_vals_idx(params, x, cfg, mesh)
-    recon = _SparseDecodeProduct.apply(vals, idx, params["W_dec"])
+    idx)``, the dense path's reconstruction up to f32 summation order.
+    Under a ``mesh`` each rank decodes its surviving candidates against its
+    own ``W_dec`` rows and the partial reconstructions sum over ``model``
+    (``d_vals`` and ``dW_dec`` stay local); under ``shard_sources``
+    (``src_group``) the replicated latents decode this rank's sources,
+    their gradient summed over the source group."""
+    vals, idx = topk_vals_idx(params, x, cfg, mesh, src_group)
+    recon = _SparseDecodeProduct.apply(coll.copy_to(vals, src_group), idx, params["W_dec"])
     if mesh is not None:
         recon = mesh.sum_model(recon)
     return recon + params["b_dec"].float(), vals, idx
@@ -727,9 +779,10 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
     :func:`~crosscoder_tpu_torch.parallel.collectives.copy_to`, so its
     gradient sums the sources' shares."""
     n_sources = x.shape[-2]
-    src_group = None
+    src_group = x_all = None
     if mesh is not None and cfg.shard_sources:
         src_group = mesh.model_group
+        x_all = x.to(dtype_of(cfg.enc_dtype))         # the fused kernels' whole contraction
         x = x[..., mesh.source_slice(n_sources), :]
         mesh = mesh.dict_view()
     x = x.to(dtype_of(cfg.enc_dtype))
@@ -751,7 +804,7 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
         qb = cfg.quant_block if fused and cfg.quant_encoder else 0
         recon_f32, vals, idx = _SparseTopKStep.apply(
             x, params["W_enc"], params["b_enc"], params["W_dec"], cfg.topk_k, fused, qb, mesh,
-            src_group)
+            src_group, x_all)
         recon = (sum_model(recon_f32) + b_dec).to(x.dtype)
         f = None
     elif factored:
@@ -761,11 +814,12 @@ def get_losses(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: CrossCo
         recon = (sum_model(recon_f32) + b_dec).to(x.dtype)
         f = None
     elif sparse:
-        recon_f32, vals, idx = sparse_topk_forward(params, x, cfg, mesh)
+        recon_f32, vals, idx = sparse_topk_forward(params, x, cfg, mesh, src_group)
         recon = recon_f32.to(x.dtype)
         f = None
     elif cfg.activation == "batchtopk" and fused and not aux_active:
-        f = _FusedBatchTopKEncode.apply(x, params["W_enc"], params["b_enc"], cfg.topk_k)
+        f = _FusedBatchTopKEncode.apply(x, params["W_enc"], params["b_enc"], cfg.topk_k, mesh,
+                                        src_group, x_all)
         recon = decode(params, to_sources(f), mesh)
     elif cfg.activation == "jumprelu" and cfg.l0_coeff > 0:
         h = pre_acts(params, x, src_group)

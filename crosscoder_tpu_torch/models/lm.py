@@ -43,9 +43,12 @@ Two parallel forms, over the rank grid of
   ``wo`` and after ``w_down`` (in the model dtype), an all-gather of the
   embedding lookup along ``d_model``, and a sum of the tied unembedding's
   partial logits in f32 before the final softcap. Attention stays
-  head-local, which needs ``n_heads`` and ``n_kv_heads`` both divisible by
-  the axis. Forward only: a tensor-parallel forward refuses a graph that
-  needs gradients.
+  head-local where the axis divides both ``n_heads`` and ``n_kv_heads``;
+  elsewhere (Gemma-2-2B's 8 and 4 heads over 8 ranks) each rank keeps the
+  same flat slices of ``wq``/``wk``/``wv``, all-gathers the projections
+  over ``model`` and attends only the whole heads its ``wo`` rows contract
+  (:func:`_qkv`). Forward only: a tensor-parallel forward refuses a graph
+  that needs gradients.
 - **Sequence-parallel** (:func:`forward_seq_parallel`,
   :func:`run_with_cache_multi_seq_parallel`): the sequence split over
   ``data``, attention as an exact ring
@@ -260,16 +263,13 @@ def tp_shardings(mesh, axis: str = "model") -> dict:
 
 
 def check_tp(cfg: LMConfig, m: int) -> None:
-    """Raise :class:`ValueError` unless ``cfg`` splits over ``m`` model
-    ranks with attention head-local: contiguous head blocks keep each query
-    head with its KV head only when ``m`` divides both head counts (the
-    JAX package reshards silently there; ROADMAP A6b item 4c)."""
-    if cfg.n_heads % m or cfg.n_kv_heads % m:
-        raise ValueError(
-            f"tensor-parallel LM over {m} ranks needs n_heads {cfg.n_heads} and n_kv_heads "
-            f"{cfg.n_kv_heads} both divisible by {m}, so attention stays head-local (other "
-            f"head counts: ROADMAP A6b item 4c)")
-    for name, size in (("d_model", cfg.d_model), ("d_ff", cfg.d_ff)):
+    """Raise :class:`ValueError` unless every leaf :func:`tp_shardings`
+    cuts splits evenly over ``m`` model ranks: ``d_model``, ``d_ff`` and
+    the flat q and k/v widths. Head counts the axis does not divide are
+    taken (:func:`_qkv` gathers the heads a rank needs)."""
+    for name, size in (("d_model", cfg.d_model), ("d_ff", cfg.d_ff),
+                       ("the q width n_heads·head_dim", cfg.n_heads * cfg.head_dim),
+                       ("the k/v width n_kv_heads·head_dim", cfg.n_kv_heads * cfg.head_dim)):
         if size % m:
             raise ValueError(f"tensor-parallel LM: {name} {size} must divide by {m}")
 
@@ -316,15 +316,42 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
 
 
-def _qkv(x: torch.Tensor, lp, cfg: LMConfig, pos: torch.Tensor):
-    """Project + RoPE: q ``[B,S,H,hd]``, k/v ``[B,S,KV,hd]``."""
+def _qkv(x: torch.Tensor, lp, cfg: LMConfig, pos: torch.Tensor, tp: TPGroup | None = None):
+    """Project + RoPE: ``(q [B,S,H,hd], k/v [B,S,KV,hd], keep)``, the heads
+    this rank attends. ``keep`` is ``None`` when the attention output is
+    what this rank's ``wo`` rows contract whole, else the ``(lo, hi)``
+    columns of it they do.
+
+    Tensor-parallel, each rank holds a contiguous slice of the flat q and
+    k/v widths (JAX's layout). Where ``m`` divides both head counts the
+    slices are whole head groups and attention is head-local. Elsewhere the
+    projections are all-gathered over ``model`` and the rank attends the
+    whole query heads that cover its ``wo`` rows, against the KV heads
+    they read: a whole GQA group's when its heads start and end on group
+    boundaries, else one KV head a query head (a group of 1)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    H, KV = lp["wq"].shape[-1] // hd, lp["wk"].shape[-1] // hd     # this rank's heads
-    q = _rope(torch.matmul(x, lp["wq"]).reshape(B, S, H, hd), pos, cfg.rope_theta)
-    k = _rope(torch.matmul(x, lp["wk"]).reshape(B, S, KV, hd), pos, cfg.rope_theta)
-    v = torch.matmul(x, lp["wv"]).reshape(B, S, KV, hd)
-    return q, k, v
+    q, k, v = (torch.matmul(x, lp[w]) for w in ("wq", "wk", "wv"))
+    m = 1 if tp is None else coll.group_size(tp.group)
+    H, KV = q.shape[-1] * m // hd, k.shape[-1] * m // hd            # the model's heads
+    keep = None
+    if H % m or KV % m:
+        _tp_live(q)
+        q, k, v = (coll.all_gather_cat(t, t.dim() - 1, tp.group) for t in (q, k, v))
+        lo, hi = tp.rank * q.shape[-1] // m, (tp.rank + 1) * q.shape[-1] // m
+        h0, h1 = lo // hd, -(-hi // hd)
+        g = H // KV
+        if h0 % g == 0 and h1 % g == 0:
+            kv = torch.arange(h0 // g, h1 // g, device=x.device)
+        else:
+            kv = torch.arange(h0, h1, device=x.device) // g
+        q = q.reshape(B, S, H, hd)[:, :, h0:h1]
+        k, v = (t.reshape(B, S, KV, hd).index_select(2, kv) for t in (k, v))
+        keep = (lo - h0 * hd, hi - h0 * hd)
+    else:
+        H, KV = H // m, KV // m                                     # this rank's heads
+        q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+    return _rope(q, pos, cfg.rope_theta), _rope(k, pos, cfg.rope_theta), v, keep
 
 
 def _mlp(x: torch.Tensor, lp, tp: TPGroup | None = None) -> torch.Tensor:
@@ -476,8 +503,11 @@ def _run_layers(params, resid, buf, cfg: LMConfig, pairs, lo: int, hi: int, atte
         resid = _edited(edits, resid, i, _SITE_RESID)
         _capture(buf, resid, i, pairs, _SITE_RESID)
         window = cfg.sliding_window if i % 2 == 0 else 0    # even layers: local
-        q, k, v = _qkv(_rms_norm(resid, lp["attn_norm"], cfg.rms_eps), lp, cfg, pos)
-        a = _tp_sum(torch.matmul(attend(q, k, v, window), lp["wo"]), tp)
+        q, k, v, keep = _qkv(_rms_norm(resid, lp["attn_norm"], cfg.rms_eps), lp, cfg, pos, tp)
+        o = attend(q, k, v, window)
+        if keep is not None:            # the columns this rank's wo rows contract
+            o = o[..., keep[0]:keep[1]]
+        a = _tp_sum(torch.matmul(o, lp["wo"]), tp)
         attn_out = _edited(edits, _rms_norm(a, lp["post_attn_norm"], cfg.rms_eps), i, _SITE_ATTN)
         if want_attn:
             _capture(buf, attn_out, i, pairs, _SITE_ATTN)
@@ -608,10 +638,6 @@ def paged_capture(params_seq: Sequence[LMParams], chunk, cfg: LMConfig,
     signature; passing its plain version re-runs the path without the
     kernel.
     """
-    if _tp(params_seq[0]) is not None:
-        raise NotImplementedError(
-            "the paged forward over tensor-parallel params is not ported yet (ROADMAP A6b "
-            "item 4b): harvest a shard_lm run with harvest_runtime='padded'")
     dev = params_seq[0]["embed"].device
     pairs = _hook_layers(cfg, tuple(hook_points))
     n_scan = min(cfg.n_layers, _scan_stop(pairs))

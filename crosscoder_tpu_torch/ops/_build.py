@@ -15,10 +15,9 @@ output; nothing catches it. Every C entry point returns
 nonzero code, since a refused launch never runs and a later
 ``torch.cuda.synchronize()`` would not report it.
 
-The K1, K8, K11 and O1 wrappers give :func:`load` their entry points'
-prototypes, set once when the library loads, and pass :func:`stream`; the
-other wrappers still set their prototypes and read the stream on every
-call.
+Every wrapper gives :func:`load` its entry points' prototypes, set once
+when the library loads, and passes :func:`stream`; a library swapped into
+``_libs`` by hand takes them through :func:`set_prototypes`.
 """
 
 from __future__ import annotations

@@ -55,7 +55,14 @@ serve shape ([8, 4608] x [4608, 16384]) K2 is bound by reading W once
   (:func:`fused_batchtopk_emit`) each recompute the product. The plain
   versions round the dense pre-activations as ``pre_acts`` does and run
   K9's plain select and emit: bitwise to the kernels on integer-valued
-  operands.
+  operands. The count entry (:func:`fused_batchtopk_count`, the same
+  source) recomputes the product once more and counts the entries at or
+  above each of one bisection pass's candidate patterns: the threshold
+  over a rank grid sums these counts over the ranks
+  (:func:`crosscoder_tpu_torch.models.crosscoder.get_losses`).
+
+Each library's entry points get their ctypes prototypes once, when it
+loads (:data:`PROTOTYPES`), and each launch passes :func:`_build.stream`.
 """
 
 from __future__ import annotations
@@ -67,12 +74,43 @@ import torch
 from crosscoder_tpu_torch.ops import quant
 from crosscoder_tpu_torch.ops import topk_pallas as tp
 
-_KERNEL = "fused_topk"
 _SENT = 0x7F800001            # every NaN: just above +inf's 0x7F800000
 _INF_BITS = 0x7F800000
 _MAX_K = 128
 _CW = 128                     # dictionary columns per tile (csrc kCW)
 _SMEM_LIMIT = 232_448         # bytes of shared memory a Hopper block may use
+_MAX_MIDS = 32                # candidate patterns a count pass takes (csrc kMaxMids)
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each library's entry points: pointers, then ints, then the stream
+PROTOTYPES = {
+    "fused_topk": {"fused_topk_launch": [_P] * 7 + [_I] * 6 + [_P]},
+    "fused_topk_q": {"fused_topk_q_launch": [_P] * 9 + [_I] * 8 + [_P]},
+    "fused_batchtopk": {
+        "fused_bt_select": [_P] * 5 + [_I] * 3 + [_LL, _I, _P],
+        "fused_bt_count": [_P] * 4 + [_I] * 7 + [_P],
+        "fused_bt_emit": [_P] * 5 + [_I] * 4 + [_P],
+    },
+}
+
+
+def _lib(name: str):
+    from crosscoder_tpu_torch.ops import _build
+
+    return _build.load(name, PROTOTYPES[name])
+
+
+def _bt_state_bytes() -> int:
+    """Bytes of K4 select's device state (``fused_bt_state_bytes``)."""
+    global _STATE_BYTES
+    if _STATE_BYTES is None:
+        fn = _lib("fused_batchtopk").fused_bt_state_bytes
+        fn.restype = ctypes.c_longlong
+        _STATE_BYTES = int(fn())
+    return _STATE_BYTES
+
+
+_STATE_BYTES = None
 
 
 def select_keys(h: torch.Tensor) -> torch.Tensor:
@@ -239,14 +277,10 @@ def fused_topk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
     width = W2.shape[1]
     b32 = b_enc.to(torch.float32).contiguous()
     group, cand, cand2, vals, idx = _candidates(B, width, k, x2.dtype, x2.device)
-    lib = _build.load(_KERNEL)
-    fn = lib.fused_topk_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    code = fn(
+    code = _lib("fused_topk").fused_topk_launch(
         x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), cand.data_ptr(), cand2.data_ptr(),
         vals.data_ptr(), idx.data_ptr(), B, nd, width, k, group, int(x2.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x2.device).cuda_stream,
+        _build.stream(x2.device),
     )
     _build.check(code, "fused topk kernel")
     fused_topk_encode.launches += 1
@@ -290,14 +324,10 @@ def fused_topk_encode_q(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
     xq, xsT, wqT, ws = q_operands(x2, W2, quant_block)
     b32 = b_enc.to(torch.float32).contiguous()
     group, cand, cand2, vals, idx = _candidates(B, width, k, x2.dtype, x2.device)
-    fn = _build.load("fused_topk_q").fused_topk_q_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    code = fn(
+    code = _lib("fused_topk_q").fused_topk_q_launch(
         xq.data_ptr(), xsT.data_ptr(), wqT.data_ptr(), ws.data_ptr(), b32.data_ptr(),
         cand.data_ptr(), cand2.data_ptr(), vals.data_ptr(), idx.data_ptr(), B, xsT.shape[1], nd,
-        width, k, quant_block, group, int(x2.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x2.device).cuda_stream,
+        width, k, quant_block, group, int(x2.dtype == torch.bfloat16), _build.stream(x2.device),
     )
     _build.check(code, "int8 fused topk kernel")
     fused_topk_encode_q.launches += 1
@@ -375,17 +405,11 @@ def fused_batchtopk_select(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tens
     if kk < 1:
         raise ValueError(f"fused_batchtopk_select takes kk >= 1, got {kk}")
     B, nd = x2.shape
-    lib = _build.load("fused_batchtopk")
-    lib.fused_bt_state_bytes.restype = ctypes.c_longlong
-    state = torch.zeros(lib.fused_bt_state_bytes(), dtype=torch.uint8, device=x2.device)
+    state = torch.zeros(_bt_state_bytes(), dtype=torch.uint8, device=x2.device)
     kth = torch.zeros(1, dtype=torch.int32, device=x2.device)
-    fn = lib.fused_bt_select
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                                                  ctypes.c_void_p])
-    code = fn(x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), state.data_ptr(), kth.data_ptr(),
-              B, nd, W2.shape[1], kk, int(x2.dtype == torch.bfloat16),
-              torch.cuda.current_stream(x2.device).cuda_stream)
+    code = _lib("fused_batchtopk").fused_bt_select(
+        x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), state.data_ptr(), kth.data_ptr(), B, nd,
+        W2.shape[1], kk, int(x2.dtype == torch.bfloat16), _build.stream(x2.device))
     _build.check(code, "fused batchtopk select kernel")
     fused_batchtopk_select.launches += 1
     return kth
@@ -409,18 +433,52 @@ def fused_batchtopk_emit(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor
     B, nd = x2.shape
     kth = kth.to(device=x2.device, dtype=torch.int32).contiguous()
     out = torch.empty((B, W2.shape[1]), dtype=x2.dtype, device=x2.device)
-    fn = _build.load("fused_batchtopk").fused_bt_emit
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    code = fn(x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), kth.data_ptr(), out.data_ptr(),
-              B, nd, W2.shape[1], int(x2.dtype == torch.bfloat16),
-              torch.cuda.current_stream(x2.device).cuda_stream)
+    code = _lib("fused_batchtopk").fused_bt_emit(
+        x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), kth.data_ptr(), out.data_ptr(), B, nd,
+        W2.shape[1], int(x2.dtype == torch.bfloat16), _build.stream(x2.device))
     _build.check(code, "fused batchtopk emit kernel")
     fused_batchtopk_emit.launches += 1
     return out
 
 
 fused_batchtopk_emit.launches = 0
+
+
+def fused_batchtopk_count_plain(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,
+                                lo: int, hi: int, t: int = tp._BATCHTOPK_T) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fused_batchtopk_count`."""
+    pats, _ = tp._bt_patterns(_pre_acts_plain(x2, W2, b_enc))
+    return torch.stack([(pats >= m).sum() for m in tp.bisection_mids(lo, hi, t)])
+
+
+def fused_batchtopk_count(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor, lo: int,
+                          hi: int, t: int = tp._BATCHTOPK_T) -> torch.Tensor:
+    """K4 count: int64 ``[t]``, the entries of ``cast(x2·W2 + b_enc)``
+    whose clamped pattern (K9's rule) reaches each of one bisection pass's
+    candidate patterns over ``[lo, hi)`` (:func:`topk_pallas.bisection_mids`),
+    recomputing the product, with no host sync: one pass of the threshold
+    over a rank grid, whose counts the caller sums over the ranks. The
+    plain version on CPU tensors, the kernel on CUDA tensors (or
+    :class:`ValueError`)."""
+    if not (0 <= lo and hi - lo >= 2 and 1 <= t <= _MAX_MIDS):
+        raise ValueError(f"fused_batchtopk_count takes 0 <= lo < hi - 1 and 1 <= t <= "
+                         f"{_MAX_MIDS}, got lo={lo}, hi={hi}, t={t}")
+    if x2.device.type == "cpu":
+        return fused_batchtopk_count_plain(x2, W2, b_enc, lo, hi, t)
+    from crosscoder_tpu_torch.ops import _build
+
+    x2, W2, b32 = _bt_operands(x2, W2, b_enc, "fused_batchtopk_count")
+    B, nd = x2.shape
+    counts = torch.zeros(t, dtype=torch.int64, device=x2.device)
+    code = _lib("fused_batchtopk").fused_bt_count(
+        x2.data_ptr(), W2.data_ptr(), b32.data_ptr(), counts.data_ptr(), B, nd, W2.shape[1],
+        lo, hi, t, int(x2.dtype == torch.bfloat16), _build.stream(x2.device))
+    _build.check(code, "fused batchtopk count kernel")
+    fused_batchtopk_count.launches += 1
+    return counts
+
+
+fused_batchtopk_count.launches = 0
 
 
 def fused_batchtopk_encode(x2: torch.Tensor, W2: torch.Tensor, b_enc: torch.Tensor,

@@ -537,16 +537,30 @@ def _bt_patterns(h: torch.Tensor) -> tuple[torch.Tensor, int]:
     return p, top
 
 
+def bisection_mids(lo: int, hi: int, t: int = _BATCHTOPK_T) -> list[int]:
+    """The ``t`` candidate patterns of one bisection pass over ``[lo, hi)``
+    (``lo < hi - 1``), ascending, each above ``lo``."""
+    q, rem = divmod(hi - lo - 1, t)
+    return [lo + 1 + q * j + (rem * j) // t for j in range(t)]
+
+
+def narrow(lo: int, hi: int, mids: list[int], counts, kk: int) -> tuple[int, int]:
+    """``[lo, hi)`` after a pass whose ``counts[j]`` are the entries at or
+    above ``mids[j]``: the invariant ``count(>= lo) >= kk > count(>= hi)``
+    kept."""
+    num_ge = sum(int(c) >= kk for c in counts)
+    t = len(mids)
+    return (mids[num_ge - 1] if num_ge > 0 else lo), (mids[num_ge] if num_ge < t else hi)
+
+
 def kth_largest_pattern(pats: torch.Tensor, kk: int, hi: int) -> int:
     """The largest ``p`` in ``[0, hi)`` with ``count(pats >= p) >= kk``, by
     the JAX package's multi-threshold bisection (T = 15 candidates a pass;
     invariant ``count(>= lo) >= kk > count(>= hi)``)."""
-    t, lo = _BATCHTOPK_T, 0
+    lo = 0
     for _ in range(_n_bisect_passes(hi)):
-        q, rem = divmod(hi - lo - 1, t)
-        mids = [lo + 1 + q * j + (rem * j) // t for j in range(t)]
-        num_ge = sum(int((pats >= m).sum()) >= kk for m in mids)
-        lo, hi = (mids[num_ge - 1] if num_ge > 0 else lo), (mids[num_ge] if num_ge < t else hi)
+        mids = bisection_mids(lo, hi)
+        lo, hi = narrow(lo, hi, mids, [(pats >= m).sum() for m in mids], kk)
     return lo
 
 

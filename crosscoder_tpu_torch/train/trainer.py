@@ -32,7 +32,11 @@ before the step on the batch about to be trained; the loss guard
 on a non-finite loss or a ``loss_spike_factor`` spike, restores the
 newest save with finite params, skips the serves up to the detection
 step and re-enters the loop, at most ``cfg.max_rollbacks`` times. The
-recoveries count on :attr:`Trainer.resilience` (``resilience/*``).
+recoveries count on :attr:`Trainer.resilience` (``resilience/*``). On a
+grid both run on every rank: the resample edits each rank's shards from
+the global tracker and the global batch; the guard's verdict, the
+params' finiteness and the save it restores are agreed over the ranks,
+and the restore is the checkpointer's agreed restore.
 
 On a rank grid (``mesh``, :mod:`crosscoder_tpu_torch.parallel.mesh`: one
 rank a device over ``torch.distributed``, ``data`` × ``model``), as the
@@ -246,9 +250,8 @@ def expand_metrics(metrics: dict[str, Any], n_sources: int) -> dict[str, float]:
 
 
 def _check_mesh(cfg: CrossCoderConfig, mesh: mesh_lib.Mesh) -> None:
-    """Raise for a config the mesh step cannot run as the JAX mesh trainer
-    does: :class:`ValueError` for shapes the grid does not split,
-    :class:`NotImplementedError` for what is not ported yet (ROADMAP A6b)."""
+    """Raise :class:`ValueError` for shapes the grid does not split, as the
+    JAX mesh trainer's sharding does."""
     n, m = mesh.data_size, mesh.model_size
     if cfg.shard_sources and cfg.n_sources % m:
         raise ValueError(f"shard_sources: n_sources {cfg.n_sources} must divide by "
@@ -257,18 +260,6 @@ def _check_mesh(cfg: CrossCoderConfig, mesh: mesh_lib.Mesh) -> None:
         raise ValueError(f"dict_size {cfg.dict_size} must divide by model_axis_size {m}")
     if cfg.batch_size % n:
         raise ValueError(f"batch_size {cfg.batch_size} must divide by the data axis {n}")
-    fused = cc.use_fused_encoder(cfg, cfg.batch_size)
-    for what, on in (
-            ("a fused encoder tier (fused_encoder='on', quant_encoder) whose TopK spans a "
-             "model axis wider than 1", fused and cfg.activation == "topk" and m > 1),
-            ("the fused BatchTopK encoder (fused_encoder='on') on an axis wider than 1",
-             fused and cfg.activation == "batchtopk" and n * m > 1),
-            ("sparse_decode over a model axis wider than 1", cfg.sparse_decode and m > 1),
-            ("dead-latent resampling (resample_every) on a mesh", cfg.resample_every > 0),
-            ("the loss guard (guard_loss) on a mesh", cfg.guard_loss)):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch mesh trainer yet (ROADMAP A6b)")
 
 
 class Trainer:
@@ -293,10 +284,7 @@ class Trainer:
     :class:`NotImplementedError` rather than being dropped: the fleet,
     elastic runs, the observability plane, chaos, the harvest watchdog
     (``harvest_timeout_s > 0``), profiler traces (``profile_dir``,
-    ``profile_steps``), and on a mesh the selections
-    that are not split over it yet (a fused encoder tier across a sharded
-    selection axis, ``sparse_decode`` over ``model``) and resampling and
-    the loss guard (ROADMAP A6b). ``prefetch``, ``remat`` and
+    ``profile_steps``). ``prefetch``, ``remat`` and
     ``compile_cache_dir`` change only speed or memory in the JAX trainer,
     never results, so the port accepts and ignores them.
     """
@@ -459,7 +447,7 @@ class Trainer:
             # on the batch about to be trained, so the revived latents'
             # first gradients come from it
             if self._resample_fn is None:
-                self._resample_fn = resample.make_resample_fn(self.cfg)
+                self._resample_fn = resample.make_resample_fn(self.cfg, self.mesh)
             gen = resample.resample_generator(self.cfg, self._host_step, self.device)
             self.state, n_resampled = self._resample_fn(self.state, batch, scale, gen)
         self.state, metrics = fn(self.state, batch, scale, donate=self._owns_state)
@@ -484,22 +472,33 @@ class Trainer:
 
     # --- divergence guard + rollback (cfg.guard_loss) -----------------------
 
+    def _agreed(self, flag: bool, op=dist.ReduceOp.MAX) -> bool:
+        """``flag`` as every rank of the grid decides it (the OR under
+        ``MAX``, the AND under ``MIN``); ``flag`` itself off a grid."""
+        if self.mesh is None:
+            return flag
+        t = torch.full((1,), int(flag), dtype=torch.int32, device=self.device)
+        return bool(coll.all_reduce_(t, self.mesh.world_group, op)[0])
+
     def _loss_diverged(self, loss_val: float) -> bool:
         """Divergence test on the loss the log step already fetched (no
         extra host sync): a non-finite loss always diverges; a finite one
         when it passes ``cfg.loss_spike_factor`` × the last healthy logged
-        loss (none right after a start or a rollback)."""
-        if not math.isfinite(loss_val):
-            return True
+        loss (none right after a start or a rollback). On a grid the loss
+        is global, and the verdict is agreed over every rank besides."""
         ref = self._loss_ref
-        if ref is not None and loss_val > self.cfg.loss_spike_factor * max(ref, 1e-12):
-            return True
-        self._loss_ref = loss_val
-        return False
+        diverged = not math.isfinite(loss_val) or (
+            ref is not None and loss_val > self.cfg.loss_spike_factor * max(ref, 1e-12))
+        diverged = self._agreed(diverged)
+        if not diverged:
+            self._loss_ref = loss_val
+        return diverged
 
     def _params_finite(self) -> bool:
-        """Every param finite: a device sync, made only inside a rollback."""
-        return all(bool(torch.isfinite(v.float()).all()) for v in self.state.params.values())
+        """Every param finite, on every rank's shards: a device sync, made
+        only inside a rollback."""
+        ok = all(bool(torch.isfinite(v.float()).all()) for v in self.state.params.values())
+        return self._agreed(ok, dist.ReduceOp.MIN)
 
     def _rollback(self, detect_step: int) -> None:
         """Restore the newest intact save whose params are finite (the
@@ -530,6 +529,13 @@ class Trainer:
             restored = False
             while older and not restored:
                 cand_v = older.pop()
+                if self.mesh is not None:
+                    # every rank tries the same save, and only one all verify
+                    cand_v = self.checkpointer._agree_min(cand_v, self.mesh, self.device)
+                    if not self._agreed(self.checkpointer.verify_save(vdir, cand_v),
+                                        dist.ReduceOp.MIN):
+                        older = [s for s in older if s < cand_v]
+                        continue
                 try:
                     meta = self.restore(version_dir=vdir, save=cand_v)
                     restored = True

@@ -40,8 +40,9 @@ def drive(produced: Iterable[T], drain: Callable[[T], None], depth: int = DEFAUL
 def sharded_program_guard():
     """A null context. The JAX package serializes programs with
     collectives on XLA:CPU, where two running at once on the same host
-    devices can deadlock in their rendezvous; the port runs one process
-    on one device with no collectives in its harvest or serve, so there is
+    devices can deadlock in their rendezvous; the port runs one device a
+    process, and a refill whose harvest or store issues collectives runs
+    on the serving thread alone (no dispatcher thread), so there is
     nothing to serialize. Kept so that the buffer reads as the JAX one."""
     return contextlib.nullcontext()
 

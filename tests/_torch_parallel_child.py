@@ -18,7 +18,8 @@ found to ``<out>/rank<r>.pt`` (``torch.save``):
 - ``ckpt``: a ``Trainer`` saves after ``steps`` steps; then fresh
   trainers on the same grid restore (from ``views``: one checkpoint root
   a rank) and report the restored state and step;
-- ``harvest``: the parallel harvest's cases (``tests/_torch_harvest_child.py``).
+- ``harvest``: the parallel harvest's cases (``tests/_torch_harvest_child.py``);
+- ``mesh_rest``: the mesh's last refusals lifted (``tests/_torch_mesh_rest_child.py``).
 """
 
 from __future__ import annotations
@@ -293,6 +294,12 @@ def _harvest(task, rank):
     return _torch_harvest_child.run(task, rank)
 
 
+def _mesh_rest(task, rank):
+    import _torch_mesh_rest_child
+
+    return _torch_mesh_rest_child.run(task, rank)
+
+
 def main() -> None:
     rank, world, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     import torch
@@ -305,7 +312,8 @@ def main() -> None:
                          world_size=world, rank=rank)
     try:
         res = {"train": _train, "quant": _quant, "ckpt": _ckpt,
-               "coll": _coll, "stop": _stop, "harvest": _harvest}[task["kind"]](task, rank)
+               "coll": _coll, "stop": _stop, "harvest": _harvest,
+               "mesh_rest": _mesh_rest}[task["kind"]](task, rank)
         torch.save(res, Path(task["out"]) / f"rank{rank}.pt")
     finally:
         multihost.shutdown()

@@ -2,7 +2,7 @@
 spec of every train-state leaf equals the JAX ``state_shardings`` one,
 ``local_shard`` cuts what concatenation restores, ``make_mesh`` and the
 config refuse what the JAX ones refuse, start-up joins no group unless
-asked, and every knob the mesh trainer does not run yet raises."""
+asked, and the mesh trainer builds every knob it used to refuse."""
 
 import numpy as np
 import pytest
@@ -135,10 +135,20 @@ _TOPK = dict(activation="topk", topk_k=4, l1_coeff=0.0, dict_size=256)   # the T
     ({"guard_loss": True}, (1, 1), "loss guard"),
 ], ids=["fused_topk_tp", "quant_encoder_tp", "fused_batchtopk_dp", "sparse_decode_tp",
         "resample", "guard_loss"])
-def test_mesh_refuses_what_it_does_not_run_yet(kw, grid, match):
+def test_mesh_builds_what_it_used_to_refuse(kw, grid, match, tmp_path):
+    """Each knob an earlier slice refused on a grid builds there (``match``
+    names it; ``tests/test_torch_mesh_rest.py`` trains each on gloo ranks
+    against JAX). On a grid of one, resampling and the guard run: the
+    resample at its step, and a NaN loss the verdict every rank agrees on."""
     cfg = CrossCoderConfig(**{**BASE, **kw})
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP A6b"):
-        Trainer(cfg, device="cpu", mesh=_fake_mesh(*grid))
+    tr = Trainer(cfg, device="cpu", mesh=_fake_mesh(*grid))
+    assert tr.mesh.data_size * tr.mesh.model_size == grid[0] * grid[1], match
+    if kw.get("resample_every"):
+        steps = [tr.step() for _ in range(3)]
+        assert "resampled" in steps[2] and "resampled" not in steps[1]
+    if kw.get("guard_loss"):
+        assert tr._loss_diverged(float("nan")) and not tr._loss_diverged(1.0)
+        assert tr._params_finite()
 
 
 def test_shard_sources_and_the_buffer_on_many_ranks_raise(monkeypatch):
