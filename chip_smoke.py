@@ -252,7 +252,19 @@ one NVIDIA Hopper card and the CUDA toolkit:
    (this process and one more, ``--gloo-rank``), each rank's losses and
    shard of the params against its own single-device run (a loss within
    1e-4 relative, each leaf within 1e-3 relative in norm);
-14. prints the kernel table as one JSON line, the card line, and
+14. the fleet (``train/fleet.py``) at Gemma-2-2B width off a host store
+   harvested from the two random-init Gemma-2-2B: cohort C, three TopK
+   tenants (k 32, dict 2^15, AuxK) that differ in seed and l1_coeff, on one
+   stacked state; bucket BT, BatchTopK at dict 2^14, admitted before round 2
+   and retired before round 6; 8 rounds with every kernel's plain version
+   made to raise. Each tenant's losses and final state bitwise a solo
+   Trainer over the same served batches from the same init; one real serve
+   and one host-to-device copy a round; the launches those of the solo
+   steps but O1, launched once a cohort and once a bucket a round; the
+   cohort's O1 at gradients scaled to straddle the clip bitwise its plain
+   version and the three solo launches, timed beside them, PyTorch's fused
+   Adam and its bound; a round's ms against the solo steps'; peak memory;
+15. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -346,6 +358,20 @@ N_REPLICA = 8
 # to bf16 for the tensor cores (the sparse one stays f32): the loss within
 # 1e-3 relative, each gradient within 2e-2 relative in norm
 SPARSE_DECODE_TOL = (1e-3, 2e-2)
+# phase 14 at the harvest phase's width over a smaller host store of the two
+# random-init Gemma-2-2B (buffer_mult 4: 16 seqs, 16 368 rows, a refill of
+# half of it after every serve; norm calibration from 2 chunks): cohort C,
+# three TopK tenants (k 32, dict 2^15, AuxK 64 every 2) that differ in seed
+# (1, 2, 3) and l1_coeff (0, 0, 3e-4); bucket BT, BatchTopK (k 32, dict 2^14),
+# admitted before round 2 and retired before round 6; 8 rounds. The cohort's
+# O1 is checked at gradients scaled to global norms of O1_NORMS, one a tenant
+FLEET = dict(HARVEST, activation="topk", aux_k=64, aux_every=2, aux_dead_steps=4,
+             aux_exact_rank=True, buffer_mult=4, norm_calib_batches=2,
+             num_tokens=HARVEST["batch_size"] * 8, fleet="on",
+             fleet_tenants="c1:seed=1,l1_coeff=0;c2:seed=2,l1_coeff=0;c3:seed=3,l1_coeff=3e-4")
+FLEET_BT = dict(seed=4, activation="batchtopk", dict_size=2 ** 14, aux_k=0, aux_every=1)
+ROUNDS_F, BT_IN, BT_OUT = 8, 2, 6
+O1_NORMS = (0.5, 4.0, 0.999)
 STEP_MS: dict[str, float] = {}
 BT_T = 15                    # candidate patterns a bisection pass counts (K9's T)
 CUDA_CORE_MS = {"K2 serve": 0.2477, "K2 train": 95.2670, "K4 select": 39.9474,
@@ -5051,6 +5077,283 @@ def mesh_rest(torch, np, root):
     return legs, kernel_ms
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the fleet (N crosscoders trained off one served stream)
+
+
+@contextlib.contextmanager
+def no_plain_versions(tp, sg, fek):
+    """Every kernel's plain version raises inside the block: a wrapper that
+    fell back to one, or a tensor that reached the CPU, fails the phase."""
+    from crosscoder_tpu_torch.ops import adam
+
+    names = [(adam, "adam_update_plain"), (tp, "topk_plain"), (tp, "topk_chunked_plain"),
+             (tp, "sparsify_plain"), (tp, "batchtopk_select_plain"),
+             (tp, "batchtopk_emit_plain"), (sg, "scatter_add_rows_plain"),
+             (sg, "work_list_plain"), (fek, "fused_topk_encode_plain"),
+             (fek, "fused_topk_encode_q_plain"), (fek, "fused_batchtopk_select_plain"),
+             (fek, "fused_batchtopk_count_plain"), (fek, "fused_batchtopk_emit_plain")]
+    saved = [(m, n, getattr(m, n)) for m, n in names]
+
+    def refuse(name):
+        def plain(*a, **k):
+            fail(f"phase 14: the fleet's path ran the plain version {name}")
+        return plain
+
+    for m, n in names:
+        setattr(m, n, refuse(n))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def _fleet_o1(torch, np, fl, batch, scale):
+    """The cohort's O1 at its final state: each member's gradients on the
+    last batch, scaled to the norms ``O1_NORMS`` (one tenant clipped),
+    stacked; one cohort launch bitwise its plain version and the three solo
+    launches, timed beside the plain update, the solo launches, PyTorch's
+    fused Adam over the same leaves and the bound. Returns the cohort row
+    (launches filled in by the caller)."""
+    from crosscoder_tpu_torch.models import stacked
+    from crosscoder_tpu_torch.ops import adam
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer
+
+    co = fl._cohorts[0]
+    st, N = co.state, len(co.members)
+    bodies = fl._cohort_fns(co, trainer_mod.variant_for_step(co.cfg, co.members[0].steps_done))
+    grads = {k: torch.empty_like(v) for k, v in st.params.items()}
+    for i, body in enumerate(bodies):
+        g = body.loss_and_grads(stacked.unstack_state(st, i), batch, scale)[2]
+        n0 = float(Optimizer.global_norm(g))
+        for k, t in g.items():
+            grads[k][i].copy_((t.float() * (O1_NORMS[i] / n0)).to(t.dtype))
+        del g
+    norms = torch.stack([Optimizer.global_norm({k: t[i] for k, t in grads.items()})
+                         for i in range(N)])
+    lr = float(co.opt.lr_fn(st.opt_state.count))
+    t = st.opt_state.count + 1
+    kw = dict(max_norm=1.0, b1=0.9, b2=0.999, eps=1e-8,
+              bc1=float(np.float32(1) - np.float32(0.9) ** np.float32(t)),
+              bc2=float(np.float32(1) - np.float32(0.999) ** np.float32(t)),
+              step_size=float(-np.float32(lr)))
+    p, m, v = st.params, st.opt_state.mu, st.opt_state.nu
+    before = (adam.adam_update.launches, adam.adam_update.cohort_launches)
+
+    def bits(x):
+        return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+    out_k = tuple({k: torch.empty_like(x) for k, x in p.items()} for _ in range(3))
+    out_p = tuple({k: torch.empty_like(x) for k, x in p.items()} for _ in range(3))
+    adam.adam_update(p, grads, m, v, norms, out=out_k, **kw)
+    adam.adam_update_plain(p, grads, m, v, norms, out=out_p, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(bits(a[k]), bits(b[k])) for a, b in zip(out_k, out_p) for k in p)
+    err = max(float((a[k].float() - b[k].float()).abs().max()) for a, b in zip(out_k, out_p)
+              for k in p)
+    plain_ms = time_ms(lambda: adam.adam_update_plain(p, grads, m, v, norms, out=out_p, **kw), 2)
+    del out_p
+    clipped = [float(x) >= 1.0 for x in norms]
+    log(f"fleet: O1 over the cohort's {N} stacked tenants at norms "
+        f"{[round(float(x), 4) for x in norms]} (clipped {clipped}): "
+        f"{'bitwise equal' if same else 'DIFFERENT'} params and moments to the plain update "
+        f"(max_abs_err {err:.3e})")
+    if not same or clipped.count(True) not in range(1, N):
+        fail("phase 14: the cohort's O1 differs from its plain version, or the check's norms "
+             "did not straddle the clip")
+    solo_ms = []
+    for i in range(N):
+        sl = [{k: x[i] for k, x in d.items()} for d in (p, grads, m, v)]
+        out_s = tuple({k: torch.empty_like(x) for k, x in sl[0].items()} for _ in range(3))
+        adam.adam_update(*sl, norms[i], out=out_s, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(bits(a[k][i]), bits(b[k])) for a, b in zip(out_k, out_s)
+                   for k in p):
+            fail(f"phase 14: the cohort's O1 differs from tenant {i}'s solo launch "
+                 f"({'clipped' if clipped[i] else 'not clipped'})")
+        solo_ms.append(time_ms(lambda: adam.adam_update(*sl, norms[i], out=out_s, **kw), 10))
+        del out_s
+    log(f"fleet: the cohort's O1 bitwise each tenant's solo launch, clipped and not")
+    ms = time_ms(lambda: adam.adam_update(p, grads, m, v, norms, out=out_k, **kw), 10)
+    ms_q = time_ms(lambda: adam.adam_update(p, grads, m, v, norms, out=out_k, **kw), 10,
+                   queued=True)
+    del out_k
+    lib_p = {k: x.clone() for k, x in p.items()}
+    for k, x in lib_p.items():
+        x.grad = grads[k]
+    lib = torch.optim.Adam(list(lib_p.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8, fused=True)
+    library_ms = time_ms(lib.step, 10)
+    del lib_p, lib
+    n = sum(x.numel() for x in p.values())
+    b_ms, b_by = bound(7 * 4 * n, 20 * n, "fp32")
+    log(f"fleet: O1 cohort of {N} over {len(p)} stacked leaves ({n} values): {ms:.4f} ms back "
+        f"to back, {ms_q:.4f} queued, {7 * 4 * n / ms / 1e6:.0f} GB/s; bound {b_ms:.4f} ms by "
+        f"{b_by} ({7 * 4 * n / 1e9:.3f} GB, {100 * b_ms / ms:.0f}% of it); the {N} solo "
+        f"launches {' + '.join(f'{x:.4f}' for x in solo_ms)} = {sum(solo_ms):.4f} ms; the plain "
+        f"update {plain_ms:.4f} ms; torch.optim.Adam(fused=True, no clip) {library_ms:.4f} ms")
+    adam.adam_update.launches, adam.adam_update.cohort_launches = before
+    return {"name": "adam_update (cohort)", "route": "cuda",
+            "source": "crosscoder_tpu_torch/csrc/adam_update.cu",
+            "replaces": "crosscoder_tpu/train/fleet.py:446 (the vmapped cohort step's optax "
+                        "chain, which XLA fuses; no Pallas site)",
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def fleet(torch, np, root):
+    """Phase 14: the fleet at Gemma-2-2B width off a host store harvested
+    from the two random-init Gemma-2-2B: cohort C (three TopK tenants, one
+    O1 launch a round) and bucket BT (BatchTopK, admitted before round
+    ``BT_IN``, retired before round ``BT_OUT``), ``ROUNDS_F`` rounds with
+    every plain version made to raise; each tenant's losses and final state
+    bitwise a solo Trainer over the same served batches from the same
+    init; one real serve and one host-to-device copy a round; the launches
+    those of the solo steps but O1, once a group a round; the cohort's O1
+    (:func:`_fleet_o1`). Returns the fleet's launches and the cohort O1
+    row."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data import buffer as bufmod
+    from crosscoder_tpu_torch.models import lm
+    from crosscoder_tpu_torch.obs.registry import MetricsRegistry
+    from crosscoder_tpu_torch.ops import adam
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.ops import sparse_grad as sg
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+    from crosscoder_tpu_torch.train import fleet as fleet_mod
+
+    t_phase = time.perf_counter()
+    lm_cfg = lm.LMConfig.gemma2_2b()
+    params = [lm.init_params(lm_cfg, seed=s, device="cuda") for s in (1, 2)]
+    tokens = harvest_tokens(np, 256, FLEET["seq_len"], lm_cfg.vocab_size, 6)
+    cfg = CrossCoderConfig(**FLEET)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buffer = bufmod.make_buffer(cfg, lm_cfg, params, tokens, device="cuda")
+    torch.cuda.synchronize()
+    log(f"fleet: two random-init Gemma-2-2B built in {t0 - t_phase:.1f} s; the host store of "
+        f"{buffer.buffer_size} rows calibrated and filled in {time.perf_counter() - t0:.2f} s")
+    factor = buffer.normalisation_factor
+    reg = MetricsRegistry()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fl = fleet_mod.FleetScheduler(cfg, buffer, registry=reg, checkpoint=False, device="cuda")
+    if [len(c.members) for c in fl._cohorts] != [3] or fl._buckets:
+        fail(f"phase 14: the roster did not form one cohort of 3: {fl._cohorts}, {fl._buckets}")
+    batches, serve_ms = [], []
+    real_serve, real_copy = fl._serve_round, fleet_mod.to_device
+
+    def serve_round():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_serve()
+        serve_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def device_batch(b, device):
+        if b.device.type != "cpu":
+            fail("phase 14: the round's batch is not in host memory, so its copy is no "
+                 "host-to-device transfer")
+        t = time.perf_counter()
+        out = real_copy(b, device)
+        torch.cuda.synchronize()
+        serve_ms[-1] += (time.perf_counter() - t) * 1e3
+        batches.append(out)
+        return out
+
+    fl._serve_round, fleet_mod.to_device = serve_round, device_batch
+    seq0 = buffer._serve_seq
+    counters = launch_counters()
+    reset_counters(counters)
+    cohort0 = adam.adam_update.cohort_launches
+    losses, round_ms = {}, []
+    late = fleet_mod.TenantSpec("bt", FLEET_BT)
+    try:
+        with no_plain_versions(tp, sg, fek):
+            for r in range(ROUNDS_F):
+                if r == BT_IN:
+                    fl.admit(late)
+                if r == BT_OUT:
+                    bt_state = fl.tenant_state("bt")
+                    fl.retire("bt", save=False)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mets = fl.step_all(full_metrics=True)
+                torch.cuda.synchronize()
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+                for name, md in mets.items():
+                    losses.setdefault(name, []).append(float(md["loss"]))
+    finally:
+        fleet_mod.to_device = real_copy
+    scale = fl._scale(buffer, fl._raw_serving)
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    cohort = adam.adam_update.cohort_launches - cohort0
+    peak = torch.cuda.max_memory_allocated()
+    states = {n: fl.tenant_state(n) for n in fl.active()}
+    states["bt"] = bt_state
+    for name, st in states.items():
+        if any(x.device.type != "cuda" for x in st.params.values()):
+            fail(f"phase 14: tenant {name}'s params left the card")
+    n_serves = buffer._serve_seq - seq0
+    log(f"fleet: {ROUNDS_F} rounds, {n_serves} real serves, {len(batches)} host-to-device "
+        f"copies, comm/h2d_transfers {reg.get_count('comm/h2d_transfers')}; launches {launches}, "
+        f"O1 cohort launches {cohort}")
+    if not n_serves == len(batches) == reg.get_count("comm/h2d_transfers") == ROUNDS_F:
+        fail("phase 14: not one gather and one host-to-device copy a round")
+    bt_steps = BT_OUT - BT_IN
+    if cohort != ROUNDS_F or launches.get("adam_update") != ROUNDS_F + bt_steps:
+        fail(f"phase 14: O1 launched {launches.get('adam_update')} times ({cohort} on the "
+             f"cohort), not once a cohort and once a bucket a round")
+    for n in ("topk_mask", "batchtopk_select", "batchtopk_emit"):
+        if not launches.get(n):
+            fail(f"phase 14: {n} never launched on the fleet's path")
+    fl.buffer = None
+    del buffer, params
+    torch.cuda.empty_cache()
+
+    solo, solo_ms = {}, {}
+    specs = {s.name: s for s in fleet_mod.parse_tenants(cfg.fleet_tenants)}
+    specs["bt"] = late
+    for name, spec in specs.items():
+        tcfg = fleet_mod.tenant_config(cfg, spec)
+        skip, steps = (BT_IN, bt_steps) if name == "bt" else (0, ROUNDS_F)
+        tr, out, sl = run_leg(torch, tcfg, batches[skip:skip + steps], factor, steps)
+        ok, what = state_bits_equal(torch, states[name], tr.state)
+        got = losses[name]
+        log(f"fleet: tenant {name} ({'bucket' if name == 'bt' else 'cohort'}, {steps} steps) "
+            f"losses {[round(x, 4) for x in got]}; the solo Trainer's "
+            f"{'bitwise equal' if got == [o['loss'] for o in out] else 'DIFFERENT'}, final "
+            f"state {'bitwise equal' if ok else 'DIFFERENT: ' + what}; solo launches {sl}")
+        if got != [o["loss"] for o in out] or not ok:
+            fail(f"phase 14: tenant {name} differs from its solo Trainer ({what})")
+        solo_ms[name] = [o["ms"] for o in out]
+        for k, c in sl.items():
+            if k != "by route":
+                solo[k] = solo.get(k, 0) + c
+        del tr
+    o1_solo = solo.pop("adam_update", 0)
+    if {k: c for k, c in launches.items() if k != "adam_update"} != solo:
+        fail(f"phase 14: the fleet's launches {launches} are not its solo steps' {solo}")
+    log(f"fleet: launches but O1 equal the solo steps' ({solo}); O1 {launches['adam_update']} "
+        f"against the solo runs' {o1_solo} (one a cohort and one a bucket a round)")
+    for r in range(ROUNDS_F):
+        solo_sum = sum(solo_ms[n][r] for n in specs if n != "bt")
+        n_active = 3
+        if BT_IN <= r < BT_OUT:
+            solo_sum += solo_ms["bt"][r - BT_IN]
+            n_active += 1
+        log(f"fleet: round {r}: {round_ms[r]:.2f} ms ({serve_ms[r]:.2f} of it the serve and its "
+            f"refill share, and the copy) against {solo_sum:.2f} ms for the {n_active} solo "
+            f"steps alone; {solo_sum + n_active * serve_ms[r]:.2f} ms with a serve each")
+    log(f"fleet: peak memory allocated {peak / 2 ** 30:.2f} GiB ({(peak - mem0) / 2 ** 30:.2f} "
+        f"GiB over the models and the store)")
+    row = _fleet_o1(torch, np, fl, batches[-1], scale)
+    row["launches"] = cohort
+    log(f"fleet phase {time.perf_counter() - t_phase:.1f} s (budget 90 s)")
+    return launches, row
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-rank"]:     # rank 1 of leg FM at 1 x 2 (phase 13)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -5193,8 +5496,14 @@ def main() -> int:
             row["launches"] += leg.get(row["name"].split()[0], 0)
         row_o1["launches"] += leg.get("adam_update", 0)
     quant_rows[0]["launches"] += mesh_legs["MS and SS"].get("quantize_rows", 0)
+    fleet_launches, row_o1_cohort = fleet(torch, np, root)
+    for row in (*train_rows[:3], *harvest_rows):
+        row["launches"] += fleet_launches.get(row["name"].split()[0], 0)
+    # the bucket's O1 launches are solo updates; the cohort's have their row
+    row_o1["launches"] += fleet_launches["adam_update"] - row_o1_cohort["launches"]
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
-              *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed])
+              *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed,
+              row_o1_cohort])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

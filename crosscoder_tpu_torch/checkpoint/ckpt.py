@@ -37,8 +37,12 @@ one, so a save from any grid restores on one device and in the JAX
 ``[n_data, L]`` a param) reset to zero when the restoring grid's ``data``
 width differs from the save's.
 
-Not ported (ROADMAP Queue A): ``tenant`` namespacing (the fleet), the
-``chaos`` hook and the resilience ``counters``.
+A fleet tenant's saves (``Checkpointer(tenant=name)``, as the JAX
+package's) live under ``<base>/tenants/<name>/`` with version dirs of
+their own, so ``keep_saves`` counts and prunes each tenant's saves alone.
+
+Not ported (ROADMAP Queue A): the ``chaos`` hook and the resilience
+``counters``.
 """
 
 from __future__ import annotations
@@ -268,12 +272,20 @@ def unflatten_state(leaves: dict[str, np.ndarray], cfg: CrossCoderConfig, device
 
 
 class Checkpointer:
-    """Versioned saves under ``base_dir`` (default ``cfg.checkpoint_dir``)."""
+    """Versioned saves under ``base_dir`` (default ``cfg.checkpoint_dir``),
+    or under ``<base_dir>/tenants/<tenant>/`` for a fleet tenant
+    (:class:`ValueError` for an empty name, one with ``/``, ``.`` or
+    ``..``)."""
 
     def __init__(self, base_dir: str | Path | None = None,
-                 cfg: CrossCoderConfig | None = None) -> None:
+                 cfg: CrossCoderConfig | None = None, tenant: str | None = None) -> None:
         if base_dir is None:
             base_dir = cfg.checkpoint_dir if cfg is not None else "./checkpoints"
+        if tenant is not None:
+            if not tenant or "/" in tenant or tenant in (".", ".."):
+                raise ValueError(f"invalid tenant name {tenant!r}")
+            base_dir = Path(base_dir) / "tenants" / tenant
+        self.tenant = tenant
         self.base_dir = Path(base_dir)
         self.save_dir: Path | None = None
         self.save_version = 0
@@ -489,7 +501,9 @@ class Checkpointer:
         dir); an explicit ``save`` must verify. Later saves continue in the
         restored save's version dir.
 
-        Under a ``mesh`` every rank must call this. With ``save=None`` the
+        Under a ``mesh`` every rank must call this. It first waits until
+        every rank has landed its own background write (the primary's is
+        the one on disk). With ``save=None`` the
         ranks agree on the save, as the JAX package's multi-host restore:
         the smallest version dir, then the smallest newest-verified save
         over every rank (a rank whose view is ahead falls back with the
@@ -499,6 +513,11 @@ class Checkpointer:
         with trace.span("restore"):
             self.wait()
             dev = resolve_device(device)
+            if mesh is not None:
+                # every rank past its wait() before any lists the saves: a
+                # rank that read the directory while the primary's write was
+                # still in flight would agree the ranks onto an older save
+                self._agree_min(0, mesh, dev)
             if save is None:
                 vdir, v = self._select_verified(version_dir)
                 if mesh is not None:

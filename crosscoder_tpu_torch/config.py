@@ -12,10 +12,11 @@ parallelism and not with ``batchtopk``, ``n_sources`` divisible by the
 model axis under ``shard_sources``) and the replay-buffer knobs
 (``refill_frac``, ``buffer_device``, ``seq_shards``, ``shard_lm``,
 ``refill_overlap``, ``quant_block`` under ``quant_buffer``), with the JAX
-package's messages. :meth:`CrossCoderConfig.check_buffer` refuses a
-buffer the port cannot build (too small, or a buffer knob not ported
-yet). Knobs of parts not ported yet (elastic, fleet, compile cache,
-tuner) are carried as plain values. :meth:`CrossCoderConfig.from_cli` reflects every
+package's messages, and the fleet knobs (``fleet_max_buckets >= 1``, no
+``quant_grads`` under ``fleet="on"``, no ``fleet_tenants`` without it).
+:meth:`CrossCoderConfig.check_buffer` refuses a buffer too small to
+build. Knobs of parts not ported yet (elastic, compile cache, tuner) are
+carried as plain values. :meth:`CrossCoderConfig.from_cli` reflects every
 field into a flag as the JAX package does; ``--tuned`` raises until the
 autotuner is ported.
 """
@@ -357,6 +358,24 @@ class CrossCoderConfig:
             raise ValueError(
                 f"aux_mask_every must be >= 0 (1 = per-step exact, N = refresh "
                 f"every N steps, 0 = follow log_every), got {self.aux_mask_every}")
+        _check_choice("fleet", self.fleet, ("off", "on"))
+        if self.fleet == "on":
+            if self.fleet_max_buckets < 1:
+                raise ValueError(
+                    f"fleet_max_buckets must be >= 1, got "
+                    f"{self.fleet_max_buckets} (each stacked cohort and "
+                    f"each heterogeneous tenant signature costs one "
+                    f"compile bucket)")
+            if self.quant_grads:
+                raise ValueError(
+                    "fleet='on' is incompatible with quant_grads: the "
+                    "stacked (vmapped) tenant step cannot nest the "
+                    "shard_map quantized all-reduce; train quantized "
+                    "sweeps as sequential solo runs")
+        elif self.fleet_tenants:
+            raise ValueError(
+                "fleet_tenants is set but fleet='off'; pass --fleet on "
+                "(the spec would otherwise be silently ignored)")
 
     def _check_buffer_fields(self) -> None:
         """The JAX package's replay-buffer and harvest field rules."""
@@ -404,15 +423,8 @@ class CrossCoderConfig:
                 f"block); try one of {divisors or 'a divisor of d_in'}")
 
     def check_buffer(self) -> None:
-        """Raise for a replay buffer this config cannot build in the port:
-        :class:`NotImplementedError` for the buffer knobs not ported yet
-        (the fleet's fan-out), :class:`ValueError` for a buffer smaller
-        than two batches."""
-        if self.fleet == "on":
-            raise NotImplementedError(
-                "fleet='on' (multi-consumer fan-out) is not ported to the PyTorch replay "
-                "buffer yet: it waits for the port of crosscoder_tpu/train/fleet.py "
-                "(ROADMAP Queue A)")
+        """Raise :class:`ValueError` for a replay buffer this config cannot
+        build: a ``seq_len`` below 2 or a buffer smaller than two batches."""
         rows_per_seq = self.seq_len - 1
         if rows_per_seq < 1:
             raise ValueError(f"the replay buffer needs seq_len >= 2 (BOS is dropped), "

@@ -13,7 +13,8 @@
 // PyTorch's eager ops round (`adam_update_plain` in ops/adam.py, the op
 // sequence of the port's Optimizer):
 //
-//   clip     = !(norm < max_norm)                 (norm: f32, on the card)
+//   norm     = norms[e / (n / n_tenants)]         (f32, on the card)
+//   clip     = !(norm < max_norm)
 //   g        = clip ? T(T(g / T(norm)) * max_norm) : g
 //   m'       = T(T(g * c1) + T(m * b1))           c1 = f32(1 - b1)
 //   v'       = T(T(T(g * g) * c2) + T(v * b2))    c2 = f32(1 - b2)
@@ -28,6 +29,13 @@
 // version's 0-d tensors are, each leaf to its own T. The norm is read on
 // the card: no host sync.
 //
+// A fleet cohort (train/fleet.py) steps n_tenants crosscoders in one
+// launch: each leaf is the tenants' leaves stacked on a leading axis, so
+// element e of a leaf of n elements belongs to tenant e / (n / n_tenants)
+// and is clipped by that tenant's own global norm; the bias corrections
+// and the learning rate are the cohort's (its tenants step in lockstep).
+// With n_tenants = 1 the kernel is the solo update, bitwise.
+//
 // Bound. Each element is read from p, g, m and v once and p', m' and v'
 // are written once: 28 bytes an element in f32 (14 in bf16). Leg A's four
 // leaves (W_enc, W_dec [2 * 2304 * 32768] each, b_enc, b_dec: 302,027,264
@@ -39,7 +47,10 @@
 // dtype tag, the same for the whole block), the tail of a leaf and
 // unaligned leaves element by element. In place when the outputs are the
 // inputs (the trainer's donated step); each element is read before it is
-// written, by the same thread.
+// written, by the same thread. A 16-byte chunk lies in one tenant when a
+// tenant's share of the leaf is a multiple of the chunk (else the leaf
+// goes element by element), so a thread finds its tenant with one
+// division and reads one norm.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,8 +70,9 @@ struct Leaf {
   void* mo;
   void* vo;
   long long n;
+  long long per;           // elements a tenant: n / n_tenants
   long long first_block;   // blocks of earlier leaves
-  int vec;                 // every pointer 16-byte aligned
+  int vec;                 // every pointer 16-byte aligned, chunks within a tenant
   int bf16;                // dtype tag: 1 bf16, 0 f32
 };
 
@@ -108,18 +120,22 @@ __device__ __forceinline__ void adam_one(float g, float p, float m, float v, boo
   po = E::rt(__fadd_rn(p, u));
 }
 
-// One block's share of leaf L, whose elements are T.
+// One block's share of leaf L, whose elements are T; norms[t] is tenant
+// t's global norm.
 template <typename T>
-__device__ __forceinline__ void adam_leaf(const Leaf& L, long long b, float norm, Coef c) {
+__device__ __forceinline__ void adam_leaf(const Leaf& L, long long b,
+                                          const float* __restrict__ norms, int n_tenants,
+                                          Coef c) {
   using E = Elt<T>;
   constexpr int V = E::kVec;
   c.bc1 = E::rt(c.bc1);
   c.bc2 = E::rt(c.bc2);
   c.step = E::rt(c.step);
-  const bool clip = !(norm < c.max_norm);
-  const float normT = E::rt(norm);
   const long long i0 = ((b - L.first_block) * kThreads + threadIdx.x) * V;
   if (i0 >= L.n) return;
+  const float norm = norms[n_tenants > 1 ? int(i0 / L.per) : 0];
+  const bool clip = !(norm < c.max_norm);
+  const float normT = E::rt(norm);
   const T* g = static_cast<const T*>(L.g);
   const T* p = static_cast<const T*>(L.p);
   const T* m = static_cast<const T*>(L.m);
@@ -150,9 +166,10 @@ __device__ __forceinline__ void adam_leaf(const Leaf& L, long long b, float norm
     return;
   }
   for (long long i = i0; i < i0 + V && i < L.n; ++i) {
+    const float ne = n_tenants > 1 ? norms[int(i / L.per)] : norm;
     float a, bm, bv;
-    adam_one<T>(E::get(g[i]), E::get(p[i]), E::get(m[i]), E::get(v[i]), clip, normT, c, a, bm,
-                bv);
+    adam_one<T>(E::get(g[i]), E::get(p[i]), E::get(m[i]), E::get(v[i]), !(ne < c.max_norm),
+                E::rt(ne), c, a, bm, bv);
     po[i] = E::put(a);
     mo[i] = E::put(bm);
     vo[i] = E::put(bv);
@@ -160,30 +177,31 @@ __device__ __forceinline__ void adam_leaf(const Leaf& L, long long b, float norm
 }
 
 __global__ void __launch_bounds__(kThreads)
-adam_update_kernel(Leaves leaves, const float* __restrict__ norm_ptr, Coef c) {
+adam_update_kernel(Leaves leaves, const float* __restrict__ norms, int n_tenants, Coef c) {
   const long long b = blockIdx.x;
   int li = 0;
   while (li + 1 < leaves.count && leaves.leaf[li + 1].first_block <= b) ++li;
   const Leaf& L = leaves.leaf[li];
-  const float norm = *norm_ptr;
   if (L.bf16)
-    adam_leaf<uint16_t>(L, b, norm, c);
+    adam_leaf<uint16_t>(L, b, norms, n_tenants, c);
   else
-    adam_leaf<float>(L, b, norm, c);
+    adam_leaf<float>(L, b, norms, n_tenants, c);
 }
 
 }  // namespace
 
 // One launch over n_leaves leaves. ptrs: 7 pointers a leaf (g, p, m, v,
-// p_out, m_out, v_out); sizes: elements a leaf; is_bf16: a leaf's dtype
-// tag (1 bf16, 0 f32); norm: the f32 global norm on the card. bc1, bc2 and
-// step are f32 and rounded to each leaf's dtype in the kernel; max_norm,
-// c1 = 1 - b1, b1, c2 = 1 - b2, b2 and eps stay f32.
+// p_out, m_out, v_out); sizes: elements a leaf, each a multiple of
+// n_tenants; is_bf16: a leaf's dtype tag (1 bf16, 0 f32); norm: the
+// n_tenants f32 global norms on the card (one for a solo update). bc1, bc2
+// and step are f32 and rounded to each leaf's dtype in the kernel;
+// max_norm, c1 = 1 - b1, b1, c2 = 1 - b2, b2 and eps stay f32.
 extern "C" int adam_update_launch(const long long* ptrs, const long long* sizes,
                                   const int* is_bf16, int n_leaves, const void* norm,
-                                  float max_norm, float c1, float b1, float c2, float b2,
-                                  float eps, float bc1, float bc2, float step, void* stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves) return int(cudaErrorInvalidValue);
+                                  int n_tenants, float max_norm, float c1, float b1, float c2,
+                                  float b2, float eps, float bc1, float bc2, float step,
+                                  void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || n_tenants < 1) return int(cudaErrorInvalidValue);
   Leaves leaves;
   leaves.count = n_leaves;
   long long blocks = 0;
@@ -198,11 +216,13 @@ extern "C" int adam_update_launch(const long long* ptrs, const long long* sizes,
     L.mo = reinterpret_cast<void*>(q[5]);
     L.vo = reinterpret_cast<void*>(q[6]);
     L.n = sizes[i];
+    if (L.n % n_tenants) return int(cudaErrorInvalidValue);
+    L.per = L.n / n_tenants;
     L.bf16 = is_bf16[i] ? 1 : 0;
     L.first_block = blocks;
-    const long long per_block =
-        (long long)kThreads * (L.bf16 ? Elt<uint16_t>::kVec : Elt<float>::kVec);
-    int vec = 1;
+    const int V = L.bf16 ? Elt<uint16_t>::kVec : Elt<float>::kVec;
+    const long long per_block = (long long)kThreads * V;
+    int vec = int(n_tenants == 1 || L.per % V == 0);
     for (int j = 0; j < 7; ++j) vec &= int(q[j] % 16 == 0);
     L.vec = vec;
     blocks += (L.n + per_block - 1) / per_block;
@@ -212,6 +232,6 @@ extern "C" int adam_update_launch(const long long* ptrs, const long long* sizes,
   const Coef c{max_norm, c1, b1, c2, b2, eps, bc1, bc2, step};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* nrm = static_cast<const float*>(norm);
-  adam_update_kernel<<<unsigned(blocks), kThreads, 0, st>>>(leaves, nrm, c);
+  adam_update_kernel<<<unsigned(blocks), kThreads, 0, st>>>(leaves, nrm, n_tenants, c);
   return int(cudaGetLastError());
 }

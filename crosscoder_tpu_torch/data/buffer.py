@@ -74,7 +74,10 @@ harvest forward takes tensor-parallel LM params (``shard_lm``) as it
 takes whole ones. A host store refuses more than one rank, as the JAX
 package's does.
 
-Not ported here (``cfg.check_buffer`` raises): multi-consumer fan-out.
+Every store serves several consumers (the fleet's tenants) from one
+stream: :meth:`PairedActivationBuffer.next_raw_for` gathers once a stream
+position and hands the same batch to each consumer there
+(:mod:`crosscoder_tpu_torch.data.fanout`).
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ import torch
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.data import hostops
 from crosscoder_tpu_torch.data import tokens as tokens_mod
+from crosscoder_tpu_torch.data.fanout import FanOut
 from crosscoder_tpu_torch.models import lm
 from crosscoder_tpu_torch.obs import trace
 from crosscoder_tpu_torch.ops import paged_attention as pa
@@ -130,7 +134,7 @@ class _SingleDispatchJob:
         return self._result
 
 
-class PairedActivationBuffer:
+class PairedActivationBuffer(FanOut):
     """Serves shuffled paired activations for crosscoder training, from a
     bf16 store in host RAM, or on ``device`` under ``buffer_device="hbm"``
     (batches are then served as device tensors, which the trainer does not
@@ -226,6 +230,9 @@ class PairedActivationBuffer:
         self._cyc_seq_done = 0
         self._cyc_inflight: list[tuple] = []
         self._cyc_job: tuple | None = None
+        # real serves (next, next_raw): the fan-out's stream position
+        self._serve_seq = 0
+        self._init_fanout()
         if not lazy:
             self.normalisation_factor = self._estimate_norm_scaling_factors()
             self.refresh()
@@ -624,7 +631,17 @@ class PairedActivationBuffer:
         self._after_serve()
         return out
 
+    def _stream_head(self) -> int:
+        return self._serve_seq
+
+    def next_raw_for(self, name: str) -> torch.Tensor:
+        """The raw batch at consumer ``name``'s cursor: one
+        :meth:`next_raw` a stream position, the same tensor for every
+        consumer there."""
+        return self._serve_for(name, self.next_raw)
+
     def _after_serve(self) -> None:
+        self._serve_seq += 1
         self._advance_cycle()
         if self.pointer > self.buffer_size // 2 - self.cfg.batch_size:
             self._finish_cycle()
@@ -635,24 +652,28 @@ class PairedActivationBuffer:
     def state_dict(self) -> dict[str, Any]:
         """Stream-resume state (the JAX package's format): the token
         position of the oldest unserved row, the shuffle generator's state
-        and the norm factors. A save before the first fill records a
+        and the norm factors (with fan-out consumers attached, how far each
+        sits behind the head). A save before the first fill records a
         from-scratch state."""
         if not self._filled:
             return {"token_pointer": 0, "rng_state": self._rng.bit_generator.state,
-                    "normalisation_factor": None}
+                    "normalisation_factor": None, **self._consumer_state()}
         oldest = (int(self._suffix_min_src[self.pointer]) if self.pointer < self.buffer_size
                   else self._global_seq)
         return {
             "token_pointer": oldest % self.tokens.shape[0],
             "rng_state": self._rng.bit_generator.state,
             "normalisation_factor": self.normalisation_factor.tolist(),
+            **self._consumer_state(),
         }
 
     def load_state_dict(self, state: dict[str, Any]) -> None:
         """Restart the stream at ``state``: quiesce the dispatcher, drop the
         live cycle (no rewind), reset the permutation and the row map and
-        refill from the saved token position."""
+        refill from the saved token position; every fan-out consumer starts
+        again at the restored head."""
         self._quiesce_dispatch()
+        self._realign_consumers(state)
         self._cyc_inflight = []
         self._cyc_job = None
         self._cyc_seq_done = 0

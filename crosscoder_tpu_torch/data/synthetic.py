@@ -5,7 +5,9 @@ that batch *i* is bitwise the JAX source's batch *i* for the same seed.
 Rows are ``x = Σ_j mag[b, j] · D[idx[b, j]] + ε`` over a fixed random
 dictionary ``D`` of ``n_true`` unit rows (per source), ``sparsity`` active
 features per row. Batch *i* is a pure function of ``(seed, i)``, so a
-resumed run sees the identical stream.
+resumed run sees the identical stream. Several consumers (the fleet's
+tenants) share the stream through :meth:`SyntheticActivationSource.next_for`
+(:mod:`crosscoder_tpu_torch.data.fanout`).
 """
 
 from __future__ import annotations
@@ -13,9 +15,10 @@ from __future__ import annotations
 import numpy as np
 
 from crosscoder_tpu_torch.config import CrossCoderConfig
+from crosscoder_tpu_torch.data.fanout import FanOut
 
 
-class SyntheticActivationSource:
+class SyntheticActivationSource(FanOut):
     def __init__(self, cfg: CrossCoderConfig, n_true: int | None = None, sparsity: int = 8,
                  noise: float = 0.01) -> None:
         self.cfg = cfg
@@ -27,6 +30,7 @@ class SyntheticActivationSource:
         d /= np.linalg.norm(d, axis=-1, keepdims=True)
         self.dictionary = d
         self.counter = 0
+        self._init_fanout()
 
     def next(self) -> np.ndarray:
         """The next ``[batch_size, n_sources, d_in]`` f32 batch."""
@@ -41,8 +45,17 @@ class SyntheticActivationSource:
             x += mag[:, j, None, None] * self.dictionary[idx[:, j]]
         return x
 
+    def _stream_head(self) -> int:
+        return self.counter
+
+    def next_for(self, name: str) -> np.ndarray:
+        """The batch at consumer ``name``'s cursor (:meth:`next` for the
+        first consumer at the head, the same array for its peers)."""
+        return self._serve_for(name, self.next)
+
     def state_dict(self) -> dict:
-        return {"counter": self.counter}
+        return {"counter": self.counter, **self._consumer_state()}
 
     def load_state_dict(self, d: dict) -> None:
         self.counter = int(d["counter"])
+        self._realign_consumers(d)

@@ -1,10 +1,12 @@
-"""Metrics registry: counters and bounded histograms, ported from
-:mod:`crosscoder_tpu.obs.registry` as far as the serve engine uses it.
+"""Metrics registry: counters, gauges and bounded histograms, ported from
+:mod:`crosscoder_tpu.obs.registry` as far as the serve engine and the
+fleet use it.
 
 Thread-safe from any thread; an untouched registry snapshots to ``{}``.
 Keys are full metric names (``serve/prefill_ms``, ...). Snapshot forms:
 
 - ``count(k)``: monotone counter → ``{k: int}`` (zero counts dropped);
+- ``gauge(k, v)``: last value → ``{k: v}``;
 - ``observe(k, v)``: the last ``HIST_CAP`` observations →
   ``{k_p50, k_p99, k_max, k_n}``.
 """
@@ -20,12 +22,21 @@ class MetricsRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._counts: dict[str, int] = {}
+        self._gauges: dict[str, float] = {}
         self._hists: dict[str, list[float]] = {}
         self._hist_pos: dict[str, int] = {}
 
     def count(self, key: str, n: int = 1) -> None:
         with self._lock:
             self._counts[key] = self._counts.get(key, 0) + n
+
+    def gauge(self, key: str, value: float) -> None:
+        with self._lock:
+            self._gauges[key] = float(value)
+
+    def get_count(self, key: str) -> int:
+        with self._lock:
+            return self._counts.get(key, 0)
 
     def observe(self, key: str, value: float) -> None:
         with self._lock:
@@ -44,6 +55,7 @@ class MetricsRegistry:
         """Flat scalar view; ``{}`` when untouched."""
         with self._lock:
             out: dict[str, float] = {k: v for k, v in self._counts.items() if v}
+            out.update(self._gauges)
             for k, h in self._hists.items():
                 if not h:
                     continue

@@ -25,6 +25,13 @@ attention); ``--shard-lm true`` loads each model tensor-parallel over
 ``model`` (``lm.from_hf(..., tp=mesh)``: this rank's slices only), every
 rank reading the same local token cache.
 
+``--fleet on --fleet-tenants "a:seed=1;b:seed=2,l1_coeff=0.01;w:dict_size=8192"``
+trains N tenants off the one source instead
+(:class:`crosscoder_tpu_torch.train.fleet.FleetScheduler`), each saving
+under ``<checkpoint_dir>/tenants/<name>/`` and logging under
+``tenant/<name>/…``; ``--resume true`` restores every tenant and the
+stream (:meth:`FleetScheduler.restore_all`). One device only.
+
 ``--data-source gemma`` composes the Gemma-2 harvest: the models of
 ``--model-names`` loaded from local HF checkpoint directories
 (:func:`crosscoder_tpu_torch.models.lm.from_hf`; the first one's config
@@ -82,10 +89,12 @@ def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any]
                        lazy=cfg.resume), cfg
 
 
-def main(argv: list[str] | None = None, device=None) -> Trainer:
+def main(argv: list[str] | None = None, device=None) -> Any:
     """Train from ``argv`` (default: the process's arguments; ``--device``
-    there, else ``device``). Runs on ``cuda`` (``cuda:LOCAL_RANK`` under
-    torchrun) unless a device is named."""
+    there, else ``device``); returns the :class:`Trainer`, or the
+    :class:`~crosscoder_tpu_torch.train.fleet.FleetScheduler` under
+    ``--fleet on``. Runs on ``cuda`` (``cuda:LOCAL_RANK`` under torchrun)
+    unless a device is named."""
     import torch.distributed as dist
 
     from crosscoder_tpu_torch.parallel import multihost
@@ -106,6 +115,8 @@ def main(argv: list[str] | None = None, device=None) -> Trainer:
 
         mesh = mesh_lib.mesh_from_cfg(cfg)      # one grid for the buffer and the trainer
     buffer, cfg = build_buffer(cfg, device=device, mesh=mesh)
+    if cfg.fleet == "on":
+        return _run_fleet(cfg, buffer, device, mesh, joined_here)
     trainer = Trainer(cfg, buffer, logger=MetricsLogger(cfg) if multihost.is_primary() else None,
                       device=device, checkpointer=Checkpointer(cfg=cfg), mesh=mesh)
     try:
@@ -115,6 +126,33 @@ def main(argv: list[str] | None = None, device=None) -> Trainer:
         if joined_here:
             multihost.shutdown()
     return trainer
+
+
+def _run_fleet(cfg: CrossCoderConfig, buffer: Any, device, mesh, joined_here: bool) -> Any:
+    """The fleet branch of :func:`main`: every tenant off ``buffer``, each
+    checkpointed under ``<checkpoint_dir>/tenants/<name>/``."""
+    from crosscoder_tpu_torch.obs.registry import MetricsRegistry
+    from crosscoder_tpu_torch.parallel import multihost
+    from crosscoder_tpu_torch.train.fleet import FleetScheduler
+
+    fleet = None
+    try:
+        fleet = FleetScheduler(cfg, buffer, registry=MetricsRegistry(), device=device, mesh=mesh,
+                               logger=MetricsLogger(cfg) if multihost.is_primary() else None)
+        if cfg.resume:
+            print(f"[crosscoder_tpu_torch] fleet resumed: {fleet.restore_all()}",
+                  file=sys.stderr, flush=True)
+        fleet.run()
+    finally:
+        if fleet is not None:
+            fleet.quiesce()
+            if fleet.logger is not None:
+                fleet.logger.close()
+        if hasattr(buffer, "close"):
+            buffer.close()
+        if joined_here:
+            multihost.shutdown()
+    return fleet
 
 
 if __name__ == "__main__":

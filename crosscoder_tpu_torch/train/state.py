@@ -88,13 +88,17 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Params, state: AdamState, params: Params, *, donate: bool = False,
-               mesh=None) -> tuple[Params, AdamState]:
+               mesh=None, norm: torch.Tensor | None = None) -> tuple[Params, AdamState]:
         """``(new params, new state)``. ``donate=True`` writes them into
         ``params``, ``state.mu`` and ``state.nu`` (the caller gives those
         up); otherwise the inputs stay intact. Under a ``mesh`` every
         argument is this rank's shards and the clip reads the global norm
-        (:meth:`global_norm`)."""
-        norm = self.global_norm(grads, mesh, self.shard_sources)
+        (:meth:`global_norm`). ``norm``: the clip's norm when the caller
+        has it; an ``[N]`` vector updates a fleet cohort, every leaf N
+        tenants' leaves stacked on its leading axis, each tenant clipped
+        by its own norm (one O1 launch), its Adam count shared."""
+        if norm is None:
+            norm = self.global_norm(grads, mesh, self.shard_sources)
         t = state.count + 1
         bc1 = np.float32(1.0) - np.float32(self.b1) ** np.float32(t)
         bc2 = np.float32(1.0) - np.float32(self.b2) ** np.float32(t)

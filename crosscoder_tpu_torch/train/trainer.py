@@ -55,9 +55,12 @@ A source that serves each rank its own rows (the mesh-sharded replay
 store, ``serves_local_rows``) is taken as it serves; any other source
 serves the global batch and each rank keeps its ``data`` rows.
 
+N crosscoders off one stream (``cfg.fleet="on"``) train through
+:class:`crosscoder_tpu_torch.train.fleet.FleetScheduler`, which runs this
+module's step body (:func:`make_step_body`) for each tenant.
+
 Not ported in this slice (ROADMAP Queue A): the ticketed prefetch,
-chaos/watchdog/elastic, the observability plane, the compile cache, the
-fleet.
+chaos/watchdog/elastic, the observability plane, the compile cache.
 """
 
 from __future__ import annotations
@@ -122,7 +125,12 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
     ``state`` stays intact unless ``donate=True``, which writes the new
     params and Adam moments into its tensors (the trainer's step).
     ``step_fn.loss_and_grads(state, batch, scale)`` gives the step's loss,
-    loss surface and gradients without the update.
+    loss surface and gradients without the update, and
+    ``step_fn.finish(state, new_params, new_opt, loss, losses, dead)`` the
+    step's state and metrics after an update made apart (the fleet's
+    cohort update, :mod:`crosscoder_tpu_torch.models.stacked`, which builds
+    one body a member from the member's own cfg, so each member's L1
+    coefficient is its solo run's).
 
     Under a ``mesh`` ``state`` is this rank's shards and ``batch`` its
     rows. The loss is the global one on every rank, each rank's gradients
@@ -180,24 +188,18 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
                 coll.all_reduce_(grads[k], mesh.data_group)
         return loss.detach(), losses, grads, dead, aux
 
-    def step_fn(state: TrainState, batch: torch.Tensor, scale: torch.Tensor,
-                donate: bool = False):
-        l1_coeff = l1_fn(state.step)
-        loss, losses, grads, dead, aux = loss_and_grads(state, batch, scale)
-        fired = losses.fired
-        new_ef = None
-        if quant:
-            grads, new_ef = quant_ar.quantized_pmean_tree(grads, state.aux["quant_ef"],
-                                                          mesh.data_group, cfg.quant_block)
-            if track_fired:
-                fired = mesh.any_(fired, "data")
-        new_params, new_opt = opt.update(grads, state.opt_state, state.params, donate=donate,
-                                         mesh=mesh)
+    def finish(state: TrainState, new_params, new_opt, loss, losses, dead, fired=None,
+               new_ef=None) -> tuple[TrainState, dict[str, Any]]:
+        """The state after the update (``new_params``, ``new_opt``) and the
+        step's metrics: the AuxK bookkeeping from ``fired`` (default
+        ``losses.fired``), the residuals ``new_ef`` of the exchange."""
+        fired = losses.fired if fired is None else fired
+        aux = dead is not None and cfg.aux_k > 0 and aux_on
         metrics: dict[str, Any] = {
             "loss": loss,
             "l2_loss": losses.l2_loss.detach(),
             "l1_loss": losses.l1_loss.detach(),
-            "l1_coeff": float(l1_coeff),
+            "l1_coeff": float(l1_fn(state.step)),
             "lr": float(lr_fn(state.step)),
         }
         new_aux = state.aux
@@ -231,7 +233,22 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
             metrics = _reduce_metrics(metrics, div, mesh.world_group)
         return TrainState(new_params, new_opt, state.step + 1, new_aux), metrics
 
+    def step_fn(state: TrainState, batch: torch.Tensor, scale: torch.Tensor,
+                donate: bool = False):
+        loss, losses, grads, dead, _ = loss_and_grads(state, batch, scale)
+        fired = losses.fired
+        new_ef = None
+        if quant:
+            grads, new_ef = quant_ar.quantized_pmean_tree(grads, state.aux["quant_ef"],
+                                                          mesh.data_group, cfg.quant_block)
+            if track_fired:
+                fired = mesh.any_(fired, "data")
+        new_params, new_opt = opt.update(grads, state.opt_state, state.params, donate=donate,
+                                         mesh=mesh)
+        return finish(state, new_params, new_opt, loss, losses, dead, fired, new_ef)
+
     step_fn.loss_and_grads = loss_and_grads
+    step_fn.finish = finish
     return step_fn
 
 
@@ -247,6 +264,44 @@ def expand_metrics(metrics: dict[str, Any], n_sources: int) -> dict[str, float]:
         else:
             out[k] = float(v)
     return out
+
+
+def to_device(batch: Any, device) -> torch.Tensor:
+    """A served batch on ``device``: the step's one host→device copy (a
+    batch already there is not copied)."""
+    if not torch.is_tensor(batch):
+        batch = torch.from_numpy(np.ascontiguousarray(batch))
+    return batch.to(device, non_blocking=True)
+
+
+class DeviceScale:
+    """The step's per-source scale on ``device``: the source's
+    ``normalisation_factor`` when it serves raw rows (scaled in the step),
+    else ones. Uploaded again only when its values change."""
+
+    def __init__(self, n_sources: int, device) -> None:
+        self.n_sources = n_sources
+        self.device = device
+        self._src: np.ndarray | None = None
+        self._dev: torch.Tensor | None = None
+
+    def __call__(self, buffer: Any, raw: bool) -> torch.Tensor:
+        src = getattr(buffer, "normalisation_factor", None)
+        if raw and src is not None:
+            vec = np.asarray(src, np.float32)
+        else:
+            vec = np.ones((self.n_sources,), np.float32)
+        if self._src is None or not np.array_equal(self._src, vec):
+            self._dev = torch.from_numpy(vec.copy()).to(self.device)
+            self._src = vec.copy()
+        return self._dev
+
+
+def resample_due(cfg: CrossCoderConfig, step: int) -> bool:
+    """Whether dead latents are resampled before optimizer step ``step``
+    (on the batch about to be trained, so the revived latents' first
+    gradients come from it)."""
+    return cfg.resample_every > 0 and step > 0 and step % cfg.resample_every == 0
 
 
 def _check_mesh(cfg: CrossCoderConfig, mesh: mesh_lib.Mesh) -> None:
@@ -280,8 +335,10 @@ class Trainer:
     global batch gives the rank its ``data`` rows. Metrics are global on
     every rank; only the primary rank should carry a ``logger``.
 
-    A knob whose JAX behaviour is not ported raises
-    :class:`NotImplementedError` rather than being dropped: the fleet,
+    ``cfg.fleet="on"`` is a :class:`ValueError`: a fleet trains through
+    :class:`~crosscoder_tpu_torch.train.fleet.FleetScheduler`. A knob whose
+    JAX behaviour is not ported raises
+    :class:`NotImplementedError` rather than being dropped:
     elastic runs, the observability plane, chaos, the harvest watchdog
     (``harvest_timeout_s > 0``), profiler traces (``profile_dir``,
     ``profile_steps``). ``prefetch``, ``remat`` and
@@ -293,8 +350,11 @@ class Trainer:
                  logger: MetricsLogger | None = None, device=None,
                  state: TrainState | None = None, checkpointer: Any | None = None,
                  mesh: mesh_lib.Mesh | None = None) -> None:
-        for knob, on in (("fleet", cfg.fleet == "on"),
-                         ("elastic", cfg.elastic == "on"), ("obs", cfg.obs == "on"),
+        if cfg.fleet == "on":
+            raise ValueError("cfg.fleet='on' trains its tenants through "
+                             "crosscoder_tpu_torch.train.fleet.FleetScheduler; the Trainer "
+                             "trains one crosscoder (a tenant's config has fleet='off')")
+        for knob, on in (("elastic", cfg.elastic == "on"), ("obs", cfg.obs == "on"),
                          ("chaos", bool(cfg.chaos)),
                          ("harvest_timeout_s", cfg.harvest_timeout_s > 0),
                          ("profile_dir", bool(cfg.profile_dir)),
@@ -333,8 +393,7 @@ class Trainer:
         if mesh is not None:
             self.state = mesh_lib.shard_state(mesh, self.state, cfg.shard_sources)
             self._owns_state = True
-        self._scale = None
-        self._scale_src = None
+        self._scale = DeviceScale(cfg.n_sources, self.device)
         self._step_fns: dict[tuple[bool, bool, bool], Callable] = {}
         self._host_step = self.state.step
         primary = multihost.is_primary()
@@ -395,18 +454,9 @@ class Trainer:
         return self.state.step
 
     def _device_scale(self) -> torch.Tensor:
-        """Per-source scale of the step: the buffer's
-        ``normalisation_factor`` when it serves raw rows (``next_raw``),
-        else ones. Uploaded again only when its values change."""
-        src = getattr(self.buffer, "normalisation_factor", None)
-        if hasattr(self.buffer, "next_raw") and src is not None:
-            vec = np.asarray(src, np.float32)
-        else:
-            vec = np.ones((self.cfg.n_sources,), np.float32)
-        if self._scale_src is None or not np.array_equal(self._scale_src, vec):
-            self._scale = torch.from_numpy(vec.copy()).to(self.device)
-            self._scale_src = vec.copy()
-        return self._scale
+        """Per-source scale of the step (:class:`DeviceScale`; raw rows
+        when the buffer serves ``next_raw``)."""
+        return self._scale(self.buffer, hasattr(self.buffer, "next_raw"))
 
     def _serve_once(self) -> Any:
         """One serve of the source (``next_raw`` when it has it, else
@@ -423,9 +473,7 @@ class Trainer:
             # this rank's rows of the global batch
             rows = b.shape[0] // self.mesh.data_size
             b = b[self.mesh.data_rank * rows:(self.mesh.data_rank + 1) * rows]
-        if not torch.is_tensor(b):
-            b = torch.from_numpy(np.ascontiguousarray(b))
-        return b.to(self.device, non_blocking=True)
+        return to_device(b, self.device)
 
     def step(self, full_metrics: bool = True) -> dict[str, Any]:
         """One optimizer step; returns device-resident metrics (no sync).
@@ -442,10 +490,7 @@ class Trainer:
         batch = self._next_batch()
         scale = self._device_scale()
         n_resampled = None
-        if (self.cfg.resample_every > 0 and self._host_step > 0
-                and self._host_step % self.cfg.resample_every == 0):
-            # on the batch about to be trained, so the revived latents'
-            # first gradients come from it
+        if resample_due(self.cfg, self._host_step):
             if self._resample_fn is None:
                 self._resample_fn = resample.make_resample_fn(self.cfg, self.mesh)
             gen = resample.resample_generator(self.cfg, self._host_step, self.device)

@@ -13,6 +13,9 @@ found to ``<out>/rank<r>.pt`` (``torch.save``):
   (``g [world, ...]``, ``ef [world, L]`` in the task's ``.npz``) for
   ``rounds`` rounds: the outputs, residuals and phase 1's q and scales;
 - ``stop``: a SIGTERM on one rank stops every rank at the same step;
+- ``guard``: ``Trainer.train`` with the loss guard over a source that NaNs
+  one serve, the primary's checkpoint writes slowed by ``slow_write_s``:
+  the resilience counters and the final step;
 - ``coll``: the counted and the differentiable collectives on a small
   tensor;
 - ``ckpt``: a ``Trainer`` saves after ``steps`` steps; then fresh
@@ -288,6 +291,34 @@ def _stop(task, rank):
     return {"step": tr.step_counter}
 
 
+def _guard(task, rank):
+    """The guard's rollback on a grid while the primary's background write
+    is still in flight: every artifact the primary writes first sleeps
+    ``task["slow_write_s"]``."""
+    import time
+
+    from crosscoder_tpu_torch.checkpoint import Checkpointer, ckpt
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.train.trainer import Trainer
+
+    from _torch_mesh_rest_child import PoisonedSource
+
+    if rank == 0:
+        savez = ckpt._atomic_savez
+
+        def slow_savez(path, arrays):
+            time.sleep(task["slow_write_s"])
+            return savez(path, arrays)
+
+        ckpt._atomic_savez = slow_savez
+    cfg = _cfg(task, next(iter(task["configs"])), data_axis_size=task["data"],
+               model_axis_size=task["model"], checkpoint_dir=task["root"])
+    tr = Trainer(cfg, PoisonedSource(SyntheticActivationSource(cfg), task["nan_serves"]),
+                 device="cpu", checkpointer=Checkpointer(cfg=cfg))
+    tr.train()
+    return {"step": tr.step_counter, "resilience": tr.resilience.snapshot()}
+
+
 def _harvest(task, rank):
     import _torch_harvest_child
 
@@ -312,7 +343,7 @@ def main() -> None:
                          world_size=world, rank=rank)
     try:
         res = {"train": _train, "quant": _quant, "ckpt": _ckpt,
-               "coll": _coll, "stop": _stop, "harvest": _harvest,
+               "coll": _coll, "stop": _stop, "guard": _guard, "harvest": _harvest,
                "mesh_rest": _mesh_rest}[task["kind"]](task, rank)
         torch.save(res, Path(task["out"]) / f"rank{rank}.pt")
     finally:

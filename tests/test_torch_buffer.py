@@ -281,9 +281,13 @@ def test_validation(tokens):
     with pytest.raises(ValueError, match="seq_shards 17 != mesh data axis 1"):
         buf.make_buffer(CrossCoderConfig(**make_kw(seq_shards=17)), None, [{}, {}], tokens,
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        buf.make_buffer(CrossCoderConfig(**make_kw(fleet="on")), None, [{}, {}], tokens,
-                        device="cpu")
+    # the fleet's fan-out is ported: a fleet config builds the store (lazy:
+    # no harvest), and the fleet knobs are validated as the JAX config does
+    fleet = buf.make_buffer(CrossCoderConfig(**make_kw(fleet="on")), None, [{}, {}], tokens,
+                            device="cpu", lazy=True)
+    assert fleet.attach_consumer("a") == 0
+    with pytest.raises(ValueError, match="fleet_tenants is set but fleet='off'"):
+        CrossCoderConfig(**make_kw(fleet_tenants="a"))
     with pytest.raises(ValueError, match="tokens must be"):
         buf.PairedActivationBuffer(CrossCoderConfig(**make_kw()), None, [{}, {}],
                                    tokens[:, :5], device="cpu")

@@ -14,12 +14,14 @@ from crosscoder_tpu_torch.checkpoint import Checkpointer, torch_compat
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.data.buffer import make_buffer
 from crosscoder_tpu_torch.models import crosscoder, lm
+from crosscoder_tpu_torch.ops import adam
 from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
 from crosscoder_tpu_torch.ops import paged_attention as pa
 from crosscoder_tpu_torch.ops import quant, sparse_grad, topk_pallas
 from crosscoder_tpu_torch.serve import InferenceEngine
 from crosscoder_tpu_torch.serve.smoke import build_engine, serve_batch
 from crosscoder_tpu_torch.train import main as train_main
+from crosscoder_tpu_torch.train.fleet import FleetScheduler
 from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
 from crosscoder_tpu_torch.train.trainer import Trainer
 
@@ -39,6 +41,12 @@ def test_checkpoint_subpackage_is_checked():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"crosscoder_tpu_torch/checkpoint/__init__.py", "crosscoder_tpu_torch/checkpoint/ckpt.py",
             "crosscoder_tpu_torch/checkpoint/torch_compat.py"} <= names
+
+
+def test_fleet_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"crosscoder_tpu_torch/train/fleet.py", "crosscoder_tpu_torch/models/stacked.py",
+            "crosscoder_tpu_torch/data/fanout.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -76,7 +84,8 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
                  lambda: demo.train_tiny_lm(0, lm.LMConfig.tiny(), np.zeros((16, 4), np.int64), 1),
                  lambda: replicate.main(["--demo", "--out", str(tmp_path / "replicate")]),
                  lambda: eval_ce.main(["--demo"]),
-                 lambda: Checkpointer(base_dir=tmp_path).restore(tcfg)):
+                 lambda: Checkpointer(base_dir=tmp_path).restore(tcfg),
+                 lambda: FleetScheduler(tcfg.replace(fleet="on", fleet_tenants="a;b"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -86,7 +95,8 @@ def test_cpu_run_launches_no_kernel():
                 topk_pallas.topk_mask_f32, topk_pallas.topk_chunked,
                 topk_pallas.sparsify, sparse_grad.scatter_add_rows,
                 topk_pallas.batchtopk_select, topk_pallas.batchtopk_emit, quant.quantize_rows,
-                fek.fused_topk_encode_q, fek.fused_batchtopk_select, fek.fused_batchtopk_emit)
+                fek.fused_topk_encode_q, fek.fused_batchtopk_select, fek.fused_batchtopk_emit,
+                adam.adam_update)
     for c in counters:
         c.launches = 0
     eng, _, lm_cfg, _, _ = build_engine(device="cpu")
@@ -125,7 +135,14 @@ def test_cpu_run_launches_no_kernel():
     tr = Trainer(bcfg.replace(fused_encoder="on"), b, device="cpu")   # K4 over the harvest
     for _ in range(3):
         assert torch.isfinite(tr.step()["loss"])
+    # the fleet: a cohort (TopK, sparse tier) and a bucket (BatchTopK)
+    fl = FleetScheduler(tcfg.replace(fleet="on", fleet_tenants=(
+        "a:seed=1;b:seed=2;w:activation=batchtopk,sparse_bwd=auto,dict_size=128")),
+        checkpoint=False, device="cpu")
+    for _ in range(2):
+        assert all(torch.isfinite(m["loss"]) for m in fl.step_all().values())
     assert all(c.launches == 0 for c in counters)
+    assert adam.adam_update.cohort_launches == 0
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         pa.paged_attention(*(torch.zeros(1, 4, 2, 8, device="meta") for _ in range(3)),
                            torch.ones(1), page_size=4, scale=1.0)

@@ -4,7 +4,9 @@ and in the JAX ``Checkpointer``; the ranks agree on the save when one
 rank's newest is missing; the ``quant_grads`` residuals survive a restore
 on the same ``data`` width and reset to zero on another (the JAX
 restore-with-respec); a SIGTERM that reaches one rank stops every rank
-at the same step, whose save they make together."""
+at the same step, whose save they make together; the loss guard's
+rollback on a grid agrees on the save the primary last wrote, however long
+that write takes to land."""
 
 import shutil
 
@@ -180,3 +182,28 @@ def test_a_sigterm_on_one_rank_stops_every_rank_at_one_step_and_saves(tmp_path):
     assert meta == [0]
     tr, m = _one_rank(root, {"activation": "relu"})
     assert m["step"] == 4
+
+
+def test_the_guard_rollback_waits_for_the_primarys_write_in_flight(tmp_path):
+    """A NaN in serve 3 poisons save 2 (step 4), written in the background;
+    the rollback at step 4 must see it, skip it as poisoned and restore
+    save 1 on every rank, as the single-device run does. A rank that
+    listed the saves before the primary's write landed agreed the ranks
+    onto save 1 directly, with no poisoned-save skip counted."""
+    from _torch_mesh_rest_child import PoisonedSource
+
+    guard = dict(activation="relu", l1_coeff=0.1, guard_loss=True, log_every=2, save_every=2,
+                 max_rollbacks=2)
+    base = {**BASE, "num_tokens": 16 * 8}
+    ranks = run_ranks(2, {"kind": "guard", "base": base, "configs": {"guard": guard},
+                          "data": 1, "model": 2, "root": str(tmp_path / "grid"),
+                          "nan_serves": [3], "slow_write_s": 0.5}, tmp_path / "out")
+    cfg = CrossCoderConfig(**base, **guard, checkpoint_dir=str(tmp_path / "one"))
+    tr = Trainer(cfg, PoisonedSource(SyntheticActivationSource(cfg), [3]), device="cpu",
+                 checkpointer=Checkpointer(cfg=cfg))
+    tr.train()
+    want = tr.resilience.snapshot()
+    assert want["resilience/rollbacks"] == 1 and want["resilience/poisoned_save_skips"] == 1
+    for r in ranks:
+        assert r["resilience"] == want
+        assert r["step"] == tr.step_counter == 8
