@@ -264,7 +264,24 @@ one NVIDIA Hopper card and the CUDA toolkit:
    cohort's O1 at gradients scaled to straddle the clip bitwise its plain
    version and the three solo launches, timed beside them, PyTorch's fused
    Adam and its bound; a round's ms against the solo steps'; peak memory;
-15. prints the kernel table as one JSON line, the card line, and
+15. the counted wire, the prefetch and the fleet on a grid: leg CM,
+   ``comm_model.profile_width`` in a child process (a fake group) at leg
+   A's shapes under JAX's base config, DP and the int8 exchange at 2, 4
+   and 8 ranks, DP x TP at 4 x 2, the DP and SP harvests of Gemma-2-2B at
+   14 layers [4, 1024], bytes by op, wire bytes and ``predict()`` at leg
+   A's bare step, the DP step's f32 gradients, the TP step's smaller sum
+   and the ring's permutes checked exactly; leg FG, phase 14's cohort C
+   over an NCCL group of one rank bitwise the fleet on one device, then a
+   TopK cohort and a bucket at data 1 x model 2 on two gloo ranks sharing
+   the card (``--fleet-rank``) within leg FM's bars, O1's cohort launches,
+   K5, K8 and K10 counted; leg PF, leg A's config (synthetic source) and
+   leg H's BatchTopK config (host bf16 store) for PF_STEPS steps with the
+   prefetch off, on, off and on, bitwise, the copies on the worker's
+   stream, the median loss-to-loss and serve times each way and whether a
+   copy
+   overlapped a step kernel (``torch.profiler``) printed. Phases 1-14 run
+   their Trainers with the prefetch off, as before it was ported;
+16. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -290,7 +307,8 @@ PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 TRAIN = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dict_size=2 ** 15,
              topk_k=32, batch_size=4096, enc_dtype="bf16", master_dtype="fp32",
              activation="topk", l1_coeff=0.0, sparse_bwd="on", aux_k=64, aux_every=2,
-             aux_dead_steps=4, aux_exact_rank=True, lr=1e-3, log_backend="null")
+             aux_dead_steps=4, aux_exact_rank=True, lr=1e-3, log_backend="null",
+             prefetch=False)
 LEG_A, LEG_B = 12, 4
 # the harvest-train phase: Gemma-2-2B width, buffer_mult cut from 128 to 8
 # (32 seqs, 32 736 rows, a refill every 3 serves), norm calibration from
@@ -298,7 +316,7 @@ LEG_A, LEG_B = 12, 4
 HARVEST = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre", dict_size=2 ** 15,
                topk_k=32, batch_size=4096, enc_dtype="bf16", master_dtype="fp32", l1_coeff=0.0,
                lr=1e-3, log_backend="null", seq_len=1024, model_batch_size=4, buffer_mult=8,
-               norm_calib_batches=8)
+               norm_calib_batches=8, prefetch=False)
 LEG_H, LEG_Q = 12, 12
 # phase 9: leg S (leg H with refill overlap) runs LEG_H steps, leg P (the
 # paged harvest with refill overlap) LEG_P; a paged chunk launches K1 once
@@ -3881,7 +3899,8 @@ def recovery(torch, np, root):
 # the CPU rehearsal of the multi-rank path: 2 x 2 gloo ranks against one,
 # tiny width, at the JAX mesh test's bar (tests/test_trainer.py)
 REHEARSAL = dict(d_in=16, n_models=2, dict_size=64, batch_size=16, num_tokens=16 * 3,
-                 enc_dtype="fp32", log_backend="null", seed=7, lr=5e-3, dec_init_norm=0.5)
+                 enc_dtype="fp32", log_backend="null", seed=7, lr=5e-3, dec_init_norm=0.5,
+                 prefetch=False)
 REHEARSAL_CONFIGS = {
     "relu": dict(activation="relu", l1_coeff=2.0),
     "topk_auxk": dict(activation="topk", topk_k=4, l1_coeff=0.0, sparse_bwd="on", aux_k=8,
@@ -5354,10 +5373,501 @@ def fleet(torch, np, root):
     return launches, row
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the counted wire, the trainer's one-deep prefetch, the fleet on a
+# rank grid
+
+# leg CM: comm_model.profile_width in a child process (a fake group of n ranks
+# counts rank 0's program, and this process holds NCCL groups of its own) at
+# leg A's shapes under JAX's base config (bf16 encoder and masters): DP and
+# the int8 exchange at n = 2, 4, 8, DP x TP at 4 x 2, the DP and SP harvests of
+# Gemma-2-2B cut to 14 layers at [4, 1024]
+CM_WIDTHS, CM_TP, CM_HARVEST_N = (2, 4, 8), (8, 2), 4
+# leg PF: leg A's config over the synthetic source and leg H's BatchTopK config
+# over a host bf16 store of the two random-init Gemma-2-2B (buffer_mult cut to
+# 4, norm calibration from 2 chunks), PF_STEPS steps a run, the prefetch off
+# then on, PF_ROUNDS times (so neither way always runs first)
+PF_STEPS, PF_ROUNDS = 5, 2
+PF_H = dict(HARVEST, activation="batchtopk", buffer_mult=4, norm_calib_batches=2)
+# leg FG: phase 14's cohort C (three TopK tenants, dict 2^15) for FG_ROUNDS
+# rounds on one device, then over an NCCL group of one rank; then at data 1 x
+# model 2 on two gloo ranks sharing the card: a TopK cohort of two (sparse
+# backward) and a bucket at dict 2^14 against each rank's single-device fleet
+FG_ROUNDS = 3
+FLEET_G = dict(TRAIN, aux_k=0, aux_every=1, fleet="on", num_tokens=TRAIN["batch_size"] * 8,
+               fleet_tenants="c1:seed=1;c2:seed=2;w:seed=3,dict_size=16384")
+
+
+def comm_worker(out):
+    """Leg CM's child (``chip_smoke.py --comm-model OUT``): the port's
+    ``comm_model.profile_width`` on the card; writes the profiles as JSON."""
+    from crosscoder_tpu_torch.parallel import comm_model as cm
+
+    t0 = time.perf_counter()
+    shape = dict(dict_size=TRAIN["dict_size"], d_in=TRAIN["d_in"],
+                 batch_size=TRAIN["batch_size"])
+    profs = []
+    for n in CM_WIDTHS:
+        profs += cm.profile_width(n, programs=("train", "train_quant"), device="cuda", **shape)
+    profs += cm.profile_width(CM_TP[0], model_axis=CM_TP[1], programs=("train_tp",),
+                              device="cuda", **shape)
+    profs += cm.profile_width(CM_HARVEST_N, programs=("harvest", "sp_harvest"), device="cuda",
+                              seq_len=HARVEST["seq_len"], **shape)
+    Path(out).write_text(json.dumps({"s": time.perf_counter() - t0,
+                                     "profiles": [dataclasses.asdict(p) for p in profs]}))
+
+
+def start_comm_leg(root):
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_cm_", dir=root / "build")) / "cm.json"
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--comm-model",
+                             str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, out
+
+
+def finish_comm_leg(started, card):
+    """Leg CM's profiles: bytes by op, wire bytes and ``predict()`` at leg
+    A's bare step of this run. Fails unless the DP step all-reduces
+    exactly its f32 gradients (and a few bytes of loss terms) at every
+    width with no all-gather, the TP step less, the DP harvest nothing and
+    the SP harvest's permutes K and V over n - 1 hops a layer run."""
+    from crosscoder_tpu_torch.parallel import comm_model as cm
+
+    proc, out = started
+    try:
+        text = proc.communicate(timeout=600)[0].decode(errors="replace")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        log(f"leg CM: {text[-3000:]}")
+        fail(f"phase 15: leg CM's process exited {proc.returncode}")
+    res = json.loads(out.read_text())
+    shutil.rmtree(out.parent, ignore_errors=True)
+    profs = [cm.CommProfile(**p) for p in res["profiles"]]
+    step_ms = float(STEP_MS["leg A bare"])
+    din, H = TRAIN["d_in"], TRAIN["dict_size"]
+    n_params = 2 * 2 * din * H + H + 2 * din
+    for p in profs:
+        pred = cm.predict(step_ms, p)
+        log(f"leg CM: {p.program} at {p.n_devices} ({p.n_devices // p.model_axis} x "
+            f"{p.model_axis}): bytes {p.bytes_by_op}; wire {cm.wire_bytes(p):.0f} bytes; "
+            f"predict() at {cm.NVLINK_GBPS} GB/s over leg A's bare step {step_ms:.3f} ms: "
+            f"{pred} ({card})")
+    dp = [p for p in profs if p.program == "train_dp"]
+    if {p.n_devices for p in dp} != set(CM_WIDTHS) or len({p.total_bytes for p in dp}) != 1:
+        fail(f"phase 15: leg CM's DP step moves different bytes at different widths: {dp}")
+    for p in dp:
+        ar = p.bytes_by_op["all-reduce"]
+        if p.bytes_by_op["all-gather"] or not 4 * n_params <= ar <= 4 * n_params + 64:
+            fail(f"phase 15: leg CM's DP step all-reduced {ar} bytes (the f32 gradients are "
+                 f"{4 * n_params}) or gathered {p.bytes_by_op['all-gather']}")
+    (tp,) = [p for p in profs if p.program == "train_dp_tp"]
+    if not tp.bytes_by_op["all-reduce"] < dp[0].bytes_by_op["all-reduce"]:
+        fail(f"phase 15: leg CM's TP step moves no less than DP: {tp.bytes_by_op}")
+    (hd,) = [p for p in profs if p.program == "harvest_dp"]
+    (sp,) = [p for p in profs if p.program == "harvest_sp"]
+    from crosscoder_tpu_torch.models import lm
+
+    from crosscoder_tpu_torch.utils.dtypes import dtype_of
+
+    g = dataclasses.replace(lm.LMConfig.gemma2_2b(), n_layers=14)
+    n, S = CM_HARVEST_N, HARVEST["seq_len"]
+    # one shard's K (or V): [n, S / n, kv heads, head dim] in the LM's dtype
+    shard_kv = n * (S // n) * g.n_kv_heads * g.head_dim * dtype_of(g.dtype).itemsize
+    want = 2 * (n - 1) * (g.n_layers - 1) * shard_kv
+    if hd.total_bytes or sp.bytes_by_op["collective-permute"] != want:
+        fail(f"phase 15: leg CM's harvests: DP {hd.bytes_by_op}, SP permute "
+             f"{sp.bytes_by_op['collective-permute']} (K and V, {n - 1} hops, "
+             f"{g.n_layers - 1} layers, {shard_kv} bytes a shard: {want})")
+    log(f"leg CM: profiled in {res['s']:.1f} s in its own process")
+    return {p.program + f" {p.n_devices}": p for p in profs}
+
+
+def _intervals_overlap(a, b):
+    return any(s0 < e1 and s1 < e0 for s0, e0 in a for s1, e1 in b)
+
+
+def prefetch_run(torch, cfg, src, state0, counters, profile=False):
+    """``PF_STEPS`` steps of a Trainer under ``cfg`` over ``src`` from
+    ``state0``, the loss read each step; the launch counters set to 0
+    just before and read just after. Returns the losses, the loss-to-loss
+    ms, the ms of each serve (host clock, on whichever thread served), the
+    launches, the trainer and the streams its copies ran on; with
+    ``profile``, two more steps under ``torch.profiler`` and whether a
+    host-to-device copy overlapped a step kernel on the card."""
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+
+    copies = []
+    real = trainer_mod.to_device
+
+    def to_device(b, device):
+        copies.append(torch.cuda.current_stream(device).cuda_stream)
+        return real(b, device)
+
+    trainer_mod.to_device = to_device
+    try:
+        tr = trainer_mod.Trainer(cfg, src, device="cuda", state=state0)
+        serve_ms = []
+        serve_once = tr._serve_once
+
+        def timed_serve(*a, **kw):
+            t0 = time.perf_counter()
+            b = serve_once(*a, **kw)
+            serve_ms.append((time.perf_counter() - t0) * 1e3)
+            return b
+
+        tr._serve_once = timed_serve
+        torch.cuda.synchronize()
+        reset_counters(counters)
+        losses, ms = [], []
+        t = time.perf_counter()
+        for _ in range(PF_STEPS):
+            losses.append(float(tr.step(full_metrics=False)["loss"]))
+            now = time.perf_counter()
+            ms.append((now - t) * 1e3)
+            t = now
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        launches["by route"] = read_routes()
+        overlap = None
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as tprofile
+
+            state = copy.copy(tr.state)      # the compared state: the profiled steps copy it
+            tr._owns_state = False
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    float(tr.step(full_metrics=False)["loss"])
+            tr.state = state
+            spans = {"copy": [], "kernel": []}
+            for e in prof.events():
+                if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                    continue
+                iv = e.time_range
+                kind = "copy" if "Memcpy HtoD" in e.name else "kernel"
+                if kind == "kernel" and ("Memcpy" in e.name or "Memset" in e.name):
+                    continue
+                spans[kind].append((iv.start, iv.end))
+            overlap = (len(spans["copy"]), len(spans["kernel"]),
+                       _intervals_overlap(spans["copy"], spans["kernel"]))
+    finally:
+        trainer_mod.to_device = real
+    main = torch.cuda.current_stream().cuda_stream
+    return dict(losses=losses, ms=ms, serve_ms=serve_ms[:PF_STEPS], launches=launches, tr=tr,
+                main=main, copies=copies, overlap=overlap)
+
+
+def prefetch_leg(torch, np, lm_cfg, params, tokens, card):
+    """Leg PF: leg A's config (synthetic source) and leg H's BatchTopK config
+    (host bf16 store) for ``PF_STEPS`` steps a run, the prefetch off then on
+    ``PF_ROUNDS`` times, every run from the same state over the same
+    stream: losses and state bitwise the first run's, each leg's kernels
+    launched on their routes in every run, the copies of the runs with
+    prefetch on on a stream other than the step's. Prints the median
+    loss-to-loss and serve ms each way over steps 2 on of every run, and
+    whether a copy overlapped a step kernel. Returns both legs' launches."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data import buffer as bufmod
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
+
+    counters = launch_counters()
+    total = {}
+    legs = {"A": (dict(TRAIN, fused_encoder="off"), ("topk_mask", "sparsify",
+                                                    "scatter_add_rows")),
+            "H": (PF_H, ("batchtopk_select", "batchtopk_emit"))}
+    for leg, (kw, kernels) in legs.items():
+        ref = state0 = None
+        ms = {False: [], True: [], "serve False": [], "serve True": []}
+        for rnd in range(PF_ROUNDS):
+            for pf in (False, True):
+                cfg = CrossCoderConfig(**{**kw, "prefetch": pf,
+                                          "num_tokens": kw["batch_size"] * 100})
+                if state0 is None:
+                    state0 = init_train_state(cfg, Optimizer(cfg, lambda s: 0.0), device="cuda")
+                if leg == "A":
+                    src = SyntheticActivationSource(cfg)
+                else:
+                    src = bufmod.make_buffer(cfg, lm_cfg, params, tokens, device="cuda")
+                r = prefetch_run(torch, cfg, src, state0, counters,
+                                 profile=pf and rnd == PF_ROUNDS - 1)
+                r["tr"].close()
+                what = f"leg PF {leg} (prefetch {'on' if pf else 'off'}, round {rnd})"
+                if ref is None:
+                    ref = r
+                else:
+                    ok, diff = state_bits_equal(torch, r["tr"].state, ref["tr"].state)
+                    if r["losses"] != ref["losses"] or not ok:
+                        fail(f"phase 15: {what} differs from the first run: losses "
+                             f"{r['losses']} against {ref['losses']}; state {diff}")
+                L = r["launches"]
+                check_routes(what, L, L["by route"])
+                check_o1(what, L, PF_STEPS)
+                for k in kernels:
+                    if not L.get(k):
+                        fail(f"phase 15: {what} never launched {k}")
+                for k, c in L.items():
+                    if k != "by route":
+                        total[k] = total.get(k, 0) + c
+                if pf and (r["tr"]._copy_stream is None
+                           or any(st == r["main"] for st in r["copies"])):
+                    fail(f"phase 15: {what}'s copies ran on the step's stream")
+                if not pf and any(st != r["main"] for st in r["copies"]):
+                    fail(f"phase 15: {what} copied off the step's stream")
+                ms[pf] += r["ms"][1:]
+                ms[f"serve {pf}"] += r["serve_ms"][1:]
+                if r["overlap"] is not None:
+                    overlap, stream = r["overlap"], (r["copies"][0], r["main"])
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        n_copy, n_kern, ov = overlap
+        log(f"leg PF {leg}: {PF_ROUNDS} rounds of {PF_STEPS} steps off then on, losses "
+            f"{[round(x, 4) for x in ref['losses']]} and state bitwise in every run; loss to "
+            f"loss, median of steps 2-{PF_STEPS} of each run: prefetch off {med[False]:.2f} "
+            f"ms, on {med[True]:.2f} ms ({'on <= off' if med[True] <= med[False] else 'on > off'}"
+            f"; on {[round(x, 2) for x in ms[True]]} against off "
+            f"{[round(x, 2) for x in ms[False]]}); the serve, median: off "
+            f"{med['serve False']:.2f} ms, on {med['serve True']:.2f} ms; loss to loss beyond "
+            f"the serve: off {med[False] - med['serve False']:.2f} ms, on "
+            f"{med[True] - med['serve True']:.2f} ms; torch.profiler over 2 more steps with "
+            f"prefetch on: {n_copy} host-to-device copies, {n_kern} kernels, a copy "
+            f"{'overlapped' if ov else 'did not overlap'} a kernel on the card; copies on "
+            f"stream {stream[0]} (the step's {stream[1]}); launches of the last run {L} "
+            f"({card})")
+        del ref, r, state0
+        torch.cuda.empty_cache()
+    return total
+
+
+def _fleet_rounds(fl, rounds):
+    losses = {}
+    for _ in range(rounds):
+        for name, md in fl.step_all().items():
+            losses.setdefault(name, []).append(float(md["loss"]))
+    return losses
+
+
+def fleet_one_rank_leg(torch, np, root, lm_cfg, params, tokens):
+    """Leg FG at world size 1: phase 14's cohort C for ``FG_ROUNDS`` rounds on
+    one device, then over an NCCL group of one rank from the same init over
+    the same stream (a host store built again from the same tokens):
+    losses and every tenant's state bitwise. Returns the grid run's
+    launches and O1 cohort launches."""
+    import torch.distributed as dist
+
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data import buffer as bufmod
+    from crosscoder_tpu_torch.ops import adam
+    from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+    from crosscoder_tpu_torch.parallel import multihost
+    from crosscoder_tpu_torch.train import fleet as fleet_mod
+
+    cfg = CrossCoderConfig(**FLEET)
+    counters = launch_counters()
+
+    def run(mesh):
+        buffer = bufmod.make_buffer(cfg, lm_cfg, params, tokens, device="cuda")
+        fl = fleet_mod.FleetScheduler(cfg, buffer, checkpoint=False, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        reset_counters(counters)
+        cohort0 = adam.adam_update.cohort_launches
+        losses = _fleet_rounds(fl, FG_ROUNDS)
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        launches["O1 cohort"] = adam.adam_update.cohort_launches - cohort0
+        fl.buffer = None
+        return losses, fl, launches
+
+    ref_losses, ref, ref_launches = run(None)
+    store_root = ckpt_dir(root)
+    multihost.initialize("cuda:0", store=dist.FileStore(str(store_root / "store"), 1),
+                         world_size=1, rank=0)
+    try:
+        losses, fl, launches = run(mesh_lib.make_mesh(1, 1))
+        if fl.mesh is None:
+            fail("phase 15: leg FG's fleet took no grid")
+    finally:
+        multihost.shutdown()
+        shutil.rmtree(store_root, ignore_errors=True)
+    for name in ref.active():
+        ok, what = state_bits_equal(torch, fl.tenant_state(name), ref.tenant_state(name))
+        if losses[name] != ref_losses[name] or not ok:
+            fail(f"phase 15: leg FG's tenant {name} on an NCCL group of one rank differs from "
+                 f"the fleet on one device ({what}; {losses[name]} vs {ref_losses[name]})")
+    log(f"leg FG: cohort C {FG_ROUNDS} rounds over an NCCL group of one rank bitwise the "
+        f"fleet on one device (losses {ref_losses}); launches on the grid {launches}, on one "
+        f"device {ref_launches}")
+    if launches["O1 cohort"] != FG_ROUNDS or not launches.get("topk_mask"):
+        fail(f"phase 15: leg FG's grid run launched O1 {launches['O1 cohort']} times for "
+             f"the cohort in {FG_ROUNDS} rounds, K5 {launches.get('topk_mask')}")
+    del fl, ref
+    torch.cuda.empty_cache()
+    total = dict(launches)
+    for k, c in ref_launches.items():
+        total[k] = total.get(k, 0) + c
+    return total
+
+
+def fg_grid_rank(torch, rank, port, root):
+    """One rank of leg FG at 1 x 2 (gloo): the fleet of ``FLEET_G`` on one
+    device first (before the group), its losses and this rank's shard of
+    each tenant's final params kept; then the group and the same fleet on
+    the grid from the same seeds over the same stream. Returns the
+    launches, the losses and the worst leaf error in norm; fails past leg
+    FM's bars."""
+    import torch.distributed as dist
+
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.ops import adam
+    from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+    from crosscoder_tpu_torch.train import fleet as fleet_mod
+
+    cfg = CrossCoderConfig(**FLEET_G)
+    mine = mesh_lib.Mesh(data_size=1, model_size=2, data_rank=0, model_rank=rank,
+                         data_group=None, model_group=None, world_group=None)
+
+    def run(c, mesh):
+        fl = fleet_mod.FleetScheduler(c, SyntheticActivationSource(cfg), checkpoint=False,
+                                      device="cuda", mesh=mesh)
+        losses = _fleet_rounds(fl, FG_ROUNDS)
+        shards = {}
+        for name in fl.active():
+            st = fl.tenant_state(name)
+            if mesh is None:
+                st = mesh_lib.shard_state(mine, st)
+            shards[name] = {k: v.detach().float().cpu() for k, v in st.params.items()}
+        return losses, shards, fl
+
+    ref_losses, ref_shards, fl = run(cfg, None)
+    del fl
+    torch.cuda.empty_cache()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    counters = launch_counters()
+    reset_counters(counters)
+    cohort0 = adam.adam_update.cohort_launches
+    t0 = time.perf_counter()
+    losses, shards, fl = run(cfg.replace(model_axis_size=2), mesh_lib.make_mesh(1, 2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    launches["O1 cohort"] = adam.adam_update.cohort_launches - cohort0
+    roster = ([[t.name for t in co.members] for co in fl._cohorts],
+              [b.tenant.name for b in fl._buckets])
+    del fl
+    dist.barrier()
+    dist.destroy_process_group()
+    loss_rel = max(abs(a - b) / abs(b) for n in ref_losses
+                   for a, b in zip(losses[n], ref_losses[n]))
+    leaf = {f"{n} {k}": _leaf_rel(torch, v, ref_shards[n][k])
+            for n in shards for k, v in shards[n].items()}
+    out = dict(losses=losses, ref_losses=ref_losses, loss_rel=loss_rel, leaf=leaf,
+               launches=launches, wall=wall, roster=roster)
+    if roster != ([["c1", "c2"]], ["w"]) or not (
+            loss_rel <= FM_GRID_TOL[0] and max(leaf.values()) <= FM_GRID_TOL[1]):
+        fail(f"leg FG 1x2 rank {rank}: roster {roster}, losses {losses} vs one device "
+             f"{ref_losses} (relative {loss_rel:.3e}), leaf errors in norm {leaf}: past the "
+             f"bars {FM_GRID_TOL}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def fg_grid(torch, root):
+    """Leg FG at 1 x 2 on one card: this process is rank 0, one more process
+    of this script (``--fleet-rank``) rank 1. Returns both ranks' results."""
+    port = _free_port()
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_fg_", dir=root / "build")) / "rank1.json"
+    torch.cuda.empty_cache()
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--fleet-rank", "1",
+                             str(port), str(out)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    try:
+        res0 = fg_grid_rank(torch, 0, port, root)
+    except BaseException:
+        proc.kill()
+        log(f"leg FG 1x2 rank 1: {proc.communicate()[0].decode(errors='replace')[-3000:]}")
+        raise
+    try:
+        text = proc.communicate(timeout=600)[0].decode(errors="replace")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        log(f"leg FG 1x2 rank 1: {text[-3000:]}")
+        fail(f"leg FG 1x2: rank 1 exited {proc.returncode}")
+    res1 = json.loads(out.read_text())
+    shutil.rmtree(out.parent, ignore_errors=True)
+    return [res0, res1]
+
+
+def fleet_rank_worker(rank, port, out):
+    """Rank ``rank`` of leg FG at 1 x 2 (``chip_smoke.py --fleet-rank``):
+    writes its results as JSON to ``out``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(__file__).resolve().parent
+    res = fg_grid_rank(torch, rank, port, root)
+    Path(out).write_text(json.dumps(res))
+
+
+def wire(torch, np, root, card):
+    """Phase 15: leg CM (the counted wire, in a child process), leg FG (the
+    fleet over an NCCL group of one rank bitwise the fleet on one device;
+    at 1 x 2 on two gloo ranks within leg FM's bars) and leg PF (the
+    prefetch bitwise off). Returns the phase's launches and O1's cohort
+    launches."""
+    from crosscoder_tpu_torch.models import lm
+
+    t_phase = time.perf_counter()
+    lm_cfg = lm.LMConfig.gemma2_2b()
+    params = [lm.init_params(lm_cfg, seed=s, device="cuda") for s in (1, 2)]
+    tokens = harvest_tokens(np, 256, HARVEST["seq_len"], lm_cfg.vocab_size, 6)
+    launches = fleet_one_rank_leg(torch, np, root, lm_cfg, params, tokens)
+    for k, c in prefetch_leg(torch, np, lm_cfg, params, tokens, card).items():
+        launches[k] = launches.get(k, 0) + c
+    del params
+    torch.cuda.empty_cache()
+    # leg CM's process runs beside the two gloo ranks of leg FG
+    cm = start_comm_leg(root)
+    t_grid = time.perf_counter()
+    try:
+        ranks = fg_grid(torch, root)
+    except BaseException:
+        cm[0].kill()            # a failed leg stops the process it started
+        cm[0].wait()
+        raise
+    for r, res in enumerate(ranks):
+        log(f"leg FG 1x2 rank {r}: losses {res['losses']} against one device "
+            f"{res['ref_losses']} (worst relative {res['loss_rel']:.3e}, bar "
+            f"{FM_GRID_TOL[0]}); worst leaf error in norm {max(res['leaf'].values()):.3e} "
+            f"(bar {FM_GRID_TOL[1]}); launches {res['launches']}; {res['wall']:.1f} s")
+        L = res["launches"]
+        if L["O1 cohort"] != FG_ROUNDS or any(not L.get(k) for k in
+                                               ("topk_mask", "sparsify", "scatter_add_rows")):
+            fail(f"phase 15: leg FG 1x2 rank {r}'s launches {L}")
+        for k, c in L.items():
+            launches[k] = launches.get(k, 0) + c
+    log(f"leg FG 1x2 took {time.perf_counter() - t_grid:.1f} s")
+    profiles = finish_comm_leg(cm, card)
+    log(f"wire phase {time.perf_counter() - t_phase:.1f} s (leg CM's profiles "
+        f"{sorted(profiles)})")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-rank"]:     # rank 1 of leg FM at 1 x 2 (phase 13)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         gloo_rank_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
+    if sys.argv[1:2] == ["--fleet-rank"]:    # rank 1 of leg FG at 1 x 2 (phase 15)
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        fleet_rank_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
+    if sys.argv[1:2] == ["--comm-model"]:    # leg CM's fake group (phase 15)
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        comm_worker(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--cpu-rank"]:      # a rank of the CPU rehearsal (phase 11)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -5501,6 +6011,11 @@ def main() -> int:
         row["launches"] += fleet_launches.get(row["name"].split()[0], 0)
     # the bucket's O1 launches are solo updates; the cohort's have their row
     row_o1["launches"] += fleet_launches["adam_update"] - row_o1_cohort["launches"]
+    wired = wire(torch, np, root, card)
+    for row in (*train_rows[:3], *harvest_rows):
+        row["launches"] += wired.get(row["name"].split()[0], 0)
+    row_o1["launches"] += wired["adam_update"] - wired["O1 cohort"]
+    row_o1_cohort["launches"] += wired["O1 cohort"]
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
               *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed,
               row_o1_cohort])

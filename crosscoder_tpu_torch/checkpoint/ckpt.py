@@ -312,9 +312,12 @@ class Checkpointer:
 
     # --- save ---------------------------------------------------------------
     def save(self, state: Any, cfg: CrossCoderConfig, buffer: Any | None = None,
-             background: bool = False, mesh=None) -> Path | None:
+             background: bool = False, mesh=None, buffer_state: dict | None = None
+             ) -> Path | None:
         """Write one versioned save; returns the weights path (``None`` on
-        a rank that is not the primary, which writes nothing). The state
+        a rank that is not the primary, which writes nothing). The stream
+        position saved is ``buffer_state`` when given (one taken earlier),
+        else ``buffer.state_dict()``. The state
         reaches host memory before this returns; ``background=True`` leaves
         the file writes to the writer thread (:meth:`wait` joins it). Under
         a ``mesh`` every rank must call this: the gather of the shards is a
@@ -341,7 +344,9 @@ class Checkpointer:
                 self._create_save_dir()
             v, save_dir = self.save_version, self.save_dir
             meta: dict[str, Any] = {"step": int(state.step), "save_version": v, "format": FORMAT}
-            if buffer is not None and hasattr(buffer, "state_dict"):
+            if buffer_state is not None:
+                meta["buffer"] = buffer_state
+            elif buffer is not None and hasattr(buffer, "state_dict"):
                 meta["buffer"] = buffer.state_dict()
 
             def write() -> None:

@@ -187,6 +187,11 @@ class PairedActivationBuffer(FanOut):
         self.model_params = list(model_params)
         self.device = resolve_device(device)
         self.store_device = self.device if cfg.buffer_device == "hbm" else torch.device("cpu")
+        # a host store feeding a card serves its rows, and takes the
+        # harvest's, through page-locked memory: the copies do not block the
+        # host, and the caching host allocator hands the same blocks back
+        # every serve, where new pageable arrays would be mapped afresh
+        self._pin = self.store_device.type == "cpu" and self.device.type == "cuda"
         self.tokens = np.asarray(tokens)
         if self.tokens.ndim != 2 or self.tokens.shape[1] != cfg.seq_len:
             raise ValueError(f"tokens must be [n_seqs, {cfg.seq_len}], got {self.tokens.shape}")
@@ -257,14 +262,22 @@ class PairedActivationBuffer(FanOut):
         """Bytes the replay store occupies on :attr:`store_device`."""
         return sum(t.numel() * t.element_size() for t in self._store_tensors())
 
+    def _to_store(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` on :attr:`store_device` (off a card into a host store
+        through page-locked memory)."""
+        if self._pin and t.device.type == "cuda":
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+        return t.to(self.store_device)
+
     def _write_rows(self, positions: np.ndarray, rows: torch.Tensor) -> None:
         """Store harvested bf16 rows ``[r, n_sources, d_in]`` (on the
         harvest device) at store rows ``positions``."""
-        hostops.scatter_rows(self._store, positions, rows.to(self.store_device))
+        hostops.scatter_rows(self._store, positions, self._to_store(rows))
 
     def _read_rows(self, idx: np.ndarray) -> torch.Tensor:
-        """Store rows ``idx`` as bf16 on :attr:`store_device`."""
-        return hostops.gather_rows(self._store, idx)
+        """Store rows ``idx`` as bf16 on :attr:`store_device` (page-locked
+        when a host store feeds a card)."""
+        return hostops.gather_rows(self._store, idx, pin=self._pin)
 
     def _refill_batches(self) -> int:
         """Sequences harvested per steady-state cycle."""
@@ -731,8 +744,8 @@ class QuantPairedActivationBuffer(PairedActivationBuffer):
 
     def _write_rows(self, positions: np.ndarray, rows: torch.Tensor) -> None:
         q, s = quant.quantize_rows(rows, self.cfg.quant_block)
-        hostops.scatter_rows(self._store_q, positions, q.to(self.store_device))
-        hostops.scatter_rows(self._store_scale, positions, s.to(self.store_device))
+        hostops.scatter_rows(self._store_q, positions, self._to_store(q))
+        hostops.scatter_rows(self._store_scale, positions, self._to_store(s))
 
     def _read_rows(self, idx: np.ndarray, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
         return quant.dequantize_blocks(hostops.gather_rows(self._store_q, idx),

@@ -29,9 +29,14 @@ def _index(idx, store: torch.Tensor, name: str = "idx") -> torch.Tensor:
     return torch.as_tensor(idx, device=store.device)
 
 
-def gather_rows(store: torch.Tensor, idx) -> torch.Tensor:
-    """``store[idx]`` (any trailing shape)."""
-    return torch.index_select(store, 0, _index(idx, store))
+def gather_rows(store: torch.Tensor, idx, pin: bool = False) -> torch.Tensor:
+    """``store[idx]`` (any trailing shape); ``pin``: into page-locked host
+    memory (a host store feeding a card)."""
+    i = _index(idx, store)
+    if not pin:
+        return torch.index_select(store, 0, i)
+    out = torch.empty((i.numel(), *store.shape[1:]), dtype=store.dtype, pin_memory=True)
+    return torch.index_select(store, 0, i, out=out)
 
 
 def gather_scale_f32(store: torch.Tensor, idx, scale) -> torch.Tensor:

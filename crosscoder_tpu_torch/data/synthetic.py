@@ -30,19 +30,34 @@ class SyntheticActivationSource(FanOut):
         d /= np.linalg.norm(d, axis=-1, keepdims=True)
         self.dictionary = d
         self.counter = 0
+        self._term: np.ndarray | None = None     # one feature's term, reused by every serve
         self._init_fanout()
 
-    def next(self) -> np.ndarray:
-        """The next ``[batch_size, n_sources, d_in]`` f32 batch."""
+    @property
+    def batch_shape(self) -> tuple[int, int, int]:
+        return (self.cfg.batch_size, self.cfg.n_sources, self.cfg.d_in)
+
+    def next(self, out: np.ndarray | None = None) -> np.ndarray:
+        """The next ``[batch_size, n_sources, d_in]`` f32 batch: a new
+        array, or ``out`` filled. Its terms are made in place in one
+        scratch array kept across serves: at the training shape each would
+        be a new 75 MB array, and a thread other than the main one maps
+        such an array afresh."""
         cfg = self.cfg
         rng = np.random.default_rng((cfg.seed, self.counter))
         self.counter += 1
         b = cfg.batch_size
         idx = rng.integers(0, self.n_true, size=(b, self.sparsity))
         mag = np.abs(rng.normal(1.0, 0.3, size=(b, self.sparsity))).astype(np.float32)
-        x = self.noise * rng.standard_normal(size=(b, cfg.n_sources, cfg.d_in), dtype=np.float32)
+        x = rng.standard_normal(size=self.batch_shape, dtype=np.float32, out=out)
+        x *= self.noise
+        if self._term is None or self._term.shape != x.shape:
+            self._term = np.empty_like(x)
+        term = self._term
         for j in range(self.sparsity):
-            x += mag[:, j, None, None] * self.dictionary[idx[:, j]]
+            np.take(self.dictionary, idx[:, j], axis=0, out=term, mode="clip")
+            np.multiply(mag[:, j, None, None], term, out=term)
+            x += term
         return x
 
     def _stream_head(self) -> int:

@@ -36,8 +36,13 @@ round trip). Scalars stay per cohort: the members step in lockstep, so
 the step counter and Adam's count are one int each (:func:`stack_states`
 refuses states that differ in them).
 
-``stacked_shardings`` has no counterpart: the fleet runs on one device
-(a tenant axis over a rank grid is ROADMAP A7b).
+On a rank grid each member's state is this rank's shards (the mesh
+Trainer's), stacked on the leading tenant axis, which no rank splits: the
+JAX ``stacked_shardings`` gives each solo spec a leading ``None``, and
+here the solo rules shard each member before it is stacked, so
+``stacked_shardings`` has no counterpart. The members' step bodies are
+the mesh step's and each norm is the member's global norm over the grid
+(:meth:`Optimizer.global_norm` with the mesh).
 """
 
 from __future__ import annotations
@@ -117,11 +122,12 @@ def _copy_grads(into: dict[str, torch.Tensor], i: int, grads: dict[str, torch.Te
 
 
 def cohort_step(bodies: Sequence[Any], opt: Optimizer, state: TrainState, batch: torch.Tensor,
-                scale: torch.Tensor) -> tuple[TrainState, list[dict[str, Any]]]:
+                scale: torch.Tensor, mesh=None) -> tuple[TrainState, list[dict[str, Any]]]:
     """One step of a cohort, in place on the stacked ``state``: member
     ``i``'s loss and gradients from ``bodies[i]`` (the step body of its
     own cfg) on its views, its gradients copied into stacked leaves as
-    soon as they exist, each member's global norm, one O1 launch over the
+    soon as they exist, each member's global norm (over ``mesh``'s shards,
+    the gradients already summed over ``data``), one O1 launch over the
     stacked leaves with the ``[N]`` norms, then each member's AuxK
     bookkeeping into its slice. Returns the state (the same tensors) and
     one metrics dict a member."""
@@ -130,7 +136,7 @@ def cohort_step(bodies: Sequence[Any], opt: Optimizer, state: TrainState, batch:
     for i, body in enumerate(bodies):
         view = unstack_state(state, i)
         loss, losses, g, dead, _ = body.loss_and_grads(view, batch, scale)
-        norms.append(Optimizer.global_norm(g))
+        norms.append(Optimizer.global_norm(g, mesh, opt.shard_sources))
         _copy_grads(grads, i, g)
         del g
         parts.append((view, loss, losses, dead))

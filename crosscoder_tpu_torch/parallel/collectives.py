@@ -9,6 +9,18 @@ rank-locally, as the quantized-gradient step does); the trainer's mesh
 always passes real groups, size 1 included, so a one-rank run issues
 every collective a wider run does.
 
+Beside the calls, :data:`bytes` counts what each collective delivers,
+keyed by op as :data:`calls` is: the reduced tensor of an all-reduce,
+the gathered result of an all-gather, the shard a reduce-scatter keeps,
+an all-to-all's output and the payload a ring hop receives (the JAX
+``collective_bytes`` counts the same output shapes out of HLO). A group
+of one rank moves nothing: its calls count, its bytes do not.
+:mod:`crosscoder_tpu_torch.parallel.comm_model` reads these counts.
+
+Each counted call also hands its input and outputs to :data:`fill` when
+one is installed: ``comm_model.profile_width`` installs one while its
+group of PyTorch's fake backend (which writes no output) exists.
+
 The two differentiable collectives (the JAX package gets them from
 GSPMD):
 
@@ -32,21 +44,38 @@ import torch
 import torch.distributed as dist
 
 calls: Counter = Counter()        # collectives issued, by op
+bytes: Counter = Counter()        # bytes they delivered, by op (0 on a group of one)
+wire_calls: Counter = Counter()   # the calls on groups of more than one rank, by op
+
+
+# ``fill(op, group, sent, outs)``, run after each collective while set
+fill = None
 
 
 def reset_counts() -> None:
     calls.clear()
+    bytes.clear()
+    wire_calls.clear()
 
 
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def _count(op: str, group, sent, *outs: torch.Tensor) -> None:
+    calls[op] += 1
+    if group_size(group) > 1:
+        wire_calls[op] += 1
+        bytes[op] += sum(t.numel() * t.element_size() for t in outs)
+    if fill is not None:
+        fill(op, group, sent, outs)
+
+
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` reduced over ``group`` in place (returned)."""
     if group is not None:
         dist.all_reduce(t, op=op, group=group)
-        calls["all_reduce"] += 1
+        _count("all_reduce", group, t, t)
     return t
 
 
@@ -59,7 +88,7 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
     dist.all_gather_into_tensor(out, t, group=group)
-    calls["all_gather"] += 1
+    _count("all_gather", group, t, out)
     return out.reshape(n, *t.shape)
 
 
@@ -79,7 +108,7 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
-    calls["all_to_all"] += 1
+    _count("all_to_all", group, t, out)
     return out
 
 
@@ -92,7 +121,7 @@ def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty((t.shape[0] // n, *t.shape[1:]), dtype=t.dtype, device=t.device)
     dist.reduce_scatter_tensor(out, t, group=group)
-    calls["reduce_scatter"] += 1
+    _count("reduce_scatter", group, t, out)
     return out
 
 
@@ -111,7 +140,7 @@ def ring_shift_start(tensors, group):
     ops = [dist.P2POp(dist.isend, t, nxt, group) for t in send]
     ops += [dist.P2POp(dist.irecv, t, prv, group) for t in recv]
     reqs = dist.batch_isend_irecv(ops)
-    calls["ring_shift"] += 1
+    _count("ring_shift", group, send, *recv)
     return reqs, recv, send
 
 

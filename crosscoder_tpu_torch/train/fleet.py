@@ -36,10 +36,24 @@ source.
 
 Each tenant steps as its solo Trainer would, dead-latent resampling
 included (a tenant's generator comes from its own ``seed``); the JAX
-fleet's compiled step leaves resampling out. One device only: a rank grid
-is ROADMAP A7b, :meth:`FleetScheduler.remesh` A8. Runs on ``cuda``
-unless ``device`` names another device; on the card every step launches
-its kernels or raises.
+fleet's compiled step leaves resampling out.
+
+On a rank grid (``mesh``, or ``cfg``'s axes over the joined process
+group, as the :class:`~crosscoder_tpu_torch.train.trainer.Trainer` takes
+it) each tenant's state is this rank's shards, as the mesh Trainer's; a
+cohort stacks those shards on a leading tenant axis that no rank splits
+(the JAX ``stacked_shardings``' leading ``None``). Each round every rank
+serves the global batch and keeps its ``data`` rows (a source that
+serves each rank its own rows, ``serves_local_rows``, is taken as it
+serves); each member and bucket runs the mesh step body, the cohort's
+norm of a tenant is its global norm over its shards; saves are the
+gathered save and the agreed restore. Admission and retirement depend on
+state every rank holds, so every rank keeps the same roster, and
+:meth:`FleetScheduler.save_all`, :meth:`FleetScheduler.restore_all` and
+:meth:`FleetScheduler.retire` are collectives: every rank calls them at
+the same round. :meth:`FleetScheduler.remesh` is ROADMAP A8. Runs on
+``cuda`` unless ``device`` names another device; on the card every step
+launches its kernels or raises.
 """
 
 from __future__ import annotations
@@ -53,10 +67,13 @@ import torch.distributed as dist
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.models import stacked
 from crosscoder_tpu_torch.obs import trace
+from crosscoder_tpu_torch.parallel import mesh as mesh_lib
+from crosscoder_tpu_torch.parallel import multihost
 from crosscoder_tpu_torch.train import resample, schedules
 from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
-from crosscoder_tpu_torch.train.trainer import (DeviceScale, expand_metrics, make_step_body,
-                                                resample_due, to_device, variant_for_step)
+from crosscoder_tpu_torch.train.trainer import (DeviceScale, _check_mesh, expand_metrics,
+                                                make_step_body, resample_due, to_device,
+                                                variant_for_step)
 from crosscoder_tpu_torch.utils.device import resolve_device
 
 # cfg fields a tenant may vary and still stack with its cohort: seed only
@@ -185,7 +202,10 @@ class FleetScheduler:
     (``next_for``); default the synthetic source over the base cfg (the
     base seed drives the stream, tenant seeds only their init).
     ``checkpoint``: per-tenant checkpointers under ``cfg.checkpoint_dir``
-    (when it is set). ``mesh``: a rank grid is refused (ROADMAP A7b).
+    (when it is set). ``mesh``: the rank grid (default: ``cfg``'s axes over
+    the joined process group whenever a group is joined or an axis above 1
+    is asked for; none, one device, otherwise). Only the primary rank
+    should carry a ``logger``.
     """
 
     def __init__(self, cfg: CrossCoderConfig, buffer: Any | None = None, mesh=None,
@@ -193,11 +213,10 @@ class FleetScheduler:
                  checkpoint: bool = True, device=None) -> None:
         if cfg.fleet != "on":
             raise ValueError("FleetScheduler requires cfg.fleet='on'")
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if (mesh is not None or world > 1 or cfg.data_axis_size > 1
-                or cfg.model_axis_size > 1):
-            raise NotImplementedError(
-                "the fleet runs on one device; a rank grid is ROADMAP A7b: the fleet on a mesh")
+        if mesh is None and (dist.is_initialized() or cfg.model_axis_size > 1
+                             or cfg.data_axis_size > 1):
+            mesh = mesh_lib.mesh_from_cfg(cfg)
+        self.mesh = mesh
         self.cfg = cfg
         self.device = resolve_device(device)
         if buffer is None:
@@ -248,6 +267,8 @@ class FleetScheduler:
         if spec.name in self._tenants:
             raise ValueError(f"tenant {spec.name!r} already admitted")
         cfg = tenant_config(self.cfg, spec)
+        if self.mesh is not None:
+            _check_mesh(cfg, self.mesh)
         ckpt = None
         if self._checkpoint:
             from crosscoder_tpu_torch.checkpoint import Checkpointer
@@ -266,7 +287,8 @@ class FleetScheduler:
             return
         if save and t.checkpointer is not None:
             self._quiesce_refill()
-            t.checkpointer.save(self._tenant_state(t), t.cfg, buffer=self._buffer_for_save())
+            t.checkpointer.save(self._tenant_state(t), t.cfg, buffer=self._buffer_for_save(),
+                                mesh=self.mesh)
         group = t.group
         if isinstance(group, _Bucket):
             self._buckets.remove(group)
@@ -298,11 +320,17 @@ class FleetScheduler:
         self._group_seq += 1
         return f"{kind}{self._group_seq}"
 
+    def _init_state(self, cfg: CrossCoderConfig, opt: Optimizer):
+        """A tenant's fresh state: its seed's, this rank's shards on a grid."""
+        state = init_train_state(cfg, opt, device=self.device)
+        if self.mesh is not None:
+            state = mesh_lib.shard_state(self.mesh, state, cfg.shard_sources)
+        return state
+
     def _build_cohort(self, sig: str, members: list[_Tenant]) -> None:
         co = _Cohort(sig, self._next_tag("cohort"), members)
         co.opt = Optimizer(co.cfg, schedules.lr_schedule(co.cfg))
-        co.state = stacked.stack_states(
-            [init_train_state(m.cfg, co.opt, device=self.device) for m in members])
+        co.state = stacked.stack_states([self._init_state(m.cfg, co.opt) for m in members])
         for m in members:
             m.group = co
         self._cohorts.append(co)
@@ -320,7 +348,7 @@ class FleetScheduler:
                 "or raise the cap")
         b = _Bucket(sig, self._next_tag("bucket"), t)
         b.opt = Optimizer(t.cfg, schedules.lr_schedule(t.cfg))
-        b.state = init_train_state(t.cfg, b.opt, device=self.device)
+        b.state = self._init_state(t.cfg, b.opt)
         t.group = b
         self._buckets.append(b)
         self._bucket_sigs[sig] = self._bucket_sigs.get(sig, 0) + 1
@@ -331,26 +359,31 @@ class FleetScheduler:
     def _cohort_fns(self, co: _Cohort, key: tuple) -> list:
         fns = co.fns.get(key)
         if fns is None:
-            fns = co.fns[key] = [make_step_body(m.cfg, co.opt, *key) for m in co.members]
+            fns = co.fns[key] = [make_step_body(m.cfg, co.opt, *key, mesh=self.mesh)
+                                 for m in co.members]
         return fns
 
     def _bucket_fn(self, b: _Bucket, key: tuple) -> Any:
         fn = b.fns.get(key)
         if fn is None:
-            fn = b.fns[key] = make_step_body(b.tenant.cfg, b.opt, *key)
+            fn = b.fns[key] = make_step_body(b.tenant.cfg, b.opt, *key, mesh=self.mesh)
         return fn
 
     # -- serving --------------------------------------------------------
 
     def _serve_round(self) -> Any:
         """Advance every active tenant's cursor one position: one real
-        serve, the rest read the fan-out's cache (the same object)."""
+        serve, the rest read the fan-out's cache (the same object). On a
+        grid, this rank's ``data`` rows of it."""
         serve = self.buffer.next_raw_for if self._raw_serving else self.buffer.next_for
         batch = None
         for name in self.active():
             batch = serve(name)
         if batch is None:
             raise RuntimeError("fleet round with no active tenants")
+        if self.mesh is not None and not getattr(self.buffer, "serves_local_rows", False):
+            rows = batch.shape[0] // self.mesh.data_size
+            batch = batch[self.mesh.data_rank * rows:(self.mesh.data_rank + 1) * rows]
         return batch
 
     # -- the lockstep round ---------------------------------------------
@@ -361,7 +394,7 @@ class FleetScheduler:
         if not resample_due(cfg, step):
             return state, None
         gen = resample.resample_generator(cfg, step, self.device)
-        return resample.make_resample_fn(cfg)(state, batch, scale, gen)
+        return resample.make_resample_fn(cfg, self.mesh)(state, batch, scale, gen)
 
     def step_all(self, full_metrics: bool = True) -> dict[str, dict[str, Any]]:
         """One round: serve once, copy to the device once, step every
@@ -383,7 +416,8 @@ class FleetScheduler:
                     stacked.write_member(co.state, i, new)
                     resampled[m.name] = n
             with trace.span("tenant_step", group=co.tag, n=len(co.members)):
-                co.state, mets = stacked.cohort_step(fns, co.opt, co.state, dev_batch, scale)
+                co.state, mets = stacked.cohort_step(fns, co.opt, co.state, dev_batch, scale,
+                                                     mesh=self.mesh)
             for m, md in zip(co.members, mets):
                 if m.name in resampled:
                     md["resampled"] = resampled[m.name]
@@ -440,7 +474,7 @@ class FleetScheduler:
         if self.registry is not None:
             for k, v in flat.items():
                 self.registry.gauge(k, v)
-        if self.logger is not None:
+        if self.logger is not None and multihost.is_primary():
             self.logger.log(flat, step=self.rounds)
 
     # -- state / checkpoints --------------------------------------------
@@ -481,7 +515,7 @@ class FleetScheduler:
             t = self._tenants[name]
             if t.checkpointer is not None:
                 t.checkpointer.save(self._tenant_state(t), t.cfg, buffer=buf,
-                                    background=background)
+                                    background=background, mesh=self.mesh)
 
     def restore_all(self) -> dict[str, int]:
         """Restore every active tenant from its newest verified save and the
@@ -495,7 +529,7 @@ class FleetScheduler:
             t = self._tenants[name]
             if t.checkpointer is None:
                 raise ValueError("restore_all needs tenant checkpointers")
-            state, meta = t.checkpointer.restore(t.cfg, device=self.device)
+            state, meta = t.checkpointer.restore(t.cfg, device=self.device, mesh=self.mesh)
             per_tenant[name] = state
             t.steps_done = int(meta["step"])
             restored[name] = t.steps_done

@@ -30,7 +30,8 @@ trains N tenants off the one source instead
 (:class:`crosscoder_tpu_torch.train.fleet.FleetScheduler`), each saving
 under ``<checkpoint_dir>/tenants/<name>/`` and logging under
 ``tenant/<name>/…``; ``--resume true`` restores every tenant and the
-stream (:meth:`FleetScheduler.restore_all`). One device only.
+stream (:meth:`FleetScheduler.restore_all`). On several ranks the fleet
+trains on the same grid, each tenant on this rank's shards.
 
 ``--data-source gemma`` composes the Gemma-2 harvest: the models of
 ``--model-names`` loaded from local HF checkpoint directories

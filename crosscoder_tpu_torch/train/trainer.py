@@ -59,12 +59,40 @@ N crosscoders off one stream (``cfg.fleet="on"``) train through
 :class:`crosscoder_tpu_torch.train.fleet.FleetScheduler`, which runs this
 module's step body (:func:`make_step_body`) for each tenant.
 
-Not ported in this slice (ROADMAP Queue A): the ticketed prefetch,
-chaos/watchdog/elastic, the observability plane, the compile cache.
+The one-deep batch prefetch (``cfg.prefetch``, on by default), as the
+JAX trainer's: one worker thread serves batch i+1, cuts this rank's rows,
+copies them to the device and uploads the scale while step i runs on the
+device and its loss is read. One worker keeps the served stream, the
+losses and the state bitwise those of ``prefetch=False``, which serves
+inline. The next production is submitted once step i's launches are
+queued (the JAX trainer submits it before its one dispatch): the step's
+launches are hundreds of Python calls, and they do not then share the
+interpreter with a serve. On the card the worker launches on a CUDA
+stream of its own, which waits for the work queued before step i, so the
+serve's device work (a refill's harvest, the copy) may run beside the
+step's; the step's stream waits for an event recorded after the copy.
+The copy leaves page-locked memory, so it does not block the worker: a
+host store feeding a card serves page-locked rows, and a source whose
+``next(out=...)`` fills an array handed in (the synthetic source) fills
+one of two page-locked staging tensors in turn, each reused once the copy out of its last fill is done (a new
+array of its size would cost the worker fresh pages every serve). With
+more than one rank every launch site takes a ticket of a
+:class:`~crosscoder_tpu_torch.utils.pipeline.LaunchSequencer` on the main
+thread in program order and launches in its turn, so every rank issues
+its collectives (a mesh store's reduce-scatter in the serve, the step's
+all-reduces) in one order. A save records the stream as it stood before
+the batch in flight was served; a restore that rewinds the stream drops
+that batch.
+
+Not ported in this slice (ROADMAP Queue A): chaos/watchdog/elastic, the
+observability plane, the compile cache.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import inspect
 import math
 import signal
 import sys
@@ -84,6 +112,7 @@ from crosscoder_tpu_torch.parallel import mesh as mesh_lib
 from crosscoder_tpu_torch.train import resample, schedules
 from crosscoder_tpu_torch.parallel import quant_ar
 from crosscoder_tpu_torch.train.state import Optimizer, TrainState, init_train_state
+from crosscoder_tpu_torch.utils import pipeline
 from crosscoder_tpu_torch.utils.device import resolve_device
 from crosscoder_tpu_torch.utils.logging import MetricsLogger, ResilienceCounters, source_tag
 
@@ -183,9 +212,16 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
                  for k, g in zip(names, grads)}
         if mesh is not None and not quant:
             # each rank's gradient of the global loss through its own rows:
-            # the gradient is their sum over data (in place, leaves in order)
+            # the gradient is their sum over data (leaves in order), in f32
+            # as the JAX step's psum is whatever the masters' dtype (a group
+            # of one sums nothing, so its cast is skipped: the same bits)
+            wide = coll.group_size(mesh.data_group) > 1
             for k in names:
-                coll.all_reduce_(grads[k], mesh.data_group)
+                g = grads[k]
+                if g.dtype == torch.float32 or not wide:
+                    coll.all_reduce_(g, mesh.data_group)
+                else:
+                    grads[k] = coll.all_reduce_(g.float(), mesh.data_group).to(g.dtype)
         return loss.detach(), losses, grads, dead, aux
 
     def finish(state: TrainState, new_params, new_opt, loss, losses, dead, fired=None,
@@ -341,9 +377,11 @@ class Trainer:
     :class:`NotImplementedError` rather than being dropped:
     elastic runs, the observability plane, chaos, the harvest watchdog
     (``harvest_timeout_s > 0``), profiler traces (``profile_dir``,
-    ``profile_steps``). ``prefetch``, ``remat`` and
-    ``compile_cache_dir`` change only speed or memory in the JAX trainer,
-    never results, so the port accepts and ignores them.
+    ``profile_steps``). ``remat`` and ``compile_cache_dir`` change only
+    speed or memory in the JAX trainer, never results, so the port accepts
+    and ignores them. ``prefetch`` (default on) serves the next batch on a
+    worker thread while the step runs (module docstring); :meth:`close`
+    stops the worker.
     """
 
     def __init__(self, cfg: CrossCoderConfig, buffer: Any | None = None,
@@ -375,6 +413,11 @@ class Trainer:
 
             buffer = SyntheticActivationSource(cfg)
         self.buffer = buffer
+        # a source whose next() fills an array handed in (``out=``, its
+        # ``batch_shape``): the prefetch worker serves it into staging
+        nxt = getattr(buffer, "next", None)
+        self._serves_into = (not hasattr(buffer, "next_raw") and hasattr(buffer, "batch_shape")
+                             and nxt is not None and "out" in inspect.signature(nxt).parameters)
         self.logger = logger
         self.checkpointer = checkpointer
         self.total_steps = cfg.total_steps
@@ -396,6 +439,22 @@ class Trainer:
         self._scale = DeviceScale(cfg.n_sources, self.device)
         self._step_fns: dict[tuple[bool, bool, bool], Callable] = {}
         self._host_step = self.state.step
+        # the one-deep prefetch: one worker, so the stream is the inline one
+        self._prefetch_pool = None
+        self._pending: concurrent.futures.Future | None = None
+        self._buffer_snapshot: dict | None = None
+        self._sequencer: pipeline.LaunchSequencer | None = None
+        self._copy_stream = None
+        self._staging: list[list[Any]] = []       # [page-locked tensor, its last copy's event]
+        self._staging_turn = 0
+        self._prefetch_end: int | None = None     # train()'s last step: nothing past it
+        if cfg.prefetch:
+            if multihost.needs_launch_tickets():
+                self._sequencer = pipeline.LaunchSequencer()
+            if self.device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(device=self.device)
+            self._prefetch_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="batch-prefetch")
         primary = multihost.is_primary()
         if cc.use_sparse_bwd(cfg, cfg.batch_size) and primary:
             print(f"[crosscoder_tpu_torch] sparse backward plane active "
@@ -412,9 +471,14 @@ class Trainer:
         without a checkpointer). ``background=True`` returns once the
         state is in host memory and writes on the checkpointer's thread."""
         if self.checkpointer is not None:
+            # the worker idle and the refill drained, the stream recorded as
+            # it stood before the batch in flight was served: a resume
+            # replays that batch rather than skipping it
+            self._drain_prefetch()
             self._quiesce_refill()
+            snap = self._buffer_snapshot if self._pending is not None else None
             self.checkpointer.save(self.state, self.cfg, buffer=self.buffer,
-                                   background=background, mesh=self.mesh)
+                                   buffer_state=snap, background=background, mesh=self.mesh)
 
     def _quiesce_refill(self) -> None:
         """Drain the buffer's refill dispatcher, whose thread moves the
@@ -437,11 +501,14 @@ class Trainer:
         fill of the buffer when the save carries none. Returns its meta."""
         if self.checkpointer is None:
             raise ValueError("Trainer has no checkpointer to restore from")
+        # the worker idle; its batch is dropped only if the stream rewinds
+        self._drain_prefetch()
         self.state, meta = self.checkpointer.restore(self.cfg, version_dir, save,
                                                      device=self.device, mesh=self.mesh)
         self._owns_state = True
         self._host_step = self.state.step
         if "buffer" in meta and hasattr(self.buffer, "load_state_dict"):
+            self._drain_prefetch(discard=True)
             self.buffer.load_state_dict(meta["buffer"])
         elif hasattr(self.buffer, "ensure_filled"):
             print("[crosscoder_tpu_torch] checkpoint has no buffer state; refilling fresh",
@@ -458,22 +525,141 @@ class Trainer:
         when the buffer serves ``next_raw``)."""
         return self._scale(self.buffer, hasattr(self.buffer, "next_raw"))
 
-    def _serve_once(self) -> Any:
+    def _serve_once(self, out=None) -> Any:
         """One serve of the source (``next_raw`` when it has it, else
-        ``next()``), counted on the monotone serve index."""
+        ``next()``; into the array ``out`` when given), counted on the
+        monotone serve index. A source is not thread-safe: with prefetch
+        on, this Trainer's worker is its only server while a production is
+        in flight."""
         self._serve_count += 1
+        if out is not None:
+            return self.buffer.next(out=out)
         return self.buffer.next_raw() if hasattr(self.buffer, "next_raw") else self.buffer.next()
 
-    def _next_batch(self) -> torch.Tensor:
-        """The next batch on the device: raw rows from ``next_raw`` when the
-        source has it (scaled in the step), else ``next()``. A batch
-        already on the device is not copied."""
-        b = self._serve_once()
-        if self.mesh is not None and not getattr(self.buffer, "serves_local_rows", False):
-            # this rank's rows of the global batch
-            rows = b.shape[0] // self.mesh.data_size
-            b = b[self.mesh.data_rank * rows:(self.mesh.data_rank + 1) * rows]
-        return to_device(b, self.device)
+    def _serve_staged(self) -> tuple[torch.Tensor, list[Any]]:
+        """The worker's serve of a source that fills an array handed in,
+        into the next of two page-locked staging tensors once the copy out
+        of its last fill is done: ``(tensor, its slot)``."""
+        if not self._staging:
+            pin = self.device.type == "cuda"
+            self._staging = [[torch.empty(self.buffer.batch_shape, dtype=torch.float32,
+                                          pin_memory=pin), None] for _ in range(2)]
+        self._staging_turn ^= 1
+        slot = self._staging[self._staging_turn]
+        if slot[1] is not None:
+            slot[1].synchronize()
+        self._serve_once(out=slot[0].numpy())
+        return slot[0], slot
+
+    # --- the batch: inline, or one deep on the prefetch worker --------------
+
+    def _reserve_ticket(self) -> int | None:
+        """The next launch slot (``None`` without a sequencer: one rank, or
+        prefetch off, where one thread launches everything)."""
+        return None if self._sequencer is None else self._sequencer.reserve()
+
+    def _launch_turn(self, ticket: int | None):
+        """Run launches in ``ticket``'s turn (nothing to wait for without
+        one)."""
+        return contextlib.nullcontext() if ticket is None else self._sequencer.turn(ticket)
+
+    def _produce_batch(self, ticket: int | None = None, after=None):
+        """Serve the next batch, keep this rank's rows, copy them to the
+        device and upload the scale: ``(batch, scale, ready)``. On the
+        prefetch worker (the whole production in ``ticket``'s turn) on the
+        card, the launches go on the worker's stream after the event
+        ``after`` (the work queued before the step that precedes this
+        production) and ``ready`` is an event recorded after the copy;
+        inline, ``ready`` is ``None``."""
+        worker = after is not None
+        slot = None
+        with self._launch_turn(ticket), contextlib.ExitStack() as ctx:
+            if worker:
+                ctx.enter_context(torch.cuda.device(self.device))
+                ctx.enter_context(torch.cuda.stream(self._copy_stream))
+                self._copy_stream.wait_event(after)
+            if worker and self._serves_into:
+                b, slot = self._serve_staged()
+            else:
+                b = self._serve_once()
+            if self.mesh is not None and not getattr(self.buffer, "serves_local_rows", False):
+                # this rank's rows of the global batch
+                rows = b.shape[0] // self.mesh.data_size
+                b = b[self.mesh.data_rank * rows:(self.mesh.data_rank + 1) * rows]
+            batch = to_device(b, self.device)
+            scale = self._device_scale()
+            ready = None
+            if worker:
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
+            if slot is not None:
+                slot[1] = ready
+        return batch, scale, ready
+
+    def _stream_mark(self):
+        """An event after the work queued so far on the step's stream
+        (``None`` off the card)."""
+        if self._copy_stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _submit_prefetch(self, after=None) -> None:
+        """Start producing the next batch on the worker, its launches after
+        the event ``after``. The stream's state is taken first: a save
+        while that batch is in flight records the position before it (the
+        buffer is quiescent here)."""
+        if hasattr(self.buffer, "state_dict"):
+            self._buffer_snapshot = self.buffer.state_dict()
+        ticket = self._reserve_ticket()
+        try:
+            self._pending = self._prefetch_pool.submit(self._produce_batch, ticket, after)
+        except BaseException:
+            if ticket is not None:
+                self._sequencer.skip(ticket)    # an unused slot would stall every later turn
+            raise
+
+    def _next_batch(self) -> tuple[torch.Tensor, torch.Tensor, int | None, Any]:
+        """``(batch, scale, ticket, after)``: the next batch on the device
+        and its scale (raw rows from ``next_raw`` when the source has it,
+        scaled in the step, else ``next()``), the launch slot of the step
+        that trains on it, and the event the next production waits for
+        (the work queued before that step). A batch already on the device
+        is not copied. With prefetch on, the batch comes from the worker;
+        :meth:`step` submits the next production once its launches are
+        queued."""
+        if self._prefetch_pool is None:
+            batch, scale, _ = self._produce_batch()
+            return batch, scale, self._reserve_ticket(), None
+        if self._pending is None:
+            self._submit_prefetch(self._stream_mark())
+        batch, scale, ready = self._pending.result()
+        self._pending = self._buffer_snapshot = None
+        if ready is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ready)
+            # made on the worker's stream, used on the step's
+            batch.record_stream(cur)
+            scale.record_stream(cur)
+        return batch, scale, self._reserve_ticket(), self._stream_mark()
+
+    def _drain_prefetch(self, discard: bool = False) -> None:
+        """Wait for the production in flight, so that the buffer is
+        quiescent (a save, a restore); ``discard`` also drops its batch
+        (the stream it came from is being rewound). A failure of that
+        speculative batch is swallowed here and raised again when a step
+        consumes it. Unlike the JAX trainer's, the drain never cancels a
+        production that has not started: whether it has started depends on
+        thread timing, and a source's serves must be the same on every
+        rank and in every run."""
+        if self._pending is None:
+            return
+        try:
+            self._pending.exception()
+        finally:
+            if discard:
+                self._pending = self._buffer_snapshot = None
 
     def step(self, full_metrics: bool = True) -> dict[str, Any]:
         """One optimizer step; returns device-resident metrics (no sync).
@@ -487,19 +673,24 @@ class Trainer:
             fn = self._step_fns[key] = make_step_body(
                 self.cfg, self.opt, with_metrics=key[0], aux_on=key[1], mask_refresh=key[2],
                 mesh=self.mesh)
-        batch = self._next_batch()
-        scale = self._device_scale()
+        batch, scale, ticket, after = self._next_batch()
         n_resampled = None
-        if resample_due(self.cfg, self._host_step):
-            if self._resample_fn is None:
-                self._resample_fn = resample.make_resample_fn(self.cfg, self.mesh)
-            gen = resample.resample_generator(self.cfg, self._host_step, self.device)
-            self.state, n_resampled = self._resample_fn(self.state, batch, scale, gen)
-        self.state, metrics = fn(self.state, batch, scale, donate=self._owns_state)
+        with self._launch_turn(ticket):
+            if resample_due(self.cfg, self._host_step):
+                if self._resample_fn is None:
+                    self._resample_fn = resample.make_resample_fn(self.cfg, self.mesh)
+                gen = resample.resample_generator(self.cfg, self._host_step, self.device)
+                self.state, n_resampled = self._resample_fn(self.state, batch, scale, gen)
+            self.state, metrics = fn(self.state, batch, scale, donate=self._owns_state)
         self._owns_state = True
         if n_resampled is not None:
             metrics["resampled"] = n_resampled
         self._host_step += 1
+        # the next production, its slot after the step's; train() serves
+        # nothing past its last step
+        if self._prefetch_pool is not None and (self._prefetch_end is None
+                                                or self._host_step < self._prefetch_end):
+            self._submit_prefetch(after)
         return metrics
 
     def log(self, metrics: dict[str, Any], step: int) -> None:
@@ -523,7 +714,8 @@ class Trainer:
         if self.mesh is None:
             return flag
         t = torch.full((1,), int(flag), dtype=torch.int32, device=self.device)
-        return bool(coll.all_reduce_(t, self.mesh.world_group, op)[0])
+        with self._launch_turn(self._reserve_ticket()):
+            return bool(coll.all_reduce_(t, self.mesh.world_group, op)[0])
 
     def _loss_diverged(self, loss_val: float) -> bool:
         """Divergence test on the loss the log step already fetched (no
@@ -592,7 +784,14 @@ class Trainer:
         # saves newer than the restored one may hold the state it escaped
         self.checkpointer.discard_saves_after(self.checkpointer.save_dir, cand_v)
         n_skip = max(0, detect_step + 1 - self.step_counter)
-        for _ in range(n_skip):
+        to_serve = n_skip
+        if to_serve and self._pending is not None:
+            # a stream the restore did not rewind: the batch in flight is
+            # the first of the serves to skip (raising now if it failed)
+            self._pending.result()
+            self._pending = self._buffer_snapshot = None
+            to_serve -= 1
+        for _ in range(to_serve):
             self._serve_once()
         if n_skip:
             self.resilience.bump("skipped_batches", n_skip)
@@ -637,11 +836,13 @@ class Trainer:
             if i % self.cfg.stop_poll_every:
                 return False
             flag = torch.full((1,), int(stop), dtype=torch.int32, device=self.device)
-            return bool(coll.all_reduce_(flag, self.mesh.world_group, dist.ReduceOp.MAX)[0])
+            with self._launch_turn(self._reserve_ticket()):
+                return bool(coll.all_reduce_(flag, self.mesh.world_group, dist.ReduceOp.MAX)[0])
 
         in_main_thread = threading.current_thread() is threading.main_thread()
         if in_main_thread:
             prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
+        self._prefetch_end = num_steps
         try:
             if guard and self.checkpointer is not None and self.checkpointer.save_version == 0:
                 self.save()
@@ -670,6 +871,7 @@ class Trainer:
                     if (i + 1) % self.cfg.save_every == 0:
                         self.save(background=True)
         finally:
+            self._prefetch_end = None
             if in_main_thread:
                 signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
             try:
@@ -679,8 +881,12 @@ class Trainer:
         return expand_metrics(metrics, self.cfg.n_sources) if metrics else {}
 
     def close(self) -> None:
-        """Land a background save, close the logger and the source.
-        Idempotent."""
+        """Stop the prefetch worker, land a background save, close the
+        logger and the source. Idempotent."""
+        if self._prefetch_pool is not None:
+            self._prefetch_pool.shutdown(wait=True)
+            self._prefetch_pool = None
+            self._pending = self._buffer_snapshot = None
         if self.checkpointer is not None:
             self.checkpointer.wait()
         if self.logger is not None:

@@ -22,7 +22,10 @@ found to ``<out>/rank<r>.pt`` (``torch.save``):
   trainers on the same grid restore (from ``views``: one checkpoint root
   a rank) and report the restored state and step;
 - ``harvest``: the parallel harvest's cases (``tests/_torch_harvest_child.py``);
-- ``mesh_rest``: the mesh's last refusals lifted (``tests/_torch_mesh_rest_child.py``).
+- ``mesh_rest``: the mesh's last refusals lifted (``tests/_torch_mesh_rest_child.py``);
+- ``comm``: the collectives' bytes of one step a program (``tests/_torch_comm_child.py``);
+- ``prefetch``: the trainer's prefetch on against off (``tests/_torch_prefetch_child.py``);
+- ``fleet_mesh``: the fleet on a grid (``tests/_torch_fleet_mesh_child.py``).
 """
 
 from __future__ import annotations
@@ -331,6 +334,24 @@ def _mesh_rest(task, rank):
     return _torch_mesh_rest_child.run(task, rank)
 
 
+def _comm(task, rank):
+    import _torch_comm_child
+
+    return _torch_comm_child.run(task, rank)
+
+
+def _prefetch(task, rank):
+    import _torch_prefetch_child
+
+    return _torch_prefetch_child.run(task, rank)
+
+
+def _fleet_mesh(task, rank):
+    import _torch_fleet_mesh_child
+
+    return _torch_fleet_mesh_child.run(task, rank)
+
+
 def main() -> None:
     rank, world, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     import torch
@@ -344,7 +365,8 @@ def main() -> None:
     try:
         res = {"train": _train, "quant": _quant, "ckpt": _ckpt,
                "coll": _coll, "stop": _stop, "guard": _guard, "harvest": _harvest,
-               "mesh_rest": _mesh_rest}[task["kind"]](task, rank)
+               "mesh_rest": _mesh_rest, "comm": _comm, "prefetch": _prefetch,
+               "fleet_mesh": _fleet_mesh}[task["kind"]](task, rank)
         torch.save(res, Path(task["out"]) / f"rank{rank}.pt")
     finally:
         multihost.shutdown()

@@ -132,6 +132,7 @@ def test_cpu_run_launches_no_kernel():
     tr = Trainer(bcfg, b, device="cpu")
     for _ in range(10):                                  # crosses refills
         assert torch.isfinite(tr.step()["loss"])
+    tr._drain_prefetch()        # its worker's serve in flight lands before the next server's
     tr = Trainer(bcfg.replace(fused_encoder="on"), b, device="cpu")   # K4 over the harvest
     for _ in range(3):
         assert torch.isfinite(tr.step()["loss"])

@@ -89,7 +89,11 @@ SIGTERM_CHILD = textwrap.dedent("""
 
 
 def test_sigterm_mid_train_leaves_a_resumable_save(tmp_path):
-    args = ARGS + ["--num-tokens", "160", "--save-every", "100", "--log-backend", "null"]
+    # the source signals from inside its serve of step 3: serving inline, so
+    # the serve is step 3's (with the prefetch it runs a step ahead on the
+    # worker: tests/test_torch_prefetch.py holds that case)
+    args = ARGS + ["--num-tokens", "160", "--save-every", "100", "--log-backend", "null",
+                   "--prefetch", "false"]
     proc = subprocess.run([sys.executable, "-c", SIGTERM_CHILD, *args, "--checkpoint-dir",
                            str(tmp_path / "a")], capture_output=True, text=True, timeout=300,
                           cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)})
@@ -120,8 +124,11 @@ def test_second_sigterm_falls_through(tmp_path):
     seen = []
     prev = signal.signal(signal.SIGTERM, lambda s, f: seen.append(s))
     try:
+        # two signals from the serve on the main thread, each handled apart
+        # (from the prefetch worker they could reach the handler as one)
         cfg = CrossCoderConfig.from_cli(ARGS + ["--num-tokens", "96", "--log-backend", "null",
-                                                "--checkpoint-dir", str(tmp_path)])
+                                                "--checkpoint-dir", str(tmp_path),
+                                                "--prefetch", "false"])
 
         class Twice(SyntheticActivationSource):
             def next(self):
@@ -135,6 +142,38 @@ def test_second_sigterm_falls_through(tmp_path):
         assert seen == [signal.SIGTERM] and tr.state.step == 2
         assert signal.getsignal(signal.SIGTERM) is not None
         assert json.loads((tmp_path / "version_0" / "0_meta.json").read_text())["step"] == 2
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
+def test_second_sigterm_falls_through_with_the_prefetch_on(tmp_path):
+    """The same two signals with the prefetch on (the default), sent from
+    the main thread before step 1 while the worker is serving: the first
+    stops the loop after that step, the second reaches the previous
+    handler, and the save records the stream before the batch in flight."""
+    import signal
+
+    seen = []
+    prev = signal.signal(signal.SIGTERM, lambda s, f: seen.append(s))
+    try:
+        cfg = CrossCoderConfig.from_cli(ARGS + ["--num-tokens", "96", "--log-backend", "null",
+                                                "--checkpoint-dir", str(tmp_path)])
+        assert cfg.prefetch
+
+        class Twice(Trainer):
+            def step(self, full_metrics=True):
+                if self._host_step == 1:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return super().step(full_metrics)
+
+        tr = Twice(cfg, SyntheticActivationSource(cfg), device="cpu",
+                   checkpointer=Checkpointer(cfg=cfg))
+        tr.train()
+        assert seen == [signal.SIGTERM] and tr.state.step == 2
+        assert signal.getsignal(signal.SIGTERM) is not None
+        meta = json.loads((tmp_path / "version_0" / "0_meta.json").read_text())
+        assert meta["step"] == 2 and meta["buffer"]["counter"] == 2
     finally:
         signal.signal(signal.SIGTERM, prev)
 
