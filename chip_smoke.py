@@ -281,7 +281,22 @@ one NVIDIA Hopper card and the CUDA toolkit:
    copy
    overlapped a step kernel (``torch.profiler``) printed. Phases 1-14 run
    their Trainers with the prefetch off, as before it was ported;
-16. prints the kernel table as one JSON line, the card line, and
+16. the telemetry plane and the resilience hooks: leg OB, leg A's config
+   (dense encode, prefetch on, a log every step) over synthetic batches made
+   ahead onto the card, 8 steps with obs off, then 8 with obs on, a profiler
+   window over steps 3-4 and a save and a restore after step 1: losses and
+   state bitwise, K5, K8, K10 and O1 launched as often both ways,
+   ``trace.json`` with the step, wait, save and restore spans, the window's
+   Chrome trace naming the four kernels, the memory gauges the card's; the
+   loss-to-loss medians each way and the profiled steps' printed; leg RS,
+   leg PF H's harvested BatchTopK setup with prefetch on: a clean run, run A
+   (a stalled and a failing serve through the watchdog, bitwise the clean
+   run), run B (a NaN serve under the guard with save 1 corrupted as it
+   lands, dict 2^10: one rollback, one corrupt-save skip, the JAX trainer's
+   counters), run C (a stalled and a failing refill chunk through the
+   watchdog: the JAX trainer's counters), K9 and O1 launched in each; the
+   watchdog's cost a serve printed;
+17. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -5856,6 +5871,283 @@ def wire(torch, np, root, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the telemetry plane and the resilience hooks
+
+# leg OB: leg A's config (dense encode, prefetch on) over OB_BATCHES synthetic
+# batches made ahead onto the card, a log every step: OB_MANUAL steps by
+# hand, then train() to OB_STEPS; obs off, then obs on with a profiler window
+# of OB_WINDOW and, after the manual steps, one save and one restore (the
+# final save of train() is left out: a save of this state is 4.8 GB)
+OB_STEPS, OB_MANUAL, OB_BATCHES, OB_WINDOW = 8, 2, 4, "3:5"
+OB_KERNELS = {"topk_mask": "topk_slice_kernel", "sparsify": "sparsify_split_kernel",
+              "scatter_add_rows": "scatter_rows_kernel", "adam_update": "adam_update_kernel"}
+OB_SPANS = ("step", "refill_wait", "save", "save_write", "restore")
+# leg RS: leg PF H's harvested BatchTopK setup (a host store of the two
+# random-init Gemma-2-2B, buffer_mult 4: a fill of chunks 0-3, then two
+# chunks a serve), prefetch on, RS_STEPS steps a run: the clean run; run A,
+# faults at the serve's entry through the watchdog (bitwise the clean run);
+# run B, a NaN serve under the guard with save 1 corrupted as it lands, at
+# dict 2^10 (its saves kept small), RS_B_STEPS steps; run C, a stalled and a
+# failing harvest chunk of the refill (chunks 5 and 6: the first fill's
+# chunks count too, and a fault there raises out of the buffer's constructor,
+# which no watchdog watches)
+RS_STEPS, RS_B_STEPS = 6, 8
+RS_WATCH = dict(harvest_timeout_s=0.5, harvest_retries=3, harvest_backoff_s=0.05)
+RS_A, RS_B = "stall@2:1.5,fail@4", "nan@3,corrupt-save@1"
+RS_C = "stall-harvest@5:0.7,fail-harvest@6"
+RS_B_KW = dict(dict_size=2 ** 10, guard_loss=True, log_every=2, save_every=2, keep_saves=3,
+               max_rollbacks=2)
+# what the JAX trainer counts for the same specs and schedules
+# (tests/test_torch_chaos.py holds the port to it on the CPU)
+RS_B_WANT = {"resilience/rollbacks": 1, "resilience/corrupt_artifact_skips": 1,
+             "resilience/poisoned_save_skips": 1, "resilience/skipped_batches": 5}
+RS_C_WANT = {"resilience/harvest_timeouts": 1, "resilience/harvest_retries": 1}
+
+
+class LossLog:
+    """A logger for ``Trainer.train``: keeps every logged line."""
+
+    def __init__(self):
+        self.lines = []
+
+    def log(self, scalars, step):
+        self.lines.append(dict(scalars, step=step))
+
+    def close(self):
+        pass
+
+
+def _ob_run(torch, cfg, src, counters, save_restore):
+    """One leg OB run: the manual steps (full metrics), the save and the
+    restore when asked, then train(); the launch counters set to 0 just
+    before the first step and read after the last. Returns the losses,
+    the trainer, the logged lines and the launches."""
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+
+    src.i = 0
+    logger = LossLog()
+    tr = trainer_mod.Trainer(cfg, src, device="cuda", logger=logger,
+                             checkpointer=Checkpointer(cfg=cfg) if save_restore else None)
+    torch.cuda.synchronize()
+    reset_counters(counters)
+    losses = [float(tr.step(full_metrics=True)["loss"]) for _ in range(OB_MANUAL)]
+    sr = None
+    if save_restore:
+        t0 = time.perf_counter()
+        tr.save()
+        t1 = time.perf_counter()
+        tr.restore()
+        torch.cuda.synchronize()
+        sr = (t1 - t0, time.perf_counter() - t1)
+        tr.checkpointer = None          # no final save of 4.8 GB
+    tr.train(num_steps=OB_STEPS)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    losses += [line["loss"] for line in logger.lines]
+    return losses, tr, logger.lines, launches, sr
+
+
+def obs_leg(torch, np, root, card):
+    """Leg OB: obs off, then obs on with a window and a save and restore:
+    losses and state bitwise, K5, K8, K10 and O1 launched as often both
+    ways; ``trace.json`` with the step, wait, save and restore spans; the
+    window's Chrome trace naming the four kernels; the memory gauges the
+    card's. Returns the on run's launches."""
+    import shutil
+
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+
+    d = ckpt_dir(root)
+    base = dict(TRAIN, fused_encoder="off", prefetch=True, log_every=1,
+                num_tokens=TRAIN["batch_size"] * OB_STEPS, save_every=10 ** 9,
+                checkpoint_dir=str(d))
+    src = DeviceBatches(torch, SyntheticActivationSource(CrossCoderConfig(**base)), OB_BATCHES)
+    counters = launch_counters()
+    off = _ob_run(torch, CrossCoderConfig(**base), src, counters, False)
+    on = _ob_run(torch, CrossCoderConfig(**base, obs="on", profile_steps=OB_WINDOW), src,
+                 counters, True)
+    ok, what = state_bits_equal(torch, on[1].state, off[1].state)
+    if on[0] != off[0] or not ok:
+        fail(f"phase 16: leg OB with obs on differs from obs off: losses {on[0]} against "
+             f"{off[0]}; state {what}")
+    L_off, L_on = off[3], on[3]
+    for k in OB_KERNELS:
+        if not L_on.get(k) or L_on.get(k) != L_off.get(k):
+            fail(f"phase 16: leg OB launched {k} {L_on.get(k)} times with obs on, "
+                 f"{L_off.get(k)} with it off")
+    check_o1("leg OB (obs on)", L_on, OB_STEPS)
+    obs_dir = d / "obs"
+    spans = {e["name"] for e in json.loads((obs_dir / "trace.json").read_text())["traceEvents"]
+             if e["ph"] == "X"}
+    if not set(OB_SPANS) <= spans:
+        fail(f"phase 16: leg OB's trace.json lacks spans {sorted(set(OB_SPANS) - spans)}")
+    (window,) = sorted((obs_dir / "profile").iterdir())
+    events = json.loads(window.read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {k: sum(1 for n in kernels if sym in n) for k, sym in OB_KERNELS.items()}
+    if not all(found.values()) or window.name != "window0_steps_3-4.trace.json":
+        fail(f"phase 16: leg OB's window {window.name} lacks kernels: {found}")
+    n_kernel_events = sum(1 for e in events if e.get("cat") == "kernel")
+    rec = on[2][-1]
+    hbm = {k: rec.get(k) for k in ("perf/hbm_bytes_in_use", "perf/hbm_peak_bytes",
+                                   "perf/hbm_bytes_limit")}
+    total = torch.cuda.mem_get_info()[1]
+    if not all(v and v > 0 for v in hbm.values()) or hbm["perf/hbm_bytes_limit"] != total:
+        fail(f"phase 16: leg OB's memory gauges {hbm} (the card's total {total})")
+    # loss to loss: the steps train() ran, a log (and its sync) every step;
+    # the window's steps apart
+    t_off = [line["step_time_ms"] for line in off[2][1:]]
+    t_on = [line["step_time_ms"] for line in on[2][1:]]
+    win = [line["step_time_ms"] for line in on[2] if line["step"] in (3, 4)]
+    plain = [line["step_time_ms"] for line in on[2][1:] if line["step"] not in (3, 4)]
+    log(f"leg OB: {OB_STEPS} steps (leg A's config, prefetch on, a log every step) obs off and "
+        f"on, losses {[round(x, 4) for x in on[0]]} and state bitwise; launches both ways "
+        f"{L_on}; trace.json spans {sorted(spans)}; window {window.name}: {n_kernel_events} "
+        f"kernel events, the port's kernels {found}; gauges {hbm}; the save {on[4][0]:.2f} s, "
+        f"the restore {on[4][1]:.2f} s; loss to loss, median of train()'s steps after its "
+        f"first: obs off {np.median(t_off):.3f} ms {[round(x, 3) for x in t_off]}, obs on "
+        f"{np.median(t_on):.3f} ms {[round(x, 3) for x in t_on]} (outside the window "
+        f"{np.median(plain):.3f} ms; the profiled steps {[round(x, 3) for x in win]} ms) "
+        f"({card})")
+    keys = sorted(k for k in rec if k.startswith(("perf/", "comm/")))
+    log(f"leg OB: the last log line's telemetry keys {keys}")
+    del off, on, src
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    return L_on
+
+
+def _rs_run(torch, cfg, lm_cfg, params, tokens, spec, steps, root=None):
+    """One leg RS run over a host store built afresh from the same models
+    and tokens: ``steps`` steps by hand, or ``train()`` under the guard
+    (``root``: its saves under a directory of the build tree); the serve
+    ms on the host clock, the launches, the counters and the losses."""
+    import shutil
+
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.data import buffer as bufmod
+    from crosscoder_tpu_torch.resilience import Chaos
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+
+    chaos = Chaos.parse(spec)
+    d = None
+    if root is not None:
+        d = ckpt_dir(root)
+        cfg = cfg.replace(checkpoint_dir=str(d))
+    b = bufmod.make_buffer(cfg, lm_cfg, params, tokens, device="cuda", chaos=chaos)
+    logger = LossLog()
+    tr = trainer_mod.Trainer(cfg, b, device="cuda", chaos=chaos, logger=logger,
+                             checkpointer=Checkpointer(cfg=cfg, chaos=chaos) if d else None)
+    serve_ms = []
+    serve_once = tr._serve_once
+
+    def timed_serve(*a, **kw):
+        t0 = time.perf_counter()
+        out = serve_once(*a, **kw)
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr._serve_once = timed_serve
+    call_ms = []
+    if tr._watchdog is not None:
+        call = tr._watchdog.call
+
+        def timed_call(fn):
+            t0 = time.perf_counter()
+            out = call(fn)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        tr._watchdog.call = timed_call
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    reset_counters(counters)
+    t0 = time.perf_counter()
+    if d is None:
+        losses = [float(tr.step(full_metrics=False)["loss"]) for _ in range(steps)]
+        tr.close()
+    else:
+        tr.train(num_steps=steps)
+        losses = [line["loss"] for line in logger.lines]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    if d is not None:
+        shutil.rmtree(d)
+    return dict(tr=tr, losses=losses, launches=launches, snap=tr.resilience.snapshot(),
+                serve_ms=serve_ms, call_ms=call_ms, wall=wall, serves=tr._serve_count)
+
+
+def resilience_leg(torch, np, root, card):
+    """Leg RS: the clean run, runs A, B and C (module constants); returns
+    the launches of all four runs."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.models import lm
+
+    lm_cfg = lm.LMConfig.gemma2_2b()
+    params = [lm.init_params(lm_cfg, seed=s, device="cuda") for s in (1, 2)]
+    tokens = harvest_tokens(np, 256, HARVEST["seq_len"], lm_cfg.vocab_size, 6)
+    base = dict(PF_H, prefetch=True, num_tokens=PF_H["batch_size"] * 100)
+    cfg = CrossCoderConfig(**base)
+    runs = {"clean": _rs_run(torch, cfg, lm_cfg, params, tokens, "", RS_STEPS),
+            "A": _rs_run(torch, CrossCoderConfig(**base, **RS_WATCH), lm_cfg, params, tokens,
+                         RS_A, RS_STEPS),
+            "B": _rs_run(torch, CrossCoderConfig(**{**base, **RS_B_KW}), lm_cfg, params, tokens,
+                         RS_B, RS_B_STEPS, root=root),
+            "C": _rs_run(torch, CrossCoderConfig(**base, **RS_WATCH), lm_cfg, params, tokens,
+                         RS_C, RS_STEPS)}
+    del params
+    total = {}
+    for name, r in runs.items():
+        L = r["launches"]
+        if not (L.get("batchtopk_select") and L.get("batchtopk_emit") and L.get("adam_update")):
+            fail(f"phase 16: leg RS run {name} did not launch K9 and O1: {L}")
+        for k, c in L.items():
+            total[k] = total.get(k, 0) + c
+        med = float(np.median(r["serve_ms"][1:])) if len(r["serve_ms"]) > 1 else float("nan")
+        log(f"leg RS run {name}: {r['tr'].step_counter} steps, {r['serves']} serves, losses "
+            f"{[round(x, 4) for x in r['losses']]}; counters {r['snap']}; serve ms median "
+            f"{med:.2f}, max {max(r['serve_ms']):.2f}; {r['wall']:.1f} s; launches {L}")
+    clean, a, b, c = runs["clean"], runs["A"], runs["B"], runs["C"]
+    ok, what = state_bits_equal(torch, a["tr"].state, clean["tr"].state)
+    snap = a["snap"]
+    if not ok or a["losses"] != clean["losses"] or snap.get("resilience/harvest_retries") != 1 \
+            or snap.get("resilience/harvest_timeouts", 0) < 1:
+        fail(f"phase 16: leg RS run A ({RS_A}): state {what or 'equal'}, counters {snap}")
+    if b["snap"] != RS_B_WANT or not np.isfinite(b["losses"][-1]) \
+            or b["tr"].step_counter != RS_B_STEPS:
+        fail(f"phase 16: leg RS run B ({RS_B}): counters {b['snap']} (want {RS_B_WANT}), "
+             f"losses {b['losses']}")
+    if c["snap"] != RS_C_WANT or not all(np.isfinite(c["losses"])):
+        fail(f"phase 16: leg RS run C ({RS_C}): counters {c['snap']} (want {RS_C_WANT})")
+    # the watchdog's cost a serve: the watched call's time less the serve's
+    # inside it, over run A's serves but the faulted two
+    cost = [cm - sm for i, (cm, sm) in enumerate(zip(a["call_ms"], a["serve_ms"]))
+            if i not in (2, 4)]
+    log(f"leg RS: the watchdog's cost a serve (run A's serves but the faulted ones: the "
+        f"watched call less the serve in it) median {np.median(cost):.3f} ms, max "
+        f"{max(cost):.3f} ms; the serve itself median {np.median(a['serve_ms']):.2f} ms, "
+        f"the clean run's {np.median(clean['serve_ms']):.2f} ms ({card})")
+    del runs, clean, a, b, c
+    torch.cuda.empty_cache()
+    return total
+
+
+def obs_resilience(torch, np, root, card):
+    """Phase 16: leg OB and leg RS. Returns the phase's launches."""
+    t_phase = time.perf_counter()
+    launches = obs_leg(torch, np, root, card)
+    t_rs = time.perf_counter()
+    for k, c in resilience_leg(torch, np, root, card).items():
+        launches[k] = launches.get(k, 0) + c
+    log(f"obs and resilience phase {time.perf_counter() - t_phase:.1f} s (leg OB "
+        f"{t_rs - t_phase:.1f} s, leg RS {time.perf_counter() - t_rs:.1f} s)")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-rank"]:     # rank 1 of leg FM at 1 x 2 (phase 13)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -6016,6 +6308,10 @@ def main() -> int:
         row["launches"] += wired.get(row["name"].split()[0], 0)
     row_o1["launches"] += wired["adam_update"] - wired["O1 cohort"]
     row_o1_cohort["launches"] += wired["O1 cohort"]
+    watched = obs_resilience(torch, np, root, card)
+    for row in (*train_rows[:3], *harvest_rows):
+        row["launches"] += watched.get(row["name"].split()[0], 0)
+    row_o1["launches"] += watched["adam_update"]
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
               *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed,
               row_o1_cohort])

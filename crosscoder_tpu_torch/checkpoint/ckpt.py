@@ -41,8 +41,12 @@ A fleet tenant's saves (``Checkpointer(tenant=name)``, as the JAX
 package's) live under ``<base>/tenants/<name>/`` with version dirs of
 their own, so ``keep_saves`` counts and prunes each tenant's saves alone.
 
-Not ported (ROADMAP Queue A): the ``chaos`` hook and the resilience
-``counters``.
+Recovery is counted on ``counters`` (a
+:class:`~crosscoder_tpu_torch.utils.logging.ResilienceCounters`; the
+Trainer shares its own): a restore that skips a save failing its checksum
+bumps ``corrupt_artifact_skips``. ``chaos`` (a
+:class:`~crosscoder_tpu_torch.resilience.Chaos`) corrupts an artifact of
+a planned save once its meta marker lands.
 """
 
 from __future__ import annotations
@@ -278,7 +282,8 @@ class Checkpointer:
     ``..``)."""
 
     def __init__(self, base_dir: str | Path | None = None,
-                 cfg: CrossCoderConfig | None = None, tenant: str | None = None) -> None:
+                 cfg: CrossCoderConfig | None = None, chaos: Any | None = None,
+                 counters: Any | None = None, tenant: str | None = None) -> None:
         if base_dir is None:
             base_dir = cfg.checkpoint_dir if cfg is not None else "./checkpoints"
         if tenant is not None:
@@ -289,8 +294,14 @@ class Checkpointer:
         self.base_dir = Path(base_dir)
         self.save_dir: Path | None = None
         self.save_version = 0
+        self.chaos = chaos              # never called when None
+        self.counters = counters        # the resilience/* channel
         self._writer: threading.Thread | None = None
         self._writer_error: BaseException | None = None
+
+    def _bump(self, name: str, n: int = 1) -> None:
+        if self.counters is not None:
+            self.counters.bump(name, n)
 
     def wait(self, raise_error: bool = True) -> None:
         """Join an in-flight background write; raise its error here (or
@@ -361,6 +372,8 @@ class Checkpointer:
                     # meta last: its presence marks the save complete
                     _atomic_write_text(save_dir / f"{v}_meta.json", json.dumps(meta, indent=2))
                     self._prune_saves(save_dir, cfg.keep_saves)
+                    if self.chaos is not None:
+                        self.chaos.corrupt_save(save_dir, v)
                     print(f"Saved as version {v} in {save_dir}", file=sys.stderr)
 
             if background:
@@ -455,6 +468,7 @@ class Checkpointer:
             for v in reversed(self.complete_saves(vdir)):
                 if self.verify_save(vdir, v):
                     return vdir, v
+                self._bump("corrupt_artifact_skips")
                 print(f"[crosscoder_tpu_torch] checkpoint save {v} in {vdir} failed checksum "
                       f"verification; falling back to the previous intact save",
                       file=sys.stderr, flush=True)
@@ -547,6 +561,7 @@ class Checkpointer:
                      if self.complete_saves(d)), self.base_dir)
                 v = save
                 if not self.verify_save(vdir, v):
+                    self._bump("corrupt_artifact_skips")
                     raise ValueError(f"checkpoint save {v} under {vdir} failed checksum "
                                      "verification (corrupt or truncated artifact)")
             n_data = mesh.data_size if mesh is not None else 1

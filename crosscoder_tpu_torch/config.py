@@ -7,7 +7,8 @@ Validation is ported for the fields the port reads: the serving knobs
 and the training knobs (``crosscoder_tpu/config.py`` ``__post_init__``:
 the TopK tier rules for ``sparse_decode``/``factored_decode``/
 ``sparse_bwd``/``fused_encoder``/``quant_encoder``, the sparsity and AuxK
-knobs, the loop and guard knobs, ``quant_grads`` only under pure data
+knobs, the loop, guard, watchdog and telemetry knobs (``obs``,
+``profile_steps``), ``quant_grads`` only under pure data
 parallelism and not with ``batchtopk``, ``n_sources`` divisible by the
 model axis under ``shard_sources``) and the replay-buffer knobs
 (``refill_frac``, ``buffer_device``, ``seq_shards``, ``shard_lm``,
@@ -350,10 +351,21 @@ class CrossCoderConfig:
                 "quant_grads is incompatible with activation='batchtopk': "
                 "the quantized step computes per-device losses, but "
                 "batchtopk's threshold is a GLOBAL-batch order statistic")
+        if self.harvest_timeout_s < 0:
+            raise ValueError(f"harvest_timeout_s must be >= 0, got {self.harvest_timeout_s}")
+        if self.harvest_retries < 0 or self.harvest_backoff_s < 0:
+            raise ValueError(
+                f"harvest_retries/harvest_backoff_s must be >= 0, got "
+                f"{self.harvest_retries}/{self.harvest_backoff_s}")
+        _check_choice("obs", self.obs, ("off", "on"))
         if self.log_print_every < 0:
             raise ValueError(
                 f"log_print_every must be >= 0 (0 = never echo), got "
                 f"{self.log_print_every}")
+        if self.profile_steps:
+            from crosscoder_tpu_torch.obs.profiler import parse_profile_steps
+
+            parse_profile_steps(self.profile_steps)     # raises on a bad spec
         if self.aux_mask_every < 0:
             raise ValueError(
                 f"aux_mask_every must be >= 0 (1 = per-step exact, N = refresh "

@@ -146,7 +146,10 @@ class PairedActivationBuffer(FanOut):
     (needed for ``seq_shards > 1``, whose ``data`` axis carries the
     sequence). Runs on ``cuda`` unless ``device`` names another device.
     ``lazy=True`` defers calibration and the first fill to
-    :meth:`load_state_dict`.
+    :meth:`load_state_dict`. ``chaos``: a
+    :class:`~crosscoder_tpu_torch.resilience.Chaos` whose ``on_harvest``
+    runs at the start of every chunk's harvest job (the first fill's
+    chunks count too), as the JAX buffer's.
     """
 
     PIPELINE_DEPTH = DEFAULT_DEPTH
@@ -154,7 +157,7 @@ class PairedActivationBuffer(FanOut):
 
     def __init__(self, cfg: CrossCoderConfig, lm_cfg: lm.LMConfig,
                  model_params: Sequence[lm.LMParams], tokens, lazy: bool = False,
-                 device=None, mesh=None) -> None:
+                 device=None, mesh=None, chaos=None) -> None:
         from crosscoder_tpu_torch.parallel import multihost
 
         if cfg.buffer_device == "host" and multihost.world_size() > 1:
@@ -183,6 +186,7 @@ class PairedActivationBuffer(FanOut):
             cfg.shard_lm or self._seq_mesh is not None or self.serves_local_rows
             or multihost.world_size() > 1 or any(lm.TP_KEY in p for p in model_params))
         self.cfg = cfg
+        self.chaos = chaos              # fault injection at each harvest job; None: never called
         self.lm_cfg = lm_cfg
         self.model_params = list(model_params)
         self.device = resolve_device(device)
@@ -438,7 +442,11 @@ class PairedActivationBuffer(FanOut):
     def _harvest_job(self, padded_tokens: np.ndarray):
         """A steppable harvest of one fixed-shape chunk: the padded
         runtime's :class:`~crosscoder_tpu_torch.models.lm.SegmentedHarvest`
-        (nothing dispatched yet), or the paged harvest dispatched whole."""
+        (nothing dispatched yet), or the paged harvest dispatched whole.
+        The chaos hook runs first: an injected failure leaves the chunk's
+        tokens taken and nothing dispatched, as in the JAX buffer."""
+        if self.chaos is not None:
+            self.chaos.on_harvest()
         if self._paged or self._seq_mesh is not None:
             return _SingleDispatchJob(self._harvest_dev(padded_tokens))
         tok = torch.as_tensor(np.asarray(padded_tokens, dtype=np.int64), device=self.device)
@@ -801,14 +809,15 @@ class MeshPairedActivationBuffer(PairedActivationBuffer):
     serves_local_rows = True
 
     def __init__(self, cfg: CrossCoderConfig, lm_cfg, model_params, tokens, lazy: bool = False,
-                 device=None, mesh=None) -> None:
+                 device=None, mesh=None, chaos=None) -> None:
         if mesh is None:
             raise ValueError(f"{type(self).__name__} needs the rank grid (mesh=)")
         n = mesh.data_size
         if cfg.batch_size % n:
             raise ValueError(f"batch_size {cfg.batch_size} must divide by the mesh data "
                              f"axis {n} for the sharded-store serve path")
-        super().__init__(cfg, lm_cfg, model_params, tokens, lazy=lazy, device=device, mesh=mesh)
+        super().__init__(cfg, lm_cfg, model_params, tokens, lazy=lazy, device=device, mesh=mesh,
+                         chaos=chaos)
 
     @property
     def _group(self):
@@ -953,7 +962,8 @@ def make_buffer(cfg: CrossCoderConfig, lm_cfg, model_params, tokens, mesh=None,
     ``mesh`` (default: ``cfg``'s axes over the joined process group, when
     more than one rank runs) whose ``data`` axis is wider than 1 a device
     store is the mesh-sharded one. A host store on more than one rank is a
-    :class:`ValueError`, raised before any model runs."""
+    :class:`ValueError`, raised before any model runs. ``kwargs``
+    (``lazy``, ``device``, ``chaos``) go to the class."""
     from crosscoder_tpu_torch.parallel import mesh as mesh_lib
     from crosscoder_tpu_torch.parallel import multihost
 

@@ -1,12 +1,15 @@
-"""Metrics registry: counters, gauges and bounded histograms, ported from
-:mod:`crosscoder_tpu.obs.registry` as far as the serve engine and the
-fleet use it.
+"""Metrics registry: counters, gauges, EMA timers and bounded histograms,
+ported from :mod:`crosscoder_tpu.obs.registry`.
 
-Thread-safe from any thread; an untouched registry snapshots to ``{}``.
-Keys are full metric names (``serve/prefill_ms``, ...). Snapshot forms:
+Thread-safe from any thread (the train loop, the prefetch worker, the
+checkpoint writer and the watchdog's runners record at once); an untouched
+registry snapshots to ``{}``. Keys are full metric names
+(``serve/prefill_ms``, ``perf/step_ms``, ``comm/h2d_transfers``, ...).
+Snapshot forms:
 
 - ``count(k)``: monotone counter → ``{k: int}`` (zero counts dropped);
 - ``gauge(k, v)``: last value → ``{k: v}``;
+- ``ema(k, v)``: exponential moving average → ``{k: v}``;
 - ``observe(k, v)``: the last ``HIST_CAP`` observations →
   ``{k_p50, k_p99, k_max, k_n}``.
 """
@@ -18,11 +21,13 @@ import threading
 
 class MetricsRegistry:
     HIST_CAP = 4096     # observations kept per histogram (ring buffer)
+    EMA_ALPHA = 0.1     # ~ the last 10 observations dominate
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._counts: dict[str, int] = {}
         self._gauges: dict[str, float] = {}
+        self._emas: dict[str, float] = {}
         self._hists: dict[str, list[float]] = {}
         self._hist_pos: dict[str, int] = {}
 
@@ -34,9 +39,20 @@ class MetricsRegistry:
         with self._lock:
             self._gauges[key] = float(value)
 
+    def ema(self, key: str, value: float, alpha: float | None = None) -> None:
+        a = self.EMA_ALPHA if alpha is None else alpha
+        with self._lock:
+            prev = self._emas.get(key)
+            self._emas[key] = float(value) if prev is None else (
+                (1.0 - a) * prev + a * float(value))
+
     def get_count(self, key: str) -> int:
         with self._lock:
             return self._counts.get(key, 0)
+
+    def get_gauge(self, key: str) -> float | None:
+        with self._lock:
+            return self._gauges.get(key)
 
     def observe(self, key: str, value: float) -> None:
         with self._lock:
@@ -56,6 +72,7 @@ class MetricsRegistry:
         with self._lock:
             out: dict[str, float] = {k: v for k, v in self._counts.items() if v}
             out.update(self._gauges)
+            out.update(self._emas)
             for k, h in self._hists.items():
                 if not h:
                     continue

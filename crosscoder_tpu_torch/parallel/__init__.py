@@ -11,13 +11,14 @@
 - :mod:`.quant_ar`: the block-scaled int8 gradient exchange
   (``cfg.quant_grads``);
 - :mod:`.ring_attention`: exact attention over a sequence split across
-  ranks (the sequence-parallel harvest, ``cfg.seq_shards``).
+  ranks (the sequence-parallel harvest, ``cfg.seq_shards``);
+- :mod:`.comm_model`: each program's collective bytes a step, from the
+  counted collectives, and the scale-out model over them.
 
 Where the JAX package lets GSPMD partition the step or the harvest, the
 port writes each collective out
 (:func:`crosscoder_tpu_torch.models.crosscoder.get_losses` with a
 ``mesh``, :func:`crosscoder_tpu_torch.train.trainer.make_step_body`, the
 tensor-parallel LM of :mod:`crosscoder_tpu_torch.models.lm`, the
-mesh-sharded store of :mod:`crosscoder_tpu_torch.data.buffer`). The
-communication model is not ported yet.
+mesh-sharded store of :mod:`crosscoder_tpu_torch.data.buffer`).
 """

@@ -40,6 +40,12 @@ is the pair's architecture), the local token cache, :func:`make_buffer`
 and ``d_in`` from the model. A caller holding LM params (random init,
 :mod:`crosscoder_tpu_torch.convert`) passes them to :func:`build_buffer`
 instead.
+
+Fault injection (``--chaos SPEC`` or the ``CROSSCODER_CHAOS`` variable,
+:class:`crosscoder_tpu_torch.resilience.Chaos`) goes to the buffer, the
+Checkpointer and the Trainer; ``--harvest-timeout-s``, ``--obs on``,
+``--obs-dir``, ``--profile-steps`` and ``--profile-dir`` reach the Trainer
+through the config.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ from crosscoder_tpu_torch.utils.logging import MetricsLogger
 
 
 def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any] | None = None,
-                 lm_cfg: Any | None = None, mesh=None) -> tuple[Any, CrossCoderConfig]:
+                 lm_cfg: Any | None = None, mesh=None, chaos: Any | None = None
+                 ) -> tuple[Any, CrossCoderConfig]:
     """The activation source for ``cfg.data_source`` and ``cfg`` with
     ``d_in`` set from the harvested model. ``model_params``: one LM param
     dict per model, on ``device``; without them the gemma source loads
@@ -63,7 +70,8 @@ def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any]
     :class:`ValueError`), tensor-parallel over ``mesh``'s ``model`` axis
     under ``cfg.shard_lm``. ``lm_cfg``: their architecture (default: the
     named Gemma-2 config with ``model_params``, the first checkpoint's own
-    config when loading). ``mesh``: the rank grid the buffer shards over."""
+    config when loading). ``mesh``: the rank grid the buffer shards over.
+    ``chaos``: the harvest's fault plan (the replay buffer's only)."""
     if cfg.data_source == "synthetic":
         from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
 
@@ -87,7 +95,7 @@ def build_buffer(cfg: CrossCoderConfig, device=None, model_params: Sequence[Any]
     cfg = cfg.replace(d_in=lm_cfg.d_model)
     tokens = load_pile_lmsys_mixed_tokens(cfg)
     return make_buffer(cfg, lm_cfg, model_params, tokens, mesh=mesh, device=device,
-                       lazy=cfg.resume), cfg
+                       lazy=cfg.resume, chaos=chaos), cfg
 
 
 def main(argv: list[str] | None = None, device=None) -> Any:
@@ -115,11 +123,19 @@ def main(argv: list[str] | None = None, device=None) -> Any:
         from crosscoder_tpu_torch.parallel import mesh as mesh_lib
 
         mesh = mesh_lib.mesh_from_cfg(cfg)      # one grid for the buffer and the trainer
-    buffer, cfg = build_buffer(cfg, device=device, mesh=mesh)
+    # None unless a spec is set: every hook site stays one is-None check
+    from crosscoder_tpu_torch.resilience.chaos import Chaos
+
+    chaos = Chaos.from_cfg_env(cfg)
+    if chaos is not None:
+        print(f"[crosscoder_tpu_torch] CHAOS ENABLED: {chaos.render()!r}", file=sys.stderr,
+              flush=True)
+    buffer, cfg = build_buffer(cfg, device=device, mesh=mesh, chaos=chaos)
     if cfg.fleet == "on":
         return _run_fleet(cfg, buffer, device, mesh, joined_here)
     trainer = Trainer(cfg, buffer, logger=MetricsLogger(cfg) if multihost.is_primary() else None,
-                      device=device, checkpointer=Checkpointer(cfg=cfg), mesh=mesh)
+                      device=device, checkpointer=Checkpointer(cfg=cfg, chaos=chaos), mesh=mesh,
+                      chaos=chaos)
     try:
         trainer.train()
     finally:

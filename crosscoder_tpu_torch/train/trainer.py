@@ -84,8 +84,33 @@ all-reduces) in one order. A save records the stream as it stood before
 the batch in flight was served; a restore that rewinds the stream drops
 that batch.
 
-Not ported in this slice (ROADMAP Queue A): chaos/watchdog/elastic, the
-observability plane, the compile cache.
+Resilience, as the JAX trainer's: ``chaos`` (a
+:class:`~crosscoder_tpu_torch.resilience.Chaos`) stalls, fails or
+poisons planned serves, by a monotone serve index that skipped serves and
+a batch dropped in flight also take; the poisoned row is written into a
+copy of the batch (or into the trainer's own staging tensor), never into a
+store's rows. ``cfg.harvest_timeout_s > 0`` runs each serve under a
+:class:`~crosscoder_tpu_torch.resilience.Watchdog` (a stall waits on with
+doubled patience, an exception is retried after a backoff; on the card the
+watchdog's thread launches on the calling thread's stream), on one rank
+only. The trainer's ``resilience`` counters are the checkpointer's too.
+
+Observability (``cfg.obs="on"``, :class:`~crosscoder_tpu_torch.obs.Observability`):
+the span tracer installed process-wide (``step`` around a step's
+launches, ``refill_wait`` around taking the next batch, the buffer's,
+checkpointer's and watchdog's spans), the refill bubble
+(``perf/refill_bubble_frac``, ``perf/step_wall_ms``), ``comm/h2d_transfers``
+once a production, ``comm/d2h_transfers`` once a log point's read, the
+comm gauges of each step variant's first step, all merged into each log
+line. A profiler window (``cfg.profile_steps``, the legacy
+``cfg.profile_dir`` window, SIGUSR1;
+:class:`~crosscoder_tpu_torch.obs.profiler.ProfilerWindow`) captures
+chosen steps with ``torch.profiler``. Neither adds a launch, a device read
+or a sync to a step. The compile events of the JAX plane have no
+counterpart: nothing is compiled.
+
+Not ported in this slice (ROADMAP Queue A): elastic membership (A8b), the
+compile cache.
 """
 
 from __future__ import annotations
@@ -371,35 +396,34 @@ class Trainer:
     global batch gives the rank its ``data`` rows. Metrics are global on
     every rank; only the primary rank should carry a ``logger``.
 
+    ``chaos``: the fault plan (:class:`~crosscoder_tpu_torch.resilience.Chaos`,
+    usually ``Chaos.from_cfg_env(cfg)``; the same object goes to the buffer
+    and the checkpointer). ``cfg.obs``, ``cfg.profile_steps``,
+    ``cfg.profile_dir`` and ``cfg.harvest_timeout_s`` behave as the JAX
+    trainer's (module docstring).
+
     ``cfg.fleet="on"`` is a :class:`ValueError`: a fleet trains through
-    :class:`~crosscoder_tpu_torch.train.fleet.FleetScheduler`. A knob whose
-    JAX behaviour is not ported raises
-    :class:`NotImplementedError` rather than being dropped:
-    elastic runs, the observability plane, chaos, the harvest watchdog
-    (``harvest_timeout_s > 0``), profiler traces (``profile_dir``,
-    ``profile_steps``). ``remat`` and ``compile_cache_dir`` change only
-    speed or memory in the JAX trainer, never results, so the port accepts
-    and ignores them. ``prefetch`` (default on) serves the next batch on a
-    worker thread while the step runs (module docstring); :meth:`close`
-    stops the worker.
+    :class:`~crosscoder_tpu_torch.train.fleet.FleetScheduler`.
+    ``cfg.elastic="on"`` raises :class:`NotImplementedError` (elastic
+    membership is not ported yet). ``remat`` and ``compile_cache_dir``
+    change only speed or memory in the JAX trainer, never results, so the
+    port accepts and ignores them. ``prefetch`` (default on) serves the
+    next batch on a worker thread while the step runs (module docstring);
+    :meth:`close` stops the worker.
     """
 
     def __init__(self, cfg: CrossCoderConfig, buffer: Any | None = None,
                  logger: MetricsLogger | None = None, device=None,
                  state: TrainState | None = None, checkpointer: Any | None = None,
-                 mesh: mesh_lib.Mesh | None = None) -> None:
+                 mesh: mesh_lib.Mesh | None = None, chaos: Any | None = None) -> None:
         if cfg.fleet == "on":
             raise ValueError("cfg.fleet='on' trains its tenants through "
                              "crosscoder_tpu_torch.train.fleet.FleetScheduler; the Trainer "
                              "trains one crosscoder (a tenant's config has fleet='off')")
-        for knob, on in (("elastic", cfg.elastic == "on"), ("obs", cfg.obs == "on"),
-                         ("chaos", bool(cfg.chaos)),
-                         ("harvest_timeout_s", cfg.harvest_timeout_s > 0),
-                         ("profile_dir", bool(cfg.profile_dir)),
-                         ("profile_steps", bool(cfg.profile_steps))):
-            if on:
-                raise NotImplementedError(
-                    f"cfg.{knob} is not ported to the PyTorch trainer yet (ROADMAP Queue A)")
+        if cfg.elastic == "on":
+            raise NotImplementedError(
+                "cfg.elastic is not ported to the PyTorch trainer yet (ROADMAP Queue A8b: "
+                "elastic membership)")
         if mesh is None and (dist.is_initialized() or cfg.model_axis_size > 1
                              or cfg.data_axis_size > 1):
             mesh = mesh_lib.mesh_from_cfg(cfg)
@@ -421,7 +445,26 @@ class Trainer:
         self.logger = logger
         self.checkpointer = checkpointer
         self.total_steps = cfg.total_steps
+        self.chaos = chaos              # fault plan; None: every hook is one is-None check
+        # the recovery counters, shared with the checkpointer: its corrupt-
+        # save skips land in the same resilience/* channel
         self.resilience = ResilienceCounters()
+        if checkpointer is not None and getattr(checkpointer, "counters", None) is None:
+            checkpointer.counters = self.resilience
+        self._watchdog = None
+        if cfg.harvest_timeout_s > 0:
+            if multihost.world_size() > 1:
+                # a retry would launch a serve's collectives at a time of
+                # this rank's own
+                print("[crosscoder_tpu_torch] harvest watchdog disabled on a multi-process "
+                      "mesh (retries would desync cross-host dispatch order)", file=sys.stderr,
+                      flush=True)
+            else:
+                from crosscoder_tpu_torch.resilience.watchdog import Watchdog
+
+                self._watchdog = Watchdog(cfg.harvest_timeout_s, retries=cfg.harvest_retries,
+                                          backoff_s=cfg.harvest_backoff_s, name="harvest",
+                                          counters=self.resilience)
         self._serve_count = 0           # monotone serve index, skipped serves included
         self._rollbacks = 0             # divergence rollbacks of this Trainer
         self._loss_ref: float | None = None   # last healthy logged loss
@@ -438,6 +481,14 @@ class Trainer:
             self._owns_state = True
         self._scale = DeviceScale(cfg.n_sources, self.device)
         self._step_fns: dict[tuple[bool, bool, bool], Callable] = {}
+        # the telemetry plane (before a resume, so its restore is traced);
+        # None when off: each hook below is one is-None check
+        self._obs = None
+        if cfg.obs == "on":
+            from crosscoder_tpu_torch.obs import Observability
+
+            self._obs = Observability(cfg, mesh=self.mesh)
+        self._comm_accounted: set[tuple[bool, bool, bool]] = set()
         self._host_step = self.state.step
         # the one-deep prefetch: one worker, so the stream is the inline one
         self._prefetch_pool = None
@@ -525,18 +576,34 @@ class Trainer:
         when the buffer serves ``next_raw``)."""
         return self._scale(self.buffer, hasattr(self.buffer, "next_raw"))
 
-    def _serve_once(self, out=None) -> Any:
-        """One serve of the source (``next_raw`` when it has it, else
-        ``next()``; into the array ``out`` when given), counted on the
-        monotone serve index. A source is not thread-safe: with prefetch
-        on, this Trainer's worker is its only server while a production is
-        in flight."""
+    def _take_serve_index(self) -> int:
+        serve = self._serve_count
         self._serve_count += 1
-        if out is not None:
-            return self.buffer.next(out=out)
-        return self.buffer.next_raw() if hasattr(self.buffer, "next_raw") else self.buffer.next()
+        return serve
 
-    def _serve_staged(self) -> tuple[torch.Tensor, list[Any]]:
+    def _serve_once(self, serve: int, out=None) -> Any:
+        """Serve ``serve`` (an index of the monotone serve count, taken
+        once a production, so a watched retry serves the same index) of
+        the source (``next_raw`` when it has it, else ``next()``; into the
+        array ``out`` when given), with the chaos hooks around it:
+        ``on_serve`` before the source is touched (a retry after its fault
+        is safe), the poisoning after (into ``out`` itself, the trainer's
+        staging; else into a copy). A source is not thread-safe: with
+        prefetch on, this Trainer's worker is its only server while a
+        production is in flight."""
+        if self.chaos is not None:
+            self.chaos.on_serve(serve)
+        if out is not None:
+            b = self.buffer.next(out=out)
+            if self.chaos is not None:
+                self.chaos.poison_batch(out, serve, inplace=True)
+            return b
+        b = self.buffer.next_raw() if hasattr(self.buffer, "next_raw") else self.buffer.next()
+        if self.chaos is not None:
+            b = self.chaos.poison_batch(b, serve)
+        return b
+
+    def _serve_staged(self, serve: int) -> tuple[torch.Tensor, list[Any]]:
         """The worker's serve of a source that fills an array handed in,
         into the next of two page-locked staging tensors once the copy out
         of its last fill is done: ``(tensor, its slot)``."""
@@ -548,7 +615,7 @@ class Trainer:
         slot = self._staging[self._staging_turn]
         if slot[1] is not None:
             slot[1].synchronize()
-        self._serve_once(out=slot[0].numpy())
+        self._serve_once(serve, out=slot[0].numpy())
         return slot[0], slot
 
     # --- the batch: inline, or one deep on the prefetch worker --------------
@@ -570,18 +637,24 @@ class Trainer:
         card, the launches go on the worker's stream after the event
         ``after`` (the work queued before the step that precedes this
         production) and ``ready`` is an event recorded after the copy;
-        inline, ``ready`` is ``None``."""
+        inline, ``ready`` is ``None``. Under ``cfg.harvest_timeout_s`` the
+        serve runs under the watchdog, whose thread launches on this
+        thread's stream."""
         worker = after is not None
-        slot = None
         with self._launch_turn(ticket), contextlib.ExitStack() as ctx:
             if worker:
                 ctx.enter_context(torch.cuda.device(self.device))
                 ctx.enter_context(torch.cuda.stream(self._copy_stream))
                 self._copy_stream.wait_event(after)
-            if worker and self._serves_into:
-                b, slot = self._serve_staged()
-            else:
-                b = self._serve_once()
+            staged = worker and self._serves_into
+            serve = self._take_serve_index()
+            fn = self._serve_staged if staged else self._serve_once
+            out = fn(serve) if self._watchdog is None else self._watchdog.call(lambda: fn(serve))
+            b, slot = out if staged else (out, None)
+            if self._obs is not None:
+                # one host-to-device batch upload a production (a batch
+                # already on the device is still the serve path's, counted)
+                self._obs.registry.count("comm/h2d_transfers")
             if self.mesh is not None and not getattr(self.buffer, "serves_local_rows", False):
                 # this rank's rows of the global batch
                 rows = b.shape[0] // self.mesh.data_size
@@ -673,7 +746,15 @@ class Trainer:
             fn = self._step_fns[key] = make_step_body(
                 self.cfg, self.opt, with_metrics=key[0], aux_on=key[1], mask_refresh=key[2],
                 mesh=self.mesh)
-        batch, scale, ticket, after = self._next_batch()
+        if self._obs is None:
+            batch, scale, ticket, after = self._next_batch()
+        else:
+            # the loop blocked on the next batch: with prefetch on, what of
+            # the serve the step did not hide (the refill bubble)
+            t_wait = time.perf_counter_ns()
+            with self._obs.tracer.span("refill_wait"):
+                batch, scale, ticket, after = self._next_batch()
+            self._obs.add_blocked_ns(time.perf_counter_ns() - t_wait)
         n_resampled = None
         with self._launch_turn(ticket):
             if resample_due(self.cfg, self._host_step):
@@ -681,7 +762,16 @@ class Trainer:
                     self._resample_fn = resample.make_resample_fn(self.cfg, self.mesh)
                 gen = resample.resample_generator(self.cfg, self._host_step, self.device)
                 self.state, n_resampled = self._resample_fn(self.state, batch, scale, gen)
-            self.state, metrics = fn(self.state, batch, scale, donate=self._owns_state)
+            if self._obs is None:
+                self.state, metrics = fn(self.state, batch, scale, donate=self._owns_state)
+            else:
+                with self._obs.tracer.span("step", step=self._host_step):
+                    mark = None if key in self._comm_accounted else self._obs.comm_mark()
+                    self.state, metrics = fn(self.state, batch, scale, donate=self._owns_state)
+                    if mark is not None:
+                        # each variant's collectives, as its first step counted them
+                        self._obs.account_comm(mark)
+                        self._comm_accounted.add(key)
         self._owns_state = True
         if n_resampled is not None:
             metrics["resampled"] = n_resampled
@@ -704,6 +794,8 @@ class Trainer:
             eff = eff() if callable(eff) else None
             if eff is not None:
                 scalars["harvest/padding_efficiency"] = eff
+            if self._obs is not None:
+                scalars.update(self._obs.registry.snapshot())
             self.logger.log(scalars, step)
 
     # --- divergence guard + rollback (cfg.guard_loss) -----------------------
@@ -792,7 +884,7 @@ class Trainer:
             self._pending = self._buffer_snapshot = None
             to_serve -= 1
         for _ in range(to_serve):
-            self._serve_once()
+            self._serve_once(self._take_serve_index())
         if n_skip:
             self.resilience.bump("skipped_batches", n_skip)
         self._loss_ref = None
@@ -807,12 +899,28 @@ class Trainer:
         after the current step. Under ``cfg.guard_loss`` a first save
         (when none was made) gives the guard a state to roll back to, and
         a diverged log step rolls back (:meth:`_rollback`) and re-enters
-        the loop at the restored step."""
+        the loop at the restored step.
+
+        Under ``cfg.obs`` each log line carries the registry's ``perf/*``
+        and ``comm/*`` keys, ``perf/refill_bubble_frac`` (the share of the
+        log interval's wall time the loop spent blocked on the next batch)
+        and ``perf/step_wall_ms``. A profiler window
+        (:class:`~crosscoder_tpu_torch.obs.profiler.ProfilerWindow`) runs when
+        the plane, ``cfg.profile_steps`` or ``cfg.profile_dir`` asks for one,
+        with SIGUSR1 installed on the main thread; a rollback and the loop's
+        exit end a window in capture."""
         num_steps = self.total_steps if num_steps is None else num_steps
         guard = self.cfg.guard_loss
         metrics: dict[str, Any] = {}
         stop = False
         prev_handler = None
+        obs = self._obs
+        profiler = None
+        if obs is not None or self.cfg.profile_dir or self.cfg.profile_steps:
+            from crosscoder_tpu_torch.obs.profiler import ProfilerWindow
+
+            profiler = ProfilerWindow(self.cfg, registry=obs.registry if obs is not None else None,
+                                      device=self.device)
 
         def on_sigterm(signum, frame):
             nonlocal stop
@@ -842,6 +950,8 @@ class Trainer:
         in_main_thread = threading.current_thread() is threading.main_thread()
         if in_main_thread:
             prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
+            if profiler is not None:
+                profiler.install_sigusr1()      # kill -USR1 <pid>: a window from the next step
         self._prefetch_end = num_steps
         try:
             if guard and self.checkpointer is not None and self.checkpointer.save_version == 0:
@@ -853,19 +963,36 @@ class Trainer:
                 rolled_back = False
                 start = self.step_counter
                 last_t, last_i = time.perf_counter(), start
+                if obs is not None:
+                    obs.take_blocked_s()        # waits before a rollback are not this stretch's
+                if profiler is not None:
+                    profiler.begin_stretch(start)
                 for i in range(start, num_steps):
                     if stop_agreed(i):
                         break
+                    if profiler is not None:
+                        profiler.before_step(i)
                     metrics = self.step(full_metrics=(i % self.cfg.log_every == 0))
+                    if profiler is not None:
+                        profiler.after_step(i)
                     if i % self.cfg.log_every == 0:
                         loss_val = float(metrics["loss"])       # device sync
+                        if obs is not None:
+                            obs.registry.count("comm/d2h_transfers")
                         if guard and self._loss_diverged(loss_val):
+                            if profiler is not None:
+                                profiler.stop_if_active()   # the next stretch may start one
                             self._rollback(i)
                             rolled_back = True
                             break
                         now = time.perf_counter()
                         metrics = dict(metrics)
                         metrics["step_time_ms"] = 1000 * (now - last_t) / max(i - last_i, 1)
+                        if obs is not None:
+                            reg = obs.registry
+                            reg.gauge("perf/step_wall_ms", metrics["step_time_ms"])
+                            reg.gauge("perf/refill_bubble_frac",
+                                      min(1.0, obs.take_blocked_s() / max(now - last_t, 1e-9)))
                         last_t, last_i = now, i
                         self.log(metrics, step=i)
                     if (i + 1) % self.cfg.save_every == 0:
@@ -874,6 +1001,10 @@ class Trainer:
             self._prefetch_end = None
             if in_main_thread:
                 signal.signal(signal.SIGTERM, prev_handler or signal.SIG_DFL)
+                if profiler is not None:
+                    profiler.uninstall_sigusr1()
+            if profiler is not None:
+                profiler.stop_if_active()
             try:
                 self.save(background=True)
             finally:
@@ -882,7 +1013,8 @@ class Trainer:
 
     def close(self) -> None:
         """Stop the prefetch worker, land a background save, close the
-        logger and the source. Idempotent."""
+        logger and the source, then write the trace and give the
+        process-global tracer back. Idempotent."""
         if self._prefetch_pool is not None:
             self._prefetch_pool.shutdown(wait=True)
             self._prefetch_pool = None
@@ -894,3 +1026,9 @@ class Trainer:
             self.logger = None
         if hasattr(self.buffer, "close"):
             self.buffer.close()
+        if self._watchdog is not None:
+            self._watchdog.close()
+            self._watchdog = None
+        if self._obs is not None:
+            self._obs.close()
+            self._obs = None

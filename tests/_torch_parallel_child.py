@@ -25,7 +25,8 @@ found to ``<out>/rank<r>.pt`` (``torch.save``):
 - ``mesh_rest``: the mesh's last refusals lifted (``tests/_torch_mesh_rest_child.py``);
 - ``comm``: the collectives' bytes of one step a program (``tests/_torch_comm_child.py``);
 - ``prefetch``: the trainer's prefetch on against off (``tests/_torch_prefetch_child.py``);
-- ``fleet_mesh``: the fleet on a grid (``tests/_torch_fleet_mesh_child.py``).
+- ``fleet_mesh``: the fleet on a grid (``tests/_torch_fleet_mesh_child.py``);
+- ``obs``: the telemetry plane's comm gauges on a grid (``tests/_torch_obs_child.py``).
 """
 
 from __future__ import annotations
@@ -352,6 +353,12 @@ def _fleet_mesh(task, rank):
     return _torch_fleet_mesh_child.run(task, rank)
 
 
+def _obs(task, rank):
+    import _torch_obs_child
+
+    return _torch_obs_child.run(task, rank)
+
+
 def main() -> None:
     rank, world, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     import torch
@@ -366,7 +373,7 @@ def main() -> None:
         res = {"train": _train, "quant": _quant, "ckpt": _ckpt,
                "coll": _coll, "stop": _stop, "guard": _guard, "harvest": _harvest,
                "mesh_rest": _mesh_rest, "comm": _comm, "prefetch": _prefetch,
-               "fleet_mesh": _fleet_mesh}[task["kind"]](task, rank)
+               "fleet_mesh": _fleet_mesh, "obs": _obs}[task["kind"]](task, rank)
         torch.save(res, Path(task["out"]) / f"rank{rank}.pt")
     finally:
         multihost.shutdown()

@@ -49,6 +49,13 @@ def test_fleet_modules_are_checked():
             "crosscoder_tpu_torch/data/fanout.py"} <= names
 
 
+def test_obs_and_resilience_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"crosscoder_tpu_torch/obs/__init__.py", "crosscoder_tpu_torch/obs/trace.py",
+            "crosscoder_tpu_torch/obs/profiler.py", "crosscoder_tpu_torch/resilience/chaos.py",
+            "crosscoder_tpu_torch/resilience/watchdog.py"} <= names
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imports(path)

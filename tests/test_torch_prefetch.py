@@ -194,7 +194,7 @@ def test_staged_serves_take_two_buffers_in_turn_with_the_sources_bits():
     cfg = CrossCoderConfig(**SYN, prefetch=True)
     tr, ref = Trainer(cfg, device="cpu"), SyntheticActivationSource(cfg)
     assert tr._serves_into
-    got = [tr._serve_staged() for _ in range(4)]
+    got = [tr._serve_staged(i) for i in range(4)]
     assert [g[0].data_ptr() for g in got] == [got[0][0].data_ptr(), got[1][0].data_ptr()] * 2
     assert got[0][0].data_ptr() != got[1][0].data_ptr()
     want = [ref.next() for _ in range(4)]
@@ -217,9 +217,9 @@ def test_production_runs_on_the_worker_thread():
     seen = []
     real = tr._serve_once
 
-    def serve():
+    def serve(*a, **kw):
         seen.append(threading.current_thread().name)
-        return real()
+        return real(*a, **kw)
 
     tr._serve_once = serve
     _run(tr, 3)

@@ -1,6 +1,7 @@
 """The port's Trainer refuses every config knob whose JAX behaviour it has
-not ported, rather than running a different job without a word; the
-defaults (and ``data_axis_size = -1``, all of one device) still train. A
+not ported, rather than running a different job without a word (elastic
+membership, Queue A8b); the defaults (and ``data_axis_size = -1``, all of
+one device) still train, as does each knob ported since it was refused. A
 mesh axis wider than the ranks present is refused as the JAX ``make_mesh``
 refuses it (the mesh itself is ported)."""
 
@@ -8,14 +9,17 @@ import pytest
 import torch
 
 from crosscoder_tpu_torch.config import CrossCoderConfig
+from crosscoder_tpu_torch.resilience import Chaos
 from crosscoder_tpu_torch.train.trainer import Trainer
 
 BASE = dict(d_in=16, dict_size=64, batch_size=8, num_tokens=16, log_backend="null")
 # one process, no process group: a 2-wide axis does not fit one rank
 _MESH_WIDER_THAN_WORLD = {"model_axis_size": (ValueError, "must divide device count 1"),
-                          "data_axis_size": (ValueError, "mesh 2x1 != 1 devices")}
+                          "data_axis_size": (ValueError, "mesh 2x1 != 1 devices"),
+                          "elastic": (NotImplementedError, "cfg.elastic is not ported.*A8b")}
 # knobs this table refused before their port; each now trains
-_PORTED_SINCE = {"shard_sources"}
+_PORTED_SINCE = {"shard_sources", "harvest_timeout_s", "profile_dir", "profile_steps", "obs",
+                 "chaos"}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -25,11 +29,20 @@ _PORTED_SINCE = {"shard_sources"}
     ("model_axis_size", 2),
     ("data_axis_size", 2),
     ("shard_sources", True),
+    ("obs", "on"),
+    ("chaos", "stall@1:0.01,nan@9"),
+    ("elastic", "on"),
 ])
-def test_unported_knob_raises(knob, value):
-    cfg = CrossCoderConfig(**BASE, **{knob: value})
-    if knob in _PORTED_SINCE:       # one device: the whole source axis on it
-        assert torch.isfinite(Trainer(cfg, device="cpu").step()["loss"])
+def test_unported_knob_raises(knob, value, tmp_path):
+    extra = {"obs_dir": str(tmp_path)} if knob == "obs" else {}
+    cfg = CrossCoderConfig(**BASE, **{knob: value}, **extra)
+    if knob in _PORTED_SINCE:       # shard_sources on one device: the whole source axis on it
+        tr = Trainer(cfg, device="cpu", chaos=Chaos.from_cfg_env(cfg))
+        try:
+            for _ in range(2):
+                assert torch.isfinite(tr.step()["loss"])
+        finally:
+            tr.close()
         return
     exc, match = _MESH_WIDER_THAN_WORLD.get(knob, (NotImplementedError,
                                                    f"cfg.{knob} is not ported"))
