@@ -296,7 +296,23 @@ one NVIDIA Hopper card and the CUDA toolkit:
    counters), run C (a stalled and a failing refill chunk through the
    watchdog: the JAX trainer's counters), K9 and O1 launched in each; the
    watchdog's cost a serve printed;
-17. prints the kernel table as one JSON line, the card line, and
+17. elastic membership: leg EL, the preempt drill
+   (``resilience/elastic_drill.py``) at Gemma-2-2B width on two gloo ranks
+   sharing the card, one rank a host (data 2 x model 1; TopK k 32, dict
+   2^14, the sparse backward, AuxK, batch 4096, bf16 compute, f32 masters,
+   the synthetic source, a save every 3 steps, the batch prefetch on, as
+   the Trainer's default): rank 1 dies at serve 7, rank
+   0 finds the loss, shrinks to one rank on the card, restores the newest
+   verified save and finishes 10 steps, its losses after the re-mesh
+   bitwise a fresh process's restoring the same save; K5, K8, K10 and O1
+   launched on both sides of the re-mesh, and 2 steps from the restored
+   save bitwise their plain versions; remesh_ms, the detection path, the
+   epoch, the gloo step times, the re-mesh's split and each rank's timeline
+   printed; leg ES, the stability drill (flaky and slow probes below the
+   threshold) on two more gloo ranks, its 8 steps at dict 2^10 and batch
+   1024, beside leg EL from the phase's start: zero remeshes, every chaos
+   counter at least 1;
+18. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -304,6 +320,7 @@ Any failed check exits nonzero before the last line is printed.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
@@ -6148,6 +6165,170 @@ def obs_resilience(torch, np, root, card):
     return launches
 
 
+# phase 17: leg EL, the preempt drill (resilience/elastic_drill.py) at
+# Gemma-2-2B width on two gloo ranks sharing the card, one rank a host (data 2
+# x model 1): TopK k 32, dict 2^14, the sparse backward, AuxK, batch 4096,
+# bf16 compute, f32 masters, the synthetic source, a save every 3 steps, the
+# Trainer's default batch prefetch (on); rank 1 dies at serve 7, rank 0
+# shrinks to one rank, restores and finishes 10 steps, a fresh process
+# restores the same save; leg ES, the stability drill (flaky and slow probes
+# below the threshold, its 8 steps) on two more gloo ranks, run beside leg EL
+# from the phase's start at dict 2^10 and batch 1024 (its 0.6 GB gradient
+# all-reduce through host memory at EL's shapes slowed EL's 2-rank steps 2x
+# and the phase past its budget)
+EL = dict(TRAIN, dict_size=2 ** 14, num_tokens=TRAIN["batch_size"] * 200, prefetch=True)
+ES = dict(EL, dict_size=2 ** 10, batch_size=1024, num_tokens=1024 * 200)
+EL_KERNELS = ("topk_mask", "sparsify", "scatter_add_rows", "adam_update")
+EL_PHASE_S = 120.0
+
+
+def _drill_logs(work):
+    """The tail of every drill rank's stderr under ``work``."""
+    for f in sorted(Path(work).glob("*.err")):
+        lines = [ln for ln in f.read_text(errors="replace").splitlines()
+                 if "socket.cpp" not in ln and "Warning" not in ln]
+        log(f"  {f.name}: " + " | ".join(lines[-12:])[-2500:])
+
+
+def _run_drill(label, work, fn, overrides):
+    """One drill, its ranks' logs printed when it raises; fails the phase."""
+    try:
+        return fn(workdir=str(work), timeout=400.0, keep_logs=True, device="cuda",
+                  overrides=overrides)
+    except Exception as e:  # noqa: BLE001 — reported with the ranks' logs, then fail()
+        _drill_logs(work)
+        fail(f"phase 17: leg {label} raised {type(e).__name__}: {e}"[:2000])
+
+
+def _timeline(rank, spawned):
+    """A drill rank's stamps, in s from its process's spawn."""
+    return ", ".join(f"{k} {v - spawned:.1f}" for k, v in rank["stamps"].items())
+
+
+def el_plain_check(torch, np, vdir, save):
+    """The survivor's restored save, 2 steps (an aux step and a bare one)
+    with the kernels and again with their plain versions, bitwise (loss,
+    params, moments, trackers): K5, K8, K10 and O1 at leg EL's shapes."""
+    from crosscoder_tpu_torch.checkpoint import Checkpointer
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
+    from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
+    from crosscoder_tpu_torch.ops import sparse_grad as sg
+    from crosscoder_tpu_torch.ops import topk_pallas as tp
+    from crosscoder_tpu_torch.train import schedules
+    from crosscoder_tpu_torch.train import trainer as trainer_mod
+    from crosscoder_tpu_torch.train.state import Optimizer
+
+    cfg = CrossCoderConfig(**EL)
+    state, meta = Checkpointer(base_dir=vdir.parent).restore(cfg, vdir, save, device="cuda")
+    src = SyntheticActivationSource(cfg)
+    src.load_state_dict(meta["buffer"])
+    batches = [torch.from_numpy(src.next()).cuda() for _ in range(2)]
+    scale = torch.ones(cfg.n_sources, device="cuda")
+    opt = Optimizer(cfg, schedules.lr_schedule(cfg))
+    runs = []
+    for ctx in (contextlib.nullcontext(), plain_versions(tp, sg, fek)):
+        st, losses = state, []
+        with ctx:
+            for b in batches:
+                key = trainer_mod.variant_for_step(cfg, st.step)
+                fn = trainer_mod.make_step_body(cfg, opt, *key)
+                st, m = fn(st, b, scale)
+                losses.append(_bits(m["loss"], torch).item())
+        torch.cuda.synchronize()
+        runs.append((losses, st))
+    ok, what = state_bits_equal(torch, runs[0][1], runs[1][1])
+    if runs[0][0] != runs[1][0] or not ok:
+        fail(f"phase 17: leg EL's restored steps with the kernels differ from their plain "
+             f"versions: losses {runs[0][0]} against {runs[1][0]}; state {what}")
+    return [float(np.array(x, np.int32).view(np.float32)) for x in runs[0][0]]
+
+
+def _split_ms(step_ms):
+    """A survivor's logged step times before its re-mesh and after (the
+    step index falls back at the restore)."""
+    for i in range(1, len(step_ms)):
+        if step_ms[i][0] <= step_ms[i - 1][0]:
+            return [ms for _, ms in step_ms[1:i]], [ms for _, ms in step_ms[i + 1:]]
+    return [ms for _, ms in step_ms[1:]], []
+
+
+def elastic(torch, np, root, card):
+    """Phase 17: legs EL and ES. Returns the launches of leg EL's survivor
+    and leg ES's rank 0."""
+    from crosscoder_tpu_torch.resilience import elastic_drill as drill
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_", dir=root / "build"))
+    # leg ES on its own two ranks beside leg EL (nothing of leg ES is timed;
+    # whether it was still running at EL's re-mesh is printed)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    try:
+        es_run = pool.submit(_run_drill, "ES", work / "es", drill.run_stability_drill, ES)
+        rep = _run_drill("EL", work / "el", drill.run_drill, EL)
+        t_el = time.perf_counter() - t_phase
+        surv = rep["survivor"]
+        if not rep["bitwise_equal"]:
+            _drill_logs(work / "el")
+            fail(f"phase 17: leg EL's survivor after the re-mesh {rep['post_losses']} is not "
+                 f"bitwise the clean restart's {rep['restart_losses']}")
+        if rep["epoch"] != 1 or surv["grid"] != [1, 1] \
+                or surv["counters"].get("resilience/remeshes") != 1:
+            fail(f"phase 17: leg EL's survivor: epoch {rep['epoch']}, grid {surv['grid']}, "
+                 f"counters {surv['counters']}")
+        before, total = surv["launches_before"], surv["launches"]
+        after = {k: total[k] - before[k] for k in total}
+        for k in EL_KERNELS:
+            if not before[k] or not after[k]:
+                fail(f"phase 17: leg EL did not launch {k} on both sides of the re-mesh: "
+                     f"before {before}, after {after}")
+        plain = el_plain_check(torch, np, work / "el" / "version_0", surv["remesh"]["save"])
+        pre, post = _split_ms(surv["step_ms"])
+        log(f"leg EL: rank 1 died at serve {drill._DRILL['die_serve']}; rank 0 found it by "
+            f"{rep['detected_by']} ({surv.get('cause', '')[:120]}), re-meshed to epoch "
+            f"{rep['epoch']} on a {surv['grid'][0]} x {surv['grid'][1]} grid, restored save "
+            f"{surv['remesh']['save']} (step {rep['resume_step']}) and finished "
+            f"{surv['final_step']} steps; remesh_ms {rep['remesh_ms']} ({card}); losses after "
+            f"the re-mesh {[round(float.fromhex(h), 4) for _, h in rep['post_losses']]} "
+            f"bitwise the clean restart's; launches before the re-mesh {before}, after "
+            f"{after}; 2 restored steps bitwise their plain versions (losses "
+            f"{[round(x, 4) for x in plain]}); {t_el:.1f} s")
+        split = {k: round(v, 1) for k, v in surv["remesh_split"].items()}
+        log(f"leg EL: the survivor's re-mesh {split} ms (the wait for a save in "
+            f"flight, the regroup, the restore); its timeline (s from its spawn) "
+            f"{_timeline(surv, rep['spawned']['pair'])}; the clean restart's "
+            f"{_timeline(rep['restart'], rep['spawned']['clean'])}")
+        log(f"leg EL: gloo step time (loss to loss, host clock) at 2 ranks median "
+            f"{np.median(pre):.1f} ms {[round(x, 1) for x in pre]}, at 1 rank after the "
+            f"re-mesh median {np.median(post) if post else float('nan'):.1f} ms "
+            f"{[round(x, 1) for x in post]}; gloo stages every collective through host "
+            f"memory, so these say nothing of NCCL's ({card})")
+        st = es_run.result()
+        if not st["stable"]:
+            _drill_logs(work / "es")
+            fail(f"phase 17: leg ES was not stable: remeshes {st['remeshes']}, suspects "
+                 f"{st['suspects']}, slow probes {st['slow_probes']}, skipped probes "
+                 f"{st['skipped_probes']}, finished {st['finished']}")
+        es0 = st["procs"][0]
+        es_end = max(p["stamps"]["trained"] for p in st["procs"])
+        log(f"leg ES: {st['steps']} steps on both ranks, remeshes {st['remeshes']}, rank 0 "
+            f"suspects {st['suspects']} and slow probes {st['slow_probes']}, rank 1 skipped "
+            f"probes {st['skipped_probes']}; rank 0 counters {es0['counters']}; launches "
+            f"{es0['launches']}; its ranks trained until {es_end - rep['spawned']['pair']:.1f} "
+            f"s after leg EL's spawn, EL's survivor re-meshed from "
+            f"{surv['stamps']['remesh'] - rep['spawned']['pair']:.1f} s (leg ES "
+            f"{'still running' if es_end > surv['stamps']['remesh'] else 'done'} then)")
+    finally:
+        pool.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"elastic phase {wall:.1f} s (leg EL {t_el:.1f} s; the phase's budget "
+        f"{EL_PHASE_S:.0f} s)")
+    return {k: total[k] + es0["launches"].get(k, 0) for k in EL_KERNELS}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-rank"]:     # rank 1 of leg FM at 1 x 2 (phase 13)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -6312,6 +6493,10 @@ def main() -> int:
     for row in (*train_rows[:3], *harvest_rows):
         row["launches"] += watched.get(row["name"].split()[0], 0)
     row_o1["launches"] += watched["adam_update"]
+    shrunk = elastic(torch, np, root, card)
+    for row in train_rows[:3]:
+        row["launches"] += shrunk[row["name"].split()[0]]
+    row_o1["launches"] += shrunk["adam_update"]
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
               *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed,
               row_o1_cohort])

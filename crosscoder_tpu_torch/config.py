@@ -39,8 +39,15 @@ _ACTIVATIONS = ("relu", "topk", "jumprelu", "batchtopk")
 
 
 def _check_choice(field_name: str, value: Any, choices: tuple[str, ...]) -> None:
-    if value not in choices:
-        raise ValueError(f"{field_name} must be {'|'.join(choices)}, got {value!r}")
+    """Membership check for a string mode knob, with the JAX package's
+    difflib hint for a near miss."""
+    if value in choices:
+        return
+    import difflib
+
+    close = difflib.get_close_matches(str(value), choices, n=1)
+    hint = f"; did you mean {close[0]!r}?" if close else ""
+    raise ValueError(f"{field_name} must be {'|'.join(choices)}, got {value!r}{hint}")
 
 
 @dataclass
@@ -357,6 +364,7 @@ class CrossCoderConfig:
             raise ValueError(
                 f"harvest_retries/harvest_backoff_s must be >= 0, got "
                 f"{self.harvest_retries}/{self.harvest_backoff_s}")
+        self._check_elastic_fields()
         _check_choice("obs", self.obs, ("off", "on"))
         if self.log_print_every < 0:
             raise ValueError(
@@ -388,6 +396,52 @@ class CrossCoderConfig:
             raise ValueError(
                 "fleet_tenants is set but fleet='off'; pass --fleet on "
                 "(the spec would otherwise be silently ignored)")
+
+    def _check_elastic_fields(self) -> None:
+        """The JAX package's elastic-membership field rules, with its
+        messages."""
+        _check_choice("elastic", self.elastic, ("off", "on"))
+        if self.elastic == "on":
+            if self.elastic_heartbeat_s <= 0:
+                raise ValueError(
+                    f"elastic_heartbeat_s must be > 0, got "
+                    f"{self.elastic_heartbeat_s}")
+            if self.elastic_grace_s < self.elastic_heartbeat_s:
+                raise ValueError(
+                    f"elastic_grace_s ({self.elastic_grace_s}) must be >= "
+                    f"elastic_heartbeat_s ({self.elastic_heartbeat_s}): the "
+                    f"liveness barrier cannot declare a peer lost faster "
+                    f"than the heartbeat can notice it")
+            if self.seq_shards > 1:
+                raise ValueError(
+                    "elastic='on' cannot run with seq_shards > 1: the "
+                    "sequence-parallel harvest pins the mesh data axis to "
+                    "seq_shards, which a survivor re-mesh cannot preserve")
+            if self.elastic_suspect_probes < 1:
+                raise ValueError(
+                    f"elastic_suspect_probes must be >= 1, got "
+                    f"{self.elastic_suspect_probes} (1 = declare on the "
+                    f"first failed probe, no hysteresis)")
+        _check_choice("elastic_grow", self.elastic_grow, ("off", "on"))
+        _check_choice("elastic_policy", self.elastic_policy, ("fixed", "score"))
+        if self.elastic_grow == "on":
+            if self.elastic != "on":
+                raise ValueError(
+                    "elastic_grow='on' requires elastic='on': scale-up "
+                    "re-forms the world the elastic membership layer owns")
+            if not self.checkpoint_dir:
+                raise ValueError(
+                    "elastic_grow='on' requires checkpoint_dir: the rejoin "
+                    "rendezvous board and the admission boundary save both "
+                    "live under it (joiners hydrate from that save)")
+            if self.elastic_dwell_steps < 0:
+                raise ValueError(
+                    f"elastic_dwell_steps must be >= 0, got "
+                    f"{self.elastic_dwell_steps}")
+            if self.elastic_grow_debounce < 1:
+                raise ValueError(
+                    f"elastic_grow_debounce must be >= 1, got "
+                    f"{self.elastic_grow_debounce}")
 
     def _check_buffer_fields(self) -> None:
         """The JAX package's replay-buffer and harvest field rules."""

@@ -82,6 +82,7 @@ position and hands the same batch to each consumer there
 
 from __future__ import annotations
 
+import sys
 from typing import Any, Sequence
 
 import numpy as np
@@ -177,14 +178,6 @@ class PairedActivationBuffer(FanOut):
             if n_data != cfg.seq_shards:
                 raise ValueError(f"seq_shards {cfg.seq_shards} != mesh data axis {n_data}")
             self._seq_mesh = mesh
-        # the harvest (tensor-parallel, sequence-parallel) or the store
-        # (mesh-sharded) issues collectives: a dispatcher thread would launch
-        # them beside the main thread's, in an order the ranks do not share,
-        # so the refill overlap pumps its credit inline there (JAX's rule:
-        # no dispatcher thread on a mesh store or on many processes)
-        collective_refill = bool(
-            cfg.shard_lm or self._seq_mesh is not None or self.serves_local_rows
-            or multihost.world_size() > 1 or any(lm.TP_KEY in p for p in model_params))
         self.cfg = cfg
         self.chaos = chaos              # fault injection at each harvest job; None: never called
         self.lm_cfg = lm_cfg
@@ -225,7 +218,7 @@ class PairedActivationBuffer(FanOut):
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
         self._dispatcher = (pipeline.QuantumDispatcher(self._pump_locked)
-                            if self._overlap and not collective_refill else None)
+                            if self._overlap and not self._collective_refill() else None)
         self._alloc_store()
         self._perm = np.arange(self.buffer_size)
         self._rng = np.random.default_rng(cfg.seed)
@@ -245,6 +238,18 @@ class PairedActivationBuffer(FanOut):
         if not lazy:
             self.normalisation_factor = self._estimate_norm_scaling_factors()
             self.refresh()
+
+    def _collective_refill(self) -> bool:
+        """Whether the harvest (tensor-parallel, sequence-parallel) or the
+        store (mesh-sharded) issues collectives: a dispatcher thread would
+        launch them beside the main thread's, in an order the ranks do not
+        share, so the refill overlap pumps its credit inline there (JAX's
+        rule: no dispatcher thread on a mesh store or on many processes)."""
+        from crosscoder_tpu_torch.parallel import multihost
+
+        return bool(self.cfg.shard_lm or self._seq_mesh is not None or self.serves_local_rows
+                    or multihost.world_size() > 1
+                    or any(lm.TP_KEY in p for p in self.model_params))
 
     # ------------------------------------------------------------------
     # store
@@ -726,6 +731,85 @@ class PairedActivationBuffer(FanOut):
         if self._dispatcher is not None:
             self._dispatcher.close()
             self._dispatcher = None
+
+    # ------------------------------------------------------------------
+    # elastic re-mesh (resilience/elastic.py)
+
+    def prepare_reshard(self) -> None:
+        """Quiesce the refill ahead of a membership change (the elastic
+        shrink): drain and stop the dispatcher (an error it reports is
+        printed and dropped: its work is discarded) and drop the in-flight
+        harvest chunks. The LM params stay where they are: device tensors
+        outlive the old world's groups, unlike the JAX backend reset's; the
+        grid and the tensor-parallel params' group are let go, so that
+        leaving the old world closes its groups. The store is not kept:
+        :meth:`reshard` refills it from the stream position, which is the
+        state."""
+        try:
+            self._quiesce_dispatch()
+        except Exception as e:  # noqa: BLE001 — a pump torn with the world; its work is dropped
+            print(f"[crosscoder_tpu_torch] reshard: dispatcher drain failed "
+                  f"({type(e).__name__}: {e})"[:300], flush=True, file=sys.stderr)
+        self.close()
+        self._cyc_inflight = []
+        self._cyc_job = None
+        self.mesh = None
+        self.model_params = [p if lm.TP_KEY not in p else
+                             {**p, lm.TP_KEY: lm.TPGroup(None, p[lm.TP_KEY].rank)}
+                             for p in self.model_params]
+
+    def _retarget_tp(self, params: lm.LMParams) -> lm.LMParams:
+        """Tensor-parallel params pointed at the new grid's ``model`` group.
+        The survivors keep their model ranks (the TP width is kept and they
+        are the first ranks), so each rank's slices stay its own."""
+        tp = params.get(lm.TP_KEY)
+        if tp is None:
+            return params
+        if self.mesh is None or self.mesh.model_rank != tp.rank:
+            raise ValueError(
+                "reshard: tensor-parallel LM params keep their slices only on a grid where "
+                f"this rank keeps its model index {tp.rank}")
+        return {**params, lm.TP_KEY: lm.TPGroup(self.mesh.model_group, tp.rank)}
+
+    def reshard(self, mesh, refill: bool = True) -> None:
+        """Re-derive every grid-coupled piece of the buffer for ``mesh`` (the
+        JAX ``reshard``'s ``batch_sharding``; ``None`` off a grid): the
+        harvest chunk rounding, the store allocation (a mesh store's shard
+        of the new ``data`` axis), the permutation, the row map and the
+        spare rows, the fan-out cache, the dispatcher thread (where the new
+        world allows one) and the tensor-parallel params' group. With
+        ``refill=True`` the store then refills from the live stream's
+        position, so the served stream continues as a fresh buffer restored
+        from :meth:`state_dict` would; ``refill=False`` leaves the buffer
+        empty for the caller's :meth:`load_state_dict` (the elastic restore
+        replays a save's position)."""
+        if self.cfg.seq_shards > 1:
+            raise ValueError(
+                "reshard with seq_shards > 1 is unsupported (the mesh data axis carries the "
+                "sequence there, not the batch)")
+        if self.serves_local_rows and mesh is None:
+            raise ValueError(f"{type(self).__name__} needs the rank grid (mesh=)")
+        snap = self.state_dict() if refill else None
+        self.mesh = mesh
+        self.model_params = [self._retarget_tp(p) for p in self.model_params]
+        data_axis = self._harvest_split()
+        self._chunk_seqs = -(-self.cfg.model_batch_size // data_axis) * data_axis
+        self._cyc_inflight = []
+        self._cyc_job = None
+        self._cyc_seq_done = 0
+        self._perm = np.arange(self.buffer_size)
+        self._row_map = np.arange(self.buffer_size)
+        self._free_rows = self.buffer_size + np.arange(self._spare_rows)
+        self.pointer = 0
+        self._src_global = np.zeros(self.buffer_size, dtype=np.int64)
+        self.first = True
+        self._filled = False
+        self._fanout_batch, self._fanout_seq = None, -1
+        self._alloc_store()
+        if self._overlap and self._dispatcher is None and not self._collective_refill():
+            self._dispatcher = pipeline.QuantumDispatcher(self._pump_locked)
+        if refill:
+            self.load_state_dict(snap)
 
 
 class QuantPairedActivationBuffer(PairedActivationBuffer):

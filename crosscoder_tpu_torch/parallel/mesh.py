@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from crosscoder_tpu_torch.parallel import collectives as coll
+from crosscoder_tpu_torch.parallel import multihost
 
 # leaf name → the JAX PartitionSpec as a tuple of mesh axes, one per dim
 _PARAM_SPECS: dict[str, tuple] = {
@@ -140,7 +141,9 @@ class Mesh:
 
 
 def _groups(rows: list[list[int]]) -> list:
-    return [dist.new_group(r) for r in rows]
+    # an elastic world's bound on each collective; a new group does not
+    # inherit the world group's timeout
+    return [dist.new_group(r, timeout=multihost.group_timeout()) for r in rows]
 
 
 def make_mesh(data_axis_size: int = -1, model_axis_size: int = 1) -> Mesh:
@@ -164,7 +167,7 @@ def make_mesh(data_axis_size: int = -1, model_axis_size: int = 1) -> Mesh:
     r = dist.get_rank()
     model_groups = _groups([[d * m + j for j in range(m)] for d in range(data_axis_size)])
     data_groups = _groups([[d * m + j for d in range(data_axis_size)] for j in range(m)])
-    world = dist.new_group(list(range(n)))
+    world = _groups([list(range(n))])[0]
     return Mesh(data_size=data_axis_size, model_size=m, data_rank=r // m, model_rank=r % m,
                 data_group=data_groups[r % m], model_group=model_groups[r // m],
                 world_group=world)

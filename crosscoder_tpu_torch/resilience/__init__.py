@@ -11,10 +11,15 @@
   the checksummed restore with fallback and ``keep_saves`` in
   :class:`crosscoder_tpu_torch.checkpoint.Checkpointer`.
 
+- :mod:`crosscoder_tpu_torch.resilience.elastic`: elastic membership's loss
+  side (liveness probes with hysteresis, the survivor re-mesh), and
+  :mod:`crosscoder_tpu_torch.resilience.elastic_drill`, its preempt and
+  stability drills.
+
 Recoveries count on the ``resilience/*`` channel
 (:class:`crosscoder_tpu_torch.utils.logging.ResilienceCounters`). Elastic
-membership (the JAX package's ``elastic``, ``elastic_drill`` and
-``fleet`` modules) is not ported yet.
+scale-up (the JAX package's rendezvous board, ``grow_to``, the autoscale
+drill and the ``fleet`` module's policy) is not ported yet.
 """
 
 from crosscoder_tpu_torch.resilience.chaos import Chaos, ChaosFault

@@ -546,4 +546,4 @@ class FleetScheduler:
 
     def remesh(self, mesh) -> None:
         raise NotImplementedError("the fleet's elastic re-mesh waits for the port of elastic "
-                                  "runs (ROADMAP A8)")
+                                  "scale-up (ROADMAP A8b-ii)")

@@ -109,7 +109,18 @@ chosen steps with ``torch.profiler``. Neither adds a launch, a device read
 or a sync to a step. The compile events of the JAX plane have no
 counterpart: nothing is compiled.
 
-Not ported in this slice (ROADMAP Queue A): elastic membership (A8b), the
+Elastic membership (``cfg.elastic="on"``,
+:class:`~crosscoder_tpu_torch.resilience.elastic.ElasticController`), as
+the JAX trainer's: a liveness probe before each step at the stop-poll
+cadence; a failed probe (:class:`~crosscoder_tpu_torch.resilience.elastic.PeerLoss`)
+or an exception the controller confirms as a torn collective leads to
+:meth:`Trainer._remesh_and_resume`, which quiesces, shrinks the world to
+the coordinator host's ranks, rebuilds what the grid shaped, reshards the
+buffer and restores the newest verified save; anything else re-raises
+unchanged. A rank that cannot survive raises ``PeerLoss`` out of
+``train()`` and skips the final save.
+
+Not ported in this slice (ROADMAP Queue A): elastic scale-up (A8b-ii), the
 compile cache.
 """
 
@@ -123,6 +134,7 @@ import signal
 import sys
 import threading
 import time
+import traceback
 from typing import Any, Callable
 
 import numpy as np
@@ -131,11 +143,13 @@ import torch.distributed as dist
 
 from crosscoder_tpu_torch.config import CrossCoderConfig
 from crosscoder_tpu_torch.models import crosscoder as cc
+from crosscoder_tpu_torch.obs import trace
 from crosscoder_tpu_torch.parallel import collectives as coll
 from crosscoder_tpu_torch.parallel import multihost
 from crosscoder_tpu_torch.parallel import mesh as mesh_lib
 from crosscoder_tpu_torch.train import resample, schedules
 from crosscoder_tpu_torch.parallel import quant_ar
+from crosscoder_tpu_torch.resilience.elastic import ElasticController, PeerLoss
 from crosscoder_tpu_torch.train.state import Optimizer, TrainState, init_train_state
 from crosscoder_tpu_torch.utils import pipeline
 from crosscoder_tpu_torch.utils.device import resolve_device
@@ -365,6 +379,15 @@ def resample_due(cfg: CrossCoderConfig, step: int) -> bool:
     return cfg.resample_every > 0 and step > 0 and step % cfg.resample_every == 0
 
 
+def _chain(exc: BaseException | None):
+    """``exc`` and the exceptions it was raised from or during."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        yield exc
+        exc = exc.__cause__ or exc.__context__
+
+
 def _check_mesh(cfg: CrossCoderConfig, mesh: mesh_lib.Mesh) -> None:
     """Raise :class:`ValueError` for shapes the grid does not split, as the
     JAX mesh trainer's sharding does."""
@@ -404,8 +427,10 @@ class Trainer:
 
     ``cfg.fleet="on"`` is a :class:`ValueError`: a fleet trains through
     :class:`~crosscoder_tpu_torch.train.fleet.FleetScheduler`.
-    ``cfg.elastic="on"`` raises :class:`NotImplementedError` (elastic
-    membership is not ported yet). ``remat`` and ``compile_cache_dir``
+    ``cfg.elastic="on"`` builds the elastic controller (inactive outside an
+    elastic world of more than one rank: the trainer then trains as with
+    it off); ``cfg.elastic_grow="on"`` raises :class:`NotImplementedError`
+    (scale-up is not ported yet). ``remat`` and ``compile_cache_dir``
     change only speed or memory in the JAX trainer, never results, so the
     port accepts and ignores them. ``prefetch`` (default on) serves the
     next batch on a worker thread while the step runs (module docstring);
@@ -420,10 +445,10 @@ class Trainer:
             raise ValueError("cfg.fleet='on' trains its tenants through "
                              "crosscoder_tpu_torch.train.fleet.FleetScheduler; the Trainer "
                              "trains one crosscoder (a tenant's config has fleet='off')")
-        if cfg.elastic == "on":
+        if cfg.elastic_grow == "on":
             raise NotImplementedError(
-                "cfg.elastic is not ported to the PyTorch trainer yet (ROADMAP Queue A8b: "
-                "elastic membership)")
+                "cfg.elastic_grow is not ported to the PyTorch trainer yet (ROADMAP Queue "
+                "A8b-ii: elastic scale-up)")
         if mesh is None and (dist.is_initialized() or cfg.model_axis_size > 1
                              or cfg.data_axis_size > 1):
             mesh = mesh_lib.mesh_from_cfg(cfg)
@@ -451,6 +476,12 @@ class Trainer:
         self.resilience = ResilienceCounters()
         if checkpointer is not None and getattr(checkpointer, "counters", None) is None:
             checkpointer.counters = self.resilience
+        # elastic membership: None when off, so the loop carries is-None checks
+        self._elastic = None
+        self._world_lost = False        # this rank could not survive a peer loss
+        self.last_remesh: dict | None = None
+        if cfg.elastic == "on":
+            self._elastic = ElasticController(cfg, counters=self.resilience, chaos=chaos)
         self._watchdog = None
         if cfg.harvest_timeout_s > 0:
             if multihost.world_size() > 1:
@@ -891,6 +922,91 @@ class Trainer:
         print(f"[crosscoder_tpu_torch] rolled back to step {self.step_counter} (save "
               f"{cand_v}), skipped {n_skip} poisoned batches", file=sys.stderr, flush=True)
 
+    # --- elastic re-mesh (cfg.elastic) ----------------------------------------
+
+    def _remesh_and_resume(self, cause: BaseException) -> None:
+        """Survivor recovery: quiesce every consumer of the dying world,
+        shrink it to the coordinator host's ranks, rebuild what the grid
+        shaped, reshard the buffer and restore the newest verified save. On
+        a rank that cannot survive the shrink raises
+        :class:`~crosscoder_tpu_torch.resilience.elastic.PeerLoss`, which ends
+        the run there. The recovery's wall time accumulates in
+        ``resilience/remesh_ms``; :attr:`last_remesh` records the step, the
+        save, the epoch and the time."""
+        t0 = time.perf_counter()
+        with trace.span("remesh"):
+            print(f"[crosscoder_tpu_torch] elastic: peer loss confirmed "
+                  f"({type(cause).__name__}); re-meshing over survivors", flush=True,
+                  file=sys.stderr)
+            # 1. quiesce. Tickets of the dying world first: a worker parked in
+            #    a turn that never comes would wedge the drain behind it
+            if self._sequencer is not None:
+                self._sequencer.invalidate()
+            with contextlib.suppress(Exception):     # its batch belongs to the dead world
+                self._drain_prefetch(discard=True)
+            self._pending = self._buffer_snapshot = None
+            if hasattr(self.buffer, "prepare_reshard"):
+                self.buffer.prepare_reshard()
+            if self.checkpointer is not None:
+                try:
+                    self.checkpointer.wait()    # land a background write
+                except Exception as e:  # noqa: BLE001 — the restore picks a verified save
+                    print(f"[crosscoder_tpu_torch] elastic: background save failed "
+                          f"({type(e).__name__}: {e})"[:300], file=sys.stderr, flush=True)
+            # 2. shrink: leave the old world, join the survivors' epoch. Its
+            #    groups must be unreferenced first, so that leaving closes
+            #    their connections (a survivor blocked on this rank in one of
+            #    their collectives then fails at once, not at the bound)
+            self._drop_grid()
+            for exc in _chain(cause):
+                traceback.clear_frames(exc.__traceback__)
+            try:
+                mesh = self._elastic.shrink()
+            except BaseException:
+                self._world_lost = True
+                raise
+            # 3. what the old grid shaped, then the state from the newest save
+            self._rebuild_for_mesh(mesh)
+            if hasattr(self.buffer, "reshard"):
+                # refill=False: the restore replays the save's stream position
+                self.buffer.reshard(mesh, refill=False)
+            meta = self.restore()
+        ms = 1000 * (time.perf_counter() - t0)
+        self.last_remesh = {"step": int(meta.get("step", -1)),
+                            "save": int(meta.get("save_version", -1)),
+                            "epoch": self._elastic.epoch(), "remesh_ms": int(ms)}
+        self.resilience.bump("remesh_ms", int(ms))
+        print(f"[crosscoder_tpu_torch] elastic: resumed at step {self._host_step} on a "
+              f"{mesh.data_size} x {mesh.model_size} grid ({ms:.0f} ms recovery)", flush=True,
+              file=sys.stderr)
+
+    def _drop_grid(self) -> None:
+        """Let go of everything the old grid shaped, its groups with it:
+        the grid, the step bodies and the resample fn, the telemetry's
+        grid, the launch sequencer and the state (restored from a save)."""
+        self.mesh = None
+        self.state = None
+        self._step_fns = {}
+        self._resample_fn = None
+        self._comm_accounted = set()
+        if self._obs is not None:
+            self._obs.mesh = None
+        if self._sequencer is not None:
+            self._sequencer.invalidate()
+        self._sequencer = None
+
+    def _rebuild_for_mesh(self, mesh: mesh_lib.Mesh) -> None:
+        """Point every grid-coupled piece at ``mesh`` (the step bodies and
+        the resample fn are rebuilt lazily), with a launch sequencer only
+        where the new world has more than one rank."""
+        _check_mesh(self.cfg, mesh)
+        self.mesh = mesh
+        self._host_step = 0
+        if self._obs is not None:
+            self._obs.mesh = mesh
+        if self.cfg.prefetch and multihost.needs_launch_tickets():
+            self._sequencer = pipeline.LaunchSequencer()
+
     def train(self, num_steps: int | None = None) -> dict[str, float]:
         """Run to ``num_steps`` (default ``total_steps``): log every
         ``log_every`` steps with ``step_time_ms`` (mean since the last log,
@@ -899,7 +1015,10 @@ class Trainer:
         after the current step. Under ``cfg.guard_loss`` a first save
         (when none was made) gives the guard a state to roll back to, and
         a diverged log step rolls back (:meth:`_rollback`) and re-enters
-        the loop at the restored step.
+        the loop at the restored step. Under ``cfg.elastic`` a liveness probe
+        runs before each step at the stop-poll cadence, and a peer loss (the
+        probe's, or an exception the controller confirms) re-meshes and
+        re-enters the loop at the restored step.
 
         Under ``cfg.obs`` each log line carries the registry's ``perf/*``
         and ``comm/*`` keys, ``perf/refill_bubble_frac`` (the share of the
@@ -967,36 +1086,55 @@ class Trainer:
                     obs.take_blocked_s()        # waits before a rollback are not this stretch's
                 if profiler is not None:
                     profiler.begin_stretch(start)
-                for i in range(start, num_steps):
-                    if stop_agreed(i):
-                        break
-                    if profiler is not None:
-                        profiler.before_step(i)
-                    metrics = self.step(full_metrics=(i % self.cfg.log_every == 0))
-                    if profiler is not None:
-                        profiler.after_step(i)
-                    if i % self.cfg.log_every == 0:
-                        loss_val = float(metrics["loss"])       # device sync
-                        if obs is not None:
-                            obs.registry.count("comm/d2h_transfers")
-                        if guard and self._loss_diverged(loss_val):
-                            if profiler is not None:
-                                profiler.stop_if_active()   # the next stretch may start one
-                            self._rollback(i)
-                            rolled_back = True
+                try:
+                    for i in range(start, num_steps):
+                        # the liveness probe: the same steps on every rank
+                        if (self._elastic is not None and self._elastic.should_probe(i)
+                                and not self._elastic.probe(i)):
+                            raise PeerLoss(f"peer lost (liveness probe, step {i})")
+                        if stop_agreed(i):
                             break
-                        now = time.perf_counter()
-                        metrics = dict(metrics)
-                        metrics["step_time_ms"] = 1000 * (now - last_t) / max(i - last_i, 1)
-                        if obs is not None:
-                            reg = obs.registry
-                            reg.gauge("perf/step_wall_ms", metrics["step_time_ms"])
-                            reg.gauge("perf/refill_bubble_frac",
-                                      min(1.0, obs.take_blocked_s() / max(now - last_t, 1e-9)))
-                        last_t, last_i = now, i
-                        self.log(metrics, step=i)
-                    if (i + 1) % self.cfg.save_every == 0:
-                        self.save(background=True)
+                        if profiler is not None:
+                            profiler.before_step(i)
+                        metrics = self.step(full_metrics=(i % self.cfg.log_every == 0))
+                        if profiler is not None:
+                            profiler.after_step(i)
+                        if i % self.cfg.log_every == 0:
+                            loss_val = float(metrics["loss"])       # device sync
+                            if obs is not None:
+                                obs.registry.count("comm/d2h_transfers")
+                            if guard and self._loss_diverged(loss_val):
+                                if profiler is not None:
+                                    profiler.stop_if_active()   # the next stretch may start one
+                                self._rollback(i)
+                                rolled_back = True
+                                break
+                            now = time.perf_counter()
+                            metrics = dict(metrics)
+                            metrics["step_time_ms"] = 1000 * (now - last_t) / max(i - last_i, 1)
+                            if obs is not None:
+                                reg = obs.registry
+                                reg.gauge("perf/step_wall_ms", metrics["step_time_ms"])
+                                reg.gauge("perf/refill_bubble_frac",
+                                          min(1.0, obs.take_blocked_s() / max(now - last_t,
+                                                                              1e-9)))
+                            last_t, last_i = now, i
+                            self.log(metrics, step=i)
+                        if (i + 1) % self.cfg.save_every == 0:
+                            self.save(background=True)
+                except Exception as exc:
+                    # a dying peer tearing a collective, or an ordinary error? A
+                    # failed probe is already confirmed; anything else asks one
+                    # more bounded barrier, and an unconfirmed error re-raises
+                    if self._elastic is None or not (
+                            isinstance(exc, PeerLoss) or self._elastic.confirm_peer_loss(exc)):
+                        raise
+                    if profiler is not None:
+                        profiler.stop_if_active()
+                    self._remesh_and_resume(exc)
+                    # the world changed shape: the stop poll reads it again
+                    multi_rank = multihost.world_size() > 1
+                    rolled_back = True
         finally:
             self._prefetch_end = None
             if in_main_thread:
@@ -1006,7 +1144,8 @@ class Trainer:
             if profiler is not None:
                 profiler.stop_if_active()
             try:
-                self.save(background=True)
+                if not self._world_lost:    # a lost rank's groups are gone
+                    self.save(background=True)
             finally:
                 self.close()
         return expand_metrics(metrics, self.cfg.n_sources) if metrics else {}

@@ -26,7 +26,10 @@ found to ``<out>/rank<r>.pt`` (``torch.save``):
 - ``comm``: the collectives' bytes of one step a program (``tests/_torch_comm_child.py``);
 - ``prefetch``: the trainer's prefetch on against off (``tests/_torch_prefetch_child.py``);
 - ``fleet_mesh``: the fleet on a grid (``tests/_torch_fleet_mesh_child.py``);
-- ``obs``: the telemetry plane's comm gauges on a grid (``tests/_torch_obs_child.py``).
+- ``obs``: the telemetry plane's comm gauges on a grid (``tests/_torch_obs_child.py``);
+- ``elastic``: the buffer's reshard across a survivor shrink
+  (``tests/_torch_elastic_child.py``); such a task joins an elastic world
+  (``multihost.elastic_initialize``, ``task["local"]`` ranks a host).
 """
 
 from __future__ import annotations
@@ -359,6 +362,12 @@ def _obs(task, rank):
     return _torch_obs_child.run(task, rank)
 
 
+def _elastic(task, rank):
+    import _torch_elastic_child
+
+    return _torch_elastic_child.run(task, rank)
+
+
 def main() -> None:
     rank, world, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     import torch
@@ -367,13 +376,18 @@ def main() -> None:
     from crosscoder_tpu_torch.parallel import multihost
 
     task = json.loads(Path(path).read_text())
-    multihost.initialize(device="cpu", init_method=f"tcp://127.0.0.1:{port}",
-                         world_size=world, rank=rank)
+    if task["kind"] == "elastic":
+        multihost.elastic_initialize(f"127.0.0.1:{port}", world, rank, device="cpu",
+                                     timeout_s=30.0, local_world_size=task["local"])
+    else:
+        multihost.initialize(device="cpu", init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=world, rank=rank)
     try:
         res = {"train": _train, "quant": _quant, "ckpt": _ckpt,
                "coll": _coll, "stop": _stop, "guard": _guard, "harvest": _harvest,
                "mesh_rest": _mesh_rest, "comm": _comm, "prefetch": _prefetch,
-               "fleet_mesh": _fleet_mesh, "obs": _obs}[task["kind"]](task, rank)
+               "fleet_mesh": _fleet_mesh, "obs": _obs,
+               "elastic": _elastic}[task["kind"]](task, rank)
         torch.save(res, Path(task["out"]) / f"rank{rank}.pt")
     finally:
         multihost.shutdown()

@@ -56,6 +56,13 @@ def test_obs_and_resilience_modules_are_checked():
             "crosscoder_tpu_torch/resilience/watchdog.py"} <= names
 
 
+def test_elastic_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"crosscoder_tpu_torch/resilience/elastic.py",
+            "crosscoder_tpu_torch/resilience/elastic_drill.py",
+            "crosscoder_tpu_torch/parallel/multihost.py"} <= names
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imports(path)

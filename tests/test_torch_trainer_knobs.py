@@ -1,9 +1,10 @@
 """The port's Trainer refuses every config knob whose JAX behaviour it has
 not ported, rather than running a different job without a word (elastic
-membership, Queue A8b); the defaults (and ``data_axis_size = -1``, all of
-one device) still train, as does each knob ported since it was refused. A
-mesh axis wider than the ranks present is refused as the JAX ``make_mesh``
-refuses it (the mesh itself is ported)."""
+scale-up, Queue A8b-ii); the defaults (and ``data_axis_size = -1``, all of
+one device) still train, as does each knob ported since it was refused
+(elastic membership among them: on one process its controller is
+inactive). A mesh axis wider than the ranks present is refused as the JAX
+``make_mesh`` refuses it (the mesh itself is ported)."""
 
 import pytest
 import torch
@@ -15,11 +16,10 @@ from crosscoder_tpu_torch.train.trainer import Trainer
 BASE = dict(d_in=16, dict_size=64, batch_size=8, num_tokens=16, log_backend="null")
 # one process, no process group: a 2-wide axis does not fit one rank
 _MESH_WIDER_THAN_WORLD = {"model_axis_size": (ValueError, "must divide device count 1"),
-                          "data_axis_size": (ValueError, "mesh 2x1 != 1 devices"),
-                          "elastic": (NotImplementedError, "cfg.elastic is not ported.*A8b")}
+                          "data_axis_size": (ValueError, "mesh 2x1 != 1 devices")}
 # knobs this table refused before their port; each now trains
 _PORTED_SINCE = {"shard_sources", "harvest_timeout_s", "profile_dir", "profile_steps", "obs",
-                 "chaos"}
+                 "chaos", "elastic"}
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -68,3 +68,9 @@ def test_ported_recovery_and_numerics_knobs_construct_and_step(kw):
     tr = Trainer(CrossCoderConfig(**BASE, **kw), device="cpu")
     for _ in range(3):
         assert torch.isfinite(tr.step()["loss"])
+
+
+def test_elastic_grow_raises_naming_its_queue_item(tmp_path):
+    cfg = CrossCoderConfig(**BASE, elastic="on", elastic_grow="on", checkpoint_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="cfg.elastic_grow is not ported.*A8b-ii"):
+        Trainer(cfg, device="cpu")
