@@ -312,7 +312,21 @@ one NVIDIA Hopper card and the CUDA toolkit:
    threshold) on two more gloo ranks, its 8 steps at dict 2^10 and batch
    1024, beside leg EL from the phase's start: zero remeshes, every chaos
    counter at least 1;
-18. prints the kernel table as one JSON line, the card line, and
+18. elastic scale-up: leg EG, the autoscale drill
+   (``resilience/elastic_drill.py``) at leg EL's width and config (TopK k
+   32, dict 2^14, the sparse backward, AuxK, batch 4096, f32 masters, the
+   batch prefetch on) on gloo ranks sharing the card, 2 x 1 -> 1 x 1 -> 2 x
+   1, 14 of the drill's 20 steps, a save every 5: rank 1 dies at serve 6,
+   rank 0 shrinks and replays, ``return@10`` opens the rejoin window, a
+   parked returned rank passes the debounce and rank 0 grows the world
+   back at a step boundary through a boundary save both restore; the survivor's losses after the grow bitwise a clean 2 x 1
+   world's restoring the same save, the joiner's bitwise the survivor's;
+   two remeshes, one grow, no abort, epoch 2; K5, K8, K10 and O1 launched
+   on both sides of the grow (and on the joiner), and 2 steps from the
+   boundary save bitwise their plain versions; remesh_ms, grow_ms and the
+   grow's split (the boundary save, the regroup, the restore) printed, and
+   ``FleetPolicy``'s score ranking at 2, 4 and 8 ranks at that width;
+19. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -6190,14 +6204,14 @@ def _drill_logs(work):
         log(f"  {f.name}: " + " | ".join(lines[-12:])[-2500:])
 
 
-def _run_drill(label, work, fn, overrides):
+def _run_drill(label, work, fn, overrides, phase=17, **kw):
     """One drill, its ranks' logs printed when it raises; fails the phase."""
     try:
         return fn(workdir=str(work), timeout=400.0, keep_logs=True, device="cuda",
-                  overrides=overrides)
+                  overrides=overrides, **kw)
     except Exception as e:  # noqa: BLE001 — reported with the ranks' logs, then fail()
         _drill_logs(work)
-        fail(f"phase 17: leg {label} raised {type(e).__name__}: {e}"[:2000])
+        fail(f"phase {phase}: leg {label} raised {type(e).__name__}: {e}"[:2000])
 
 
 def _timeline(rank, spawned):
@@ -6205,10 +6219,11 @@ def _timeline(rank, spawned):
     return ", ".join(f"{k} {v - spawned:.1f}" for k, v in rank["stamps"].items())
 
 
-def el_plain_check(torch, np, vdir, save):
-    """The survivor's restored save, 2 steps (an aux step and a bare one)
-    with the kernels and again with their plain versions, bitwise (loss,
-    params, moments, trackers): K5, K8, K10 and O1 at leg EL's shapes."""
+def el_plain_check(torch, np, vdir, save, leg="EL", phase=17):
+    """A drill's restored save, 2 steps (an aux step and a bare one) with
+    the kernels and again with their plain versions, bitwise (loss, params,
+    moments, trackers): K5, K8, K10 and O1 at leg EL's shapes (leg EG's
+    are the same)."""
     from crosscoder_tpu_torch.checkpoint import Checkpointer
     from crosscoder_tpu_torch.config import CrossCoderConfig
     from crosscoder_tpu_torch.data.synthetic import SyntheticActivationSource
@@ -6239,8 +6254,8 @@ def el_plain_check(torch, np, vdir, save):
         runs.append((losses, st))
     ok, what = state_bits_equal(torch, runs[0][1], runs[1][1])
     if runs[0][0] != runs[1][0] or not ok:
-        fail(f"phase 17: leg EL's restored steps with the kernels differ from their plain "
-             f"versions: losses {runs[0][0]} against {runs[1][0]}; state {what}")
+        fail(f"phase {phase}: leg {leg}'s restored steps with the kernels differ from their "
+             f"plain versions: losses {runs[0][0]} against {runs[1][0]}; state {what}")
     return [float(np.array(x, np.int32).view(np.float32)) for x in runs[0][0]]
 
 
@@ -6327,6 +6342,104 @@ def elastic(torch, np, root, card):
     log(f"elastic phase {wall:.1f} s (leg EL {t_el:.1f} s; the phase's budget "
         f"{EL_PHASE_S:.0f} s)")
     return {k: total[k] + es0["launches"].get(k, 0) for k in EL_KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: leg EG, the autoscale drill (resilience/elastic_drill.py) at leg
+# EL's width and config on gloo ranks sharing the card, 2 x 1 -> 1 x 1 -> 2 x
+# 1: rank 1 dies at serve 6, rank 0 shrinks and replays, return@10 opens the
+# rejoin window, the parked returned rank passes the debounce and rank 0 grows
+# the world back through a boundary save; a clean 2 x 1 world restores the
+# same save; EG_STEPS steps
+# a save every 5 steps, not the drill's 4, and 14 of its 20 steps: a save
+# of this state is 1.8 GB, and the phase took 169.1–176.9 s of its 180 at 20
+# and 16 steps with a save every 4 (H100 80GB HBM3, 700 W; PERF.md §6). The
+# newest save before the death at serve 6 holds step 5; the grow lands at
+# step 9 or 10, 4 or 5 steps before the end
+EG = dict(EL, save_every=5)
+EG_STEPS = 14
+EG_PHASE_S = 180.0
+# the score policy's ranking is printed at Gemma-2-2B width for these rank counts
+EG_RANKS = (2, 4, 8)
+
+
+def _eg_ranking():
+    """``FleetPolicy``'s score ranking at leg EG's config, as printable
+    ``(n, [(data, model, score_ms)])`` rows."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.resilience.fleet import FleetPolicy
+
+    pol = FleetPolicy(CrossCoderConfig(**EG, elastic_policy="score"))
+    return [(n, [(c.n_data, c.n_model, round(c.score_ms, 3)) for c in pol.rank(n)])
+            for n in EG_RANKS]
+
+
+def autoscale(torch, np, root, card):
+    """Phase 18: leg EG. Returns the launches of its survivor and joiner."""
+    from crosscoder_tpu_torch.resilience import elastic_drill as drill
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_autoscale_", dir=root / "build"))
+    try:
+        rep = _run_drill("EG", work, drill.run_autoscale_drill, EG, phase=18, steps=EG_STEPS)
+        t_eg = time.perf_counter() - t_phase
+        surv, join = rep["survivor"], rep["joiner"]
+        if not rep["bitwise_equal"] or not rep["joiner_equal"]:
+            _drill_logs(work)
+            fail(f"phase 18: leg EG after the grow: survivor {rep['post_losses']}, clean "
+                 f"{rep['clean_losses']}, joiner {rep['joiner_losses']} (bitwise "
+                 f"{rep['bitwise_equal']}, joiner {rep['joiner_equal']})")
+        c = surv["counters"]
+        if (c.get("resilience/remeshes") != 2 or c.get("resilience/grows") != 1
+                or c.get("resilience/grow_aborts") or rep["epoch"] != 2
+                or surv["grid"] != [2, 1] or join["grid"] != [2, 1]):
+            fail(f"phase 18: leg EG's survivor: counters {c}, epoch {rep['epoch']}, grids "
+                 f"{surv['grid']} and {join['grid']}")
+        before, total = surv["launches_before_grow"], surv["launches"]
+        after = {k: total[k] - before[k] for k in total}
+        for k in EL_KERNELS:
+            if not before[k] or not after[k] or not join["launches"][k]:
+                fail(f"phase 18: leg EG did not launch {k} on both sides of the grow: before "
+                     f"{before}, after {after}, on the joiner {join['launches']}")
+        grow = surv["grow"]
+        plain = el_plain_check(torch, np, Path(grow["version_dir"]), grow["save"], "EG", 18)
+        log(f"leg EG: rank 1 died at serve {drill._AUTOSCALE['die_serve']}; rank 0 found it by "
+            f"{surv['detected_by']}, shrank to epoch {surv['remesh']['epoch']} and restored "
+            f"save {surv['remesh']['save']} (step {surv['remesh']['step']}); return@"
+            f"{drill._AUTOSCALE['return_serve']} opened the rejoin window; rank 0 grew to "
+            f"epoch {rep['epoch']} on a 2 x 1 grid at step {grow['step']} through boundary save "
+            f"{grow['save']}, the joiner at rank {join['rank']}; both finished "
+            f"{surv['final_step']} steps; remesh_ms {rep['remesh_ms']}, grow_ms "
+            f"{rep['grow_ms']} ({card}); losses after the grow "
+            f"{[round(float.fromhex(h), 4) for _, h in rep['post_losses']]} bitwise the clean "
+            f"2 x 1 world's and the joiner's; launches before the grow {before}, after "
+            f"{after}, on the joiner {join['launches']}; 2 steps from the boundary save "
+            f"bitwise their plain versions (losses {[round(x, 4) for x in plain]}); "
+            f"{t_eg:.1f} s")
+        split = {k: round(v, 1) for k, v in surv["grow_split"].items()}
+        rsplit = {k: round(v, 1) for k, v in surv["remesh_split"].items()}
+        log(f"leg EG: the grow's split {split} ms (the boundary save, the regroup: the "
+            f"admission and the rendezvous, the restore); the shrink's {rsplit} ms; the "
+            f"survivor's timeline (s from the spawn) {_timeline(surv, rep['spawned']['pair'])}; "
+            f"the joiner's {_timeline(join, rep['spawned']['pair'])}; the clean world's "
+            f"rank 0 {_timeline(rep['clean'], rep['spawned']['clean'])}")
+        wide = [ms for i, ms in surv["step_ms"] if i > grow["step"]]
+        log(f"leg EG: gloo step time at 2 ranks after the grow (loss to loss, host clock) "
+            f"median {np.median(wide) if wide else float('nan'):.1f} ms "
+            f"{[round(x, 1) for x in wide]}; gloo stages every collective through host memory "
+            f"({card})")
+        for n, rows in _eg_ranking():
+            log(f"leg EG: FleetPolicy score ranking at {n} ranks, Gemma-2-2B width (d_in "
+                f"{EG['d_in']}, dict {EG['dict_size']}, batch {EG['batch_size']}; (data, model, "
+                f"modeled ms), cheapest first): {rows}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"autoscale phase {wall:.1f} s (leg EG {t_eg:.1f} s; the phase's budget "
+        f"{EG_PHASE_S:.0f} s)")
+    return {k: total[k] + join["launches"][k] for k in EL_KERNELS}
 
 
 def main() -> int:
@@ -6497,6 +6610,10 @@ def main() -> int:
     for row in train_rows[:3]:
         row["launches"] += shrunk[row["name"].split()[0]]
     row_o1["launches"] += shrunk["adam_update"]
+    grown = autoscale(torch, np, root, card)
+    for row in train_rows[:3]:
+        row["launches"] += grown[row["name"].split()[0]]
+    row_o1["launches"] += grown["adam_update"]
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
               *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed,
               row_o1_cohort])

@@ -19,6 +19,10 @@ host as the JAX coordination service does. Membership is versioned by a
 monotone epoch (:class:`Membership`); each epoch's process group lives
 under a ``PrefixStore`` named for the epoch, and every liveness key embeds
 the epoch, so a peer of epoch N never meets a barrier of epoch N+1.
+:func:`shrink_to_local` narrows the world to the coordinator host's ranks;
+:func:`grow_to` widens it again on the same store, which lives on with
+rank 0 through the shrink (JAX's coordination service dies with it, so the
+JAX grow starts a fresh one on a new port).
 """
 
 from __future__ import annotations
@@ -198,6 +202,7 @@ class _ElasticState:
         self.device: torch.device | None = None
         self.backend: str | None = None
         self.timeout_s = 0.0            # each epoch's collective timeout
+        self.last_epoch = -1            # the newest epoch whose prefix was written to
         self.peer_lost.clear()
 
 
@@ -217,8 +222,13 @@ def _join_epoch(epoch: int, world: int, rank_: int) -> None:
     already left it, until that collective's bound (``timeout_s``) and the
     confirming barrier have run out. So a later epoch first waits for every
     survivor's arrival key for twice the bound, longer than the group's own
-    rendezvous would."""
+    rendezvous would.
+
+    An epoch whose join failed (a grow whose joiner vanished) is burned:
+    its prefix may hold arrival keys, so no later join reuses it
+    (:func:`next_epoch`)."""
     st = _elastic
+    st.last_epoch = max(st.last_epoch, epoch)
     store = dist.PrefixStore(f"epoch{epoch}", st.store)
     if epoch > 0:
         store.set(f"arrived/{rank_}", b"1")
@@ -227,6 +237,12 @@ def _join_epoch(epoch: int, world: int, rank_: int) -> None:
     backend, kwargs = _backend_kwargs(st.device, st.backend)
     dist.init_process_group(backend, store=store, world_size=world, rank=rank_,
                             timeout=group_timeout(), **kwargs)
+
+
+def next_epoch() -> int:
+    """The epoch after both the current one and every burned one."""
+    m = _elastic.membership
+    return max(-1 if m is None else m.epoch, _elastic.last_epoch) + 1
 
 
 def group_timeout() -> datetime.timedelta | None:
@@ -297,6 +313,17 @@ def collective_timeout_s() -> float:
     return _elastic.timeout_s
 
 
+def backend_name() -> str | None:
+    """The elastic world's backend (``None`` outside one)."""
+    st = _elastic
+    return None if st.device is None else _backend_kwargs(st.device, st.backend)[0]
+
+
+def local_world_size() -> int:
+    """The ranks a host of the elastic world (1 outside one)."""
+    return _elastic.local_world_size
+
+
 def on_coordinator_host() -> bool:
     """True on the ranks a shrink keeps: rank 0's host's (``[0,
     local_world_size)``)."""
@@ -363,7 +390,8 @@ def shrink_to_local() -> Membership:
     """Tear the world down to the coordinator host's ranks (``[0,
     local_world_size)``), bumping the epoch: leave the old groups, then
     join a new group of just those ranks under the next epoch's prefix of
-    the same store. The flag is cleared.
+    the same store (past any epoch a failed grow burned). The flag is
+    cleared.
 
     Only the coordinator host's ranks can shrink (the store lives on rank
     0); any other rank raises :class:`RuntimeError`. Device tensors outlive
@@ -381,9 +409,99 @@ def shrink_to_local() -> Membership:
         _leave_group()
     except Exception as e:  # noqa: BLE001 — the peers are gone: a teardown may fail
         _log(f"group teardown ({type(e).__name__}: {e})")
-    new = Membership(epoch=old.epoch + 1, num_processes=survivors,
+    new = Membership(epoch=next_epoch(), num_processes=survivors,
                      process_id=_elastic.rank, coordinator_address=old.coordinator_address)
     _join_epoch(new.epoch, survivors, _elastic.rank)
     _elastic.peer_lost.clear()
     _elastic.membership = new
     return new
+
+
+def grow_to(coordinator_address: str, num_processes: int, process_id: int, epoch: int, *,
+            device=None, backend: str | None = None, timeout_s: float | None = None,
+            local_world_size: int | None = None) -> Membership:
+    """Re-form a WIDER world of ``num_processes`` ranks at ``epoch``, on the
+    membership store at ``coordinator_address``.
+
+    Two callers share this entry point:
+
+    - a survivor (a rank of the shrunk world, which holds the store or a
+      client of it): it leaves its narrow groups first (:func:`_leave_group`;
+      the caller drops its references to them before), then joins the new
+      epoch at its own rank, which it keeps (ranks are host-major: the
+      survivors are ``[0, local_world_size)``);
+    - a returned joiner (a fresh process): it connects to the store as a
+      client and joins at ``process_id``, the rank its admit record gives
+      it. ``device``, ``backend``, ``timeout_s`` (the collective bound) and
+      ``local_world_size`` are the world's, from the same record; a
+      survivor keeps its own.
+
+    The join is :func:`_join_epoch`'s: an arrival barrier bounded by twice
+    the collective bound, then the group's own rendezvous. It raises when
+    a member does not arrive (the joiner vanished); the caller then burns
+    the epoch and re-forms narrow (:func:`shrink_to_local`, which joins past
+    it). ``epoch`` must be past the current one, and the target world must
+    have at least 2 ranks (:class:`ValueError`); an NCCL world of more than
+    one rank is refused, as :func:`elastic_initialize` refuses it."""
+    if num_processes < 2:
+        raise ValueError(f"grow_to needs a multi-process target world, got "
+                         f"num_processes={num_processes}")
+    st = _elastic
+    old = st.membership
+    if old is not None and epoch <= old.epoch:
+        raise ValueError(f"grow_to epoch {epoch} is not past the current epoch {old.epoch}: "
+                         "mesh epochs are monotone")
+    if old is None:
+        # a returned joiner: the world's settings, then a client of its store
+        if dist.is_initialized():
+            raise RuntimeError("grow_to on a process that has joined a group outside an "
+                               "elastic runtime")
+        dev = local_device(device)
+        L = int(local_world_size or os.environ.get("LOCAL_WORLD_SIZE", 1))
+        if num_processes % L:
+            raise ValueError(f"local_world_size {L} must divide the world {num_processes}")
+        st.reset()
+        st.device, st.backend, st.rank, st.local_world_size = dev, backend, process_id, L
+        st.timeout_s = float(timeout_s if timeout_s is not None else 60.0)
+    if _backend_kwargs(st.device, st.backend)[0] == "nccl":
+        raise ValueError(
+            "elastic membership over NCCL needs one rank: a dead NCCL peer does not raise in "
+            "Python, so a survivor could not re-mesh; join the ranks with backend='gloo'")
+    if old is None:
+        host, port = coordinator_address.rsplit(":", 1)
+        st.store = dist.TCPStore(host, int(port), is_master=False,
+                                 timeout=datetime.timedelta(seconds=st.timeout_s))
+    else:
+        if process_id != st.rank:
+            raise ValueError(f"a survivor keeps its rank {st.rank} in the grown world, got "
+                             f"{process_id}")
+        try:
+            _leave_group()
+        except Exception as e:  # noqa: BLE001 — the narrow world is left either way
+            _log(f"group teardown ({type(e).__name__}: {e})")
+    _join_epoch(epoch, num_processes, process_id)
+    st.peer_lost.clear()
+    st.membership = Membership(epoch=epoch, num_processes=num_processes, process_id=process_id,
+                               coordinator_address=coordinator_address)
+    return st.membership
+
+
+def share_from_coordinator(key: str, payload: bytes | None, timeout_s: float) -> bytes | None:
+    """Rank 0's ``payload`` on every rank of the current epoch: rank 0
+    writes it under ``key`` (which names the epoch and the occasion: a key
+    is written once) and returns it; every other rank waits up to
+    ``timeout_s`` for it and returns it, or ``None`` when it did not come.
+    One rank: ``payload`` itself."""
+    m = _elastic.membership
+    if m is None or m.num_processes <= 1:
+        return payload
+    k = f"crosscoder_tpu_share_{m.epoch}_{key}"
+    if m.process_id == 0:
+        _elastic.store.set(k, payload)
+        return payload
+    try:
+        _elastic.store.wait([k], datetime.timedelta(seconds=max(timeout_s, 1e-3)))
+        return _elastic.store.get(k)
+    except Exception as e:  # noqa: BLE001 — a timeout or a dead store: nothing shared
+        _log(f"no word from rank 0 under {key} ({type(e).__name__}: {e})")
+        return None

@@ -11,15 +11,14 @@
   the checksummed restore with fallback and ``keep_saves`` in
   :class:`crosscoder_tpu_torch.checkpoint.Checkpointer`.
 
-- :mod:`crosscoder_tpu_torch.resilience.elastic`: elastic membership's loss
-  side (liveness probes with hysteresis, the survivor re-mesh), and
-  :mod:`crosscoder_tpu_torch.resilience.elastic_drill`, its preempt and
-  stability drills.
+- :mod:`crosscoder_tpu_torch.resilience.elastic`: elastic membership
+  (liveness probes with hysteresis, the survivor re-mesh, the rejoin board
+  and the grow), :mod:`crosscoder_tpu_torch.resilience.fleet`, the grid
+  policy of a grow, and :mod:`crosscoder_tpu_torch.resilience.elastic_drill`,
+  the preempt, autoscale and stability drills.
 
 Recoveries count on the ``resilience/*`` channel
-(:class:`crosscoder_tpu_torch.utils.logging.ResilienceCounters`). Elastic
-scale-up (the JAX package's rendezvous board, ``grow_to``, the autoscale
-drill and the ``fleet`` module's policy) is not ported yet.
+(:class:`crosscoder_tpu_torch.utils.logging.ResilienceCounters`).
 """
 
 from crosscoder_tpu_torch.resilience.chaos import Chaos, ChaosFault

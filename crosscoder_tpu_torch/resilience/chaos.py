@@ -32,7 +32,7 @@ Grammar (``N`` an event index, ``SEC`` float seconds):
 - ``die@N``                 — ``os._exit(43)`` at serve N
 - ``fail@N``                — raise ChaosFault at serve N
 - ``return@N``              — a killed host returns at serve N (the
-  elastic scale-up's fault; inert until scale-up is ported)
+  elastic scale-up's fault: the trainer opens the rejoin window)
 - ``flaky@N:P``             — from liveness probe N on, skip each probe
   with probability P (seeded per probe; a property, not fire-once)
 - ``slow@N:MS``             — join probe N's barrier MS ms late
@@ -47,8 +47,8 @@ Grammar (``N`` an event index, ``SEC`` float seconds):
 The probe faults (``flaky@``, ``slow@``) and ``return@`` parse and render,
 and :meth:`Chaos.on_probe` / :meth:`Chaos.take_return` answer as the JAX
 package's; the elastic controller calls :meth:`Chaos.on_probe` at each
-liveness probe, and nothing calls :meth:`Chaos.take_return` until scale-up
-is ported. :meth:`Chaos.render` is the grammar's inverse: a canonical spec
+liveness probe, and the trainer's serve :meth:`Chaos.take_return`, which
+opens the rejoin window of an elastic grow. :meth:`Chaos.render` is the grammar's inverse: a canonical spec
 that parses back to the same plan.
 """
 

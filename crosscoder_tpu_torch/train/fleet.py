@@ -51,7 +51,8 @@ gathered save and the agreed restore. Admission and retirement depend on
 state every rank holds, so every rank keeps the same roster, and
 :meth:`FleetScheduler.save_all`, :meth:`FleetScheduler.restore_all` and
 :meth:`FleetScheduler.retire` are collectives: every rank calls them at
-the same round. :meth:`FleetScheduler.remesh` is ROADMAP A8. Runs on
+the same round, as is :meth:`FleetScheduler.remesh` onto another grid,
+which restores every tenant from its newest save there. Runs on
 ``cuda`` unless ``device`` names another device; on the card every step
 launches its kernels or raises.
 """
@@ -60,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import sys
 from typing import Any
 
 import torch.distributed as dist
@@ -545,5 +547,33 @@ class FleetScheduler:
         return restored
 
     def remesh(self, mesh) -> None:
-        raise NotImplementedError("the fleet's elastic re-mesh waits for the port of elastic "
-                                  "scale-up (ROADMAP A8b-ii)")
+        """Elastic re-mesh onto ``mesh`` (a grid over the ranks present,
+        every rank calling it): quiesce, re-derive every grid-coupled piece
+        (the shared buffer's store, each cohort's and bucket's step bodies,
+        each tenant's shards) and restore ALL tenants and the stream from
+        their newest saves, the boundary the caller saved with
+        :meth:`save_all`. The fleet's analogue of the Trainer's re-mesh and
+        grow, in their order: the quiesce, ``prepare_reshard``, the new
+        grid, ``reshard(refill=False)`` (the restore replays the save's
+        stream position, not the live one), then :meth:`restore_all`, which
+        takes each tenant's shards on the new grid."""
+        self.quiesce()
+        self._quiesce_refill()
+        if hasattr(self.buffer, "prepare_reshard"):
+            self.buffer.prepare_reshard()
+        for t in self._tenants.values():
+            if not t.retired:
+                _check_mesh(t.cfg, mesh)
+        self.mesh = mesh
+        if hasattr(self.buffer, "reshard"):
+            self.buffer.reshard(mesh, refill=False)
+        for co in self._cohorts:
+            co.state = None         # restored below, sharded for the new grid
+            co.fns.clear()
+        for b in self._buckets:
+            b.state = None
+            b.fns.clear()
+        self.restore_all()
+        print(f"[crosscoder_tpu_torch] fleet: re-meshed onto a {mesh.data_size} x "
+              f"{mesh.model_size} grid and restored {len(self.active())} tenant(s)",
+              flush=True, file=sys.stderr)

@@ -118,10 +118,14 @@ or an exception the controller confirms as a torn collective leads to
 the coordinator host's ranks, rebuilds what the grid shaped, reshards the
 buffer and restores the newest verified save; anything else re-raises
 unchanged. A rank that cannot survive raises ``PeerLoss`` out of
-``train()`` and skips the final save.
+``train()`` and skips the final save. Scale-up (``cfg.elastic_grow="on"``):
+chaos ``return@S`` opens the rejoin window at serve S; after the probe,
+the shrunk survivors poll the rejoin board (``grow_ready``) and, when
+candidates have passed the debounce and the dwell, grow at that step
+boundary (:meth:`Trainer._grow_and_resume`: the boundary save every member
+restores) and re-enter the loop on the wider grid.
 
-Not ported in this slice (ROADMAP Queue A): elastic scale-up (A8b-ii), the
-compile cache.
+Not ported in this slice (ROADMAP Queue A): the compile cache (A9).
 """
 
 from __future__ import annotations
@@ -429,8 +433,8 @@ class Trainer:
     :class:`~crosscoder_tpu_torch.train.fleet.FleetScheduler`.
     ``cfg.elastic="on"`` builds the elastic controller (inactive outside an
     elastic world of more than one rank: the trainer then trains as with
-    it off); ``cfg.elastic_grow="on"`` raises :class:`NotImplementedError`
-    (scale-up is not ported yet). ``remat`` and ``compile_cache_dir``
+    it off); ``cfg.elastic_grow="on"`` adds the scale-up (module
+    docstring). ``remat`` and ``compile_cache_dir``
     change only speed or memory in the JAX trainer, never results, so the
     port accepts and ignores them. ``prefetch`` (default on) serves the
     next batch on a worker thread while the step runs (module docstring);
@@ -445,10 +449,6 @@ class Trainer:
             raise ValueError("cfg.fleet='on' trains its tenants through "
                              "crosscoder_tpu_torch.train.fleet.FleetScheduler; the Trainer "
                              "trains one crosscoder (a tenant's config has fleet='off')")
-        if cfg.elastic_grow == "on":
-            raise NotImplementedError(
-                "cfg.elastic_grow is not ported to the PyTorch trainer yet (ROADMAP Queue "
-                "A8b-ii: elastic scale-up)")
         if mesh is None and (dist.is_initialized() or cfg.model_axis_size > 1
                              or cfg.data_axis_size > 1):
             mesh = mesh_lib.mesh_from_cfg(cfg)
@@ -480,6 +480,7 @@ class Trainer:
         self._elastic = None
         self._world_lost = False        # this rank could not survive a peer loss
         self.last_remesh: dict | None = None
+        self.last_grow: dict | None = None
         if cfg.elastic == "on":
             self._elastic = ElasticController(cfg, counters=self.resilience, chaos=chaos)
         self._watchdog = None
@@ -624,6 +625,11 @@ class Trainer:
         production is in flight."""
         if self.chaos is not None:
             self.chaos.on_serve(serve)
+            if self._elastic is not None and self.chaos.take_return(serve):
+                # return@serve: the fleet grants capacity back; the board
+                # write is atomic, so the prefetch worker may post it. The
+                # grow waits for the controller's next poll
+                self._elastic.open_rejoin_window(serve)
         if out is not None:
             b = self.buffer.next(out=out)
             if self.chaos is not None:
@@ -976,9 +982,75 @@ class Trainer:
                             "save": int(meta.get("save_version", -1)),
                             "epoch": self._elastic.epoch(), "remesh_ms": int(ms)}
         self.resilience.bump("remesh_ms", int(ms))
+        # the dwell clock: no grow within cfg.elastic_dwell_steps of this step
+        self._elastic.note_remesh(self._host_step)
         print(f"[crosscoder_tpu_torch] elastic: resumed at step {self._host_step} on a "
               f"{mesh.data_size} x {mesh.model_size} grid ({ms:.0f} ms recovery)", flush=True,
               file=sys.stderr)
+
+    def _grow_and_resume(self, step: int) -> None:
+        """Scale-up at a step boundary: the shrunk survivors admit their
+        debounced candidates, write the boundary save (state and stream
+        position at exactly this step), re-form the wider world, and every
+        member, survivors included, restores that save. No step is lost,
+        and the grown world's steps are bitwise a clean start's at the wide
+        shape from the same save. A failed rendezvous falls back to the
+        narrow world, which restores the same save and trains on.
+
+        The batch in flight on the prefetch worker is drained, not
+        dropped: the save records the stream as it stood before it, so the
+        restored stream serves it again (the JAX trainer drops it). The
+        wall time accumulates in ``resilience/grow_ms``; :attr:`last_grow`
+        records JAX's keys."""
+        t0 = time.perf_counter()
+        with trace.span("grow"):
+            print(f"[crosscoder_tpu_torch] elastic: rejoin candidates debounced; growing at "
+                  f"step {step}", flush=True, file=sys.stderr)
+            # 1. quiesce: the tickets first (nothing else launches now), then
+            #    the production in flight and the refill
+            if self._sequencer is not None:
+                self._sequencer.invalidate()
+            with contextlib.suppress(Exception):    # a failed batch is served again
+                self._drain_prefetch()
+            self._quiesce_refill()
+            # 2. the boundary save, landed: the joiners' hydration point
+            self.save()
+            self.checkpointer.wait()
+            self._pending = self._buffer_snapshot = None
+            boundary = self.checkpointer.save_version - 1
+            vdir = str(self.checkpointer.save_dir)
+            if hasattr(self.buffer, "prepare_reshard"):
+                self.buffer.prepare_reshard()
+            # 3. admit and re-form the wider world (the narrow one on a
+            #    failed rendezvous); the old grid's groups unreferenced first
+            self._drop_grid()
+            mesh, admit = self._elastic.grow(step, save_version=boundary, version_dir=vdir,
+                                             save_step=step)
+            # 4. the new grid's pieces, then the boundary save the admit record
+            #    names (rank 0's, on every survivor) on the new world
+            rec = self._elastic.last_admit
+            vdir, boundary = rec["version_dir"], int(rec["save"])
+            self._rebuild_for_mesh(mesh)
+            if hasattr(self.buffer, "reshard"):
+                self.buffer.reshard(mesh, refill=False)
+            meta = self.restore(version_dir=vdir, save=boundary)
+            if admit is not None and not multihost.probe_liveness(
+                    f"r{int(admit['epoch'])}", timeout_s=120.0):
+                # the hydration barrier: nobody trains before every member has
+                # restored (a joiner still building would cost a suspect)
+                print("[crosscoder_tpu_torch] elastic: hydration barrier timed out; training "
+                      "on (the probe path will catch a dead joiner)", flush=True,
+                      file=sys.stderr)
+        ms = 1000 * (time.perf_counter() - t0)
+        self._elastic.note_remesh(self._host_step)
+        self.last_grow = {"step": int(meta.get("step", -1)), "save": boundary,
+                          "version_dir": vdir, "epoch": self._elastic.epoch(),
+                          "grow_ms": int(ms), "grown": admit is not None,
+                          "n_data": mesh.data_size}
+        self.resilience.bump("grow_ms", int(ms))
+        print(f"[crosscoder_tpu_torch] elastic: resumed at step {self._host_step} on a "
+              f"{mesh.data_size} x {mesh.model_size} grid ({ms:.0f} ms grow recovery)",
+              flush=True, file=sys.stderr)
 
     def _drop_grid(self) -> None:
         """Let go of everything the old grid shaped, its groups with it:
@@ -1018,7 +1090,10 @@ class Trainer:
         the loop at the restored step. Under ``cfg.elastic`` a liveness probe
         runs before each step at the stop-poll cadence, and a peer loss (the
         probe's, or an exception the controller confirms) re-meshes and
-        re-enters the loop at the restored step.
+        re-enters the loop at the restored step; under ``cfg.elastic_grow``
+        a grow the controller finds ready after the probe does the same
+        (:meth:`_grow_and_resume`), a profiler window in capture stopped
+        first.
 
         Under ``cfg.obs`` each log line carries the registry's ``perf/*``
         and ``comm/*`` keys, ``perf/refill_bubble_frac`` (the share of the
@@ -1092,6 +1167,17 @@ class Trainer:
                         if (self._elastic is not None and self._elastic.should_probe(i)
                                 and not self._elastic.probe(i)):
                             raise PeerLoss(f"peer lost (liveness probe, step {i})")
+                        # scale-up: the shrunk survivors poll the rejoin board;
+                        # past the debounce and the dwell they grow at this
+                        # boundary and re-enter the loop on the wider grid
+                        if (self._elastic is not None and self.checkpointer is not None
+                                and self._elastic.grow_ready(i)):
+                            if profiler is not None:
+                                profiler.stop_if_active()
+                            self._grow_and_resume(i)
+                            multi_rank = multihost.world_size() > 1
+                            rolled_back = True
+                            break
                         if stop_agreed(i):
                             break
                         if profiler is not None:

@@ -29,7 +29,10 @@ found to ``<out>/rank<r>.pt`` (``torch.save``):
 - ``obs``: the telemetry plane's comm gauges on a grid (``tests/_torch_obs_child.py``);
 - ``elastic``: the buffer's reshard across a survivor shrink
   (``tests/_torch_elastic_child.py``); such a task joins an elastic world
-  (``multihost.elastic_initialize``, ``task["local"]`` ranks a host).
+  (``multihost.elastic_initialize``, ``task["local"]`` ranks a host, each
+  collective bound by ``task["timeout_s"]``, default 30 s);
+- ``grow``: the elastic grow (``tests/_torch_grow_child.py``), in an
+  elastic world too.
 """
 
 from __future__ import annotations
@@ -368,6 +371,12 @@ def _elastic(task, rank):
     return _torch_elastic_child.run(task, rank)
 
 
+def _grow(task, rank):
+    import _torch_grow_child
+
+    return _torch_grow_child.run(task, rank)
+
+
 def main() -> None:
     rank, world, port, path = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     import torch
@@ -376,9 +385,10 @@ def main() -> None:
     from crosscoder_tpu_torch.parallel import multihost
 
     task = json.loads(Path(path).read_text())
-    if task["kind"] == "elastic":
+    if task["kind"] in ("elastic", "grow"):
         multihost.elastic_initialize(f"127.0.0.1:{port}", world, rank, device="cpu",
-                                     timeout_s=30.0, local_world_size=task["local"])
+                                     timeout_s=task.get("timeout_s", 30.0),
+                                     local_world_size=task["local"])
     else:
         multihost.initialize(device="cpu", init_method=f"tcp://127.0.0.1:{port}",
                              world_size=world, rank=rank)
@@ -387,7 +397,7 @@ def main() -> None:
                "coll": _coll, "stop": _stop, "guard": _guard, "harvest": _harvest,
                "mesh_rest": _mesh_rest, "comm": _comm, "prefetch": _prefetch,
                "fleet_mesh": _fleet_mesh, "obs": _obs,
-               "elastic": _elastic}[task["kind"]](task, rank)
+               "elastic": _elastic, "grow": _grow}[task["kind"]](task, rank)
         torch.save(res, Path(task["out"]) / f"rank{rank}.pt")
     finally:
         multihost.shutdown()

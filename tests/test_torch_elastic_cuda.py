@@ -7,6 +7,12 @@ without one; the file imports no JAX:
   (TopK with the sparse backward and AuxK, bf16 compute): rank 1 dies, rank
   0 shrinks to one rank on the card, restores and finishes, bitwise a clean
   one-rank restart; K5, K8, K10 and O1 launch on both sides of the re-mesh;
+- the autoscale drill at 2 x 1 on gloo ranks sharing the card at the same
+  width: rank 1 dies, rank 0 shrinks, the returned host rejoins and the
+  world grows back to 2 x 1; the survivor after the grow bitwise a clean 2
+  x 1 world's from the same boundary save, the joiner bitwise the
+  survivor; K5, K8, K10 and O1 launch on both sides of the grow, on the
+  joiner too;
 - the NCCL shrink at the one world size one card holds: an elastic world
   of one NCCL rank leaves its groups through the abort path and joins
   epoch 1, whose all-reduce runs.
@@ -48,6 +54,20 @@ def test_preempt_drill_shrinks_on_the_card(cuda, tmp_path):
     before, total = surv["launches_before"], surv["launches"]
     for k in KERNELS:
         assert before[k] > 0 and total[k] > before[k], (k, before, total)
+
+
+def test_autoscale_drill_grows_on_the_card(cuda, tmp_path):
+    report = drill.run_autoscale_drill(workdir=str(tmp_path), timeout=300.0, device="cuda",
+                                       overrides=SMALL)
+    assert report["bitwise_equal"], (report["post_losses"], report["clean_losses"])
+    assert report["joiner_equal"], (report["post_losses"], report["joiner_losses"])
+    surv = report["survivor"]
+    assert surv["counters"].get("resilience/grows") == 1 and report["epoch"] == 2
+    assert surv["grid"] == [2, 1] and report["joiner"]["grid"] == [2, 1]
+    before, total = surv["launches_before_grow"], surv["launches"]
+    for k in KERNELS:
+        assert before[k] > 0 and total[k] > before[k], (k, before, total)
+        assert report["joiner"]["launches"][k] > 0, (k, report["joiner"]["launches"])
 
 
 def test_nccl_shrink_at_world_size_one(cuda, tmp_path):

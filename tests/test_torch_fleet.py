@@ -435,9 +435,7 @@ def test_a_mesh_and_remesh_are_refused():
     # wider than the ranks present is refused as the Trainer refuses it
     with pytest.raises(ValueError, match="must divide device count 1"):
         FleetScheduler(fleet_cfg("a", model_axis_size=2), checkpoint=False, device="cpu")
-    fl = FleetScheduler(fleet_cfg("a"), checkpoint=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        fl.remesh(None)
+    # the re-mesh onto another grid is ported: tests/test_torch_elastic_regrow.py
 
 
 # ---------------------------------------------------------------------------

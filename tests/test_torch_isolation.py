@@ -18,6 +18,7 @@ from crosscoder_tpu_torch.ops import adam
 from crosscoder_tpu_torch.ops import fused_encoder_topk as fek
 from crosscoder_tpu_torch.ops import paged_attention as pa
 from crosscoder_tpu_torch.ops import quant, sparse_grad, topk_pallas
+from crosscoder_tpu_torch.resilience import elastic_drill
 from crosscoder_tpu_torch.serve import InferenceEngine
 from crosscoder_tpu_torch.serve.smoke import build_engine, serve_batch
 from crosscoder_tpu_torch.train import main as train_main
@@ -60,6 +61,7 @@ def test_elastic_modules_are_checked():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"crosscoder_tpu_torch/resilience/elastic.py",
             "crosscoder_tpu_torch/resilience/elastic_drill.py",
+            "crosscoder_tpu_torch/resilience/fleet.py",
             "crosscoder_tpu_torch/parallel/multihost.py"} <= names
 
 
@@ -99,7 +101,8 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
                  lambda: replicate.main(["--demo", "--out", str(tmp_path / "replicate")]),
                  lambda: eval_ce.main(["--demo"]),
                  lambda: Checkpointer(base_dir=tmp_path).restore(tcfg),
-                 lambda: FleetScheduler(tcfg.replace(fleet="on", fleet_tenants="a;b"))):
+                 lambda: FleetScheduler(tcfg.replace(fleet="on", fleet_tenants="a;b")),
+                 lambda: elastic_drill.run_autoscale_drill(workdir=str(tmp_path / "drill"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -1,10 +1,11 @@
 """The port's Trainer refuses every config knob whose JAX behaviour it has
-not ported, rather than running a different job without a word (elastic
-scale-up, Queue A8b-ii); the defaults (and ``data_axis_size = -1``, all of
-one device) still train, as does each knob ported since it was refused
-(elastic membership among them: on one process its controller is
-inactive). A mesh axis wider than the ranks present is refused as the JAX
-``make_mesh`` refuses it (the mesh itself is ported)."""
+not ported, rather than running a different job without a word; since
+elastic scale-up (Queue A8b-ii) no knob of this table is refused: the
+defaults (and ``data_axis_size = -1``, all of one device) still train, as
+does each knob ported since it was refused (elastic membership among them:
+on one process its controller is inactive). A mesh axis wider than the
+ranks present is refused as the JAX ``make_mesh`` refuses it (the mesh
+itself is ported)."""
 
 import pytest
 import torch
@@ -68,9 +69,3 @@ def test_ported_recovery_and_numerics_knobs_construct_and_step(kw):
     tr = Trainer(CrossCoderConfig(**BASE, **kw), device="cpu")
     for _ in range(3):
         assert torch.isfinite(tr.step()["loss"])
-
-
-def test_elastic_grow_raises_naming_its_queue_item(tmp_path):
-    cfg = CrossCoderConfig(**BASE, elastic="on", elastic_grow="on", checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="cfg.elastic_grow is not ported.*A8b-ii"):
-        Trainer(cfg, device="cpu")
