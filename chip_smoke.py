@@ -326,7 +326,24 @@ one NVIDIA Hopper card and the CUDA toolkit:
    boundary save bitwise their plain versions; remesh_ms, grow_ms and the
    grow's split (the boundary save, the regroup, the restore) printed, and
    ``FleetPolicy``'s score ranking at 2, 4 and 8 ranks at that width;
-19. prints the kernel table as one JSON line, the card line, and
+19. the tuner (``crosscoder_tpu_torch/tune/``): leg TU at the train
+   phase's width and config (TopK k 32, dict 2^15, the sparse backward,
+   AuxK 64 every 2, batch 4096, bf16 compute, f32 masters) over the
+   synthetic source: ``tune()`` over prefetch x refill_frac x
+   refill_dispatch_batch (8 candidates priced on the port's cost model, the
+   top 2 and the default knobs gated and measured, 2 + 4 steps a window
+   through the Trainer) writes ``TUNED.json``, which ``load_tuned`` and
+   ``apply_tuned`` give back exactly; every calibrated candidate passes the
+   step-identity gate bitwise, and a step knob (``topk_k``) smuggled past a
+   patched ``STEP_FIELDS`` fails it and is counted
+   ``tune/rejected_contract`` 1; a Trainer on ``--tuned`` and one on the
+   winner's knobs as flags, 4 steps each, bitwise; ``FleetPolicy`` takes the
+   pinned artifact's grid; one harvest quantum's host time (the tuner's
+   dispatch constant) measured over two random-init Gemma-2-2B; each
+   candidate's predicted score, each window's span ``step_ms``, ``wall_s /
+   steps``, bubble and effective ms, the gate's ms and the phase's seconds
+   printed; K5, K8, K10 and O1 counted;
+20. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -6442,6 +6459,183 @@ def autoscale(torch, np, root, card):
     return {k: total[k] + join["launches"][k] for k in EL_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: leg TU, the tuner at the train phase's width over the synthetic
+# source (its serve of a 4096-row batch, 0.52-0.75 s of host numpy, is the
+# windows' pace; PERF.md §5)
+TU = dict(TRAIN)
+TU_AXES = {"prefetch": (False, True), "refill_frac": (0.25, 0.5),
+           "refill_dispatch_batch": (4, 8)}
+TU_TOP_K, TU_STEPS, TU_WARMUP, TU_TRAINER_STEPS = 2, 4, 2, 4
+TU_PHASE_S = 60.0
+
+
+def _flag(k, v):
+    """One config knob as ``from_cli`` flags."""
+    return [f"--{k.replace('_', '-')}", str(v).lower() if isinstance(v, bool) else str(v)]
+
+
+def quantum_host_ms(torch, np):
+    """One harvest quantum's host time: ``SegmentedHarvest.step()`` of both
+    random-init Gemma-2-2B models to block 14 over a [4, 1024] chunk, the
+    card idle before each call (a second job, after one whole job as a
+    warm-up). Returns every quantum's ms."""
+    from crosscoder_tpu_torch.models import lm
+
+    lm_cfg = lm.LMConfig.gemma2_2b()
+    params = [lm.init_params(lm_cfg, seed=s, device="cuda") for s in (1, 2)]
+    tokens = harvest_tokens(np, HARVEST["model_batch_size"], HARVEST["seq_len"],
+                            lm_cfg.vocab_size, 6)
+    ms = []
+    for _ in range(2):
+        job = lm.SegmentedHarvest(params, tokens, lm_cfg, (TU["hook_point"],))
+        ms = []
+        more = True
+        while more:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            more = job.step()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        job.result()
+        torch.cuda.synchronize()
+    del params
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _tu_trainer(torch, cfg, steps):
+    """``steps`` Trainer steps of ``cfg`` over the synthetic source on the
+    card: (the losses' bits, the state)."""
+    from crosscoder_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, device="cuda")
+    try:
+        bits = [_bits(tr.step()["loss"], torch).item() for _ in range(steps)]
+        torch.cuda.synchronize()
+        return bits, tr.state
+    finally:
+        tr.close()
+
+
+def tuner(torch, np, root, card):
+    """Phase 19: leg TU. Returns the launches of K5, K8, K10 and O1."""
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.obs.registry import MetricsRegistry
+    from crosscoder_tpu_torch.resilience.fleet import FleetPolicy
+    from crosscoder_tpu_torch.tune import apply_tuned, load_tuned, tune
+    from crosscoder_tpu_torch.tune import calibrate, lattice
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_", dir=root / "build"))
+    counters = launch_counters()
+    reset_counters(counters)
+    cfg = CrossCoderConfig(**TU)
+    try:
+        ranked = lattice.rank_candidates(lattice.enumerate_lattice(cfg, TU_AXES)[0])
+        log("leg TU: stage 1 on the port's cost model (predicted acts/s/chip; step ms): "
+            + "; ".join(f"{c.label} {c.score:.1f} ({c.predicted['step_total_ms']:.3f} ms)"
+                        for c in ranked))
+        windows, gates = [], []
+
+        def measure(c, **kw):
+            t0 = time.perf_counter()
+            m = calibrate.measure_window(c, device="cuda", **kw)
+            windows.append((c, m, time.perf_counter() - t0))
+            return m
+
+        def gate(c, knobs=None):
+            t0 = time.perf_counter()
+            ok, findings = calibrate.step_identity_gate(c, knobs, device="cuda")
+            gates.append((knobs, ok, (time.perf_counter() - t0) * 1e3))
+            return ok, findings
+
+        path = work / "TUNED.json"
+        reg = MetricsRegistry()
+        t0 = time.perf_counter()
+        art = tune(cfg, "train", axes=TU_AXES, top_k=TU_TOP_K, steps=TU_STEPS,
+                   warmup=TU_WARMUP, seed=0, out_path=str(path), registry=reg,
+                   measure=measure, gate=gate, device="cuda")
+        t_tune = time.perf_counter() - t0
+        rows = art.search["candidates"]
+        if reg.get_count("tune/rejected_contract") or any(r["gate"] != "pass" for r in rows):
+            fail(f"phase 19: leg TU: a calibrated candidate failed the step-identity gate: "
+                 f"{rows}")
+        if load_tuned(path).knobs != art.knobs:
+            fail(f"phase 19: leg TU's TUNED.json reloads {load_tuned(path).knobs}, not "
+                 f"{art.knobs}")
+        applied = apply_tuned(cfg, path)
+        if {k: getattr(applied, k) for k in art.knobs} != art.knobs or applied.tuned != str(path):
+            fail(f"phase 19: leg TU: apply_tuned gives {applied}, not the knobs {art.knobs}")
+        for c, m, wall in windows:
+            log(f"leg TU: window {','.join(f'{k}={getattr(c, k)}' for k in sorted(TU_AXES))}: "
+                f"span step_ms {m['step_ms']:.3f}, wall_s / steps {m['wall_step_ms']:.3f} ms, "
+                f"bubble {m['bubble_frac']:.4f}, effective {m['effective_step_ms']:.3f} ms "
+                f"(scored on the {m['scored_on']}), score {m['score']:.1f} acts/s; the window "
+                f"{wall:.2f} s with its Trainer's set-up and close")
+        log(f"leg TU: gates {[(k, ok, round(ms, 1)) for k, ok, ms in gates]} (knobs, pass, "
+            f"ms); winner {art.knobs} (measured {art.measured['score']:.1f}, predicted "
+            f"{art.predicted['score']:.1f} acts/s/chip); counters {reg.snapshot()}; tune() "
+            f"{t_tune:.1f} s")
+
+        # the rigged violator: topk_k smuggled past STEP_FIELDS (its default,
+        # 32, passes; 16 is set back to it by the projection); a stub race
+        reg2 = MetricsRegistry()
+        k0 = CrossCoderConfig().topk_k
+        saved = lattice.STEP_FIELDS
+        lattice.STEP_FIELDS = saved - {"topk_k"}
+        try:
+            rigged = tune(cfg.replace(topk_k=k0), "train", axes={"topk_k": (k0, 16)}, top_k=2,
+                          registry=reg2, measure=lambda c, **kw: {"score": 1.0}, gate=gate,
+                          device="cuda")
+        finally:
+            lattice.STEP_FIELDS = saved
+        bad = [r for r in rigged.search["candidates"] if r["gate"] == "rejected"]
+        if (reg2.get_count("tune/rejected_contract") != 1 or [r["knobs"] for r in bad]
+                != [{"topk_k": 16}] or rigged.knobs != {"topk_k": k0}):
+            fail(f"phase 19: leg TU's smuggled topk_k was not rejected once: "
+                 f"{reg2.snapshot()}, {rigged.search['candidates']}")
+        log(f"leg TU: topk_k=16 smuggled past STEP_FIELDS: rejected, counted "
+            f"{reg2.snapshot()}; findings {bad[0]['findings'][:3]}")
+
+        # --tuned against the winner's knobs as flags, through from_cli
+        base = work / "train.json"
+        cfg.to_json(base)
+        cfg_t = CrossCoderConfig.from_cli(["--config-json", str(base), "--tuned", str(path)])
+        cfg_h = CrossCoderConfig.from_cli(
+            ["--config-json", str(base)] + [x for k, v in art.knobs.items() for x in _flag(k, v)])
+        t0 = time.perf_counter()
+        bits_t, state_t = _tu_trainer(torch, cfg_t, TU_TRAINER_STEPS)
+        bits_h, state_h = _tu_trainer(torch, cfg_h, TU_TRAINER_STEPS)
+        same, what = state_bits_equal(torch, state_t, state_h)
+        if bits_t != bits_h or not same:
+            fail(f"phase 19: leg TU: the --tuned Trainer differs from the hand-flagged one: "
+                 f"losses {bits_t} against {bits_h}; state {what}")
+        del state_t, state_h
+        losses = [float(np.array(b, np.int32).view(np.float32)) for b in bits_t]
+        choice = FleetPolicy(cfg_t).choose(1)
+        if choice.detail.get("policy") != "tuned":
+            fail(f"phase 19: leg TU: FleetPolicy with the artifact pinned chose {choice}")
+        flags = {k: getattr(cfg_h, k) for k in sorted(TU_AXES)}
+        log(f"leg TU: --tuned and the flags {flags}: {TU_TRAINER_STEPS} steps each, losses {[round(x, 4) for x in losses]} and state "
+            f"bitwise ({time.perf_counter() - t0:.1f} s); FleetPolicy.choose(1) {choice}")
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        q_ms = quantum_host_ms(torch, np)
+        log(f"leg TU: one harvest quantum's host time (SegmentedHarvest.step(), 3 blocks, "
+            f"[4, 1024], the card idle before it): median {np.median(q_ms):.3f} ms over "
+            f"{len(q_ms)} quanta {[round(x, 3) for x in q_ms]} ({card})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for k in EL_KERNELS:
+        if not launches.get(k):
+            fail(f"phase 19: leg TU did not launch {k}: {launches}")
+    wall = time.perf_counter() - t_phase
+    log(f"leg TU: launches {launches}; tuner phase {wall:.1f} s (the phase's budget "
+        f"{TU_PHASE_S:.0f} s; {card})")
+    return {k: launches[k] for k in EL_KERNELS}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-rank"]:     # rank 1 of leg FM at 1 x 2 (phase 13)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -6614,6 +6808,10 @@ def main() -> int:
     for row in train_rows[:3]:
         row["launches"] += grown[row["name"].split()[0]]
     row_o1["launches"] += grown["adam_update"]
+    tuned = tuner(torch, np, root, card)
+    for row in train_rows[:3]:
+        row["launches"] += tuned[row["name"].split()[0]]
+    row_o1["launches"] += tuned["adam_update"]
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
               *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed,
               row_o1_cohort])

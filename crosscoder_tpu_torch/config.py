@@ -16,10 +16,11 @@ model axis under ``shard_sources``) and the replay-buffer knobs
 package's messages, and the fleet knobs (``fleet_max_buckets >= 1``, no
 ``quant_grads`` under ``fleet="on"``, no ``fleet_tenants`` without it).
 :meth:`CrossCoderConfig.check_buffer` refuses a buffer too small to
-build. Knobs of parts not ported yet (elastic, compile cache, tuner) are
-carried as plain values. :meth:`CrossCoderConfig.from_cli` reflects every
-field into a flag as the JAX package does; ``--tuned`` raises until the
-autotuner is ported.
+build. Knobs of parts not ported yet (the compile cache) are carried as
+plain values. :meth:`CrossCoderConfig.from_cli` reflects every field into a
+flag as the JAX package does, and applies a pinned ``TUNED.json``
+(``--tuned``, :mod:`crosscoder_tpu_torch.tune`) between a config JSON and
+the explicit flags.
 """
 
 from __future__ import annotations
@@ -588,11 +589,16 @@ class CrossCoderConfig:
         ns = parser.parse_args(argv)
         if ns.config_json:
             base = cls.from_json(ns.config_json)
-        if ns.tuned or (ns.tuned is None and base.tuned):
-            raise NotImplementedError(
-                "--tuned: TUNED.json artifacts come from the autotuner "
-                "(crosscoder_tpu/tune/), which the port does not have yet "
-                "(ROADMAP Queue A)")
+        # the JAX package's resolution order: defaults → --config-json →
+        # TUNED.json knobs → explicit flags, so a flag always overrides a
+        # pinned knob; --tuned "" clears an artifact a config JSON carried
+        tuned_path = ns.tuned if ns.tuned is not None else base.tuned
+        if tuned_path:
+            from crosscoder_tpu_torch.tune.artifact import apply_tuned
+
+            base = apply_tuned(base, tuned_path)
+        elif ns.tuned == "":
+            base = base.replace(tuned="")
         overrides: dict[str, Any] = {}
         for f in dataclasses.fields(cls):
             if f.name == "extras":

@@ -56,9 +56,10 @@ again. At one rank a host this is JAX's protocol exactly.
 
 Off (``cfg.elastic="off"``, the default) no controller exists and the
 train loop carries only is-None checks; with ``cfg.elastic_grow="off"`` no
-board and no policy exist. A pinned tuned artifact (``cfg.tuned``: JAX's
-re-tune at a re-mesh) waits for ROADMAP A9, and the controller raises
-:class:`NotImplementedError` when it is set.
+board and no policy exist. With a pinned tuned artifact (``cfg.tuned``)
+every re-mesh checks it against the new world
+(:func:`crosscoder_tpu_torch.tune.artifact.on_remesh`), counted under
+``resilience/retune_*``.
 """
 
 from __future__ import annotations
@@ -233,10 +234,6 @@ class ElasticController:
         self._cand_freshness: dict[str, tuple[int, int, float]] = {}
         self._grow_polls = 0        # board polls reached, the same on every survivor
         self.last_admit: dict | None = None   # the admit record of the latest grow
-        if getattr(cfg, "tuned", ""):
-            raise NotImplementedError(
-                "cfg.tuned: the elastic controller's re-tune at a re-mesh waits for the port "
-                "of the tuner (ROADMAP Queue A9)")
         if cfg.elastic_grow == "on":
             from crosscoder_tpu_torch.resilience.fleet import FleetPolicy
 
@@ -357,12 +354,27 @@ class ElasticController:
         """Anchor the dwell clock: the trainer reports the step each shrink
         or grow resumed at, and :meth:`grow_ready` refuses another re-mesh
         within ``cfg.elastic_dwell_steps`` of it (flap damping). The
-        courtship bookkeeping starts over. (JAX's re-tune of a pinned
-        ``TUNED.json`` here waits for A9; :meth:`__init__` refuses
-        ``cfg.tuned``.)"""
+        courtship bookkeeping starts over.
+
+        Also the tuner's re-mesh hook: with a pinned ``TUNED.json``
+        (``cfg.tuned``) the new world (its size, as JAX's device count) is
+        checked against the artifact: a per-topology sibling swaps its knobs
+        in, a miss flags the pinned knobs stale; each outcome is counted
+        (``resilience/retune_{off,current,cache_hit,stale,error}``), and an
+        error never stops the re-mesh."""
         self._last_remesh_step = int(step)
         self._cand_freshness.clear()
         self._stable_candidates = []
+        if getattr(self.cfg, "tuned", ""):
+            from crosscoder_tpu_torch.tune import artifact as tune_artifact
+
+            try:
+                self.cfg, status = tune_artifact.on_remesh(self.cfg, multihost.world_size())
+            except Exception as e:  # noqa: BLE001 — the re-mesh must survive
+                print(f"[crosscoder_tpu_torch] elastic: tuned-artifact remesh check failed "
+                      f"({type(e).__name__}: {e})"[:300], file=sys.stderr, flush=True)
+                status = "error"
+            self._bump(f"resilience/retune_{status}")
 
     def open_rejoin_window(self, serve: int) -> None:
         """The chaos ``return@S`` token lands here: the fleet grants capacity

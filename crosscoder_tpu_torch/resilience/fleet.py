@@ -15,9 +15,10 @@ protocol and the shape stays a swappable policy:
 
 Hysteresis (dwell, debounce) is a membership decision and lives in the
 :class:`~crosscoder_tpu_torch.resilience.elastic.ElasticController`; the
-policy is a function of capacity. A pinned tuned artifact (``cfg.tuned``,
-JAX's ``_tuned_choice``) waits for ROADMAP A9: :meth:`FleetPolicy.choose`
-raises :class:`NotImplementedError` when it is set.
+policy is a function of capacity. A pinned tuned artifact (``cfg.tuned``)
+outranks both policies: the grid an artifact searched at this rank count
+(the pinned one, or a ``TUNED.<topology>.json`` sibling of it) is taken as
+it stands (:meth:`FleetPolicy._tuned_choice`).
 """
 
 from __future__ import annotations
@@ -46,13 +47,6 @@ class MeshChoice:
     n_model: int
     score_ms: float | None = None   # modeled step cost; None = unscored
     detail: dict = dataclasses.field(default_factory=dict)
-
-
-def _tuned_refused(cfg) -> None:
-    if getattr(cfg, "tuned", ""):
-        raise NotImplementedError(
-            "cfg.tuned: a pinned TUNED.json's grid and its re-tune on a re-mesh wait for the "
-            "port of the tuner (ROADMAP Queue A9)")
 
 
 class FleetPolicy:
@@ -84,8 +78,11 @@ class FleetPolicy:
         """The grid for ``n_devices`` ranks. ``n_tenants`` (a fleet's
         tenants a round) multiplies every candidate's cost alike: the
         ranking is unchanged, ``score_ms`` is the round's. The score policy
-        falls back to the fixed one when its ranking is empty."""
-        _tuned_refused(self.cfg)
+        falls back to the fixed one when its ranking is empty. A pinned tuned
+        artifact for this rank count outranks both (:meth:`_tuned_choice`)."""
+        tuned = self._tuned_choice(n_devices)
+        if tuned is not None:
+            return tuned
         if self.cfg.elastic_policy == "score":
             ranked = self.rank(n_devices, n_tenants)
             if ranked:
@@ -97,6 +94,43 @@ class FleetPolicy:
             raise ValueError(f"fleet: {n_devices} devices not divisible by the fixed TP width "
                              f"model_axis_size={m}")
         return MeshChoice(n_devices // m, m, None, {"policy": "fixed"})
+
+    def _tuned_choice(self, n_devices: int) -> MeshChoice | None:
+        """The grid a tuned artifact pins for ``n_devices`` ranks, or None
+        when none applies: the pinned artifact itself first, then its
+        ``TUNED.<topology>.json`` siblings over every valid TP width. Any
+        trouble with an artifact is a miss, never an error: the re-mesh
+        must not die on a torn file."""
+        if not getattr(self.cfg, "tuned", ""):
+            return None
+        from pathlib import Path
+
+        from crosscoder_tpu_torch.tune import artifact as tune_artifact
+
+        def as_choice(art, src: str) -> MeshChoice | None:
+            if art is None or int(art.mesh.get("n_devices", 0)) != n_devices:
+                return None
+            n_model = max(1, int(art.mesh.get("n_model", 1)))
+            if n_devices % n_model:
+                return None
+            return MeshChoice(n_devices // n_model, n_model, None,
+                              {"policy": "tuned", "artifact": src, "objective": art.objective})
+
+        try:
+            pinned = tune_artifact.load_tuned(self.cfg.tuned)
+        except ValueError:
+            pinned = None
+        got = as_choice(pinned, str(self.cfg.tuned))
+        if got is not None:
+            return got
+        root = Path(self.cfg.tuned).parent
+        for _, n_model in self.candidate_shapes(n_devices):
+            topo = tune_artifact.topology_key(n_devices, n_model)
+            got = as_choice(tune_artifact.cached_artifact(root, topo),
+                            str(tune_artifact.cache_path(root, topo)))
+            if got is not None:
+                return got
+        return None
 
     # -- the port's cost model ---------------------------------------------
 

@@ -22,7 +22,7 @@ source.
   solo step (one O1 launch a round), at most ``cfg.fleet_max_buckets`` of
   them. In the JAX package a bucket is a compiled program keyed through
   ``compile_cache``; here it is the step closure, built at admission
-  (the compile cache is ROADMAP A9).
+  (the compile cache is ROADMAP A9b).
 - **Independent lifecycles.** A tenant admitted mid-run joins as a
   bucket at the live stream position; a retired tenant lands its save,
   frees its bucket (or leaves its cohort restacked at N−1) and detaches

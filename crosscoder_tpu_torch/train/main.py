@@ -45,7 +45,9 @@ Fault injection (``--chaos SPEC`` or the ``CROSSCODER_CHAOS`` variable,
 :class:`crosscoder_tpu_torch.resilience.Chaos`) goes to the buffer, the
 Checkpointer and the Trainer; ``--harvest-timeout-s``, ``--obs on``,
 ``--obs-dir``, ``--profile-steps`` and ``--profile-dir`` reach the Trainer
-through the config.
+through the config. ``--tuned TUNED.json`` applies a pinned artifact's
+knobs (:mod:`crosscoder_tpu_torch.tune`) under the explicit flags, and the
+run says which artifact pinned them.
 """
 
 from __future__ import annotations
@@ -115,6 +117,10 @@ def main(argv: list[str] | None = None, device=None) -> Any:
     joined_here = not dist.is_initialized()
     distributed = multihost.initialize(device)
     cfg = CrossCoderConfig.from_cli(rest)
+    if cfg.tuned:
+        # from_cli applied the artifact's knobs; say which artifact pinned them
+        print(f"[crosscoder_tpu_torch] tuned: running with pinned artifact {cfg.tuned}",
+              file=sys.stderr, flush=True)
     if distributed:
         print(f"[crosscoder_tpu_torch] multihost: {multihost.process_info()}", file=sys.stderr,
               flush=True)

@@ -125,7 +125,7 @@ candidates have passed the debounce and the dwell, grow at that step
 boundary (:meth:`Trainer._grow_and_resume`: the boundary save every member
 restores) and re-enter the loop on the wider grid.
 
-Not ported in this slice (ROADMAP Queue A): the compile cache (A9).
+Not ported in this slice (ROADMAP Queue A): the compile cache (A9b).
 """
 
 from __future__ import annotations

@@ -44,8 +44,15 @@ def test_from_cli_config_json_and_tuned(tmp_path):
     argv = ["--config-json", str(path), "--topk-k", "4"]
     assert _fields(config.CrossCoderConfig.from_cli(argv)) == _fields(
         jconfig.CrossCoderConfig.from_cli(argv))
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        config.CrossCoderConfig.from_cli(["--tuned", "TUNED.json"])
+    # --tuned applies a pinned artifact between the JSON and the flags, as JAX's does
+    from crosscoder_tpu_torch.tune.artifact import TunedArtifact
+
+    art = TunedArtifact("train", {"topk_k": 8, "refill_frac": 0.25},
+                        {"n_devices": 1, "n_model": 1}).save(tmp_path / "TUNED.json")
+    argv = ["--config-json", str(path), "--tuned", str(art), "--topk-k", "4"]
+    mine = config.CrossCoderConfig.from_cli(argv)
+    assert _fields(mine) == _fields(jconfig.CrossCoderConfig.from_cli(argv))
+    assert (mine.topk_k, mine.refill_frac, mine.tuned) == (4, 0.25, str(art))
 
 
 # the invalid combinations of crosscoder_tpu/config.py's training rules

@@ -11,8 +11,10 @@ CPU; the cases follow tests/test_elastic.py's board and policy tests:
   sets; an announce of another rank count than a host's is not admitted;
 - ``grow_ready``'s gates (no board, no shrunk world, inside the dwell, off
   the cadence) on both controllers over the same membership;
-- ``grow`` without a world raises ``GrowAborted``; ``cfg.tuned`` raises
-  ``NotImplementedError`` naming A9 on the controller and the policy;
+- ``grow`` without a world raises ``GrowAborted``; with ``cfg.tuned`` (the
+  tuner, A9a) the controller's ``note_remesh`` re-tunes and counts
+  ``resilience/retune_*`` as JAX's does, and the policy takes the
+  artifact's grid;
 - ``FleetPolicy``: ``candidate_shapes`` and the fixed ``choose`` equal to
   JAX's over a grid of configs (the ``ValueError`` included); the score
   ranking sorted, ``choose`` its head, its wire term at ``train_dp`` the
@@ -221,11 +223,52 @@ def test_grow_without_a_world_raises_grow_aborted(tmp_path):
             c.grow(0, save_version=0, version_dir=str(tmp_path), save_step=0)
 
 
-def test_tuned_raises_naming_a9(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
-        el.ElasticController(_cfg(**_grow(tmp_path), tuned=str(tmp_path / "TUNED.json")))
-    with pytest.raises(NotImplementedError, match="A9"):
-        fleet.FleetPolicy(_cfg(tuned=str(tmp_path / "TUNED.json"))).choose(4)
+def test_tuned_raises_naming_a9(tmp_path, monkeypatch):
+    """What replaced A9's refusal: a pinned artifact builds the controller,
+    each ``note_remesh`` re-tunes at the world's size (JAX's device count)
+    and counts its status as JAX's controller does (``current``, ``stale``,
+    ``cache_hit``; ``error`` without stopping the re-mesh), and the policy
+    takes the artifact's grid."""
+    from crosscoder_tpu.tune import artifact as jart
+    from crosscoder_tpu.utils.logging import ResilienceCounters as JCounters
+    from crosscoder_tpu_torch.tune import artifact
+    from crosscoder_tpu_torch.utils.logging import ResilienceCounters
+
+    p = artifact.TunedArtifact("train", {"refill_frac": 0.25},
+                               {"n_devices": 1, "n_model": 1}).save(tmp_path / "TUNED.json")
+    kw = dict(_grow(tmp_path), tuned=str(p))
+    ctl = el.ElasticController(_cfg(**kw), counters=ResilienceCounters())
+    jctl = jel.ElasticController(_jcfg(**kw), counters=JCounters())
+    world = {"n": 1}
+    monkeypatch.setattr(multihost, "world_size", lambda: world["n"])
+    monkeypatch.setattr(jel.jax, "device_count", lambda: world["n"])
+    for n, cache in ((1, None), (2, None), (2, (0.5, "d2m1")), (1, None)):
+        if cache is not None:
+            artifact.TunedArtifact("train", {"refill_frac": cache[0]},
+                                   {"n_devices": n, "n_model": 1}).save(
+                artifact.cache_path(tmp_path, cache[1]))
+        world["n"] = n
+        ctl.note_remesh(3)
+        jctl.note_remesh(3)
+        assert ctl.counters.snapshot() == jctl.counters.snapshot()
+        assert ctl.cfg.refill_frac == jctl.cfg.refill_frac
+    assert ctl.counters.snapshot() == {"resilience/resilience/retune_current": 1,
+                                       "resilience/resilience/retune_stale": 2,
+                                       "resilience/resilience/retune_cache_hit": 1}
+    assert ctl.cfg.tuned == str(artifact.cache_path(tmp_path, "d2m1"))
+
+    def broken(cfg, n):
+        raise OSError("disk gone")
+
+    monkeypatch.setattr(artifact, "on_remesh", broken)
+    monkeypatch.setattr(jart, "on_remesh", broken)
+    ctl.note_remesh(4)
+    jctl.note_remesh(4)
+    assert ctl.counters.snapshot() == jctl.counters.snapshot()
+    assert ctl.counters.get("resilience/retune_error") == 1
+    assert ctl._last_remesh_step == 4
+    choice = fleet.FleetPolicy(_cfg(tuned=str(p))).choose(1)
+    assert (choice.n_data, choice.n_model, choice.detail["policy"]) == (1, 1, "tuned")
 
 
 @pytest.mark.parametrize("kw,match", [

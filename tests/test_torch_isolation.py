@@ -65,6 +65,12 @@ def test_elastic_modules_are_checked():
             "crosscoder_tpu_torch/parallel/multihost.py"} <= names
 
 
+def test_tune_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"crosscoder_tpu_torch/tune/{m}.py" for m in (
+        "__init__", "artifact", "lattice", "calibrate", "autotune", "smoke", "report")} <= names
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imports(path)
