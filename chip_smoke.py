@@ -303,7 +303,7 @@ one NVIDIA Hopper card and the CUDA toolkit:
    the synthetic source, a save every 3 steps, the batch prefetch on, as
    the Trainer's default): rank 1 dies at serve 7, rank
    0 finds the loss, shrinks to one rank on the card, restores the newest
-   verified save and finishes 10 steps, its losses after the re-mesh
+   verified save and finishes 8 steps, its losses after the re-mesh
    bitwise a fresh process's restoring the same save; K5, K8, K10 and O1
    launched on both sides of the re-mesh, and 2 steps from the restored
    save bitwise their plain versions; remesh_ms, the detection path, the
@@ -316,7 +316,7 @@ one NVIDIA Hopper card and the CUDA toolkit:
    (``resilience/elastic_drill.py``) at leg EL's width and config (TopK k
    32, dict 2^14, the sparse backward, AuxK, batch 4096, f32 masters, the
    batch prefetch on) on gloo ranks sharing the card, 2 x 1 -> 1 x 1 -> 2 x
-   1, 14 of the drill's 20 steps, a save every 5: rank 1 dies at serve 6,
+   1, 12 of the drill's 20 steps, a save every 5: rank 1 dies at serve 6,
    rank 0 shrinks and replays, ``return@10`` opens the rejoin window, a
    parked returned rank passes the debounce and rank 0 grows the world
    back at a step boundary through a boundary save both restore; the survivor's losses after the grow bitwise a clean 2 x 1
@@ -331,19 +331,31 @@ one NVIDIA Hopper card and the CUDA toolkit:
    AuxK 64 every 2, batch 4096, bf16 compute, f32 masters) over the
    synthetic source: ``tune()`` over prefetch x refill_frac x
    refill_dispatch_batch (8 candidates priced on the port's cost model, the
-   top 2 and the default knobs gated and measured, 2 + 4 steps a window
+   top 2 and the default knobs gated and measured, 2 + 3 steps a window
    through the Trainer) writes ``TUNED.json``, which ``load_tuned`` and
    ``apply_tuned`` give back exactly; every calibrated candidate passes the
    step-identity gate bitwise, and a step knob (``topk_k``) smuggled past a
    patched ``STEP_FIELDS`` fails it and is counted
    ``tune/rejected_contract`` 1; a Trainer on ``--tuned`` and one on the
-   winner's knobs as flags, 4 steps each, bitwise; ``FleetPolicy`` takes the
+   winner's knobs as flags, 2 steps each, bitwise; ``FleetPolicy`` takes the
    pinned artifact's grid; one harvest quantum's host time (the tuner's
    dispatch constant) measured over two random-init Gemma-2-2B; each
    candidate's predicted score, each window's span ``step_ms``, ``wall_s /
    steps``, bubble and effective ms, the gate's ms and the phase's seconds
    printed; K5, K8, K10 and O1 counted;
-20. prints the kernel table as one JSON line, the card line, and
+20. the compile tier (``utils/compile_cache.py`` under ``ops/_build.py``):
+   leg CC, over a fresh tier under ``build/``, two fresh processes run
+   ``serve.warm_start`` at the serve phase's width (two random-init
+   Gemma-2-2B, 14 layers, buckets to 8, seq_len 1024) at the same moment:
+   across both, one ``nvcc`` a source (12); then a third fresh process
+   (which reached the card beside them and waited) reports 0 compiles and
+   12 disk hits; each serves one batch of mixed lengths, bitwise across the
+   three, and the first and the third take 2 steps at leg A's config,
+   bitwise (losses and every leaf's checksum); K1 and K2 counted in each,
+   K5, K8, K10 and O1 in the two that train; warmup_ms cold and warm, each
+   process's time and the tier's ptxas sidecars (registers, spills, shared
+   memory) printed;
+21. prints the kernel table as one JSON line, the card line, and
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check exits nonzero before the last line is printed.
@@ -6201,8 +6213,10 @@ def obs_resilience(torch, np, root, card):
 # x model 1): TopK k 32, dict 2^14, the sparse backward, AuxK, batch 4096,
 # bf16 compute, f32 masters, the synthetic source, a save every 3 steps, the
 # Trainer's default batch prefetch (on); rank 1 dies at serve 7, rank 0
-# shrinks to one rank, restores and finishes 10 steps, a fresh process
-# restores the same save; leg ES, the stability drill (flaky and slow probes
+# shrinks to one rank, restores and finishes EL_STEPS steps (8 of the
+# drill's 10, cut to pay for phase 20: the survivor resumes from the save of
+# step 6, so 2 steps after the re-mesh), a fresh process restores the same
+# save; leg ES, the stability drill (flaky and slow probes
 # below the threshold, its 8 steps) on two more gloo ranks, run beside leg EL
 # from the phase's start at dict 2^10 and batch 1024 (its 0.6 GB gradient
 # all-reduce through host memory at EL's shapes slowed EL's 2-rank steps 2x
@@ -6210,6 +6224,7 @@ def obs_resilience(torch, np, root, card):
 EL = dict(TRAIN, dict_size=2 ** 14, num_tokens=TRAIN["batch_size"] * 200, prefetch=True)
 ES = dict(EL, dict_size=2 ** 10, batch_size=1024, num_tokens=1024 * 200)
 EL_KERNELS = ("topk_mask", "sparsify", "scatter_add_rows", "adam_update")
+EL_STEPS = 8
 EL_PHASE_S = 120.0
 
 
@@ -6299,7 +6314,7 @@ def elastic(torch, np, root, card):
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     try:
         es_run = pool.submit(_run_drill, "ES", work / "es", drill.run_stability_drill, ES)
-        rep = _run_drill("EL", work / "el", drill.run_drill, EL)
+        rep = _run_drill("EL", work / "el", drill.run_drill, EL, steps=EL_STEPS)
         t_el = time.perf_counter() - t_phase
         surv = rep["survivor"]
         if not rep["bitwise_equal"]:
@@ -6368,13 +6383,14 @@ def elastic(torch, np, root, card):
 # rejoin window, the parked returned rank passes the debounce and rank 0 grows
 # the world back through a boundary save; a clean 2 x 1 world restores the
 # same save; EG_STEPS steps
-# a save every 5 steps, not the drill's 4, and 14 of its 20 steps: a save
+# a save every 5 steps, not the drill's 4, and 12 of its 20 steps: a save
 # of this state is 1.8 GB, and the phase took 169.1–176.9 s of its 180 at 20
-# and 16 steps with a save every 4 (H100 80GB HBM3, 700 W; PERF.md §6). The
-# newest save before the death at serve 6 holds step 5; the grow lands at
-# step 9 or 10, 4 or 5 steps before the end
+# and 16 steps with a save every 4 (H100 80GB HBM3, 700 W; PERF.md §6), 14
+# steps until phase 20 took its time. The newest save before the death at
+# serve 6 holds step 5; the grow lands at step 9 or 10, 2 or 3 steps before
+# the end
 EG = dict(EL, save_every=5)
-EG_STEPS = 14
+EG_STEPS = 12
 EG_PHASE_S = 180.0
 # the score policy's ranking is printed at Gemma-2-2B width for these rank counts
 EG_RANKS = (2, 4, 8)
@@ -6462,11 +6478,12 @@ def autoscale(torch, np, root, card):
 # ---------------------------------------------------------------------------
 # phase 19: leg TU, the tuner at the train phase's width over the synthetic
 # source (its serve of a 4096-row batch, 0.52-0.75 s of host numpy, is the
-# windows' pace; PERF.md §5)
+# windows' pace; PERF.md §5). Windows of 2 + 3 steps and Trainers of 2 (4
+# and 4 until phase 20 took its time)
 TU = dict(TRAIN)
 TU_AXES = {"prefetch": (False, True), "refill_frac": (0.25, 0.5),
            "refill_dispatch_batch": (4, 8)}
-TU_TOP_K, TU_STEPS, TU_WARMUP, TU_TRAINER_STEPS = 2, 4, 2, 4
+TU_TOP_K, TU_STEPS, TU_WARMUP, TU_TRAINER_STEPS = 2, 3, 2, 2
 TU_PHASE_S = 60.0
 
 
@@ -6636,6 +6653,217 @@ def tuner(torch, np, root, card):
     return {k: launches[k] for k in EL_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: leg CC, the compile tier (utils/compile_cache.py under
+# ops/_build.py) in fresh processes over a fresh tier under build/: two cold
+# processes run serve.warm_start at the serve phase's full width at the same
+# moment (one nvcc a source across both), then a third, warm one (every
+# library loaded from the tier, no nvcc); the first and the third also take
+# CC_STEPS steps at leg A's config. The warm process reaches the card beside
+# the cold pair and waits for the go to touch the tier
+CC_SERVE = dict(serve_max_batch=8, seq_len=1024, hook_points=("blocks.14.hook_resid_pre",),
+                seeds=(1, 2, 3), dict_size=2 ** 14, topk_k=32, page_size=64, enc_dtype="bf16")
+CC_LENGTHS = (1, 1024, 517, 64, 300, 999, 2, 800)
+CC_STEPS = 2
+CC_ROLES = ("cold-a", "cold-b", "warm")
+CC_SERVE_KERNELS = ("paged_attention", "fused_topk_encode")
+CC_PHASE_S = 60.0
+
+
+def _checksum(torch, t):
+    """The int64 sum of a tensor's 32-bit (16-bit, byte) words: its bits'
+    fingerprint across processes, summed on the card."""
+    v = t.detach().contiguous().view(-1)
+    w = {4: torch.int32, 2: torch.int16}.get(v.element_size(), torch.uint8)
+    return int(v.view(w).to(torch.int64).sum())
+
+
+def cc_worker(role, tier, out, go):
+    """One process of leg CC: ``serve.warm_start.run`` against ``tier`` at
+    the serve phase's width, one batch of CC_LENGTHS served, and (cold-a,
+    warm) CC_STEPS Trainer steps at leg A's config over the tier; writes its
+    report as JSON to ``out``. With ``go`` it first reaches the card, then
+    waits for that file before it touches the tier."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+    from crosscoder_tpu_torch.models import lm
+    from crosscoder_tpu_torch.ops import _build
+    from crosscoder_tpu_torch.ops import paged_attention as pa
+    from crosscoder_tpu_torch.serve import smoke, warm_start
+    from crosscoder_tpu_torch.train.trainer import Trainer
+    from crosscoder_tpu_torch.utils import compile_cache
+
+    rep = {"role": role, "ready_s": time.perf_counter() - t0}
+    if go != "-":
+        deadline = time.monotonic() + 600
+        while not Path(go).exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError("leg CC: the warm process got no go")
+            time.sleep(0.02)
+    t_go = time.perf_counter()
+    counters = {**launch_counters(), "paged_attention": pa.paged_attention}
+    reset_counters(counters)
+    report, eng = warm_start.run(str(tier), return_engine=True, lm_cfg=lm.LMConfig.gemma2_2b(),
+                                 device="cuda", **CC_SERVE)
+    rng = np.random.default_rng(20)
+    docs = [rng.integers(1, eng.lm_cfg.vocab_size, size=n, dtype=np.int32) for n in CC_LENGTHS]
+    served = smoke.serve_batch(eng, docs)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for r in served:
+        for a in (r.vals, r.idx, r.diff):
+            h.update(np.ascontiguousarray(a).tobytes())
+    rep.update(warm_start=report, serve_sha=h.hexdigest(), serve_s=time.perf_counter() - t_go,
+               serve_compiles_after_warmup=eng.stats()["serve_compiles_after_warmup"],
+               serve_launches={n: c.launches for n, c in counters.items() if c.launches},
+               runs_serve=dict(_build.nvcc_runs))
+    del eng, served
+    torch.cuda.empty_cache()
+    if role != "cold-b":
+        reset_counters(counters)
+        tr = Trainer(CrossCoderConfig(**TRAIN, compile_cache_dir=str(tier)), device="cuda")
+        try:
+            losses = [float(tr.step()["loss"]).hex() for _ in range(CC_STEPS)]
+            torch.cuda.synchronize()
+            st = tr.state
+            sums = {f"{what}/{k}": _checksum(torch, t)
+                    for what, leaves in (("params", st.params), ("mu", st.opt_state.mu),
+                                         ("nu", st.opt_state.nu))
+                    for k, t in sorted(leaves.items())}
+        finally:
+            tr.close()
+        rep.update(losses=losses, checksums=sums,
+                   step_launches={n: c.launches for n, c in counters.items() if c.launches})
+    rep.update(runs=dict(_build.nvcc_runs), stats=compile_cache.disk_stats(),
+               entries=compile_cache.disk_entry_count(), wall_s=time.perf_counter() - t0)
+    if role == "warm":
+        rep["costs"] = {n: _build.library_cost(n) for n in _build.kernel_names()}
+    Path(out).write_text(json.dumps(rep))
+
+
+def _kernel_name(mangled):
+    """The last name of an Itanium-mangled entry point (its anonymous
+    namespaces dropped), with ``<>`` for a template: ``rpa_tc_kernel<>``."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else 0
+    if not i:
+        return mangled
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    return name + ("<>" if mangled[i:i + 1] == "I" else "")
+
+
+def _cc_logs(work):
+    for f in sorted(Path(work).glob("*.err")):
+        lines = [ln for ln in f.read_text(errors="replace").splitlines() if ln.strip()]
+        log(f"  {f.name}: " + " | ".join(lines[-12:])[-2500:])
+
+
+def compile_tier(torch, np, root, card):
+    """Phase 20: leg CC. Returns each kernel's launches across its processes."""
+    from crosscoder_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cc_", dir=root / "build"))
+    tier, go = work / "tier", work / "go"
+    procs = {}
+    try:
+        for role in CC_ROLES:
+            err = open(work / f"{role}.err", "w")
+            cmd = [sys.executable, str(root / "chip_smoke.py"), "--cc-worker", role, str(tier),
+                   str(work / f"{role}.json"), str(go) if role == "warm" else "-"]
+            procs[role] = (subprocess.Popen(cmd, stdout=err, stderr=subprocess.STDOUT,
+                                            cwd=str(root)), err)
+        rcs = {role: procs[role][0].wait(timeout=400) for role in CC_ROLES[:2]}
+        t_cold = time.perf_counter() - t_phase
+        go.write_text("go")
+        rcs["warm"] = procs["warm"][0].wait(timeout=300)
+        if any(rcs.values()):
+            _cc_logs(work)
+            fail(f"phase 20: a leg CC process failed: exit codes {rcs}")
+        reps = {role: json.loads((work / f"{role}.json").read_text()) for role in CC_ROLES}
+    finally:
+        for p, err in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+        shutil.rmtree(work, ignore_errors=True)
+    names = _build.kernel_names()
+    a, b, w = (reps[r] for r in CC_ROLES)
+    cold_runs = {n: a["runs"].get(n, 0) + b["runs"].get(n, 0) for n in names}
+    if cold_runs != dict.fromkeys(names, 1) or set(a["runs"]) | set(b["runs"]) != set(names):
+        fail(f"phase 20: the two cold processes ran nvcc {cold_runs} times a source, not once "
+             f"each: {a['runs']}, {b['runs']}")
+    ws = w["warm_start"]
+    if (ws["compiles"], ws["disk_hits"], ws["disk_misses"], w["runs"]) != (0, len(names), 0, {}):
+        fail(f"phase 20: the warm process: {ws}, nvcc runs {w['runs']} (want 0 compiles and "
+             f"{len(names)} disk hits)")
+    for r in (a, b):
+        hits, misses = r["stats"]["disk_hit"], r["stats"]["disk_miss"]
+        if hits + sum(r["runs"].values()) != len(names) or r["runs"] != r["runs_serve"]:
+            fail(f"phase 20: {r['role']}: disk {r['stats']}, nvcc {r['runs']} (after the "
+                 f"serve {r['runs_serve']})")
+    shas = {r["role"]: r["serve_sha"] for r in (a, b, w)}
+    if len(set(shas.values())) != 1:
+        fail(f"phase 20: the served results differ across the processes: {shas}")
+    if (a["losses"], a["checksums"]) != (w["losses"], w["checksums"]):
+        diff = [k for k in a["checksums"] if a["checksums"][k] != w["checksums"].get(k)]
+        fail(f"phase 20: the warm process's steps are not the cold one's: losses "
+             f"{a['losses']} against {w['losses']}; leaves differing {diff}")
+    for r in (a, b, w):
+        if r["serve_compiles_after_warmup"] or r["entries"] != len(names):
+            fail(f"phase 20: {r['role']}: compiles after the warmup "
+                 f"{r['serve_compiles_after_warmup']}, tier entries {r['entries']}")
+        if any(not r["serve_launches"].get(k) for k in CC_SERVE_KERNELS):
+            fail(f"phase 20: {r['role']} served without a kernel: {r['serve_launches']}")
+    for r in (a, w):
+        if any(not r["step_launches"].get(k) for k in EL_KERNELS) \
+                or r["step_launches"]["adam_update"] != CC_STEPS:
+            fail(f"phase 20: {r['role']}'s steps did not launch every kernel of the step: "
+                 f"{r['step_launches']}")
+    log(f"leg CC: warm_start at Gemma-2-2B width (14 layers, buckets to 8, seq_len 1024): "
+        f"warmup_ms cold {a['warm_start']['warmup_ms']} and {b['warm_start']['warmup_ms']} "
+        f"(nvcc runs {sum(a['runs'].values())} and {sum(b['runs'].values())}, disk hits "
+        f"{a['stats']['disk_hit']} and {b['stats']['disk_hit']}), warm {ws['warmup_ms']} (nvcc "
+        f"runs 0, disk hits {ws['disk_hits']}, entries {ws['disk_entries']}) ({card})")
+    log(f"leg CC: the served batch (lengths {list(CC_LENGTHS)}) bitwise across the three "
+        f"processes (sha256 {a['serve_sha'][:16]}); {CC_STEPS} steps at leg A's config "
+        f"bitwise cold and warm (losses {[round(float.fromhex(x), 4) for x in w['losses']]}, "
+        f"{len(w['checksums'])} leaves' checksums); launches: serve {a['serve_launches']}, "
+        f"{b['serve_launches']}, {w['serve_launches']}; steps {a['step_launches']}, "
+        f"{w['step_launches']}")
+    log(f"leg CC: processes (s: to the card, wall) "
+        f"{[(r['role'], round(r['ready_s'], 1), round(r['wall_s'], 1)) for r in (a, b, w)]}; "
+        f"the cold pair done {t_cold:.1f} s into the phase")
+    for n in names:
+        entries = (w["costs"].get(n) or {}).get("entries", {})
+        log(f"leg CC: sidecar {n}: " + "; ".join(
+            f"{_kernel_name(fn)} {e['registers']} regs, spill {e.get('spill_stores', 0)}/"
+            f"{e.get('spill_loads', 0)} B, smem {e.get('smem_bytes', 0)} B"
+            for fn, e in sorted(entries.items()) if "registers" in e))
+    wall = time.perf_counter() - t_phase
+    log(f"compile tier phase {wall:.1f} s (the phase's budget {CC_PHASE_S:.0f} s; {card})")
+    launches = {k: sum(r["serve_launches"].get(k, 0) for r in (a, b, w))
+                for k in CC_SERVE_KERNELS}
+    launches.update({k: a["step_launches"][k] + w["step_launches"][k] for k in EL_KERNELS})
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-rank"]:     # rank 1 of leg FM at 1 x 2 (phase 13)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -6648,6 +6876,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--comm-model"]:    # leg CM's fake group (phase 15)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
         comm_worker(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--cc-worker"]:     # a process of leg CC (phase 20)
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        cc_worker(*sys.argv[2:6])
         return 0
     if sys.argv[1:2] == ["--cpu-rank"]:      # a rank of the CPU rehearsal (phase 11)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -6812,6 +7044,12 @@ def main() -> int:
     for row in train_rows[:3]:
         row["launches"] += tuned[row["name"].split()[0]]
     row_o1["launches"] += tuned["adam_update"]
+    tiered = compile_tier(torch, np, root, card)
+    rows[0]["launches"] += tiered["paged_attention"]
+    rows[1]["launches"] += tiered["fused_topk_encode"]
+    for row in train_rows[:3]:
+        row["launches"] += tiered[row["name"].split()[0]]
+    row_o1["launches"] += tiered["adam_update"]
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
               *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed,
               row_o1_cohort])

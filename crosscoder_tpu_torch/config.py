@@ -28,6 +28,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
@@ -168,9 +169,12 @@ class CrossCoderConfig:
     aux_mask_every: int = 1
     chaos: str = ""
     tuned: str = ""
-    compile_cache_dir: str = ""
-    compile_cache_max_bytes: int = 1 << 30
-    compile_cache_verify: str = "off"
+    compile_cache_dir: str = ""     # the kernel libraries' disk tier
+                                    # (utils/compile_cache.py); "" = off
+    compile_cache_max_bytes: int = 1 << 30   # byte cap: least recently
+                                    # used entries evict past it
+    compile_cache_verify: str = "off"   # off | strict: strict re-hashes
+                                    # the source and the library on load
     master_dtype: str = "fp32"
 
     # unknown keys from foreign cfg JSONs, preserved on round-trip
@@ -379,6 +383,24 @@ class CrossCoderConfig:
             raise ValueError(
                 f"aux_mask_every must be >= 0 (1 = per-step exact, N = refresh "
                 f"every N steps, 0 = follow log_every), got {self.aux_mask_every}")
+        _check_choice("compile_cache_verify", self.compile_cache_verify, ("off", "strict"))
+        if self.compile_cache_max_bytes <= 0:
+            raise ValueError(
+                f"compile_cache_max_bytes must be > 0 (the disk tier "
+                f"needs a positive byte cap; disable the tier with "
+                f"compile_cache_dir='' instead), got "
+                f"{self.compile_cache_max_bytes}")
+        if self.compile_cache_dir:
+            # at construction, not mid-warmup: the tier's directory must be
+            # creatable on this host
+            try:
+                os.makedirs(self.compile_cache_dir, exist_ok=True)
+            except OSError as e:
+                raise ValueError(
+                    f"compile_cache_dir {self.compile_cache_dir!r} is not "
+                    f"creatable ({e}); point it at writable storage or "
+                    f"leave it empty to disable the persistent compile "
+                    f"cache") from e
         _check_choice("fleet", self.fleet, ("off", "on"))
         if self.fleet == "on":
             if self.fleet_max_buckets < 1:

@@ -18,12 +18,17 @@
   through :mod:`crosscoder_tpu_torch.parallel.collectives`, put through
   :func:`crosscoder_tpu_torch.parallel.comm_model.wire_bytes`. The JAX
   package reads them out of each compiled step variant's HLO; the Trainer
-  here accounts each variant's first step.
-
-The JAX plane's ``observe_step`` and ``on_compile`` have no counterpart:
-the port compiles no step, so the ``perf/compile*`` keys (``perf/compiles``,
-``perf/compile_s_*``, ``perf/compile_flops``, the ``compile`` span) are
-absent from its logs.
+  here accounts each variant's first step;
+- the compile events (:meth:`on_compile`): the port compiles no step, only
+  its kernel libraries (:mod:`crosscoder_tpu_torch.ops._build`), so each
+  ``nvcc`` run while the plane lives counts ``perf/compiles`` and observes
+  its wall time in ``perf/compile_s``; each library's acquisition runs
+  under a ``compile`` span (``variant`` its name, ``source=disk|build``).
+  ``perf/compile_flops`` and ``perf/compile_bytes_accessed`` stay absent:
+  they gauge XLA's cost analysis of a compiled step, which has no
+  counterpart here (a library's cost is ptxas's report,
+  :func:`crosscoder_tpu_torch.utils.compile_cache.cost_of`), and JAX's
+  ``observe_step`` wraps a jitted step the port does not have.
 
 Off by default: with ``cfg.obs == "off"`` the Trainer builds none of this,
 every span site hits the shared null span, and a step makes the same
@@ -33,6 +38,7 @@ launches and host reads it makes without the plane (tests/test_torch_obs.py).
 from __future__ import annotations
 
 import os
+import sys
 from typing import Any
 
 from crosscoder_tpu_torch.obs import trace
@@ -56,6 +62,9 @@ class Observability:
         name = "trace.json" if idx == 0 else f"trace.p{idx}.json"
         self.tracer = SpanTracer(os.path.join(self.out_dir, name), registry=self.registry)
         self._prev_tracer = trace.set_tracer(self.tracer)
+        from crosscoder_tpu_torch.utils import compile_cache
+
+        compile_cache.observe_compiles(self)
         self.mesh = mesh
         # nanoseconds the loop spent blocked on the next batch since the
         # last log point: the numerator of perf/refill_bubble_frac
@@ -99,6 +108,15 @@ class Observability:
         r.gauge("comm/collective_output_bytes", float(profile.total_bytes))
         r.gauge("comm/collectives_per_step", float(by_op["count"]))
 
+    # -- compile events ---------------------------------------------------------
+    def on_compile(self, key: str, wall_s: float) -> None:
+        """One ``nvcc`` run of the library ``key`` that took ``wall_s``."""
+        r = self.registry
+        r.count("perf/compiles")
+        r.observe("perf/compile_s", wall_s)
+        print(f"[crosscoder_tpu_torch] obs: compiled {key} in {wall_s:.2f}s",
+              file=sys.stderr, flush=True)
+
     # -- lifetime -------------------------------------------------------------
     def flush(self) -> None:
         self.tracer.flush()
@@ -109,6 +127,9 @@ class Observability:
         if self._closed:
             return
         self._closed = True
+        from crosscoder_tpu_torch.utils import compile_cache
+
+        compile_cache.unobserve_compiles(self)
         trace.set_tracer(self._prev_tracer)
         self.tracer.close()
 

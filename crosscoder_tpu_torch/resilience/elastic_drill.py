@@ -276,7 +276,7 @@ def _child(args: argparse.Namespace) -> dict:
             cfg = _autoscale_cfg(clean_dir, n_data=n_data, model=args.model, elastic="off",
                                  source=args.source, overrides=overrides)
         else:
-            steps = _DRILL["steps"]
+            steps = args.steps or _DRILL["steps"]
             cfg = _drill_cfg(clean_dir, n_data=n_data, model=args.model, elastic="off",
                              source=args.source, overrides=overrides)
     else:
@@ -294,7 +294,7 @@ def _child(args: argparse.Namespace) -> dict:
                                  chaos=_autoscale_chaos(args.proc, args.local),
                                  source=args.source, overrides=overrides)
         else:   # preempt: every rank off the coordinator host dies
-            steps = _DRILL["steps"]
+            steps = args.steps or _DRILL["steps"]
             die = f"die@{_DRILL['die_serve']}" if args.proc >= args.local else ""
             cfg = _drill_cfg(args.workdir, n_data=n_data, model=args.model,
                              elastic="on", chaos=die, source=args.source,
@@ -520,7 +520,8 @@ def _device_type(device) -> str:
 
 def run_drill(workdir: str | None = None, timeout: float = 420.0, keep_logs: bool = False,
               *, world: int = 2, local: int = 1, model: int = 1, device=None,
-              source: str = "synthetic", overrides: dict | None = None) -> dict:
+              source: str = "synthetic", overrides: dict | None = None,
+              steps: int = 0) -> dict:
     """The preemption drill; returns a report with
 
     - ``survivor``: rank 0's result (losses, the re-mesh, counters, launches),
@@ -535,10 +536,14 @@ def run_drill(workdir: str | None = None, timeout: float = 420.0, keep_logs: boo
     restart that could not restore); leaves the equality verdict to the
     caller. ``overrides`` (config fields) size the run; ``device`` (default
     the card) places every rank; ``source`` is ``"synthetic"`` or
-    ``"harvest"`` (module docstring)."""
+    ``"harvest"`` (module docstring); ``steps`` cuts the run's length
+    (default JAX's 10; past the death at serve 7, so at least 8)."""
     if world % local or local % model or world <= local:
         raise ValueError(f"a drill needs hosts of {local} ranks, more than one of them, and "
                          f"model {model} dividing a host: got world {world}")
+    if steps and steps <= _DRILL["die_serve"]:
+        raise ValueError(f"the preempt drill's rank dies at serve {_DRILL['die_serve']}: "
+                         f"steps must exceed it, got {steps}")
     if source not in ("synthetic", "harvest"):
         raise ValueError(f"source must be synthetic|harvest, got {source!r}")
     device = _device_type(device)
@@ -553,7 +558,7 @@ def run_drill(workdir: str | None = None, timeout: float = 420.0, keep_logs: boo
         port = _free_port()
         t_pair = time.time()
         spawned += [_spawn(workdir, r, port, world=world, local=local, model=model,
-                           device=device, source=source, overrides=overrides,
+                           device=device, source=source, overrides=overrides, steps=steps,
                            stderr_path=logs.format(r) if keep_logs else None)
                     for r in range(world)]
         survivors = [_result(spawned[r], timeout) for r in range(local)]
@@ -571,7 +576,7 @@ def run_drill(workdir: str | None = None, timeout: float = 420.0, keep_logs: boo
         t_clean = time.time()
         clean = [_spawn(workdir, r, cport, world=local, local=local, model=model,
                         mode="clean", device=device, source=source, overrides=overrides,
-                        restore_save=remesh["save"],
+                        restore_save=remesh["save"], steps=steps,
                         stderr_path=logs.format(f"c{r}") if keep_logs else None)
                  for r in range(local)]
         spawned += clean
@@ -595,7 +600,7 @@ def run_drill(workdir: str | None = None, timeout: float = 420.0, keep_logs: boo
             "resume_step": resume_step,
             "detected_by": survivor.get("detected_by"),
             "epoch": remesh["epoch"],
-            "steps": _DRILL["steps"],
+            "steps": steps or _DRILL["steps"],
             "spawned": {"pair": t_pair, "clean": t_clean},
         }
     finally:
@@ -790,7 +795,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--collective-timeout-s", type=float, default=_COLLECTIVE_TIMEOUT_S,
                     help="the bound of each collective of the drill's world")
     ap.add_argument("--steps", type=int, default=0,
-                    help="autoscale: the run's steps (default 20, JAX's)")
+                    help="the preempt and autoscale drills' steps (default 10 and 20, "
+                         "JAX's)")
     ap.add_argument("--device", default=None, choices=("cpu", "cuda"),
                     help="where every rank runs (default: the card)")
     ap.add_argument("--source", default="synthetic", choices=("synthetic", "harvest"),
@@ -827,7 +833,7 @@ def main(argv: list[str] | None = None) -> int:
             return 0 if report["stable"] else 1
         report = run_drill(workdir=args.workdir, keep_logs=args.keep_logs, world=args.world,
                            local=args.local, model=args.model, device=args.device,
-                           source=args.source, overrides=overrides)
+                           source=args.source, overrides=overrides, steps=args.steps)
         print(json.dumps({"bitwise_equal": report["bitwise_equal"],
                           "remesh_ms": report["remesh_ms"],
                           "resume_step": report["resume_step"],

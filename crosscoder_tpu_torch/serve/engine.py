@@ -25,8 +25,11 @@ The request loop that turns a trained crosscoder into a service:
 
 ``queue_wait``/``prefill``/``encode`` feed ``serve/*_ms`` histograms;
 prefill and encode are timed to a ``torch.cuda.synchronize()`` on the
-card. PyTorch runs eagerly, so there is no compile cache: :meth:`warmup`
-builds the kernels and runs each bucket once.
+card. PyTorch runs eagerly, so what the engine compiles is the kernel
+libraries: :meth:`warmup` acquires them (``nvcc``, or the persistent tier of
+``cfg.compile_cache_dir``, :mod:`crosscoder_tpu_torch.utils.compile_cache`,
+which the engine configures) and runs each bucket once; ``stats()`` counts
+the ``nvcc`` runs since the engine was built and since its warmup.
 """
 
 from __future__ import annotations
@@ -44,7 +47,9 @@ from crosscoder_tpu_torch.data.paging import ContinuousBatcher, PageTable, pack_
 from crosscoder_tpu_torch.models import lm
 from crosscoder_tpu_torch.obs import trace
 from crosscoder_tpu_torch.obs.registry import MetricsRegistry
+from crosscoder_tpu_torch.ops import _build
 from crosscoder_tpu_torch.serve import step as serve_step
+from crosscoder_tpu_torch.utils import compile_cache
 from crosscoder_tpu_torch.utils.device import resolve_device
 
 __all__ = ["InferenceEngine", "ServeResult", "Shed", "batch_buckets", "bucket_of"]
@@ -170,8 +175,26 @@ class InferenceEngine:
         self._live: dict[int, _Live] = {}
         self._shed_ids: set[int] = set()
         self._next_id = 0
+        # the nvcc runs of this process before the engine: its compiles
+        # are counted from here
+        self._compile_base = _build.compiles()
+        self._warm_compiles = 0
+        # the persistent tier (cfg.compile_cache_dir): a fresh replica's
+        # warmup loads the kernel libraries instead of compiling them
+        compile_cache.configure(cfg, registry=self.registry)
 
     # -- admission -------------------------------------------------------
+
+    @property
+    def compiles(self) -> int:
+        """Kernel libraries compiled (``nvcc`` runs) in this process since
+        the engine was built. Frozen into the warmup baseline by
+        :meth:`warmup`."""
+        return _build.compiles() - self._compile_base
+
+    @property
+    def compiles_after_warmup(self) -> int:
+        return self.compiles - self._warm_compiles
 
     @property
     def n_queued(self) -> int:
@@ -354,11 +377,13 @@ class InferenceEngine:
                 prefill_ms, encode_ms)
 
     def warmup(self) -> int:
-        """Build the kernels (on the card) and run every bucket once on a
-        full-length synthetic chunk. Returns the number of buckets run."""
+        """Acquire every kernel library (on the card: ``nvcc``, or the
+        persistent tier) and run every bucket once on a full-length
+        synthetic chunk. Returns the libraries compiled since the engine
+        was built (``nvcc`` runs), as the JAX engine returns its compiles,
+        and freezes that baseline: after it, :attr:`compiles_after_warmup`
+        must stay 0."""
         if self.device.type == "cuda":
-            from crosscoder_tpu_torch.ops import _build
-
             _build.build_all()
         S = self.cfg.seq_len
         for b in self.buckets:
@@ -369,8 +394,13 @@ class InferenceEngine:
             print(f"[crosscoder_tpu_torch] serve: warm bucket={b} "
                   f"({(time.perf_counter() - t0) * 1e3:.0f} ms)",
                   file=sys.stderr, flush=True)
-        return len(self.buckets)
+        self._warm_compiles = self.compiles
+        return self._warm_compiles
 
     def stats(self) -> dict:
-        """Registry snapshot, histogram percentiles included."""
-        return dict(self.registry.snapshot())
+        """Registry snapshot (histogram percentiles included) and the
+        compile accounting."""
+        out = dict(self.registry.snapshot())
+        out["serve_compiles_total"] = self.compiles
+        out["serve_compiles_after_warmup"] = self.compiles_after_warmup
+        return out

@@ -21,8 +21,10 @@ source.
 - **Other tenants bucket.** Each other signature is a bucket: its own
   solo step (one O1 launch a round), at most ``cfg.fleet_max_buckets`` of
   them. In the JAX package a bucket is a compiled program keyed through
-  ``compile_cache``; here it is the step closure, built at admission
-  (the compile cache is ROADMAP A9b).
+  ``compile_cache``; here it is the step closure, built at admission, and
+  what compiles is the kernel libraries its steps launch: the scheduler
+  configures the persistent tier (``cfg.compile_cache_dir``), so one fleet
+  process runs ``nvcc`` for them and its peers load them.
 - **Independent lifecycles.** A tenant admitted mid-run joins as a
   bucket at the live stream position; a retired tenant lands its save,
   frees its bucket (or leaves its cohort restacked at N−1) and detaches
@@ -76,6 +78,7 @@ from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
 from crosscoder_tpu_torch.train.trainer import (DeviceScale, _check_mesh, expand_metrics,
                                                 make_step_body, resample_due, to_device,
                                                 variant_for_step)
+from crosscoder_tpu_torch.utils import compile_cache
 from crosscoder_tpu_torch.utils.device import resolve_device
 
 # cfg fields a tenant may vary and still stack with its cohort: seed only
@@ -228,6 +231,9 @@ class FleetScheduler:
         self.buffer = buffer
         self.logger = logger
         self.registry = registry
+        # the persistent compile tier: the kernel libraries are built once
+        # across fleet processes (one claims, its peers load)
+        compile_cache.configure(cfg, registry=registry)
         self._checkpoint = checkpoint and bool(cfg.checkpoint_dir)
         self._raw_serving = hasattr(buffer, "next_raw_for")
         if not self._raw_serving and not hasattr(buffer, "next_for"):

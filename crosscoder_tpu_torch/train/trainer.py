@@ -106,8 +106,8 @@ line. A profiler window (``cfg.profile_steps``, the legacy
 ``cfg.profile_dir`` window, SIGUSR1;
 :class:`~crosscoder_tpu_torch.obs.profiler.ProfilerWindow`) captures
 chosen steps with ``torch.profiler``. Neither adds a launch, a device read
-or a sync to a step. The compile events of the JAX plane have no
-counterpart: nothing is compiled.
+or a sync to a step. No step is compiled: the plane's compile events are
+the kernel libraries' ``nvcc`` runs (``perf/compiles``, ``perf/compile_s``).
 
 Elastic membership (``cfg.elastic="on"``,
 :class:`~crosscoder_tpu_torch.resilience.elastic.ElasticController`), as
@@ -125,7 +125,11 @@ candidates have passed the debounce and the dwell, grow at that step
 boundary (:meth:`Trainer._grow_and_resume`: the boundary save every member
 restores) and re-enter the loop on the wider grid.
 
-Not ported in this slice (ROADMAP Queue A): the compile cache (A9b).
+The compile tier (``cfg.compile_cache_dir``,
+:mod:`crosscoder_tpu_torch.utils.compile_cache`): the Trainer configures it
+at construction, as the JAX trainer does, and the kernel libraries its
+steps launch are then acquired through it; the grow reports how many
+libraries the tier holds. With it off (the default) nothing changes.
 """
 
 from __future__ import annotations
@@ -155,7 +159,7 @@ from crosscoder_tpu_torch.train import resample, schedules
 from crosscoder_tpu_torch.parallel import quant_ar
 from crosscoder_tpu_torch.resilience.elastic import ElasticController, PeerLoss
 from crosscoder_tpu_torch.train.state import Optimizer, TrainState, init_train_state
-from crosscoder_tpu_torch.utils import pipeline
+from crosscoder_tpu_torch.utils import compile_cache, pipeline
 from crosscoder_tpu_torch.utils.device import resolve_device
 from crosscoder_tpu_torch.utils.logging import MetricsLogger, ResilienceCounters, source_tag
 
@@ -434,9 +438,10 @@ class Trainer:
     ``cfg.elastic="on"`` builds the elastic controller (inactive outside an
     elastic world of more than one rank: the trainer then trains as with
     it off); ``cfg.elastic_grow="on"`` adds the scale-up (module
-    docstring). ``remat`` and ``compile_cache_dir``
-    change only speed or memory in the JAX trainer, never results, so the
-    port accepts and ignores them. ``prefetch`` (default on) serves the
+    docstring). ``remat`` changes only speed or memory in the JAX trainer,
+    never results, so the port accepts and ignores it. ``compile_cache_dir``
+    points the kernel libraries at the persistent compile tier (module
+    docstring); it changes no result. ``prefetch`` (default on) serves the
     next batch on a worker thread while the step runs (module docstring);
     :meth:`close` stops the worker.
     """
@@ -520,6 +525,10 @@ class Trainer:
             from crosscoder_tpu_torch.obs import Observability
 
             self._obs = Observability(cfg, mesh=self.mesh)
+        # the persistent compile tier of the kernel libraries; an empty
+        # compile_cache_dir (the default) turns it off, as in the JAX trainer
+        compile_cache.configure(cfg, registry=self._obs.registry if self._obs is not None
+                                else None)
         self._comm_accounted: set[tuple[bool, bool, bool]] = set()
         self._host_step = self.state.step
         # the one-deep prefetch: one worker, so the stream is the inline one
@@ -1006,6 +1015,13 @@ class Trainer:
         with trace.span("grow"):
             print(f"[crosscoder_tpu_torch] elastic: rejoin candidates debounced; growing at "
                   f"step {step}", flush=True, file=sys.stderr)
+            if compile_cache.disk_enabled():
+                # the survivors' libraries are loaded in their processes; a
+                # joiner loads them from the tier instead of running nvcc
+                n = compile_cache.disk_entry_count()
+                print(f"[crosscoder_tpu_torch] elastic: persistent compile cache holds {n} "
+                      f"entr{'y' if n == 1 else 'ies'} for the post-grow warm start",
+                      file=sys.stderr, flush=True)
             # 1. quiesce: the tickets first (nothing else launches now), then
             #    the production in flight and the refill
             if self._sequencer is not None:

@@ -26,6 +26,7 @@ from crosscoder_tpu_torch.tune.artifact import TunedArtifact, config_hash, topol
 from crosscoder_tpu_torch.tune.calibrate import RULE_SET, measure_window, step_identity_gate
 from crosscoder_tpu_torch.tune.lattice import (Candidate, default_axes, enumerate_lattice,
                                                price_candidate, rank_candidates)
+from crosscoder_tpu_torch.utils import compile_cache
 from crosscoder_tpu_torch.utils.device import resolve_device
 
 
@@ -53,6 +54,9 @@ def tune(base_cfg: Any, objective: str = "train", *, axes: dict[str, tuple] | No
     """
     dev = resolve_device(device)
     reg = registry if registry is not None else MetricsRegistry()
+    # the persistent compile tier: a re-run's calibration windows load the
+    # kernel libraries instead of compiling them
+    compile_cache.configure(base_cfg, registry=reg)
     measure = measure if measure is not None else functools.partial(measure_window, device=dev)
     gate = gate if gate is not None else functools.partial(step_identity_gate, device=dev)
     if n_devices is None:

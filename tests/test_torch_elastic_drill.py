@@ -24,6 +24,8 @@ Each drill runs under its own time limit (the ``timeout`` its ranks get).
 
 import json
 
+import pytest
+
 import numpy as np
 
 import jax
@@ -101,6 +103,19 @@ def test_preempt_drill_with_the_prefetch_off(tmp_path):
     report = drill.run_drill(workdir=str(tmp_path), timeout=90.0, device="cpu",
                              overrides={"prefetch": False})
     _check_survivor(report, model=1)
+
+
+def test_preempt_drill_cut_to_fewer_steps(tmp_path):
+    """``steps`` cuts the run (chip_smoke's leg EL takes 8 of the 10): the
+    survivor resumes from the same save and finishes the shorter run,
+    bitwise the restart; a run that ends before the death is refused."""
+    with pytest.raises(ValueError, match="steps must exceed"):
+        drill.run_drill(workdir=str(tmp_path / "short"), device="cpu",
+                        steps=drill._DRILL["die_serve"])
+    report = drill.run_drill(workdir=str(tmp_path), timeout=90.0, device="cpu", steps=8)
+    assert report["steps"] == 8
+    _check_survivor(report, model=1)
+    assert len(report["post_losses"]) == 8 - report["resume_step"] >= 1
 
 
 def test_stability_drill_zero_remeshes(tmp_path):

@@ -57,6 +57,12 @@ def test_obs_and_resilience_modules_are_checked():
             "crosscoder_tpu_torch/resilience/watchdog.py"} <= names
 
 
+def test_compile_tier_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"crosscoder_tpu_torch/utils/compile_cache.py", "crosscoder_tpu_torch/ops/_build.py",
+            "crosscoder_tpu_torch/serve/warm_start.py"} <= names
+
+
 def test_elastic_modules_are_checked():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     assert {"crosscoder_tpu_torch/resilience/elastic.py",

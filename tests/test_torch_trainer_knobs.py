@@ -53,8 +53,10 @@ def test_unported_knob_raises(knob, value, tmp_path):
 
 @pytest.mark.parametrize("kw", [{}, {"data_axis_size": -1}, {"data_axis_size": 1},
                                 {"model_axis_size": 1}, {"prefetch": False},
-                                {"remat": True}, {"compile_cache_dir": "unused"}])
-def test_defaults_and_speed_only_knobs_construct(kw):
+                                {"remat": True}, {"compile_cache_dir": "<tmp>"}])
+def test_defaults_and_speed_only_knobs_construct(kw, tmp_path):
+    # the config creates compile_cache_dir at construction: under tmp_path
+    kw = {k: str(tmp_path / "cc") if v == "<tmp>" else v for k, v in kw.items()}
     tr = Trainer(CrossCoderConfig(**BASE, **kw), device="cpu")
     assert torch.isfinite(tr.step()["loss"])
 
