@@ -355,8 +355,26 @@ one NVIDIA Hopper card and the CUDA toolkit:
    K5, K8, K10 and O1 in the two that train; warmup_ms cold and warm, each
    process's time and the tier's ptxas sidecars (registers, spills, shared
    memory) printed;
-21. prints the kernel table as one JSON line, the card line, and
-   ``{"ok": true, "device": {...}}`` last.
+21. the static correctness plane (``crosscoder_tpu_torch/analysis/contracts``):
+   the AST lints and the compile tier's key rule over the checkout; the
+   step lattice (JAX's knob-off variants and a default-knob
+   ``TUNED.json``) recorded at leg A's config at full width, JAX's
+   "auto"-dead pairs at their small shape, the fused-live train step at leg
+   B's fused TopK shape and the serve encode at the serve phase's [8, 4608]
+   x [4608, 16384], each under the step rules (op streams and launches,
+   dtypes, donation, no [B, dict] tensor, no host transfer); the kernel
+   probes (every library at its main-path and a tail shape on each route,
+   captured under ``torch.profiler`` in a fresh process beside the lattice)
+   under the kernel rules, and ``compute-sanitizer``'s memcheck and
+   racecheck over the tail probes where a control run shows the tool works
+   on this machine (else the two rules are skipped with the tool's error);
+   fails on any error-severity finding, a missed tail bar or a repeat that
+   differs; prints the launch table and the spill warnings; K2, K5, K6,
+   K8, K9, K10 and O1 counted on the recorded steps;
+22. prints the contracts line (the rules checked, skipped with their
+   reasons and suppressed, the launch table) and the kernel table as one
+   JSON line each, the card line, and ``{"ok": true, "device": {...}}``
+   last.
 
 Any failed check exits nonzero before the last line is printed.
 """
@@ -6864,6 +6882,109 @@ def compile_tier(torch, np, root, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the static correctness plane (crosscoder_tpu_torch/analysis/
+# contracts) on the card: lints and cache keys over the checkout, the step
+# lattice at leg A's config, the fused-live train step at leg B's and the
+# serve encode at the serve phase's width, the kernel probes in a fresh
+# process beside them
+CT_SERVE = dict(d_in=2304, n_models=2, hook_point="blocks.14.hook_resid_pre",
+                dict_size=2 ** 14, topk_k=32, batch_size=8, enc_dtype="bf16", activation="topk",
+                l1_coeff=0.0, sparse_bwd="on", fused_encoder="on", serve="on")
+CT_FUSED = dict(TRAIN, fused_encoder="on", aux_k=0, aux_every=1)
+CT_STEP_KERNELS = ("topk_mask", "sparsify", "scatter_add_rows", "adam_update",
+                   "fused_topk_encode")
+CT_PHASE_S = 120.0
+
+
+def contracts(torch, np, root, card):
+    """Phase 21. Returns ``({"main": launches of the recorded train steps,
+    "serve": of the serve encode}, the contracts line)``."""
+    from crosscoder_tpu_torch.analysis.contracts import (AST_RULES, CACHE_RULES, KERNEL_RULES,
+                                                         STEP_RULES, Report,
+                                                         build_cache_key_context,
+                                                         build_source_context, kernel_safety,
+                                                         run_rules, step_rules)
+    from crosscoder_tpu_torch.config import CrossCoderConfig
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    report = Report()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        kfut = pool.submit(kernel_safety.run_kernel_probes, "cuda")
+        t0 = time.perf_counter()
+        report.merge(run_rules(AST_RULES, build_source_context(root)))
+        report.merge(run_rules(CACHE_RULES, build_cache_key_context()))
+        t_lints = time.perf_counter() - t0
+        counters = launch_counters()
+        reset_counters(counters)
+        t0 = time.perf_counter()
+        sctx = step_rules.build_step_context("cuda", full=False, base=dict(TRAIN))
+        # leg B's fused TopK step without its AuxK term: an AuxK step keeps the
+        # dense encode by design (its dead-latent ranking reads the pre-acts)
+        step_rules.add_fused_live(sctx, CrossCoderConfig(**CT_FUSED), "cuda",
+                                  label="topk:fused_live (leg B)")
+        main_l = {n: c.launches for n, c in counters.items() if c.launches}
+        reset_counters(counters)
+        scfg = CrossCoderConfig(**CT_SERVE)
+        sctx.add("serve:encode_fused", step_rules.record_serve_step(scfg, "cuda"),
+                 step_rules.VariantMeta(serve_step=True,
+                                        forbid_dense_shape=(scfg.batch_size, scfg.dict_size)))
+        serve_l = {n: c.launches for n, c in counters.items() if c.launches}
+        torch.cuda.synchronize()
+        t_steps = time.perf_counter() - t0
+        steps = run_rules(STEP_RULES, sctx)
+        report.merge(steps)
+        kctx = kfut.result()
+    t_kernels = time.perf_counter() - t_phase
+    kernels = run_rules(KERNEL_RULES, kctx)
+    kernels.info.update(kernel_safety.smem_summary(kctx))
+    report.merge(kernels)
+    for f in report.findings:
+        log(f"contracts: {'ERROR' if f.severity == 'error' else 'warn '} {f}"[:1500])
+    skipped = {r: kctx.skip_reasons.get(r, "") for r in report.skipped}
+    for r, why in skipped.items():
+        log(f"contracts: skipped {r}: {why}")
+    table = kernel_safety.launch_table(kctx)
+    for row in table:
+        log(f"contracts: launch {row['library']}/{row['kernel']} ({row['probe']}): grid "
+            f"{row['grid']}, block {row['block']}, cluster {row['cluster']}, "
+            f"{row['registers']} regs, smem {row['smem']} B, occupancy {row['occupancy']} "
+            f"(trace's estimate {row['est_occupancy_pct']}%)")
+    log(f"contracts: tail probes against their plain versions "
+        f"{ {k: d for k, (_, d) in sorted(kctx.tail_bars.items())} }; bitwise twice "
+        f"{sum(kctx.repeats.values())} of {len(kctx.repeats)}")
+    for tool, got in sorted(kctx.sanitizer.items()):
+        log(f"contracts: compute-sanitizer --tool {tool}: {got['errors']} errors, exit "
+            f"{got['rc']}, {got['seconds']:.1f} s")
+    if not report.ok:
+        fail(f"phase 21: {sum(f.severity == 'error' for f in report.findings)} error-severity "
+             f"contract findings (above)")
+    allowed = set(kernel_safety.SANITIZER_RULES.values())
+    if set(skipped) - allowed or any(not why for why in skipped.values()):
+        fail(f"phase 21: rules skipped on the card: {skipped}")
+    missed = [p for p, (ok, _) in kctx.tail_bars.items() if not ok] + [
+        p for p, same in kctx.repeats.items() if not same]
+    if missed or len(kctx.tail_bars) != len(kernel_safety.tail_probes()):
+        fail(f"phase 21: tail probes missed their bar or differed twice: {missed}; checked "
+             f"{sorted(kctx.tail_bars)}")
+    if any(not main_l.get(k) for k in CT_STEP_KERNELS) or not serve_l.get("fused_topk_encode"):
+        fail(f"phase 21: the recorded steps did not launch every kernel: {main_l}, {serve_l}")
+    wall = time.perf_counter() - t_phase
+    log(f"contracts: {len(report.checked)} rules checked, {len(report.skipped)} skipped, "
+        f"{len(report.suppressed)} suppressed, {len(report.findings)} findings (warnings only); "
+        f"{len(sctx.ops)} step variants recorded ({len(sctx.identity_pairs)} identity pairs); "
+        f"{len(kctx.launches)} kernel launches captured over {len(table)} distinct launches; "
+        f"lints and cache keys {t_lints:.1f} s, steps {t_steps:.1f} s, kernel probes done "
+        f"{t_kernels:.1f} s into the phase; launches: steps {main_l}, serve encode {serve_l}; "
+        f"phase {wall:.1f} s (the phase's budget {CT_PHASE_S:.0f} s; {card})")
+    line = {"contracts": {
+        "checked": report.checked, "skipped": skipped, "suppressed": report.suppressed,
+        "warnings": [str(f) for f in report.findings], "launch_table": table,
+        "seconds": round(wall, 1)}}
+    return {"main": main_l, "serve": serve_l}, line
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--gloo-rank"]:     # rank 1 of leg FM at 1 x 2 (phase 13)
         sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -7050,10 +7171,19 @@ def main() -> int:
     for row in train_rows[:3]:
         row["launches"] += tiered[row["name"].split()[0]]
     row_o1["launches"] += tiered["adam_update"]
+    contracted, contracts_line = contracts(torch, np, root, card)
+    main_l, serve_l = contracted["main"], contracted["serve"]
+    rows[1]["launches"] += serve_l["fused_topk_encode"]
+    train_rows[3]["launches"] += main_l["fused_topk_encode"]
+    for row in (*train_rows[:3], *harvest_rows):
+        row["launches"] += main_l.get(row["name"].split()[0], 0)
+    wide_rows[0]["launches"] += main_l.get("topk_mask_f32", 0)
+    row_o1["launches"] += main_l["adam_update"]
     rows += ([row_k1_f32, row_k1_harvest, *train_rows, *drain_rows, row_k10_aux, *harvest_rows,
               *quant_rows, row_k11_exchange, *wide_rows, *fused_rows, row_o1, row_o1_mixed,
               row_o1_cohort])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(contracts_line), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

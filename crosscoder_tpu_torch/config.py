@@ -633,6 +633,17 @@ class CrossCoderConfig:
         return base.replace(**overrides) if overrides else base
 
 
+def known_attrs() -> frozenset[str]:
+    """Every public name resolvable on a ``CrossCoderConfig`` instance:
+    dataclass fields, properties and methods. The ``lint-cfg-fields`` rule
+    (:mod:`crosscoder_tpu_torch.analysis.contracts.ast_lints`) checks every
+    ``cfg.<attr>`` read of the port against this surface, so a typo'd knob
+    read fails the lint instead of raising ``AttributeError`` mid-run."""
+    names = {f.name for f in dataclasses.fields(CrossCoderConfig)}
+    names.update(n for n in vars(CrossCoderConfig) if not n.startswith("_"))
+    return frozenset(names)
+
+
 def _parse_bool(s: str) -> bool:
     low = s.lower()
     if low in ("1", "true", "yes", "on"):

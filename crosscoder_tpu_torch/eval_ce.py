@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 from pathlib import Path
 
 import torch
@@ -80,18 +81,20 @@ def run_demo(args, device=None) -> dict:
     LMs → harvest → crosscoder training → fold → splice eval, with the
     identity and zero oracles."""
     dev = resolve_device(device)
-    print("[demo] training tiny LM pair on the synthetic language ...", flush=True)
+    print("[demo] training tiny LM pair on the synthetic language ...", file=sys.stderr,
+          flush=True)
     lm_cfg, model_params, tokens, lm_ces = demo.build_demo_pair(args.demo_lm_steps, device=dev)
     print(f"[demo] LM train CE: A={lm_ces['A']:.3f} B={lm_ces['B']:.3f} "
-          f"(uniform={lm_ces['uniform']:.3f})", flush=True)
-    print(f"[demo] training crosscoder for {args.demo_cc_steps} steps ...", flush=True)
+          f"(uniform={lm_ces['uniform']:.3f})", file=sys.stderr, flush=True)
+    print(f"[demo] training crosscoder for {args.demo_cc_steps} steps ...", file=sys.stderr,
+          flush=True)
     params, cfg, norm_factors, final = demo.train_demo_crosscoder(
         lm_cfg, model_params, tokens, args.demo_cc_steps, device=dev)
     folded = cc.fold_scaling_factors(params, norm_factors)
     eval_tokens = tokens[: args.n_seqs or 64]
     hook = demo.DEMO_HOOK
 
-    print("[demo] oracle checks ...", flush=True)
+    print("[demo] oracle checks ...", file=sys.stderr, flush=True)
     ident = get_ce_recovered_metrics(eval_tokens, lm_cfg, model_params, hook, lambda x: x,
                                      chunk=args.chunk)
     zero = get_ce_recovered_metrics(eval_tokens, lm_cfg, model_params, hook, torch.zeros_like,
@@ -164,11 +167,12 @@ def main(argv=None, device=None) -> dict:
         ap.error("--tokens is required with --version-dir")
     device = device or args.device
     metrics = run_demo(args, device) if args.demo else run_real(args, device)
-    print(json.dumps(metrics, indent=2))
+    print(  # contracts: allow(lint-no-stdout-print) — the CLI's result document
+        json.dumps(metrics, indent=2))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(metrics, indent=2))
-        print(f"wrote {args.out}")
+        print(f"wrote {args.out}", file=sys.stderr)
     return metrics
 
 

@@ -49,6 +49,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Sequence
 
 from crosscoder_tpu_torch.obs import trace
 from crosscoder_tpu_torch.utils import compile_cache
@@ -111,12 +112,24 @@ def nvcc_version() -> str:
     return got
 
 
+def header_paths() -> list[Path]:
+    """Every ``csrc/*.cuh``, in the order the library hash reads them."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def library_hash(source: bytes, headers: Sequence[bytes], flags: Sequence[str]) -> str:
+    """sha256 of a library's inputs besides the toolchain: its ``.cu``
+    source, the headers it may include (in :func:`header_paths` order) and
+    the ``nvcc`` flags. Pure: the compile tier's key rule
+    (``cache-key-completeness``) perturbs each input through it."""
+    return hashlib.sha256(source + b"".join(headers) + " ".join(flags).encode()).hexdigest()
+
+
 def source_hash(name: str) -> str:
-    """sha256 of ``csrc/<name>.cu``, every ``csrc/*.cuh`` and the flags:
-    what the library depends on besides the toolchain."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    return hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """:func:`library_hash` of ``csrc/<name>.cu``, every ``csrc/*.cuh`` and
+    :data:`NVCC_FLAGS`: what the library depends on besides the toolchain."""
+    return library_hash((CSRC / f"{name}.cu").read_bytes(),
+                        [p.read_bytes() for p in header_paths()], NVCC_FLAGS)
 
 
 def _lib_path(name: str) -> Path:

@@ -621,9 +621,9 @@ def batchtopk_select(h: torch.Tensor, kk: int) -> torch.Tensor:
                                          hist[_BINS:].data_ptr(), kth.data_ptr(), stream)
     else:
         top = 0x7FFFFFFF
-        state = torch.zeros(2 + _BATCHTOPK_T + 1, dtype=torch.int64)
-        state[1] = top
-        state = state.to(h.device)
+        # made on the card: no host-to-device copy inside the step
+        state = torch.zeros(2 + _BATCHTOPK_T + 1, dtype=torch.int64, device=h.device)
+        state[1].fill_(top)
         code = lib.batchtopk_select_f32(flat.data_ptr(), n, kk, vec, state.data_ptr(),
                                         kth.data_ptr(), _n_bisect_passes(top), stream)
     _build.check(code, "batchtopk select kernel")

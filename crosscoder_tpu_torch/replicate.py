@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -177,7 +178,7 @@ def run(args, device=None) -> dict:
         raise NotImplementedError(HF_NOT_PORTED)
     if args.demo:
         report["mode"] = "demo (air-gapped; synthetic-language pair)"
-        print("[replicate] training demo LM pair + crosscoder ...", flush=True)
+        print("[replicate] training demo LM pair + crosscoder ...", file=sys.stderr, flush=True)
         lm_cfg, model_params, tokens, lm_ces = demo.build_demo_pair(args.demo_lm_steps,
                                                                     device=dev)
         params, cfg, factors, final = demo.train_demo_crosscoder(
@@ -199,7 +200,7 @@ def run(args, device=None) -> dict:
             tok = load_tokens(args.tokens)
             eval_tokens = tok[: args.n_seqs] if args.n_seqs else tok
 
-    print("[replicate] stage 1-2: decoder-space analysis ...", flush=True)
+    print("[replicate] stage 1-2: decoder-space analysis ...", file=sys.stderr, flush=True)
     report["decoder"] = decoder_stage(params)
 
     folded = None
@@ -208,12 +209,12 @@ def run(args, device=None) -> dict:
         report["norm_factors"] = [float(x) for x in np.asarray(factors)]
 
     if folded is not None and eval_tokens is not None and model_params is not None:
-        print("[replicate] stage 3: CE-recovered table ...", flush=True)
+        print("[replicate] stage 3: CE-recovered table ...", file=sys.stderr, flush=True)
         report["ce"] = ce_stage(eval_tokens, lm_cfg, model_params, hook, folded, cfg,
                                 chunk=args.chunk)
-        print("[replicate] stage 4: firing rates ...", flush=True)
+        print("[replicate] stage 4: firing rates ...", file=sys.stderr, flush=True)
         report["firing"] = firing_stage(folded, cfg, lm_cfg, model_params, eval_tokens, hook)
-        print("[replicate] stage 5: dashboards ...", flush=True)
+        print("[replicate] stage 5: dashboards ...", file=sys.stderr, flush=True)
         report["dashboards"] = dashboards_stage(
             folded, cfg, lm_cfg, model_params, eval_tokens, hook, pick_features(params),
             out_dir, tokenizer=args.tokenizer)
@@ -266,11 +267,13 @@ def main(argv=None, device=None) -> dict:
     report = run(args, device=device or args.device)
     out_dir = Path(args.out)
     (out_dir / "replicate_report.json").write_text(json.dumps(report, indent=2))
-    print(json.dumps({k: v for k, v in report.items() if k != "decoder"}
-                     | {"decoder": {k: v for k, v in report["decoder"].items()
-                                    if k != "histogram"}}, indent=2))
-    print(f"\nwrote {out_dir}/replicate_report.json")
-    print("PASS" if report["checks"]["all_pass"] else "FAIL", "—", json.dumps(report["checks"]))
+    print(  # contracts: allow(lint-no-stdout-print) — the CLI's result document
+        json.dumps({k: v for k, v in report.items() if k != "decoder"}
+                   | {"decoder": {k: v for k, v in report["decoder"].items()
+                                  if k != "histogram"}}, indent=2))
+    print(f"\nwrote {out_dir}/replicate_report.json", file=sys.stderr)
+    print(  # contracts: allow(lint-no-stdout-print) — one-line verdict
+        "PASS" if report["checks"]["all_pass"] else "FAIL", "—", json.dumps(report["checks"]))
     return report
 
 

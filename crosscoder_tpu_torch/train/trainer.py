@@ -272,10 +272,12 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
         return loss.detach(), losses, grads, dead, aux
 
     def finish(state: TrainState, new_params, new_opt, loss, losses, dead, fired=None,
-               new_ef=None) -> tuple[TrainState, dict[str, Any]]:
+               new_ef=None, donate: bool = False) -> tuple[TrainState, dict[str, Any]]:
         """The state after the update (``new_params``, ``new_opt``) and the
         step's metrics: the AuxK bookkeeping from ``fired`` (default
-        ``losses.fired``), the residuals ``new_ef`` of the exchange."""
+        ``losses.fired``), the residuals ``new_ef`` of the exchange.
+        ``donate=True`` writes the AuxK tracker into ``state.aux``'s
+        tensors, as the update writes the params and moments."""
         fired = losses.fired if fired is None else fired
         aux = dead is not None and cfg.aux_k > 0 and aux_on
         metrics: dict[str, Any] = {
@@ -291,10 +293,14 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
         if new_ef is not None:
             new_aux["quant_ef"] = new_ef
         if track_fired:
-            new_aux["steps_since_fired"] = torch.where(
-                fired, 0, state.aux["steps_since_fired"] + 1).to(torch.int32)
+            since = state.aux["steps_since_fired"]
+            if donate:
+                new_aux["steps_since_fired"] = since.add_(1).masked_fill_(fired, 0)
+            else:
+                new_aux["steps_since_fired"] = torch.where(fired, 0, since + 1).to(torch.int32)
             if cached_mask:
-                new_aux["dead_mask"] = dead
+                mask = state.aux["dead_mask"]
+                new_aux["dead_mask"] = mask.copy_(dead) if donate and mask is not dead else dead
             metrics["dead_frac"] = dead.float().mean()
             if aux:
                 metrics["aux_loss"] = losses.aux_loss.detach()
@@ -328,7 +334,7 @@ def make_step_body(cfg: CrossCoderConfig, opt: Optimizer, with_metrics: bool = T
                 fired = mesh.any_(fired, "data")
         new_params, new_opt = opt.update(grads, state.opt_state, state.params, donate=donate,
                                          mesh=mesh)
-        return finish(state, new_params, new_opt, loss, losses, dead, fired, new_ef)
+        return finish(state, new_params, new_opt, loss, losses, dead, fired, new_ef, donate)
 
     step_fn.loss_and_grads = loss_and_grads
     step_fn.finish = finish

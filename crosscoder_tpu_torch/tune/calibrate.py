@@ -8,14 +8,18 @@ source and prefetch worker), scored with the telemetry a run logs anyway:
 the ``perf/step_ms`` span EMA and the refill bubble.
 
 Before it is measured a candidate passes :func:`step_identity_gate`. The
-JAX package's gate runs its HLO contract rules over the lowered step
-(``analysis/contracts``), which have no PyTorch counterpart. What that
-gate checks for the tuner is the assumption stage 1 priced on: a
-candidate's data-plane knobs leave the step unchanged. The port checks it
-by running it: the first step of the candidate and that of its
-projection onto :data:`~crosscoder_tpu_torch.tune.lattice.STEP_FIELDS`,
-each from the seeded initial state on a seeded batch, must give bitwise
-the same state and launch the same kernels the same number of times. A
+JAX package's gate (``contracts_gate``) runs its HLO contract rules over
+the lowered step of the candidate and of its projection onto
+:data:`~crosscoder_tpu_torch.tune.lattice.STEP_FIELDS`, the assumption
+stage 1 priced on: a candidate's data-plane knobs leave the step
+unchanged. The port checks it by running it: the first step of the
+candidate and that of its projection, each from the seeded initial state
+on a seeded batch and recorded by the step rules
+(:func:`crosscoder_tpu_torch.analysis.contracts.step_rules.record_step`),
+must give bitwise the same loss and state and launch the same kernels the
+same number of times, and pass the step rules' identity and dtype rules
+(:data:`~crosscoder_tpu_torch.analysis.contracts.step_rules.GATE_RULES`:
+the same op stream and launches, no int8 when quant is off, no f64). A
 candidate that fails is discarded (``tune/rejected_contract``), never
 shipped.
 """
@@ -32,8 +36,9 @@ import torch
 from crosscoder_tpu_torch.tune import lattice
 from crosscoder_tpu_torch.utils.device import resolve_device
 
-# the artifact's gate.rule_set: what the port's gate is
-RULE_SET = "crosscoder_tpu_torch.tune.calibrate.step_identity_gate"
+# the artifact's gate.rule_set: what the port's gate runs
+RULE_SET = ("crosscoder_tpu_torch.tune.calibrate.step_identity_gate+"
+            "crosscoder_tpu_torch.analysis.contracts.step_rules.GATE_RULES")
 # the span EMA against the synchronized wall clock: past this relative
 # difference a window scores on wall_s / steps (ROADMAP C16)
 SPAN_WALL_TOL = 0.10
@@ -80,10 +85,6 @@ def kernel_counters() -> dict[str, Any]:
             "fused_batchtopk_emit": fek.fused_batchtopk_emit}
 
 
-def _launches() -> dict[str, int]:
-    return {k: int(c.launches) for k, c in kernel_counters().items()}
-
-
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return (a.dtype == b.dtype and a.shape == b.shape
             and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
@@ -105,9 +106,19 @@ def _state_diffs(a, b) -> list[str]:
 
 
 def _one_step(cfg: Any, dev: torch.device):
-    """``cfg``'s first step from its seeded initial state, on a batch drawn
-    on the device from ``cfg.seed`` (no source is served): ``(new_state,
-    loss, launches)``."""
+    """``cfg``'s first step (:func:`step_inputs`), run and recorded by the
+    step rules: a :class:`~crosscoder_tpu_torch.analysis.contracts.step_rules.StepRecord`
+    (new state, loss, launches, op stream)."""
+    from crosscoder_tpu_torch.analysis.contracts.step_rules import record_step
+
+    return record_step(cfg, dev)
+
+
+def step_inputs(cfg: Any, dev: torch.device):
+    """``(step_fn, state, batch, scale)`` of ``cfg``'s first step: its
+    seeded initial state, a batch drawn on the device from ``cfg.seed``
+    (no source is served) and unit scales, and the step body of the
+    variant that step runs."""
     from crosscoder_tpu_torch.train import schedules
     from crosscoder_tpu_torch.train.state import Optimizer, init_train_state
     from crosscoder_tpu_torch.train.trainer import make_step_body, variant_for_step
@@ -117,12 +128,7 @@ def _one_step(cfg: Any, dev: torch.device):
     gen = torch.Generator(device=dev).manual_seed(int(cfg.seed))
     batch = torch.randn((cfg.batch_size, cfg.n_sources, cfg.d_in), generator=gen, device=dev)
     scale = torch.ones(cfg.n_sources, device=dev)
-    fn = make_step_body(cfg, opt, *variant_for_step(cfg, state.step))
-    before = _launches()
-    new_state, metrics = fn(state, batch, scale)
-    after = _launches()
-    return new_state, metrics["loss"], {k: after[k] - before[k] for k in after
-                                        if after[k] != before[k]}
+    return make_step_body(cfg, opt, *variant_for_step(cfg, state.step)), state, batch, scale
 
 
 def step_identity_gate(cfg: Any, knobs: dict[str, Any] | None = None,
@@ -133,24 +139,34 @@ def step_identity_gate(cfg: Any, knobs: dict[str, Any] | None = None,
     each from its config's seeded initial state on a batch drawn on the
     device from the seed (the same state and batch unless a knob reaches
     the step), give bitwise the same loss and state and launch the same
-    kernels the same number of times. Returns ``(ok, findings)``; a harness
-    that raises is a finding (a candidate the gate cannot check does not
-    ship). Runs on ``cuda`` unless ``device`` names another device."""
+    kernels the same number of times; and the step rules' identity and
+    dtype rules (``GATE_RULES``) pass over the two recorded steps, the
+    pair labelled as JAX's ``contracts_gate`` labels it. Returns ``(ok,
+    findings)``; a harness that raises is a finding (a candidate the gate
+    cannot check does not ship). Runs on ``cuda`` unless ``device`` names
+    another device."""
+    from crosscoder_tpu_torch.analysis.contracts import step_rules
+    from crosscoder_tpu_torch.analysis.contracts.engine import run_rules
+
     dev = resolve_device(device)
     findings: list[str] = []
     try:
+        proj = _step_projection_cfg(cfg, knobs or {})
         got = _one_step(cfg, dev)
-        want = _one_step(_step_projection_cfg(cfg, knobs or {}), dev)
+        want = _one_step(proj, dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        if not _bits_equal(got[1], want[1]):
-            findings.append(f"tune-data-plane: the step's loss {float(got[1])!r} differs from "
-                            f"its projection's {float(want[1])!r}")
+        if not _bits_equal(got.loss, want.loss):
+            findings.append(f"tune-data-plane: the step's loss {float(got.loss)!r} differs "
+                            f"from its projection's {float(want.loss)!r}")
         findings += [f"tune-data-plane: {d} differs from the projection's step"
-                     for d in _state_diffs(got[0], want[0])]
-        if got[2] != want[2]:
-            findings.append(f"tune-data-plane: launches {got[2]} against the projection's "
-                            f"{want[2]}")
+                     for d in _state_diffs(got.state, want.state)]
+        if got.launches != want.launches:
+            findings.append(f"tune-data-plane: launches {got.launches} against the "
+                            f"projection's {want.launches}")
+        ctx = step_rules.gate_context(got, cfg, want, proj)
+        report = run_rules(step_rules.rules_named(step_rules.GATE_RULES), ctx)
+        findings += [str(f)[:500] for f in report.findings if f.severity == "error"]
     except Exception as e:  # noqa: BLE001 — a crashed harness is a finding, not a pass
         findings.append(f"tune-gate-harness: {type(e).__name__}: {e}"[:500])
     return not findings, findings

@@ -229,12 +229,11 @@ def _canon(o: Any) -> str:
     raise _Uncacheable(f"no canonical form for {type(o).__name__}")
 
 
-def backend_fingerprint() -> str:
-    """The build environment a stored library is valid under: the torch
-    version, the CUDA runtime torch was built for, ``nvcc --version``, and
-    the card's name and compute capability. Part of every disk key and
-    stored in every entry, so an ``nvcc`` upgrade or another card makes an
-    old entry unreachable and, found anyway, unloadable."""
+def fingerprint_parts() -> dict[str, str]:
+    """The fields of :func:`backend_fingerprint`: ``torch`` (the version),
+    ``cuda`` (the runtime torch was built for), ``nvcc`` (``nvcc
+    --version``), ``device`` (the card's name) and ``capability``
+    (``sm_XY``; empty without a card)."""
     import torch
 
     from crosscoder_tpu_torch.ops import _build
@@ -243,26 +242,50 @@ def backend_fingerprint() -> str:
         if torch.cuda.is_available():
             i = torch.cuda.current_device()
             major, minor = torch.cuda.get_device_capability(i)
-            dev = f"{torch.cuda.get_device_name(i)},sm_{major}{minor}"
+            dev, cap = torch.cuda.get_device_name(i), f"sm_{major}{minor}"
         else:
-            dev = "none"
+            dev, cap = "none", ""
     except Exception:  # noqa: BLE001 — a broken CUDA install keys as its own device
-        dev = "unknown"
-    return (f"torch={torch.__version__},cuda={torch.version.cuda},"
-            f"nvcc={_build.nvcc_version()},device={dev}")
+        dev, cap = "unknown", ""
+    return {"torch": str(torch.__version__), "cuda": str(torch.version.cuda),
+            "nvcc": _build.nvcc_version(), "device": dev, "capability": cap}
 
 
-def disk_key(key: Any) -> str | None:
-    """Content digest a memo key persists under: sha256 of the disk format,
-    the backend fingerprint and the canonical key (``_build``'s carries the
-    hash of the source, every header and the flags). ``None`` when a
-    component has no canonical form: memo-only."""
+def fingerprint_of(parts: dict[str, Any]) -> str:
+    """The fingerprint string of :func:`fingerprint_parts`' fields."""
+    dev = f"{parts['device']},{parts['capability']}" if parts["capability"] else parts["device"]
+    return (f"torch={parts['torch']},cuda={parts['cuda']},"
+            f"nvcc={parts['nvcc']},device={dev}")
+
+
+def backend_fingerprint() -> str:
+    """The build environment a stored library is valid under: the torch
+    version, the CUDA runtime torch was built for, ``nvcc --version``, and
+    the card's name and compute capability. Part of every disk key and
+    stored in every entry, so an ``nvcc`` upgrade or another card makes an
+    old entry unreachable and, found anyway, unloadable."""
+    return fingerprint_of(fingerprint_parts())
+
+
+def key_digest(key: Any, fingerprint: str, fmt: Any = DISK_FORMAT) -> str | None:
+    """sha256 of the disk format ``fmt``, ``fingerprint`` and the canonical
+    ``key``; ``None`` when a component of ``key`` has no canonical form.
+    Pure: the compile tier's key rule (``cache-key-completeness``) perturbs
+    each input through it."""
     try:
         canon = _canon(key)
     except _Uncacheable:
         return None
-    blob = f"v{DISK_FORMAT}\x1f{backend_fingerprint()}\x1f{canon}"
+    blob = f"v{fmt}\x1f{fingerprint}\x1f{canon}"
     return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def disk_key(key: Any) -> str | None:
+    """Content digest a memo key persists under: :func:`key_digest` of the
+    disk format, the backend fingerprint and the canonical key (``_build``'s
+    carries the hash of the source, every header and the flags). ``None``
+    when a component has no canonical form: memo-only."""
+    return key_digest(key, backend_fingerprint())
 
 
 # ---------------------------------------------------------------------------

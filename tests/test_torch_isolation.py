@@ -77,6 +77,13 @@ def test_tune_modules_are_checked():
         "__init__", "artifact", "lattice", "calibrate", "autotune", "smoke", "report")} <= names
 
 
+def test_contracts_modules_are_checked():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {f"crosscoder_tpu_torch/analysis/contracts/{m}.py" for m in (
+        "__init__", "__main__", "engine", "ast_lints", "cache_keys", "step_rules",
+        "kernel_safety", "mutations")} <= names
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     bad = [m for m in _imports(path)
