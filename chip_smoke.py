@@ -441,10 +441,11 @@ AUXK_DEAD = 6
 # the device sleep in front of a queued timing: about 25 ms at the H100's
 # clocks, longer than the host takes to issue 50 launches of a wrapper
 QUEUE_CYCLES = 50_000_000
-# the times this script measured for the CUDA-core designs that the
-# tensor-core kernels replaced (H100 80GB HBM3 at 700.00 W; K2 and K4 in
-# bf16 before the shared tile, K3 and K1 before theirs), printed in
-# brackets beside the new ones
+# the times this script measured for the designs that later kernels
+# replaced (H100 80GB HBM3 at 700.00 W): the CUDA-core designs (K2 and K4
+# in bf16 before the shared tile, K3 and K1 before theirs) and K1's
+# mma.sync design with its page pool (PR 7's, before the wgmma one),
+# printed in brackets beside the new ones
 # phase 10 at the train phase's width: leg J, JumpReLU (l0_coeff 1, bandwidth
 # 0.03) warm-started from a 4-step BatchTopK run, 6 steps, then 2 at bf16
 # masters; leg D, sparse_decode (TopK k=32, no AuxK) at dict 2^15 and 2^17, 4
@@ -487,7 +488,8 @@ STEP_MS: dict[str, float] = {}
 BT_T = 15                    # candidate patterns a bisection pass counts (K9's T)
 CUDA_CORE_MS = {"K2 serve": 0.2477, "K2 train": 95.2670, "K4 select": 39.9474,
                 "K4 emit": 29.2987, "leg B bare step": 127.4, "leg K step": 104.389,
-                "K3 train": 24.1683, "K1 serve": 1.1974, "leg I bare step": 58.3}
+                "K3 train": 24.1683, "K1 serve": 1.1974, "leg I bare step": 58.3,
+                "K1 serve mma.sync": 0.2822, "K1 harvest mma.sync": 0.3042}
 
 
 def log(msg: str) -> None:
@@ -556,19 +558,27 @@ def check_paged_attention(torch, pa, lengths_serve):
     50 moves the output by less than a bf16 ulp, so bf16 adds softcap cases
     with sharp logits (q x 30: up to about +-90 before the cap) and v / 4
     (outputs below 2); there, and in f32's softcap cases, the plain version
-    with the cap must differ from the one without by over 5x the bar."""
+    with the cap must differ from the one without by over 5x the bar.
+    Both routes also at Gemma-2-27B's heads (lengths 0 to S, k not 16-byte
+    aligned); then the bf16 entry's SASS (HGMMA, UTMALDG) and ptxas's
+    spills of it, and the timings."""
+    from crosscoder_tpu_torch.analysis.contracts import kernel_safety
+    from crosscoder_tpu_torch.ops import _build
+
     D_, S, H, KV, hd, page = 6, 1024, 8, 4, 256, 64
     scale, cap = 256 ** -0.5, 50.0
     gen = torch.Generator(device="cuda").manual_seed(0)
     lens = torch.tensor([1, 63, 64, 65, 1000, 1024], dtype=torch.int32, device="cuda")
 
-    def valid_err(a, b, ln):
+    def valid_err(a, b, ln, S=S, H=H):
         """max |a - b| on valid rows, and its largest ratio, row by row, to
-        max |b| of the row."""
+        max |b| of the row (documents of length 0 have no valid row)."""
         a = a.float().reshape(a.shape[0], S, H, -1)
         b = b.float().reshape(b.shape[0], S, H, -1)
         worst = rel = 0.0
         for d in range(a.shape[0]):
+            if not int(ln[d]):
+                continue
             e = (a[d, :int(ln[d])] - b[d, :int(ln[d])]).abs()
             worst = max(worst, float(e.max()))
             peak = b[d, :int(ln[d])].abs().amax(-1).clamp_min(1e-30)
@@ -647,6 +657,62 @@ def check_paged_attention(torch, pa, lengths_serve):
                        "library_ms": f32_lib}
             del qs, ks, vs, qt, kt, vt, mask
 
+    # Gemma-2-27B's heads (32 over 16 KV heads of 128) at its scale 144^-0.5
+    # (q * scale rounds in bf16), lengths 0 (all zeros out), 1, around a
+    # page, S - 1 and S, k at a storage offset that is not 16-byte aligned
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        S27, H27, KV27, hd27 = 448, 32, 16, 128
+        lens27 = [0, 1, 63, 64, 65, S27 - 1, S27]
+        q = torch.randn((7, S27, H27, hd27), generator=gen, device="cuda")
+        k, v = (torch.randn((7, S27, KV27, hd27), generator=gen, device="cuda") for _ in range(2))
+        if dt == torch.bfloat16:
+            q, v = q * 30, v / 4
+        q, v = q.to(dt), v.to(dt)
+        k = torch.cat([torch.zeros(3, dtype=dt, device="cuda"), k.to(dt).flatten()])[3:]
+        k = k.view(7, S27, KV27, hd27)
+        lens = torch.tensor(lens27, dtype=torch.int32, device="cuda")
+        for window in (0, 96):
+            kw = dict(page_size=page, scale=144 ** -0.5, softcap=cap, window=window)
+            got = pa.paged_attention(q, k, v, lens, **kw)
+            want = pa.paged_attention_plain(q, k, v, lens, **kw)
+            errs = valid_err(got, want, lens27, S27, H27)
+            zeros = not bool(got[0].any())
+            log(f"K1 paged_attention {str(dt)[6:]} ({pa.kernel_route(dt)}) Gemma-2-27B heads "
+                f"32/16 x 128, scale 144^-0.5, window={window} softcap={cap}"
+                f"{' sharp logits' if dt == torch.bfloat16 else ''}, lengths {lens27}: "
+                f"max_abs_err={errs[0]:.3e}, row-relative {errs[1]:.3e} (tol {tol}); length 0 "
+                f"{'all zeros' if zeros else 'NOT ZERO'}")
+            if not (within(errs, dt, tol) and zeros):
+                fail(f"paged attention at Gemma-2-27B's heads: {errs} > {tol} or a length-0 "
+                     f"document not zero")
+    del q, k, v
+
+    # the bf16 entry's SASS: its products on wgmma (HGMMA), its pages by TMA
+    # (UTMALDG), in each of its 8 instances (head_dim, page, softcap); and
+    # ptxas's spills of it
+    lib = _build._lib_path("paged_attention")
+    sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts: dict[str, dict[str, int]] = {}
+    inst = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            inst = (",".join(name.split("rpa_wg_kernelI")[1].split("EEEv")[0]
+                             .replace("Li", "").replace("Lb", "").split("E"))
+                    if "rpa_wg_kernelI" in name else None)
+        elif inst:
+            c = counts.setdefault(inst, {"HGMMA": 0, "UTMALDG": 0})
+            for op in c:
+                c[op] += f" {op}." in line or f" {op} " in line
+    rep = kernel_safety.ptxas_report("paged_attention").get("rpa_wg_kernel", {})
+    log(f"K1 bf16 entry rpa_wg_kernel<hd,page,softcap> SASS: {counts}; ptxas: "
+        f"{rep.get('registers')} registers at entry, spills {rep.get('spill_stores')} B stored "
+        f"/ {rep.get('spill_loads')} B loaded")
+    if (len(counts) != 8 or any(c[op] == 0 for c in counts.values() for op in c)
+            or rep.get("spill_stores", 1) or rep.get("spill_loads", 1)):
+        fail(f"K1's bf16 entry: HGMMA/UTMALDG {counts}, ptxas {rep}")
+
     # the serve shape: 8 documents of the traffic's first micro-batch, bf16
     D_ = len(lengths_serve)
     lens = torch.tensor(lengths_serve, dtype=torch.int32, device="cuda")
@@ -672,7 +738,8 @@ def check_paged_attention(torch, pa, lengths_serve):
     n_bytes = n_tok * (2 * H + 2 * KV) * hd * 2 + D_ * 4
     n_ops = 4 * hd * H * pairs
     b_ms, b_by = bound(n_bytes, n_ops, "bf16")
-    log(f"K1 serve shape {D_}x{S} bf16 (tensor_cores): {ms:.4f} ms kernel (CUDA-core design "
+    log(f"K1 serve shape {D_}x{S} bf16 (tensor_cores, wgmma + TMA): {ms:.4f} ms kernel "
+        f"(mma.sync design [{CUDA_CORE_MS['K1 serve mma.sync']}], CUDA-core design "
         f"[{CUDA_CORE_MS['K1 serve']}]), {plain_ms:.4f} ms plain, {library_ms:.4f} ms "
         f"sdpa, bound {b_ms:.4f} ms by {b_by}")
     return {"name": "paged_attention", "route": "cuda",
@@ -3363,9 +3430,9 @@ def data_plane(torch, np, root, leg_h):
     n_tok = int(lengths.sum())
     pairs = sum(t + 1 for ln in lengths for t in range(int(ln)))
     b_ms, b_by = bound(n_tok * (2 * H + 2 * KV) * hd * 2 + C * 4, 4 * hd * H * pairs, "bf16")
-    log(f"K1 harvest shape {C}x{S} bf16 (tensor_cores): {ms:.4f} ms kernel, {plain_ms:.4f} ms "
-        f"plain, {library_ms:.4f} ms sdpa (explicit mask, no softcap), bound {b_ms:.4f} ms by "
-        f"{b_by}")
+    log(f"K1 harvest shape {C}x{S} bf16 (tensor_cores, wgmma + TMA): {ms:.4f} ms kernel "
+        f"(mma.sync design [{CUDA_CORE_MS['K1 harvest mma.sync']}]), {plain_ms:.4f} ms plain, "
+        f"{library_ms:.4f} ms sdpa (explicit mask, no softcap), bound {b_ms:.4f} ms by {b_by}")
     row_k1 = {"name": "paged_attention (harvest)", "route": "cuda",
               "source": "crosscoder_tpu_torch/csrc/paged_attention.cu",
               "replaces": "crosscoder_tpu/ops/paged_attention.py:189", "launches": None,
@@ -6769,7 +6836,7 @@ def cc_worker(role, tier, out, go):
 
 def _kernel_name(mangled):
     """The last name of an Itanium-mangled entry point (its anonymous
-    namespaces dropped), with ``<>`` for a template: ``rpa_tc_kernel<>``."""
+    namespaces dropped), with ``<>`` for a template: ``rpa_wg_kernel<>``."""
     i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else 0
     if not i:
         return mangled

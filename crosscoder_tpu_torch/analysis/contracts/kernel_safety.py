@@ -218,8 +218,10 @@ def _probes() -> list[Probe]:
         return lambda: counter.by_route[key]
 
     # K1: the serve shape (Gemma-2-2B's 8 heads over 4 KV heads of 256, page
-    # 64, softcap 50) on both routes; a tail of 96 rows (not a multiple of
-    # the bf16 tile's 64 rows) at page 32 with ragged lengths
+    # 64, softcap 50) on both routes; a tail of 96 positions (not a multiple
+    # of the bf16 tile's 64 positions of 2 heads, whose last tile's rows
+    # past S TMA fills with zeros and skips on the store) at page 32 with
+    # ragged lengths
     def k1(D, S, page, lengths, dtype, seed):
         def fn(dev):
             q = _randn((D, S, 8, 256), dtype, seed, dev)

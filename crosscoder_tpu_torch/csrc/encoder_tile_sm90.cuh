@@ -1,6 +1,7 @@
 // The encoder product tile shared by the fused encoder kernels on Hopper's
 // tensor cores: fused_topk.cu (K2) and fused_batchtopk.cu (K4) in bf16,
-// fused_topk_q.cu (K3) in int8.
+// fused_topk_q.cu (K3) in int8. Its tensor maps, TMA copies, barriers and
+// wgmma helpers also serve paged_attention.cu's bf16 kernel (K1).
 //
 // A block walks [128 rows x 128 columns] output tiles of x [B, nd] . W
 // [nd, width], the row block fastest, so the blocks that run at once share
@@ -97,11 +98,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
 // Error codes above kMapError: cuTensorMapEncodeTiled's CUresult + kMapError.
 constexpr int kMapError = 100000;
 
-// A row-major matrix [outer, inner] of `elem` bytes a value read in boxes
-// [box_outer, box_inner]; out-of-bounds elements read as zero.
-inline int encode_map_of(CUtensorMap* map, CUtensorMapDataType type, uint32_t elem,
-                         CUtensorMapSwizzle swizzle, const void* base, uint64_t inner,
-                         uint64_t outer, uint32_t box_inner, uint32_t box_outer) {
+// A row-major tensor of `rank` (<= 5) dimensions, innermost first: dims[0]
+// values of `type` contiguous, strides[i] bytes between steps of dimension
+// i + 1, read in boxes box[0..rank); out-of-bounds elements read as zero
+// (and a TMA store skips them).
+inline int encode_map_nd(CUtensorMap* map, CUtensorMapDataType type, uint32_t rank,
+                         CUtensorMapSwizzle swizzle, const void* base, const uint64_t* dims,
+                         const uint64_t* strides, const uint32_t* box) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -117,14 +120,29 @@ inline int encode_map_of(CUtensorMap* map, CUtensorMapDataType type, uint32_t el
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return kMapError + 500;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * elem};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], estr[5];
+  for (uint32_t i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    estr[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, s, b, estr,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + int(r);
+}
+
+// A row-major matrix [outer, inner] of `elem` bytes a value read in boxes
+// [box_outer, box_inner]; out-of-bounds elements read as zero.
+inline int encode_map_of(CUtensorMap* map, CUtensorMapDataType type, uint32_t elem,
+                         CUtensorMapSwizzle swizzle, const void* base, uint64_t inner,
+                         uint64_t outer, uint32_t box_inner, uint32_t box_outer) {
+  const uint64_t dims[2] = {inner, outer};
+  const uint64_t strides[1] = {inner * elem};
+  const uint32_t box[2] = {box_inner, box_outer};
+  return encode_map_nd(map, type, 2, swizzle, base, dims, strides, box);
 }
 
 // A row-major bf16 matrix with the 128-byte swizzle.
@@ -173,6 +191,40 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(inner), "r"(outer)
       : "memory");
+}
+
+// The 4-D box at {c0, c1, c2, c3} (innermost first) into shared memory.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// The 4-D box at {c0, c1, c2, c3} out of shared memory, as one bulk group
+// (elements out of bounds are not written). The writer threads fence their
+// shared-memory writes to the async proxy and synchronize first.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Wait until every bulk group this thread committed has read its shared memory.
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Shared-memory writes of this thread visible to the async proxy (TMA, wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // Named barrier over one consumer warpgroup (ids 1 and 2; 0 is __syncthreads).

@@ -1,9 +1,9 @@
 """Ragged paged attention: per-document attention over fixed-size KV pages.
 
 Port of :mod:`crosscoder_tpu.ops.paged_attention`. Queries and K/V arrive
-padded per document ``[D, S, ...]`` with ragged ``lengths``; K/V are viewed
-as a pool of ``page_size``-token pages addressed through a page table, and
-attention for document ``d`` reads only its own ``ceil(len_d/page)`` pages.
+padded per document ``[D, S, ...]`` with ragged ``lengths``; K/V are cut
+into ``page_size``-token pages, and attention for document ``d`` reads
+only its own ``ceil(len_d/page)`` pages.
 
 Two implementations behind one wrapper, :func:`paged_attention`:
 
@@ -14,13 +14,17 @@ Two implementations behind one wrapper, :func:`paged_attention`:
   wrapper takes it for CPU tensors only;
 - the hand-written Hopper kernels in ``csrc/paged_attention.cu`` (grid
   ``(doc, kv_head, q_tile)``, online softmax over the visible pages), one
-  by dtype (:func:`kernel_route`): bf16 on the tensor cores (64 query rows
-  a block, ``mma.sync`` for Q·Kᵀ and P·V, K/V pages staged by
-  ``cp.async`` two deep), f32 on the CUDA cores (32 rows a block, fp32
+  by dtype (:func:`kernel_route`): bf16 on the tensor cores (128 query
+  rows a block, two consumer warpgroups of ``wgmma`` for Q·Kᵀ and P·V, Q
+  and each K/V page loaded by TMA from a producer warp into a ring of
+  mbarrier-guarded stages), f32 on the CUDA cores (32 rows a block, fp32
   FMAs: a tensor-core f32 product is TF32, too coarse for the f32 bar).
-  This is a dispatch, not a fallback: each route is its own kernel and
-  either raises on failure. For a CUDA tensor the wrapper launches one or
-  raises; shapes neither takes raise :class:`ValueError`.
+  Both read ``k`` and ``v`` where they lie: page ``j`` of document ``d`` is
+  rows ``[j·page, (j+1)·page)`` of ``k[d]``, so no page pool is built
+  (:func:`paginate_kv` is the JAX package's pool, kept for its parity
+  test). This is a dispatch, not a fallback: each route is its own kernel
+  and either raises on failure. For a CUDA tensor the wrapper launches one
+  or raises; shapes neither takes raise :class:`ValueError`.
 
 The kernels' online softmax reassociates the reduction (and the bf16 one
 rounds the probabilities to bf16 for P·V), so kernel vs plain is allclose
@@ -41,7 +45,7 @@ NEG_INF = -2.3819763e38
 _KERNEL = "paged_attention"
 _HEAD_DIMS = (128, 256)
 PAGE_SIZES = (32, 64)   # the page sizes K1 takes
-_ROWS = 32          # query rows a block of the f32 kernel (csrc kRows); bf16 takes 64
+_ROWS = 32          # query rows a block of the f32 kernel (csrc kRows); bf16 takes 128
 _ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 _PROTOTYPES = {
     "rpa_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
@@ -162,6 +166,14 @@ def check_supported(q, k, v, lengths, page_size: int) -> None:
         raise ValueError(f"lengths must be [{D}], got {tuple(lengths.shape)}")
 
 
+def _operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte aligned address, which the bf16
+    kernel's tensor maps and the f32 kernel's 16-byte loads need; a copy
+    only where it is not so already."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def paged_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -188,15 +200,12 @@ def paged_attention(
     route = kernel_route(q.dtype)
     D, S, H, hd = q.shape
     KV = k.shape[2]
-    q = q.contiguous()
-    if q.data_ptr() % 16:                     # the bf16 kernel reads q 16 bytes at a time
-        q = q.clone()
-    kv_pages, page_tbl = paginate_kv(k, v, page_size)
+    q, k, v = (_operand(x) for x in (q, k, v))
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lib = _build.load(_KERNEL, _PROTOTYPES)
     code = lib.rpa_launch(
-        q.data_ptr(), kv_pages.data_ptr(), page_tbl.data_ptr(), lens.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         out.data_ptr(), D, S, H, KV, hd, page_size,
         int(q.dtype == torch.bfloat16), float(scale), float(softcap), int(window),
         _build.stream(q.device),

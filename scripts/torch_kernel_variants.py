@@ -4,10 +4,12 @@ shipped build: the sorted-pair scatter (K10, ``csrc/scatter_rows.cu`` with
 the work list of ``ops/sparse_grad.py``), the BatchTopK emit (K9,
 ``csrc/batchtopk.cu``), the row TopK masks (K5 ``csrc/topk_mask.cu``
 and K7 ``csrc/topk_chunked.cu``, both routes, on ``csrc/topk_slice.cuh``),
-the sparsify drain (K8) and the int8 row quantize (K11).
+the sparsify drain (K8), the int8 row quantize (K11) and the bf16 paged
+attention (K1).
 
-    python3 scripts/torch_kernel_variants.py [scatter] [emit] [topk] [sparsify] [quant]
+    python3 scripts/torch_kernel_variants.py [scatter] [emit] [topk] [sparsify] [quant] [attention]
     python3 scripts/torch_kernel_variants.py sparsify --csrc DIR
+    python3 scripts/torch_kernel_variants.py attention --csrc DIR
     python3 scripts/torch_kernel_variants.py split --csrc DIR
 
 from the root of a checkout, on a machine with an H100 and ``nvcc``. Each
@@ -35,6 +37,13 @@ that kernel against rings of 2 and 4 chunks a lane. The int8 quantize
 4608] x [4608, 32768] split into its parts, the host time to issue a
 row-route call, then the row route's loads a lane and grid and the
 column route's occupancy and swizzle, at [8184, 2304] and on ``W2.t()``.
+The paged attention (K1, ``csrc/paged_attention.cu``, bf16) at the serve
+micro-batch [8, 1024] and the harvest chunk [4, 1024] (Gemma-2-2B's
+heads): builds that leave out the softcap, the masks, P.V, Q.K^T or both
+products (timed, not checked), a masked SDPA call and the bound, a
+``torch.profiler`` split; with ``--csrc`` of a tree whose bf16 route is the
+``mma.sync`` kernel over a page pool, that kernel as its wrapper called it
+and on a pool built once.
 
 ``split`` times where the row TopK kernels of another source tree spend
 their time (``--csrc``: its ``csrc`` directory, e.g. a parent commit's
@@ -723,6 +732,137 @@ def quant(torch, csrc: Path | None = None) -> None:
     _build._libs.pop("quantize_rows", None)
 
 
+# ---- the paged attention (K1, bf16)
+
+# builds of csrc/paged_attention.cu that leave a phase of the bf16 kernel
+# out: timed, not checked
+K1_SOFTCAP = "      if constexpr (kCap) x = softcap_of(x, softcap, inv_cap);\n"
+K1_MASKS = "    const uint32_t vis_a = visible_bits(ta), vis_b = visible_bits(tb);"
+K1_PV = "        wgmma_rs_n128(o[n], a, dv + (n * 2 * Sh::kPageBox + kk * 2048) / 16);\n"
+K1_QK = """      wgmma_qk<PAGE>(s, dq + ((kk >> 2) * kQBox + (kk & 3) * 32) / 16,
+                     dk + ((kk >> 2) * Sh::kPageBox + (kk & 3) * 32) / 16);\n"""
+K1_SPLIT = [
+    ("shipped", {}),
+    ("no softcap", {K1_SOFTCAP: ""}),
+    ("no masks", {K1_MASKS: "    const uint32_t vis_a = ~0u, vis_b = ~0u;"}),
+    ("no P.V", {K1_PV: "        ;\n"}),
+    ("no Q.K^T", {K1_QK: "      ;\n"}),
+    ("loads and softmax only", {K1_PV: "        ;\n", K1_QK: "      ;\n"}),
+]
+
+
+def _k1_shapes(np):
+    """K1's two main-path shapes at Gemma-2-2B's attention (8 heads over 4
+    KV heads of 256, page 64, scale 1/16, softcap 50): the serve micro-batch
+    (8 documents of 1024 at chip_smoke.py's serve lengths) and the harvest
+    chunk (4 x 1024 at the lengths of its corpus's first chunk)."""
+    from chip_smoke import HARVEST, harvest_tokens
+    from crosscoder_tpu_torch.data.tokens import valid_lengths
+
+    rng = np.random.default_rng(3)
+    serve = [1, 1024] + [int(n) for n in rng.integers(2, 1024, size=6)]
+    chunk = harvest_tokens(np, 256, HARVEST["seq_len"], 256_000, 6)[:HARVEST["model_batch_size"]]
+    return {"serve [8, 1024]": serve, "harvest [4, 1024]": [int(n) for n in valid_lengths(chunk)]}
+
+
+def attention(torch, csrc: Path | None) -> None:
+    """K1 bf16 at its two main-path shapes: the shipped kernel, the
+    builds of K1_SPLIT, and (``csrc``: a tree whose kernels read a page
+    pool, its bf16 route the ``mma.sync`` kernel) that tree's kernel,
+    called as its wrapper called it (``paginate_kv`` then the launch) and
+    alone on a pool built once; beside one masked SDPA call and the bound.
+    In turns: the old tree, the shipped kernel, the shipped kernel, the old
+    tree. Then the f32 route at the serve shape, the shipped kernel against
+    the old tree's."""
+    import numpy as np
+
+    from chip_smoke import PEAK_BYTES_S, PEAK_OPS_S
+    from crosscoder_tpu_torch.ops import _build
+    from crosscoder_tpu_torch.ops import paged_attention as pa
+
+    H, KV, hd, page, S = 8, 4, 256, 64, 1024
+    kw = dict(page_size=page, scale=256 ** -0.5, softcap=50.0, window=0)
+    with ThreadPoolExecutor(len(K1_SPLIT) + 1) as pool:
+        futs = [pool.submit(build, "paged_attention", label, subs) for label, subs in K1_SPLIT]
+        old_f = pool.submit(build, "paged_attention", "pool", {}, csrc=csrc) if csrc else None
+        split_libs = [(label, f.result()) for (label, _), f in zip(K1_SPLIT, futs)]
+        old = _build.set_prototypes(old_f.result(), pa._PROTOTYPES) if old_f else None
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = _k1_shapes(np)
+    cases = [(s_, n_, torch.bfloat16) for s_, n_ in shapes.items()]
+    cases.append(("serve [8, 1024]", shapes["serve [8, 1024]"], torch.float32))
+    for shape, lengths, dt in cases:
+        bf = dt == torch.bfloat16
+        shape = f"{shape} {str(dt)[6:]}"
+        D = len(lengths)
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        q = torch.randn((D, S, H, hd), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((D, S, KV, hd), generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        want = pa.paged_attention_plain(q, k, v, lens, **kw).float()
+
+        def err(out):
+            return max(float((out.float()[d, :n] - want[d, :n]).abs().max())
+                       for d, n in enumerate(lengths) if n)
+
+        def old_call(pool_=None):
+            kv_pages, tbl = pool_ or pa.paginate_kv(k, v, page)
+            out = torch.empty_like(q)
+            _build.check(old.rpa_launch(q.data_ptr(), kv_pages.data_ptr(), tbl.data_ptr(),
+                                        lens.data_ptr(), out.data_ptr(), D, S, H, KV, hd, page,
+                                        int(bf), kw["scale"], kw["softcap"], 0,
+                                        _build.stream(q.device)),
+                         "the old tree's paged attention")
+            return out.reshape(D, S, H * hd)
+
+        pos = torch.arange(S, device="cuda")
+        mask = ((pos[None, :, None] >= pos[None, None, :])
+                & (pos[None, None, :] < lens[:, None, None].long()))[:, None]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pairs = sum(t + 1 for n in lengths for t in range(n))
+        n_tok = sum(lengths)
+        b_bytes = (n_tok * (2 * H + 2 * KV) * hd * q.element_size() + D * 4) / PEAK_BYTES_S * 1e3
+        b_ops = 4 * hd * H * pairs / PEAK_OPS_S["bf16" if bf else "fp32"] * 1e3
+        print(f"K1 {shape} lengths {lengths}: bound {max(b_bytes, b_ops):.4f} ms "
+              f"(bytes {b_bytes:.4f}, operations {b_ops:.4f})", flush=True)
+        shipped = pa.paged_attention(q, k, v, lens, **kw)
+        print(f"K1 {shape}: shipped max_abs_err {err(shipped):.3e}"
+              + (f", old tree {err(old_call()):.3e}" if old else ""), flush=True)
+        pool_ = pa.paginate_kv(k, v, page) if old else None
+        turns = ["old", "new", "new", "old"] if old else ["new", "new"]
+        for turn, who in enumerate(turns):
+            if who == "old":
+                ms = time_ms(torch, old_call)
+                alone = time_ms(torch, lambda: old_call(pool_))
+                pg = time_ms(torch, lambda: pa.paginate_kv(k, v, page))
+                print(f"K1 {shape} turn {turn} [old tree]: {ms:.4f} ms as its wrapper "
+                      f"called it, {alone:.4f} ms on a pool built once, paginate_kv alone "
+                      f"{pg:.4f} ms", flush=True)
+                continue
+            for label, lib in split_libs if bf else split_libs[:1]:
+                _build._libs["paged_attention"] = _build.set_prototypes(lib, pa._PROTOTYPES)
+                ms = time_ms(torch, lambda: pa.paged_attention(q, k, v, lens, **kw))
+                print(f"K1 {shape} turn {turn} [{label}]: {ms:.4f} ms", flush=True)
+            lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=kw["scale"],
+                                                 enable_gqa=True))
+            print(f"K1 {shape} turn {turn} [sdpa, explicit mask, no softcap]: {lib_ms:.4f} ms",
+                  flush=True)
+        _build._libs.pop("paged_attention", None)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                pa.paged_attention(q, k, v, lens, **kw)
+                if old:
+                    old_call()
+            torch.cuda.synchronize()
+        for e in sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"K1 {shape} profile: {e.key[:90]} x{e.count}: "
+                  f"{e.self_device_time_total / e.count / 1e3:.4f} ms a call", flush=True)
+        del q, k, v, qt, kt, vt, mask, want, pool_
+
+
 def _int_view(torch, t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
@@ -743,7 +883,7 @@ def main() -> int:
         split(torch, Path(args[args.index("--csrc") + 1]).resolve())
         return 0
     csrc = Path(args[args.index("--csrc") + 1]).resolve() if "--csrc" in args else None
-    which = args or ["scatter", "emit", "topk", "sparsify", "quant"]
+    which = args or ["scatter", "emit", "topk", "sparsify", "quant", "attention"]
     if "scatter" in which:
         scatter(torch)
     if "emit" in which:
@@ -754,6 +894,8 @@ def main() -> int:
         sparsify(torch, csrc)
     if "quant" in which:
         quant(torch, csrc)
+    if "attention" in which:
+        attention(torch, csrc)
     return 0
 
 

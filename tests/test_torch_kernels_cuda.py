@@ -107,6 +107,88 @@ def test_paged_attention_kernel_rejects_unsupported(cuda):
         pa.paged_attention(q, kv, kv, torch.ones(1, device="cuda"), page_size=32, scale=1.0)
 
 
+def _at_offset(x, shift):
+    """``x``'s values in a view ``shift`` elements into a larger buffer."""
+    buf = torch.zeros(x.numel() + shift, dtype=x.dtype, device=x.device)
+    view = buf[shift:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _no_pool(*_, **__):
+    raise AssertionError("the card path built a page pool")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("page", [32, 64])
+@pytest.mark.parametrize("window,softcap", [(0, 50.0), (96, 50.0), (0, 0.0)])
+def test_paged_attention_kernel_27b_geometry(cuda, monkeypatch, dtype, tol, page, window,
+                                             softcap):
+    """Gemma-2-27B's heads (32 over 16 KV heads of 128) at its query scale
+    144^-0.5 (1/12: q * scale rounds in bf16, where 2B's 1/16 is exact);
+    lengths 0, 1, page - 1, page, page + 1, S - 1 and S in one batch; q, k
+    and v as views at storage offsets of 8, 3 and 24 elements (k's is not
+    16-byte aligned in either dtype, so it is copied; q and v are read
+    where they lie). No page pool is built. Bars as
+    test_paged_attention_kernel_matches_plain's, sharp logits in bf16's
+    softcap cases; a document of length 0 comes out as zeros."""
+    monkeypatch.setattr(pa, "paginate_kv", _no_pool)
+    H, KV, hd = 32, 16, 128
+    S = 7 * page
+    lengths = [0, 1, page - 1, page, page + 1, S - 1, S]
+    gen = torch.Generator(device="cuda").manual_seed(27 + page)
+    q = torch.randn((len(lengths), S, H, hd), generator=gen, device="cuda")
+    k, v = (torch.randn((len(lengths), S, KV, hd), generator=gen, device="cuda")
+            for _ in range(2))
+    if dtype == torch.bfloat16 and softcap:
+        q, v = q * 30, v / 4
+    q, k, v = (_at_offset(x.to(dtype), s) for x, s in ((q, 8), (k, 3), (v, 24)))
+    assert [x.storage_offset() for x in (q, k, v)] == [8, 3, 24]
+    lens = torch.tensor(lengths, device="cuda", dtype=torch.int32)
+    kw = dict(page_size=page, scale=144 ** -0.5, softcap=softcap, window=window)
+    before = pa.paged_attention.by_route[pa.kernel_route(dtype)]
+    got = pa.paged_attention(q, k, v, lens, **kw)
+    assert pa.paged_attention.by_route[pa.kernel_route(dtype)] == before + 1
+    want = pa.paged_attention_plain(q, k, v, lens, **kw)
+    if softcap:
+        uncapped = pa.paged_attention_plain(q, k, v, lens, **{**kw, "softcap": 0.0})
+        assert _attention_err(uncapped, want, lengths[1:], H)[0] > 5 * tol
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert not got[0].any()
+    worst, rel = _attention_err(got[1:], want[1:], lengths[1:], H)
+    assert worst <= tol, worst
+    assert dtype == torch.float32 or rel <= tol, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_card_path_builds_no_page_pool(cuda, monkeypatch, dtype):
+    """K and V are read where they lie: with ``paginate_kv`` made to raise
+    the call still runs, and at the serve shape (8 documents of 1024, 8
+    heads over 4 of 256) the call's peak allocation is its output and the
+    lengths, not the 32 MB a pool of K and V would take."""
+    monkeypatch.setattr(pa, "paginate_kv", _no_pool)
+    D, S, H, KV, hd = 8, 1024, 8, 4, 256
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((D, S, H, hd), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((D, S, KV, hd), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    lens = torch.tensor([1, 1024, 517, 64, 300, 999, 2, 800], device="cuda", dtype=torch.int32)
+    kw = dict(page_size=64, scale=256 ** -0.5, softcap=50.0)
+    pa.paged_attention(q, k, v, lens, **kw)            # built and loaded before the count
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = pa.paged_attention(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= got.numel() * got.element_size() + 2 ** 20, peak
+    worst, rel = _attention_err(got, pa.paged_attention_plain(q, k, v, lens, **kw),
+                                lens.tolist(), H)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert worst <= tol and (dtype == torch.float32 or rel <= tol), (worst, rel)
+
+
 def _planted(seed, B=12, nd=256, width=2048 + 128):
     rng = np.random.default_rng(seed)
     x = rng.integers(-3, 4, size=(B, nd)).astype(np.float32)
